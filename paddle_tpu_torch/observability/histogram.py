@@ -1,0 +1,255 @@
+"""Log-bucketed latency histograms: tail quantiles as a first-class cell.
+
+The PR-4 :class:`~.registry.Timer` keeps O(1) running aggregates (count /
+total / min / max) — the right memory contract for an always-on training
+path, but it can only answer "what was the MEAN", and a serving SLO is a
+statement about the TAIL ("p99 under 50ms").  A :class:`Histogram` is
+the O(1)-per-observation, bounded-memory structure that answers tail
+questions: observations land in geometrically spaced buckets, and any
+quantile is estimated from the bucket counts.
+
+Design contracts (shared with the rest of the registry):
+
+- **Thread-safe, O(1) observe.**  An observation is one bisect over a
+  precomputed bound table plus one locked increment — cheap enough to
+  sit on the per-request serving path, like a Counter.
+- **Log buckets.**  Latencies span six orders of magnitude (10us decode
+  steps to 10s straggler requests); geometric spacing gives every decade
+  the same RELATIVE resolution, which is what bounds quantile error: an
+  estimated quantile is off by at most one bucket, i.e. a factor of
+  ``growth`` (default 1.25 → ≤25% relative error, typically half that
+  with the interpolation below).
+- **Mergeable, diffable snapshots.**  :meth:`snapshot` returns an
+  immutable :class:`HistogramSnapshot`; snapshots over the SAME bucket
+  layout support ``+`` (merge shards/classes into one distribution —
+  how per-class latency cells roll up to an engine-wide view) and ``-``
+  (windowed delta between two points in time — how the SLO monitor
+  computes "p99 over the last 5 seconds" from cumulative cells).
+- **Prometheus-compatible.**  ``snapshot.cumulative()`` yields the
+  ``le``-style cumulative bucket counts the text exposition format
+  wants; the export plane renders them directly.
+"""
+from __future__ import annotations
+
+import bisect
+import math
+import threading
+
+__all__ = ["Histogram", "HistogramSnapshot", "default_bounds"]
+
+#: Default latency range: 10us .. ~120s, growth 1.25 per bucket.
+_DEFAULT_LO = 1e-5
+_DEFAULT_HI = 120.0
+_DEFAULT_GROWTH = 1.25
+
+
+def default_bounds(lo=_DEFAULT_LO, hi=_DEFAULT_HI, growth=_DEFAULT_GROWTH):
+    """Geometric bucket upper bounds from ``lo`` to >= ``hi``.
+
+    Every histogram cell created by the registry shares this layout, so
+    any two snapshots merge without resampling.  ~78 buckets at the
+    defaults — 78 ints per cell, fixed forever.
+    """
+    if not (lo > 0 and hi > lo and growth > 1.0):
+        raise ValueError("need 0 < lo < hi and growth > 1, got %r %r %r"
+                         % (lo, hi, growth))
+    bounds, b = [], lo
+    while b < hi:
+        bounds.append(b)
+        b *= growth
+    bounds.append(b)
+    return tuple(bounds)
+
+
+_SHARED_BOUNDS = default_bounds()
+
+
+class HistogramSnapshot:
+    """Immutable point-in-time copy of a histogram's state.
+
+    Supports ``a + b`` (merge: distributions over the same bounds) and
+    ``a - b`` (windowed delta: ``b`` must be an EARLIER snapshot of the
+    same cumulative cell), :meth:`quantile` estimation, and the
+    cumulative bucket iteration the Prometheus exposition uses.
+    """
+
+    __slots__ = ("bounds", "counts", "count", "sum", "min", "max")
+
+    def __init__(self, bounds, counts, count, total, mn, mx):
+        self.bounds = bounds
+        self.counts = counts
+        self.count = count
+        self.sum = total
+        self.min = mn
+        self.max = mx
+
+    def _check_layout(self, other):
+        if self.bounds is not other.bounds and self.bounds != other.bounds:
+            raise ValueError(
+                "snapshots have different bucket layouts (%d vs %d bounds)"
+                % (len(self.bounds), len(other.bounds)))
+
+    def __add__(self, other):
+        self._check_layout(other)
+        mn = (self.min if other.min is None
+              else other.min if self.min is None
+              else min(self.min, other.min))
+        mx = (self.max if other.max is None
+              else other.max if self.max is None
+              else max(self.max, other.max))
+        return HistogramSnapshot(
+            self.bounds,
+            tuple(a + b for a, b in zip(self.counts, other.counts)),
+            self.count + other.count, self.sum + other.sum, mn, mx)
+
+    def __sub__(self, other):
+        """Windowed delta: observations recorded after ``other`` was
+        taken.  min/max are not recoverable for a window (they are
+        all-time extremes), so the delta reports None for both."""
+        self._check_layout(other)
+        counts = tuple(a - b for a, b in zip(self.counts, other.counts))
+        if self.count < other.count or any(c < 0 for c in counts):
+            raise ValueError("delta subtrahend is not an earlier snapshot "
+                             "of the same histogram")
+        return HistogramSnapshot(self.bounds, counts,
+                                 self.count - other.count,
+                                 self.sum - other.sum, None, None)
+
+    @property
+    def mean(self):
+        return self.sum / self.count if self.count else None
+
+    def quantile(self, q):
+        """Estimate the ``q``-quantile (0 <= q <= 1) in seconds, or None
+        when empty.  Finds the bucket holding the target rank and
+        log-interpolates within it — consistent with the geometric
+        spacing, so the estimate's relative error is bounded by the
+        bucket growth factor (~25% worst case, half that typically).
+        The top (overflow) bucket clamps to the observed max."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError("quantile must be in [0, 1], got %r" % (q,))
+        if not self.count:
+            return None
+        rank = q * self.count
+        seen = 0
+        for i, c in enumerate(self.counts):
+            if not c:
+                continue
+            if seen + c >= rank:
+                frac = (rank - seen) / c
+                frac = min(1.0, max(0.0, frac))
+                hi = self.bounds[i] if i < len(self.bounds) else self.max
+                if i > 0:
+                    lo = self.bounds[i - 1]
+                elif len(self.bounds) > 1:
+                    # extend the geometric spacing one bucket below
+                    lo = self.bounds[0] / (self.bounds[1] / self.bounds[0])
+                else:
+                    lo = self.bounds[0] / 2.0   # single-bound layout
+                if hi is None or hi <= 0:    # overflow bucket, no max known
+                    return self.bounds[-1]
+                # log-interpolate between the bucket edges; clamp into the
+                # all-time observed range so tiny samples don't extrapolate
+                est = math.exp(math.log(lo) + frac * (math.log(hi)
+                                                      - math.log(lo)))
+                if self.max is not None:
+                    est = min(est, self.max)
+                if self.min is not None:
+                    est = max(est, self.min)
+                return est
+            seen += c
+        return self.max if self.max is not None else self.bounds[-1]
+
+    def quantiles(self, qs=(0.5, 0.95, 0.99)):
+        """[quantile(q) for q in qs] — one pass per q, tiny tables."""
+        return [self.quantile(q) for q in qs]
+
+    def cumulative(self):
+        """Yield ``(le_bound_seconds, cumulative_count)`` pairs plus the
+        final ``(inf, count)`` — exactly the ``name_bucket{le="..."}``
+        series of the Prometheus histogram exposition."""
+        total = 0
+        for b, c in zip(self.bounds, self.counts):
+            total += c
+            yield b, total
+        yield float("inf"), self.count
+
+    def __repr__(self):
+        return ("HistogramSnapshot(n=%d, sum=%.6g, p50=%s, p99=%s)"
+                % (self.count, self.sum, self.quantile(0.5),
+                   self.quantile(0.99)))
+
+
+class Histogram:
+    """Thread-safe log-bucketed histogram cell (seconds by default).
+
+    ``observe(value)`` is one bisect + one locked bucket increment.
+    Negative values clamp to the first bucket (a clock skew artifact
+    must not raise out of a serving path); values above the last bound
+    land in the overflow bucket and quantiles there report the observed
+    max.  All registry-created cells share one bounds table, so any two
+    snapshots merge.
+    """
+
+    __slots__ = ("name", "bounds", "_counts", "_count", "_sum", "_min",
+                 "_max", "_lock")
+
+    def __init__(self, name, bounds=None):
+        self.name = name
+        self.bounds = _SHARED_BOUNDS if bounds is None else tuple(bounds)
+        self._counts = [0] * (len(self.bounds) + 1)   # +1 overflow
+        self._count = 0
+        self._sum = 0.0
+        self._min = None
+        self._max = None
+        self._lock = threading.Lock()
+
+    def observe(self, value):
+        v = float(value)
+        idx = bisect.bisect_left(self.bounds, v)
+        with self._lock:
+            self._counts[idx] += 1
+            self._count += 1
+            self._sum += v
+            if self._min is None or v < self._min:
+                self._min = v
+            if self._max is None or v > self._max:
+                self._max = v
+
+    @property
+    def count(self):
+        return self._count
+
+    @property
+    def sum(self):
+        return self._sum
+
+    def snapshot(self) -> HistogramSnapshot:
+        with self._lock:
+            return HistogramSnapshot(self.bounds, tuple(self._counts),
+                                     self._count, self._sum, self._min,
+                                     self._max)
+
+    def quantile(self, q):
+        """Convenience: ``snapshot().quantile(q)``."""
+        return self.snapshot().quantile(q)
+
+    def stats(self):
+        """(count, sum, mean, min, max) or None when empty — the Timer
+        report shape, so report code treats both cell kinds alike."""
+        with self._lock:
+            if not self._count:
+                return None
+            return (self._count, self._sum, self._sum / self._count,
+                    self._min, self._max)
+
+    def _reset(self):
+        with self._lock:
+            self._counts = [0] * (len(self.bounds) + 1)
+            self._count = 0
+            self._sum = 0.0
+            self._min = None
+            self._max = None
+
+    def __repr__(self):
+        return "Histogram(%r, n=%d)" % (self.name, self._count)

@@ -1,0 +1,94 @@
+"""Serving error taxonomy.
+
+Every failure a client of :class:`~paddle_tpu_torch.serving.InferenceEngine`
+can see maps to one of these, so callers distinguish "shed this request"
+(``ServingQueueFull`` / ``ServingOverloaded`` — retry elsewhere / later),
+"this tenant is over budget" (``ServingQuotaExceeded`` — the router's
+per-tenant token bucket or in-flight cap; pace the tenant, the server
+is fine),
+"the request ran out of time" (``ServingTimeout`` — its deadline expired
+in queue or while waiting), "the engine is sick" (``ServingDegraded`` —
+circuit breaker open or worker dead, fast-fail until it heals), "the
+engine is gone" (``ServingClosed``), "the caller gave up"
+(``ServingCancelled`` — the request's own ``cancel()``), and "the KV
+state went bad" (``KVCorruption`` — the integrity sweep caught a
+non-finite cache write; the sequence is unrecoverable but the pool is
+scrubbed) without string matching.  ``ServingError`` also covers
+request-shape mistakes (unknown feed name, rows over
+``max_batch_size``), which are programming errors — no retry will fix
+them.
+"""
+from __future__ import annotations
+
+__all__ = [
+    "ServingError",
+    "ServingTimeout",
+    "ServingQueueFull",
+    "ServingOverloaded",
+    "ServingQuotaExceeded",
+    "ServingDegraded",
+    "ServingClosed",
+    "ServingCancelled",
+    "KVCorruption",
+]
+
+
+class ServingError(RuntimeError):
+    """Base class for serving-runtime failures (also raised directly for
+    malformed requests: unknown feed names, inconsistent row counts, a
+    request larger than ``max_batch_size``)."""
+
+
+class ServingTimeout(ServingError):
+    """The request's deadline expired — while queued (the batcher sheds it
+    without executing) or while the caller waited on the result."""
+
+
+class ServingQueueFull(ServingError):
+    """Backpressure: the bounded request queue (or the request's priority
+    class) is at capacity.  The request was NOT admitted; shed load or
+    retry after a backoff."""
+
+
+class ServingOverloaded(ServingError):
+    """Shed at admission: given the current queue backlog and measured
+    service rate, the request's deadline cannot be met — rejecting it
+    NOW (instead of letting it expire in queue) is what lets the caller
+    fail over while it still has time.  The request was NOT admitted."""
+
+
+class ServingQuotaExceeded(ServingError):
+    """The TENANT's admission budget is spent, not the server's: the
+    request's tenant is over its token-bucket rows/s rate or its
+    max-in-flight cap (``ModelRouter.set_quota``).  The request was NOT
+    admitted; unlike ``ServingOverloaded`` the right reaction is
+    client-side pacing (back off this tenant's traffic), not failover —
+    the same server is happily serving other tenants."""
+
+
+class ServingDegraded(ServingError):
+    """The engine is fast-failing admissions: the dispatch circuit
+    breaker is open after consecutive fatal batches, or the serving
+    worker is dead past its restart budget.  Retry after the breaker's
+    cooldown (half-open probes re-close it automatically)."""
+
+
+class ServingClosed(ServingError):
+    """The engine is stopped (or stopping) and no longer admits requests."""
+
+
+class ServingCancelled(ServingError):
+    """The caller cancelled the request (``GenerateRequest.cancel()``).
+    The decode runtime retires the sequence and frees its KV pages at
+    the next iteration boundary; a queued or parked request is dropped
+    without ever occupying a slot."""
+
+
+class KVCorruption(ServingError):
+    """The opt-in KV integrity sweep (``DecodeConfig(kv_guard=True)``)
+    found a non-finite value in a page this sequence just wrote.  Only
+    the owning sequence fails — its pages are scrubbed (zeroed and
+    dropped from the prefix index) before returning to the pool, so
+    co-resident and prefix-sharing sequences are untouched.  Replay
+    would recompute the same write, so the failure is terminal, not
+    retried."""

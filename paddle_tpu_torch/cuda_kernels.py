@@ -2,7 +2,8 @@
 
 The kernels live in ``paddle_tpu_torch/csrc/*.cu`` with a plain C
 interface.  At first use they are compiled with ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into one shared library under
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` process per
+source, all started together, and linked into one shared library under
 ``paddle_tpu_torch/_build/`` and loaded with ``ctypes``.  The library's
 file name carries a hash of the sources and flags, so an edited source
 rebuilds and a finished build is reused by later processes.  Nothing is
@@ -21,21 +22,27 @@ import time
 __all__ = ["load_library", "build_info", "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (os.path.join(_HERE, "csrc", "paged_attention.cu"),)
+SOURCES = (os.path.join(_HERE, "csrc", "paged_attention.cu"),
+           os.path.join(_HERE, "csrc", "flash_attention.cu"))
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# (name, argtypes): every pointer and the stream as c_void_p
+_L = ctypes.c_longlong
+# (name, argtypes): every pointer and the stream as c_void_p, strides as
+# c_longlong
 _SIGNATURES = (
     ("pt_paged_decode",
      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
     ("pt_paged_prefill",
      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+    ("pt_flash_fwd",
+     [_P] * 6 + [_I] * 5 + [_L] * 9 + [_I, _F, _I, _I, _P]),
+    ("pt_flash_bwd",
+     [_P] * 12 + [_I] * 5 + [_L] * 15 + [_I, _F, _I, _I, _P]),
 )
 
 _lock = threading.Lock()
@@ -64,6 +71,8 @@ def _digest():
 
 
 def _build(target):
+    """One ``nvcc -c`` per source, all started together, then one link
+    into ``target``."""
     nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError(
@@ -71,17 +80,34 @@ def _build(target):
             "and PATH); the CUDA kernels cannot be built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (target, os.getpid())
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    objs = ["%s.%d.%d.o" % (target, os.getpid(), i)
+            for i in range(len(SOURCES))]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            for src, obj in zip(SOURCES, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    log = "".join(err for _, err in outs)
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed (exit %d):\n%s\n%s"
+                               % (proc.returncode, " ".join(cmd),
+                                  err[-8000:]))
+    link = [nvcc, "-shared", "-o", tmp, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s"
-                           % (proc.returncode, " ".join(cmd),
+        raise RuntimeError("nvcc link failed (exit %d):\n%s\n%s"
+                           % (proc.returncode, " ".join(link),
                               proc.stderr[-8000:]))
-    os.replace(tmp, target)  # atomic: a concurrent builder sees all or none
-    return {"built": True, "seconds": seconds, "command": " ".join(cmd),
-            "log": proc.stderr}
+    seconds = time.perf_counter() - t0
+    for obj in objs:
+        os.remove(obj)
+    os.replace(tmp, target)  # atomic: a concurrent build sees all or none
+    return {"built": True, "seconds": seconds,
+            "command": "; ".join(" ".join(c) for c in cmds + [link]),
+            "log": log + proc.stderr}
 
 
 def load_library():
@@ -91,7 +117,7 @@ def load_library():
     with _lock:
         if _lib is not None:
             return _lib
-        target = os.path.join(BUILD_DIR, "paged_attention-%s.so" % _digest())
+        target = os.path.join(BUILD_DIR, "kernels-%s.so" % _digest())
         info = {"built": False, "seconds": 0.0, "command": None, "log": ""}
         if not os.path.exists(target):
             info = _build(target)

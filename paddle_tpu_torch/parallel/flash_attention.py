@@ -1,25 +1,31 @@
-"""Paged attention for the decode runtime: CUDA kernels and their plain
-PyTorch versions.
+"""Attention kernels of the port: flash attention (forward and fused
+backward) for training, paged attention for the decode runtime — CUDA
+kernels and their plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/parallel/flash_attention.py``.  The JAX
-package runs these two functions as Pallas TPU kernels
-(``_paged_decode_kernel``, ``_paged_prefill_kernel``); the port runs
-them as hand-written CUDA kernels for Hopper
-(``paddle_tpu_torch/csrc/paged_attention.cu``, built and loaded by
+package runs these functions as Pallas TPU kernels (``_fwd_kernel``,
+``_fused_bwd_kernel``, ``_paged_decode_kernel``,
+``_paged_prefill_kernel``); the port runs them as hand-written CUDA
+kernels for Hopper (``paddle_tpu_torch/csrc/flash_attention.cu`` and
+``paged_attention.cu``, built and loaded by
 :mod:`paddle_tpu_torch.cuda_kernels`).
 
 Dispatch is by device only.  A CPU tensor goes to the plain version
-(``_paged_reference`` / ``_paged_prefill_reference``, translated from
-the JAX package's references); a CUDA tensor goes to the kernel, or the
-call raises.  There is no override and no fallback: on the card, the
-plain versions serve only as the oracle that ``chip_smoke.py`` holds the
-kernels against.
+(``_flash_fwd_reference`` / ``_flash_bwd_reference`` /
+``_paged_reference`` / ``_paged_prefill_reference``, translated from the
+JAX package's); a CUDA tensor goes to the kernel, or the call raises.
+There is no override and no fallback: on the card, the plain versions
+serve only as the oracle that ``chip_smoke.py`` holds the kernels
+against.
 
-Layouts are the JAX package's: queries ``[S, H, Dh]`` (decode) or
-``[C, H, Dh]`` (a prefill chunk), one layer's pools
+Layouts are the JAX package's: flash attention over ``[B, H, T, D]``
+queries and ``[B, H, S, D]`` keys/values; paged queries ``[S, H, Dh]``
+(decode) or ``[C, H, Dh]`` (a prefill chunk), one layer's pools
 ``[num_pages, page_size, H, Dh]``.  Contracts shared by every engine:
-``kv_lens[s] == 0`` yields exact zeros; pages past a row's visibility
-are skipped; stale page tails never reach the sum.
+``kv_lens[b] == 0`` yields exact zeros (and, in the flash backward,
+zero gradients); keys past a row's visibility are skipped; key/value
+rows past ``kv_lens`` never reach a sum, so non-finite values there
+change nothing.
 
 Each kernel wrapper counts its launches in :data:`KERNEL_LAUNCHES`
 (plain integers, incremented only where the kernel is launched), so a
@@ -31,14 +37,16 @@ import math
 
 import torch
 
-__all__ = ["mha_reference", "paged_decode_attention",
+__all__ = ["flash_attention", "mha_reference", "paged_decode_attention",
            "paged_prefill_attention", "KERNEL_LAUNCHES",
            "reset_launch_counts"]
 
 NEG_INF = -1e30
 
 #: Launch counts of the CUDA kernels, by public function name.
-KERNEL_LAUNCHES = {"paged_decode_attention": 0,
+KERNEL_LAUNCHES = {"flash_attention_fwd": 0,
+                   "flash_attention_bwd": 0,
+                   "paged_decode_attention": 0,
                    "paged_prefill_attention": 0}
 
 
@@ -69,6 +77,237 @@ def mha_reference(q, k, v, causal=False, sm_scale=None, kv_lens=None):
     if kv_lens is not None:
         p = torch.where(kv_lens.to(s.device)[:, None, None, None] > 0, p, 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (training): plain versions, kernel wrappers and the
+# autograd function.  The plain versions are translated from the JAX
+# package's forward kernel (_fwd_kernel: out and lse from an online
+# softmax) and its scan backward (_flash_bwd_scan: p recomputed from
+# lse), computed densely here; f32 math (f64 for f64 inputs, so that
+# torch.autograd.gradcheck can hold the backward against the forward).
+# ---------------------------------------------------------------------------
+
+
+def _flash_masks(B, T, S, kv_lens, causal, device):
+    """(pair, key): [B, 1, T, S] visibility of (query, key) pairs and
+    [B, 1, S, 1] validity of key rows (below kv_lens)."""
+    cols = torch.arange(S, device=device)
+    if kv_lens is None:
+        key = torch.ones((B, S), dtype=torch.bool, device=device)
+    else:
+        key = cols[None, :] < kv_lens.to(device=device, dtype=torch.int64)[:, None]
+    pair = key[:, None, None, :].expand(B, 1, T, S)
+    if causal:
+        rows = torch.arange(T, device=device)
+        pair = pair & (cols[None, :] <= rows[:, None] + (S - T))[None, None]
+    return pair, key[:, None, :, None]
+
+
+def _flash_fwd_reference(q, k, v, kv_lens, causal, sm_scale):
+    """(out, lse) of flash attention: out [B, H, T, D] in q's dtype, lse
+    [B, H, T] float32 (float64 for float64 inputs).  A row with no
+    visible key gets out = 0 and lse = -1e30 + log(1e-30), as the TPU
+    kernel's max(l, 1e-30) division gives; key/value rows past kv_lens
+    are zeroed before any product, as the TPU kernel zeroes them."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    B, H, T, _ = q.shape
+    S = k.shape[2]
+    pair, key = _flash_masks(B, T, S, kv_lens, causal, q.device)
+    kf = torch.where(key, k.to(ct), 0.0)
+    vf = torch.where(key, v.to(ct), 0.0)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * sm_scale
+    s = torch.where(pair, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(pair, torch.exp(s - m), 0.0)
+    denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vf) / denom
+    lse = (m + torch.log(denom)).squeeze(-1)
+    return out.to(q.dtype), lse
+
+
+def _flash_bwd_reference(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    """(dq, dk, dv) of flash attention, as _flash_bwd_scan computes them:
+    p = exp(s - lse) where the pair is visible (0 elsewhere, never
+    0 * inf), delta = rowsum(do * out), ds = p (dp - delta) scale."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    B, H, T, _ = q.shape
+    S = k.shape[2]
+    pair, key = _flash_masks(B, T, S, kv_lens, causal, q.device)
+    qf, dof = q.to(ct), do.to(ct)
+    kf = torch.where(key, k.to(ct), 0.0)
+    vf = torch.where(key, v.to(ct), 0.0)
+    delta = (dof * out.to(ct)).sum(-1, keepdim=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    p = torch.where(pair, torch.exp(s - lse.to(ct)[..., None]), 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = torch.where(pair, p * (dp - delta) * sm_scale, 0.0)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _strides(t):
+    """(batch, head, time) strides of a [B, H, T, D] tensor whose last
+    dimension is contiguous; any other tensor is copied to a contiguous
+    one first (the Program's transposed views need no copy)."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        t = t.contiguous()
+    return t, list(t.stride()[:3])
+
+
+def _check_flash_inputs(q, k, v, kv_lens, name):
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            q.dtype == k.dtype == v.dtype):
+        raise TypeError("%s: the CUDA kernel takes q, k, v all float32 or all "
+                        "bfloat16, got %s, %s, %s"
+                        % (name, q.dtype, k.dtype, v.dtype))
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or (
+            q.shape[:2] != k.shape[:2]) or q.shape[3] != k.shape[3]:
+        raise ValueError("%s: q [B, H, T, D] and k, v [B, H, S, D] do not "
+                         "match: %s, %s, %s" % (name, tuple(q.shape),
+                                                tuple(k.shape), tuple(v.shape)))
+    if q.shape[3] not in (32, 64, 128):
+        raise ValueError("%s: the CUDA kernel takes head_dim 32, 64 or 128, "
+                         "got %d" % (name, q.shape[3]))
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError("%s: all tensors must be on %s, got one on %s"
+                             % (name, q.device, t.device))
+    if kv_lens is not None and (
+            kv_lens.dtype != torch.int32 or tuple(kv_lens.shape) != (q.shape[0],)
+            or kv_lens.device != q.device or not kv_lens.is_contiguous()):
+        raise ValueError("%s: kv_lens must be a contiguous int32 [B] tensor "
+                         "on %s" % (name, q.device))
+
+
+def _device_index(t):
+    return t.device.index if t.device.index is not None else \
+        torch.cuda.current_device()
+
+
+def _flash_fwd_cuda(q, k, v, kv_lens, causal, sm_scale):
+    from ..cuda_kernels import load_library
+
+    name = "flash_attention_fwd"
+    _check_flash_inputs(q, k, v, kv_lens, name)
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    out = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if B * H * T == 0:
+        return out, lse
+    q, qs = _strides(q)
+    k, ks = _strides(k)
+    v, vs = _strides(v)
+    err = load_library().pt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if kv_lens is None else kv_lens.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, H, T, S, D, *qs, *ks, *vs,
+        int(causal), float(sm_scale), int(q.dtype == torch.bfloat16),
+        _device_index(q), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, name)
+    KERNEL_LAUNCHES[name] += 1
+    return out, lse
+
+
+def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    from ..cuda_kernels import load_library
+
+    name = "flash_attention_bwd"
+    _check_flash_inputs(q, k, v, kv_lens, name)
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    if do.dtype != q.dtype:
+        do = do.to(q.dtype)
+    if (tuple(out.shape) != (B, H, T, D) or tuple(do.shape) != (B, H, T, D)
+            or out.dtype != q.dtype or tuple(lse.shape) != (B, H, T)
+            or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or any(t.device != q.device for t in (out, do, lse))):
+        raise ValueError("%s: out/do must be [B, H, T, D] in q's dtype and "
+                         "lse a contiguous float32 [B, H, T], all on %s"
+                         % (name, q.device))
+    dq = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, H, S, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, H, S, D), dtype=v.dtype, device=q.device)
+    if B * H == 0:
+        return dq, dk, dv
+    # float32 dq accumulates in place; a bfloat16 one in a float32
+    # workspace the kernel rounds once at the end
+    dq_acc = dq if q.dtype == torch.float32 else torch.empty(
+        (B, H, T, D), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    q, qs = _strides(q)
+    k, ks = _strides(k)
+    v, vs = _strides(v)
+    out, os_ = _strides(out)
+    do, dos = _strides(do)
+    err = load_library().pt_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), None if kv_lens is None else kv_lens.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dq_acc.data_ptr(), delta.data_ptr(), B, H, T, S, D, *qs, *ks, *vs,
+        *os_, *dos, int(causal), float(sm_scale),
+        int(q.dtype == torch.bfloat16), _device_index(q),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, name)
+    KERNEL_LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+def _flash_fwd(q, k, v, kv_lens, causal, sm_scale):
+    if _dispatch(q, "flash_attention") == "plain":
+        return _flash_fwd_reference(q, k, v, kv_lens, causal, sm_scale)
+    return _flash_fwd_cuda(q, k, v, kv_lens, causal, sm_scale)
+
+
+def _flash_bwd(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    if _dispatch(q, "flash_attention") == "plain":
+        return _flash_bwd_reference(q, k, v, kv_lens, out, lse, do, causal,
+                                    sm_scale)
+    return _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's ``jax.custom_vjp`` pair: the forward saves
+    (q, k, v, kv_lens, out, lse), as ``_flash_vjp_fwd`` does; kv_lens
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal, sm_scale):
+        out, lse = _flash_fwd(q, k, v, kv_lens, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, kv_lens, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_lens, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, kv_lens, out, lse, do, ctx.causal,
+                                ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, kv_lens=None, causal=False, sm_scale=None):
+    """Fused attention, [B, H, T, D] queries against [B, H, S, D] keys and
+    values → [B, H, T, D], differentiable in q, k and v.
+
+    ``kv_lens`` ([B] int32) masks keys at or past each sequence's length
+    (a row of a sequence with ``kv_lens == 0`` yields zeros); ``causal``
+    masks bottom-right aligned (row t sees keys <= t + S - T) and needs
+    T <= S.  CPU tensors run the plain versions; CUDA tensors the
+    hand-written kernels (float32 or bfloat16, head_dim 32/64/128; q, k,
+    v may be strided views whose last dimension is contiguous), which
+    pick their own tiles and raise on inputs they do not take."""
+    if causal and q.shape[2] > k.shape[2]:
+        raise ValueError(
+            "causal flash_attention requires T <= S, got T=%d S=%d"
+            % (q.shape[2], k.shape[2]))
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, kv_lens, bool(causal),
+                                 float(sm_scale))
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,20 @@
-"""The port's paged attention (paddle_tpu_torch.parallel.flash_attention)
-held against the JAX package's, on the CPU.
+"""The port's attention (paddle_tpu_torch.parallel.flash_attention) held
+against the JAX package's, on the CPU.
 
-The same seeded numpy inputs go to the JAX function — its Pallas kernel
-in interpret mode and its plain reference — and to the port, whose CPU
-tensors run the plain PyTorch version.  Tolerance: 2e-6 absolute in
-float32 (values are O(1); the engines sum in different orders).  The
-CUDA kernels themselves are held against the same plain versions on the
-card by chip_smoke.py.
+The same seeded numpy inputs go to the JAX function — its Pallas kernels
+in interpret mode, or its plain reference — and to the port, whose CPU
+tensors run the plain PyTorch versions.  Tolerances: paged attention and
+the flash forward (out and lse) 2e-6 absolute in float32, the flash
+backward (dq, dk, dv against ``jax.grad`` through the JAX package's
+fused and scan engines) 1e-5 absolute; values are O(1) and the engines
+sum in different orders.  The CUDA kernels themselves are held against
+the same plain versions on the card by chip_smoke.py.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.parallel import flash_attention as jfa
@@ -215,3 +218,152 @@ class TestDispatch:
         with pytest.raises(ValueError, match="cpu or cuda"):
             tfa.paged_prefill_attention(
                 q, pool, pool, torch.zeros(1, dtype=torch.int32), 0)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training): forward kernel B1, fused backward B2
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_TOL = 1e-5
+# (causal, T, S, kv_lens): not causal and causal, T != S, an uneven tail
+# past the 16-row blocks the JAX kernels run with, rows with kv_lens == 0
+FLASH_CASES = [
+    pytest.param(False, 32, 32, None, id="full"),
+    pytest.param(True, 32, 32, None, id="causal"),
+    pytest.param(False, 20, 44, [44, 7], id="T<S-tail-lens"),
+    pytest.param(True, 24, 40, [40, 29], id="causal-T<S-lens"),
+    pytest.param(True, 20, 20, [0, 13], id="causal-tail-zero"),
+    pytest.param(False, 16, 24, [0, 0], id="all-zero"),
+]
+
+
+def _flash_case(seed, T, S, B=2, H=2, D=16):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, T, D).astype(np.float32)
+    k = rng.randn(B, H, S, D).astype(np.float32)
+    v = rng.randn(B, H, S, D).astype(np.float32)
+    do = rng.randn(B, H, T, D).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax_lens(lens):
+    return None if lens is None else jnp.asarray(lens, jnp.int32)
+
+
+def _port_lens(lens):
+    return None if lens is None else torch.tensor(lens, dtype=torch.int32)
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("causal,T,S,lens", FLASH_CASES)
+    def test_forward_out_and_lse_match_jax(self, causal, T, S, lens):
+        q, k, v, _ = _flash_case(T + S, T, S)
+        scale = 1.0 / np.sqrt(q.shape[-1])
+        want_out, want_lse = jfa._flash_fwd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), _jax_lens(lens),
+            causal, scale, 16, 16, True)
+        out, lse = tfa._flash_fwd_reference(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            _port_lens(lens), causal, scale)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want_out),
+                                   atol=TOL, rtol=0)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                                   atol=TOL, rtol=0)
+        got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), _port_lens(lens),
+                                  causal)
+        assert got.numpy().tobytes() == out.numpy().tobytes()
+        if lens is not None:
+            dead = np.asarray(lens) == 0
+            assert (out.numpy()[dead] == 0).all()
+
+    @pytest.mark.parametrize("impl", ["fused", "scan"])
+    @pytest.mark.parametrize("causal,T,S,lens", FLASH_CASES)
+    def test_backward_matches_jax_grad(self, causal, T, S, lens, impl,
+                                       monkeypatch):
+        monkeypatch.setattr(jfa, "FLASH_BWD_IMPL", impl)
+        q, k, v, do = _flash_case(T * S, T, S)
+        jl = _jax_lens(lens)
+
+        def loss(a, b, c):
+            out = jfa.flash_attention(a, b, c, jl, causal, None, 16, 16, True)
+            return (out * jnp.asarray(do)).sum()
+
+        want = jax.grad(loss, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                      for x in (q, k, v))
+        out = tfa.flash_attention(tq, tk, tv, _port_lens(lens), causal)
+        got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all()
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       atol=FLASH_BWD_TOL, rtol=0)
+        if lens is not None:
+            dead = np.asarray(lens) == 0
+            for g in got:
+                assert (g.numpy()[dead] == 0).all()
+
+    def test_gradcheck_float64(self):
+        rng = np.random.RandomState(11)
+        q, k, v = (torch.from_numpy(rng.randn(2, 1, n, 4)).requires_grad_(True)
+                   for n in (5, 7, 7))
+        lens = torch.tensor([6, 0], dtype=torch.int32)
+        assert torch.autograd.gradcheck(
+            lambda a, b, c: tfa.flash_attention(a, b, c, lens, True),
+            (q, k, v), eps=1e-6, atol=1e-6)
+
+    def test_non_finite_keys_past_kv_lens_change_nothing(self):
+        q, k, v, do = _flash_case(5, 12, 12)
+        lens = [9, 4]
+        kn, vn = k.copy(), v.copy()
+        for b, n in enumerate(lens):
+            kn[b, :, n:] = np.nan
+            vn[b, :, n:] = np.inf
+
+        def run(kk, vv):
+            tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                          for x in (q, kk, vv))
+            out = tfa.flash_attention(tq, tk, tv, _port_lens(lens), True)
+            grads = torch.autograd.grad(out, (tq, tk, tv),
+                                        torch.from_numpy(do))
+            dk, dv = (g.numpy().copy() for g in grads[1:])
+            for b, n in enumerate(lens):  # rows past kv_lens are zero
+                assert (dk[b, :, n:] == 0).all() and (dv[b, :, n:] == 0).all()
+            return [out.detach().numpy(), grads[0].numpy(), dk, dv]
+
+        for a, b in zip(run(k, v), run(kn, vn)):
+            assert a.tobytes() == b.tobytes()
+
+    def test_kernel_wrappers_reject_bad_inputs_before_launch(self):
+        # the wrappers' checks run before the kernel library is touched
+        q, k, v, do = (torch.from_numpy(x) for x in _flash_case(4, 8, 8, D=32))
+        lens = torch.tensor([8, 3], dtype=torch.int32)
+        out, lse = tfa._flash_fwd_reference(q, k, v, lens, False, 0.2)
+        with pytest.raises(ValueError, match="head_dim"):
+            tfa._flash_fwd_cuda(q[..., :16], k[..., :16], v[..., :16], lens,
+                                False, 0.2)
+        with pytest.raises(TypeError, match="float32"):
+            tfa._flash_fwd_cuda(q, k.double(), v, lens, False, 0.2)
+        with pytest.raises(ValueError, match="kv_lens"):
+            tfa._flash_fwd_cuda(q, k, v, lens.long(), False, 0.2)
+        with pytest.raises(ValueError, match="lse"):
+            tfa._flash_bwd_cuda(q, k, v, lens, out, lse[:, :, :4].contiguous(),
+                                do, False, 0.2)
+
+    def test_causal_longer_queries_raise(self):
+        q = torch.zeros((1, 1, 8, 16))
+        k = torch.zeros((1, 1, 4, 16))
+        with pytest.raises(ValueError, match="T <= S"):
+            tfa.flash_attention(q, k, k, causal=True)
+
+    def test_cpu_calls_do_not_count_and_other_devices_raise(self):
+        before = dict(tfa.KERNEL_LAUNCHES)
+        q, k, v, do = _flash_case(3, 8, 8)
+        tq = torch.from_numpy(q).requires_grad_(True)
+        out = tfa.flash_attention(tq, torch.from_numpy(k), torch.from_numpy(v))
+        out.backward(torch.from_numpy(do))
+        assert tfa.KERNEL_LAUNCHES == before
+        meta = torch.zeros((1, 1, 4, 32), device="meta")
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            tfa.flash_attention(meta, meta, meta)

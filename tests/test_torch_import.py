@@ -2,8 +2,9 @@
 
 The import check runs in a subprocess with ``jax`` blocked, because this
 test process (tests/conftest.py) has already imported jax and
-paddle_tpu.  The same subprocess checks that the entry points default to
-the card and raise when there is none.
+paddle_tpu.  The same subprocess checks that the entry points (the
+serving engine and model, ``Executor``, ``CUDAPlace``,
+``load_numpy_state``) default to the card and raise when there is none.
 """
 import os
 import re
@@ -44,6 +45,19 @@ for call in (lambda: T.build_decode_model(params, meta),
         assert "CUDA" in str(exc), exc
     else:
         raise AssertionError("an entry point ran without a GPU")
+import paddle_tpu_torch as fluid
+main = fluid.Program()
+for call in (lambda: fluid.Executor(), lambda: fluid.Executor(place=None),
+             lambda: fluid.Executor(device=None),
+             lambda: fluid.CUDAPlace(0),
+             lambda: fluid.load_numpy_state(main, {})):
+    try:
+        call()
+    except RuntimeError as exc:
+        assert "CUDA" in str(exc), exc
+    else:
+        raise AssertionError("a Fluid entry point ran without a GPU")
+assert fluid.Executor(fluid.CPUPlace()).device.type == "cpu"
 print("OK", len(names))
 """
 
@@ -54,7 +68,7 @@ def test_imports_without_jax_or_paddle_tpu():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 14   # every module was walked
+    assert int(proc.stdout.split()[1]) >= 30   # every module was walked
 
 
 _FORBIDDEN = re.compile(

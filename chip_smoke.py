@@ -30,7 +30,24 @@ caught):
    give the same bits; then each kernel's time beside its plain
    version's, its bound and a scaled_dot_product_attention yardstick
    (its autograd backward for B2);
-5. serving: the Transformer LM at the documented decode width
+5. the two-pass flash backward (B3: the dk/dv kernel and the dq kernel)
+   on the same cases, f32 and bf16: against its plain version (the tiled
+   two-pass translation) and against B2 on the same inputs, with the
+   backward tolerances above; rows with kv_lens 0 give zero gradients,
+   NaN/Inf past kv_lens leaves every output bitwise unchanged, two calls
+   give the same bits;
+6. the backward engine sweep at bench.py's four Transformer shapes
+   ([64, 8, 256, 64], [16, 8, 1024, 64], [8, 8, 2048, 64],
+   [4, 8, 4096, 64], the last the long leg's), then B*H across the
+   ``auto`` rule's cut: [16..32, 8, 512, 64], [48, 8, 384, 64],
+   [24..32, 4, 512, 128] and [64, 4, 256, 128]; float32, causal and full,
+   the training feeds' kv_lens.  At each shape the forward, B2 and B3
+   are held against their plain versions (the tolerances above) and B3
+   against B2; then B2's time, B3's (the pair by CUDA events, each
+   kernel apart from a torch.profiler window), SDPA's autograd backward
+   as a yardstick, the plain versions' and the bound (10*D operations a visible pair), with
+   the engine ``auto`` picks;
+7. serving: the Transformer LM at the documented decode width
    (vocab 32000, 12 layers, 8 heads, d_model 512, d_inner 2048, random
    weights from a seed) through InferenceEngine.generate: 16 concurrent
    greedy requests, prompts of 32-1500 tokens, 64 new tokens each.  Both
@@ -39,24 +56,35 @@ caught):
    the LM's logits on the card are held against the plain CPU versions
    on a short input; a short profiled window then splits the device
    time by kernel family and gives the device's idle share;
-6. training, card vs CPU: Transformer-base at full width (6+6 layers,
-   d_model 512, vocab 30000; batch 2 x 64, dropout 0) from one set of
-   numpy parameters: one step's loss (1e-4 relative) and every
-   <param>@GRAD (1e-3 of that tensor's max |g|; the few fc units whose
-   ReLU gate opens on one side only are found and left out of their own
-   fc's weight and bias check, and counted) through Executor.run on the
-   card against the port's plain CPU path; its flash launches are
-   counted apart from the main path's;
-7. training: Transformer-base as the JAX package's headline leg
+8. training, card vs CPU: Transformer-base at full width (6+6 layers,
+   d_model 512, vocab 30000, dropout 0) from one set of numpy
+   parameters: one step's loss (1e-4 relative) and every <param>@GRAD
+   (1e-3 of that tensor's max |g|; the few fc units whose ReLU gate opens
+   on one side only are found and left out of their own fc's weight and
+   bias check, and counted) through Executor.run on the card against the
+   port's plain CPU path, twice: batch 2 x 64 with the fused engine (B2
+   against the plain backward), then batch 2 x 200 with the pair engine
+   on both sides (B3 against its plain version; several tiles and an
+   uneven last one); their flash launches are counted apart from the
+   main paths';
+9. training: Transformer-base as the JAX package's headline leg
    (bench.py: batch 64 x 256, vocab 30000, dropout 0.1, Adam with noam
    decay, use_flash=True, float32 with TF32 off) through
    Executor.run(startup) and 10 Executor.run(main) steps on seeded token
-   feeds whose rows have their own lengths (64-256, pad tails): every
-   loss finite, every parameter finite and moved, and both flash
-   kernels launched 18 times a step; step time, target tokens/s, peak
-   memory, the loss trajectory, and a profiled step split by kernel
-   family with the device's idle share;
-8. a ``kernels`` JSON line, the card line, and the final
+   feeds whose rows have their own lengths (64-256, pad tails), the
+   backward engine left to ``auto``: every loss finite, every parameter
+   finite and moved, the forward and the picked backward launched 18
+   times a step; step time, target tokens/s, peak memory, the loss
+   trajectory, and a profiled step split by kernel family with the
+   device's idle share;
+10. the long-context leg: the same model at bench.py's longest leg
+   (batch 4 x 4096, max_length 4096, rows of 64-4096 tokens), 5 steps
+   under ``auto``, which runs B3 there: the same checks, with B1 and
+   both B3 kernels launched 18 times a step;
+11. a ``kernels`` JSON line (all six kernels: times at the shape of
+   their main path, launches from it; B3's two kernels have no library
+   call of their own, so their entries also carry the pair's time beside
+   SDPA's whole backward), the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It needs the repository beside it and a CUDA device; without either it
@@ -89,6 +117,28 @@ TRAIN_CFG = dict(batch_size=64, seq_len=256, src_vocab_size=30000,
                  trg_vocab_size=30000, max_length=256, use_flash=True)
 TRAIN_STEPS = 10
 CHECK_CFG = dict(TRAIN_CFG, batch_size=2, seq_len=64, dropout=0.0)
+# the card-vs-CPU step with the pair engine: several 64-row tiles and an
+# uneven last one
+PAIR_CHECK_CFG = dict(CHECK_CFG, seq_len=200, max_length=200)
+# the long-context leg: bench.py's longest Transformer leg (4 x 4096)
+LONG_CFG = dict(TRAIN_CFG, batch_size=4, seq_len=4096, max_length=4096)
+LONG_STEPS = 5
+# the flash kernel cases: (causal, T, S, NaN/Inf check)
+FLASH_CASES = ((False, FT, FT, True), (True, FT, FT, True),
+               (True, 128, FT, False), (False, 200, 200, False),
+               (True, 200, 200, False))
+# the engine sweep's [B, H, T, D]: bench.py's four Transformer legs (tokens
+# held at 16,384; the last is the long leg's), then B*H across the auto
+# rule's cut at D 64 (B2 has 264 slots on 132 SMs) and at D 128 (132 slots)
+SWEEP_SHAPES = ((64, 8, 256, 64), (16, 8, 1024, 64), (8, 8, 2048, 64),
+                (4, 8, 4096, 64),
+                (16, 8, 512, 64), (20, 8, 512, 64), (24, 8, 512, 64),
+                (28, 8, 512, 64), (32, 8, 512, 64), (48, 8, 384, 64),
+                (24, 4, 512, 128), (28, 4, 512, 128), (32, 4, 512, 128),
+                (64, 4, 256, 128))
+FLASH_BWD_KERNELS = {"fused": ("flash_attention_bwd",),
+                     "pair": ("flash_attention_bwd_dkv",
+                              "flash_attention_bwd_dq")}
 LOSS_RTOL = 1e-4    # card vs CPU loss: GEMM summation orders differ
 GRAD_RTOL = 1e-3    # card vs CPU, of each tensor's max |g|
 LOGIT_TOL = 2e-3    # card vs CPU over 12 layers: GEMM summation orders differ
@@ -115,23 +165,58 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters, flush):
-    """Mean device time of ``fn`` in ms over ``iters`` launches, each
-    timed alone by CUDA events with the L2 cache flushed before it (the
-    main path reaches each layer's pool cold)."""
+def timed(fn, iters, flush, warmup=2):
+    """(mean device time of ``fn`` in ms over ``iters`` launches, its last
+    result); each launch is timed alone by CUDA events with the L2 cache
+    flushed before it (the main path reaches each layer's pool cold)."""
     import torch
 
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for a, b in zip(starts, ends):
         flush.zero_()
         a.record()
-        fn()
+        result = fn()
         b.record()
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / iters
+    return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / iters, result
+
+
+def time_ms(fn, iters, flush, warmup=2):
+    return timed(fn, iters, flush, warmup)[0]
+
+
+def kernel_ms(torch, fn, iters, flush, names):
+    """Mean device time a launch, in ms, of each kernel whose name holds
+    one of ``names``, read from a torch.profiler window over ``iters``
+    calls of ``fn`` (the L2 cache flushed before each), and the launches
+    of each the profiler recorded: it may drop a few of a window's
+    events, so the mean is over those it kept, and each kernel must
+    show up at least once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(names, 0.0)
+    count = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.name:
+                total[n] += e.time_range.elapsed_us()
+                count[n] += 1
+    check(all(0 < c <= iters for c in count.values()),
+          "profiler saw no launch of a kernel", count, iters)
+    return {n: total[n] / count[n] / 1e3 for n in names}, count
 
 
 def bound_ms(nbytes, flops):
@@ -425,27 +510,27 @@ def serving_phase(torch, T, serving, fa, obs, dev):
     return stats
 
 
-def flash_inputs(torch, dev, gen, dtype, T, S):
+def flash_inputs(torch, dev, gen, dtype, T, S, B=FB, H=FH, D=FD):
     """q, k, v, do as the Program feeds them: [B, H, T, D] views of
     [B, T, H, D] tensors (strided, last dimension contiguous)."""
     def view(n, scale=1.0):
-        x = torch.randn((FB, n, FH, FD), generator=gen, device=dev) * scale
+        x = torch.randn((B, n, H, D), generator=gen, device=dev) * scale
         return x.to(dtype).transpose(1, 2)
     return view(T), view(S), view(S), view(T, 0.1)
 
 
-def flash_lens(rng, S, with_zeros):
-    """kv_lens [FB]: the training feeds' lengths (64..S), or mixed lengths
+def flash_lens(rng, S, with_zeros, B=FB):
+    """kv_lens [B]: the training feeds' lengths (64..S), or mixed lengths
     with empty, single-key and full rows."""
     if not with_zeros:
-        return rng.randint(min(64, S), S + 1, size=FB).astype(np.int32)
-    lens = rng.randint(1, S + 1, size=FB).astype(np.int32)
+        return rng.randint(min(64, S), S + 1, size=B).astype(np.int32)
+    lens = rng.randint(1, S + 1, size=B).astype(np.int32)
     lens[[0, 5, 9]] = 0
     lens[1], lens[2], lens[3] = 1, S, 17
     return lens
 
 
-def visible_pairs(lens, T, S, causal):
+def visible_pairs(lens, T, S, causal, H=FH):
     """(query, key) pairs the mask leaves visible, summed over the batch
     and heads (what the kernels compute for these kv_lens)."""
     total = 0
@@ -455,18 +540,43 @@ def visible_pairs(lens, T, S, causal):
             total += int(np.minimum(rows, n).clip(0).sum())
         else:
             total += T * int(n)
-    return total * FH
+    return total * H
 
 
-def flash_bounds(lens, T, S, causal, itemsize):
-    pairs = visible_pairs(lens, T, S, causal)
-    q_el, kv_el = FB * FH * T * FD, FB * FH * S * FD
-    fwd_bytes = (q_el + 2 * kv_el) * itemsize + FB * 4 \
-        + q_el * itemsize + FB * FH * T * 4
-    bwd_bytes = (3 * q_el + 2 * kv_el) * itemsize + FB * FH * T * 4 + FB * 4 \
+def flash_bounds(lens, T, S, causal, itemsize, H=FH, D=FD):
+    """(forward, backward) bounds: the function's bytes moved once and
+    4*D (forward) or 10*D (backward) operations a visible pair."""
+    B = len(lens)
+    pairs = visible_pairs(lens, T, S, causal, H)
+    q_el, kv_el = B * H * T * D, B * H * S * D
+    fwd_bytes = (q_el + 2 * kv_el) * itemsize + B * 4 \
+        + q_el * itemsize + B * H * T * 4
+    bwd_bytes = (3 * q_el + 2 * kv_el) * itemsize + B * H * T * 4 + B * 4 \
         + (q_el + 2 * kv_el) * itemsize
-    return (bound_ms(fwd_bytes, 4 * FD * pairs),
-            bound_ms(bwd_bytes, 10 * FD * pairs))
+    return (bound_ms(fwd_bytes, 4 * D * pairs),
+            bound_ms(bwd_bytes, 10 * D * pairs))
+
+
+def pair_bounds(lens, T, S, causal, itemsize, H=FH, D=FD):
+    """Bounds of B3's two kernels apart: each reads q, k, v, out, do, lse
+    and kv_lens once; the dk/dv kernel writes dk and dv and does 8*D
+    operations a visible pair (s, dp, dv, dk), the dq kernel writes dq and
+    does 6*D (s, dp, dq)."""
+    B = len(lens)
+    pairs = visible_pairs(lens, T, S, causal, H)
+    q_el, kv_el = B * H * T * D, B * H * S * D
+    reads = (3 * q_el + 2 * kv_el) * itemsize + B * H * T * 4 + B * 4
+    return (bound_ms(reads + 2 * kv_el * itemsize, 8 * D * pairs),
+            bound_ms(reads + q_el * itemsize, 6 * D * pairs))
+
+
+def flash_err(a, r, dtype):
+    """float32: absolute.  bfloat16: absolute up to |value| 1, relative
+    above it — one rounding to bf16 costs up to 2**-9 of the value."""
+    d = (a.float() - r.float()).abs()
+    if dtype == "bfloat16":
+        d = d / r.float().abs().clamp_min(1.0)
+    return d.max().item()
 
 
 def flash_case(torch, fa, dev, gen, rng, dtype, causal, T, S, nan_check):
@@ -485,14 +595,7 @@ def flash_case(torch, fa, dev, gen, rng, dtype, causal, T, S, nan_check):
                                       causal, scale)
     torch.cuda.synchronize()
     dtype = str(dtype).replace("torch.", "")
-
-    def err(a, r):
-        # float32: absolute.  bfloat16: absolute up to |value| 1, relative
-        # above it — one rounding to bf16 costs up to 2**-9 of the value
-        d = (a.float() - r.float()).abs()
-        if dtype == "bfloat16":
-            d = d / r.float().abs().clamp_min(1.0)
-        return d.max().item()
+    err = lambda a, r: flash_err(a, r, dtype)  # noqa: E731
 
     fwd_err = max(err(out, r_out), err(lse, r_lse))
     bwd_err = max(err(g, r) for g, r in zip(grads, r_grads))
@@ -570,11 +673,7 @@ def flash_phase(torch, fa, dev, flush):
     cases = []
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
-        for causal, T, S, nan_check in ((False, FT, FT, True),
-                                        (True, FT, FT, True),
-                                        (True, 128, FT, False),
-                                        (False, 200, 200, False),
-                                        (True, 200, 200, False)):
+        for causal, T, S, nan_check in FLASH_CASES:
             cases.append(flash_case(torch, fa, dev, gen, rng, td, causal,
                                     T, S, nan_check))
     for c in cases:
@@ -595,6 +694,173 @@ def flash_phase(torch, fa, dev, flush):
                    t["kv_lens_mean"], r["ms"], r["plain_ms"],
                    r["library_ms"], r["bound"][0], r["bound"][1]))
     return cases, timing
+
+
+def pair_case(torch, fa, dev, gen, rng, dtype, causal, T, S, nan_check):
+    """One case of B3 (both kernels) against its plain version and against
+    B2 on the same inputs; returns errors."""
+    q, k, v, do = flash_inputs(torch, dev, gen, dtype, T, S)
+    lens_np = flash_lens(rng, S, with_zeros=True)
+    lens = torch.as_tensor(lens_np, device=dev)
+    scale = 1.0 / FD ** 0.5
+    out, lse = fa._flash_fwd_cuda(q, k, v, lens, causal, scale)
+    grads = fa._flash_bwd_pair_cuda(q, k, v, lens, out, lse, do, causal,
+                                    scale)
+    fused = fa._flash_bwd_cuda(q, k, v, lens, out, lse, do, causal, scale)
+    f32 = [x.float() for x in (q, k, v, out, do)]
+    r_grads = fa._flash_bwd_pair_reference(*f32[:3], lens, f32[3], lse,
+                                           f32[4], causal, scale)
+    torch.cuda.synchronize()
+    dtype = str(dtype).replace("torch.", "")
+    errs = [flash_err(g, r, dtype) for g, r in zip(grads, r_grads)]
+    b2_err = max(flash_err(g, f, dtype) for g, f in zip(grads, fused))
+    tol = FLASH_TOL[dtype][1]
+    what = (dtype, "causal" if causal else "full", T, S)
+    check(max(errs) <= tol, "pair bwd vs plain", what, errs)
+    check(b2_err <= tol, "pair bwd vs B2", what, b2_err)
+    dead = torch.as_tensor(lens_np == 0, device=dev)
+    for g in grads:
+        check(bool(torch.isfinite(g).all()), "pair: non-finite gradient",
+              what)
+        check(bool((g[dead] == 0).all()), "pair: kv_lens 0 not zero", what)
+    for b, n in enumerate(lens_np):
+        check(bool((grads[1][b, :, n:] == 0).all()
+                   and (grads[2][b, :, n:] == 0).all()),
+              "pair: dk/dv past kv_lens not zero", what, b)
+    again = fa._flash_bwd_pair_cuda(q, k, v, lens, out, lse, do, causal,
+                                    scale)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "pair backward not bitwise repeatable", what)
+    if nan_check:
+        kn, vn = k.clone(), v.clone()
+        for b, n in enumerate(lens_np):
+            kn[b, :, n:] = float("nan")
+            vn[b, :, n:] = float("inf")
+        grads_n = fa._flash_bwd_pair_cuda(q, kn, vn, lens, out, lse, do,
+                                          causal, scale)
+        check(all(torch.equal(a, b) for a, b in zip(grads_n, grads)),
+              "pair: NaN/Inf past kv_lens changed an output", what)
+    return {"dtype": dtype, "causal": causal, "T": T, "S": S,
+            "dq_err": errs[0], "dkv_err": max(errs[1:]), "b2_err": b2_err,
+            "nan_checked": nan_check,
+            "zero_rows": int((lens_np == 0).sum())}
+
+
+def pair_phase(torch, fa, dev):
+    """B3 on the flash cases, f32 and bf16."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rng = np.random.RandomState(SEED + 11)
+    cases = [pair_case(torch, fa, dev, gen, rng, getattr(torch, dtype),
+                       causal, T, S, nan_check)
+             for dtype in ("float32", "bfloat16")
+             for causal, T, S, nan_check in FLASH_CASES]
+    for c in cases:
+        log("pair %-8s %-6s T=%d S=%d dq err %.3g dk/dv err %.3g vs B2 %.3g "
+            "(tol %g) kv_lens==0 rows %d zero, bitwise repeatable%s"
+            % (c["dtype"], "causal" if c["causal"] else "full", c["T"],
+               c["S"], c["dq_err"], c["dkv_err"], c["b2_err"],
+               FLASH_TOL[c["dtype"]][1], c["zero_rows"],
+               ", NaN/Inf past kv_lens inert" if c["nan_checked"] else ""))
+    return cases
+
+
+def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
+    """B2 against B3 (the pair, and each of its kernels from a profiler
+    window), the plain versions, the bound and SDPA's backward at one
+    sweep shape [B, H, T, D], float32, with the training feeds' kv_lens;
+    the forward, B2 and B3 are held against their plain versions on these
+    inputs."""
+    import torch.nn.functional as F
+
+    B, H, T, D = shape
+    q, k, v, do = flash_inputs(torch, dev, gen, torch.float32, T, T, B, H, D)
+    lens_np = flash_lens(rng, T, with_zeros=False, B=B)
+    lens = torch.as_tensor(lens_np, device=dev)
+    scale = 1.0 / D ** 0.5
+    out, lse = fa._flash_fwd_cuda(q, k, v, lens, causal, scale)
+    args = (q, k, v, lens, out, lse, do, causal, scale)
+    iters = {256: 20, 384: 20, 512: 20, 1024: 10, 2048: 5}.get(T, 3)
+    plain_iters = 3 if T <= 512 else 1
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    with torch.enable_grad():
+        s_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    bwd_b = flash_bounds(lens_np, T, T, causal, 4, H, D)[1]
+    dkv_b, dq_b = pair_bounds(lens_np, T, T, causal, 4, H, D)
+    b2_ms, b2 = timed(lambda: fa._flash_bwd_cuda(*args), iters, flush)
+    pair_ms, pair = timed(lambda: fa._flash_bwd_pair_cuda(*args), iters,
+                          flush)
+    apart, seen = kernel_ms(torch, lambda: fa._flash_bwd_pair_cuda(*args),
+                            iters, flush, ("flash_bwd_dkv_kernel",
+                                           "flash_bwd_dq_kernel"))
+    b2_plain_ms, b2_plain = timed(lambda: fa._flash_bwd_reference(*args),
+                                  plain_iters, flush, 1)
+    dkv_plain_ms, dkv_plain = timed(lambda: fa._pair_dkv_reference(*args),
+                                    plain_iters, flush, 1)
+    dq_plain_ms, dq_plain = timed(lambda: fa._pair_dq_reference(*args),
+                                  plain_iters, flush, 1)
+    r_out, r_lse = fa._flash_fwd_reference(q, k, v, lens, causal, scale)
+    torch.cuda.synchronize()
+    err = lambda a, r: flash_err(a, r, "float32")  # noqa: E731
+    errs = {"fwd": max(err(out, r_out), err(lse, r_lse)),
+            "b2": max(err(g, r) for g, r in zip(b2, b2_plain)),
+            "dkv": max(err(g, r) for g, r in zip(pair[1:], dkv_plain)),
+            "dq": err(pair[0], dq_plain),
+            "pair_vs_b2": max(err(g, r) for g, r in zip(pair, b2))}
+    tol_f, tol_b = FLASH_TOL["float32"]
+    what = (shape, "causal" if causal else "full")
+    check(errs["fwd"] <= tol_f, "sweep: flash fwd vs plain", what, errs)
+    check(max(errs["b2"], errs["dkv"], errs["dq"], errs["pair_vs_b2"])
+          <= tol_b, "sweep: flash bwd vs plain", what, errs)
+    row = {
+        "shape": list(shape), "causal": causal,
+        "kv_lens_mean": float(lens_np.mean()), "errs": errs,
+        "b2_ms": b2_ms, "pair_ms": pair_ms,
+        "dkv_ms": apart["flash_bwd_dkv_kernel"],
+        "dq_ms": apart["flash_bwd_dq_kernel"], "profiled_launches": seen,
+        "iters": iters,
+        "sdpa_bwd_ms": time_ms(lambda: torch.autograd.grad(
+            s_out, (qg, kg, vg), do, retain_graph=True), iters, flush),
+        "b2_plain_ms": b2_plain_ms, "dkv_plain_ms": dkv_plain_ms,
+        "dq_plain_ms": dq_plain_ms,
+        "bound": bwd_b, "dkv_bound": dkv_b, "dq_bound": dq_b,
+        "auto": fa._pick_bwd_engine(B, H, D, fa._sm_count(0))}
+    row["pair_plain_ms"] = row["dkv_plain_ms"] + row["dq_plain_ms"]
+    row["faster"] = "fused" if row["b2_ms"] <= row["pair_ms"] else "pair"
+    return row
+
+
+def engine_sweep(torch, fa, dev, flush):
+    """The backward engines at the sweep's shapes, causal and full: the
+    measurements the ``auto`` rule is set from."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    rng = np.random.RandomState(SEED + 12)
+    rows = []
+    for shape in SWEEP_SHAPES:
+        for causal in (False, True):
+            rows.append(sweep_row(torch, fa, dev, flush, shape, causal, gen,
+                                  rng))
+            torch.cuda.empty_cache()
+    for r in rows:
+        log("sweep %s %-6s f32 kv_lens mean %.1f: B2 %.4f ms | B3 %.4f ms "
+            "(kernels apart: dkv %.4f + dq %.4f, %d + %d of %d profiled) | "
+            "sdpa bwd %.4f ms | plain B2 %.4f ms, B3 %.4f ms (dkv %.4f + dq "
+            "%.4f) | bound %.4f ms (%s) "
+            "| faster %s, auto picks %s | err vs plain: fwd %.3g B2 %.3g "
+            "dkv %.3g dq %.3g, B3 vs B2 %.3g (tol %g/%g)"
+            % (r["shape"], "causal" if r["causal"] else "full",
+               r["kv_lens_mean"], r["b2_ms"], r["pair_ms"], r["dkv_ms"],
+               r["dq_ms"], r["profiled_launches"]["flash_bwd_dkv_kernel"],
+               r["profiled_launches"]["flash_bwd_dq_kernel"], r["iters"],
+               r["sdpa_bwd_ms"], r["b2_plain_ms"],
+               r["pair_plain_ms"], r["dkv_plain_ms"], r["dq_plain_ms"],
+               r["bound"][0], r["bound"][1], r["faster"], r["auto"],
+               r["errs"]["fwd"], r["errs"]["b2"], r["errs"]["dkv"],
+               r["errs"]["dq"], r["errs"]["pair_vs_b2"],
+               *FLASH_TOL["float32"]))
+    return rows
 
 
 def make_feeds(rng, batch, seq, vocab):
@@ -629,9 +895,29 @@ def relu_gates(program):
     return out
 
 
-def train_check_phase(torch, fluid, T, fa, dev):
+def bwd_engine(fa, engine, cfg):
+    """The backward engine the card runs for a training config's
+    attention calls (all [batch, FH, seq, FD] against seq keys)."""
+    if engine == "auto":
+        return fa._pick_bwd_engine(cfg["batch_size"], FH, FD,
+                                   fa._sm_count(0))
+    return engine
+
+
+def check_flash_launches(fa, launches, engine, calls, what):
+    """The forward and the engine's backward kernels launched ``calls``
+    times each; every other flash kernel not at all."""
+    want = {n: 0 for sub in FLASH_BWD_KERNELS.values() for n in sub}
+    want["flash_attention_fwd"] = calls
+    want.update({n: calls for n in FLASH_BWD_KERNELS[engine]})
+    check(all(launches[n] == c for n, c in want.items()),
+          what + " flash launches", engine, launches)
+
+
+def train_check_phase(torch, fluid, T, fa, dev, cfg, engine):
     """One training step on the card against the port's plain CPU path,
-    from the same numpy parameters, at full width (batch 2 x 64).
+    from the same numpy parameters, at full width (``cfg``'s batch), with
+    the flash backward engine ``engine`` on both sides.
 
     A ReLU gate whose pre-activation lies within rounding of 0 may open
     on one side and stay shut on the other; that moves its unit's column
@@ -642,26 +928,30 @@ def train_check_phase(torch, fluid, T, fa, dev):
     other element of every gradient is held to GRAD_RTOL of its tensor's
     max |g|."""
     with fluid.unique_name.guard():
-        m = T.get_model(**CHECK_CFG)
+        m = T.get_model(**cfg)
     m["startup"].random_seed = SEED + 5
     cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(m["startup"], scope=cpu_scope)
     state = {n: cpu_scope[n].numpy() for n in m["main"].persistable_names()
              if n in cpu_scope}
     fluid.load_numpy_state(m["main"], state, scope=card_scope, device=dev)
-    feed = make_feeds(np.random.RandomState(SEED + 6),
-                      CHECK_CFG["batch_size"], CHECK_CFG["seq_len"],
-                      CHECK_CFG["trg_vocab_size"])
+    feed = make_feeds(np.random.RandomState(SEED + 6), cfg["batch_size"],
+                      cfg["seq_len"], cfg["trg_vocab_size"])
     grads = [p.name + "@GRAD"
              for p in m["main"].global_block().all_parameters() if p.trainable]
     gates = relu_gates(m["main"])
     fetch = [m["loss"]] + grads + [pre for pre, _, _ in gates]
-    before = dict(fa.KERNEL_LAUNCHES)
-    card = fluid.Executor(fluid.CUDAPlace(0)).run(
-        m["main"], feed=feed, fetch_list=fetch, scope=card_scope)
-    launches = {n: fa.KERNEL_LAUNCHES[n] - before[n] for n in before}
-    cpu = fluid.Executor(fluid.CPUPlace()).run(
-        m["main"], feed=feed, fetch_list=fetch, scope=cpu_scope)
+    saved = fa.FLASH_BWD_IMPL
+    fa.FLASH_BWD_IMPL = engine
+    try:
+        before = dict(fa.KERNEL_LAUNCHES)
+        card = fluid.Executor(fluid.CUDAPlace(0)).run(
+            m["main"], feed=feed, fetch_list=fetch, scope=card_scope)
+        launches = {n: fa.KERNEL_LAUNCHES[n] - before[n] for n in before}
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            m["main"], feed=feed, fetch_list=fetch, scope=cpu_scope)
+    finally:
+        fa.FLASH_BWD_IMPL = saved
     loss_card, loss_cpu = float(card[0]), float(cpu[0])
     loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
     check(np.isfinite(loss_card) and loss_err <= LOSS_RTOL,
@@ -690,9 +980,9 @@ def train_check_phase(torch, fluid, T, fa, dev):
         rel = err / scale if scale > 0 else err
         check(rel <= GRAD_RTOL, "card vs cpu gradient", name, err, scale)
         worst = max(worst, rel)
-    check(launches["flash_attention_fwd"] == launches["flash_attention_bwd"]
-          == 18, "card-vs-cpu step flash launches", launches)
-    out = {"loss_card": loss_card, "loss_cpu": loss_cpu,
+    check_flash_launches(fa, launches, bwd_engine(fa, engine, cfg), 18,
+                         "card-vs-cpu step")
+    out = {"engine": engine, "loss_card": loss_card, "loss_cpu": loss_cpu,
            "loss_rel_err": loss_err, "grads": len(grads),
            "worst_grad_err_of_max": worst, "worst_grad_l2_rel": worst_l2,
            "relu_gates": sum(int(np.prod(card[1 + len(grads) + i].shape))
@@ -700,8 +990,8 @@ def train_check_phase(torch, fluid, T, fa, dev):
            "relu_gate_flips": n_flips,
            "units_left_out": {k: len(v) for k, v in flipped.items()},
            "launches": launches}
-    log("train check (card vs cpu, batch %d x %d, dropout 0): %s"
-        % (CHECK_CFG["batch_size"], CHECK_CFG["seq_len"], json.dumps(out)))
+    log("train check (card vs cpu, batch %d x %d, dropout 0, engine %s): %s"
+        % (cfg["batch_size"], cfg["seq_len"], engine, json.dumps(out)))
     return out
 
 
@@ -722,19 +1012,17 @@ def profile_step(torch, exe, m, feed, scope):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         return "not measured (the profiler recorded no device activity)"
-    families = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0,
-                "other": 0.0}
+    flash = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_kernel": "flash_bwd",
+             "flash_bwd_dkv_kernel": "flash_bwd_dkv",
+             "flash_bwd_dq_kernel": "flash_bwd_dq"}
+    families = dict.fromkeys(list(flash.values()) + ["gemm", "other"], 0.0)
     for e in kernels:
         name = e.name.lower()
-        if "flash_fwd_kernel" in name:
-            fam = "flash_fwd"
-        elif "flash_bwd_kernel" in name:
-            fam = "flash_bwd"
-        elif any(k in name for k in ("gemm", "xmma", "cutlass", "gemv",
-                                     "sm90_", "sm80_")):
-            fam = "gemm"
-        else:
-            fam = "other"
+        fam = next((f for k, f in flash.items() if k in name), None)
+        if fam is None:
+            fam = ("gemm" if any(k in name for k in (
+                "gemm", "xmma", "cutlass", "gemv", "sm90_", "sm80_"))
+                else "other")
         families[fam] += e.time_range.elapsed_us()
     busy = sum(families.values())
     return {"step_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
@@ -743,10 +1031,11 @@ def profile_step(torch, exe, m, feed, scope):
             "device_events": len(kernels)}
 
 
-def train_phase(torch, fluid, T, fa, dev):
-    """Transformer-base trains through Executor.run on the card."""
+def train_phase(torch, fluid, T, fa, dev, cfg, steps, engine, label):
+    """Transformer-base trains through Executor.run on the card, with the
+    flash backward engine ``engine``."""
     with fluid.unique_name.guard():
-        m = T.get_model(**TRAIN_CFG)
+        m = T.get_model(**cfg)
     m["startup"].random_seed = SEED + 7
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
@@ -760,41 +1049,48 @@ def train_phase(torch, fluid, T, fa, dev):
     n_values = sum(scope[p].numel() for p in params)
     before = {p: scope[p].clone() for p in trainable}
     rng = np.random.RandomState(SEED + 8)
-    feeds = [make_feeds(rng, TRAIN_CFG["batch_size"], TRAIN_CFG["seq_len"],
-                        TRAIN_CFG["trg_vocab_size"])
-             for _ in range(TRAIN_STEPS + 1)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    fa.reset_launch_counts()
-    losses, step_s = [], []
-    for feed in feeds[:TRAIN_STEPS]:
-        t0 = time.perf_counter()
-        (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
-                          scope=scope)   # the numpy fetch waits for the step
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(loss))
-    launches = dict(fa.KERNEL_LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(dev)
-    check(all(np.isfinite(losses)), "non-finite loss", losses)
-    for p in trainable:
-        check(bool(torch.isfinite(scope[p]).all()), "non-finite param", p)
-        check(not torch.equal(scope[p], before[p]), "param did not move", p)
-    del before
-    check(launches["flash_attention_fwd"] == launches["flash_attention_bwd"]
-          == 18 * TRAIN_STEPS, "training flash launches", launches)
-    profile = profile_step(torch, exe, m, feeds[TRAIN_STEPS], scope)
+    feeds = [make_feeds(rng, cfg["batch_size"], cfg["seq_len"],
+                        cfg["trg_vocab_size"])
+             for _ in range(steps + 1)]
+    saved = fa.FLASH_BWD_IMPL
+    fa.FLASH_BWD_IMPL = engine
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.reset_launch_counts()
+        losses, step_s = [], []
+        for feed in feeds[:steps]:
+            t0 = time.perf_counter()
+            (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
+                              scope=scope)  # the numpy fetch waits for it
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        launches = dict(fa.KERNEL_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(all(np.isfinite(losses)), "non-finite loss", losses)
+        for p in trainable:
+            check(bool(torch.isfinite(scope[p]).all()), "non-finite param", p)
+            check(not torch.equal(scope[p], before[p]), "param did not move",
+                  p)
+        del before
+        ran = bwd_engine(fa, engine, cfg)
+        check_flash_launches(fa, launches, ran, 18 * steps, label)
+        profile = profile_step(torch, exe, m, feeds[steps], scope)
+    finally:
+        fa.FLASH_BWD_IMPL = saved
     steady = float(np.mean(step_s[1:]))
-    tokens = TRAIN_CFG["batch_size"] * TRAIN_CFG["seq_len"]
+    tokens = cfg["batch_size"] * cfg["seq_len"]
     stats = {"params": len(params), "param_values": int(n_values),
-             "steps": TRAIN_STEPS, "startup_s": startup_s,
+             "steps": steps, "engine": engine, "engine_ran": ran,
+             "startup_s": startup_s,
              "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
              "step_ms_all": [t * 1e3 for t in step_s],
              "target_tokens_per_s": tokens / steady,
              "peak_memory_gib": peak / 2 ** 30, "losses": losses,
              "launches": launches, "profile": profile}
-    log("training (Transformer-base, batch %d x %d, vocab %d, dropout 0.1): %s"
-        % (TRAIN_CFG["batch_size"], TRAIN_CFG["seq_len"],
-           TRAIN_CFG["trg_vocab_size"], json.dumps(stats)))
+    log("training %s (Transformer-base, batch %d x %d, vocab %d, dropout "
+        "0.1): %s" % (label, cfg["batch_size"], cfg["seq_len"],
+                      cfg["trg_vocab_size"], json.dumps(stats)))
     return stats
 
 
@@ -840,25 +1136,67 @@ def main():
     dec = decode_phase(torch, fa, dev, flush)
     pre = prefill_phase(torch, fa, dev, flush)
     flash_cases, flash_times = flash_phase(torch, fa, dev, flush)
+    pair_cases = pair_phase(torch, fa, dev)
+    sweep = engine_sweep(torch, fa, dev, flush)
     del flush
     srv = serving_phase(torch, T, serving, fa, obs, dev)
     torch.cuda.empty_cache()
-    train_check_phase(torch, fluid, T, fa, dev)
-    trn = train_phase(torch, fluid, T, fa, dev)
+    # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
+    train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG, "fused")
+    train_check_phase(torch, fluid, T, fa, dev, PAIR_CHECK_CFG, "pair")
+    trn = train_phase(torch, fluid, T, fa, dev, TRAIN_CFG, TRAIN_STEPS,
+                      "auto", "64 x 256")
+    torch.cuda.empty_cache()
+    # the long leg runs B3: under auto where auto picks it, else by name
+    long_engine = ("auto" if bwd_engine(fa, "auto", LONG_CFG) == "pair"
+                   else "pair")
+    lng = train_phase(torch, fluid, T, fa, dev, LONG_CFG, LONG_STEPS,
+                      long_engine, "4 x 4096")
+    check(lng["engine_ran"] == "pair", "the long leg did not run B3", lng)
 
     d32 = next(r for r in dec if r["dtype"] == "float32")
     p32 = next(r for r in pre if r["dtype"] == "float32" and "ms" in r)
     full = next(t for t in flash_times if not t["causal"])
+    # the long leg's shape, not causal.  No single PyTorch call computes
+    # dk/dv alone or dq alone, so their library_ms is null; the pair as a
+    # whole stands beside SDPA's autograd backward (dq, dk and dv)
+    longest = next(r for r in sweep
+                   if tuple(r["shape"]) == SWEEP_SHAPES[3] and not r["causal"])
+    pair_vs_library = {"pair_ms": longest["pair_ms"],
+                       "pair_library_ms": longest["sdpa_bwd_ms"],
+                       "pair_library": "scaled_dot_product_attention "
+                                       "autograd backward (dq, dk, dv)"}
+    pair_rows = {
+        "flash_attention_bwd_dkv": {
+            "ms": longest["dkv_ms"], "plain_ms": longest["dkv_plain_ms"],
+            "bound": longest["dkv_bound"], "library_ms": None},
+        "flash_attention_bwd_dq": {
+            "ms": longest["dq_ms"], "plain_ms": longest["dq_plain_ms"],
+            "bound": longest["dq_bound"], "library_ms": None}}
+    f32_pairs = [c for c in pair_cases if c["dtype"] == "float32"]
+    sweep_errs = lambda key: [r["errs"][key] for r in sweep]  # noqa: E731
     kernels = []
     for name, launches, row, replaces, src, errs in (
             ("flash_attention_fwd", trn["launches"], full["fwd"],
              "paddle_tpu/parallel/flash_attention.py:73",
              "paddle_tpu_torch/csrc/flash_attention.cu",
-             [c["fwd_err"] for c in flash_cases if c["dtype"] == "float32"]),
+             [c["fwd_err"] for c in flash_cases if c["dtype"] == "float32"]
+             + sweep_errs("fwd")),
             ("flash_attention_bwd", trn["launches"], full["bwd"],
              "paddle_tpu/parallel/flash_attention.py:513",
              "paddle_tpu_torch/csrc/flash_attention.cu",
-             [c["bwd_err"] for c in flash_cases if c["dtype"] == "float32"]),
+             [c["bwd_err"] for c in flash_cases if c["dtype"] == "float32"]
+             + sweep_errs("b2")),
+            ("flash_attention_bwd_dkv", lng["launches"],
+             pair_rows["flash_attention_bwd_dkv"],
+             "paddle_tpu/parallel/flash_attention.py:288",
+             "paddle_tpu_torch/csrc/flash_attention.cu",
+             [c["dkv_err"] for c in f32_pairs] + sweep_errs("dkv")),
+            ("flash_attention_bwd_dq", lng["launches"],
+             pair_rows["flash_attention_bwd_dq"],
+             "paddle_tpu/parallel/flash_attention.py:328",
+             "paddle_tpu_torch/csrc/flash_attention.cu",
+             [c["dq_err"] for c in f32_pairs] + sweep_errs("dq")),
             ("paged_decode_attention", srv["launches"], d32,
              "paddle_tpu/parallel/flash_attention.py:848",
              "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -873,6 +1211,10 @@ def main():
             "max_abs_err": max(errs), "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1], "library_ms": row["library_ms"]})
+        if name in pair_rows:
+            kernels[-1].update(pair_vs_library)
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel was not launched on its main path", kernels)
     log("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -43,6 +43,8 @@ _SIGNATURES = (
      [_P] * 6 + [_I] * 5 + [_L] * 9 + [_I, _F, _I, _I, _P]),
     ("pt_flash_bwd",
      [_P] * 12 + [_I] * 5 + [_L] * 15 + [_I, _F, _I, _I, _P]),
+    ("pt_flash_bwd_pair",
+     [_P] * 10 + [_I] * 5 + [_L] * 15 + [_I, _F, _I, _I, _P]),
 )
 
 _lock = threading.Lock()

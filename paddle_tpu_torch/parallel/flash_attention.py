@@ -1,20 +1,23 @@
-"""Attention kernels of the port: flash attention (forward and fused
-backward) for training, paged attention for the decode runtime — CUDA
-kernels and their plain PyTorch versions.
+"""Attention kernels of the port: flash attention (forward, and two
+backward engines) for training, paged attention for the decode runtime —
+CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/parallel/flash_attention.py``.  The JAX
 package runs these functions as Pallas TPU kernels (``_fwd_kernel``,
-``_fused_bwd_kernel``, ``_paged_decode_kernel``,
-``_paged_prefill_kernel``); the port runs them as hand-written CUDA
-kernels for Hopper (``paddle_tpu_torch/csrc/flash_attention.cu`` and
-``paged_attention.cu``, built and loaded by
-:mod:`paddle_tpu_torch.cuda_kernels`).
+``_fused_bwd_kernel``, ``_bwd_dkv_kernel`` + ``_bwd_dq_kernel``,
+``_paged_decode_kernel``, ``_paged_prefill_kernel``); the port runs them
+as hand-written CUDA kernels for Hopper
+(``paddle_tpu_torch/csrc/flash_attention.cu`` and ``paged_attention.cu``,
+built and loaded by :mod:`paddle_tpu_torch.cuda_kernels`).
 
-Dispatch is by device only.  A CPU tensor goes to the plain version
+Dispatch is by device.  A CPU tensor goes to the plain version
 (``_flash_fwd_reference`` / ``_flash_bwd_reference`` /
-``_paged_reference`` / ``_paged_prefill_reference``, translated from the
-JAX package's); a CUDA tensor goes to the kernel, or the call raises.
-There is no override and no fallback: on the card, the plain versions
+``_flash_bwd_pair_reference`` / ``_paged_reference`` /
+``_paged_prefill_reference``, translated from the JAX package's); a CUDA
+tensor goes to the kernel, or the call raises.  The one choice left to
+the caller is the flash backward's engine (:data:`FLASH_BWD_IMPL`: the
+fused kernel or the two-pass pair); no value runs a plain version on a
+CUDA tensor, and nothing falls back.  On the card the plain versions
 serve only as the oracle that ``chip_smoke.py`` holds the kernels
 against.
 
@@ -33,21 +36,93 @@ run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import functools
 import math
+import os
+import warnings
 
 import torch
 
 __all__ = ["flash_attention", "mha_reference", "paged_decode_attention",
            "paged_prefill_attention", "KERNEL_LAUNCHES",
-           "reset_launch_counts"]
+           "reset_launch_counts", "FLASH_BWD_IMPL"]
 
 NEG_INF = -1e30
 
-#: Launch counts of the CUDA kernels, by public function name.
+#: Launch counts of the CUDA kernels: the flash forward (B1), the fused
+#: backward (B2), the two passes of the pair backward (B3), and the paged
+#: kernels by public function name.
 KERNEL_LAUNCHES = {"flash_attention_fwd": 0,
                    "flash_attention_bwd": 0,
+                   "flash_attention_bwd_dkv": 0,
+                   "flash_attention_bwd_dq": 0,
                    "paged_decode_attention": 0,
                    "paged_prefill_attention": 0}
+
+# Backward engine switch, the counterpart of the JAX package's
+# FLASH_BWD_IMPL: "fused" is B2 (one block per b*h walks all its tile
+# pairs), "pair" is B3 (a dk/dv pass over key tiles and a dq pass over
+# query tiles), "auto" picks one on the card by _pick_bwd_engine.  On a CPU
+# tensor "pair" runs the pair's plain version and "fused"/"auto" the plain
+# backward _flash_bwd_reference.  Read once from PADDLE_TPU_TORCH_FLASH_BWD
+# at import; set the attribute to change it in a running process.
+_BWD_ENGINES = ("auto", "fused", "pair")
+FLASH_BWD_IMPL = os.environ.get("PADDLE_TPU_TORCH_FLASH_BWD",
+                                "auto").strip().lower()
+if FLASH_BWD_IMPL not in _BWD_ENGINES:
+    warnings.warn("PADDLE_TPU_TORCH_FLASH_BWD=%r is not one of "
+                  "auto/fused/pair; using 'auto'" % FLASH_BWD_IMPL)
+    FLASH_BWD_IMPL = "auto"
+
+
+# Shared memory of one Hopper SM and what the runtime reserves for each
+# resident block (CUDA C++ Programming Guide, compute capability 9.0).
+_SM_SMEM_BYTES = 228 * 1024
+_BLOCK_RESERVED_SMEM = 1024
+
+
+def _b2_blocks_per_sm(D):
+    """Blocks of B2 (flash_bwd_kernel<D>) one SM holds at once, as its
+    shared memory limits them (csrc/flash_attention.cu:bwd_smem: four
+    [64, D + 1] and two [64, 65] float tiles and two 64-float rows):
+    3 at D = 32, 2 at D = 64, 1 at D = 128.  Registers are not counted:
+    two blocks of 256 threads fit at up to 128 a thread, three only at up
+    to 85, and no D = 32 shape has been measured."""
+    smem = (4 * 64 * (D + 1) + 2 * 64 * 65 + 2 * 64) * 4
+    return _SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_SMEM)
+
+
+def _pick_bwd_engine(B, H, D, sm_count):
+    """The backward engine ``auto`` runs on the card: a pure function of
+    the shapes and the card's SM count (no timing at run time, so two
+    runs pick the same engine and stay bitwise repeatable).
+
+    B2 runs B*H blocks, each walking every tile pair of its head; B3 runs
+    B*H*ceil(S/64) + B*H*ceil(T/64) blocks but does 14*D operations a
+    visible pair against B2's 10*D.  Below one full wave B2's time stays
+    that of one block's walk while B3's grows with B*H, so B3's time over
+    B2's grows with the share of the card's B2 slots (blocks a SM x SMs)
+    that B*H fills.  B2 is picked once B*H fills 7/8 of them.
+
+    Set from chip_smoke.py's engine sweep (PERF.md §6 has every row), on
+    an NVIDIA H100 80GB HBM3 at 700 W with 132 SMs, float32, kv_lens as
+    the training feeds draw them; B3 ms / B2 ms, not causal [causal], by
+    the share of B2's slots that B*H fills.  D 64 (264 slots): 0.12 0.17
+    [0.21], 0.24 0.33 [0.36], 0.48 0.66-0.98 [0.87-0.96], 0.61 0.67
+    [0.85], 0.73 0.78 [1.55], 0.85 0.96 [1.11], 0.97 1.10 [1.26], 1.45
+    1.44 [1.15], 1.94 1.35 [1.18].  D 128 (132 slots): 0.73 0.83 [0.91],
+    0.85 0.80 [1.09], 0.97 0.97 [1.15], 1.94 1.23 [1.40].  Full attention
+    crosses between 0.85 and 0.97 of the slots, causal from about 0.7; a
+    Transformer step runs two full calls to every causal one.  Near the
+    cut two runs differ by up to 10% (the CUDA-event times take in the
+    host's launch gaps), so either engine is within that there."""
+    slots = _b2_blocks_per_sm(D) * sm_count
+    return "fused" if 8 * B * H >= 7 * slots else "pair"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launch_counts():
@@ -148,6 +223,104 @@ def _flash_bwd_reference(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The pair's plain version, a tiled two-pass translation of the JAX
+# package's _bwd_tiles + _bwd_dkv_kernel + _bwd_dq_kernel: dk/dv summed
+# over query tiles for each key tile, dq summed over key tiles for each
+# query tile, p and ds recomputed per tile pair with delta taken from the
+# tile's own rows.  Every (b, h) is computed at once; a tile pair is
+# skipped when no row of it can see a key (past every kv_lens, or above the
+# causal diagonal), and within a computed pair the per-sequence kv_lens
+# mask zeroes what a kernel block of that sequence would skip (its
+# contribution is exactly 0: p and ds are 0 there and k, v are zeroed).
+
+
+def _pair_setup(q, k, kv_lens):
+    """(compute dtype, T, S, kv_lens as int64 [B, 1, 1, 1], the largest
+    kv_lens)."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    B, T, S = q.shape[0], q.shape[2], k.shape[2]
+    if kv_lens is None:
+        lens = torch.full((B,), S, dtype=torch.int64, device=q.device)
+    else:
+        lens = kv_lens.to(device=q.device, dtype=torch.int64).clamp(0, S)
+    top = int(lens.max()) if B else 0
+    return ct, T, S, lens[:, None, None, None], top
+
+
+def _pair_tile(ct, q, k, v, out, do, lse, lens, q0, k0, block_q, block_k,
+               T, S, causal, sm_scale):
+    """(p, ds, q, k, do) of one (query tile, key tile) pair for every
+    (b, h), as _bwd_tiles computes them: rows past kv_lens zeroed in k and
+    v, p = exp(s - lse) and ds = p (dp - delta) scale only where the pair
+    is visible (0 elsewhere, never 0 * inf)."""
+    rows = torch.arange(q0, min(q0 + block_q, T), device=q.device)
+    cols = torch.arange(k0, min(k0 + block_k, S), device=q.device)
+    qt = q[:, :, q0:q0 + block_q].to(ct)
+    dot = do[:, :, q0:q0 + block_q].to(ct)
+    colv = (cols[:, None] < lens)                     # [B, 1, bk, 1]
+    kt = torch.where(colv, k[:, :, k0:k0 + block_k].to(ct), 0.0)
+    vt = torch.where(colv, v[:, :, k0:k0 + block_k].to(ct), 0.0)
+    ok = cols[None, :] < lens                         # [B, 1, 1, bk]
+    if causal:
+        ok = ok & (cols[None, :] <= rows[:, None] + (S - T))
+    s = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * sm_scale
+    lse_t = lse[:, :, q0:q0 + block_q, None].to(ct)
+    p = torch.where(ok, torch.exp(s - lse_t), 0.0)
+    delta = (dot * out[:, :, q0:q0 + block_q].to(ct)).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dot, vt)
+    ds = torch.where(ok, p * (dp - delta) * sm_scale, 0.0)
+    return p, ds, qt, kt, dot
+
+
+def _pair_dkv_reference(q, k, v, kv_lens, out, lse, do, causal, sm_scale,
+                        block_q=64, block_k=64):
+    """(dk, dv) of the pair's first pass (_bwd_dkv_kernel): for each key
+    tile, the sum over the query tiles that can see it, in order."""
+    ct, T, S, lens, top = _pair_setup(q, k, kv_lens)
+    dk = torch.zeros(k.shape, dtype=ct, device=q.device)
+    dv = torch.zeros(v.shape, dtype=ct, device=q.device)
+    for k0 in range(0, min(S, top), block_k):
+        first = max(0, k0 - (S - T)) // block_q * block_q if causal else 0
+        for q0 in range(first, T, block_q):
+            p, ds, qt, _, dot = _pair_tile(ct, q, k, v, out, do, lse, lens,
+                                           q0, k0, block_q, block_k, T, S,
+                                           causal, sm_scale)
+            dv[:, :, k0:k0 + block_k] += torch.einsum("bhqk,bhqd->bhkd",
+                                                      p, dot)
+            dk[:, :, k0:k0 + block_k] += torch.einsum("bhqk,bhqd->bhkd",
+                                                      ds, qt)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _pair_dq_reference(q, k, v, kv_lens, out, lse, do, causal, sm_scale,
+                       block_q=64, block_k=64):
+    """dq of the pair's second pass (_bwd_dq_kernel): for each query tile,
+    the sum over the key tiles its rows can see, in order."""
+    ct, T, S, lens, top = _pair_setup(q, k, kv_lens)
+    dq = torch.zeros(q.shape, dtype=ct, device=q.device)
+    for q0 in range(0, T, block_q):
+        kend = min(S, top)
+        if causal:
+            kend = min(kend, min(q0 + block_q, T) + (S - T))
+        for k0 in range(0, kend, block_k):
+            _, ds, _, kt, _ = _pair_tile(ct, q, k, v, out, do, lse, lens,
+                                         q0, k0, block_q, block_k, T, S,
+                                         causal, sm_scale)
+            dq[:, :, q0:q0 + block_q] += torch.einsum("bhqk,bhkd->bhqd",
+                                                      ds, kt)
+    return dq.to(q.dtype)
+
+
+def _flash_bwd_pair_reference(q, k, v, kv_lens, out, lse, do, causal,
+                              sm_scale, block_q=64, block_k=64):
+    """(dq, dk, dv) of flash attention by the two-pass pair (B3's plain
+    version; the CUDA kernels use 64-row tiles)."""
+    args = (q, k, v, kv_lens, out, lse, do, causal, sm_scale, block_q,
+            block_k)
+    dk, dv = _pair_dkv_reference(*args)
+    return _pair_dq_reference(*args), dk, dv
+
+
 def _strides(t):
     """(batch, head, time) strides of a [B, H, T, D] tensor whose last
     dimension is contiguous; any other tensor is copied to a contiguous
@@ -212,13 +385,11 @@ def _flash_fwd_cuda(q, k, v, kv_lens, causal, sm_scale):
     return out, lse
 
 
-def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
-    from ..cuda_kernels import load_library
-
-    name = "flash_attention_bwd"
+def _check_bwd_inputs(q, k, v, kv_lens, out, lse, do, name):
+    """Check what the backward kernels take; returns ``do`` in q's
+    dtype."""
     _check_flash_inputs(q, k, v, kv_lens, name)
     B, H, T, D = q.shape
-    S = k.shape[2]
     if do.dtype != q.dtype:
         do = do.to(q.dtype)
     if (tuple(out.shape) != (B, H, T, D) or tuple(do.shape) != (B, H, T, D)
@@ -228,6 +399,16 @@ def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
         raise ValueError("%s: out/do must be [B, H, T, D] in q's dtype and "
                          "lse a contiguous float32 [B, H, T], all on %s"
                          % (name, q.device))
+    return do
+
+
+def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    from ..cuda_kernels import load_library
+
+    name = "flash_attention_bwd"
+    do = _check_bwd_inputs(q, k, v, kv_lens, out, lse, do, name)
+    B, H, T, D = q.shape
+    S = k.shape[2]
     dq = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, H, S, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, H, S, D), dtype=v.dtype, device=q.device)
@@ -256,6 +437,37 @@ def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
     return dq, dk, dv
 
 
+def _flash_bwd_pair_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    """(dq, dk, dv) from B3's two kernels, the dk/dv kernel first."""
+    from ..cuda_kernels import load_library
+
+    name = "flash_attention_bwd_pair"
+    do = _check_bwd_inputs(q, k, v, kv_lens, out, lse, do, name)
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    dq = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, H, S, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, H, S, D), dtype=v.dtype, device=q.device)
+    if B * H == 0:
+        return dq, dk, dv
+    q, qs = _strides(q)
+    k, ks = _strides(k)
+    v, vs = _strides(v)
+    out, os_ = _strides(out)
+    do, dos = _strides(do)
+    err = load_library().pt_flash_bwd_pair(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), None if kv_lens is None else kv_lens.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
+        T, S, D, *qs, *ks, *vs, *os_, *dos, int(causal), float(sm_scale),
+        int(q.dtype == torch.bfloat16), _device_index(q),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, name)
+    KERNEL_LAUNCHES["flash_attention_bwd_dkv"] += 1
+    KERNEL_LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq, dk, dv
+
+
 def _flash_fwd(q, k, v, kv_lens, causal, sm_scale):
     if _dispatch(q, "flash_attention") == "plain":
         return _flash_fwd_reference(q, k, v, kv_lens, causal, sm_scale)
@@ -263,10 +475,21 @@ def _flash_fwd(q, k, v, kv_lens, causal, sm_scale):
 
 
 def _flash_bwd(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    engine = FLASH_BWD_IMPL
+    if engine not in _BWD_ENGINES:
+        raise ValueError("FLASH_BWD_IMPL must be auto, fused or pair, got %r"
+                         % (engine,))
+    args = (q, k, v, kv_lens, out, lse, do, causal, sm_scale)
     if _dispatch(q, "flash_attention") == "plain":
-        return _flash_bwd_reference(q, k, v, kv_lens, out, lse, do, causal,
-                                    sm_scale)
-    return _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale)
+        if engine == "pair":
+            return _flash_bwd_pair_reference(*args)
+        return _flash_bwd_reference(*args)
+    if engine == "auto":
+        B, H, _, D = q.shape
+        engine = _pick_bwd_engine(B, H, D, _sm_count(_device_index(q)))
+    if engine == "pair":
+        return _flash_bwd_pair_cuda(*args)
+    return _flash_bwd_cuda(*args)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -299,7 +522,8 @@ def flash_attention(q, k, v, kv_lens=None, causal=False, sm_scale=None):
     T <= S.  CPU tensors run the plain versions; CUDA tensors the
     hand-written kernels (float32 or bfloat16, head_dim 32/64/128; q, k,
     v may be strided views whose last dimension is contiguous), which
-    pick their own tiles and raise on inputs they do not take."""
+    pick their own tiles and raise on inputs they do not take.  The
+    backward runs the engine :data:`FLASH_BWD_IMPL` names."""
     if causal and q.shape[2] > k.shape[2]:
         raise ValueError(
             "causal flash_attention requires T <= S, got T=%d S=%d"

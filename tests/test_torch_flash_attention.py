@@ -277,11 +277,15 @@ class TestFlashAttention:
             dead = np.asarray(lens) == 0
             assert (out.numpy()[dead] == 0).all()
 
-    @pytest.mark.parametrize("impl", ["fused", "scan"])
+    # the JAX package's engine, and the port's: its "pallas" pair against
+    # the port's pair, its fused and scan engines against the port's auto
+    @pytest.mark.parametrize("impl", ["fused", "scan", "pallas"])
     @pytest.mark.parametrize("causal,T,S,lens", FLASH_CASES)
     def test_backward_matches_jax_grad(self, causal, T, S, lens, impl,
                                        monkeypatch):
         monkeypatch.setattr(jfa, "FLASH_BWD_IMPL", impl)
+        monkeypatch.setattr(tfa, "FLASH_BWD_IMPL",
+                            "pair" if impl == "pallas" else "auto")
         q, k, v, do = _flash_case(T * S, T, S)
         jl = _jax_lens(lens)
 
@@ -351,6 +355,79 @@ class TestFlashAttention:
             tfa._flash_bwd_cuda(q, k, v, lens, out, lse[:, :, :4].contiguous(),
                                 do, False, 0.2)
 
+    @pytest.mark.parametrize("causal,T,S,lens", FLASH_CASES)
+    def test_pair_reference_matches_jax_pair(self, causal, T, S, lens):
+        """B3's plain version (16-row tiles) against the JAX package's
+        Pallas pair in interpret mode, from the same (out, lse)."""
+        q, k, v, do = _flash_case(T + 2 * S, T, S)
+        scale = 1.0 / np.sqrt(q.shape[-1])
+        jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+        jl = _jax_lens(lens)
+        out, lse = jfa._flash_fwd(jq, jk, jv, jl, causal, scale, 16, 16, True)
+        want = jfa._flash_bwd_pallas(causal, scale, 16, 16, True,
+                                     (jq, jk, jv, jl, out, lse), jdo)
+        got = tfa._flash_bwd_pair_reference(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            _port_lens(lens), torch.from_numpy(np.array(out)),
+            torch.from_numpy(np.array(lse)), torch.from_numpy(do), causal,
+            scale, block_q=16, block_k=16)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       atol=FLASH_BWD_TOL, rtol=0)
+        if lens is not None:
+            dead = np.asarray(lens) == 0
+            for g in got:
+                assert (g.numpy()[dead] == 0).all()
+
+    def test_pair_gradcheck_float64(self, monkeypatch):
+        """The pair's tiled gradient against numerical differences, with
+        tiles smaller than the sequences (2 query rows, 3 keys) so that
+        the tile walks and skips are exercised, and through
+        flash_attention with the engine set to pair."""
+        class Pair(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, lens):
+                out, lse = tfa._flash_fwd_reference(q, k, v, lens, True, 0.5)
+                ctx.save_for_backward(q, k, v, lens, out, lse)
+                return out
+
+            @staticmethod
+            def backward(ctx, do):
+                q, k, v, lens, out, lse = ctx.saved_tensors
+                return tfa._flash_bwd_pair_reference(
+                    q, k, v, lens, out, lse, do, True, 0.5, block_q=2,
+                    block_k=3) + (None,)
+
+        rng = np.random.RandomState(12)
+        q, k, v = (torch.from_numpy(rng.randn(2, 2, n, 4)).requires_grad_(True)
+                   for n in (5, 7, 7))
+        lens = torch.tensor([6, 0], dtype=torch.int32)
+        assert torch.autograd.gradcheck(
+            lambda a, b, c: Pair.apply(a, b, c, lens), (q, k, v), eps=1e-6,
+            atol=1e-6)
+        monkeypatch.setattr(tfa, "FLASH_BWD_IMPL", "pair")
+        assert torch.autograd.gradcheck(
+            lambda a, b, c: tfa.flash_attention(a, b, c, lens, False),
+            (q, k, v), eps=1e-6, atol=1e-6)
+
+    def test_pair_non_finite_keys_past_kv_lens_change_nothing(self):
+        q, k, v, do = (torch.from_numpy(x) for x in _flash_case(6, 40, 40))
+        lens = torch.tensor([33, 5], dtype=torch.int32)
+        kn, vn = k.clone(), v.clone()
+        for b, n in enumerate(lens.tolist()):
+            kn[b, :, n:] = float("nan")
+            vn[b, :, n:] = float("inf")
+        out, lse = tfa._flash_fwd_reference(q, k, v, lens, True, 0.25)
+        clean = tfa._flash_bwd_pair_reference(q, k, v, lens, out, lse, do,
+                                              True, 0.25, 16, 16)
+        dirty = tfa._flash_bwd_pair_reference(q, kn, vn, lens, out, lse, do,
+                                              True, 0.25, 16, 16)
+        for a, b in zip(clean, dirty):
+            assert a.numpy().tobytes() == b.numpy().tobytes()
+        for b, n in enumerate(lens.tolist()):
+            assert (clean[1][b, :, n:] == 0).all()
+            assert (clean[2][b, :, n:] == 0).all()
+
     def test_causal_longer_queries_raise(self):
         q = torch.zeros((1, 1, 8, 16))
         k = torch.zeros((1, 1, 4, 16))
@@ -367,3 +444,131 @@ class TestFlashAttention:
         meta = torch.zeros((1, 1, 4, 32), device="meta")
         with pytest.raises(ValueError, match="cpu or cuda"):
             tfa.flash_attention(meta, meta, meta)
+
+
+# ---------------------------------------------------------------------------
+# the backward engine switch (FLASH_BWD_IMPL) and the pair's wrapper
+# ---------------------------------------------------------------------------
+
+
+def _grads(lens, causal, seed=7, T=40, S=40):
+    q, k, v, do = _flash_case(seed, T, S)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, _port_lens(lens), causal)
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    plain = [torch.from_numpy(x) for x in (q, k, v)]
+    o, lse = tfa._flash_fwd_reference(*plain, _port_lens(lens), causal,
+                                      1.0 / np.sqrt(q.shape[-1]))
+    args = (*plain, _port_lens(lens), o, lse, torch.from_numpy(do), causal,
+            1.0 / np.sqrt(q.shape[-1]))
+    return grads, args
+
+
+class TestBackwardEngineSwitch:
+    def test_env_var_is_read_at_import(self):
+        """PADDLE_TPU_TORCH_FLASH_BWD seeds the engine at import
+        (normalized; an unknown value warns and takes auto)."""
+        import os
+        import subprocess
+        import sys
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        code = ("from paddle_tpu_torch.parallel import flash_attention as F;"
+                "print('IMPL=' + F.FLASH_BWD_IMPL)")
+
+        def run(val):
+            env = dict(os.environ, PADDLE_TPU_TORCH_FLASH_BWD=val,
+                       PYTHONPATH=os.pathsep.join(
+                           [root] + [p for p in (os.environ.get("PYTHONPATH"),)
+                                     if p]))
+            out = subprocess.run([sys.executable, "-W", "always", "-c", code],
+                                 env=env, capture_output=True, text=True,
+                                 timeout=300)
+            assert out.returncode == 0, out.stderr[-1000:]
+            impl = [ln for ln in out.stdout.splitlines()
+                    if ln.startswith("IMPL=")][0]
+            return impl[len("IMPL="):], out.stderr
+
+        impl, _ = run(" Pair ")
+        assert impl == "pair"
+        impl, err = run("pallas")
+        assert impl == "auto" and "PADDLE_TPU_TORCH_FLASH_BWD" in err
+
+    def test_unknown_value_set_at_run_time_raises(self, monkeypatch):
+        monkeypatch.setattr(tfa, "FLASH_BWD_IMPL", "scan")
+        with pytest.raises(ValueError, match="FLASH_BWD_IMPL"):
+            _grads([40, 9], True)
+
+    @pytest.mark.parametrize("engine", ["auto", "fused"])
+    def test_auto_and_fused_on_cpu_give_the_plain_backward_bits(
+            self, engine, monkeypatch):
+        monkeypatch.setattr(tfa, "FLASH_BWD_IMPL", engine)
+        grads, args = _grads([40, 9], True)
+        want = tfa._flash_bwd_reference(*args)
+        for g, w in zip(grads, want):
+            assert g.numpy().tobytes() == w.numpy().tobytes()
+
+    def test_pair_on_cpu_gives_the_pair_reference_bits(self, monkeypatch):
+        monkeypatch.setattr(tfa, "FLASH_BWD_IMPL", "pair")
+        grads, args = _grads([40, 9], True, T=100, S=130)
+        want = tfa._flash_bwd_pair_reference(*args)
+        for g, w in zip(grads, want):
+            assert g.numpy().tobytes() == w.numpy().tobytes()
+        # 64-row tiles and an uneven tail: the same function as the dense
+        # plain backward, summed in another order
+        for g, w in zip(grads, tfa._flash_bwd_reference(*args)):
+            np.testing.assert_allclose(g.numpy(), w.numpy(),
+                                       atol=FLASH_BWD_TOL, rtol=0)
+
+    @pytest.mark.parametrize("B,H,D,engine", [(64, 8, 64, "fused"),
+                                              (16, 8, 64, "pair"),
+                                              (8, 8, 64, "pair"),
+                                              (4, 8, 64, "pair"),
+                                              (20, 8, 64, "pair"),
+                                              (24, 8, 64, "pair"),
+                                              (28, 8, 64, "pair"),
+                                              (32, 8, 64, "fused"),
+                                              (48, 8, 64, "fused"),
+                                              (24, 4, 128, "pair"),
+                                              (28, 4, 128, "pair"),
+                                              (32, 4, 128, "fused"),
+                                              (64, 4, 128, "fused")])
+    def test_auto_rule_at_the_sweep_shapes(self, B, H, D, engine):
+        """The engines the rule picks at PERF.md's sweep shapes on a
+        132-SM H100: bench.py's four Transformer shapes (B x T = 16,384
+        tokens, H 8, D 64) and B*H across the cut at D 64 and D 128."""
+        assert tfa._pick_bwd_engine(B, H, D, 132) == engine
+
+    @pytest.mark.parametrize("D,blocks", [(32, 3), (64, 2), (128, 1)])
+    def test_b2_blocks_per_sm_from_shared_memory(self, D, blocks):
+        """bwd_smem<64> is 100,352 bytes: two to a 228 KB SM."""
+        assert tfa._b2_blocks_per_sm(D) == blocks
+
+    def test_pair_wrapper_rejects_bad_inputs_before_launch(self):
+        q, k, v, do = (torch.from_numpy(x) for x in _flash_case(4, 8, 8, D=32))
+        lens = torch.tensor([8, 3], dtype=torch.int32)
+        out, lse = tfa._flash_fwd_reference(q, k, v, lens, False, 0.2)
+        bwd = tfa._flash_bwd_pair_cuda
+        with pytest.raises(ValueError, match="head_dim"):
+            bwd(q[..., :16], k[..., :16], v[..., :16], lens, out[..., :16],
+                lse, do[..., :16], False, 0.2)
+        with pytest.raises(TypeError, match="float32"):
+            bwd(q, k.double(), v, lens, out, lse, do, False, 0.2)
+        with pytest.raises(ValueError, match="kv_lens"):
+            bwd(q, k, v, lens.long(), out, lse, do, False, 0.2)
+        with pytest.raises(ValueError, match="lse"):
+            bwd(q, k, v, lens, out, lse[:, :, :4].contiguous(), do, False,
+                0.2)
+        with pytest.raises(ValueError, match="match"):
+            bwd(q, k[:1], v[:1], lens, out, lse, do, False, 0.2)
+        with pytest.raises(ValueError, match="out/do"):
+            bwd(q, k, v, lens, out[:, :, :4], lse, do, False, 0.2)
+
+    @pytest.mark.parametrize("engine", ["auto", "fused", "pair"])
+    def test_cpu_calls_count_no_launch(self, engine, monkeypatch):
+        monkeypatch.setattr(tfa, "FLASH_BWD_IMPL", engine)
+        before = dict(tfa.KERNEL_LAUNCHES)
+        assert {"flash_attention_bwd_dkv", "flash_attention_bwd_dq"} <= set(
+            before)
+        _grads([40, 0], False)
+        assert tfa.KERNEL_LAUNCHES == before

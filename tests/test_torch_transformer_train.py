@@ -7,7 +7,9 @@ startup state is copied into the port with ``load_numpy_state`` and
 dropout is off, so three Adam steps on the same seeded feeds must agree:
 losses to 1e-5 relative, every step-1 ``<param>@GRAD`` to
 1e-5 * max(1, max|g|) (the packages sum in different orders).  The JAX
-package's flash attention runs its Pallas kernels in interpret mode.
+package's flash attention runs its Pallas kernels in interpret mode; the
+"flash-pair" case sets both packages' flash backward to the two-pass
+pair (the JAX package's "pallas" engine, the port's "pair").
 """
 import numpy as np
 import pytest
@@ -16,7 +18,9 @@ import torch
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu.models import transformer as JT
+from paddle_tpu.parallel import flash_attention as JFA
 from paddle_tpu_torch.models import transformer as TT
+from paddle_tpu_torch.parallel import flash_attention as TFA
 
 SMALL = dict(batch_size=2, seq_len=16, src_vocab_size=60, trg_vocab_size=60,
              max_length=16, n_layer=2, n_head=2, d_model=32, d_inner=64,
@@ -40,11 +44,27 @@ def _feeds(seed):
     return out
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["flash", "plain"])
+#: (use_flash, the JAX package's flash backward engine, the port's)
+CASES = {"flash": (True, None, None), "plain": (False, None, None),
+         "flash-pair": (True, "pallas", "pair")}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
 def runs(request):
     """Losses of STEPS Adam steps and the step-1 gradients, from both
-    packages, for one use_flash setting."""
-    use_flash = request.param
+    packages, for one use_flash setting and backward engine pair (None:
+    each package's default)."""
+    use_flash, jax_bwd, port_bwd = CASES[request.param]
+    saved = JFA.FLASH_BWD_IMPL, TFA.FLASH_BWD_IMPL
+    if jax_bwd is not None:
+        JFA.FLASH_BWD_IMPL, TFA.FLASH_BWD_IMPL = jax_bwd, port_bwd
+    try:
+        return _runs(use_flash)
+    finally:
+        JFA.FLASH_BWD_IMPL, TFA.FLASH_BWD_IMPL = saved
+
+
+def _runs(use_flash):
     with jfluid.unique_name.guard():
         jm = JT.get_model(use_flash=use_flash, **SMALL)
     with tfluid.unique_name.guard():

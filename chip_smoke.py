@@ -15,9 +15,12 @@ caught):
    pool), with float32 and bfloat16 pools: the kernel against its plain
    PyTorch version on the card, plus the kernel's contracts (exact zeros
    for empty slots, non-finite stale tails ignored, and for prefill,
-   chunk-split bitwise equal to one call), then the kernel's time, the
-   plain version's, the least time the card could take (bound), and one
-   PyTorch library call for the same work as a yardstick;
+   chunk-split bitwise equal to one call, at chunk starts and lengths on
+   and off the kernel's 64-key tiles, C = 1 included, with NaN/Inf
+   written past start + C), then the kernel's time, the plain version's,
+   the least time the card could take (bound), and one PyTorch library
+   call for the same work as a yardstick (prefill at two points: a
+   1024-token prompt, and the second 512-token chunk of a prompt);
 4. the flash attention kernels (forward B1, fused backward B2) at the
    training slice's shape [64, 8, 256, 64], in float32 and bfloat16, on
    strided q/k/v/do views as the Program feeds them, with mixed kv_lens
@@ -30,8 +33,9 @@ caught):
    give the same bits; then each kernel's time beside its plain
    version's, its bound and a scaled_dot_product_attention yardstick
    (its autograd backward for B2);
-5. the two-pass flash backward (B3: the dk/dv kernel and the dq kernel)
-   on the same cases, f32 and bf16: against its plain version (the tiled
+5. the two-pass flash backward (B3: a delta pre-pass, the dk/dv kernel
+   and the dq kernel) on the same cases, f32 and bf16: against its plain
+   version (the tiled
    two-pass translation) and against B2 on the same inputs, with the
    backward tolerances above; rows with kv_lens 0 give zero gradients,
    NaN/Inf past kv_lens leaves every output bitwise unchanged, two calls
@@ -39,14 +43,16 @@ caught):
 6. the backward engine sweep at bench.py's four Transformer shapes
    ([64, 8, 256, 64], [16, 8, 1024, 64], [8, 8, 2048, 64],
    [4, 8, 4096, 64], the last the long leg's), then B*H across the
-   ``auto`` rule's cut: [16..32, 8, 512, 64], [48, 8, 384, 64],
-   [24..32, 4, 512, 128] and [64, 4, 256, 128]; float32, causal and full,
-   the training feeds' kv_lens.  At each shape the forward, B2 and B3
-   are held against their plain versions (the tolerances above) and B3
-   against B2; then B2's time, B3's (the pair by CUDA events, each
-   kernel apart from a torch.profiler window), SDPA's autograd backward
-   as a yardstick, the plain versions' and the bound (10*D operations a visible pair), with
-   the engine ``auto`` picks;
+   ``auto`` rule's former cut: [16..32, 8, 512, 64], [48, 8, 384, 64],
+   [24..32, 4, 512, 128], [64, 4, 256, 128], and past it at
+   [128, 8, 256, 64] and [64, 8, 256, 32]; float32, causal and full, the
+   training feeds' kv_lens.  At each shape the forward, B2 and B3 are
+   held against their plain versions (the tolerances above) and B3
+   against B2; then B2's and B3's device times (each kernel from a
+   torch.profiler window; the faster engine is decided on these) and
+   CUDA-event times, SDPA's autograd backward as a yardstick, the plain
+   versions' and the bound (10*D operations a visible pair), with the
+   engine ``auto`` picks;
 7. serving: the Transformer LM at the documented decode width
    (vocab 32000, 12 layers, 8 heads, d_model 512, d_inner 2048, random
    weights from a seed) through InferenceEngine.generate: 16 concurrent
@@ -66,7 +72,8 @@ caught):
    against the plain backward), then batch 2 x 200 with the pair engine
    on both sides (B3 against its plain version; several tiles and an
    uneven last one); their flash launches are counted apart from the
-   main paths';
+   main paths' (the fused step is B2's main path when ``auto`` does not
+   run B2 at 64 x 256);
 9. training: Transformer-base as the JAX package's headline leg
    (bench.py: batch 64 x 256, vocab 30000, dropout 0.1, Adam with noam
    decay, use_flash=True, float32 with TF32 off) through
@@ -91,6 +98,7 @@ It needs the repository beside it and a CUDA device; without either it
 exits non-zero before printing any result.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -107,6 +115,14 @@ DECODE_CONFIG = dict(num_slots=8, page_size=16, max_seq_len=2048,
                      max_new_tokens=256)
 N_REQUESTS, NEW_TOKENS = 16, 64
 KERNEL_TOL = 2e-5   # kernel vs plain, f32 math on both: summation order only
+# paged prefill cases (start, C), each also split in two calls at C // 2:
+# the slice's chunk shapes, then starts off the 64-key tiles, a ragged C
+# split off a tile boundary and a one-row chunk
+PREFILL_CASES = ((0, 16), (0, 512), (256, 256), (1024, 1024), (0, 2048),
+                 (16, 48), (1008, 40), (0, 100), (37, 1))
+# timed too: a monolithic prefill of 1024 tokens (the kernels line's
+# shape), and the second chunk of a chunked prefill
+PREFILL_TIMED = ((0, 1024), (1024, 512))
 # the training slice's attention shape: [batch, heads, tokens, head_dim]
 FB, FH, FT, FD = 64, 8, 256, 64
 # kernel vs plain (forward, backward): f32 math on both, so summation order
@@ -128,14 +144,15 @@ FLASH_CASES = ((False, FT, FT, True), (True, FT, FT, True),
                (True, 128, FT, False), (False, 200, 200, False),
                (True, 200, 200, False))
 # the engine sweep's [B, H, T, D]: bench.py's four Transformer legs (tokens
-# held at 16,384; the last is the long leg's), then B*H across the auto
-# rule's cut at D 64 (B2 has 264 slots on 132 SMs) and at D 128 (132 slots)
+# held at 16,384; the last is the long leg's), then B*H across B2's slots
+# at D 64 (264 slots on 132 SMs) and at D 128 (132 slots), and past them
+# (fill 3.9 at D 64; D 32, 396 slots)
 SWEEP_SHAPES = ((64, 8, 256, 64), (16, 8, 1024, 64), (8, 8, 2048, 64),
                 (4, 8, 4096, 64),
                 (16, 8, 512, 64), (20, 8, 512, 64), (24, 8, 512, 64),
                 (28, 8, 512, 64), (32, 8, 512, 64), (48, 8, 384, 64),
                 (24, 4, 512, 128), (28, 4, 512, 128), (32, 4, 512, 128),
-                (64, 4, 256, 128))
+                (64, 4, 256, 128), (128, 8, 256, 64), (64, 8, 256, 32))
 FLASH_BWD_KERNELS = {"fused": ("flash_attention_bwd",),
                      "pair": ("flash_attention_bwd_dkv",
                               "flash_attention_bwd_dq")}
@@ -225,6 +242,36 @@ def bound_ms(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+KERNEL_NAMES = ("paged_decode_kernel", "paged_prefill_kernel",
+                "flash_fwd_kernel", "flash_bwd_kernel",
+                "flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
+                "flash_bwd_dq_kernel")
+
+
+def ptxas_report(build_log):
+    """(kernel<template arguments>, registers, spill-store bytes) of each
+    kernel entry in nvcc's -Xptxas -v log."""
+    rows, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((n for n in KERNEL_NAMES if n + "I" in line), None)
+            if kernel:
+                args = line.split(kernel + "I", 1)[1].split("EEv", 1)[0]
+                args = re.sub(r"Li(\d+)E", r"\1 ", args).replace(
+                    "13__nv_bfloat16", "bf16")
+                args = re.sub(r" f$", " f32", args)
+                name = "%s<%s>" % (kernel, args)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return rows
+
+
 def make_pools(torch, dev, gen):
     """One layer's k/v pools ([P, ps, H, Dh], random), f32 and bf16."""
     k = torch.randn((NUM_PAGES, PS, H, DH), generator=gen, device=dev)
@@ -303,11 +350,11 @@ def prefill_phase(torch, fa, dev, flush):
                                        replace=False).astype(np.int32),
                             device=dev)
     scale = 1.0 / DH ** 0.5
-    cases = [(0, 16), (0, 512), (256, 256), (1024, 1024), (0, 2048)]
-    timed_case = (0, 1024)
+    pages_np = pages.cpu().numpy()
+    span = MP * PS
     rows = []
     for dtype, (k, v) in make_pools(torch, dev, gen).items():
-        for start, C in cases + [timed_case]:
+        for start, C in PREFILL_CASES + PREFILL_TIMED:
             q = torch.randn((C, H, DH), generator=gen, device=dev)
             out = fa.paged_prefill_attention(q, k, v, pages, start)
             ref = fa._paged_prefill_reference(q, k, v, pages, start, scale)
@@ -320,9 +367,25 @@ def prefill_phase(torch, fa, dev, flush):
                 fa.paged_prefill_attention(q[half:], k, v, pages,
                                            start + half)])
             check(torch.equal(split, out), "chunk split", start, C)
+            # NaN/Inf in the stale keys past the chunk, up to the end of the
+            # 64-key tile that holds its last key (rest of its last page
+            # included): every output bit unchanged
+            stale = np.arange(start + C, min(span, (start + C) // 64 * 64 + 64))
+            nan_checked = len(stale) > 0
+            if nan_checked:
+                kn, vn = k.clone(), v.clone()
+                where = (torch.as_tensor(pages_np[stale // PS], device=dev).long(),
+                         torch.as_tensor(stale % PS, device=dev))
+                kn[where] = float("nan")
+                vn[where] = float("inf")
+                out_nan = fa.paged_prefill_attention(q, kn, vn, pages, start)
+                check(torch.equal(out_nan, out), "prefill: stale NaN/Inf "
+                      "past start + C changed an output", dtype, start, C)
+                del kn, vn
             row = {"dtype": dtype, "start": start, "C": C,
-                   "max_abs_err": err, "split_bitwise": True}
-            if (start, C) == timed_case:
+                   "max_abs_err": err, "split_bitwise": True,
+                   "stale_nan_inert": nan_checked}
+            if (start, C) in PREFILL_TIMED:
                 itemsize = k.element_size()
                 nbytes = ((start + C) * H * DH * 2 * itemsize
                           + 2 * q.numel() * 4 + MP * 4)
@@ -353,8 +416,9 @@ def prefill_phase(torch, fa, dev, flush):
                      "%.4f ms (%s)" % (r["ms"], r["plain_ms"],
                                        r["library_ms"], r["bound"][0],
                                        r["bound"][1]))
-        log("prefill %-8s start=%d C=%d err=%.3g (tol %g) split bitwise%s"
+        log("prefill %-8s start=%d C=%d err=%.3g (tol %g) split bitwise%s%s"
             % (r["dtype"], r["start"], r["C"], r["max_abs_err"], KERNEL_TOL,
+               ", stale NaN/Inf inert" if r["stale_nan_inert"] else "",
                extra))
     return rows
 
@@ -790,10 +854,13 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
     bwd_b = flash_bounds(lens_np, T, T, causal, 4, H, D)[1]
     dkv_b, dq_b = pair_bounds(lens_np, T, T, causal, 4, H, D)
     b2_ms, b2 = timed(lambda: fa._flash_bwd_cuda(*args), iters, flush)
+    b2_dev, _ = kernel_ms(torch, lambda: fa._flash_bwd_cuda(*args), iters,
+                          flush, ("flash_bwd_kernel",))
     pair_ms, pair = timed(lambda: fa._flash_bwd_pair_cuda(*args), iters,
                           flush)
     apart, seen = kernel_ms(torch, lambda: fa._flash_bwd_pair_cuda(*args),
-                            iters, flush, ("flash_bwd_dkv_kernel",
+                            iters, flush, ("flash_bwd_delta_kernel",
+                                           "flash_bwd_dkv_kernel",
                                            "flash_bwd_dq_kernel"))
     b2_plain_ms, b2_plain = timed(lambda: fa._flash_bwd_reference(*args),
                                   plain_iters, flush, 1)
@@ -818,8 +885,11 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
         "shape": list(shape), "causal": causal,
         "kv_lens_mean": float(lens_np.mean()), "errs": errs,
         "b2_ms": b2_ms, "pair_ms": pair_ms,
+        "b2_dev_ms": b2_dev["flash_bwd_kernel"],
+        "pair_dev_ms": sum(apart.values()),
         "dkv_ms": apart["flash_bwd_dkv_kernel"],
-        "dq_ms": apart["flash_bwd_dq_kernel"], "profiled_launches": seen,
+        "dq_ms": apart["flash_bwd_dq_kernel"],
+        "delta_ms": apart["flash_bwd_delta_kernel"], "profiled_launches": seen,
         "iters": iters,
         "sdpa_bwd_ms": time_ms(lambda: torch.autograd.grad(
             s_out, (qg, kg, vg), do, retain_graph=True), iters, flush),
@@ -828,7 +898,12 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
         "bound": bwd_b, "dkv_bound": dkv_b, "dq_bound": dq_b,
         "auto": fa._pick_bwd_engine(B, H, D, fa._sm_count(0))}
     row["pair_plain_ms"] = row["dkv_plain_ms"] + row["dq_plain_ms"]
-    row["faster"] = "fused" if row["b2_ms"] <= row["pair_ms"] else "pair"
+    # which engine is faster on the device: the kernels' own times from the
+    # profiler (a CUDA-event time of the three-launch pair also takes in
+    # the host's gaps between its launches)
+    row["faster"] = ("fused" if row["b2_dev_ms"] <= row["pair_dev_ms"]
+                     else "pair")
+    row["b2_fill"] = B * H / (fa._b2_blocks_per_sm(D) * fa._sm_count(0))
     return row
 
 
@@ -844,16 +919,19 @@ def engine_sweep(torch, fa, dev, flush):
                                   rng))
             torch.cuda.empty_cache()
     for r in rows:
-        log("sweep %s %-6s f32 kv_lens mean %.1f: B2 %.4f ms | B3 %.4f ms "
-            "(kernels apart: dkv %.4f + dq %.4f, %d + %d of %d profiled) | "
+        log("sweep %s %-6s f32 kv_lens mean %.1f, B*H %.2f of B2's slots: "
+            "device B2 %.4f ms, B3 %.4f ms (delta %.4f + dkv %.4f + dq %.4f, "
+            "%d + %d of %d profiled) | CUDA events B2 %.4f ms, B3 %.4f ms | "
             "sdpa bwd %.4f ms | plain B2 %.4f ms, B3 %.4f ms (dkv %.4f + dq "
             "%.4f) | bound %.4f ms (%s) "
             "| faster %s, auto picks %s | err vs plain: fwd %.3g B2 %.3g "
             "dkv %.3g dq %.3g, B3 vs B2 %.3g (tol %g/%g)"
             % (r["shape"], "causal" if r["causal"] else "full",
-               r["kv_lens_mean"], r["b2_ms"], r["pair_ms"], r["dkv_ms"],
-               r["dq_ms"], r["profiled_launches"]["flash_bwd_dkv_kernel"],
+               r["kv_lens_mean"], r["b2_fill"], r["b2_dev_ms"],
+               r["pair_dev_ms"], r["delta_ms"], r["dkv_ms"], r["dq_ms"],
+               r["profiled_launches"]["flash_bwd_dkv_kernel"],
                r["profiled_launches"]["flash_bwd_dq_kernel"], r["iters"],
+               r["b2_ms"], r["pair_ms"],
                r["sdpa_bwd_ms"], r["b2_plain_ms"],
                r["pair_plain_ms"], r["dkv_plain_ms"], r["dq_plain_ms"],
                r["bound"][0], r["bound"][1], r["faster"], r["auto"],
@@ -944,10 +1022,10 @@ def train_check_phase(torch, fluid, T, fa, dev, cfg, engine):
     saved = fa.FLASH_BWD_IMPL
     fa.FLASH_BWD_IMPL = engine
     try:
-        before = dict(fa.KERNEL_LAUNCHES)
+        fa.reset_launch_counts()
         card = fluid.Executor(fluid.CUDAPlace(0)).run(
             m["main"], feed=feed, fetch_list=fetch, scope=card_scope)
-        launches = {n: fa.KERNEL_LAUNCHES[n] - before[n] for n in before}
+        launches = dict(fa.KERNEL_LAUNCHES)
         cpu = fluid.Executor(fluid.CPUPlace()).run(
             m["main"], feed=feed, fetch_list=fetch, scope=cpu_scope)
     finally:
@@ -1013,6 +1091,7 @@ def profile_step(torch, exe, m, feed, scope):
     if not kernels:
         return "not measured (the profiler recorded no device activity)"
     flash = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_kernel": "flash_bwd",
+             "flash_bwd_delta_kernel": "flash_bwd_delta",
              "flash_bwd_dkv_kernel": "flash_bwd_dkv",
              "flash_bwd_dq_kernel": "flash_bwd_dq"}
     families = dict.fromkeys(list(flash.values()) + ["gemm", "other"], 0.0)
@@ -1128,9 +1207,8 @@ def main():
     info = cuda_kernels.build_info()
     log("build: %.2f s (%s)" % (info["seconds"], "built" if info["built"]
                                 else "reused %s" % info["path"]))
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    for name, regs, spill in ptxas_report(info["log"]):
+        log("  ptxas: %s: %d registers, %d bytes spilled" % (name, regs, spill))
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     dec = decode_phase(torch, fa, dev, flush)
@@ -1142,7 +1220,8 @@ def main():
     srv = serving_phase(torch, T, serving, fa, obs, dev)
     torch.cuda.empty_cache()
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
-    train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG, "fused")
+    fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
+                                    "fused")
     train_check_phase(torch, fluid, T, fa, dev, PAIR_CHECK_CFG, "pair")
     trn = train_phase(torch, fluid, T, fa, dev, TRAIN_CFG, TRAIN_STEPS,
                       "auto", "64 x 256")
@@ -1154,15 +1233,19 @@ def main():
                       long_engine, "4 x 4096")
     check(lng["engine_ran"] == "pair", "the long leg did not run B3", lng)
 
+    # B2's main path: the 64 x 256 leg where auto runs it, else the
+    # full-width card-vs-CPU step that runs it by name
+    b2_path = trn if trn["engine_ran"] == "fused" else fused_check
     d32 = next(r for r in dec if r["dtype"] == "float32")
-    p32 = next(r for r in pre if r["dtype"] == "float32" and "ms" in r)
+    p32 = next(r for r in pre if r["dtype"] == "float32"
+               and (r["start"], r["C"]) == PREFILL_TIMED[0])
     full = next(t for t in flash_times if not t["causal"])
     # the long leg's shape, not causal.  No single PyTorch call computes
     # dk/dv alone or dq alone, so their library_ms is null; the pair as a
     # whole stands beside SDPA's autograd backward (dq, dk and dv)
     longest = next(r for r in sweep
                    if tuple(r["shape"]) == SWEEP_SHAPES[3] and not r["causal"])
-    pair_vs_library = {"pair_ms": longest["pair_ms"],
+    pair_vs_library = {"pair_ms": longest["pair_dev_ms"],
                        "pair_library_ms": longest["sdpa_bwd_ms"],
                        "pair_library": "scaled_dot_product_attention "
                                        "autograd backward (dq, dk, dv)"}
@@ -1182,7 +1265,7 @@ def main():
              "paddle_tpu_torch/csrc/flash_attention.cu",
              [c["fwd_err"] for c in flash_cases if c["dtype"] == "float32"]
              + sweep_errs("fwd")),
-            ("flash_attention_bwd", trn["launches"], full["bwd"],
+            ("flash_attention_bwd", b2_path["launches"], full["bwd"],
              "paddle_tpu/parallel/flash_attention.py:513",
              "paddle_tpu_torch/csrc/flash_attention.cu",
              [c["bwd_err"] for c in flash_cases if c["dtype"] == "float32"]

@@ -26,15 +26,16 @@
 // for such a row s - lse is about +1e30, and a 0/1 mask would turn
 // 0 * inf into NaN.
 //
-// Tiling.  A block has 256 threads seen as 16 x 16 (ty, tx).  Tiles are
-// 64 query rows by 64 keys, staged in shared memory as float32 with a
-// row stride of D + 1 (so the 16 rows one half-warp reads at one column
-// fall in 16 different banks).  In a [64 x 64] score tile a thread owns
-// rows ty + 16a and keys tx + 16c (a, c < 4); in a [64 x D] tile it owns
-// rows ty + 16a and columns tx + 16j (j < D/16).  All math is float32 on
-// CUDA cores; bfloat16 inputs are widened when staged (exactly) and
-// outputs rounded once when stored.  A simple kernel that is right:
-// wgmma, TMA and pipelined loads are later work.
+// Tiling of B1 and B2.  A block has 256 threads seen as 16 x 16 (ty, tx).
+// Tiles are 64 query rows by 64 keys, staged in shared memory as float32
+// with a row stride of D + 1 (so the 16 rows one half-warp reads at one
+// column fall in 16 different banks).  In a [64 x 64] score tile a thread
+// owns rows ty + 16a and keys tx + 16c (a, c < 4); in a [64 x D] tile it
+// owns rows ty + 16a and columns tx + 16j (j < D/16).  All math is
+// float32 on CUDA cores; bfloat16 inputs are widened when staged (exactly)
+// and outputs rounded once when stored.  A simple kernel that is right:
+// wgmma, TMA and pipelined loads are later work.  B3 has its own tiling
+// (vector shared loads, cp.async double buffering; see its section).
 //
 // Bound.  The kernels do 4*D (forward), 10*D (B2) or 8*D + 6*D (B3's two
 // passes) operations per visible (query, key) pair on float32 CUDA cores,
@@ -45,6 +46,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -226,8 +229,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Tile math shared by the two backward engines (B2 and B3), the
-// counterpart of the JAX package's _bwd_tiles.  In a [64 x 64] tile pair a
+// Tile math of the fused backward (B2), the counterpart of the JAX
+// package's _bwd_tiles (row_delta also serves B3's delta pre-pass).  In a
+// [64 x 64] tile pair a
 // thread owns query rows ty + 16a and keys tx + 16c (a, c < 4); in a
 // [64 x D] tile, rows (or keys) ty + 16a and columns tx + 16j (j < D/16).
 // ---------------------------------------------------------------------------
@@ -525,173 +529,489 @@ __global__ void __launch_bounds__(kThreads)
 // B*H (4 x 4096: 32 blocks for 264 block slots) most of the card idles.
 // The pair runs B*H*T/64 blocks in each pass; the price is recomputing
 // s = q k^T and dp = do v^T in both passes: 14*D operations a visible pair
-// (dk/dv pass 8*D, dq pass 6*D) against B2's 10*D.  Both passes are bound
-// by those float32 CUDA-core operations at the training shapes.
+// (dk/dv pass 8*D, dq pass 6*D) against B2's 10*D.
 //
-// delta = rowsum(do * out) is recomputed for each query tile a block
-// stages, as _bwd_tiles does (one warp a row, the same function in both
-// passes), so no pre-pass and no workspace is needed.
+// Besides the FMA units, shared memory bounds such a loop on an H100: an
+// SM moves 128 bytes of it a clock against 128 FMAs, and a 16-byte load
+// of a warp is four such wavefronts (a 4-byte one, one).  So a thread
+// must do about 16 FMAs for every float4 it loads (an 8 x 8 register tile
+// over a reduction) for the two to balance; B2's 4 x 4 tiles of scalar
+// loads do 2.  Measured, the loops still run near half the float32 rate
+// (PERF.md): registers (255 a thread) and shared memory allow 8 warps an
+// SM, which leaves load latency and barriers partly exposed.  The design
+// (all math exact float32 FMAs on CUDA cores; no tensor cores):
+//  - Blocks of 4 warps.  Warps 0-1 compute s = q k^T, warps 2-3
+//    dp = do v^T; all four turn them into p and ds; then warps 0-1 sum
+//    dv += p^T do and warps 2-3 dk += ds^T q (the dq pass: warps 0-1 sum
+//    dq += ds k over the first 32 keys of each tile, warps 2-3 over the
+//    last 32, and the two sums are added once at the end).  Each thread
+//    owns an 8 x 8 tile of its [64 x 64] product (rows r8 + 8i, keys
+//    c8 + 8j) and of its [64 x D] sums (keys or rows 8 r8 + i, columns
+//    32g + 4 c8 + e), fed by 16-byte shared loads: 16 FMAs a load.
+//  - Tiles are staged row-major with rows padded to D + 4 floats (16-byte
+//    aligned; the 8 rows a quarter warp reads fall in 8 different bank
+//    groups); p and ds rows to 72 floats and ds^T rows to 68, so the
+//    scalar stores that fill them are conflict-free.
+//  - cp.async staging of the side each pass streams (q, do, lse and delta
+//    for dk/dv; k and v for dq) and, once, of the resident side.  Rows at
+//    or past kv_lens (or Tq) are zero-filled, never read.  One buffer a
+//    block, so that two blocks (8 warps) share an SM at D 64 and one
+//    block's loads overlap the other's compute: a double-buffered block
+//    fits only one to an SM, and measured slower.  bfloat16 inputs are
+//    widened into the same float32 tiles by ordinary 16-byte loads.
+//  - delta = rowsum(do * out) once per call, by flash_bwd_delta_kernel into
+//    a float32 [B, H, T] scratch the wrapper allocates; both passes read it
+//    as they read lse.
 // ---------------------------------------------------------------------------
 
-// Q, dO, lse and delta of query rows [q0, q0 + 64) into shared memory
-// (zeros for rows at or past Tq).
+constexpr int kB3Threads = 128;  // 4 warps
+constexpr int kP3 = kTile + 8;   // row stride of p and ds ([64][72])
+constexpr int kT3 = kTile + 4;   // row stride of ds^T ([64][68], dq pass)
+// shared memory a block may take for two to share an SM (228 KB, 1 KB
+// reserved a block)
+constexpr size_t kTwoBlockSmem = 228 * 1024 / 2 - 1024;
+
+struct B3Lanes {
+  int half;  // warps 0-1: s, p, dv; warps 2-3: dp, ds, dk
+  int c8;    // lane % 8
+  int r8;    // lane / 8 + 4 (warp % 2): 0..7
+};
+
+__device__ __forceinline__ B3Lanes b3_lanes() {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  return {warp >> 1, lane & 7, (lane >> 3) + 4 * (warp & 1)};
+}
+
+// Rows [row0, row0 + 64) of one (b, h) slice into a float [64][D + 4]
+// tile; rows at or past `valid` are zeros, never read.  float32 goes by
+// cp.async (the caller commits and waits); bfloat16 is widened on the way.
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           long long tstride, int row0,
+                                           int valid) {
+  constexpr int RS = D + 4;
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < kTile * CH; e += kB3Threads) {
+    const int r = e / CH;
+    const int c = e - r * CH;
+    const int row = row0 + r;
+    const bool ok = row < valid;
+    pt_async::copy16(dst + r * RS + 4 * c,
+                     ok ? src + row * tstride + 4 * c : src, ok ? 16 : 0);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const __nv_bfloat16* src,
+                                           long long tstride, int row0,
+                                           int valid) {
+  constexpr int RS = D + 4;
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < kTile * CH; e += kB3Threads) {
+    const int r = e / CH;
+    const int c = e - r * CH;
+    const int row = row0 + r;
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    if (row < valid) {
+      const uint4 u =
+          *reinterpret_cast<const uint4*>(src + row * tstride + 8 * c);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+      const float2 a0 = __bfloat1622float2(h2[0]);
+      const float2 a1 = __bfloat1622float2(h2[1]);
+      const float2 a2 = __bfloat1622float2(h2[2]);
+      const float2 a3 = __bfloat1622float2(h2[3]);
+      lo = make_float4(a0.x, a0.y, a1.x, a1.y);
+      hi = make_float4(a2.x, a2.y, a3.x, a3.y);
+    }
+    *reinterpret_cast<float4*>(dst + r * RS + 8 * c) = lo;
+    *reinterpret_cast<float4*>(dst + r * RS + 8 * c + 4) = hi;
+  }
+}
+
+// q, do, lse and delta of query rows [q0, q0 + 64) (zeros past Tq).
 template <int D, typename T>
-__device__ __forceinline__ void load_query_side(
-    float* Qs, float* dOs, float* lse_s, float* dlt_s, const T* qb,
-    const T* dob, const T* ob, const float* lseb, Strides qs, Strides os,
-    Strides dos, int q0, int Tq) {
-  load_tile<D>(Qs, qb, qs.t, q0, Tq);
-  load_tile<D>(dOs, dob, dos.t, q0, Tq);
+__device__ __forceinline__ void stage_query(float* Qs, float* dOs,
+                                            float* lse_s, float* dlt_s,
+                                            const T* qb, const T* dob,
+                                            const float* lseb,
+                                            const float* dltb, long long qst,
+                                            long long dost, int q0, int Tq) {
+  stage_tile<D>(Qs, qb, qst, q0, Tq);
+  stage_tile<D>(dOs, dob, dost, q0, Tq);
   if (threadIdx.x < kTile) {
     const int row = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = row < Tq ? lseb[row] : 0.f;
+    const bool ok = row < Tq;
+    pt_async::copy4(lse_s + threadIdx.x, ok ? lseb + row : lseb, ok ? 4 : 0);
+    pt_async::copy4(dlt_s + threadIdx.x, ok ? dltb + row : dltb, ok ? 4 : 0);
   }
+}
+
+// x = A B^T for rows r8 + 8i of A and rows c8 + 8j of B (i, j < 8), both
+// [64][D + 4] tiles, summed in d order.
+template <int D>
+__device__ __forceinline__ void b3_product(const float* A, const float* B,
+                                           int r8, int c8, float x[8][8]) {
+  constexpr int RS = D + 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 bv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bv[j] = pt_async::lds4(B + (c8 + 8 * j) * RS + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 av = pt_async::lds4(A + (r8 + 8 * i) * RS + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x[i][j] = pt_async::dot4(av, bv[j], x[i][j]);
+    }
+  }
+}
+
+// acc[i][n] += sum over rows r in [r0, r1), in order, of
+// X[r][8 kc + i] Y[r][32 (n / 4) + 4 jc + n % 4] (X's row stride XS, Y's
+// D + 4): dv += p^T do or dk += ds^T q for 8 keys by D/8 columns, or
+// dq += ds k for 8 query rows by D/8 columns (X = ds^T, Y = k).
+template <int D, int XS>
+__device__ __forceinline__ void b3_accumulate(const float* X, const float* Y,
+                                              int kc, int jc, int r0, int r1,
+                                              float acc[8][D / 8]) {
+  constexpr int RS = D + 4;
+  constexpr int NG = D / 32;
+#pragma unroll 2
+  for (int r = r0; r < r1; ++r) {
+    const float4 x0 = pt_async::lds4(X + r * XS + 8 * kc);
+    const float4 x1 = pt_async::lds4(X + r * XS + 8 * kc + 4);
+    const float xk[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    float y[D / 8];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const float4 t = pt_async::lds4(Y + r * RS + 32 * g + 4 * jc);
+      y[4 * g] = t.x;
+      y[4 * g + 1] = t.y;
+      y[4 * g + 2] = t.z;
+      y[4 * g + 3] = t.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) acc[i][n] = fmaf(xk[i], y[n], acc[i][n]);
+  }
+}
+
+// The thread's 8 x 8 entries of a product into X[r][c] (row-major, row
+// stride STRIDE) or, TRANSPOSED, X[c][r].
+template <int STRIDE, bool TRANSPOSED>
+__device__ __forceinline__ void b3_store8(const float x[8][8], float* X,
+                                          int r8, int c8) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = r8 + 8 * i;
+      const int c = c8 + 8 * j;
+      X[TRANSPOSED ? c * STRIDE + r : r * STRIDE + c] = x[i][j];
+    }
+}
+
+// Whether every pair of the (query tile q0, key tile k0) is visible, so
+// the per-pair mask can be skipped.
+__device__ __forceinline__ bool tile_all_visible(int q0, int k0, int Tq,
+                                                 int kvl, int causal,
+                                                 int shift) {
+  return q0 + kTile <= Tq && k0 + kTile <= kvl &&
+         (!causal || k0 + kTile - 1 <= q0 + shift);
+}
+
+// p = exp(s scale - lse) where the pair is visible, 0 elsewhere (never
+// 0 * inf), and ds = p (dp - delta) scale (0 where p is: dp is finite, as
+// masked k and v rows are zeros).  `all`: every pair of the tile pair is
+// visible, so the mask is skipped.
+__device__ __forceinline__ void b3_p_ds(float s, float dp, float lse_r,
+                                        float dlt_r, bool all, int row,
+                                        int col, int Tq, int kvl, int causal,
+                                        int shift, float scale, float& p,
+                                        float& ds) {
+  p = all || visible(row, col, Tq, kvl, causal, shift)
+          ? expf(s * scale - lse_r)
+          : 0.f;
+  ds = p * (dp - dlt_r) * scale;
+}
+
+// dk/dv pass, all threads: s in Ps becomes p, dp in dSs becomes ds, four
+// consecutive keys of a row at a time.
+__device__ __forceinline__ void b3_p_ds_tile(float* Ps, float* dSs,
+                                             const float* lse_s,
+                                             const float* dlt_s, bool all,
+                                             int q0, int k0, int Tq, int kvl,
+                                             int causal, int shift,
+                                             float scale) {
+  for (int e = threadIdx.x; e < kTile * kTile / 4; e += kB3Threads) {
+    const int r = e >> 4;
+    const int c = (e & 15) * 4;
+    const float4 s4 = pt_async::lds4(Ps + r * kP3 + c);
+    const float4 d4 = pt_async::lds4(dSs + r * kP3 + c);
+    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+    const float lse_r = lse_s[r];
+    const float dlt_r = dlt_s[r];
+    float p[4], ds[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      b3_p_ds(sv[u], dv[u], lse_r, dlt_r, all, q0 + r, k0 + c + u, Tq, kvl,
+              causal, shift, scale, p[u], ds[u]);
+    *reinterpret_cast<float4*>(Ps + r * kP3 + c) =
+        make_float4(p[0], p[1], p[2], p[3]);
+    *reinterpret_cast<float4*>(dSs + r * kP3 + c) =
+        make_float4(ds[0], ds[1], ds[2], ds[3]);
+  }
+}
+
+// dq pass, all threads: with s in Ps and dp in dST (transposed), dST
+// becomes ds^T.  Lane l takes rows l % 4 + 4a and keys l / 4 + 8b, so
+// both the row-major and the transposed accesses are conflict-free.
+__device__ __forceinline__ void b3_dst_tile(const float* Ps, float* dST,
+                                            const float* lse_s,
+                                            const float* dlt_s, bool all,
+                                            int q0, int k0, int Tq, int kvl,
+                                            int causal, int shift,
+                                            float scale) {
   const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < kTile; r += kThreads / 32) {
-    const int row = q0 + r;
-    const float part =
-        row < Tq ? row_delta<D>(dob, dos.t, ob, os.t, row, lane) : 0.f;
-    if (lane == 0) dlt_s[r] = part;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll 4
+  for (int it = 0; it < kTile * kTile / kB3Threads; ++it) {
+    const int r = (lane & 3) + 4 * (it & 15);
+    const int c = (lane >> 2) + 8 * (warp + 4 * (it >> 4));
+    float p, ds;
+    b3_p_ds(Ps[r * kP3 + c], dST[c * kT3 + r], lse_s[r], dlt_s[r], all,
+            q0 + r, k0 + c, Tq, kvl, causal, shift, scale, p, ds);
+    dST[c * kT3 + r] = ds;
   }
+}
+
+// delta = rowsum(do * out) for every (b, h, t): one warp a row, into a
+// contiguous float32 [B, H, T].
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                           float* __restrict__ delta, int H, int Tq, int rows,
+                           Strides os, Strides dos) {
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int bh = row / Tq;
+  const int t = row - bh * Tq;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const float part =
+      row_delta<D>(dout + b * dos.b + h * dos.h, dos.t, o + b * os.b + h * os.h,
+                   os.t, t, threadIdx.x & 31);
+  if ((threadIdx.x & 31) == 0) delta[row] = part;
 }
 
 // dk and dv of one 64-key tile: one block per (b*h, key tile).  It stages
 // its K and V once, then walks the query tiles in order from the first
 // that can see the tile (under causal, row k0 - shift), accumulating
-// dv += P^T dO and dk += dS^T Q in registers, and stores each once.  A key
-// tile at or past kv_lens[b], or seen by no row, stores zeros.
+// dv += p^T do (warps 0-1) and dk += ds^T q (warps 2-3) in registers, and
+// stores each once.  A key tile at or past kv_lens[b], or seen by no row,
+// stores zeros.
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kB3Threads, 2)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ o,
-                         const T* __restrict__ dout,
+                         const T* __restrict__ v, const T* __restrict__ dout,
                          const int* __restrict__ kv_lens,
-                         const float* __restrict__ lse, T* __restrict__ dk,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int Tq, int S, Strides qs,
-                         Strides ks, Strides vs, Strides os, Strides dos,
-                         int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int NJ = D / 16;
+                         Strides ks, Strides vs, Strides dos, int causal,
+                         float scale) {
+  constexpr int RS = D + 4;
+  constexpr int NC = D / 8;  // columns a thread sums
   extern __shared__ float smem[];
-  float* Qs = smem;                  // [64][DP]
-  float* dOs = Qs + kTile * DP;      // [64][DP]
-  float* Ks = dOs + kTile * DP;      // [64][DP]
-  float* Vs = Ks + kTile * DP;       // [64][DP]
-  float* Ps = Vs + kTile * DP;       // [64][kPS]
-  float* dSs = Ps + kTile * kPS;     // [64][kPS]
-  float* lse_s = dSs + kTile * kPS;  // [64]
-  float* dlt_s = lse_s + kTile;      // [64]
+  float* Ks = smem;                      // [64][RS]
+  float* Vs = Ks + kTile * RS;           // [64][RS]
+  float* Ps = Vs + kTile * RS;           // [64][kP3]
+  float* dSs = Ps + kTile * kP3;         // [64][kP3]
+  float* Qs = dSs + kTile * kP3;         // [64][RS]
+  float* dOs = Qs + kTile * RS;          // [64][RS]
+  float* lse_s = dOs + kTile * RS;       // [64]
+  float* dlt_s = lse_s + kTile;          // [64]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int k0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const B3Lanes ln = b3_lanes();
   const int kvl = kv_lens ? min(max(kv_lens[b], 0), S) : S;
   const int shift = S - Tq;
   const T* qb = q + b * qs.b + h * qs.h;
   const T* dob = dout + b * dos.b + h * dos.h;
-  const T* ob = o + b * os.b + h * os.h;
   const float* lseb = lse + static_cast<size_t>(bh) * Tq;
+  const float* dltb = delta + static_cast<size_t>(bh) * Tq;
 
-  float dk_acc[4][NJ], dv_acc[4][NJ];
+  float acc[8][NC];  // dv (warps 0-1) or dk (warps 2-3)
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[a][j] = dv_acc[a][j] = 0.f;
+    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
   if (k0 < kvl) {
-    load_tile<D>(Ks, k + b * ks.b + h * ks.h, ks.t, k0, kvl);
-    load_tile<D>(Vs, v + b * vs.b + h * vs.h, vs.t, k0, kvl);
     const int nq = (Tq + kTile - 1) / kTile;
     const int i0 = causal ? max(0, k0 - shift) / kTile : 0;
+    stage_tile<D>(Ks, k + b * ks.b + h * ks.h, ks.t, k0, kvl);
+    stage_tile<D>(Vs, v + b * vs.b + h * vs.h, vs.t, k0, kvl);
+    stage_query<D>(Qs, dOs, lse_s, dlt_s, qb, dob, lseb, dltb, qs.t, dos.t,
+                   i0 * kTile, Tq);
+    pt_async::commit();
     for (int qt = i0; qt < nq; ++qt) {
       const int q0 = qt * kTile;
-      __syncthreads();  // the previous query tile is consumed
-      load_query_side<D>(Qs, dOs, lse_s, dlt_s, qb, dob, ob, lseb, qs, os,
-                         dos, q0, Tq);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      score_tiles<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-      tile_p_ds(s, dp, lse_s, dlt_s, Ps, dSs, q0, k0, ty, tx, Tq, kvl,
-                causal, shift, scale);
-      __syncthreads();
-      accumulate_dkv<D>(Ps, dSs, dOs, Qs, ty, tx, dk_acc, dv_acc);
+      pt_async::wait_all();
+      __syncthreads();  // query tile qt landed
+      const bool all = tile_all_visible(q0, k0, Tq, kvl, causal, shift);
+      {
+        float x[8][8];  // s (warps 0-1) or dp (warps 2-3)
+        b3_product<D>(ln.half == 0 ? Qs : dOs, ln.half == 0 ? Ks : Vs, ln.r8,
+                      ln.c8, x);
+        b3_store8<kP3, false>(x, ln.half == 0 ? Ps : dSs, ln.r8, ln.c8);
+      }
+      __syncthreads();  // s and dp are in Ps and dSs
+      b3_p_ds_tile(Ps, dSs, lse_s, dlt_s, all, q0, k0, Tq, kvl, causal, shift,
+                   scale);
+      __syncthreads();  // p and ds are in Ps and dSs
+      const int nrows = min(kTile, Tq - q0);
+      if (ln.half == 0)
+        b3_accumulate<D, kP3>(Ps, dOs, ln.r8, ln.c8, 0, nrows, acc);
+      else
+        b3_accumulate<D, kP3>(dSs, Qs, ln.r8, ln.c8, 0, nrows, acc);
+      if (qt + 1 < nq) {
+        __syncthreads();  // query tile qt is consumed
+        stage_query<D>(Qs, dOs, lse_s, dlt_s, qb, dob, lseb, dltb, qs.t,
+                       dos.t, q0 + kTile, Tq);
+        pt_async::commit();
+      }
     }
   }
-  store_dkv<D>(dk, dv, dk_acc, dv_acc, bh, k0, S, ty, tx);
+  T* out = ln.half == 0 ? dv : dk;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int key = k0 + 8 * ln.r8 + i;
+    if (key >= S) continue;
+    T* row = out + (static_cast<size_t>(bh) * S + key) * D + 4 * ln.c8;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) st(row + 32 * (n >> 2) + (n & 3), acc[i][n]);
+  }
 }
 
-// dq of one 64-row query tile: one block per (b*h, query tile).  It stages
-// Q, dO, lse and delta once, then walks the key tiles in order up to the
-// last one its rows can see (kv_lens[b] and the bottom-right causal
-// diagonal), accumulating dq += dS K in float32 registers, and stores it
-// once (a bfloat16 dq is rounded once, with no workspace).
+// dq of one 64-row query tile: one block per (b*h, query tile), the
+// tiles with the longest causal walk launched first.  It stages Q, dO,
+// lse and delta once, then walks the key tiles in order up to the last
+// one its rows can see (kv_lens[b] and the bottom-right causal diagonal),
+// accumulating dq += ds k in float32 registers, and stores it once (a
+// bfloat16 dq is rounded once, with no workspace).
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kB3Threads, 2)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout,
+                        const T* __restrict__ v, const T* __restrict__ dout,
                         const int* __restrict__ kv_lens,
-                        const float* __restrict__ lse, T* __restrict__ dq,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
                         int H, int Tq, int S, Strides qs, Strides ks,
-                        Strides vs, Strides os, Strides dos, int causal,
-                        float scale) {
-  constexpr int DP = D + 1;
-  constexpr int NJ = D / 16;
+                        Strides vs, Strides dos, int causal, float scale) {
+  constexpr int RS = D + 4;
+  constexpr int NC = D / 8;  // columns a thread sums
   extern __shared__ float smem[];
-  float* Qs = smem;                  // [64][DP]
-  float* dOs = Qs + kTile * DP;      // [64][DP]
-  float* Ks = dOs + kTile * DP;      // [64][DP]
-  float* Vs = Ks + kTile * DP;       // [64][DP]
-  float* dSs = Vs + kTile * DP;      // [64][kPS]
-  float* lse_s = dSs + kTile * kPS;  // [64]
+  float* Qs = smem;                  // [64][RS]
+  float* dOs = Qs + kTile * RS;      // [64][RS]
+  float* Ps = dOs + kTile * RS;      // [64][kP3]
+  float* dST = Ps + kTile * kP3;     // [64][kT3]
+  float* lse_s = dST + kTile * kT3;  // [64]
   float* dlt_s = lse_s + kTile;      // [64]
+  float* Ks = dlt_s + kTile;         // [64][RS]
+  float* Vs = Ks + kTile * RS;       // [64][RS]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const B3Lanes ln = b3_lanes();
   const int kvl = kv_lens ? min(max(kv_lens[b], 0), S) : S;
   const int shift = S - Tq;
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
-
-  load_query_side<D>(Qs, dOs, lse_s, dlt_s, q + b * qs.b + h * qs.h,
-                     dout + b * dos.b + h * dos.h, o + b * os.b + h * os.h,
-                     lse + static_cast<size_t>(bh) * Tq, qs, os, dos, q0, Tq);
   // keys [0, kend) hold every key a row of the tile sees
   int kend = kvl;
   if (causal) kend = min(kend, min(q0 + kTile, Tq) + shift);
   const int nk = kend > 0 ? (kend + kTile - 1) / kTile : 0;
 
-  float dq_acc[4][NJ];
+  float acc[8][NC];  // dq of rows 8 r8 + i, over half of each key tile
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dq_acc[a][j] = 0.f;
+    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
+  if (nk > 0) {
+    stage_query<D>(Qs, dOs, lse_s, dlt_s, q + b * qs.b + h * qs.h,
+                   dout + b * dos.b + h * dos.h,
+                   lse + static_cast<size_t>(bh) * Tq,
+                   delta + static_cast<size_t>(bh) * Tq, qs.t, dos.t, q0, Tq);
+    stage_tile<D>(Ks, kb, ks.t, 0, kvl);
+    stage_tile<D>(Vs, vb, vs.t, 0, kvl);
+    pt_async::commit();
+  }
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();  // the previous key tile and dS are consumed
-    load_tile<D>(Ks, kb, ks.t, k0, kvl);
-    load_tile<D>(Vs, vb, vs.t, k0, kvl);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    score_tiles<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-    tile_p_ds(s, dp, lse_s, dlt_s, nullptr, dSs, q0, k0, ty, tx, Tq, kvl,
-              causal, shift, scale);
-    __syncthreads();
-    accumulate_dq<D>(dSs, Ks, ty, tx, dq_acc);
+    pt_async::wait_all();
+    __syncthreads();  // key tile kt landed
+    const bool all = tile_all_visible(q0, k0, Tq, kvl, causal, shift);
+    {
+      float x[8][8];  // s (warps 0-1) or dp (warps 2-3)
+      if (ln.half == 0) {
+        b3_product<D>(Qs, Ks, ln.r8, ln.c8, x);
+        b3_store8<kP3, false>(x, Ps, ln.r8, ln.c8);
+      } else {
+        b3_product<D>(dOs, Vs, ln.r8, ln.c8, x);
+        b3_store8<kT3, true>(x, dST, ln.r8, ln.c8);
+      }
+    }
+    __syncthreads();  // s is in Ps, dp in dST
+    b3_dst_tile(Ps, dST, lse_s, dlt_s, all, q0, k0, Tq, kvl, causal, shift,
+                scale);
+    __syncthreads();  // ds^T is in dST
+    // warps 0-1 sum keys [0, 32) of the tile, warps 2-3 keys [32, 64)
+    const int nkeys = min(kTile, kend - k0);
+    b3_accumulate<D, kT3>(dST, Ks, ln.r8, ln.c8, min(nkeys, 32 * ln.half),
+                          min(nkeys, 32 * ln.half + 32), acc);
+    if (kt + 1 < nk) {
+      __syncthreads();  // key tile kt is consumed
+      stage_tile<D>(Ks, kb, ks.t, k0 + kTile, kvl);
+      stage_tile<D>(Vs, vb, vs.t, k0 + kTile, kvl);
+      pt_async::commit();
+    }
   }
+  // dq = the first half's sums + the second half's, through shared memory
+  float* red = Qs;  // [64][RS], free once the walk is done
+  __syncthreads();
+  if (ln.half == 1) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty + 16 * a;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+        red[(8 * ln.r8 + i) * RS + 32 * (n >> 2) + 4 * ln.c8 + (n & 3)] =
+            acc[i][n];
+  }
+  __syncthreads();
+  if (ln.half == 1) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + 8 * ln.r8 + i;
     if (row >= Tq) continue;
-    T* dst = dq + (static_cast<size_t>(bh) * Tq + row) * D + tx;
+    T* dst = dq + (static_cast<size_t>(bh) * Tq + row) * D + 4 * ln.c8;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) st(dst + 16 * j, dq_acc[a][j]);
+    for (int n = 0; n < NC; ++n) {
+      const int col = 32 * (n >> 2) + (n & 3);
+      st(dst + col, acc[i][n] + red[(8 * ln.r8 + i) * RS + 4 * ln.c8 + col]);
+    }
   }
 }
 
@@ -700,13 +1020,22 @@ constexpr size_t fwd_smem() {
   return (3 * kTile * (D + 1) + kTile * kPS) * sizeof(float);
 }
 template <int D>
-constexpr size_t bwd_smem() {  // B2 and the dk/dv pass
+constexpr size_t bwd_smem() {  // B2
   return (4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile) * sizeof(float);
+}
+// B3: four [64][D + 4] tiles, p and ds (or p and ds^T), lse and delta;
+// at D 64 under kTwoBlockSmem, so two blocks share an SM
+template <int D>
+constexpr size_t dkv_smem() {
+  return (4 * kTile * (D + 4) + 2 * kTile * kP3 + 2 * kTile) * sizeof(float);
 }
 template <int D>
 constexpr size_t dq_smem() {
-  return (4 * kTile * (D + 1) + kTile * kPS + 2 * kTile) * sizeof(float);
+  return (4 * kTile * (D + 4) + kTile * kP3 + kTile * kT3 + 2 * kTile) *
+         sizeof(float);
 }
+static_assert(dkv_smem<64>() <= kTwoBlockSmem && dq_smem<64>() <= kTwoBlockSmem,
+              "two B3 blocks must fit an SM at D 64");
 
 template <int D, typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
@@ -751,26 +1080,35 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The dk/dv kernel, then the dq kernel; stops at the first error.
+// The delta pre-pass, the dk/dv kernel, then the dq kernel; stops at the
+// first error.
 template <int D, typename T>
 cudaError_t launch_bwd_pair(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lens,
-                            const void* lse, void* dq, void* dk, void* dv,
-                            int B, int H, int Tq, int S, Strides qs,
+                            const void* lse, void* delta, void* dq, void* dk,
+                            void* dv, int B, int H, int Tq, int S, Strides qs,
                             Strides ks, Strides vs, Strides os, Strides dos,
                             int causal, float scale, cudaStream_t st) {
-  constexpr size_t dkv_bytes = bwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dkv_bytes));
+  const int rows = B * H * Tq;
+  constexpr int warps = kThreads / 32;
+  flash_bwd_delta_kernel<D, T><<<(rows + warps - 1) / warps, kThreads, 0,
+                                 st>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout),
+      static_cast<float*>(delta), H, Tq, rows, os, dos);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t dkv_bytes = dkv_smem<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dkv_bytes));
   if (err != cudaSuccess) return err;
   const dim3 dkv_grid(B * H, (S + kTile - 1) / kTile);
-  flash_bwd_dkv_kernel<D, T><<<dkv_grid, kThreads, dkv_bytes, st>>>(
+  flash_bwd_dkv_kernel<D, T><<<dkv_grid, kB3Threads, dkv_bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const int*>(lens),
-      static_cast<const float*>(lse), static_cast<T*>(dk),
-      static_cast<T*>(dv), H, Tq, S, qs, ks, vs, os, dos, causal, scale);
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const int*>(lens), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Tq, S, qs, ks, vs, dos, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   constexpr size_t dq_bytes = dq_smem<D>();
@@ -779,12 +1117,12 @@ cudaError_t launch_bwd_pair(const void* q, const void* k, const void* v,
                              static_cast<int>(dq_bytes));
   if (err != cudaSuccess) return err;
   const dim3 dq_grid(B * H, (Tq + kTile - 1) / kTile);
-  flash_bwd_dq_kernel<D, T><<<dq_grid, kThreads, dq_bytes, st>>>(
+  flash_bwd_dq_kernel<D, T><<<dq_grid, kB3Threads, dq_bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const int*>(lens),
-      static_cast<const float*>(lse), static_cast<T*>(dq), H, Tq, S, qs, ks,
-      vs, os, dos, causal, scale);
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const int*>(lens), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), H, Tq, S, qs,
+      ks, vs, dos, causal, scale);
   return cudaGetLastError();
 }
 
@@ -861,26 +1199,29 @@ extern "C" int pt_flash_bwd(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
-// The two-pass backward (B3): dq, dk and dv, each written once (no
-// workspace), from two launches: dk/dv first, then dq.
+// The two-pass backward (B3): dq, dk and dv, each written once, from
+// three launches: delta = rowsum(do * out) into `delta` (float32
+// [B, H, Tq], contiguous scratch), then dk/dv, then dq.  q, k, v and do
+// must be 16-byte aligned, with batch, head and time strides that are
+// multiples of 16 bytes (the wrapper copies any that are not).
 extern "C" int pt_flash_bwd_pair(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* kv_lens, const void* lse, void* dq,
-    void* dk, void* dv, int B, int H, int Tq, int S, int D, long long qsb,
-    long long qsh, long long qst, long long ksb, long long ksh,
-    long long kst, long long vsb, long long vsh, long long vst,
-    long long osb, long long osh, long long ost, long long dosb,
-    long long dosh, long long dost, int causal, float scale, int bf16,
-    int device, void* stream) {
+    const void* dout, const void* kv_lens, const void* lse, void* delta,
+    void* dq, void* dk, void* dv, int B, int H, int Tq, int S, int D,
+    long long qsb, long long qsh, long long qst, long long ksb,
+    long long ksh, long long kst, long long vsb, long long vsh,
+    long long vst, long long osb, long long osh, long long ost,
+    long long dosb, long long dosh, long long dost, int causal,
+    float scale, int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qst}, ks{ksb, ksh, kst}, vs{vsb, vsh, vst},
       os{osb, osh, ost}, dos{dosb, dosh, dost};
 #define PT_PAIR(DIM, TYPE)                                                  \
-  err = launch_bwd_pair<DIM, TYPE>(q, k, v, o, dout, kv_lens, lse, dq, dk, \
-                                   dv, B, H, Tq, S, qs, ks, vs, os, dos,    \
-                                   causal, scale, st)
+  err = launch_bwd_pair<DIM, TYPE>(q, k, v, o, dout, kv_lens, lse, delta, \
+                                   dq, dk, dv, B, H, Tq, S, qs, ks, vs, os, \
+                                   dos, causal, scale, st)
   if (bf16) {
     if (D == 32) PT_PAIR(32, __nv_bfloat16);
     else if (D == 64) PT_PAIR(64, __nv_bfloat16);

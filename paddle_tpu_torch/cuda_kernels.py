@@ -24,6 +24,8 @@ __all__ = ["load_library", "build_info", "nvcc_path"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (os.path.join(_HERE, "csrc", "paged_attention.cu"),
            os.path.join(_HERE, "csrc", "flash_attention.cu"))
+# included by the sources; part of the build's hash
+HEADERS = (os.path.join(_HERE, "csrc", "async_copy.cuh"),)
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -44,7 +46,7 @@ _SIGNATURES = (
     ("pt_flash_bwd",
      [_P] * 12 + [_I] * 5 + [_L] * 15 + [_I, _F, _I, _I, _P]),
     ("pt_flash_bwd_pair",
-     [_P] * 10 + [_I] * 5 + [_L] * 15 + [_I, _F, _I, _I, _P]),
+     [_P] * 11 + [_I] * 5 + [_L] * 15 + [_I, _F, _I, _I, _P]),
 )
 
 _lock = threading.Lock()
@@ -66,7 +68,7 @@ def nvcc_path():
 
 def _digest():
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]

@@ -61,11 +61,12 @@ KERNEL_LAUNCHES = {"flash_attention_fwd": 0,
 
 # Backward engine switch, the counterpart of the JAX package's
 # FLASH_BWD_IMPL: "fused" is B2 (one block per b*h walks all its tile
-# pairs), "pair" is B3 (a dk/dv pass over key tiles and a dq pass over
-# query tiles), "auto" picks one on the card by _pick_bwd_engine.  On a CPU
-# tensor "pair" runs the pair's plain version and "fused"/"auto" the plain
-# backward _flash_bwd_reference.  Read once from PADDLE_TPU_TORCH_FLASH_BWD
-# at import; set the attribute to change it in a running process.
+# pairs), "pair" is B3 (a delta pre-pass, a dk/dv pass over key tiles and
+# a dq pass over query tiles), "auto" picks one on the card by
+# _pick_bwd_engine.  On a CPU tensor "pair" runs the pair's plain version
+# and "fused"/"auto" the plain backward _flash_bwd_reference.  Read once
+# from PADDLE_TPU_TORCH_FLASH_BWD at import; set the attribute to change
+# it in a running process.
 _BWD_ENGINES = ("auto", "fused", "pair")
 FLASH_BWD_IMPL = os.environ.get("PADDLE_TPU_TORCH_FLASH_BWD",
                                 "auto").strip().lower()
@@ -87,7 +88,8 @@ def _b2_blocks_per_sm(D):
     [64, D + 1] and two [64, 65] float tiles and two 64-float rows):
     3 at D = 32, 2 at D = 64, 1 at D = 128.  Registers are not counted:
     two blocks of 256 threads fit at up to 128 a thread, three only at up
-    to 85, and no D = 32 shape has been measured."""
+    to 85.  chip_smoke.py's engine sweep states each shape's B*H as a
+    share of B2's slots (this times the SM count)."""
     smem = (4 * 64 * (D + 1) + 2 * 64 * 65 + 2 * 64) * 4
     return _SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_SMEM)
 
@@ -97,27 +99,21 @@ def _pick_bwd_engine(B, H, D, sm_count):
     the shapes and the card's SM count (no timing at run time, so two
     runs pick the same engine and stay bitwise repeatable).
 
-    B2 runs B*H blocks, each walking every tile pair of its head; B3 runs
-    B*H*ceil(S/64) + B*H*ceil(T/64) blocks but does 14*D operations a
-    visible pair against B2's 10*D.  Below one full wave B2's time stays
-    that of one block's walk while B3's grows with B*H, so B3's time over
-    B2's grows with the share of the card's B2 slots (blocks a SM x SMs)
-    that B*H fills.  B2 is picked once B*H fills 7/8 of them.
-
     Set from chip_smoke.py's engine sweep (PERF.md §6 has every row), on
     an NVIDIA H100 80GB HBM3 at 700 W with 132 SMs, float32, kv_lens as
-    the training feeds draw them; B3 ms / B2 ms, not causal [causal], by
-    the share of B2's slots that B*H fills.  D 64 (264 slots): 0.12 0.17
-    [0.21], 0.24 0.33 [0.36], 0.48 0.66-0.98 [0.87-0.96], 0.61 0.67
-    [0.85], 0.73 0.78 [1.55], 0.85 0.96 [1.11], 0.97 1.10 [1.26], 1.45
-    1.44 [1.15], 1.94 1.35 [1.18].  D 128 (132 slots): 0.73 0.83 [0.91],
-    0.85 0.80 [1.09], 0.97 0.97 [1.15], 1.94 1.23 [1.40].  Full attention
-    crosses between 0.85 and 0.97 of the slots, causal from about 0.7; a
-    Transformer step runs two full calls to every causal one.  Near the
-    cut two runs differ by up to 10% (the CUDA-event times take in the
-    host's launch gaps), so either engine is within that there."""
-    slots = _b2_blocks_per_sm(D) * sm_count
-    return "fused" if 8 * B * H >= 7 * slots else "pair"
+    the training feeds draw them, comparing the kernels' device times.
+    B3 does 14*D operations a visible pair against B2's 10*D, but its
+    blocks run 8 x 8 register tiles fed by 16-byte shared loads where
+    B2's run 4 x 4 tiles of scalar loads, and its grid fills the card at
+    any B*H.  Since that redesign B3 is faster at every shape the sweep
+    measures, B3 / B2 not causal [causal]: bench.py's four Transformer
+    shapes 0.85 [0.87] at [64, 8, 256, 64], 0.43 [0.46], 0.22 [0.22] and
+    0.11 [0.11] at [4, 8, 4096, 64]; B*H from 0.12 to 3.88 times B2's
+    slots at D 64 (0.88 [0.90] at 3.88, the closest), 0.73 to 1.94 at
+    D 128, and [64, 8, 256, 32] 0.85 [0.92].  So auto runs the pair
+    everywhere; B2 stays the ``fused`` engine, by name."""
+    del B, H, D, sm_count  # the same engine at every measured shape
+    return "pair"
 
 
 @functools.lru_cache(maxsize=None)
@@ -330,6 +326,21 @@ def _strides(t):
     return t, list(t.stride()[:3])
 
 
+def _aligned16(t):
+    """(t, its (batch, head, time) strides) for a kernel that stages rows
+    with 16-byte copies (cp.async, or 16-byte loads of bfloat16): the
+    base pointer and every stride but the last (contiguous) one must be
+    multiples of 16 bytes.  The Program's transposed views and fresh
+    tensors are; any other tensor is copied to a fresh contiguous one
+    first (a layout copy, computing the same function)."""
+    t, st = _strides(t)
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(s * size % 16 for s in t.stride()[:-1]):
+        t = t.clone(memory_format=torch.contiguous_format)
+        st = list(t.stride()[:3])
+    return t, st
+
+
 def _check_flash_inputs(q, k, v, kv_lens, name):
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             q.dtype == k.dtype == v.dtype):
@@ -438,7 +449,8 @@ def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
 
 
 def _flash_bwd_pair_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
-    """(dq, dk, dv) from B3's two kernels, the dk/dv kernel first."""
+    """(dq, dk, dv) from B3: a delta pre-pass, then its two kernels, the
+    dk/dv kernel first."""
     from ..cuda_kernels import load_library
 
     name = "flash_attention_bwd_pair"
@@ -448,18 +460,21 @@ def _flash_bwd_pair_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
     dq = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, H, S, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, H, S, D), dtype=v.dtype, device=q.device)
-    if B * H == 0:
-        return dq, dk, dv
-    q, qs = _strides(q)
-    k, ks = _strides(k)
-    v, vs = _strides(v)
+    if B * H * T * S == 0:  # no visible pair: every gradient is zero
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # delta = rowsum(do * out), written by the kernels' pre-pass
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    q, qs = _aligned16(q)
+    k, ks = _aligned16(k)
+    v, vs = _aligned16(v)
+    do, dos = _aligned16(do)
     out, os_ = _strides(out)
-    do, dos = _strides(do)
     err = load_library().pt_flash_bwd_pair(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), None if kv_lens is None else kv_lens.data_ptr(),
-        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
-        T, S, D, *qs, *ks, *vs, *os_, *dos, int(causal), float(sm_scale),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, H, T, S, D, *qs, *ks, *vs, *os_, *dos,
+        int(causal), float(sm_scale),
         int(q.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
@@ -661,6 +676,8 @@ def _paged_prefill_cuda(q, k_pool, v_pool, pages, start, sm_scale):
     out = torch.empty_like(q)
     if C == 0:
         return out
+    # the kernel stages q and the pools' rows with 16-byte copies
+    q, k_pool, v_pool = (_aligned16(t)[0] for t in (q, k_pool, v_pool))
     lib = load_library()
     dev = q.device.index if q.device.index is not None else \
         torch.cuda.current_device()

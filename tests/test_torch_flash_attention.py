@@ -520,29 +520,54 @@ class TestBackwardEngineSwitch:
             np.testing.assert_allclose(g.numpy(), w.numpy(),
                                        atol=FLASH_BWD_TOL, rtol=0)
 
-    @pytest.mark.parametrize("B,H,D,engine", [(64, 8, 64, "fused"),
+    @pytest.mark.parametrize("B,H,D,engine", [(64, 8, 64, "pair"),
                                               (16, 8, 64, "pair"),
                                               (8, 8, 64, "pair"),
                                               (4, 8, 64, "pair"),
                                               (20, 8, 64, "pair"),
                                               (24, 8, 64, "pair"),
                                               (28, 8, 64, "pair"),
-                                              (32, 8, 64, "fused"),
-                                              (48, 8, 64, "fused"),
+                                              (32, 8, 64, "pair"),
+                                              (48, 8, 64, "pair"),
                                               (24, 4, 128, "pair"),
                                               (28, 4, 128, "pair"),
-                                              (32, 4, 128, "fused"),
-                                              (64, 4, 128, "fused")])
+                                              (32, 4, 128, "pair"),
+                                              (64, 4, 128, "pair"),
+                                              (128, 8, 64, "pair"),
+                                              (64, 8, 32, "pair")])
     def test_auto_rule_at_the_sweep_shapes(self, B, H, D, engine):
         """The engines the rule picks at PERF.md's sweep shapes on a
         132-SM H100: bench.py's four Transformer shapes (B x T = 16,384
-        tokens, H 8, D 64) and B*H across the cut at D 64 and D 128."""
+        tokens, H 8, D 64), B*H across and past B2's slots at D 64 and
+        D 128, and D 32 — the pair at each since B3's redesign."""
         assert tfa._pick_bwd_engine(B, H, D, 132) == engine
 
     @pytest.mark.parametrize("D,blocks", [(32, 3), (64, 2), (128, 1)])
     def test_b2_blocks_per_sm_from_shared_memory(self, D, blocks):
         """bwd_smem<64> is 100,352 bytes: two to a 228 KB SM."""
         assert tfa._b2_blocks_per_sm(D) == blocks
+
+    def test_alignment_copies_only_misaligned_tensors(self):
+        """B3 and B5 stage rows with 16-byte copies: a view whose base or
+        strides are not 16-byte multiples is copied to a fresh tensor; an
+        aligned transposed view (as the Program feeds q/k/v) and an
+        aligned contiguous tensor are passed as they are."""
+        view = torch.zeros((2, 40, 3, 32)).transpose(1, 2)
+        got, st = tfa._aligned16(view)
+        assert got is view and st == list(view.stride()[:3])
+        flat = torch.zeros(2 * 40 * 3 * 32 + 1)
+        off = flat[1:].view(2, 40, 3, 32).transpose(1, 2)  # base + 4 bytes
+        got, st = tfa._aligned16(off)
+        assert got.data_ptr() != off.data_ptr() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, off) and st == list(got.stride()[:3])
+        odd = torch.zeros((2, 3, 40, 33))[..., :32]  # time stride 132 bytes
+        got, st = tfa._aligned16(odd)
+        assert got.is_contiguous() and torch.equal(got, odd)
+        assert st == [3 * 40 * 32, 40 * 32, 32]
+        q = torch.zeros((5, 3, 32))  # a paged prefill chunk's queries
+        assert tfa._aligned16(q)[0] is q
+        pool = torch.zeros(4 * 16 * 3 * 32 + 2)[2:].view(4, 16, 3, 32)
+        assert tfa._aligned16(pool)[0].data_ptr() % 16 == 0
 
     def test_pair_wrapper_rejects_bad_inputs_before_launch(self):
         q, k, v, do = (torch.from_numpy(x) for x in _flash_case(4, 8, 8, D=32))

@@ -30,8 +30,10 @@ caught):
    and not causal, causal T < S and an uneven tail (T = 200); rows with
    kv_lens 0 give zero out and zero, finite gradients; NaN/Inf written
    past kv_lens leaves every output bitwise unchanged; two backward calls
-   give the same bits; then each kernel's time beside its plain
-   version's, its bound and a scaled_dot_product_attention yardstick
+   give the same bits, and so do two forward calls and a forward over
+   one sequence alone (batched == unbatched); then each kernel's time
+   beside its plain version's, its bound and a scaled_dot_product_attention
+   yardstick
    (its autograd backward for B2);
 5. the two-pass flash backward (B3: a delta pre-pass, the dk/dv kernel
    and the dq kernel) on the same cases, f32 and bf16: against its plain
@@ -52,7 +54,9 @@ caught):
    torch.profiler window; the faster engine is decided on these) and
    CUDA-event times, SDPA's autograd backward as a yardstick, the plain
    versions' and the bound (10*D operations a visible pair), with the
-   engine ``auto`` picks;
+   engine ``auto`` picks; beside them the forward B1's device time (from
+   a profiler window), SDPA's forward, B1's plain version and its bound
+   (4*D operations a visible pair);
 7. serving: the Transformer LM at the documented decode width
    (vocab 32000, 12 layers, 8 heads, d_model 512, d_inner 2048, random
    weights from a seed) through InferenceEngine.generate: 16 concurrent
@@ -91,7 +95,8 @@ caught):
 11. a ``kernels`` JSON line (all six kernels: times at the shape of
    their main path, launches from it; B3's two kernels have no library
    call of their own, so their entries also carry the pair's time beside
-   SDPA's whole backward), the card line, and the final
+   SDPA's whole backward; B1's also carries its figures at the long leg's
+   shape and its launches there), the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It needs the repository beside it and a CUDA device; without either it
@@ -679,6 +684,15 @@ def flash_case(torch, fa, dev, gen, rng, dtype, causal, T, S, nan_check):
     again = fa._flash_bwd_cuda(q, k, v, lens, out, lse, do, causal, scale)
     check(all(torch.equal(a, b) for a, b in zip(grads, again)),
           "flash backward not bitwise repeatable", what)
+    # the forward: two calls, and one sequence alone, give the same bits
+    out2, lse2 = fa._flash_fwd_cuda(q, k, v, lens, causal, scale)
+    one = slice(3, 4)  # kv_lens 17: a partial first key tile
+    out1, lse1 = fa._flash_fwd_cuda(q[one], k[one], v[one], lens[one],
+                                    causal, scale)
+    check(torch.equal(out2, out) and torch.equal(lse2, lse)
+          and torch.equal(out1, out[one]) and torch.equal(lse1, lse[one]),
+          "flash forward not bitwise repeatable or batched != unbatched",
+          what)
     if nan_check:
         kn, vn = k.clone(), v.clone()
         for b, n in enumerate(lens_np):
@@ -832,8 +846,9 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
     """B2 against B3 (the pair, and each of its kernels from a profiler
     window), the plain versions, the bound and SDPA's backward at one
     sweep shape [B, H, T, D], float32, with the training feeds' kv_lens;
-    the forward, B2 and B3 are held against their plain versions on these
-    inputs."""
+    beside them the forward (B1: its device time from a profiler window,
+    its plain version's, SDPA's forward and the 4*D bound).  The forward,
+    B2 and B3 are held against their plain versions on these inputs."""
     import torch.nn.functional as F
 
     B, H, T, D = shape
@@ -851,8 +866,10 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
     with torch.enable_grad():
         s_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
-    bwd_b = flash_bounds(lens_np, T, T, causal, 4, H, D)[1]
+    fwd_b, bwd_b = flash_bounds(lens_np, T, T, causal, 4, H, D)
     dkv_b, dq_b = pair_bounds(lens_np, T, T, causal, 4, H, D)
+    fwd_dev, _ = kernel_ms(torch, lambda: fa._flash_fwd_cuda(
+        q, k, v, lens, causal, scale), iters, flush, ("flash_fwd_kernel",))
     b2_ms, b2 = timed(lambda: fa._flash_bwd_cuda(*args), iters, flush)
     b2_dev, _ = kernel_ms(torch, lambda: fa._flash_bwd_cuda(*args), iters,
                           flush, ("flash_bwd_kernel",))
@@ -868,7 +885,9 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
                                     plain_iters, flush, 1)
     dq_plain_ms, dq_plain = timed(lambda: fa._pair_dq_reference(*args),
                                   plain_iters, flush, 1)
-    r_out, r_lse = fa._flash_fwd_reference(q, k, v, lens, causal, scale)
+    fwd_plain_ms, (r_out, r_lse) = timed(
+        lambda: fa._flash_fwd_reference(q, k, v, lens, causal, scale),
+        plain_iters, flush, 1)
     torch.cuda.synchronize()
     err = lambda a, r: flash_err(a, r, "float32")  # noqa: E731
     errs = {"fwd": max(err(out, r_out), err(lse, r_lse)),
@@ -891,6 +910,10 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
         "dq_ms": apart["flash_bwd_dq_kernel"],
         "delta_ms": apart["flash_bwd_delta_kernel"], "profiled_launches": seen,
         "iters": iters,
+        "fwd_dev_ms": fwd_dev["flash_fwd_kernel"],
+        "fwd_plain_ms": fwd_plain_ms, "fwd_bound": fwd_b,
+        "sdpa_fwd_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters, flush),
         "sdpa_bwd_ms": time_ms(lambda: torch.autograd.grad(
             s_out, (qg, kg, vg), do, retain_graph=True), iters, flush),
         "b2_plain_ms": b2_plain_ms, "dkv_plain_ms": dkv_plain_ms,
@@ -924,8 +947,9 @@ def engine_sweep(torch, fa, dev, flush):
             "%d + %d of %d profiled) | CUDA events B2 %.4f ms, B3 %.4f ms | "
             "sdpa bwd %.4f ms | plain B2 %.4f ms, B3 %.4f ms (dkv %.4f + dq "
             "%.4f) | bound %.4f ms (%s) "
-            "| faster %s, auto picks %s | err vs plain: fwd %.3g B2 %.3g "
-            "dkv %.3g dq %.3g, B3 vs B2 %.3g (tol %g/%g)"
+            "| faster %s, auto picks %s | B1 fwd device %.4f ms, sdpa fwd "
+            "%.4f ms, plain %.4f ms, bound %.4f ms (%s) | err vs plain: fwd "
+            "%.3g B2 %.3g dkv %.3g dq %.3g, B3 vs B2 %.3g (tol %g/%g)"
             % (r["shape"], "causal" if r["causal"] else "full",
                r["kv_lens_mean"], r["b2_fill"], r["b2_dev_ms"],
                r["pair_dev_ms"], r["delta_ms"], r["dkv_ms"], r["dq_ms"],
@@ -935,7 +959,8 @@ def engine_sweep(torch, fa, dev, flush):
                r["sdpa_bwd_ms"], r["b2_plain_ms"],
                r["pair_plain_ms"], r["dkv_plain_ms"], r["dq_plain_ms"],
                r["bound"][0], r["bound"][1], r["faster"], r["auto"],
-               r["errs"]["fwd"], r["errs"]["b2"], r["errs"]["dkv"],
+               r["fwd_dev_ms"], r["sdpa_fwd_ms"], r["fwd_plain_ms"],
+               r["fwd_bound"][0], r["fwd_bound"][1], r["errs"]["fwd"], r["errs"]["b2"], r["errs"]["dkv"],
                r["errs"]["dq"], r["errs"]["pair_vs_b2"],
                *FLASH_TOL["float32"]))
     return rows
@@ -1256,6 +1281,14 @@ def main():
         "flash_attention_bwd_dq": {
             "ms": longest["dq_ms"], "plain_ms": longest["dq_plain_ms"],
             "bound": longest["dq_bound"], "library_ms": None}}
+    # B1 at the long leg's shape, not causal (device time from the sweep's
+    # profiler window), and its launches on the long leg
+    fwd_long = {"long_shape": list(SWEEP_SHAPES[3]),
+                "long_ms": longest["fwd_dev_ms"],
+                "long_plain_ms": longest["fwd_plain_ms"],
+                "long_bound_ms": longest["fwd_bound"][0],
+                "long_library_ms": longest["sdpa_fwd_ms"],
+                "long_launches": lng["launches"]["flash_attention_fwd"]}
     f32_pairs = [c for c in pair_cases if c["dtype"] == "float32"]
     sweep_errs = lambda key: [r["errs"][key] for r in sweep]  # noqa: E731
     kernels = []
@@ -1296,6 +1329,8 @@ def main():
             "bound_by": row["bound"][1], "library_ms": row["library_ms"]})
         if name in pair_rows:
             kernels[-1].update(pair_vs_library)
+        if name == "flash_attention_fwd":
+            kernels[-1].update(fwd_long)
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its main path", kernels)
     log("total: %.1f s" % (time.perf_counter() - t_start))

@@ -26,7 +26,7 @@
 // for such a row s - lse is about +1e30, and a 0/1 mask would turn
 // 0 * inf into NaN.
 //
-// Tiling of B1 and B2.  A block has 256 threads seen as 16 x 16 (ty, tx).
+// Tiling of B2.  A block has 256 threads seen as 16 x 16 (ty, tx).
 // Tiles are 64 query rows by 64 keys, staged in shared memory as float32
 // with a row stride of D + 1 (so the 16 rows one half-warp reads at one
 // column fall in 16 different banks).  In a [64 x 64] score tile a thread
@@ -34,8 +34,9 @@
 // owns rows ty + 16a and columns tx + 16j (j < D/16).  All math is
 // float32 on CUDA cores; bfloat16 inputs are widened when staged (exactly)
 // and outputs rounded once when stored.  A simple kernel that is right:
-// wgmma, TMA and pipelined loads are later work.  B3 has its own tiling
-// (vector shared loads, cp.async double buffering; see its section).
+// wgmma, TMA and pipelined loads are later work.  B3 and B1 have their own
+// tiling (8 x 8 register tiles fed by 16-byte shared loads, cp.async
+// staging; see their sections).
 //
 // Bound.  The kernels do 4*D (forward), 10*D (B2) or 8*D + 6*D (B3's two
 // passes) operations per visible (query, key) pair on float32 CUDA cores,
@@ -66,26 +67,13 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Max / sum over the 16 threads of a half-warp that share a ty (they
-// differ in the low four bits of threadIdx.x).
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
 struct Strides {
   long long b, h, t;  // in elements; the last dimension is contiguous
 };
 
 // Rows [row0, row0 + 64) of one (b, h) slice into shared memory as
-// float [64][D + 1].  Rows at or past `valid` become zeros and are never
-// read from device memory.
+// float [64][D + 1] (B2's tiles).  Rows at or past `valid` become zeros
+// and are never read from device memory.
 template <int D, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long tstride, int row0,
@@ -102,130 +90,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 __device__ __forceinline__ bool visible(int row, int col, int Tq, int kvl,
                                         int causal, int shift) {
   return row < Tq && col < kvl && (!causal || col <= row + shift);
-}
-
-// Replaces paddle_tpu/parallel/flash_attention.py:_fwd_kernel (launcher
-// _flash_fwd).  One block per (b*h, tile of 64 query rows).  The TPU
-// kernel walks key blocks as the sequential last grid dimension, carrying
-// (m, l, acc) in VMEM scratch; here the block walks the key tiles in a
-// loop, carrying them in registers, and stops at the last tile that any
-// of its rows can see (past kv_lens, or above the causal diagonal).
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ kv_lens,
-                     T* __restrict__ out, float* __restrict__ lse, int H,
-                     int Tq, int S, Strides qs, Strides ks, Strides vs,
-                     int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;               // [64][DP]
-  float* Ks = Qs + kTile * DP;    // [64][DP]
-  float* Vs = Ks + kTile * DP;    // [64][DP]
-  float* Ps = Vs + kTile * DP;    // [64][kPS]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int kvl = kv_lens ? min(max(kv_lens[b], 0), S) : S;
-  const int shift = S - Tq;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-
-  load_tile<D>(Qs, qb, qs.t, q0, Tq);
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
-  }
-  int kend = kvl;  // keys [0, kend) hold every key a row of the tile sees
-  if (causal) kend = min(kend, q0 + kTile + shift);
-  const int nk = kend > 0 ? (kend + kTile - 1) / kTile : 0;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<D>(Ks, kb, ks.t, k0, kvl);
-    load_tile<D>(Vs, vb, vs.t, k0, kvl);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kc[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = Qs[(ty + 16 * a) * DP + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kc[c] = Ks[(tx + 16 * c) * DP + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-    }
-    // online softmax over this tile, row by row
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
-      const int row = q0 + r;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ok[c] = visible(row, k0 + tx + 16 * c, Tq, kvl, causal, shift);
-        s[a][c] = ok[c] ? s[a][c] * scale : kNegInf;
-        mx = fmaxf(mx, s[a][c]);
-      }
-      const float m_new = fmaxf(m[a], half_max(mx));
-      const float alpha = expf(m[a] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = ok[c] ? expf(s[a][c] - m_new) : 0.f;
-        Ps[r * kPS + tx + 16 * c] = p;
-        psum += p;
-      }
-      l[a] = l[a] * alpha + half_sum(psum);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[a][j] *= alpha;
-      m[a] = m_new;
-    }
-    __syncthreads();
-    // acc += P V
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float pa[4], vv[NJ];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = Ps[(ty + 16 * a) * kPS + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[a][j] = fmaf(pa[a], vv[j], acc[a][j]);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty + 16 * a;
-    if (row >= Tq) continue;
-    const float denom = fmaxf(l[a], 1e-30f);
-    T* o = out + (static_cast<size_t>(bh) * Tq + row) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) st(o + tx + 16 * j, acc[a][j] / denom);
-    if (tx == 0) lse[static_cast<size_t>(bh) * Tq + row] = m[a] + logf(denom);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1015,10 +879,217 @@ __global__ void __launch_bounds__(kB3Threads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The flash forward (B1).  Replaces paddle_tpu/parallel/flash_attention.py:
+// _fwd_kernel (launcher _flash_fwd): out = softmax(q k^T scale) v and the
+// row log-sum-exp, by an online softmax over 64-key tiles.  The TPU kernel
+// walks key blocks as the sequential last grid dimension, carrying
+// (m, l, acc) in VMEM scratch; here one block per (b*h, tile of 128 query
+// rows) walks the key tiles in a loop, carrying them in registers, and
+// stops at the last tile any of its rows can see (kv_lens[b], and the
+// bottom-right causal diagonal).  Blocks with the longest causal walk are
+// launched first, so the heaviest tiles do not set the tail.
+//
+// What bounds it: 4*D float32 operations a visible (query, key) pair
+// (s = q k^T and acc += p v) against q, k, v read once and out, lse
+// written once, so the operations, on CUDA cores (exact float32 FMAs; no
+// TF32).  As in B3, shared memory is the limit a loop hits first: a
+// warp's 16-byte load is four wavefronts against 128 FMAs a clock, so a
+// thread needs about 16 FMAs for each float4 it loads.  The design, built
+// from B3's pieces:
+//  - Blocks of 4 warps; warps 0-1 own query rows [0, 64) of the block,
+//    warps 2-3 rows [64, 128).  s = q k^T is b3_product: each thread an
+//    8 x 8 tile of its pair's [64 x 64] scores (rows r8 + 8i, keys c8 + 8j),
+//    16 FMAs a float4.  The 8 lanes that share r8 hold a row's 64 scores,
+//    so its max and sum are three shuffles; every lane keeps (m, l) of its
+//    8 rows.  p goes to shared memory transposed (b3_store8, conflict-free)
+//    and acc += p v is b3_accumulate: each thread rows 8 r8 + i by D/8
+//    columns, D FMAs for 2 + D/32 float4 loads (16 a load at D 64).  The
+//    rescale alpha = exp(m_old - m_new) of each row crosses from the score
+//    layout to the accumulator layout through a 128-float shared array.
+//  - Tiles are staged by cp.async, 16 bytes a copy, into rows padded to
+//    D + 4 floats (stage_tile; rows at or past kv_lens or Tq are zero
+//    filled, never read; bfloat16 is widened on the way by 16-byte loads).
+//    One buffer each for K and V, and each is reloaded while the other is
+//    in use: V of tile kt is in flight while s, the mask and p of tile kt
+//    are computed, K of tile kt + 1 while acc += p v runs.  Two barriers a
+//    key tile.  About 102 KB of shared memory at D 64, so two blocks share
+//    an SM (8 warps), and one block's barriers overlap the other's math.
+//  - The mask is skipped on tile pairs that are wholly visible
+//    (tile_all_visible, per 64-row half).
+// Each row's result depends only on its own (b, h, row) inputs, summed
+// over keys in a fixed order (key tiles in order, keys in order within a
+// tile), so batched and unbatched calls give the same bits.  A key tile
+// past a row's visibility leaves it exactly as it was (alpha = 1, p = 0),
+// so a row's walk does not depend on the rows beside it.
+// ---------------------------------------------------------------------------
+
+constexpr int kF1Rows = 2 * kTile;      // query rows of a B1 block
+constexpr int kF1Stride = kF1Rows + 4;  // row stride of p^T ([64][132])
+
+// Max / sum over the 8 lanes of a warp that share lane / 8.
+__device__ __forceinline__ float oct_max(float x) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float oct_sum(float x) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Four consecutive outputs (16-byte aligned float32, 8-byte aligned
+// bfloat16) in one store.
+__device__ __forceinline__ void st4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kB3Threads, 2)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ kv_lens,
+                     T* __restrict__ out, float* __restrict__ lse, int H,
+                     int Tq, int S, Strides qs, Strides ks, Strides vs,
+                     int causal, float scale) {
+  constexpr int RS = D + 4;
+  constexpr int NC = D / 8;  // columns a thread sums
+  extern __shared__ float smem[];
+  float* Qs = smem;                       // [128][RS]
+  float* Ks = Qs + kF1Rows * RS;          // [64][RS]
+  float* Vs = Ks + kTile * RS;            // [64][RS]
+  float* PT = Vs + kTile * RS;            // [64][kF1Stride]: p^T
+  float* row_s = PT + kTile * kF1Stride;  // [128]: alpha, then max(l, 1e-30)
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF1Rows;
+  const B3Lanes ln = b3_lanes();
+  const int grp = kTile * ln.half;  // this warp pair's first row in the block
+  const int kvl = kv_lens ? min(max(kv_lens[b], 0), S) : S;
+  const int shift = S - Tq;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  // keys [0, kend) hold every key a row of the block sees
+  int kend = kvl;
+  if (causal) kend = min(kend, min(q0 + kF1Rows, Tq) + shift);
+  const int nk = kend > 0 ? (kend + kTile - 1) / kTile : 0;
+
+  // (m, l) of rows grp + r8 + 8i (score layout); acc of rows
+  // grp + 8 r8 + i, columns 32 (n / 4) + 4 c8 + n % 4 (accumulator layout)
+  float m[8], l[8], acc[8][NC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
+  }
+  if (nk > 0) {
+    const T* qb = q + b * qs.b + h * qs.h;
+    stage_tile<D>(Qs, qb, qs.t, q0, Tq);
+    stage_tile<D>(Qs + kTile * RS, qb, qs.t, q0 + kTile, Tq);
+    stage_tile<D>(Ks, kb, ks.t, 0, kvl);
+    pt_async::commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    pt_async::wait_all();
+    __syncthreads();  // K of tile kt landed; V, p^T and alpha are free
+    stage_tile<D>(Vs, vb, vs.t, k0, kvl);
+    pt_async::commit();
+    const bool all = tile_all_visible(q0 + grp, k0, Tq, kvl, causal, shift);
+    float x[8][8];  // s, then p
+    b3_product<D>(Qs + grp * RS, Ks, ln.r8, ln.c8, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + grp + ln.r8 + 8 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool ok =
+            all || visible(row, k0 + ln.c8 + 8 * j, Tq, kvl, causal, shift);
+        x[i][j] = ok ? x[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, x[i][j]);
+      }
+      const float m_new = fmaxf(m[i], oct_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool ok =
+            all || visible(row, k0 + ln.c8 + 8 * j, Tq, kvl, causal, shift);
+        x[i][j] = ok ? expf(x[i][j] - m_new) : 0.f;
+        psum += x[i][j];
+      }
+      l[i] = l[i] * alpha + oct_sum(psum);
+      m[i] = m_new;
+      if (ln.c8 == 0) row_s[grp + ln.r8 + 8 * i] = alpha;
+    }
+    b3_store8<kF1Stride, true>(x, PT + grp, ln.r8, ln.c8);
+    pt_async::wait_all();
+    __syncthreads();  // V landed, p^T and alpha are stored, K is consumed
+    if (kt + 1 < nk) {
+      stage_tile<D>(Ks, kb, ks.t, k0 + kTile, kvl);
+      pt_async::commit();
+    }
+    {
+      const float4 a0 = pt_async::lds4(row_s + grp + 8 * ln.r8);
+      const float4 a1 = pt_async::lds4(row_s + grp + 8 * ln.r8 + 4);
+      const float alpha[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int n = 0; n < NC; ++n) acc[i][n] *= alpha[i];
+    }
+    b3_accumulate<D, kF1Stride>(PT + grp, Vs, ln.r8, ln.c8, 0,
+                                min(kTile, kend - k0), acc);
+  }
+  // max(l, 1e-30) from the score layout to the accumulator layout
+  __syncthreads();  // every thread has read its last alpha
+  if (ln.c8 == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = grp + ln.r8 + 8 * i;
+      const float denom = fmaxf(l[i], 1e-30f);
+      row_s[r] = denom;
+      if (q0 + r < Tq)
+        lse[static_cast<size_t>(bh) * Tq + q0 + r] = m[i] + logf(denom);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = grp + 8 * ln.r8 + i;
+    if (q0 + r >= Tq) continue;
+    const float denom = row_s[r];
+    T* o = out + (static_cast<size_t>(bh) * Tq + q0 + r) * D + 4 * ln.c8;
+#pragma unroll
+    for (int g = 0; g < D / 32; ++g)
+      st4(o + 32 * g,
+          make_float4(acc[i][4 * g] / denom, acc[i][4 * g + 1] / denom,
+                      acc[i][4 * g + 2] / denom, acc[i][4 * g + 3] / denom));
+  }
+}
+
+// B1: Q [128][D + 4], K and V [64][D + 4], p^T [64][132] and 128 floats;
+// at D 64 under kTwoBlockSmem, so two blocks share an SM
 template <int D>
 constexpr size_t fwd_smem() {
-  return (3 * kTile * (D + 1) + kTile * kPS) * sizeof(float);
+  return ((kF1Rows + 2 * kTile) * (D + 4) + kTile * kF1Stride + kF1Rows) *
+         sizeof(float);
 }
+static_assert(fwd_smem<64>() <= kTwoBlockSmem,
+              "two B1 blocks must fit an SM at D 64");
 template <int D>
 constexpr size_t bwd_smem() {  // B2
   return (4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile) * sizeof(float);
@@ -1047,8 +1118,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
       flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
-  flash_fwd_kernel<D, T><<<grid, kThreads, smem, st>>>(
+  const dim3 grid(B * H, (Tq + kF1Rows - 1) / kF1Rows);
+  flash_fwd_kernel<D, T><<<grid, kB3Threads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lens),
       static_cast<T*>(out), static_cast<float*>(lse), H, Tq, S, qs, ks, vs,
@@ -1134,6 +1205,9 @@ cudaError_t launch_bwd_pair(const void* q, const void* k, const void* v,
 // 1: bfloat16).  D must be 32, 64 or 128 (the Python wrappers check all
 // of this first).  Each function launches on `stream` and returns the
 // launch's cudaError_t.
+// The forward (B1): out and lse.  q, k and v must be 16-byte aligned, with
+// batch, head and time strides that are multiples of 16 bytes (the
+// wrapper copies any that are not).
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             const void* kv_lens, void* out, void* lse, int B,
                             int H, int Tq, int S, int D, long long qsb,

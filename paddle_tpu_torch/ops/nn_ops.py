@@ -15,6 +15,22 @@ import torch.nn.functional as F
 from ..registry import register
 
 
+def _wrapped_index(idx, n):
+    """``idx`` as int64 indices into an axis of length ``n`` the way the
+    JAX package's ``jnp.take``/``take_along_axis`` read them: an index in
+    [-n, 0) wraps to ``n + idx``; one outside [-n, n) is clamped to a
+    valid row here, and :func:`_in_range` marks it for the NaN fill."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
+
+
+def _in_range(idx, n):
+    """Where ``idx`` is a valid index into an axis of length ``n``
+    (negatives in [-n, 0) included); elsewhere the JAX package's gathers
+    fill NaN."""
+    return (idx >= -n) & (idx < n)
+
+
 @register("layer_norm")
 def _layer_norm(ctx, op):
     x = ctx.get_input(op, "X")
@@ -73,8 +89,10 @@ def _softmax_with_cross_entropy(ctx, op):
         loss = -torch.sum(label.float() * logp, dim=-1, keepdim=True)
     else:
         lab = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 else label
-        loss = -torch.gather(logp, -1, lab[..., None].long())
-        loss = torch.where(lab[..., None] == ignore, 0.0, loss)
+        lab = lab[..., None]
+        loss = -torch.gather(logp, -1, _wrapped_index(lab, logp.shape[-1]))
+        loss = torch.where(_in_range(lab, logp.shape[-1]), loss, float("nan"))
+        loss = torch.where(lab == ignore, 0.0, loss)
     if ctx.reads(op, "Softmax"):
         ctx.set_output(op, "Softmax", torch.exp(logp).to(logits.dtype))
     ctx.set_output(op, "Loss", loss.to(logits.dtype))
@@ -86,7 +104,9 @@ def _lookup_table(ctx, op):
     ids = ctx.get_input(op, "Ids")
     padding_idx = op.attrs.get("padding_idx", -1)
     flat = ids.reshape(ids.shape[:-1]) if (ids.dim() > 1 and ids.shape[-1] == 1) else ids
-    out = F.embedding(flat.long(), w)
+    out = F.embedding(_wrapped_index(flat, w.shape[0]), w)
+    out = torch.where(_in_range(flat, w.shape[0])[..., None], out,
+                      float("nan"))
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((flat == padding_idx)[..., None], 0.0, out)
     ctx.set_output(op, "Out", out)

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..registry import register
 from ..core import torch_dtype
@@ -81,7 +80,10 @@ def _one_hot(ctx, op):
     x = ctx.get_input(op, "X")
     depth = op.attrs["depth"]
     flat = x.reshape(x.shape[:-1]) if x.dim() and x.shape[-1] == 1 else x
-    ctx.set_output(op, "Out", F.one_hot(flat.long(), depth).to(torch.float32))
+    # an id outside [0, depth), negatives included, gives a row of zeros
+    # (jax.nn.one_hot compares ids against arange(depth))
+    cols = torch.arange(depth, device=flat.device)
+    ctx.set_output(op, "Out", (flat.long()[..., None] == cols).to(torch.float32))
 
 
 @register("uniform_random")

@@ -382,9 +382,10 @@ def _flash_fwd_cuda(q, k, v, kv_lens, causal, sm_scale):
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if B * H * T == 0:
         return out, lse
-    q, qs = _strides(q)
-    k, ks = _strides(k)
-    v, vs = _strides(v)
+    # the kernel stages q, k and v rows with 16-byte copies
+    q, qs = _aligned16(q)
+    k, ks = _aligned16(k)
+    v, vs = _aligned16(v)
     err = load_library().pt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if kv_lens is None else kv_lens.data_ptr(),

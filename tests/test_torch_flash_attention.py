@@ -569,6 +569,54 @@ class TestBackwardEngineSwitch:
         pool = torch.zeros(4 * 16 * 3 * 32 + 2)[2:].view(4, 16, 3, 32)
         assert tfa._aligned16(pool)[0].data_ptr() % 16 == 0
 
+    @pytest.mark.parametrize("misaligned", [None, "q", "k", "v"])
+    def test_forward_wrapper_hands_the_kernel_aligned_rows(self, misaligned,
+                                                           monkeypatch):
+        """B1 stages q, k and v rows with 16-byte copies: the wrapper hands
+        pt_flash_fwd an aligned copy of a misaligned tensor and the
+        Program's aligned transposed views as they are (a stand-in
+        library records the call; nothing is launched)."""
+        from paddle_tpu_torch import cuda_kernels
+
+        calls = []
+
+        class Lib:
+            def pt_flash_fwd(self, *args):
+                calls.append(args)
+                return 0
+
+        monkeypatch.setattr(cuda_kernels, "load_library", Lib)
+        monkeypatch.setattr(tfa, "_device_index", lambda t: 0)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: type("S", (), {
+                                "cuda_stream": 0})())
+        monkeypatch.setitem(tfa.KERNEL_LAUNCHES, "flash_attention_fwd", 0)
+        B, H, T, S, D = 2, 3, 40, 24, 32
+
+        def view(n, off):
+            flat = torch.zeros(B * n * H * D + off)
+            return flat[off:].view(B, n, H, D).transpose(1, 2)
+
+        ins = {name: view(n, 1 if name == misaligned else 0)
+               for name, n in (("q", T), ("k", S), ("v", S))}
+        out, lse = tfa._flash_fwd_cuda(ins["q"], ins["k"], ins["v"], None,
+                                       False, 0.2)
+        assert out.shape == (B, H, T, D) and lse.shape == (B, H, T)
+        (args,) = calls
+        assert tfa.KERNEL_LAUNCHES["flash_attention_fwd"] == 1
+        strides = {"q": args[11:14], "k": args[14:17], "v": args[17:20]}
+        for i, name in enumerate(("q", "k", "v")):
+            t = ins[name]
+            assert args[i] % 16 == 0
+            assert all(s * 4 % 16 == 0 for s in strides[name])
+            if name == misaligned:
+                assert args[i] != t.data_ptr()
+                assert list(strides[name]) == [t.shape[1] * t.shape[2] * D,
+                                               t.shape[2] * D, D]
+            else:
+                assert args[i] == t.data_ptr()
+                assert list(strides[name]) == list(t.stride()[:3])
+
     def test_pair_wrapper_rejects_bad_inputs_before_launch(self):
         q, k, v, do = (torch.from_numpy(x) for x in _flash_case(4, 8, 8, D=32))
         lens = torch.tensor([8, 3], dtype=torch.int32)

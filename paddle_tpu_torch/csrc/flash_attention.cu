@@ -887,8 +887,10 @@ __global__ void __launch_bounds__(kB3Threads, 2)
 // (m, l, acc) in VMEM scratch; here one block per (b*h, tile of 128 query
 // rows) walks the key tiles in a loop, carrying them in registers, and
 // stops at the last tile any of its rows can see (kv_lens[b], and the
-// bottom-right causal diagonal).  Blocks with the longest causal walk are
-// launched first, so the heaviest tiles do not set the tail.
+// bottom-right causal diagonal).  Blocks are launched longest walk first,
+// so the heaviest do not set the tail: under causal, the query tiles
+// nearest the bottom first; without it, the sequences with the longest
+// kv_lens first (b_by_length).
 //
 // What bounds it: 4*D float32 operations a visible (query, key) pair
 // (s = q k^T and acc += p v) against q, k, v read once and out, lse
@@ -905,7 +907,7 @@ __global__ void __launch_bounds__(kB3Threads, 2)
 //    8 rows.  p goes to shared memory transposed (b3_store8, conflict-free)
 //    and acc += p v is b3_accumulate: each thread rows 8 r8 + i by D/8
 //    columns, D FMAs for 2 + D/32 float4 loads (16 a load at D 64).  The
-//    rescale alpha = exp(m_old - m_new) of each row crosses from the score
+//    rescale alpha = 2^(m_old - m_new) of each row crosses from the score
 //    layout to the accumulator layout through a 128-float shared array.
 //  - Tiles are staged by cp.async, 16 bytes a copy, into rows padded to
 //    D + 4 floats (stage_tile; rows at or past kv_lens or Tq are zero
@@ -915,8 +917,14 @@ __global__ void __launch_bounds__(kB3Threads, 2)
 //    are computed, K of tile kt + 1 while acc += p v runs.  Two barriers a
 //    key tile.  About 102 KB of shared memory at D 64, so two blocks share
 //    an SM (8 warps), and one block's barriers overlap the other's math.
-//  - The mask is skipped on tile pairs that are wholly visible
-//    (tile_all_visible, per 64-row half).
+//  - The softmax works in log2 units (scores times scale * log2(e), then
+//    exp2f), and a row's mask is one key limit (kv_lens, the causal
+//    diagonal) compared with each key, skipped on tile pairs that are
+//    wholly visible (tile_all_visible, per 64-row half).  On an H100,
+//    expf and a per-pair visible() took about a fifth of the kernel's
+//    time (PERF.md).  The walk still starts at m = -1e30 and divides by
+//    max(l, 1e-30); lse = m ln 2 + log(denom), and -1e30 + log(1e-30) for
+//    a row that sees no key, as the TPU kernel gives.
 // Each row's result depends only on its own (b, h, row) inputs, summed
 // over keys in a fixed order (key tiles in order, keys in order within a
 // tile), so batched and unbatched calls give the same bits.  A key tile
@@ -926,6 +934,28 @@ __global__ void __launch_bounds__(kB3Threads, 2)
 
 constexpr int kF1Rows = 2 * kTile;      // query rows of a B1 block
 constexpr int kF1Stride = kF1Rows + 4;  // row stride of p^T ([64][132])
+constexpr int kF1RankMax = 256;  // batches up to this size are ranked by length
+
+// The sequence whose kv_lens (clamped to [0, S]) is the r-th longest, ties
+// by index: with no causal mask a block's walk is set by kv_lens alone, so
+// the block launched r-th among the sequences' takes it, and the longest
+// walks start first.  `scratch`: B + 1 ints of shared memory, free until
+// the caller's next barrier.  Every thread gets the same b.
+__device__ __forceinline__ int b_by_length(const int* kv_lens, int B, int S,
+                                           int r, int* scratch) {
+  for (int c = threadIdx.x; c < B; c += blockDim.x)
+    scratch[c] = min(max(kv_lens[c], 0), S);
+  __syncthreads();
+  for (int c = threadIdx.x; c < B; c += blockDim.x) {
+    const int len = scratch[c];
+    int rank = 0;
+    for (int o = 0; o < B; ++o)
+      rank += scratch[o] > len || (scratch[o] == len && o < c);
+    if (rank == r) scratch[B] = c;
+  }
+  __syncthreads();
+  return scratch[B];
+}
 
 // Max / sum over the 8 lanes of a warp that share lane / 8.
 __device__ __forceinline__ float oct_max(float x) {
@@ -969,10 +999,24 @@ __global__ void __launch_bounds__(kB3Threads, 2)
   float* PT = Vs + kTile * RS;            // [64][kF1Stride]: p^T
   float* row_s = PT + kTile * kF1Stride;  // [128]: alpha, then max(l, 1e-30)
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF1Rows;
+  // which (b, h, query tile) this block takes, in launch order
+  int b, h, q0;
+  if (causal) {  // the tiles with the longest walk first
+    b = blockIdx.x / H;
+    h = blockIdx.x - b * H;
+    q0 = (gridDim.y - 1 - blockIdx.y) * kF1Rows;
+  } else {  // the longest sequences first
+    const int B = gridDim.x / H;
+    const int per_b = H * gridDim.y;
+    const int L = blockIdx.x + gridDim.x * blockIdx.y;
+    const int r = L / per_b;
+    h = (L - r * per_b) / gridDim.y;
+    q0 = (L - r * per_b - h * gridDim.y) * kF1Rows;
+    b = kv_lens && B <= kF1RankMax
+            ? b_by_length(kv_lens, B, S, r, reinterpret_cast<int*>(PT))
+            : r;
+  }
+  const int bh = b * H + h;
   const B3Lanes ln = b3_lanes();
   const int grp = kTile * ln.half;  // this warp pair's first row in the block
   const int kvl = kv_lens ? min(max(kv_lens[b], 0), S) : S;
@@ -983,6 +1027,7 @@ __global__ void __launch_bounds__(kB3Threads, 2)
   int kend = kvl;
   if (causal) kend = min(kend, min(q0 + kF1Rows, Tq) + shift);
   const int nk = kend > 0 ? (kend + kTile - 1) / kTile : 0;
+  const float scale2 = scale * 1.4426950408889634f;  // scores in log2 units
 
   // (m, l) of rows grp + r8 + 8i (score layout); acc of rows
   // grp + 8 r8 + i, columns 32 (n / 4) + 4 c8 + n % 4 (accumulator layout)
@@ -1013,22 +1058,21 @@ __global__ void __launch_bounds__(kB3Threads, 2)
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int row = q0 + grp + ln.r8 + 8 * i;
+      // keys [k0, lim) of this row are visible (all of the tile if `all`)
+      int lim = row < Tq ? (causal ? min(kvl, row + shift + 1) : kvl) : 0;
+      lim = all ? k0 + kTile : lim;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const bool ok =
-            all || visible(row, k0 + ln.c8 + 8 * j, Tq, kvl, causal, shift);
-        x[i][j] = ok ? x[i][j] * scale : kNegInf;
+        x[i][j] = k0 + ln.c8 + 8 * j < lim ? x[i][j] * scale2 : kNegInf;
         mx = fmaxf(mx, x[i][j]);
       }
       const float m_new = fmaxf(m[i], oct_max(mx));
-      const float alpha = expf(m[i] - m_new);
+      const float alpha = exp2f(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const bool ok =
-            all || visible(row, k0 + ln.c8 + 8 * j, Tq, kvl, causal, shift);
-        x[i][j] = ok ? expf(x[i][j] - m_new) : 0.f;
+        x[i][j] = k0 + ln.c8 + 8 * j < lim ? exp2f(x[i][j] - m_new) : 0.f;
         psum += x[i][j];
       }
       l[i] = l[i] * alpha + oct_sum(psum);
@@ -1063,7 +1107,9 @@ __global__ void __launch_bounds__(kB3Threads, 2)
       const float denom = fmaxf(l[i], 1e-30f);
       row_s[r] = denom;
       if (q0 + r < Tq)
-        lse[static_cast<size_t>(bh) * Tq + q0 + r] = m[i] + logf(denom);
+        lse[static_cast<size_t>(bh) * Tq + q0 + r] =
+            (m[i] == kNegInf ? kNegInf : m[i] * 0.6931471805599453f) +
+            logf(denom);
     }
   }
   __syncthreads();

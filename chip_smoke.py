@@ -32,9 +32,8 @@ caught):
    past kv_lens leaves every output bitwise unchanged; two backward calls
    give the same bits, and so do two forward calls and a forward over
    one sequence alone (batched == unbatched); then each kernel's time
-   beside its plain version's, its bound and a scaled_dot_product_attention
-   yardstick
-   (its autograd backward for B2);
+   beside its plain version's, its bound and a
+   scaled_dot_product_attention yardstick (its autograd backward for B2);
 5. the two-pass flash backward (B3: a delta pre-pass, the dk/dv kernel
    and the dq kernel) on the same cases, f32 and bf16: against its plain
    version (the tiled
@@ -960,8 +959,9 @@ def engine_sweep(torch, fa, dev, flush):
                r["pair_plain_ms"], r["dkv_plain_ms"], r["dq_plain_ms"],
                r["bound"][0], r["bound"][1], r["faster"], r["auto"],
                r["fwd_dev_ms"], r["sdpa_fwd_ms"], r["fwd_plain_ms"],
-               r["fwd_bound"][0], r["fwd_bound"][1], r["errs"]["fwd"], r["errs"]["b2"], r["errs"]["dkv"],
-               r["errs"]["dq"], r["errs"]["pair_vs_b2"],
+               r["fwd_bound"][0], r["fwd_bound"][1], r["errs"]["fwd"],
+               r["errs"]["b2"], r["errs"]["dkv"], r["errs"]["dq"],
+               r["errs"]["pair_vs_b2"],
                *FLASH_TOL["float32"]))
     return rows
 

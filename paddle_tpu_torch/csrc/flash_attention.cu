@@ -934,7 +934,9 @@ __global__ void __launch_bounds__(kB3Threads, 2)
 
 constexpr int kF1Rows = 2 * kTile;      // query rows of a B1 block
 constexpr int kF1Stride = kF1Rows + 4;  // row stride of p^T ([64][132])
-constexpr int kF1RankMax = 256;  // batches up to this size are ranked by length
+// batches up to this size are ranked by length (each thread of a block
+// makes about B * B / 128 comparisons)
+constexpr int kF1RankMax = 256;
 
 // The sequence whose kv_lens (clamped to [0, S]) is the r-th longest, ties
 // by index: with no causal mask a block's walk is set by kv_lens alone, so

@@ -21,8 +21,9 @@ caught):
    the least time the card could take (bound), and one PyTorch library
    call for the same work as a yardstick (prefill at two points: a
    1024-token prompt, and the second 512-token chunk of a prompt);
-4. the flash attention kernels (forward B1, fused backward B2) at the
-   training slice's shape [64, 8, 256, 64], in float32 and bfloat16, on
+4. the flash attention kernels (forward B1, fused backward B2: a delta
+   pre-pass, the fused kernel and the dq sum) at the training slice's
+   shape [64, 8, 256, 64], in float32 and bfloat16, on
    strided q/k/v/do views as the Program feeds them, with mixed kv_lens
    (zeros included): against their plain versions (forward out and lse
    <= 2e-5, backward <= 5e-5 absolute in float32; in bfloat16 <= 1e-2 of
@@ -36,11 +37,11 @@ caught):
    scaled_dot_product_attention yardstick (its autograd backward for B2);
 5. the two-pass flash backward (B3: a delta pre-pass, the dk/dv kernel
    and the dq kernel) on the same cases, f32 and bf16: against its plain
-   version (the tiled
-   two-pass translation) and against B2 on the same inputs, with the
-   backward tolerances above; rows with kv_lens 0 give zero gradients,
-   NaN/Inf past kv_lens leaves every output bitwise unchanged, two calls
-   give the same bits;
+   version (the tiled two-pass translation) and against B2 on the same
+   inputs, and B2 against the same plain version, with the backward
+   tolerances above; rows with kv_lens 0 give zero gradients, NaN/Inf
+   past kv_lens leaves every output bitwise unchanged, two calls give the
+   same bits;
 6. the backward engine sweep at bench.py's four Transformer shapes
    ([64, 8, 256, 64], [16, 8, 1024, 64], [8, 8, 2048, 64],
    [4, 8, 4096, 64], the last the long leg's), then B*H across the
@@ -49,8 +50,9 @@ caught):
    [128, 8, 256, 64] and [64, 8, 256, 32]; float32, causal and full, the
    training feeds' kv_lens.  At each shape the forward, B2 and B3 are
    held against their plain versions (the tolerances above) and B3
-   against B2; then B2's and B3's device times (each kernel from a
-   torch.profiler window; the faster engine is decided on these) and
+   against B2; then B2's and B3's device times (each engine's three
+   kernels from a torch.profiler window, B2's dq sum on its own; the
+   faster engine is decided on these) and
    CUDA-event times, SDPA's autograd backward as a yardstick, the plain
    versions' and the bound (10*D operations a visible pair), with the
    engine ``auto`` picks; beside them the forward B1's device time (from
@@ -75,8 +77,8 @@ caught):
    against the plain backward), then batch 2 x 200 with the pair engine
    on both sides (B3 against its plain version; several tiles and an
    uneven last one); their flash launches are counted apart from the
-   main paths' (the fused step is B2's main path when ``auto`` does not
-   run B2 at 64 x 256);
+   main paths' (each step is its engine's main path when ``auto`` runs
+   that engine on neither training leg);
 9. training: Transformer-base as the JAX package's headline leg
    (bench.py: batch 64 x 256, vocab 30000, dropout 0.1, Adam with noam
    decay, use_flash=True, float32 with TF32 off) through
@@ -89,13 +91,14 @@ caught):
    device's idle share;
 10. the long-context leg: the same model at bench.py's longest leg
    (batch 4 x 4096, max_length 4096, rows of 64-4096 tokens), 5 steps
-   under ``auto``, which runs B3 there: the same checks, with B1 and
-   both B3 kernels launched 18 times a step;
+   under ``auto``: the same checks, with B1 and the backward ``auto``
+   picks launched 18 times a step and the other engine not at all;
 11. a ``kernels`` JSON line (all six kernels: times at the shape of
    their main path, launches from it; B3's two kernels have no library
    call of their own, so their entries also carry the pair's time beside
-   SDPA's whole backward; B1's also carries its figures at the long leg's
-   shape and its launches there), the card line, and the final
+   SDPA's whole backward; B1's and B2's also carry their figures at the
+   long leg's shape (B2's dq sum apart) and their launches there), the
+   card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It needs the repository beside it and a CUDA device; without either it
@@ -247,9 +250,15 @@ def bound_ms(nbytes, flops):
 
 
 KERNEL_NAMES = ("paged_decode_kernel", "paged_prefill_kernel",
-                "flash_fwd_kernel", "flash_bwd_kernel",
-                "flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
-                "flash_bwd_dq_kernel")
+                "flash_fwd_kernel", "flash_bwd_fused_kernel",
+                "flash_bwd_dq_sum_kernel", "flash_bwd_delta_kernel",
+                "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+# the device kernels of each backward engine (names as the profiler shows
+# them; no name holds another): B2's three launches and B3's three
+B2_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_fused_kernel",
+              "flash_bwd_dq_sum_kernel")
+B3_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
+              "flash_bwd_dq_kernel")
 
 
 def ptxas_report(build_log):
@@ -775,7 +784,8 @@ def flash_phase(torch, fa, dev, flush):
 
 def pair_case(torch, fa, dev, gen, rng, dtype, causal, T, S, nan_check):
     """One case of B3 (both kernels) against its plain version and against
-    B2 on the same inputs; returns errors."""
+    B2 on the same inputs, and B2 against the same plain version; returns
+    errors."""
     q, k, v, do = flash_inputs(torch, dev, gen, dtype, T, S)
     lens_np = flash_lens(rng, S, with_zeros=True)
     lens = torch.as_tensor(lens_np, device=dev)
@@ -791,10 +801,12 @@ def pair_case(torch, fa, dev, gen, rng, dtype, causal, T, S, nan_check):
     dtype = str(dtype).replace("torch.", "")
     errs = [flash_err(g, r, dtype) for g, r in zip(grads, r_grads)]
     b2_err = max(flash_err(g, f, dtype) for g, f in zip(grads, fused))
+    b2_plain_err = max(flash_err(f, r, dtype) for f, r in zip(fused, r_grads))
     tol = FLASH_TOL[dtype][1]
     what = (dtype, "causal" if causal else "full", T, S)
     check(max(errs) <= tol, "pair bwd vs plain", what, errs)
     check(b2_err <= tol, "pair bwd vs B2", what, b2_err)
+    check(b2_plain_err <= tol, "B2 vs plain", what, b2_plain_err)
     dead = torch.as_tensor(lens_np == 0, device=dev)
     for g in grads:
         check(bool(torch.isfinite(g).all()), "pair: non-finite gradient",
@@ -819,7 +831,7 @@ def pair_case(torch, fa, dev, gen, rng, dtype, causal, T, S, nan_check):
               "pair: NaN/Inf past kv_lens changed an output", what)
     return {"dtype": dtype, "causal": causal, "T": T, "S": S,
             "dq_err": errs[0], "dkv_err": max(errs[1:]), "b2_err": b2_err,
-            "nan_checked": nan_check,
+            "b2_plain_err": b2_plain_err, "nan_checked": nan_check,
             "zero_rows": int((lens_np == 0).sum())}
 
 
@@ -833,18 +845,22 @@ def pair_phase(torch, fa, dev):
              for causal, T, S, nan_check in FLASH_CASES]
     for c in cases:
         log("pair %-8s %-6s T=%d S=%d dq err %.3g dk/dv err %.3g vs B2 %.3g "
-            "(tol %g) kv_lens==0 rows %d zero, bitwise repeatable%s"
+            "(B2 vs plain %.3g; tol %g) kv_lens==0 rows %d zero, bitwise "
+            "repeatable%s"
             % (c["dtype"], "causal" if c["causal"] else "full", c["T"],
                c["S"], c["dq_err"], c["dkv_err"], c["b2_err"],
+               c["b2_plain_err"],
                FLASH_TOL[c["dtype"]][1], c["zero_rows"],
                ", NaN/Inf past kv_lens inert" if c["nan_checked"] else ""))
     return cases
 
 
 def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
-    """B2 against B3 (the pair, and each of its kernels from a profiler
-    window), the plain versions, the bound and SDPA's backward at one
-    sweep shape [B, H, T, D], float32, with the training feeds' kv_lens;
+    """B2 against B3 (each engine's three kernels from a profiler window:
+    B2's delta pre-pass, fused kernel and dq sum, B3's delta pre-pass,
+    dk/dv and dq kernels), the plain versions, the bound and SDPA's
+    backward at one sweep shape [B, H, T, D], float32, with the training
+    feeds' kv_lens;
     beside them the forward (B1: its device time from a profiler window,
     its plain version's, SDPA's forward and the 4*D bound).  The forward,
     B2 and B3 are held against their plain versions on these inputs."""
@@ -870,14 +886,12 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
     fwd_dev, _ = kernel_ms(torch, lambda: fa._flash_fwd_cuda(
         q, k, v, lens, causal, scale), iters, flush, ("flash_fwd_kernel",))
     b2_ms, b2 = timed(lambda: fa._flash_bwd_cuda(*args), iters, flush)
-    b2_dev, _ = kernel_ms(torch, lambda: fa._flash_bwd_cuda(*args), iters,
-                          flush, ("flash_bwd_kernel",))
+    b2_apart, b2_seen = kernel_ms(torch, lambda: fa._flash_bwd_cuda(*args),
+                                  iters, flush, B2_KERNELS)
     pair_ms, pair = timed(lambda: fa._flash_bwd_pair_cuda(*args), iters,
                           flush)
     apart, seen = kernel_ms(torch, lambda: fa._flash_bwd_pair_cuda(*args),
-                            iters, flush, ("flash_bwd_delta_kernel",
-                                           "flash_bwd_dkv_kernel",
-                                           "flash_bwd_dq_kernel"))
+                            iters, flush, B3_KERNELS)
     b2_plain_ms, b2_plain = timed(lambda: fa._flash_bwd_reference(*args),
                                   plain_iters, flush, 1)
     dkv_plain_ms, dkv_plain = timed(lambda: fa._pair_dkv_reference(*args),
@@ -903,7 +917,11 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
         "shape": list(shape), "causal": causal,
         "kv_lens_mean": float(lens_np.mean()), "errs": errs,
         "b2_ms": b2_ms, "pair_ms": pair_ms,
-        "b2_dev_ms": b2_dev["flash_bwd_kernel"],
+        "b2_dev_ms": sum(b2_apart.values()),
+        "b2_fused_ms": b2_apart["flash_bwd_fused_kernel"],
+        "b2_dq_sum_ms": b2_apart["flash_bwd_dq_sum_kernel"],
+        "b2_delta_ms": b2_apart["flash_bwd_delta_kernel"],
+        "b2_profiled_launches": b2_seen,
         "pair_dev_ms": sum(apart.values()),
         "dkv_ms": apart["flash_bwd_dkv_kernel"],
         "dq_ms": apart["flash_bwd_dq_kernel"],
@@ -921,11 +939,14 @@ def sweep_row(torch, fa, dev, flush, shape, causal, gen, rng):
         "auto": fa._pick_bwd_engine(B, H, D, fa._sm_count(0))}
     row["pair_plain_ms"] = row["dkv_plain_ms"] + row["dq_plain_ms"]
     # which engine is faster on the device: the kernels' own times from the
-    # profiler (a CUDA-event time of the three-launch pair also takes in
-    # the host's gaps between its launches)
+    # profiler (a CUDA-event time of an engine's three launches also takes
+    # in the host's gaps between them)
     row["faster"] = ("fused" if row["b2_dev_ms"] <= row["pair_dev_ms"]
                      else "pair")
-    row["b2_fill"] = B * H / (fa._b2_blocks_per_sm(D) * fa._sm_count(0))
+    # B2's grid, B*H*ceil(T/64) blocks, as a share of the blocks the card
+    # holds at once
+    row["b2_fill"] = (B * H * -(-T // 64)
+                      / (fa._b2_blocks_per_sm(D) * fa._sm_count(0)))
     return row
 
 
@@ -941,9 +962,11 @@ def engine_sweep(torch, fa, dev, flush):
                                   rng))
             torch.cuda.empty_cache()
     for r in rows:
-        log("sweep %s %-6s f32 kv_lens mean %.1f, B*H %.2f of B2's slots: "
-            "device B2 %.4f ms, B3 %.4f ms (delta %.4f + dkv %.4f + dq %.4f, "
-            "%d + %d of %d profiled) | CUDA events B2 %.4f ms, B3 %.4f ms | "
+        log("sweep %s %-6s f32 kv_lens mean %.1f, B2's grid %.2f of its "
+            "slots: device B2 %.4f ms (delta %.4f + fused %.4f + dq sum "
+            "%.4f, %d + %d of %d profiled), B3 %.4f ms (delta %.4f + dkv "
+            "%.4f + dq %.4f, %d + %d of %d profiled) | CUDA events B2 %.4f "
+            "ms, B3 %.4f ms | "
             "sdpa bwd %.4f ms | plain B2 %.4f ms, B3 %.4f ms (dkv %.4f + dq "
             "%.4f) | bound %.4f ms (%s) "
             "| faster %s, auto picks %s | B1 fwd device %.4f ms, sdpa fwd "
@@ -951,6 +974,10 @@ def engine_sweep(torch, fa, dev, flush):
             "%.3g B2 %.3g dkv %.3g dq %.3g, B3 vs B2 %.3g (tol %g/%g)"
             % (r["shape"], "causal" if r["causal"] else "full",
                r["kv_lens_mean"], r["b2_fill"], r["b2_dev_ms"],
+               r["b2_delta_ms"], r["b2_fused_ms"], r["b2_dq_sum_ms"],
+               r["b2_profiled_launches"]["flash_bwd_fused_kernel"],
+               r["b2_profiled_launches"]["flash_bwd_dq_sum_kernel"],
+               r["iters"],
                r["pair_dev_ms"], r["delta_ms"], r["dkv_ms"], r["dq_ms"],
                r["profiled_launches"]["flash_bwd_dkv_kernel"],
                r["profiled_launches"]["flash_bwd_dq_kernel"], r["iters"],
@@ -1115,7 +1142,9 @@ def profile_step(torch, exe, m, feed, scope):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         return "not measured (the profiler recorded no device activity)"
-    flash = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_kernel": "flash_bwd",
+    flash = {"flash_fwd_kernel": "flash_fwd",
+             "flash_bwd_fused_kernel": "flash_bwd_fused",
+             "flash_bwd_dq_sum_kernel": "flash_bwd_dq_sum",
              "flash_bwd_delta_kernel": "flash_bwd_delta",
              "flash_bwd_dkv_kernel": "flash_bwd_dkv",
              "flash_bwd_dq_kernel": "flash_bwd_dq"}
@@ -1247,20 +1276,19 @@ def main():
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
                                     "fused")
-    train_check_phase(torch, fluid, T, fa, dev, PAIR_CHECK_CFG, "pair")
+    pair_check = train_check_phase(torch, fluid, T, fa, dev, PAIR_CHECK_CFG,
+                                   "pair")
     trn = train_phase(torch, fluid, T, fa, dev, TRAIN_CFG, TRAIN_STEPS,
                       "auto", "64 x 256")
     torch.cuda.empty_cache()
-    # the long leg runs B3: under auto where auto picks it, else by name
-    long_engine = ("auto" if bwd_engine(fa, "auto", LONG_CFG) == "pair"
-                   else "pair")
     lng = train_phase(torch, fluid, T, fa, dev, LONG_CFG, LONG_STEPS,
-                      long_engine, "4 x 4096")
-    check(lng["engine_ran"] == "pair", "the long leg did not run B3", lng)
+                      "auto", "4 x 4096")
 
-    # B2's main path: the 64 x 256 leg where auto runs it, else the
-    # full-width card-vs-CPU step that runs it by name
-    b2_path = trn if trn["engine_ran"] == "fused" else fused_check
+    # each backward engine's main path: the first training leg that auto
+    # runs it on, else the full-width card-vs-CPU step that runs it by name
+    b2_path, b3_path = (
+        next((t for t in (trn, lng) if t["engine_ran"] == engine), step)
+        for engine, step in (("fused", fused_check), ("pair", pair_check)))
     d32 = next(r for r in dec if r["dtype"] == "float32")
     p32 = next(r for r in pre if r["dtype"] == "float32"
                and (r["start"], r["C"]) == PREFILL_TIMED[0])
@@ -1289,6 +1317,16 @@ def main():
                 "long_bound_ms": longest["fwd_bound"][0],
                 "long_library_ms": longest["sdpa_fwd_ms"],
                 "long_launches": lng["launches"]["flash_attention_fwd"]}
+    # B2 at the same shape: device time of its three launches, the dq sum's
+    # share apart, and its launches on the long leg (0 unless auto runs it)
+    bwd_long = {"long_shape": list(SWEEP_SHAPES[3]),
+                "long_ms": longest["b2_dev_ms"],
+                "long_fused_ms": longest["b2_fused_ms"],
+                "long_dq_sum_ms": longest["b2_dq_sum_ms"],
+                "long_plain_ms": longest["b2_plain_ms"],
+                "long_bound_ms": longest["bound"][0],
+                "long_library_ms": longest["sdpa_bwd_ms"],
+                "long_launches": lng["launches"]["flash_attention_bwd"]}
     f32_pairs = [c for c in pair_cases if c["dtype"] == "float32"]
     sweep_errs = lambda key: [r["errs"][key] for r in sweep]  # noqa: E731
     kernels = []
@@ -1303,12 +1341,12 @@ def main():
              "paddle_tpu_torch/csrc/flash_attention.cu",
              [c["bwd_err"] for c in flash_cases if c["dtype"] == "float32"]
              + sweep_errs("b2")),
-            ("flash_attention_bwd_dkv", lng["launches"],
+            ("flash_attention_bwd_dkv", b3_path["launches"],
              pair_rows["flash_attention_bwd_dkv"],
              "paddle_tpu/parallel/flash_attention.py:288",
              "paddle_tpu_torch/csrc/flash_attention.cu",
              [c["dkv_err"] for c in f32_pairs] + sweep_errs("dkv")),
-            ("flash_attention_bwd_dq", lng["launches"],
+            ("flash_attention_bwd_dq", b3_path["launches"],
              pair_rows["flash_attention_bwd_dq"],
              "paddle_tpu/parallel/flash_attention.py:328",
              "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -1331,6 +1369,8 @@ def main():
             kernels[-1].update(pair_vs_library)
         if name == "flash_attention_fwd":
             kernels[-1].update(fwd_long)
+        if name == "flash_attention_bwd":
+            kernels[-1].update(bwd_long)
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its main path", kernels)
     log("total: %.1f s" % (time.perf_counter() - t_start))

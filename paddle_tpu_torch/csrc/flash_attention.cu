@@ -26,17 +26,11 @@
 // for such a row s - lse is about +1e30, and a 0/1 mask would turn
 // 0 * inf into NaN.
 //
-// Tiling of B2.  A block has 256 threads seen as 16 x 16 (ty, tx).
-// Tiles are 64 query rows by 64 keys, staged in shared memory as float32
-// with a row stride of D + 1 (so the 16 rows one half-warp reads at one
-// column fall in 16 different banks).  In a [64 x 64] score tile a thread
-// owns rows ty + 16a and keys tx + 16c (a, c < 4); in a [64 x D] tile it
-// owns rows ty + 16a and columns tx + 16j (j < D/16).  All math is
-// float32 on CUDA cores; bfloat16 inputs are widened when staged (exactly)
-// and outputs rounded once when stored.  A simple kernel that is right:
-// wgmma, TMA and pipelined loads are later work.  B3 and B1 have their own
-// tiling (8 x 8 register tiles fed by 16-byte shared loads, cp.async
-// staging; see their sections).
+// All three share one tiling: 64-row tiles staged by cp.async into shared
+// memory as float32 (bfloat16 is widened when staged, exactly, and outputs
+// are rounded once when stored), blocks of 4 warps, and 8 x 8 register
+// tiles fed by 16-byte shared loads; all math is exact float32 FMAs on CUDA
+// cores (no TF32, no tensor cores).  See the B3 section.
 //
 // Bound.  The kernels do 4*D (forward), 10*D (B2) or 8*D + 6*D (B3's two
 // passes) operations per visible (query, key) pair on float32 CUDA cores,
@@ -44,6 +38,7 @@
 // do, dq, dk, dv in the backward), so at the training shapes the
 // operations bound them; the staged tiles keep the device-memory traffic
 // near that minimum (each query tile reads each visible key tile once).
+// B2 adds a float32 workspace of dq partials, written once and read once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,10 +48,10 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kThreads = 256;  // the delta pre-pass and B2's dq sum
 constexpr int kTile = 64;      // query rows and keys a tile
-constexpr int kPS = kTile + 1; // row stride of the [64 x 64] tiles
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -67,38 +62,28 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// Four consecutive outputs (16-byte aligned float32, 8-byte aligned
+// bfloat16) in one store.
+__device__ __forceinline__ void st4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 struct Strides {
   long long b, h, t;  // in elements; the last dimension is contiguous
 };
-
-// Rows [row0, row0 + 64) of one (b, h) slice into shared memory as
-// float [64][D + 1] (B2's tiles).  Rows at or past `valid` become zeros
-// and are never read from device memory.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long tstride, int row0,
-                                          int valid) {
-  constexpr int DP = D + 1;
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D;
-    const int d = e - r * D;
-    const int row = row0 + r;
-    dst[r * DP + d] = row < valid ? ld(src + row * tstride + d) : 0.f;
-  }
-}
 
 __device__ __forceinline__ bool visible(int row, int col, int Tq, int kvl,
                                         int causal, int shift) {
   return row < Tq && col < kvl && (!causal || col <= row + shift);
 }
-
-// ---------------------------------------------------------------------------
-// Tile math of the fused backward (B2), the counterpart of the JAX
-// package's _bwd_tiles (row_delta also serves B3's delta pre-pass).  In a
-// [64 x 64] tile pair a
-// thread owns query rows ty + 16a and keys tx + 16c (a, c < 4); in a
-// [64 x D] tile, rows (or keys) ty + 16a and columns tx + 16j (j < D/16).
-// ---------------------------------------------------------------------------
 
 // delta = rowsum(do * out) of one row, summed by the 32 lanes of a warp
 // (every lane returns the sum).
@@ -115,269 +100,6 @@ __device__ __forceinline__ float row_delta(const T* dob, long long dost,
   return part;
 }
 
-// s = Q K^T and dp = dO V^T for the 4 x 4 entries this thread owns.
-template <int D>
-__device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
-                                            const float* Ks, const float* Vs,
-                                            int ty, int tx, float s[4][4],
-                                            float dp[4][4]) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; ++d) {
-    float qa[4], da[4], kc[4], vc[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = Qs[(ty + 16 * a) * DP + d];
-      da[a] = dOs[(ty + 16 * a) * DP + d];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      kc[c] = Ks[(tx + 16 * c) * DP + d];
-      vc[c] = Vs[(tx + 16 * c) * DP + d];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-        dp[a][c] = fmaf(da[a], vc[c], dp[a][c]);
-      }
-  }
-}
-
-// p = exp(s scale - lse) and ds = p (dp - delta) scale, only where the
-// pair is visible (0 elsewhere: a row with no visible key has lse about
-// -1e30, and a 0/1 mask would turn 0 * inf into NaN), into dSs and, when
-// Ps is not null, Ps.
-__device__ __forceinline__ void tile_p_ds(const float s[4][4],
-                                          const float dp[4][4],
-                                          const float* lse_s,
-                                          const float* dlt_s, float* Ps,
-                                          float* dSs, int q0, int k0, int ty,
-                                          int tx, int Tq, int kvl, int causal,
-                                          int shift, float scale) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = tx + 16 * c;
-      float p = 0.f, ds = 0.f;
-      if (visible(q0 + r, k0 + col, Tq, kvl, causal, shift)) {
-        p = expf(s[a][c] * scale - lse_s[r]);
-        ds = p * (dp[a][c] - dlt_s[r]) * scale;
-      }
-      if (Ps) Ps[r * kPS + col] = p;
-      dSs[r * kPS + col] = ds;
-    }
-  }
-}
-
-// dv += P^T dO and dk += dS^T Q for keys ty + 16a, columns tx + 16j, over
-// the tile's query rows in order.
-template <int D>
-__device__ __forceinline__ void accumulate_dkv(const float* Ps,
-                                               const float* dSs,
-                                               const float* dOs,
-                                               const float* Qs, int ty,
-                                               int tx, float dk[4][D / 16],
-                                               float dv[4][D / 16]) {
-  constexpr int DP = D + 1;
-  constexpr int NJ = D / 16;
-#pragma unroll 2
-  for (int r = 0; r < kTile; ++r) {
-    float pk[4], sk[4], dov[NJ], qv[NJ];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      pk[a] = Ps[r * kPS + ty + 16 * a];
-      sk[a] = dSs[r * kPS + ty + 16 * a];
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dov[j] = dOs[r * DP + tx + 16 * j];
-      qv[j] = Qs[r * DP + tx + 16 * j];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dv[a][j] = fmaf(pk[a], dov[j], dv[a][j]);
-        dk[a][j] = fmaf(sk[a], qv[j], dk[a][j]);
-      }
-  }
-}
-
-// dq += dS K for rows ty + 16a, columns tx + 16j, over the tile's keys in
-// order.
-template <int D>
-__device__ __forceinline__ void accumulate_dq(const float* dSs,
-                                              const float* Ks, int ty,
-                                              int tx, float dq[4][D / 16]) {
-  constexpr int DP = D + 1;
-  constexpr int NJ = D / 16;
-#pragma unroll 2
-  for (int c = 0; c < kTile; ++c) {
-    float sa[4], kv[NJ];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) sa[a] = dSs[(ty + 16 * a) * kPS + c];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) kv[j] = Ks[c * DP + tx + 16 * j];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) dq[a][j] = fmaf(sa[a], kv[j], dq[a][j]);
-  }
-}
-
-// One key tile's dk and dv rows into [b*h, S, D] outputs.
-template <int D, typename T>
-__device__ __forceinline__ void store_dkv(T* dk, T* dv, const float dka[4][D / 16],
-                                          const float dva[4][D / 16], int bh,
-                                          int k0, int S, int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int key = k0 + ty + 16 * a;
-    if (key >= S) continue;
-    const size_t base = (static_cast<size_t>(bh) * S + key) * D + tx;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      st(dk + base + 16 * j, dka[a][j]);
-      st(dv + base + 16 * j, dva[a][j]);
-    }
-  }
-}
-
-// Replaces paddle_tpu/parallel/flash_attention.py:_fused_bwd_kernel
-// (launcher _flash_bwd_fused): dq, dk and dv in one launch, with
-// p = exp(s - lse) recomputed from the saved lse, dv = p^T do,
-// dp = do v^T, ds = p (dp - delta) scale, dk = ds^T q, dq = ds k — five
-// products per tile pair, every input read from device memory once per
-// visible tile pair.
-//
-// One block per (b*h): it first computes delta = rowsum(do * out) for its
-// rows (the TPU launcher does this outside the kernel) and zeroes its
-// float32 dq accumulator, then walks the key tiles in order; for each it
-// walks the query tiles that can see it, keeping that key tile's dk and
-// dv in registers and adding each query tile's ds k into the dq
-// accumulator in device memory.  The TPU kernel keeps dq resident in VMEM
-// while its grid walks the key blocks of one b*h in order; on the card a
-// grid of (b*h, key tile) blocks would have to sum dq across blocks with
-// float atomicAdd, whose order changes from run to run.  Owning all of a
-// b*h's key tiles in one block keeps every sum in a fixed order, so two
-// calls give the same bits (512 blocks at the slice's shape, about four
-// per SM, enough to fill the card).
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ o,
-                     const T* __restrict__ dout,
-                     const int* __restrict__ kv_lens,
-                     const float* __restrict__ lse, T* dq, T* __restrict__ dk,
-                     T* __restrict__ dv, float* dq_acc,
-                     float* __restrict__ delta, int H, int Tq, int S,
-                     Strides qs, Strides ks, Strides vs, Strides os,
-                     Strides dos, int causal, float scale, int convert_dq) {
-  constexpr int DP = D + 1;
-  constexpr int NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                // [64][DP]
-  float* dOs = Qs + kTile * DP;    // [64][DP]
-  float* Ks = dOs + kTile * DP;    // [64][DP]
-  float* Vs = Ks + kTile * DP;     // [64][DP]
-  float* Ps = Vs + kTile * DP;     // [64][kPS]
-  float* dSs = Ps + kTile * kPS;   // [64][kPS]
-  float* lse_s = dSs + kTile * kPS;  // [64]
-  float* dlt_s = lse_s + kTile;      // [64]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int kvl = kv_lens ? min(max(kv_lens[b], 0), S) : S;
-  const int shift = S - Tq;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* ob = o + b * os.b + h * os.h;
-  const T* dob = dout + b * dos.b + h * dos.h;
-  float* dqa = dq_acc + static_cast<size_t>(bh) * Tq * D;
-  float* dlt = delta + static_cast<size_t>(bh) * Tq;
-  const float* lseb = lse + static_cast<size_t>(bh) * Tq;
-
-  // delta = rowsum(do * out), one warp a row; dq accumulator = 0
-  for (int row = warp; row < Tq; row += kThreads / 32) {
-    const float part = row_delta<D>(dob, dos.t, ob, os.t, row, lane);
-    if (lane == 0) dlt[row] = part;
-  }
-  for (int e = threadIdx.x; e < Tq * D; e += kThreads) dqa[e] = 0.f;
-  __syncthreads();  // delta and the zeroed dq are visible to the block
-
-  const int nq = (Tq + kTile - 1) / kTile;
-  const int nk = (S + kTile - 1) / kTile;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    float dk_acc[4][NJ], dv_acc[4][NJ];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) dk_acc[a][j] = dv_acc[a][j] = 0.f;
-    if (k0 < kvl) {
-      __syncthreads();  // the previous key tile's K and V are consumed
-      load_tile<D>(Ks, kb, ks.t, k0, kvl);
-      load_tile<D>(Vs, vb, vs.t, k0, kvl);
-      // causal: rows below k0 - shift see no key of this tile
-      const int i0 = causal ? max(0, k0 - shift) / kTile : 0;
-      for (int qt = i0; qt < nq; ++qt) {
-        const int q0 = qt * kTile;
-        __syncthreads();  // the previous query tile is consumed
-        load_tile<D>(Qs, qb, qs.t, q0, Tq);
-        load_tile<D>(dOs, dob, dos.t, q0, Tq);
-        if (threadIdx.x < kTile) {
-          const int row = q0 + threadIdx.x;
-          lse_s[threadIdx.x] = row < Tq ? lseb[row] : 0.f;
-          dlt_s[threadIdx.x] = row < Tq ? dlt[row] : 0.f;
-        }
-        __syncthreads();
-        float s[4][4], dp[4][4];
-        score_tiles<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-        tile_p_ds(s, dp, lse_s, dlt_s, Ps, dSs, q0, k0, ty, tx, Tq, kvl,
-                  causal, shift, scale);
-        __syncthreads();
-        accumulate_dkv<D>(Ps, dSs, dOs, Qs, ty, tx, dk_acc, dv_acc);
-        // dq (rows ty + 16a, columns tx + 16j) += dS K, in key order
-        float dqp[4][NJ];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) dqp[a][j] = 0.f;
-        accumulate_dq<D>(dSs, Ks, ty, tx, dqp);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int row = q0 + ty + 16 * a;
-          if (row >= Tq) continue;
-          float* dst = dqa + static_cast<size_t>(row) * D + tx;
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) dst[16 * j] += dqp[a][j];
-        }
-      }
-    }
-    // this key tile's dk and dv (zeros for a tile no row sees)
-    store_dkv<D>(dk, dv, dk_acc, dv_acc, bh, k0, S, ty, tx);
-  }
-  if (convert_dq) {  // a bfloat16 dq: round the float32 sums once
-    __syncthreads();
-    T* dqb = dq + static_cast<size_t>(bh) * Tq * D;
-    for (int e = threadIdx.x; e < Tq * D; e += kThreads) st(dqb + e, dqa[e]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The two-pass backward (B3).  Replaces paddle_tpu/parallel/flash_attention.py:
 // _bwd_dkv_kernel and _bwd_dq_kernel (launcher _flash_bwd_pallas, shared tile
@@ -388,22 +110,21 @@ __global__ void __launch_bounds__(kThreads)
 // registers: every output element is written by exactly one block from sums
 // in a fixed order, with no atomics, so two calls give the same bits.
 //
-// Why two grids and not B2's one: B2 runs B*H blocks, each walking every
-// (key tile, query tile) pair of its head in order, so at long T and small
-// B*H (4 x 4096: 32 blocks for 264 block slots) most of the card idles.
-// The pair runs B*H*T/64 blocks in each pass; the price is recomputing
-// s = q k^T and dp = do v^T in both passes: 14*D operations a visible pair
-// (dk/dv pass 8*D, dq pass 6*D) against B2's 10*D.
+// Two grids, so that each output is summed in one block: the price is
+// recomputing s = q k^T and dp = do v^T in both passes, 14*D operations a
+// visible pair (dk/dv pass 8*D, dq pass 6*D).  B2 (below) walks the dk/dv
+// pass's grid once and does 10*D, paying instead with a workspace of dq
+// partials and a third launch that sums them.
 //
 // Besides the FMA units, shared memory bounds such a loop on an H100: an
 // SM moves 128 bytes of it a clock against 128 FMAs, and a 16-byte load
 // of a warp is four such wavefronts (a 4-byte one, one).  So a thread
 // must do about 16 FMAs for every float4 it loads (an 8 x 8 register tile
-// over a reduction) for the two to balance; B2's 4 x 4 tiles of scalar
-// loads do 2.  Measured, the loops still run near half the float32 rate
-// (PERF.md): registers (255 a thread) and shared memory allow 8 warps an
-// SM, which leaves load latency and barriers partly exposed.  The design
-// (all math exact float32 FMAs on CUDA cores; no tensor cores):
+// over a reduction) for the two to balance; 4 x 4 tiles of scalar loads
+// (slice 2's first B2) do 2.  Measured, the loops still run near half the
+// float32 rate (PERF.md): registers (255 a thread) and shared memory allow
+// 8 warps an SM, which leaves load latency and barriers partly exposed.
+// The design (all math exact float32 FMAs on CUDA cores; no tensor cores):
 //  - Blocks of 4 warps.  Warps 0-1 compute s = q k^T, warps 2-3
 //    dp = do v^T; all four turn them into p and ds; then warps 0-1 sum
 //    dv += p^T do and warps 2-3 dk += ds^T q (the dq pass: warps 0-1 sum
@@ -676,22 +397,191 @@ __global__ void __launch_bounds__(kThreads)
   if ((threadIdx.x & 31) == 0) delta[row] = part;
 }
 
-// dk and dv of one 64-key tile: one block per (b*h, key tile).  It stages
-// its K and V once, then walks the query tiles in order from the first
-// that can see the tile (under causal, row k0 - shift), accumulating
-// dv += p^T do (warps 0-1) and dk += ds^T q (warps 2-3) in registers, and
-// stores each once.  A key tile at or past kv_lens[b], or seen by no row,
-// stores zeros.
-template <int D, typename T>
-__global__ void __launch_bounds__(kB3Threads, 2)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const int* __restrict__ kv_lens,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int H, int Tq, int S, Strides qs,
-                         Strides ks, Strides vs, Strides dos, int causal,
-                         float scale) {
+// ---------------------------------------------------------------------------
+// The fused backward (B2).  Replaces paddle_tpu/parallel/flash_attention.py:
+// _fused_bwd_kernel (launcher _flash_bwd_fused): dq, dk and dv from one walk
+// over the visible tile pairs, with p = exp(s - lse) recomputed from the
+// saved lse, dv = p^T do, dp = do v^T, ds = p (dp - delta) scale,
+// dk = ds^T q and dq = ds k: five products, 10*D operations a visible pair
+// against B3's 14*D.  The TPU kernel keeps dq resident in VMEM while its
+// grid walks the key blocks of one b*h in order; on the card blocks run in
+// parallel, and summing dq across them with float atomics would change its
+// bits from run to run.  So, in three launches:
+//  1. delta = rowsum(do * out) once per call (flash_bwd_delta_kernel, as
+//     for B3; the TPU launcher also computes delta outside its kernel);
+//  2. flash_bwd_fused_kernel: B3's dk/dv grid, one block per (b*h, 64-key
+//     tile), and its walk (key_tile_walk: cp.async staging, 4 warps, 8 x 8
+//     register tiles, two blocks an SM at D 64), which after dv and dk
+//     computes the tile pair's dq partial, ds k over the tile's keys in
+//     order (b2_dq_partial, 16 FMAs a 16-byte load at D 64), and writes it
+//     once into a float32 workspace [b*h, key tile, T, D];
+//  3. flash_bwd_dq_sum_kernel: each dq row is the sum, in key-tile order,
+//     of the partials of the key tiles that walked its query tile, rounded
+//     once to dq's type (0 for a row no tile walked).
+// Every output element comes from sums in a fixed order with no atomics,
+// so two calls give the same bits.  B*H*ceil(S/64) blocks fill the card
+// at any B*H (slice 2's first B2, one block per b*h, left most of it idle
+// at long T).  The softmax is B1's: log2 units (exp2f) and one key limit a
+// row, skipped on wholly visible tile pairs.  The workspace holds
+// B*H*ceil(S/64)*T*D floats (2 GiB at [4, 8, 4096, 64]); the partials of
+// the walked tile pairs are written once and read once, which the sum
+// kernel's own time shows.
+// ---------------------------------------------------------------------------
+
+// The first query tile whose rows can see key tile k0: under causal, rows
+// below k0 - shift see none of its keys.  Both B3's dk/dv kernel and B2
+// walk query tiles [first_query_tile, nq) of every key tile below kv_lens,
+// and B2's dq sum reads the partials of exactly those pairs.
+__device__ __forceinline__ int first_query_tile(int k0, int causal,
+                                                int shift) {
+  return causal ? max(0, k0 - shift) / kTile : 0;
+}
+
+// B2: s in Ps becomes p and dp in dSs becomes ds, four consecutive keys of
+// a row at a time, as b3_p_ds_tile but in log2 units
+// (p = 2^(s scale log2(e) - lse log2(e)), by exp2f) and with one key limit
+// a row for the mask (every key of the tile where `all`).  p is computed
+// only where the pair is visible, never 0 * inf.
+__device__ __forceinline__ void b2_p_ds_tile(float* Ps, float* dSs,
+                                             const float* lse_s,
+                                             const float* dlt_s, bool all,
+                                             int q0, int k0, int Tq, int kvl,
+                                             int causal, int shift,
+                                             float scale) {
+  const float scale2 = scale * kLog2e;
+  for (int e = threadIdx.x; e < kTile * kTile / 4; e += kB3Threads) {
+    const int r = e >> 4;
+    const int c = (e & 15) * 4;
+    const int row = q0 + r;
+    // keys [k0, lim) of this row are visible
+    int lim = row < Tq ? (causal ? min(kvl, row + shift + 1) : kvl) : 0;
+    lim = all ? k0 + kTile : lim;
+    const float4 s4 = pt_async::lds4(Ps + r * kP3 + c);
+    const float4 d4 = pt_async::lds4(dSs + r * kP3 + c);
+    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+    const float lse2 = lse_s[r] * kLog2e;
+    const float dlt_r = dlt_s[r];
+    float p[4], ds[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      p[u] = k0 + c + u < lim ? exp2f(fmaf(sv[u], scale2, -lse2)) : 0.f;
+      ds[u] = p[u] * (dv[u] - dlt_r) * scale;
+    }
+    *reinterpret_cast<float4*>(Ps + r * kP3 + c) =
+        make_float4(p[0], p[1], p[2], p[3]);
+    *reinterpret_cast<float4*>(dSs + r * kP3 + c) =
+        make_float4(ds[0], ds[1], ds[2], ds[3]);
+  }
+}
+
+// B2's dq partial of one tile pair, ds k summed over the tile's keys in
+// order, into rows [0, nrows) of `dst` (float32, row stride D).  Warps 0-1
+// sum keys [0, 32), warps 2-3 keys [32, 64), and the two sums are added
+// once through `red`, a consumed [64][min(D, 64) + 4] tile (a chunk of up
+// to 64 columns at a time): warps 2-3 hand over rows 8 r8 + i for i < 4,
+// warps 0-1 the rest, and each side finishes the rows it was handed.  A
+// thread owns rows 8 r8 + i (i < 8) and, in a chunk, columns
+// 32 g + 4 c8 + e.  A step takes 4 keys: 8 float4 of ds (4 keys of each
+// row, row-major) and the matching float4s of k, 16 FMAs a load at D 64.
+// Keys at or past `nkeys` (kv_lens) add nothing (ds is 0 there and their k
+// rows are zeros), so the walk stops at nkeys rounded up to 4.
+template <int D>
+__device__ __forceinline__ void b2_dq_partial(const float* dSs,
+                                              const float* Ks, float* red,
+                                              const B3Lanes& ln, int nkeys,
+                                              int nrows, float* dst) {
+  constexpr int RS = D + 4;
+  constexpr int CG = D < 64 ? D / 32 : 2;  // 32-column groups a chunk
+  constexpr int CW = 32 * CG;              // columns a chunk
+  constexpr int RR = CW + 4;               // row stride of red
+  constexpr int NC = 4 * CG;               // columns a thread sums
+  static_assert(kTile * RR <= kTile * kP3, "red must fit in p's tile");
+  const int n4 = (nkeys + 3) & ~3;
+  const int c0 = min(n4, 32 * ln.half);
+  const int c1 = min(n4, 32 * ln.half + 32);
+#pragma unroll 1
+  for (int ch = 0; ch < D / CW; ++ch) {
+    float acc[8][NC];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
+#pragma unroll 2
+    for (int c = c0; c < c1; c += 4) {
+      float sk[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 t = pt_async::lds4(dSs + (8 * ln.r8 + i) * kP3 + c);
+        sk[i][0] = t.x;
+        sk[i][1] = t.y;
+        sk[i][2] = t.z;
+        sk[i][3] = t.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float y[NC];
+#pragma unroll
+        for (int g = 0; g < CG; ++g) {
+          const float4 t = pt_async::lds4(Ks + (c + u) * RS + CW * ch +
+                                          32 * g + 4 * ln.c8);
+          y[4 * g] = t.x;
+          y[4 * g + 1] = t.y;
+          y[4 * g + 2] = t.z;
+          y[4 * g + 3] = t.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int n = 0; n < NC; ++n)
+            acc[i][n] = fmaf(sk[i][u], y[n], acc[i][n]);
+      }
+    }
+    if (ch > 0) __syncthreads();  // the previous chunk's red is read
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if ((i < 4) != (ln.half == 1)) continue;
+#pragma unroll
+      for (int g = 0; g < CG; ++g)
+        *reinterpret_cast<float4*>(red + (8 * ln.r8 + i) * RR + 32 * g +
+                                   4 * ln.c8) =
+            make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                        acc[i][4 * g + 3]);
+    }
+    __syncthreads();  // each side's handed-over rows are in red
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = 8 * ln.r8 + i;
+      if ((i < 4) != (ln.half == 0) || row >= nrows) continue;
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+        const float4 o =
+            pt_async::lds4(red + row * RR + 32 * g + 4 * ln.c8);
+        st4(dst + static_cast<size_t>(row) * D + CW * ch + 32 * g + 4 * ln.c8,
+            make_float4(acc[i][4 * g] + o.x, acc[i][4 * g + 1] + o.y,
+                        acc[i][4 * g + 2] + o.z, acc[i][4 * g + 3] + o.w));
+      }
+    }
+  }
+}
+
+// The walk of one 64-key tile, one block per (b*h, key tile): B3's dk/dv
+// kernel and, with kFused, B2.  It stages its K and V once, then walks the
+// query tiles in order from the first that can see the tile
+// (first_query_tile), accumulating dv += p^T do (warps 0-1) and
+// dk += ds^T q (warps 2-3) in registers, and stores each once.  A key tile
+// at or past kv_lens[b], or seen by no row, stores zeros.  With kFused the
+// softmax is b2_p_ds_tile's and each tile pair's dq partial goes to the
+// workspace `ws` ([b*h][gridDim.y][Tq][D]) once its dk and dv are added;
+// the next query tile's loads overlap that.
+template <int D, typename T, bool kFused>
+__device__ __forceinline__ void key_tile_walk(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const int* __restrict__ kv_lens, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ ws, int H, int Tq, int S, Strides qs, Strides ks,
+    Strides vs, Strides dos, int causal, float scale) {
   constexpr int RS = D + 4;
   constexpr int NC = D / 8;  // columns a thread sums
   extern __shared__ float smem[];
@@ -723,7 +613,7 @@ __global__ void __launch_bounds__(kB3Threads, 2)
     for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
   if (k0 < kvl) {
     const int nq = (Tq + kTile - 1) / kTile;
-    const int i0 = causal ? max(0, k0 - shift) / kTile : 0;
+    const int i0 = first_query_tile(k0, causal, shift);
     stage_tile<D>(Ks, k + b * ks.b + h * ks.h, ks.t, k0, kvl);
     stage_tile<D>(Vs, v + b * vs.b + h * vs.h, vs.t, k0, kvl);
     stage_query<D>(Qs, dOs, lse_s, dlt_s, qb, dob, lseb, dltb, qs.t, dos.t,
@@ -732,7 +622,7 @@ __global__ void __launch_bounds__(kB3Threads, 2)
     for (int qt = i0; qt < nq; ++qt) {
       const int q0 = qt * kTile;
       pt_async::wait_all();
-      __syncthreads();  // query tile qt landed
+      __syncthreads();  // query tile qt landed (B2: the last partial is out)
       const bool all = tile_all_visible(q0, k0, Tq, kvl, causal, shift);
       {
         float x[8][8];  // s (warps 0-1) or dp (warps 2-3)
@@ -741,20 +631,30 @@ __global__ void __launch_bounds__(kB3Threads, 2)
         b3_store8<kP3, false>(x, ln.half == 0 ? Ps : dSs, ln.r8, ln.c8);
       }
       __syncthreads();  // s and dp are in Ps and dSs
-      b3_p_ds_tile(Ps, dSs, lse_s, dlt_s, all, q0, k0, Tq, kvl, causal, shift,
-                   scale);
+      if constexpr (kFused)
+        b2_p_ds_tile(Ps, dSs, lse_s, dlt_s, all, q0, k0, Tq, kvl, causal,
+                     shift, scale);
+      else
+        b3_p_ds_tile(Ps, dSs, lse_s, dlt_s, all, q0, k0, Tq, kvl, causal,
+                     shift, scale);
       __syncthreads();  // p and ds are in Ps and dSs
       const int nrows = min(kTile, Tq - q0);
       if (ln.half == 0)
         b3_accumulate<D, kP3>(Ps, dOs, ln.r8, ln.c8, 0, nrows, acc);
       else
         b3_accumulate<D, kP3>(dSs, Qs, ln.r8, ln.c8, 0, nrows, acc);
+      if (kFused || qt + 1 < nq)
+        __syncthreads();  // p, q and do of query tile qt are consumed
       if (qt + 1 < nq) {
-        __syncthreads();  // query tile qt is consumed
         stage_query<D>(Qs, dOs, lse_s, dlt_s, qb, dob, lseb, dltb, qs.t,
                        dos.t, q0 + kTile, Tq);
         pt_async::commit();
       }
+      if constexpr (kFused)
+        b2_dq_partial<D>(
+            dSs, Ks, Ps, ln, min(kTile, kvl - k0), nrows,
+            ws + ((static_cast<size_t>(bh) * gridDim.y + blockIdx.y) * Tq +
+                  q0) * D);
     }
   }
   T* out = ln.half == 0 ? dv : dk;
@@ -766,6 +666,75 @@ __global__ void __launch_bounds__(kB3Threads, 2)
 #pragma unroll
     for (int n = 0; n < NC; ++n) st(row + 32 * (n >> 2) + (n & 3), acc[i][n]);
   }
+}
+
+// B3's dk and dv: key_tile_walk.
+template <int D, typename T>
+__global__ void __launch_bounds__(kB3Threads, 2)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const int* __restrict__ kv_lens,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int H, int Tq, int S, Strides qs,
+                         Strides ks, Strides vs, Strides dos, int causal,
+                         float scale) {
+  key_tile_walk<D, T, false>(q, k, v, dout, kv_lens, lse, delta, dk, dv,
+                             nullptr, H, Tq, S, qs, ks, vs, dos, causal,
+                             scale);
+}
+
+// B2's dk, dv and dq partials: key_tile_walk with the dq partial.
+template <int D, typename T>
+__global__ void __launch_bounds__(kB3Threads, 2)
+    flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const int* __restrict__ kv_lens,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, T* __restrict__ dk,
+                           T* __restrict__ dv, float* __restrict__ ws, int H,
+                           int Tq, int S, Strides qs, Strides ks, Strides vs,
+                           Strides dos, int causal, float scale) {
+  key_tile_walk<D, T, true>(q, k, v, dout, kv_lens, lse, delta, dk, dv, ws,
+                            H, Tq, S, qs, ks, vs, dos, causal, scale);
+}
+
+// B2's dq: one thread a float4 of dq [b*h, Tq, D], the sum in key-tile
+// order of the workspace's partials of the key tiles that walked the row's
+// query tile (key tiles below kv_lens whose first_query_tile is at or
+// before it: a prefix of the key tiles), rounded once to dq's type; 0 for
+// a row that no tile walked (kv_lens 0).
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_sum_kernel(const float* __restrict__ ws,
+                            const int* __restrict__ kv_lens,
+                            T* __restrict__ dq,
+                            int H, int Tq, int S, int nk, int causal,
+                            long long n4) {
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (e >= n4) return;
+  const long long row = e / (D / 4);  // b*h*Tq + t
+  const int c = static_cast<int>(e - row * (D / 4));
+  const int bh = static_cast<int>(row / Tq);
+  const int t = static_cast<int>(row - static_cast<long long>(bh) * Tq);
+  const int b = bh / H;
+  const int kvl = kv_lens ? min(max(kv_lens[b], 0), S) : S;
+  const int qt = t / kTile;
+  const int shift = S - Tq;
+  const float* src = ws + (static_cast<size_t>(bh) * nk * Tq + t) * D + 4 * c;
+  const size_t tile = static_cast<size_t>(Tq) * D;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int kt = 0; kt < nk && kt * kTile < kvl &&
+                   first_query_tile(kt * kTile, causal, shift) <= qt;
+       ++kt) {
+    const float4 x = *reinterpret_cast<const float4*>(src + kt * tile);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  st4(dq + row * D + 4 * c, acc);
 }
 
 // dq of one 64-row query tile: one block per (b*h, query tile), the
@@ -971,20 +940,6 @@ __device__ __forceinline__ float oct_sum(float x) {
   return x;
 }
 
-// Four consecutive outputs (16-byte aligned float32, 8-byte aligned
-// bfloat16) in one store.
-__device__ __forceinline__ void st4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 x) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned*>(&lo);
-  u.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 template <int D, typename T>
 __global__ void __launch_bounds__(kB3Threads, 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1138,12 +1093,9 @@ constexpr size_t fwd_smem() {
 }
 static_assert(fwd_smem<64>() <= kTwoBlockSmem,
               "two B1 blocks must fit an SM at D 64");
-template <int D>
-constexpr size_t bwd_smem() {  // B2
-  return (4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile) * sizeof(float);
-}
-// B3: four [64][D + 4] tiles, p and ds (or p and ds^T), lse and delta;
-// at D 64 under kTwoBlockSmem, so two blocks share an SM
+// B3 (and B2, whose blocks are B3's dk/dv blocks): four [64][D + 4] tiles,
+// p and ds (or p and ds^T), lse and delta; at D 64 under kTwoBlockSmem, so
+// two blocks share an SM
 template <int D>
 constexpr size_t dkv_smem() {
   return (4 * kTile * (D + 4) + 2 * kTile * kP3 + 2 * kTile) * sizeof(float);
@@ -1175,27 +1127,52 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// delta = rowsum(do * out) into `delta` (float32 [B, H, Tq]).
+template <int D, typename T>
+cudaError_t launch_delta(const void* o, const void* dout, void* delta, int B,
+                         int H, int Tq, Strides os, Strides dos,
+                         cudaStream_t st) {
+  const int rows = B * H * Tq;
+  constexpr int warps = kThreads / 32;
+  flash_bwd_delta_kernel<D, T><<<(rows + warps - 1) / warps, kThreads, 0,
+                                 st>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout),
+      static_cast<float*>(delta), H, Tq, rows, os, dos);
+  return cudaGetLastError();
+}
+
+// B2: the delta pre-pass, the fused kernel, then the dq sum; stops at the
+// first error.
 template <int D, typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const void* lens,
                        const void* lse, void* dq, void* dk, void* dv,
-                       void* dq_acc, void* delta, int B, int H, int Tq, int S,
+                       void* ws, void* delta, int B, int H, int Tq, int S,
                        Strides qs, Strides ks, Strides vs, Strides os,
-                       Strides dos, int causal, float scale, int convert_dq,
-                       cudaStream_t st) {
-  constexpr size_t smem = bwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                       Strides dos, int causal, float scale, cudaStream_t st) {
+  cudaError_t err = launch_delta<D, T>(o, dout, delta, B, H, Tq, os, dos, st);
   if (err != cudaSuccess) return err;
-  flash_bwd_kernel<D, T><<<B * H, kThreads, smem, st>>>(
+  constexpr size_t smem = dkv_smem<D>();
+  err = cudaFuncSetAttribute(flash_bwd_fused_kernel<D, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int nk = (S + kTile - 1) / kTile;
+  flash_bwd_fused_kernel<D, T><<<dim3(B * H, nk), kB3Threads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const int*>(lens),
-      static_cast<const float*>(lse), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dq_acc),
-      static_cast<float*>(delta), H, Tq, S, qs, ks, vs, os, dos, causal,
-      scale, convert_dq);
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const int*>(lens), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), static_cast<float*>(ws), H, Tq, S, qs, ks, vs, dos,
+      causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n4 = static_cast<long long>(B) * H * Tq * (D / 4);
+  flash_bwd_dq_sum_kernel<D, T><<<static_cast<unsigned>(
+                                      (n4 + kThreads - 1) / kThreads),
+                                  kThreads, 0, st>>>(
+      static_cast<const float*>(ws), static_cast<const int*>(lens),
+      static_cast<T*>(dq), H, Tq, S, nk, causal, n4);
   return cudaGetLastError();
 }
 
@@ -1208,13 +1185,7 @@ cudaError_t launch_bwd_pair(const void* q, const void* k, const void* v,
                             void* dv, int B, int H, int Tq, int S, Strides qs,
                             Strides ks, Strides vs, Strides os, Strides dos,
                             int causal, float scale, cudaStream_t st) {
-  const int rows = B * H * Tq;
-  constexpr int warps = kThreads / 32;
-  flash_bwd_delta_kernel<D, T><<<(rows + warps - 1) / warps, kThreads, 0,
-                                 st>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<float*>(delta), H, Tq, rows, os, dos);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<D, T>(o, dout, delta, B, H, Tq, os, dos, st);
   if (err != cudaSuccess) return err;
   constexpr size_t dkv_bytes = dkv_smem<D>();
   err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, T>,
@@ -1285,10 +1256,17 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
+// The fused backward (B2): dq, dk and dv, each written once, from three
+// launches: delta = rowsum(do * out) into `delta` (float32 [B, H, Tq],
+// contiguous scratch), then the fused kernel, which writes dq partials
+// into `ws` (float32 [B*H, ceil(S/64), Tq, D], contiguous scratch; only
+// the walked tile pairs' rows are written), then the dq sum.  q, k, v and
+// do must be 16-byte aligned, with batch, head and time strides that are
+// multiples of 16 bytes (the wrapper copies any that are not).
 extern "C" int pt_flash_bwd(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
                             const void* kv_lens, const void* lse, void* dq,
-                            void* dk, void* dv, void* dq_acc, void* delta,
+                            void* dk, void* dv, void* ws, void* delta,
                             int B, int H, int Tq, int S, int D, long long qsb,
                             long long qsh, long long qst, long long ksb,
                             long long ksh, long long kst, long long vsb,
@@ -1301,11 +1279,10 @@ extern "C" int pt_flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qst}, ks{ksb, ksh, kst}, vs{vsb, vsh, vst},
       os{osb, osh, ost}, dos{dosb, dosh, dost};
-  const int convert_dq = dq != dq_acc;
-#define PT_BWD(DIM, TYPE)                                                    \
-  err = launch_bwd<DIM, TYPE>(q, k, v, o, dout, kv_lens, lse, dq, dk, dv,   \
-                              dq_acc, delta, B, H, Tq, S, qs, ks, vs, os, \
-                              dos, causal, scale, convert_dq, st)
+#define PT_BWD(DIM, TYPE)                                                  \
+  err = launch_bwd<DIM, TYPE>(q, k, v, o, dout, kv_lens, lse, dq, dk, dv, \
+                              ws, delta, B, H, Tq, S, qs, ks, vs, os, dos, \
+                              causal, scale, st)
   if (bf16) {
     if (D == 32) PT_BWD(32, __nv_bfloat16);
     else if (D == 64) PT_BWD(64, __nv_bfloat16);

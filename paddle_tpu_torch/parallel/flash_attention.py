@@ -60,13 +60,14 @@ KERNEL_LAUNCHES = {"flash_attention_fwd": 0,
                    "paged_prefill_attention": 0}
 
 # Backward engine switch, the counterpart of the JAX package's
-# FLASH_BWD_IMPL: "fused" is B2 (one block per b*h walks all its tile
-# pairs), "pair" is B3 (a delta pre-pass, a dk/dv pass over key tiles and
-# a dq pass over query tiles), "auto" picks one on the card by
-# _pick_bwd_engine.  On a CPU tensor "pair" runs the pair's plain version
-# and "fused"/"auto" the plain backward _flash_bwd_reference.  Read once
-# from PADDLE_TPU_TORCH_FLASH_BWD at import; set the attribute to change
-# it in a running process.
+# FLASH_BWD_IMPL: "fused" is B2 (a delta pre-pass, one walk over key tiles
+# that sums dk, dv and each tile pair's dq partial, and a dq sum), "pair"
+# is B3 (a delta pre-pass, a dk/dv pass over key tiles and a dq pass over
+# query tiles), "auto" picks one on the card by _pick_bwd_engine.  On a
+# CPU tensor "pair" runs the pair's plain version and "fused"/"auto" the
+# plain backward _flash_bwd_reference.  Read once from
+# PADDLE_TPU_TORCH_FLASH_BWD at import; set the attribute to change it in
+# a running process.
 _BWD_ENGINES = ("auto", "fused", "pair")
 FLASH_BWD_IMPL = os.environ.get("PADDLE_TPU_TORCH_FLASH_BWD",
                                 "auto").strip().lower()
@@ -83,14 +84,16 @@ _BLOCK_RESERVED_SMEM = 1024
 
 
 def _b2_blocks_per_sm(D):
-    """Blocks of B2 (flash_bwd_kernel<D>) one SM holds at once, as its
-    shared memory limits them (csrc/flash_attention.cu:bwd_smem: four
-    [64, D + 1] and two [64, 65] float tiles and two 64-float rows):
-    3 at D = 32, 2 at D = 64, 1 at D = 128.  Registers are not counted:
-    two blocks of 256 threads fit at up to 128 a thread, three only at up
-    to 85.  chip_smoke.py's engine sweep states each shape's B*H as a
-    share of B2's slots (this times the SM count)."""
-    smem = (4 * 64 * (D + 1) + 2 * 64 * 65 + 2 * 64) * 4
+    """Blocks of B2's fused kernel (flash_bwd_fused_kernel<D>, B3's dk/dv
+    blocks) one SM holds at once, as its shared memory limits them
+    (csrc/flash_attention.cu:dkv_smem: four [64, D + 4] and two [64, 72]
+    float tiles and two 64-float rows, 107,008 bytes at D 64): 3 at
+    D = 32, 2 at D = 64, 1 at D = 128.  Registers are not counted: blocks
+    of 128 threads fit two to an SM at up to 255 a thread, three at up to
+    170.  chip_smoke.py's engine sweep states each shape's grid,
+    B*H*ceil(S/64) blocks, as a share of B2's slots (this times the SM
+    count)."""
+    smem = (4 * 64 * (D + 4) + 2 * 64 * 72 + 2 * 64) * 4
     return _SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_SMEM)
 
 
@@ -101,19 +104,20 @@ def _pick_bwd_engine(B, H, D, sm_count):
 
     Set from chip_smoke.py's engine sweep (PERF.md §6 has every row), on
     an NVIDIA H100 80GB HBM3 at 700 W with 132 SMs, float32, kv_lens as
-    the training feeds draw them, comparing the kernels' device times.
-    B3 does 14*D operations a visible pair against B2's 10*D, but its
-    blocks run 8 x 8 register tiles fed by 16-byte shared loads where
-    B2's run 4 x 4 tiles of scalar loads, and its grid fills the card at
-    any B*H.  Since that redesign B3 is faster at every shape the sweep
-    measures, B3 / B2 not causal [causal]: bench.py's four Transformer
-    shapes 0.85 [0.87] at [64, 8, 256, 64], 0.43 [0.46], 0.22 [0.22] and
-    0.11 [0.11] at [4, 8, 4096, 64]; B*H from 0.12 to 3.88 times B2's
-    slots at D 64 (0.88 [0.90] at 3.88, the closest), 0.73 to 1.94 at
-    D 128, and [64, 8, 256, 32] 0.85 [0.92].  So auto runs the pair
-    everywhere; B2 stays the ``fused`` engine, by name."""
+    the training feeds draw them, comparing the engines' device times
+    (each the sum of its three launches).  Since B2's redesign both
+    engines run B3's dk/dv grid and register tiles, and B2 does 10*D
+    operations a visible pair against B3's 14*D, at the price of a
+    workspace of dq partials and its sum (about 7% of B2's time).  B2 is
+    faster at all 32 rows, B2 / B3 not causal [causal]: bench.py's four
+    Transformer shapes 0.72 [0.71] at [64, 8, 256, 64], 0.69 [0.72],
+    0.70 [0.72] and 0.73 [0.73] at [4, 8, 4096, 64]; B2's grid from 3.9
+    to 15.5 times its slots at D 64, 0.67-0.75; D 128 0.76-0.82; D 32
+    0.64 [0.68].  So auto runs B2 everywhere; B3 stays the ``pair``
+    engine, by name.  (After B3's redesign and before B2's, the pair won
+    at every shape.)"""
     del B, H, D, sm_count  # the same engine at every measured shape
-    return "pair"
+    return "fused"
 
 
 @functools.lru_cache(maxsize=None)
@@ -414,7 +418,16 @@ def _check_bwd_inputs(q, k, v, kv_lens, out, lse, do, name):
     return do
 
 
+def _b2_workspace_shape(B, H, T, S, D):
+    """Shape of B2's float32 workspace of dq partials: one [T, D] slice
+    for each (b*h, 64-key tile), of which the fused kernel writes the rows
+    of the query tiles that walk that key tile."""
+    return (B * H, -(-S // 64), T, D)
+
+
 def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    """(dq, dk, dv) from B2: a delta pre-pass, the fused kernel (dk, dv
+    and dq partials into a workspace), then the dq sum."""
     from ..cuda_kernels import load_library
 
     name = "flash_attention_bwd"
@@ -424,23 +437,22 @@ def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
     dq = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, H, S, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, H, S, D), dtype=v.dtype, device=q.device)
-    if B * H == 0:
-        return dq, dk, dv
-    # float32 dq accumulates in place; a bfloat16 one in a float32
-    # workspace the kernel rounds once at the end
-    dq_acc = dq if q.dtype == torch.float32 else torch.empty(
-        (B, H, T, D), dtype=torch.float32, device=q.device)
+    if B * H * T * S == 0:  # no visible pair: every gradient is zero
+        return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    q, qs = _strides(q)
-    k, ks = _strides(k)
-    v, vs = _strides(v)
+    ws = torch.empty(_b2_workspace_shape(B, H, T, S, D), dtype=torch.float32,
+                     device=q.device)
+    # the fused kernel stages q, k, v and do rows with 16-byte copies
+    q, qs = _aligned16(q)
+    k, ks = _aligned16(k)
+    v, vs = _aligned16(v)
+    do, dos = _aligned16(do)
     out, os_ = _strides(out)
-    do, dos = _strides(do)
     err = load_library().pt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), None if kv_lens is None else kv_lens.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dq_acc.data_ptr(), delta.data_ptr(), B, H, T, S, D, *qs, *ks, *vs,
+        ws.data_ptr(), delta.data_ptr(), B, H, T, S, D, *qs, *ks, *vs,
         *os_, *dos, int(causal), float(sm_scale),
         int(q.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)

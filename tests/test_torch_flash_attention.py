@@ -520,31 +520,34 @@ class TestBackwardEngineSwitch:
             np.testing.assert_allclose(g.numpy(), w.numpy(),
                                        atol=FLASH_BWD_TOL, rtol=0)
 
-    @pytest.mark.parametrize("B,H,D,engine", [(64, 8, 64, "pair"),
-                                              (16, 8, 64, "pair"),
-                                              (8, 8, 64, "pair"),
-                                              (4, 8, 64, "pair"),
-                                              (20, 8, 64, "pair"),
-                                              (24, 8, 64, "pair"),
-                                              (28, 8, 64, "pair"),
-                                              (32, 8, 64, "pair"),
-                                              (48, 8, 64, "pair"),
-                                              (24, 4, 128, "pair"),
-                                              (28, 4, 128, "pair"),
-                                              (32, 4, 128, "pair"),
-                                              (64, 4, 128, "pair"),
-                                              (128, 8, 64, "pair"),
-                                              (64, 8, 32, "pair")])
+    @pytest.mark.parametrize("B,H,D,engine", [(64, 8, 64, "fused"),
+                                              (16, 8, 64, "fused"),
+                                              (8, 8, 64, "fused"),
+                                              (4, 8, 64, "fused"),
+                                              (20, 8, 64, "fused"),
+                                              (24, 8, 64, "fused"),
+                                              (28, 8, 64, "fused"),
+                                              (32, 8, 64, "fused"),
+                                              (48, 8, 64, "fused"),
+                                              (24, 4, 128, "fused"),
+                                              (28, 4, 128, "fused"),
+                                              (32, 4, 128, "fused"),
+                                              (64, 4, 128, "fused"),
+                                              (128, 8, 64, "fused"),
+                                              (64, 8, 32, "fused")])
     def test_auto_rule_at_the_sweep_shapes(self, B, H, D, engine):
         """The engines the rule picks at PERF.md's sweep shapes on a
         132-SM H100: bench.py's four Transformer shapes (B x T = 16,384
-        tokens, H 8, D 64), B*H across and past B2's slots at D 64 and
-        D 128, and D 32 — the pair at each since B3's redesign."""
+        tokens, H 8, D 64), B*H across and past the former B2's slots at
+        D 64 and D 128, and D 32 — the fused engine at each since B2's
+        redesign (it was the pair at each after B3's)."""
         assert tfa._pick_bwd_engine(B, H, D, 132) == engine
 
     @pytest.mark.parametrize("D,blocks", [(32, 3), (64, 2), (128, 1)])
     def test_b2_blocks_per_sm_from_shared_memory(self, D, blocks):
-        """bwd_smem<64> is 100,352 bytes: two to a 228 KB SM."""
+        """B2's blocks are B3's dk/dv blocks: dkv_smem<64> is 107,008
+        bytes, two to a 228 KB SM (74,240 at D 32, three; 172,544 at
+        D 128, one)."""
         assert tfa._b2_blocks_per_sm(D) == blocks
 
     def test_alignment_copies_only_misaligned_tensors(self):
@@ -616,6 +619,88 @@ class TestBackwardEngineSwitch:
             else:
                 assert args[i] == t.data_ptr()
                 assert list(strides[name]) == list(t.stride()[:3])
+
+    @pytest.mark.parametrize("misaligned", [None, "q", "k", "v", "do"])
+    def test_fused_wrapper_hands_the_kernel_aligned_rows_and_a_workspace(
+            self, misaligned, monkeypatch):
+        """B2 stages q, k, v and do rows with 16-byte copies and writes its
+        dq partials into a float32 workspace: the wrapper hands
+        pt_flash_bwd an aligned copy of a misaligned tensor (the Program's
+        aligned transposed views as they are), a [B*H, ceil(S/64), T, D]
+        float32 workspace and a [B, H, T] delta, and counts one launch a
+        call; with no (query, key) pair it returns zero gradients without
+        a launch (a stand-in library records the call; nothing is
+        launched)."""
+        from paddle_tpu_torch import cuda_kernels
+
+        calls = []
+
+        class Lib:
+            def pt_flash_bwd(self, *args):
+                calls.append(args)
+                return 0
+
+        made = {}
+        real_empty = torch.empty
+
+        def empty(*args, **kwargs):  # every tensor the wrapper allocates
+            t = real_empty(*args, **kwargs)
+            made[t.data_ptr()] = t
+            return t
+
+        monkeypatch.setattr(cuda_kernels, "load_library", Lib)
+        monkeypatch.setattr(tfa, "_device_index", lambda t: 0)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: type("S", (), {
+                                "cuda_stream": 0})())
+        monkeypatch.setattr(torch, "empty", empty)
+        monkeypatch.setitem(tfa.KERNEL_LAUNCHES, "flash_attention_bwd", 0)
+        B, H, T, S, D = 2, 3, 40, 130, 32
+
+        def view(n, off):
+            flat = real_empty(B * n * H * D + off).zero_()
+            return flat[off:].view(B, n, H, D).transpose(1, 2)
+
+        ins = {name: view(n, 1 if name == misaligned else 0)
+               for name, n in (("q", T), ("k", S), ("v", S), ("do", T))}
+        out, lse = view(T, 0), torch.zeros((B, H, T))
+        dq, dk, dv = tfa._flash_bwd_cuda(ins["q"], ins["k"], ins["v"], None,
+                                         out, lse, ins["do"], False, 0.2)
+        (args,) = calls
+        assert tfa.KERNEL_LAUNCHES["flash_attention_bwd"] == 1
+        assert args[12:17] == (B, H, T, S, D)
+        assert [args[i] for i in (7, 8, 9)] == [
+            g.data_ptr() for g in (dq, dk, dv)]
+        ws, delta = made[args[10]], made[args[11]]
+        assert ws.dtype == delta.dtype == torch.float32
+        assert tuple(ws.shape) == (B * H, 3, T, D) == \
+            tfa._b2_workspace_shape(B, H, T, S, D)
+        assert tuple(delta.shape) == (B, H, T)
+        strides = {"q": args[17:20], "k": args[20:23], "v": args[23:26],
+                   "do": args[29:32]}
+        for i, name in ((0, "q"), (1, "k"), (2, "v"), (4, "do")):
+            t = ins[name]
+            assert args[i] % 16 == 0
+            assert all(s * 4 % 16 == 0 for s in strides[name])
+            if name == misaligned:
+                assert args[i] != t.data_ptr()
+                assert list(strides[name]) == [t.shape[1] * t.shape[2] * D,
+                                               t.shape[2] * D, D]
+            else:
+                assert args[i] == t.data_ptr()
+                assert list(strides[name]) == list(t.stride()[:3])
+        # no (query, key) pair: zero gradients, nothing launched
+        for t_len, s_len in ((0, S), (T, 0)):
+            g = tfa._flash_bwd_cuda(
+                ins["q"][:, :, :t_len], ins["k"][:, :, :s_len],
+                ins["v"][:, :, :s_len], None, out[:, :, :t_len],
+                lse[:, :, :t_len].contiguous(), ins["do"][:, :, :t_len],
+                True, 0.2)
+            assert [tuple(x.shape) for x in g] == [
+                (B, H, t_len, D), (B, H, s_len, D), (B, H, s_len, D)]
+            assert all((x == 0).all() for x in g)
+        assert len(calls) == 1
+        assert tfa.KERNEL_LAUNCHES["flash_attention_bwd"] == 1
 
     def test_pair_wrapper_rejects_bad_inputs_before_launch(self):
         q, k, v, do = (torch.from_numpy(x) for x in _flash_case(4, 8, 8, D=32))

@@ -10,17 +10,29 @@ caught):
    matmuls and convolutions;
 2. the kernel build (one nvcc per source, all started together, sm_90a)
    from paddle_tpu_torch/csrc;
-3. one phase per paged kernel at the decode slice's shapes (8 slots, 8
-   heads, head_dim 64, page_size 16, 128 pages a sequence, a 1025-page
-   pool), with float32 and bfloat16 pools: the kernel against its plain
-   PyTorch version on the card, plus the kernel's contracts (exact zeros
-   for empty slots, non-finite stale tails ignored, and for prefill,
-   chunk-split bitwise equal to one call, at chunk starts and lengths on
-   and off the kernel's 64-key tiles, C = 1 included, with NaN/Inf
-   written past start + C), then the kernel's time, the plain version's,
-   the least time the card could take (bound), and one PyTorch library
-   call for the same work as a yardstick (prefill at two points: a
-   1024-token prompt, and the second 512-token chunk of a prompt);
+3. the paged decode kernel (B4: a split kernel over 256-key splits of a
+   slot's pages and a merge kernel) at the decode slice's shapes (8
+   slots, 8 heads, head_dim 64, page_size 16, 128 pages a sequence, a
+   1025-page pool), float32 and bfloat16 pools, at the slice's kv_lens
+   and at the edge lengths (1, ps, a split's size - 1, size and size + 1,
+   mp*ps and mp*ps + 5, where the walk stops at the table's width):
+   within KERNEL_TOL of its plain version, exact zeros for empty slots,
+   non-finite stale tails ignored, and bitwise: two calls, each slot
+   alone (S = 1) against its row of the S = 8 call, the pool's pages
+   permuted with the tables moved to match.  Then B4's sweep (the slice's
+   kv_lens in f32 and bf16, every slot at 2048, lengths in the serving
+   run's range, one live slot, Dh 32 at H 16 and Dh 128 at H 4): its
+   time by CUDA events, the merge kernel's share of its device time, the
+   bound, one SDPA call over K/V gathered beforehand, the plain
+   version's time and the host time a call takes to enqueue.  The paged
+   prefill kernel (B5) at the same shapes: against its plain version,
+   exact zeros, non-finite tails ignored, chunk-split bitwise equal to
+   one call, at chunk starts and lengths on and off the kernel's 64-key
+   tiles, C = 1 included, with NaN/Inf written past start + C, then its
+   time, the plain version's, the bound and SDPA (a 1024-token prompt,
+   and the second 512-token chunk of a prompt).  CUDA-event times queue
+   a device-side wait before the start event, so they hold no host
+   time;
 4. the flash attention kernels (forward B1, fused backward B2: a delta
    pre-pass, the fused kernel and the dq sum) at the training slice's
    shape [64, 8, 256, 64], in float32 and bfloat16, on
@@ -66,7 +78,8 @@ caught):
    requests must come out bitwise equal from a max_active=1 engine;
    the LM's logits on the card are held against the plain CPU versions
    on a short input; a short profiled window then splits the device
-   time by kernel family and gives the device's idle share;
+   time by kernel family (B4's two kernels in one) and gives the
+   device's idle share and B4's share of the window's wall time;
 8. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
@@ -94,7 +107,8 @@ caught):
    under ``auto``: the same checks, with B1 and the backward ``auto``
    picks launched 18 times a step and the other engine not at all;
 11. a ``kernels`` JSON line (all six kernels: times at the shape of
-   their main path, launches from it; B3's two kernels have no library
+   their main path, launches from it; B4's entry names its two kernels
+   and carries each one's device time; B3's two kernels have no library
    call of their own, so their entries also carry the pair's time beside
    SDPA's whole backward; B1's and B2's also carry their figures at the
    long leg's shape (B2's dq sum apart) and their launches there), the
@@ -122,6 +136,9 @@ DECODE_CONFIG = dict(num_slots=8, page_size=16, max_seq_len=2048,
                      max_new_tokens=256)
 N_REQUESTS, NEW_TOKENS = 16, 64
 KERNEL_TOL = 2e-5   # kernel vs plain, f32 math on both: summation order only
+# the decode slice's kv_lens: empty slots, one key, a page, a page + 1, and
+# longer walks up to 2047 keys
+DECODE_LENS = np.array([0, 1, 16, 17, 300, 1024, 2047, 0], np.int32)
 # paged prefill cases (start, C), each also split in two calls at C // 2:
 # the slice's chunk shapes, then starts off the 64-key tiles, a ragged C
 # split off a tile boundary and a one-row chunk
@@ -169,6 +186,9 @@ LOGIT_TOL = 2e-3    # card vs CPU over 12 layers: GEMM summation orders differ
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# the device-side wait before each timed launch: about 0.5 ms at the
+# H100's 1.98 GHz boost clock, longer than any wrapper takes to enqueue
+SLEEP_CYCLES = 1_000_000
 
 
 def log(*args):
@@ -192,7 +212,11 @@ def card_line():
 def timed(fn, iters, flush, warmup=2):
     """(mean device time of ``fn`` in ms over ``iters`` launches, its last
     result); each launch is timed alone by CUDA events with the L2 cache
-    flushed before it (the main path reaches each layer's pool cold)."""
+    flushed before it (the main path reaches each layer's pool cold).  A
+    device-side wait of SLEEP_CYCLES is queued after the flush, so the
+    host has queued ``fn``'s launches before the start event is reached:
+    the interval holds the device's work and the gaps between its
+    launches, not the host's time to enqueue them."""
     import torch
 
     for _ in range(warmup):
@@ -201,6 +225,7 @@ def timed(fn, iters, flush, warmup=2):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for a, b in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         result = fn()
         b.record()
@@ -217,27 +242,31 @@ def kernel_ms(torch, fn, iters, flush, names):
     one of ``names``, read from a torch.profiler window over ``iters``
     calls of ``fn`` (the L2 cache flushed before each), and the launches
     of each the profiler recorded: it may drop a few of a window's
-    events, so the mean is over those it kept, and each kernel must
-    show up at least once."""
+    events, so the mean is over those it kept.  A window in which some
+    kernel shows up not once is taken again, up to three windows in all;
+    then each kernel must have shown up."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    total = dict.fromkeys(names, 0.0)
-    count = dict.fromkeys(names, 0)
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for n in names:
-            if n in e.name:
-                total[n] += e.time_range.elapsed_us()
-                count[n] += 1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total = dict.fromkeys(names, 0.0)
+        count = dict.fromkeys(names, 0)
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for n in names:
+                if n in e.name:
+                    total[n] += e.time_range.elapsed_us()
+                    count[n] += 1
+        if all(count.values()):
+            break
     check(all(0 < c <= iters for c in count.values()),
           "profiler saw no launch of a kernel", count, iters)
     return {n: total[n] / count[n] / 1e3 for n in names}, count
@@ -249,10 +278,13 @@ def bound_ms(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-KERNEL_NAMES = ("paged_decode_kernel", "paged_prefill_kernel",
+KERNEL_NAMES = ("paged_decode_kernel", "paged_decode_merge_kernel",
+                "paged_prefill_kernel",
                 "flash_fwd_kernel", "flash_bwd_fused_kernel",
                 "flash_bwd_dq_sum_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+# B4's two launches: the split kernel, then the merge
+B4_KERNELS = ("paged_decode_kernel", "paged_decode_merge_kernel")
 # the device kernels of each backward engine (names as the profiler shows
 # them; no name holds another): B2's three launches and B3's three
 B2_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_fused_kernel",
@@ -293,65 +325,172 @@ def make_pools(torch, dev, gen):
             "bfloat16": (k.to(torch.bfloat16), v.to(torch.bfloat16))}
 
 
-def decode_phase(torch, fa, dev, flush):
-    import torch.nn.functional as F
+def decode_bytes_flops(lens, H, Dh, itemsize):
+    """B4's bytes moved once (the visible key and value rows, q and out in
+    float32, the page tables and kv_lens) and its 4*Dh operations a
+    visible key, at these kv_lens (each clamped at the table's MP*PS)."""
+    keys = int(np.minimum(np.maximum(lens, 0), MP * PS).sum())
+    S_ = len(lens)
+    nbytes = (keys * H * Dh * 2 * itemsize + 2 * S_ * H * Dh * 4
+              + S_ * MP * 4 + S_ * 4)
+    return nbytes, keys * H * Dh * 4
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    rng = np.random.RandomState(SEED)
-    lens_np = np.array([0, 1, 16, 17, 300, 1024, 2047, 0], np.int32)
+
+def decode_checks(torch, fa, dev, gen, rng):
+    """B4 at the slice's width (S 8, H 8, Dh 64, ps 16, mp 128), f32 and
+    bf16 pools, at the table's kv_lens and at the edge lengths (1, ps, a
+    split's size - 1, size and size + 1, mp*ps, mp*ps + 5): within
+    KERNEL_TOL of the plain version; kv_lens == 0 exact zeros; NaN/Inf in
+    the stale tail of each slot's last page inert; and bitwise: two calls,
+    each slot alone (S = 1) against its row in the S = 8 call, and the
+    pools' pages permuted with the tables moved to match."""
+    split = fa._b4_split_pages(PS) * PS
+    cases = {"table": DECODE_LENS,
+             "edges": np.array([1, PS, split - 1, split, split + 1, MP * PS,
+                                MP * PS + 5, 0], np.int32)}
     # every slot its own pages (S * MP = NUM_PAGES - 1), in random order
     tables_np = rng.permutation(np.arange(1, NUM_PAGES)).reshape(S, MP)
     tables = torch.as_tensor(tables_np.astype(np.int32), device=dev)
-    kv_lens = torch.as_tensor(lens_np, device=dev)
+    perm_np = np.concatenate([[0], rng.permutation(np.arange(1, NUM_PAGES))])
+    perm = torch.as_tensor(perm_np, device=dev)
+    moved = torch.as_tensor(np.argsort(perm_np).astype(np.int32),
+                            device=dev)[tables.long()]
     q = torch.randn((S, H, DH), generator=gen, device=dev)
     scale = 1.0 / DH ** 0.5
     rows = []
     for dtype, (k, v) in make_pools(torch, dev, gen).items():
-        out = fa.paged_decode_attention(q, k, v, tables, kv_lens)
-        ref = fa._paged_reference(q, k, v, tables, kv_lens, scale)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        check(err <= KERNEL_TOL, "decode", dtype, err)
-        check(bool((out[kv_lens == 0] == 0).all()), "kv_lens == 0 not zero")
-        # non-finite garbage past each slot's length must not reach the sum
-        kn, vn = k.clone(), v.clone()
-        for s, n in enumerate(lens_np):
-            if n and n % PS:
-                last = tables_np[s, (n - 1) // PS]
-                kn[last, n % PS:] = float("nan")
-                vn[last, n % PS:] = float("inf")
-        out_nan = fa.paged_decode_attention(q, kn, vn, tables, kv_lens)
-        check(torch.equal(out_nan, out), "stale non-finite tail leaked")
-        del kn, vn
-        itemsize = k.element_size()
-        nbytes = (int(lens_np.sum()) * H * DH * 2 * itemsize
-                  + 2 * q.numel() * 4 + tables.numel() * 4 + S * 4)
-        flops = int(lens_np.sum()) * H * DH * 4
-        # yardstick: one SDPA call over K/V gathered beforehand
-        kg = k[tables.long()].reshape(S, MP * PS, H, DH).float()
-        vg = v[tables.long()].reshape(S, MP * PS, H, DH).float()
-        kg, vg = kg.transpose(1, 2), vg.transpose(1, 2)
-        mask = (torch.arange(MP * PS, device=dev)[None, :]
-                < kv_lens[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-        rows.append({
-            "dtype": dtype, "max_abs_err": err,
-            "ms": time_ms(lambda: fa.paged_decode_attention(
-                q, k, v, tables, kv_lens), 50, flush),
-            "plain_ms": time_ms(lambda: fa._paged_reference(
-                q, k, v, tables, kv_lens, scale), 10, flush),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q4, kg, vg, attn_mask=mask), 20, flush),
-            "bound": bound_ms(nbytes, flops), "bytes": nbytes,
-            "flops": flops})
-        del kg, vg
+        kp, vp = k[perm], v[perm]
+        for label, lens_np in cases.items():
+            kv_lens = torch.as_tensor(lens_np, device=dev)
+            out = fa.paged_decode_attention(q, k, v, tables, kv_lens)
+            ref = fa._paged_reference(q, k, v, tables, kv_lens, scale)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            what = ("decode", dtype, label)
+            check(err <= KERNEL_TOL, what, err)
+            check(bool((out[kv_lens == 0] == 0).all()), what,
+                  "kv_lens == 0 not zero")
+            check(torch.equal(fa.paged_decode_attention(
+                q, k, v, tables, kv_lens), out), what, "two calls differ")
+            for s_ in range(S):
+                one = slice(s_, s_ + 1)
+                alone = fa.paged_decode_attention(q[one], k, v, tables[one],
+                                                  kv_lens[one])
+                check(torch.equal(alone, out[one]), what,
+                      "slot alone != batched", s_)
+            check(torch.equal(fa.paged_decode_attention(
+                q, kp, vp, moved, kv_lens), out), what,
+                "permuted page placement changed the bits")
+            # non-finite garbage past each slot's length must not reach the sum
+            kn, vn = k.clone(), v.clone()
+            for s_, n in enumerate(lens_np):
+                if 0 < n < MP * PS and n % PS:
+                    last = tables_np[s_, (n - 1) // PS]
+                    kn[last, n % PS:] = float("nan")
+                    vn[last, n % PS:] = float("inf")
+            out_nan = fa.paged_decode_attention(q, kn, vn, tables, kv_lens)
+            check(torch.equal(out_nan, out), what, "stale non-finite tail "
+                  "leaked")
+            del kn, vn
+            rows.append({"dtype": dtype, "case": label,
+                         "kv_lens": lens_np.tolist(), "max_abs_err": err})
+        del kp, vp
     for r in rows:
-        log("decode %-8s S=%d kv_lens=%s err=%.3g (tol %g) kernel %.4f ms "
-            "plain %.4f ms sdpa %.4f ms bound %.4f ms (%s)"
-            % (r["dtype"], S, lens_np.tolist(), r["max_abs_err"], KERNEL_TOL,
-               r["ms"], r["plain_ms"], r["library_ms"], r["bound"][0],
-               r["bound"][1]))
+        log("decode check %-8s %-5s kv_lens=%s err=%.3g (tol %g); bitwise: "
+            "two calls, each slot alone == batched, permuted pages; "
+            "kv_lens==0 zeros; stale NaN/Inf inert"
+            % (r["dtype"], r["case"], r["kv_lens"], r["max_abs_err"],
+               KERNEL_TOL))
     return rows
+
+
+def decode_sweep_row(torch, fa, dev, flush, gen, label, lens_np, dtype,
+                     heads=H, dh=DH):
+    """B4 at one sweep row: its time by CUDA events (L2 flushed), the
+    merge kernel's share of its device time (a torch.profiler window), the
+    bound, one SDPA call over K/V gathered beforehand, the plain version's
+    time and the host time a call takes to enqueue; checked against the
+    plain version first."""
+    import torch.nn.functional as F
+
+    k = torch.randn((NUM_PAGES, PS, heads, dh), generator=gen, device=dev)
+    v = torch.randn((NUM_PAGES, PS, heads, dh), generator=gen, device=dev)
+    k, v = k.to(getattr(torch, dtype)), v.to(getattr(torch, dtype))
+    n = len(lens_np)
+    tables = torch.randperm(NUM_PAGES - 1, generator=gen, device=dev)[
+        :n * MP].reshape(n, MP).add(1).int()
+    kv_lens = torch.as_tensor(lens_np, device=dev)
+    q = torch.randn((n, heads, dh), generator=gen, device=dev)
+    scale = 1.0 / dh ** 0.5
+    call = lambda: fa.paged_decode_attention(  # noqa: E731
+        q, k, v, tables, kv_lens)
+    out = call()
+    ref = fa._paged_reference(q, k, v, tables, kv_lens, scale)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    check(err <= KERNEL_TOL, "decode sweep", label, dtype, err)
+    ms = time_ms(call, 50, flush)
+    apart, _ = kernel_ms(torch, call, 20, flush, B4_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        call()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    nbytes, flops = decode_bytes_flops(lens_np, heads, dh, k.element_size())
+    kg = k[tables.long()].reshape(n, MP * PS, heads, dh).float()
+    vg = v[tables.long()].reshape(n, MP * PS, heads, dh).float()
+    kg, vg = kg.transpose(1, 2), vg.transpose(1, 2)
+    mask = (torch.arange(MP * PS, device=dev)[None, :]
+            < kv_lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    row = {"label": label, "dtype": dtype, "S": n, "H": heads, "Dh": dh,
+           "kv_lens": [int(x) for x in lens_np], "max_abs_err": err,
+           "ms": ms, "split_ms": apart[B4_KERNELS[0]],
+           "merge_ms": apart[B4_KERNELS[1]],
+           "merge_share": apart[B4_KERNELS[1]] / sum(apart.values()),
+           "host_us": host_us,
+           "plain_ms": time_ms(lambda: fa._paged_reference(
+               q, k, v, tables, kv_lens, scale), 10, flush),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q4, kg, vg, attn_mask=mask), 20, flush),
+           "bound": bound_ms(nbytes, flops), "bytes": nbytes,
+           "flops": flops}
+    del kg, vg, k, v
+    return row
+
+
+def decode_phase(torch, fa, dev, flush):
+    """B4's checks, then its sweep: the slice's table case (f32 and bf16),
+    every slot at 2048, lengths in the serving run's range, one live slot
+    (max_active=1's shape), and Dh 32 at H 16 and Dh 128 at H 4."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    checks = decode_checks(torch, fa, dev, gen, rng)
+    served = rng.randint(32, NEW_TOKENS + 1501, size=S).astype(np.int32)
+    solo = np.zeros(S, np.int32)
+    solo[0] = 2047
+    rows = [decode_sweep_row(torch, fa, dev, flush, gen, label, lens, dtype,
+                             heads, dh)
+            for label, lens, dtype, heads, dh in (
+                ("table", DECODE_LENS, "float32", H, DH),
+                ("table", DECODE_LENS, "bfloat16", H, DH),
+                ("full", np.full(S, 2048, np.int32), "float32", H, DH),
+                ("served", served, "float32", H, DH),
+                ("solo", solo, "float32", H, DH),
+                ("dh32", DECODE_LENS, "float32", 16, 32),
+                ("dh128", DECODE_LENS, "float32", 4, 128))]
+    for r in rows:
+        log("decode sweep %-6s %-8s S=%d H=%d Dh=%d kv_lens=%s err=%.3g "
+            "(tol %g): kernel %.4f ms (device: split %.4f + merge %.4f ms, "
+            "merge %.1f%%) host enqueue %.1f us | plain %.4f ms sdpa %.4f ms "
+            "bound %.4f ms (%s)"
+            % (r["label"], r["dtype"], r["S"], r["H"], r["Dh"], r["kv_lens"],
+               r["max_abs_err"], KERNEL_TOL, r["ms"], r["split_ms"],
+               r["merge_ms"], 100 * r["merge_share"], r["host_us"],
+               r["plain_ms"], r["library_ms"], r["bound"][0],
+               r["bound"][1]))
+    return checks, rows
 
 
 def prefill_phase(torch, fa, dev, flush):
@@ -498,21 +637,30 @@ def profile_window(torch, engine, meta):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         return "not measured (the profiler recorded no device activity)"
-    families = {"paged_decode_kernel": 0.0, "paged_prefill_kernel": 0.0,
-                "gemm": 0.0, "memcpy": 0.0, "other": 0.0}
+    # B4's family holds both its launches (split kernel and merge)
+    paged = {"paged_decode_kernel": "paged_decode",
+             "paged_decode_merge_kernel": "paged_decode",
+             "paged_prefill_kernel": "paged_prefill"}
+    families = {"paged_decode": 0.0, "paged_prefill": 0.0, "gemm": 0.0,
+                "memcpy": 0.0, "other": 0.0}
+    merge_us, b4_calls = 0.0, 0
     for e in kernels:
         name = e.name.lower()
-        fam = next((f for f in ("paged_decode_kernel", "paged_prefill_kernel")
-                    if f in name), None)
+        fam = next((f for k, f in paged.items() if k in name), None)
         if fam is None:
             fam = ("gemm" if any(k in name for k in ("gemm", "xmma",
                                                        "cutlass", "gemv"))
                    else "memcpy" if "memcpy" in name else "other")
         families[fam] += e.time_range.elapsed_us()
+        if "paged_decode_merge_kernel" in name:  # once a B4 call
+            merge_us += e.time_range.elapsed_us()
+            b4_calls += 1
     busy = sum(families.values())
     return {"window_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
             "device_ms_by_family": {k: v / 1e3 for k, v in families.items()},
+            "b4_merge_ms": merge_us / 1e3, "b4_calls_seen": b4_calls,
+            "b4_share_of_wall": families["paged_decode"] / wall_us,
             "device_events": len(kernels)}
 
 
@@ -1265,7 +1413,7 @@ def main():
         log("  ptxas: %s: %d registers, %d bytes spilled" % (name, regs, spill))
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    dec = decode_phase(torch, fa, dev, flush)
+    dec_checks, dec = decode_phase(torch, fa, dev, flush)
     pre = prefill_phase(torch, fa, dev, flush)
     flash_cases, flash_times = flash_phase(torch, fa, dev, flush)
     pair_cases = pair_phase(torch, fa, dev)
@@ -1289,7 +1437,8 @@ def main():
     b2_path, b3_path = (
         next((t for t in (trn, lng) if t["engine_ran"] == engine), step)
         for engine, step in (("fused", fused_check), ("pair", pair_check)))
-    d32 = next(r for r in dec if r["dtype"] == "float32")
+    d32 = next(r for r in dec
+               if r["label"] == "table" and r["dtype"] == "float32")
     p32 = next(r for r in pre if r["dtype"] == "float32"
                and (r["start"], r["C"]) == PREFILL_TIMED[0])
     full = next(t for t in flash_times if not t["causal"])
@@ -1354,7 +1503,7 @@ def main():
             ("paged_decode_attention", srv["launches"], d32,
              "paddle_tpu/parallel/flash_attention.py:848",
              "paddle_tpu_torch/csrc/paged_attention.cu",
-             [r["max_abs_err"] for r in dec]),
+             [r["max_abs_err"] for r in dec_checks + dec]),
             ("paged_prefill_attention", srv["launches"], p32,
              "paddle_tpu/parallel/flash_attention.py:991",
              "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -1371,6 +1520,11 @@ def main():
             kernels[-1].update(fwd_long)
         if name == "flash_attention_bwd":
             kernels[-1].update(bwd_long)
+        if name == "paged_decode_attention":
+            kernels[-1].update({"kernels": list(B4_KERNELS),
+                                "split_ms": d32["split_ms"],
+                                "merge_ms": d32["merge_ms"],
+                                "merge_share": d32["merge_share"]})
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its main path", kernels)
     log("total: %.1f s" % (time.perf_counter() - t_start))

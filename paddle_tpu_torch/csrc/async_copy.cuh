@@ -1,6 +1,5 @@
 // Asynchronous copies from device memory into shared memory (cp.async,
-// sm_80 and later), shared by the paged prefill kernel and the two-pass
-// flash backward.  A copy moves 16 bytes (or 4) without passing through
+// sm_80 and later), shared by the paged kernels and the flash kernels.  A copy moves 16 bytes (or 4) without passing through
 // registers; with src_bytes == 0 it writes zeros and reads nothing, so a
 // masked row is never touched (src must still be a valid address).
 // Copies issued since the last commit form one group; wait_all blocks
@@ -33,6 +32,13 @@ __device__ __forceinline__ void commit() {
 
 __device__ __forceinline__ void wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Blocks until at most N of the committed groups are still in flight (the
+// oldest land first), for a ring of N + 1 or more staged tiles.
+template <int N>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four consecutive shared-memory values as float32 (one 16-byte load for

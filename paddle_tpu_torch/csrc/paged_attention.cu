@@ -9,19 +9,22 @@
 //   page_tables  [S, MP] int32 (decode), pages [MP] int32 (prefill)
 //   kv_lens      [S] int32 (decode); start is a host int (prefill)
 //   out          like q, float32
+//   workspace    [S, H, splits, Dh + 2] float32 (decode): each split's
+//                unnormalised (acc[Dh], m, l)
 // One token's Dh values for head h are contiguous; neighbouring tokens of
-// a page are H*Dh apart.  In the decode kernel a warp holds one query row
-// with lane l owning the VPT = Dh/32 contiguous elements
-// [l*VPT, l*VPT + VPT), so every key or value row is read as one
-// coalesced 32-lane load; the prefill kernel stages 64-key tiles (see it).
+// a page are H*Dh apart.  Both kernels stage key and value rows in shared
+// memory with cp.async, 16 bytes a copy.
 //
-// Both kernels keep the TPU kernels' contracts: masked scores are
+// Both kernels keep the TPU kernels' contracts: the masked sentinel is
 // NEG_INF = -1e30 (not -inf), the final division is by max(l, 1e-30), a
 // row with no visible key yields exact zeros, and key/value rows past a
 // slot's kv_len (decode) or past the chunk's last row (prefill) are never
-// read, so stale or non-finite page tails cannot reach the sum.
+// read, so stale or non-finite page tails cannot reach the sum.  Neither
+// walks past the page table's width: keys at or past mp * ps are never
+// visible, as in the TPU kernels' mp-page grids.
 //
-// Math is float32 throughout; bf16 pools are widened on load (exactly).
+// Math is float32 throughout; bf16 pools are copied as bf16 and widened
+// when read (exactly).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,8 +34,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kDecodeThreads = 256;   // 8 warps split one slot's pages
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -46,156 +49,281 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// VPT contiguous values as float32 (vector loads; alignment holds because
-// Dh is 32, 64 or 128 and every row starts at a multiple of Dh).
-template <int VPT>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[VPT]) {
-  if constexpr (VPT == 1) {
-    out[0] = p[0];
-  } else if constexpr (VPT == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x;
-    out[1] = t.y;
-  } else {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x;
-    out[1] = t.y;
-    out[2] = t.z;
-    out[3] = t.w;
-  }
-}
-
-template <int VPT>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&out)[VPT]) {
-  if constexpr (VPT == 1) {
-    out[0] = __bfloat162float(p[0]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VPT / 2; ++i) {
-      const float2 f =
-          __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-}
-
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// One warp's online-softmax update over one page: the first n_valid
-// (1..ps, ps <= 32) tokens of the page are visible, the rest are masked.
-// kbase/vbase point at token 0 of the page for this head, lane offset
-// applied; token t is tok_stride elements further.  Scores are computed
-// first (lane t keeps score t), then the page's max, the rescale of the
-// running state and the p.v accumulation — the TPU kernel's per-page
-// block update, with the same order of operations for every row whatever
-// chunk or batch it sits in.
-template <int VPT, typename KV>
-__device__ __forceinline__ void attend_page(const float (&q)[VPT],
-                                            const KV* kbase, const KV* vbase,
-                                            size_t tok_stride, int n_valid,
-                                            float scale, int lane, float& m,
-                                            float& l, float (&acc)[VPT]) {
-  float my_s = kNegInf;
-#pragma unroll 4
-  for (int t = 0; t < n_valid; ++t) {
-    float kv[VPT];
-    load_vec<VPT>(kbase + t * tok_stride, kv);
-    float part = 0.f;
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) part = fmaf(q[i], kv[i], part);
-    const float s = warp_sum(part) * scale;
-    if (lane == t) my_s = s;
-  }
-  const float m_new = fmaxf(m, warp_max(my_s));
-  const float p = lane < n_valid ? expf(my_s - m_new) : 0.f;
-  const float alpha = expf(m - m_new);
-  l = l * alpha + warp_sum(p);
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) acc[i] *= alpha;
-#pragma unroll 4
-  for (int t = 0; t < n_valid; ++t) {
-    const float pt = __shfl_sync(kFull, p, t);
-    float vv[VPT];
-    load_vec<VPT>(vbase + t * tok_stride, vv);
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) acc[i] = fmaf(pt, vv[i], acc[i]);
-  }
-  m = m_new;
+// ---------------------------------------------------------------------------
+// B4, the paged decode.  Replaces
+// paddle_tpu/parallel/flash_attention.py:_paged_decode_kernel (launcher
+// _paged_pallas): one query row per (slot, head) against the slot's first
+// min(kv_len, mp * ps) keys, read through its page-table row.
+//
+// It is a mat-vec over the cache, so the card's byte rate bounds it: every
+// visible key and value row is read once, S * kv_len * H * Dh * 2 *
+// itemsize bytes in all, for 4 * Dh operations a key.  The TPU kernel
+// walks a slot's pages in order on one core; here the walk is cut into
+// splits of whole pages (split_pages(ps) of them, at most kSplitKeys keys:
+// 256 keys at ps 16), one block per (split, head, slot), so a long slot
+// fills many SMs.  The split size is a constant of the page size: it never
+// depends on S, on kv_lens, on the other slots or on the card, so a
+// slot's bits are the same alone or in any batch.
+//
+// Inside a split, key rows and then value rows stream through a ring of
+// NS staged kDT-key tiles (cp.async, 16 bytes a copy, zero-filled past the
+// split's last visible key), NS - 1 tiles in flight.  The split's token
+// rows (page * ps + row, from its page-table entries) are tabled in shared
+// memory once, so a copy costs one shared load and no division.  Four
+// lanes own a key's whole dot product (Dh/4 values each, 2 shuffle steps),
+// with q scaled into log2 units once; the split's scores are kept in
+// shared memory, so the softmax is one max and one sum a split (exp2f).
+// The value pass gives each thread 4 columns and every (512/Dh)-th key of
+// a tile; the key groups' sums are added in order.  Each split writes
+// (acc, m, l) once to the workspace; paged_decode_merge_kernel then
+// combines a (slot, head)'s live splits in split order.  No atomics: two
+// calls give the same bits.  The block's time is set by the chain of
+// dependent steps a tile costs it (barrier, copies, products), so the
+// loops a tile runs have compile-time trip counts and are unrolled.
+constexpr int kDecodeThreads = 128;  // 4 warps a split
+constexpr int kSplitKeys = 256;      // a split's keys at most (whole pages)
+constexpr int kDT = 32;              // keys a staged tile
+constexpr int kKeyLanes = 4;         // lanes that share a key's dot product
+constexpr int kRingBytes = 64 * 1024;
+static_assert(kDT % (kDecodeThreads / kKeyLanes) == 0 &&
+                  kSplitKeys % kDT == 0,
+              "a tile is whole rounds of the lane groups");
+
+// Pages a split covers (the host's _b4_split_pages): ps is 1..32.
+__host__ __device__ constexpr int split_pages(int ps) {
+  return ps >= kSplitKeys ? 1 : kSplitKeys / ps;
 }
 
-// Replaces paddle_tpu/parallel/flash_attention.py:_paged_decode_kernel
-// (launcher _paged_pallas).  One block per (slot, head).  On the TPU the
-// page walk is the sequential last grid dimension; here the block's 8
-// warps take the slot's pages round-robin, each keeping its own
-// (m, l, acc), and the block merges the 8 states at the end.  The kernel
-// is bound by bytes: every visible key and value row is read once from
-// device memory, S*kv_len*H*Dh*2*itemsize in all.  Pages past
-// ceil(kv_len/ps) are never touched.
-template <int VPT, typename KV>
+template <int DH, typename KV>
+struct DecodeTile {
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(KV));  // a copy
+  static constexpr int CH = DH / EPC;  // copies a row
+  static constexpr int COPIES = kDT * CH / kDecodeThreads;  // a thread's
+  // row stride: 16 elements of padding put the two (f32) or four (bf16)
+  // keys a quarter or half warp reads in the score step in disjoint banks
+  static constexpr int RK = DH + 16;
+  static constexpr int ELEMS = kDT * RK;
+  static constexpr int BYTES = ELEMS * static_cast<int>(sizeof(KV));
+  static constexpr int NS_FIT = kRingBytes / BYTES;
+  static constexpr int NS_MAX = 2 * kSplitKeys / kDT;  // tiles a split streams
+  static constexpr int NS =
+      NS_FIT < 2 ? 2 : (NS_FIT > NS_MAX ? NS_MAX : NS_FIT);
+  static constexpr int KG = kDecodeThreads / (DH / 4);  // value-step key groups
+  static constexpr int GROUPS = kDecodeThreads / kKeyLanes;  // score step
+  static_assert(kDecodeThreads % CH == 0 && COPIES * kDecodeThreads ==
+                    kDT * CH && kDT % KG == 0,
+                "a tile's copies and value rows split evenly");
+};
+
+template <int DH, typename KV>
+constexpr size_t decode_smem() {
+  using T = DecodeTile<DH, KV>;
+  return static_cast<size_t>(T::NS) * T::BYTES +
+         (kSplitKeys + T::KG * DH + 8) * sizeof(float) +
+         kSplitKeys * sizeof(int);
+}
+
+// Tile t of a split's stream (key tiles 0..ntk-1, then value tiles) into
+// its ring slot: keys [kDT t', kDT t' + kDT) of the split, zero-filled at
+// or past n.  k_src and v_src point at the pools' column c of head h (c =
+// the thread's 16-byte column, the same for all its copies); rows[kk] is
+// the split's key kk as a token row of the pool.  Always commits a group,
+// even an empty one, so every iteration adds one and wait_group's count
+// holds.
+template <int DH, typename KV>
+__device__ __forceinline__ void stage_decode_tile(KV* ring, const KV* k_src,
+                                                  const KV* v_src,
+                                                  const int* rows, int t,
+                                                  int ntk, int n, size_t tok) {
+  using T = DecodeTile<DH, KV>;
+  if (t < 2 * ntk) {
+    const KV* src = t < ntk ? k_src : v_src;
+    const int kt = (t < ntk ? t : t - ntk) * kDT;
+    const int c = threadIdx.x % T::CH;
+    KV* dst = ring + (t % T::NS) * T::ELEMS + c * T::EPC;
+#pragma unroll
+    for (int i = 0; i < T::COPIES; ++i) {
+      const int r = threadIdx.x / T::CH + i * (kDecodeThreads / T::CH);
+      const bool ok = kt + r < n;
+      const size_t row = ok ? static_cast<size_t>(rows[kt + r]) : 0;
+      pt_async::copy16(dst + r * T::RK, src + row * tok, ok ? 16 : 0);
+    }
+  }
+  pt_async::commit();
+}
+
+template <int DH, typename KV>
 __global__ void __launch_bounds__(kDecodeThreads)
     paged_decode_kernel(const float* __restrict__ q,
                         const KV* __restrict__ k_pool,
                         const KV* __restrict__ v_pool,
                         const int* __restrict__ page_tables,
                         const int* __restrict__ kv_lens,
-                        float* __restrict__ out, int H, int ps, int mp,
+                        float* __restrict__ ws, int H, int ps, int mp,
                         float scale) {
-  constexpr int DH = 32 * VPT;
-  const int s = blockIdx.x;
+  using T = DecodeTile<DH, KV>;
+  constexpr int NS = T::NS;
+  extern __shared__ float4 decode_smem4[];
+  KV* ring = reinterpret_cast<KV*>(decode_smem4);           // [NS][kDT][RK]
+  float* sc = reinterpret_cast<float*>(ring + NS * T::ELEMS);  // [kSplitKeys]
+  float* red = sc + kSplitKeys;                             // [KG][DH]
+  float* wred = red + T::KG * DH;                           // [2][4 warps]
+  int* rows = reinterpret_cast<int*>(wred + 8);             // [kSplitKeys]
+
+  const int split = blockIdx.x;
   const int h = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int s = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int pps = split_pages(ps);
+  const int k0 = split * pps * ps;  // the split's first key
+  // the split's token rows (page-table entries inside the row's mp),
+  // tabled while kv_len is read
+  const int* table = page_tables + static_cast<size_t>(s) * mp;
+  for (int kk = tid; kk < pps * ps && k0 + kk < mp * ps;
+       kk += kDecodeThreads) {
+    const int pg = (k0 + kk) / ps;
+    rows[kk] = table[pg] * ps + (k0 + kk - pg * ps);
+  }
+  const int kend = min(kv_lens[s], mp * ps);  // keys the slot sees
+  if (kend <= k0) return;  // past the slot's keys (kv_len <= 0 included)
+  const int n = min(pps * ps, kend - k0);  // the split's keys, >= 1
+  const int ntk = (n + kDT - 1) / kDT;
+  const size_t tok = static_cast<size_t>(H) * DH;  // between two tokens
+
+  // score step: lanes 4r..4r+3 own keys r, r + 32, ... of a tile; lane j
+  // holds q's 4-value chunks 4i + j, scaled into log2 units
+  const int key = tid / kKeyLanes;
+  const int j = tid % kKeyLanes;
+  const float sl2 = scale * kLog2e;
+  float4 qv[DH / 16];
+  const float* qrow = q + (static_cast<size_t>(s) * H + h) * DH;
+#pragma unroll
+  for (int i = 0; i < DH / 16; ++i) {
+    const float4 t = *reinterpret_cast<const float4*>(qrow + 16 * i + 4 * j);
+    qv[i] = make_float4(t.x * sl2, t.y * sl2, t.z * sl2, t.w * sl2);
+  }
+  // value step: 4 columns [4u, 4u + 4) over keys g, g + KG, ... of a tile
+  const int u = tid % (DH / 4);
+  const int g = tid / (DH / 4);
+  const size_t col = static_cast<size_t>(h) * DH +
+                     (tid % T::CH) * T::EPC;  // the thread's copy column
+  const KV* k_src = k_pool + col;
+  const KV* v_src = v_pool + col;
+  __syncthreads();  // the token rows
+
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t)
+    stage_decode_tile<DH>(ring, k_src, v_src, rows, t, ntk, n, tok);
+  float m = kNegInf, l = 0.f;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int t = 0; t < 2 * ntk; ++t) {
+    pt_async::wait_group<NS - 2>();
+    __syncthreads();  // tile t landed; tile t - 1's slot is consumed
+    stage_decode_tile<DH>(ring, k_src, v_src, rows, t + NS - 1, ntk, n, tok);
+    const KV* tile = ring + (t % NS) * T::ELEMS;
+    if (t < ntk) {
+#pragma unroll
+      for (int kr = 0; kr < kDT / T::GROUPS; ++kr) {
+        const KV* kp = tile + (key + kr * T::GROUPS) * T::RK + 4 * j;
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < DH / 16; ++i)
+          part = pt_async::dot4(qv[i], pt_async::lds4(kp + 16 * i), part);
+        part += __shfl_xor_sync(kFull, part, 1);
+        part += __shfl_xor_sync(kFull, part, 2);
+        if (j == 0) sc[t * kDT + key + kr * T::GROUPS] = part;
+      }
+      if (t == ntk - 1) {  // the split's softmax: one max, one sum
+        __syncthreads();
+        float mx = kNegInf;
+        for (int i = tid; i < n; i += kDecodeThreads) mx = fmaxf(mx, sc[i]);
+        mx = warp_max(mx);
+        if (lane == 0) wred[warp] = mx;
+        __syncthreads();
+        m = fmaxf(fmaxf(wred[0], wred[1]), fmaxf(wred[2], wred[3]));
+        float ls = 0.f;
+        // keys past n (to the last tile's end) get p = 0 against the
+        // tile's zero-filled rows, so the value step adds exact zeros
+        for (int i = tid; i < ntk * kDT; i += kDecodeThreads) {
+          const float p = i < n ? exp2f(sc[i] - m) : 0.f;
+          sc[i] = p;
+          ls += p;
+        }
+        ls = warp_sum(ls);
+        if (lane == 0) wred[4 + warp] = ls;
+        __syncthreads();
+        l = (wred[4] + wred[5]) + (wred[6] + wred[7]);
+      }
+    } else {
+      const float* p = sc + (t - ntk) * kDT;
+#pragma unroll
+      for (int i = 0; i < kDT / T::KG; ++i) {
+        const int r = g + i * T::KG;
+        const float pr = p[r];
+        const float4 v = pt_async::lds4(tile + r * T::RK + 4 * u);
+        acc[0] = fmaf(pr, v.x, acc[0]);
+        acc[1] = fmaf(pr, v.y, acc[1]);
+        acc[2] = fmaf(pr, v.z, acc[2]);
+        acc[3] = fmaf(pr, v.w, acc[3]);
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(red + g * DH + 4 * u) =
+      make_float4(acc[0], acc[1], acc[2], acc[3]);
+  __syncthreads();
+  float* rec = ws + ((static_cast<size_t>(s) * H + h) * gridDim.x + split) *
+                        (DH + 2);
+  if (tid < DH) {
+    float a = red[tid];
+#pragma unroll
+    for (int k = 1; k < T::KG; ++k) a += red[k * DH + tid];
+    rec[tid] = a;
+  }
+  if (tid == 0) {
+    rec[DH] = m;
+    rec[DH + 1] = l;
+  }
+}
+
+// B4's second launch: out[s, h] = sum_i acc_i 2^(m_i - M) / max(sum_i l_i
+// 2^(m_i - M), 1e-30) over the (slot, head)'s live splits, in split order
+// (M = their largest m).  A slot with kv_len <= 0 gets exact zeros; the
+// splits past its keys wrote nothing and are not read.
+template <int DH>
+__global__ void __launch_bounds__(DH)
+    paged_decode_merge_kernel(const int* __restrict__ kv_lens,
+                              const float* __restrict__ ws,
+                              float* __restrict__ out, int H, int ps, int mp,
+                              int splits) {
+  const int h = blockIdx.x;
+  const int s = blockIdx.y;
+  const int d = threadIdx.x;
   float* o = out + (static_cast<size_t>(s) * H + h) * DH;
-  const int kvl = kv_lens[s];
-  if (kvl <= 0) {  // inactive slot: exact zeros
-    for (int d = threadIdx.x; d < DH; d += blockDim.x) o[d] = 0.f;
+  const int kend = min(kv_lens[s], mp * ps);
+  if (kend <= 0) {
+    o[d] = 0.f;
     return;
   }
-  float qv[VPT];
-  load_vec<VPT>(q + (static_cast<size_t>(s) * H + h) * DH + lane * VPT, qv);
-  float m = kNegInf, l = 0.f;
-  float acc[VPT];
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) acc[i] = 0.f;
-  const int npages = (kvl + ps - 1) / ps;
-  const int* row = page_tables + static_cast<size_t>(s) * mp;
-  const size_t tok_stride = static_cast<size_t>(H) * DH;
-  for (int j = warp; j < npages; j += nwarps) {
-    const size_t base = static_cast<size_t>(row[j]) * ps * tok_stride +
-                        static_cast<size_t>(h) * DH + lane * VPT;
-    attend_page<VPT>(qv, k_pool + base, v_pool + base, tok_stride,
-                     min(ps, kvl - j * ps), scale, lane, m, l, acc);
+  const int sk = split_pages(ps) * ps;
+  const int live = (kend + sk - 1) / sk;
+  const float* rec = ws + (static_cast<size_t>(s) * H + h) * splits * (DH + 2);
+  float mx = kNegInf;
+  for (int i = 0; i < live; ++i) mx = fmaxf(mx, rec[i * (DH + 2) + DH]);
+  float lsum = 0.f, a = 0.f;
+  for (int i = 0; i < live; ++i) {
+    const float* r = rec + i * (DH + 2);
+    const float w = exp2f(r[DH] - mx);
+    lsum = fmaf(r[DH + 1], w, lsum);
+    a = fmaf(r[d], w, a);
   }
-  // merge the warps' states in warp order (a fixed order: the result for
-  // a slot depends on its own kv_len and pages only)
-  extern __shared__ float smem[];
-  float* sm_m = smem;
-  float* sm_l = smem + nwarps;
-  float* sm_acc = smem + 2 * nwarps;
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) sm_acc[warp * DH + lane * VPT + i] = acc[i];
-  __syncthreads();
-  for (int d = threadIdx.x; d < DH; d += blockDim.x) {
-    float mx = kNegInf;
-    for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, sm_m[w]);
-    float lsum = 0.f, a = 0.f;
-    for (int w = 0; w < nwarps; ++w) {
-      const float c = expf(sm_m[w] - mx);  // 0 for a warp that saw no page
-      lsum = fmaf(sm_l[w], c, lsum);
-      a = fmaf(sm_acc[w * DH + d], c, a);
-    }
-    o[d] = a / fmaxf(lsum, 1e-30f);
-  }
+  o[d] = a / fmaxf(lsum, 1e-30f);
 }
 
 // Replaces paddle_tpu/parallel/flash_attention.py:_paged_prefill_kernel
@@ -453,16 +581,30 @@ constexpr size_t prefill_smem() {
          2 * 2 * kPT * (DH + 16 / sizeof(KV)) * sizeof(KV);
 }
 
-template <int VPT, typename KV>
-void launch_decode(const void* q, const void* k, const void* v,
-                   const void* tables, const void* lens, void* out, int S,
-                   int H, int ps, int mp, float scale, cudaStream_t st) {
-  const size_t smem = (kDecodeThreads / 32) * (2 + 32 * VPT) * sizeof(float);
-  paged_decode_kernel<VPT, KV><<<dim3(S, H), kDecodeThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<float*>(out), H, ps, mp,
-      scale);
+template <int DH, typename KV>
+cudaError_t launch_decode(const void* q, const void* k, const void* v,
+                          const void* tables, const void* lens, void* out,
+                          void* ws, int splits, int S, int H, int ps, int mp,
+                          float scale, cudaStream_t st) {
+  if (splits > 0) {
+    constexpr size_t smem = decode_smem<DH, KV>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_decode_kernel<DH, KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    paged_decode_kernel<DH, KV>
+        <<<dim3(splits, H, S), kDecodeThreads, smem, st>>>(
+            static_cast<const float*>(q), static_cast<const KV*>(k),
+            static_cast<const KV*>(v), static_cast<const int*>(tables),
+            static_cast<const int*>(lens), static_cast<float*>(ws), H, ps, mp,
+            scale);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return launched;
+  }
+  paged_decode_merge_kernel<DH><<<dim3(H, S), DH, 0, st>>>(
+      static_cast<const int*>(lens), static_cast<const float*>(ws),
+      static_cast<float*>(out), H, ps, mp, splits);
+  return cudaGetLastError();
 }
 
 template <int DH, typename KV>
@@ -487,33 +629,38 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
 
 // The C interface.  Every pointer is a device pointer; kv_bf16 selects
 // the pool type (0: float32, 1: bfloat16).  Dh must be 32, 64 or 128 and
-// ps at most 32; prefill's q and pools must be 16-byte aligned (the Python
-// wrappers check all of this first).  Each
-// function launches on `stream` and returns cudaGetLastError().
+// ps 1..32; q and the pools must be 16-byte aligned (the Python wrappers
+// check all of this first).  Each function launches on `stream` (decode:
+// its two kernels, in order) and returns the first launch error.
 extern "C" int pt_paged_decode(const void* q, const void* k_pool,
                                const void* v_pool, const void* page_tables,
-                               const void* kv_lens, void* out, int S, int H,
-                               int Dh, int ps, int mp, float scale,
-                               int kv_bf16, int device, void* stream) {
+                               const void* kv_lens, void* out, void* ws,
+                               int splits, int S, int H, int Dh, int ps,
+                               int mp, float scale, int kv_bf16, int device,
+                               void* stream) {
+  // the workspace holds [S, H, splits, Dh + 2]: splits must be this
+  // library's count for (mp, ps)
+  if (ps < 1 || splits != (mp + split_pages(ps) - 1) / split_pages(ps))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PT_DECODE(VPT, KV) \
-  launch_decode<VPT, KV>(q, k_pool, v_pool, page_tables, kv_lens, out, S, H, \
-                         ps, mp, scale, st)
+#define PT_DECODE(DH, KV) \
+  err = launch_decode<DH, KV>(q, k_pool, v_pool, page_tables, kv_lens, out, \
+                              ws, splits, S, H, ps, mp, scale, st)
   if (kv_bf16) {
-    if (Dh == 32) PT_DECODE(1, __nv_bfloat16);
-    else if (Dh == 64) PT_DECODE(2, __nv_bfloat16);
-    else if (Dh == 128) PT_DECODE(4, __nv_bfloat16);
+    if (Dh == 32) PT_DECODE(32, __nv_bfloat16);
+    else if (Dh == 64) PT_DECODE(64, __nv_bfloat16);
+    else if (Dh == 128) PT_DECODE(128, __nv_bfloat16);
     else return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    if (Dh == 32) PT_DECODE(1, float);
-    else if (Dh == 64) PT_DECODE(2, float);
-    else if (Dh == 128) PT_DECODE(4, float);
+    if (Dh == 32) PT_DECODE(32, float);
+    else if (Dh == 64) PT_DECODE(64, float);
+    else if (Dh == 128) PT_DECODE(128, float);
     else return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PT_DECODE
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" int pt_paged_prefill(const void* q, const void* k_pool,

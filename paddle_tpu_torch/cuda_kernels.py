@@ -38,7 +38,7 @@ _L = ctypes.c_longlong
 # c_longlong
 _SIGNATURES = (
     ("pt_paged_decode",
-     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+     [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
     ("pt_paged_prefill",
      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
     ("pt_flash_fwd",

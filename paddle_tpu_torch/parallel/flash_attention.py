@@ -647,7 +647,30 @@ def _raise_on(err, name):
                            % (name, err, torch.cuda.get_device_name()))
 
 
+# B4's split: whole pages, at most this many keys
+# (csrc/paged_attention.cu:kSplitKeys; the C entry refuses a workspace
+# with another split count)
+_B4_SPLIT_KEYS = 256
+
+
+def _b4_split_pages(ps):
+    """Pages a B4 split covers at page size ``ps``: a constant of the page
+    size alone (256 keys at ps 16), never of S, kv_lens or the card, so a
+    slot's bits do not depend on the batch it decodes in."""
+    return max(1, _B4_SPLIT_KEYS // ps)
+
+
+def _b4_workspace_shape(S, H, mp, ps, Dh):
+    """Shape of B4's float32 workspace: one (acc[Dh], m, l) record for
+    each (slot, head, split), written once by the split kernel and read in
+    split order by the merge kernel."""
+    return (S, H, -(-mp // _b4_split_pages(ps)), Dh + 2)
+
+
 def _paged_decode_cuda(q, k_pool, v_pool, page_tables, kv_lens, sm_scale):
+    """B4: the split kernel (one block per (split, head, slot)) and the
+    merge kernel, launched by one C call.  Never reads kv_lens on the host:
+    the workspace and the grid come from the shapes alone."""
     from ..cuda_kernels import load_library
 
     name = "paged_decode_attention"
@@ -660,17 +683,20 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_tables, kv_lens, sm_scale):
             or kv_lens.device != q.device or not kv_lens.is_contiguous()):
         raise ValueError("%s: kv_lens must be a contiguous int32 [S] tensor "
                          "on %s" % (name, q.device))
-    out = torch.empty_like(q)
+    out = torch.empty((S, H, Dh), dtype=q.dtype, device=q.device)
     if S == 0:
         return out
-    lib = load_library()
-    dev = q.device.index if q.device.index is not None else \
-        torch.cuda.current_device()
-    err = lib.pt_paged_decode(
+    ps, mp = k_pool.shape[1], page_tables.shape[1]
+    ws = torch.empty(_b4_workspace_shape(S, H, mp, ps, Dh),
+                     dtype=torch.float32, device=q.device)
+    # the split kernel reads q 16 bytes at a time and stages the pools'
+    # rows with 16-byte copies
+    q, k_pool, v_pool = (_aligned16(t)[0] for t in (q, k_pool, v_pool))
+    err = load_library().pt_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        S, H, Dh, k_pool.shape[1], page_tables.shape[1], float(sm_scale),
-        int(k_pool.dtype == torch.bfloat16), dev,
+        ws.data_ptr(), ws.shape[2], S, H, Dh, ps, mp, float(sm_scale),
+        int(k_pool.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
     KERNEL_LAUNCHES[name] += 1
@@ -691,14 +717,11 @@ def _paged_prefill_cuda(q, k_pool, v_pool, pages, start, sm_scale):
         return out
     # the kernel stages q and the pools' rows with 16-byte copies
     q, k_pool, v_pool = (_aligned16(t)[0] for t in (q, k_pool, v_pool))
-    lib = load_library()
-    dev = q.device.index if q.device.index is not None else \
-        torch.cuda.current_device()
-    err = lib.pt_paged_prefill(
+    err = load_library().pt_paged_prefill(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pages.data_ptr(), out.data_ptr(), C, H, Dh, k_pool.shape[1],
         pages.shape[0], int(start), float(sm_scale),
-        int(k_pool.dtype == torch.bfloat16), dev,
+        int(k_pool.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
     KERNEL_LAUNCHES[name] += 1
@@ -751,10 +774,13 @@ def paged_decode_attention(q, k_pool, v_pool, page_tables, kv_lens,
         ``page_tables[s, :ceil(kv_lens[s]/page_size)]`` in order; unused
         entries must point at a valid (scratch) page id.
     kv_lens: [S] int32 — tokens of valid kv per slot; 0 = inactive slot,
-        whose output row is exactly zero.
+        whose output row is exactly zero.  A slot sees at most the
+        ``max_pages * page_size`` keys its page-table row can hold.
 
     CPU tensors run the plain version, CUDA tensors the kernel (same
-    input requirements as :func:`paged_prefill_attention`).
+    input requirements as :func:`paged_prefill_attention`), whose result
+    for a slot depends on that slot's q, kv_lens and pages alone: it is
+    the same bits in any batch.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])

@@ -137,6 +137,222 @@ class TestPagedDecode:
                                        atol=TOL, rtol=0)
 
 
+LOG2E = 1.4426950408889634
+
+
+def _paged_split_reference(q, k_pool, v_pool, page_tables, kv_lens,
+                           sm_scale):
+    """A float32 model of B4's partition and merge (the CUDA kernel in
+    paddle_tpu_torch/csrc/paged_attention.cu): slot s sees its first
+    min(kv_lens[s], mp * ps) keys, cut into splits of
+    ``_b4_split_pages(ps)`` whole pages; each split scores its keys with q
+    scaled into log2 units, takes one max m and one sum l of 2^(s - m) and
+    acc = sum 2^(s - m) v; the merge weighs each live split by 2^(m - M)
+    in split order and divides by max(L, 1e-30).  A slot with no visible
+    key gets exact zeros.  Each (slot, split) is computed from that slot's
+    q, kv_lens and pages alone, as each kernel block is."""
+    S, H, Dh = q.shape
+    ps, mp = k_pool.shape[1], page_tables.shape[1]
+    sk = tfa._b4_split_pages(ps) * ps
+    ql = q.float() * torch.tensor(sm_scale, dtype=torch.float32) * LOG2E
+    out = torch.zeros((S, H, Dh), dtype=torch.float32)
+    for s in range(S):
+        kend = min(int(kv_lens[s]), mp * ps)
+        recs = []
+        for k0 in range(0, max(kend, 0), sk):
+            keys = torch.arange(k0, min(k0 + sk, kend))
+            pages = page_tables[s, keys // ps].long()
+            k = k_pool[pages, keys % ps].float()          # [n, H, Dh]
+            v = v_pool[pages, keys % ps].float()
+            sc = (ql[s][None] * k).sum(-1)                 # [n, H]
+            m = sc.amax(0)
+            p = torch.exp2(sc - m)
+            recs.append((m, p.sum(0), (p[..., None] * v).sum(0)))
+        if not recs:
+            continue
+        big = torch.stack([m for m, _, _ in recs]).amax(0)
+        lsum = torch.zeros(H)
+        acc = torch.zeros(H, Dh)
+        for m, l, a in recs:
+            w = torch.exp2(m - big)
+            lsum = lsum + l * w
+            acc = acc + a * w[:, None]
+        out[s] = acc / lsum.clamp_min(1e-30)[:, None]
+    return out
+
+
+# B4's split at the tests' page size 16: 16 pages, 256 keys; a 20-page
+# table holds 320 keys, so a slot has up to two splits, the second partial
+B4_PS, B4_MP = 16, 20
+B4_SPLIT = 256
+# kv_lens at 1, ps, a split's size - 1, size and size + 1, the table's
+# width mp * ps, and past it (the walk stops at mp * ps)
+B4_EDGE_LENS = [1, B4_PS, B4_SPLIT - 1, B4_SPLIT, B4_SPLIT + 1,
+                B4_MP * B4_PS, B4_MP * B4_PS + 5]
+
+
+def _b4_case(seed, lens, P=48, H=2, Dh=16):
+    return _decode_case(seed, lens, P=P, ps=B4_PS, H=H, Dh=Dh, mp=B4_MP)
+
+
+def _split_model(q, kp, vp, tables, lens, dtype="float32"):
+    td = DTYPES[dtype][1]
+    return _paged_split_reference(
+        torch.from_numpy(q), torch.from_numpy(kp).to(td),
+        torch.from_numpy(vp).to(td), torch.from_numpy(tables),
+        torch.from_numpy(lens), 1.0 / np.sqrt(q.shape[-1])).numpy()
+
+
+class TestPagedDecodeSplit:
+    """B4's design (splits of whole pages, a fixed-order merge, the walk
+    clamped at the table's width) on the CPU: its torch model against the
+    JAX package, and the contracts the kernel is held to on the card.
+    Tolerance against JAX: TOL (2e-6 absolute; the model sums in splits
+    and in log2 units, O(1) values)."""
+
+    def test_split_constant_matches_the_kernel_source(self):
+        import os
+        import re
+        src = open(os.path.join(
+            os.path.dirname(tfa.__file__), os.pardir, "csrc",
+            "paged_attention.cu")).read()
+        (keys,) = re.findall(r"constexpr int kSplitKeys = (\d+);", src)
+        assert int(keys) == tfa._B4_SPLIT_KEYS == B4_SPLIT
+        assert tfa._b4_split_pages(B4_PS) * B4_PS == B4_SPLIT
+
+    @pytest.mark.parametrize("ps,pages", [(1, 256), (3, 85), (16, 16),
+                                          (17, 15), (32, 8)])
+    def test_split_is_whole_pages_of_at_most_the_split_keys(self, ps, pages):
+        assert tfa._b4_split_pages(ps) == pages
+        assert pages * ps <= B4_SPLIT < (pages + 1) * ps
+
+    def test_workspace_shape_from_the_shapes_alone(self):
+        # the serving width: 8 slots, 8 heads, mp 128, ps 16, Dh 64
+        assert tfa._b4_workspace_shape(8, 8, 128, 16, 64) == (8, 8, 8, 66)
+        assert tfa._b4_workspace_shape(1, 4, 128, 3, 128) == (1, 4, 2, 130)
+        assert tfa._b4_workspace_shape(2, 1, 5, 16, 32) == (2, 1, 1, 34)
+
+    @pytest.mark.parametrize("dtype", sorted(DTYPES))
+    @pytest.mark.parametrize("engine", ENGINES)
+    def test_split_model_matches_jax_at_the_edge_lengths(self, engine, dtype):
+        q, kp, vp, tables, lens = _b4_case(10, B4_EDGE_LENS)
+        want = _jax_decode(q, kp, vp, tables, lens, dtype, **engine)
+        got = _split_model(q, kp, vp, tables, lens, dtype)
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+    @pytest.mark.parametrize("dtype", sorted(DTYPES))
+    @pytest.mark.parametrize("engine", ENGINES)
+    def test_plain_version_matches_jax_past_the_table(self, engine, dtype):
+        """kv_len = mp * ps + 5: every engine attends to the table's
+        mp * ps keys (the kernel clamps its walk there)."""
+        lens = [B4_MP * B4_PS + 5, B4_MP * B4_PS, 7]
+        q, kp, vp, tables, lens = _b4_case(11, lens)
+        want = _jax_decode(q, kp, vp, tables, lens, dtype, **engine)
+        got = _port_decode(q, kp, vp, tables, lens, dtype)
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+        assert got[0].tobytes() == _port_decode(
+            q, kp, vp, tables, np.full_like(lens, B4_MP * B4_PS),
+            dtype)[0].tobytes()
+
+    @pytest.mark.parametrize("dtype", sorted(DTYPES))
+    def test_split_model_slot_alone_equals_batched(self, dtype):
+        q, kp, vp, tables, lens = _b4_case(12, B4_EDGE_LENS)
+        batched = _split_model(q, kp, vp, tables, lens, dtype)
+        for s in range(len(lens)):
+            one = slice(s, s + 1)
+            alone = _split_model(q[one], kp, vp, tables[one], lens[one],
+                                 dtype)
+            assert alone.tobytes() == batched[one].tobytes()
+
+    @pytest.mark.parametrize("dtype", sorted(DTYPES))
+    def test_split_model_page_permutation_is_bitwise_inert(self, dtype):
+        q, kp, vp, tables, lens = _b4_case(13, B4_EDGE_LENS)
+        P = kp.shape[0]
+        perm = np.concatenate([[0], np.random.RandomState(14).permutation(
+            np.arange(1, P))])
+        inv = np.argsort(perm).astype(np.int32)
+        a = _split_model(q, kp, vp, tables, lens, dtype)
+        b = _split_model(q, kp[perm], vp[perm], inv[tables], lens, dtype)
+        assert a.tobytes() == b.tobytes()
+
+    def test_split_model_kv_lens_zero_is_exact_zeros(self):
+        q, kp, vp, tables, lens = _b4_case(15, [0, 300, 0, 1])
+        got = _split_model(q, kp, vp, tables, lens)
+        assert (got[0] == 0).all() and (got[2] == 0).all()
+        assert np.abs(got[1]).sum() > 0 and np.abs(got[3]).sum() > 0
+
+    @pytest.mark.parametrize("misaligned", [None, "q", "k_pool", "v_pool"])
+    def test_wrapper_one_call_a_workspace_and_no_read_of_kv_lens(
+            self, misaligned, monkeypatch):
+        """B4's wrapper makes one pt_paged_decode call and counts one
+        launch; it hands the kernel a float32 workspace of
+        _b4_workspace_shape(...) and 16-byte aligned q and pools (an
+        aligned copy of a misaligned one), and it reads no value of
+        kv_lens on the host (a stand-in library records the call;
+        nothing is launched)."""
+        from paddle_tpu_torch import cuda_kernels
+
+        calls = []
+
+        class Lib:
+            def pt_paged_decode(self, *args):
+                calls.append(args)
+                return 0
+
+        made = {}
+        real_empty = torch.empty
+
+        def empty(*args, **kwargs):  # every tensor the wrapper allocates
+            t = real_empty(*args, **kwargs)
+            made[t.data_ptr()] = t
+            return t
+
+        def no_host_read(*args, **kwargs):
+            raise AssertionError("the wrapper read a tensor on the host")
+
+        monkeypatch.setattr(cuda_kernels, "load_library", Lib)
+        monkeypatch.setattr(tfa, "_device_index", lambda t: 0)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: type("S", (), {
+                                "cuda_stream": 0})())
+        monkeypatch.setitem(tfa.KERNEL_LAUNCHES, "paged_decode_attention", 0)
+        S, H, Dh, P, ps, mp = 3, 2, 32, 9, 16, 40
+
+        def tensor(shape, off):
+            flat = real_empty(int(np.prod(shape)) + off).normal_()
+            return flat[off:].view(shape)
+
+        ins = {name: tensor(shape, 1 if name == misaligned else 0)
+               for name, shape in (("q", (S, H, Dh)),
+                                   ("k_pool", (P, ps, H, Dh)),
+                                   ("v_pool", (P, ps, H, Dh)))}
+        tables = torch.randint(0, P, (S, mp), dtype=torch.int32)
+        lens = torch.tensor([5, 0, 600], dtype=torch.int32)
+        with monkeypatch.context() as m:
+            m.setattr(torch, "empty", empty)
+            for attr in ("item", "tolist", "cpu", "numpy"):
+                m.setattr(torch.Tensor, attr, no_host_read)
+            out = tfa._paged_decode_cuda(ins["q"], ins["k_pool"],
+                                         ins["v_pool"], tables, lens, 0.25)
+        (args,) = calls
+        assert tfa.KERNEL_LAUNCHES["paged_decode_attention"] == 1
+        assert args[3:6] == (tables.data_ptr(), lens.data_ptr(),
+                             out.data_ptr())
+        ws = made[args[6]]
+        assert ws.dtype == torch.float32
+        assert tuple(ws.shape) == tfa._b4_workspace_shape(S, H, mp, ps, Dh) \
+            == (S, H, 3, Dh + 2)
+        assert args[7:13] == (3, S, H, Dh, ps, mp)
+        assert args[13] == 0.25 and args[14] == 0
+        assert tuple(out.shape) == (S, H, Dh) and out.dtype == torch.float32
+        for i, name in enumerate(("q", "k_pool", "v_pool")):
+            assert args[i] % 16 == 0
+            if name == misaligned:
+                assert args[i] != ins[name].data_ptr()
+            else:
+                assert args[i] == ins[name].data_ptr()
+
+
 def _prefill_case(seed, C, P=11, ps=4, H=2, Dh=16, mp=6):
     rng = np.random.RandomState(seed)
     q = rng.randn(C, H, Dh).astype(np.float32)

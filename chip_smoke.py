@@ -80,7 +80,25 @@ caught):
    on a short input; a short profiled window then splits the device
    time by kernel family (B4's two kernels in one) and gives the
    device's idle share and B4's share of the window's wall time;
-8. training, card vs CPU: Transformer-base at full width (6+6 layers,
+8. legacy serving: the same LM and prompts through an engine whose model
+   has no chunk function (``build_decode_model(..., chunked=False)``), so
+   each prompt is prefilled whole by ``lm_prefill`` on the flash forward
+   (B1), 32 new tokens each: B1 launched 12 times a prompt, B4 12 times
+   a step, B5 not at all; the greedy tokens equal the chunked engine's
+   first 32, and three requests are bitwise equal to a max_active=1
+   legacy engine; tokens/s, TTFT p50/p95 and peak memory.  Then B1 as
+   the legacy prefill calls it at buckets 256, 1024 and 2048 ([1, 8,
+   bucket, 64] causal, kv_lens = bucket - 7): against its plain version,
+   its CUDA-event time, the plain version's, the bound (4*D operations a
+   visible pair), one causal SDPA call and B5 over the same prompt;
+9. MNIST LeNet (models.mnist.get_model, batch 128, f32, TF32 off): one
+   step on the card against the port's CPU path from one set of numpy
+   parameters (loss 1e-6 relative, each gradient 1e-5 of its max |g|),
+   and the same step with TF32 on, which must exceed those limits; then
+   20 steps through Executor.run fed by DataFeeder (every loss finite,
+   every parameter moved, the loss falling); step ms, images/s, peak
+   memory, and a profiled step's device busy time and idle share;
+10. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
    (1e-3 of that tensor's max |g|; the few fc units whose ReLU gate opens
@@ -92,7 +110,7 @@ caught):
    uneven last one); their flash launches are counted apart from the
    main paths' (each step is its engine's main path when ``auto`` runs
    that engine on neither training leg);
-9. training: Transformer-base as the JAX package's headline leg
+11. training: Transformer-base as the JAX package's headline leg
    (bench.py: batch 64 x 256, vocab 30000, dropout 0.1, Adam with noam
    decay, use_flash=True, float32 with TF32 off) through
    Executor.run(startup) and 10 Executor.run(main) steps on seeded token
@@ -102,12 +120,13 @@ caught):
    times a step; step time, target tokens/s, peak memory, the loss
    trajectory, and a profiled step split by kernel family with the
    device's idle share;
-10. the long-context leg: the same model at bench.py's longest leg
+12. the long-context leg: the same model at bench.py's longest leg
    (batch 4 x 4096, max_length 4096, rows of 64-4096 tokens), 5 steps
    under ``auto``: the same checks, with B1 and the backward ``auto``
    picks launched 18 times a step and the other engine not at all;
-11. a ``kernels`` JSON line (all six kernels: times at the shape of
-   their main path, launches from it; B4's entry names its two kernels
+13. a ``kernels`` JSON line (all six kernels: times at the shape of
+   their main path, launches from it; B1's entry also carries its legacy
+   serving launches and its figures at bucket 1024; B4's entry names its two kernels
    and carries each one's device time; B3's two kernels have no library
    call of their own, so their entries also carry the pair's time beside
    SDPA's whole backward; B1's and B2's also carry their figures at the
@@ -118,6 +137,7 @@ caught):
 It needs the repository beside it and a CUDA device; without either it
 exits non-zero before printing any result.
 """
+import gc
 import json
 import re
 import subprocess
@@ -135,6 +155,17 @@ LM_WIDTH = dict(vocab_size=32000, n_layer=12, n_head=8, d_model=512,
 DECODE_CONFIG = dict(num_slots=8, page_size=16, max_seq_len=2048,
                      max_new_tokens=256)
 N_REQUESTS, NEW_TOKENS = 16, 64
+# the legacy whole-prompt prefill (B1 on the serving path): the serving
+# phase's 16 prompts, 32 new tokens each; B1 timed at these buckets with
+# kv_lens = bucket - 7, the kernels line's figure at the second
+LEGACY_NEW_TOKENS = 32
+LEGACY_BUCKETS = (256, 1024, 2048)
+# MNIST LeNet (benchmark/fluid/models/mnist.py), batch 128, f32
+LENET_BATCH, LENET_STEPS = 128, 20
+# LeNet card vs CPU, TF32 off: the float32 step reads about 1e-7 (loss)
+# and 1e-6 (gradients); TF32 rounds inputs to 10 mantissa bits (2**-11),
+# so its control step must land above these
+LENET_LOSS_RTOL, LENET_GRAD_RTOL = 1e-6, 1e-5
 KERNEL_TOL = 2e-5   # kernel vs plain, f32 math on both: summation order only
 # the decode slice's kv_lens: empty slots, one key, a page, a page + 1, and
 # longer walks up to 2047 keys
@@ -732,6 +763,279 @@ def serving_phase(torch, T, serving, fa, obs, dev):
               "request %d differs batched vs max_active=1" % i)
     solo.stop()
     log("serving: requests 0, 7, 15 bitwise equal to a max_active=1 engine")
+    return stats, prompts, outs
+
+
+def resident_gib(torch, dev):
+    """Collect the engines earlier phases left in reference cycles
+    (worker threads hold their schedulers), release the cached blocks,
+    and return what stays allocated, in GiB: a phase's peak is measured
+    from here."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev) / 2 ** 30
+
+
+def legacy_b1_row(torch, fa, dev, flush, gen, bucket):
+    """B1 as the legacy prefill calls it at one bucket: [1, 8, bucket, 64]
+    float32, causal, kv_lens = [bucket - 7], q/k/v the [T, H, D] -> [1, H,
+    T, D] views lm_prefill makes; against its plain version, then its
+    CUDA-event time, the plain version's, the bound (4*D operations a
+    visible pair, or the bytes moved once), one causal SDPA call over the
+    same keys, and B5 over the same prompt in its pages (one bucket-wide
+    chunk at start 0, the chunked path's monolithic prefill)."""
+    import torch.nn.functional as F
+
+    length = bucket - 7
+    qkv = [torch.randn((bucket, H, DH), generator=gen, device=dev)
+           for _ in range(3)]
+    q, k, v = (x.transpose(0, 1)[None] for x in qkv)
+    lens = torch.full((1,), length, dtype=torch.int32, device=dev)
+    scale = 1.0 / DH ** 0.5
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v, kv_lens=lens, causal=True)
+        ref, _ = fa._flash_fwd_reference(q, k, v, lens, True, scale)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(err <= KERNEL_TOL, "legacy B1 vs plain", bucket, err)
+        # the prompt's k/v in pages 1..bucket/PS of a pool, for B5
+        n_pages = bucket // PS
+        k_pool = torch.zeros((n_pages + 1, PS, H, DH), device=dev)
+        v_pool = torch.zeros_like(k_pool)
+        k_pool[1:] = qkv[1].reshape(n_pages, PS, H, DH)
+        v_pool[1:] = qkv[2].reshape(n_pages, PS, H, DH)
+        pages = torch.zeros((MP,), dtype=torch.int32, device=dev)
+        pages[:n_pages] = torch.arange(1, n_pages + 1, device=dev)
+        mask = torch.arange(bucket, device=dev)[None, :] < length
+        mask = mask & torch.ones((bucket, bucket), dtype=torch.bool,
+                                 device=dev).tril()
+        pairs = visible_pairs([length], bucket, bucket, True, H)
+        nbytes = 4 * H * DH * bucket * 4 + 4 + H * bucket * 4
+        row = {"bucket": bucket, "kv_len": length, "max_abs_err": err,
+               "ms": time_ms(lambda: fa.flash_attention(
+                   q, k, v, kv_lens=lens, causal=True), 20, flush),
+               "plain_ms": time_ms(lambda: fa._flash_fwd_reference(
+                   q, k, v, lens, True, scale), 5, flush),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask), 20, flush),
+               "b5_ms": time_ms(lambda: fa.paged_prefill_attention(
+                   qkv[0], k_pool, v_pool, pages, 0), 20, flush),
+               "bound": bound_ms(nbytes, 4 * DH * pairs)}
+    return row
+
+
+def legacy_phase(torch, T, serving, fa, obs, dev, prompts, chunked_outs):
+    """The legacy whole-prompt prefill serving the decode LM: the serving
+    phase's prompts through an engine whose model has no chunk function
+    (``build_decode_model(..., chunked=False)``), so each admitted prompt
+    runs ``lm_prefill`` — B1 once a layer — and the decode steps run B4.
+    Checks B1's launches (12 a prompt), B4's (12 a step) and B5's (none),
+    greedy tokens equal to the chunked engine's first LEGACY_NEW_TOKENS
+    and, for three requests, bitwise equal to a max_active=1 legacy
+    engine; then B1 at LEGACY_BUCKETS."""
+    resident = resident_gib(torch, dev)
+    params, meta = T.lm_params(seed=SEED, **LM_WIDTH)
+    model = T.build_decode_model(params, meta, device=dev, chunked=False)
+    check(model.prefill_chunk_fn is None, "legacy model has a chunk fn")
+    t0 = time.perf_counter()
+    engine = serving.InferenceEngine(
+        decode_model=model, decode_config=serving.DecodeConfig(
+            **DECODE_CONFIG), device=dev)
+    setup_s = time.perf_counter() - t0
+    steps = obs.counter("serving.decode.steps")
+    prefills = obs.counter("serving.decode.prefills")
+    step_timer = obs.timer("serving.decode.decode_step")
+    steps0, prefills0 = steps.value, prefills.value
+    timer0 = (step_timer.count, step_timer.total)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = [engine.generate_async(p, max_new_tokens=LEGACY_NEW_TOKENS)
+            for p in prompts]
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    launches = dict(fa.KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_steps = steps.value - steps0
+    n_prefills = prefills.value - prefills0
+    engine.stop()
+    L = meta["n_layer"]
+    check(n_prefills == len(prompts), "legacy prefills", n_prefills)
+    check(launches["flash_attention_fwd"] == L * len(prompts), launches)
+    check(launches["paged_decode_attention"] == L * n_steps > 0,
+          launches, n_steps)
+    check(launches["paged_prefill_attention"] == 0, launches)
+    for i, (o, c) in enumerate(zip(outs, chunked_outs)):
+        check(o.shape == (LEGACY_NEW_TOKENS,) and o.dtype == np.int32,
+              o.shape)
+        check(o.tobytes() == c[:LEGACY_NEW_TOKENS].tobytes(),
+              "request %d: legacy greedy tokens differ from the chunked "
+              "engine's" % i)
+    ttft = np.array([f.token_times[0] - f.enqueue_ts for f in futs])
+    step_ms = ((step_timer.total - timer0[1])
+               / max(1, step_timer.count - timer0[0]) * 1e3)
+    tokens = sum(len(o) for o in outs)
+    solo = serving.InferenceEngine(
+        decode_model=model, decode_config=serving.DecodeConfig(
+            max_active=1, **DECODE_CONFIG), device=dev)
+    for i in (0, 7, 15):
+        alone = solo.generate(prompts[i], max_new_tokens=LEGACY_NEW_TOKENS,
+                              timeout=600)
+        check(alone.tobytes() == outs[i].tobytes(),
+              "legacy request %d differs batched vs max_active=1" % i)
+    solo.stop()
+    del model, engine, solo
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    b1 = [legacy_b1_row(torch, fa, dev, flush, gen, b)
+          for b in LEGACY_BUCKETS]
+    del flush
+    stats = {"requests": len(prompts), "succeeded": len(outs),
+             "prompt_tokens": int(sum(len(p) for p in prompts)),
+             "generated_tokens": tokens, "wall_s": wall,
+             "tokens_per_s": tokens / wall,
+             "ttft_p50_ms": float(np.percentile(ttft, 50) * 1e3),
+             "ttft_p95_ms": float(np.percentile(ttft, 95) * 1e3),
+             "decode_step_ms": step_ms, "decode_steps": n_steps,
+             "prefills": n_prefills, "peak_memory_gib": peak / 2 ** 30,
+             "resident_before_gib": resident,
+             "engine_setup_s": setup_s, "launches": launches}
+    log("legacy serving: " + json.dumps(stats))
+    log("legacy serving: greedy tokens equal to the chunked engine's; "
+        "requests 0, 7, 15 bitwise equal to a max_active=1 engine")
+    for r in b1:
+        log("legacy B1 [1,%d,%d,%d] causal kv_len %d: err %.3g, kernel %.4f "
+            "ms plain %.4f ms sdpa %.4f ms B5 (one chunk) %.4f ms bound "
+            "%.4f ms (%s)" % (H, r["bucket"], DH, r["kv_len"],
+                              r["max_abs_err"], r["ms"], r["plain_ms"],
+                              r["library_ms"], r["b5_ms"], r["bound"][0],
+                              r["bound"][1]))
+    stats["b1"] = b1
+    return stats
+
+
+def synthetic_mnist(n, seed):
+    """``n`` seeded (image [1, 28, 28] float32, label) samples, each label
+    the argmax of a fixed random linear teacher over the image."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n, 1, 28, 28).astype(np.float32)
+    w = np.random.RandomState(1234).randn(784, 10).astype(np.float32)
+    y = np.argmax((x.reshape(n, 784) - 0.5) @ w, axis=1)
+    return [(x[i], int(y[i])) for i in range(n)]
+
+
+def lenet_phase(torch, fluid, dev):
+    """MNIST LeNet (models.mnist.get_model: conv 5x5x20, pool 2, conv
+    5x5x50, pool 2, fc 10 softmax, Adam 1e-3) at batch LENET_BATCH, f32
+    with TF32 off.  One step on the card against the port's CPU path from
+    one set of numpy parameters (loss LENET_LOSS_RTOL relative, each
+    gradient LENET_GRAD_RTOL of its max |g|), and the same step with TF32
+    on as a control that must exceed them; then LENET_STEPS steps on the
+    card through
+    Executor.run(startup) and Executor.run(main), fed by DataFeeder each
+    step with one batch of seeded synthetic images: every loss finite,
+    every parameter moved, the last loss under 0.9 of the first (the net
+    fits the batch; fresh batches of this teacher move the loss too
+    little in 20 steps to show), and one more step profiled."""
+    from paddle_tpu_torch.models import mnist
+
+    resident = resident_gib(torch, dev)
+    with fluid.unique_name.guard():
+        m = mnist.get_model(batch_size=LENET_BATCH)
+    m["startup"].random_seed = SEED + 30
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(m["startup"], scope=cpu_scope)
+    state = {n: cpu_scope[n].numpy() for n in m["main"].persistable_names()
+             if n in cpu_scope}
+    batch = synthetic_mnist(LENET_BATCH, SEED + 31)
+    grads = [p.name + "@GRAD"
+             for p in m["main"].global_block().all_parameters()]
+    fetch = [m["loss"]] + grads
+
+    def card_step(tf32):
+        card_scope = fluid.Scope()
+        fluid.load_numpy_state(m["main"], state, scope=card_scope,
+                               device=dev)
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            return fluid.Executor(fluid.CUDAPlace(0)).run(
+                m["main"], feed=fluid.DataFeeder(
+                    m["feeds"], fluid.CUDAPlace(0),
+                    program=m["main"]).feed(batch),
+                fetch_list=fetch, scope=card_scope)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def errors(card):
+        """(loss error relative, worst gradient error of its max |g|)."""
+        loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+        worst = 0.0
+        for name, g, r in zip(grads, card[1:], cpu[1:]):
+            check(g.shape == r.shape and np.isfinite(g).all(), name)
+            rel = float(np.abs(g - r).max()) / float(np.abs(r).max())
+            worst = max(worst, rel)
+        return loss_err, worst
+
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        m["main"], feed=fluid.DataFeeder(m["feeds"], fluid.CPUPlace(),
+                                         program=m["main"]).feed(batch),
+        fetch_list=fetch, scope=cpu_scope)
+    card = card_step(tf32=False)
+    loss_err, worst = errors(card)
+    check(np.isfinite(float(card[0])) and loss_err <= LENET_LOSS_RTOL,
+          "lenet card vs cpu loss", float(card[0]), float(cpu[0]), loss_err)
+    check(worst <= LENET_GRAD_RTOL, "lenet card vs cpu gradient", worst)
+    # the control: the same step with TF32 convolutions and GEMMs must
+    # fail the limits, or they could not tell TF32 from float32
+    tf32_loss_err, tf32_worst = errors(card_step(tf32=True))
+    check(tf32_loss_err > LENET_LOSS_RTOL or tf32_worst > LENET_GRAD_RTOL,
+          "lenet limits pass a TF32 step", tf32_loss_err, tf32_worst)
+    del cpu_scope
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(m["startup"], scope=scope)
+    params = [p.name for p in m["main"].global_block().all_parameters()]
+    before = {p: scope[p].clone() for p in params}
+    feeder = fluid.DataFeeder(m["feeds"], fluid.CUDAPlace(0),
+                              program=m["main"])
+    batches = [synthetic_mnist(LENET_BATCH, SEED + 40)] * LENET_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, accs, step_s = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        loss, acc = exe.run(m["main"], feed=feeder.feed(b),
+                            fetch_list=[m["loss"], m["acc"]], scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss[0]))
+        accs.append(float(acc[0]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)), "lenet non-finite loss", losses)
+    for p in params:
+        check(bool(torch.isfinite(scope[p]).all()), "lenet non-finite", p)
+        check(not torch.equal(scope[p], before[p]), "lenet param still", p)
+    check(losses[-1] < 0.9 * losses[0], "lenet loss did not fall", losses)
+    steady = float(np.mean(step_s[1:]))
+    profile = profile_step(torch, exe, m, feeder.feed(batches[0]), scope)
+    stats = {"batch": LENET_BATCH, "steps": LENET_STEPS,
+             "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+             "loss_rel_err": loss_err, "grads": len(grads),
+             "worst_grad_err_of_max": worst,
+             "tf32_control_loss_rel_err": tf32_loss_err,
+             "tf32_control_worst_grad_err_of_max": tf32_worst,
+             "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
+             "images_per_s": LENET_BATCH / steady,
+             "peak_memory_gib": peak / 2 ** 30,
+             "resident_before_gib": resident, "losses": losses,
+             "accuracies": accs, "profile": profile}
+    log("lenet (MNIST, batch %d, f32, TF32 off): %s"
+        % (LENET_BATCH, json.dumps(stats)))
     return stats
 
 
@@ -1419,7 +1723,13 @@ def main():
     pair_cases = pair_phase(torch, fa, dev)
     sweep = engine_sweep(torch, fa, dev, flush)
     del flush
-    srv = serving_phase(torch, T, serving, fa, obs, dev)
+    srv, srv_prompts, srv_outs = serving_phase(torch, T, serving, fa, obs,
+                                               dev)
+    torch.cuda.empty_cache()
+    leg = legacy_phase(torch, T, serving, fa, obs, dev, srv_prompts,
+                       srv_outs)
+    torch.cuda.empty_cache()
+    lenet_phase(torch, fluid, dev)
     torch.cuda.empty_cache()
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
@@ -1476,6 +1786,18 @@ def main():
                 "long_bound_ms": longest["bound"][0],
                 "long_library_ms": longest["sdpa_bwd_ms"],
                 "long_launches": lng["launches"]["flash_attention_bwd"]}
+    # B1 on the legacy prefill's serving path: its launches there and its
+    # figures at bucket 1024
+    b1_1024 = next(r for r in leg["b1"] if r["bucket"] == 1024)
+    legacy_b1 = {"legacy_shape": [1, H, 1024, DH],
+                 "legacy_kv_len": b1_1024["kv_len"],
+                 "legacy_ms": b1_1024["ms"],
+                 "legacy_plain_ms": b1_1024["plain_ms"],
+                 "legacy_bound_ms": b1_1024["bound"][0],
+                 "legacy_bound_by": b1_1024["bound"][1],
+                 "legacy_library_ms": b1_1024["library_ms"],
+                 "legacy_b5_ms": b1_1024["b5_ms"],
+                 "legacy_launches": leg["launches"]["flash_attention_fwd"]}
     f32_pairs = [c for c in pair_cases if c["dtype"] == "float32"]
     sweep_errs = lambda key: [r["errs"][key] for r in sweep]  # noqa: E731
     kernels = []
@@ -1484,7 +1806,7 @@ def main():
              "paddle_tpu/parallel/flash_attention.py:73",
              "paddle_tpu_torch/csrc/flash_attention.cu",
              [c["fwd_err"] for c in flash_cases if c["dtype"] == "float32"]
-             + sweep_errs("fwd")),
+             + sweep_errs("fwd") + [r["max_abs_err"] for r in leg["b1"]]),
             ("flash_attention_bwd", b2_path["launches"], full["bwd"],
              "paddle_tpu/parallel/flash_attention.py:513",
              "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -1518,6 +1840,7 @@ def main():
             kernels[-1].update(pair_vs_library)
         if name == "flash_attention_fwd":
             kernels[-1].update(fwd_long)
+            kernels[-1].update(legacy_b1)
         if name == "flash_attention_bwd":
             kernels[-1].update(bwd_long)
         if name == "paged_decode_attention":

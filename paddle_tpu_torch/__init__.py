@@ -11,7 +11,12 @@ held against.  It imports torch and numpy, never jax and nothing of
   (``csrc/flash_attention.cu``);
 * decode serving — ``serving.InferenceEngine(decode_model=...)``, with
   the paged decode and paged prefill attention as CUDA kernels
-  (``csrc/paged_attention.cu``).
+  (``csrc/paged_attention.cu``), or the legacy whole-prompt prefill on
+  the flash forward kernel
+  (``models.transformer.build_decode_model(..., chunked=False)``);
+* the core IR — conv/pool/loss/metric ops, every update rule,
+  ``backward.calc_gradient``, ``lod`` and ``DataFeeder``:
+  ``models.mnist.get_model()`` (LeNet) trains through ``Executor.run``.
 
 Use it like the JAX package::
 
@@ -32,13 +37,18 @@ from . import unique_name
 from . import framework
 from . import initializer
 from . import layers
+from . import nets
 from . import optimizer
 from . import regularizer
 from . import clip
 from . import backward
 from . import executor
+from . import lod
+from . import data_feeder
+from . import program_fn
 from . import models, observability, parallel, serving
 from .core import CPUPlace, CUDAPlace, resolve_device
+from .data_feeder import DataFeeder
 from .executor import (Executor, Scope, global_scope, load_numpy_state,
                        scope_guard)
 from .framework import (
@@ -49,14 +59,19 @@ from .framework import (
     name_scope,
     program_guard,
 )
+from .lod import (LoDArray, LoDTensorArray, create_lod_array,
+                  create_lod_tensor, create_random_int_lodtensor)
 from .param_attr import ParamAttr, WeightNormParamAttr
 
 __all__ = [
-    "core", "unique_name", "framework", "initializer", "layers",
-    "optimizer", "regularizer", "clip", "backward", "executor", "models",
+    "core", "unique_name", "framework", "initializer", "layers", "nets",
+    "optimizer", "regularizer", "clip", "backward", "executor", "lod",
+    "data_feeder", "program_fn", "models",
     "observability", "parallel", "serving", "CPUPlace", "CUDAPlace",
     "resolve_device", "Executor", "Scope", "global_scope",
     "load_numpy_state", "scope_guard", "Program", "Variable",
     "default_main_program", "default_startup_program", "name_scope",
-    "program_guard", "ParamAttr", "WeightNormParamAttr",
+    "program_guard", "ParamAttr", "WeightNormParamAttr", "DataFeeder",
+    "LoDArray", "LoDTensorArray", "create_lod_array", "create_lod_tensor",
+    "create_random_int_lodtensor",
 ]

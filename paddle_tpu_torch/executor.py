@@ -13,7 +13,11 @@ runs the forward prefix with the trainable parameters as autograd leaf
 tensors; ``torch.autograd.grad`` of the summed targets then binds every
 ``<param>@GRAD`` (zeros for a parameter the loss does not reach, as
 ``jax.value_and_grad`` gives), and the post-ops (clip, regularizer,
-optimizer updates) run under ``torch.no_grad``.
+optimizer updates) run under ``torch.no_grad``.  ``calc_gradient``'s
+meta-op does the same for arbitrary targets (weighted by
+``TargetGradients`` where given) with respect to any variables: feeds,
+parameters, or intermediates, where the graph is cut (the consumers of
+an intermediate see a leaf holding its value).
 
 State (parameters, optimizer accumulators, step counters) lives in a
 ``Scope`` as torch tensors on the device; persistables the step writes go
@@ -25,9 +29,13 @@ is 0, as the JAX package does), the run counter and the op's position
 in its block (the JAX package's ``LoweringContext.op_key``); a nonzero
 ``seed`` attr pins an op's stream across runs.
 
+Feeds are numpy arrays, tensors, or ``lod.LoDArray``s (a ragged feed:
+its padded data under the var's name, its lengths as
+``<name>@LENGTHS``, nested lengths as ``<name>@SUBLENGTHS``).
+
 Not ported yet: the fast path (bound programs, lazy fetches, the jit step
 cache), the compile cache, readers, the parameter-server runtime,
-recompute, ``calc_gradient``, meshes and the telemetry hooks.  Asking
+recompute, meshes and the telemetry hooks.  Asking
 for them (``nan_guard=True``, ``Program.enable_recompute``) raises
 ``NotImplementedError``.
 """
@@ -40,6 +48,7 @@ import torch
 
 from .core import resolve_device, torch_dtype
 from .framework import Program, Variable, default_main_program, grad_var_name
+from .lod import LoDArray
 from .registry import get_rule
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
@@ -324,13 +333,17 @@ def interpret_ops(ctx: LoweringContext, ops):
 
 
 def lower_block(ctx: LoweringContext, block):
-    """Run a block, handling the single ``backward`` meta-op if present.
+    """Run a block, handling the single ``backward`` or ``calc_gradient``
+    meta-op if present.
 
-    The forward prefix runs once, with every trainable parameter bound
-    to a fresh leaf tensor that requires grad; ``torch.autograd.grad``
-    of the summed (float32) targets gives the parameter gradients, bound
-    to the ``<param>@GRAD`` names that the clip, regularizer and
-    optimizer ops read.  Those post-ops run under ``torch.no_grad``."""
+    The forward prefix runs once, with every variable to differentiate
+    (the trainable parameters; for ``calc_gradient`` its ``Inputs``)
+    bound to a leaf tensor that requires grad — an intermediate becomes
+    a leaf where its op produces it, so its consumers see the leaf.
+    ``torch.autograd.grad`` of the summed (float32) targets, each scaled
+    by its constant ``TargetGradients`` entry where one is given, binds
+    every ``<name>@GRAD`` that the clip, regularizer and optimizer ops
+    read.  Those post-ops run under ``torch.no_grad``."""
     bw_idx = None
     for i, op in enumerate(block.ops):
         if op.type in ("backward", "calc_gradient"):
@@ -342,32 +355,62 @@ def lower_block(ctx: LoweringContext, block):
             interpret_ops(ctx, block.ops)
         return
     pre, bop, post = block.ops[:bw_idx], block.ops[bw_idx], block.ops[bw_idx + 1:]
-    if bop.type != "backward":
-        raise NotImplementedError("calc_gradient is not ported yet")
     if int(getattr(ctx.program, "_recompute_segments", 0) or 0) > 1:
         raise NotImplementedError("recompute segments are not ported yet")
     no_grad = set(bop.attrs.get("no_grad_set") or ())
-    target_names = [bop.inputs["Loss"][0]]
-    wrt_names = [p for p in bop.attrs["parameter_list"] if p not in no_grad]
-    missing = [p for p in wrt_names if p not in ctx.env]
-    if missing:
-        raise KeyError("parameters not initialized (run startup program first): %s" % missing)
+    tg_names = []
+    if bop.type == "backward":
+        target_names = [bop.inputs["Loss"][0]]
+        wrt_names = [p for p in bop.attrs["parameter_list"] if p not in no_grad]
+        missing = [p for p in wrt_names if p not in ctx.env]
+        if missing:
+            raise KeyError("parameters not initialized (run startup program first): %s" % missing)
+    else:  # calc_gradient: arbitrary targets / wrt vars (feeds included)
+        target_names = list(bop.inputs["Targets"])
+        wrt_names = [w for w in bop.inputs["Inputs"] if w not in no_grad]
+        produced = {n for o in pre for ns in o.outputs.values() for n in ns}
+        missing = [w for w in wrt_names if w not in ctx.env and w not in produced]
+        if missing:
+            raise KeyError("calc_gradient inputs not available (feed or initialize them): %s" % missing)
+        bad_targets = [t for t in target_names if t not in ctx.env and t not in produced]
+        if bad_targets:
+            raise KeyError("calc_gradient targets not produced by the program: %s" % bad_targets)
+        tg_names = list(bop.inputs.get("TargetGradients") or [])
 
-    leaves = [ctx.env[p].detach().requires_grad_(True) for p in wrt_names]
+    leaves = {w: ctx.env[w].detach().requires_grad_(True)
+              for w in wrt_names if w in ctx.env}
+    cut = set(wrt_names) if bop.type == "calc_gradient" else set()
     with torch.enable_grad():
-        ctx.env.update(zip(wrt_names, leaves))
-        interpret_ops(ctx, pre)
-        total = sum(ctx.env[t].float().sum() for t in target_names)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    for p, leaf, g in zip(wrt_names, leaves, grads):
-        if g is None:  # the loss does not reach this parameter
+        ctx.env.update(leaves)
+        if not cut:
+            interpret_ops(ctx, pre)
+        else:
+            for op in pre:
+                get_rule(op.type)(ctx, op)
+                for nm in (n for ns in op.outputs.values() for n in ns):
+                    if nm in cut:  # cut the graph at a wrt intermediate
+                        if nm not in leaves:
+                            leaves[nm] = ctx.env[nm].detach().requires_grad_(True)
+                        ctx.env[nm] = leaves[nm]
+        total = 0.0
+        for i, t in enumerate(target_names):
+            tv = ctx.env[t].float()
+            if i < len(tg_names):  # a cotangent, constant w.r.t. the wrt vars
+                tv = tv * ctx.env[tg_names[i]].detach().float()
+            total = total + tv.sum()
+        wrt_leaves = [leaves[w] for w in wrt_names]
+        grads = torch.autograd.grad(total, wrt_leaves, allow_unused=True)
+    for w, leaf, g in zip(wrt_names, wrt_leaves, grads):
+        if g is None:  # the targets do not reach this variable
             g = torch.zeros_like(leaf)
         elif g.dtype != leaf.dtype:
             g = g.to(leaf.dtype)
-        ctx.env[grad_var_name(p)] = g
-        ctx.env[p] = leaf.detach()
-    for t in target_names:
-        ctx.env[grad_var_name(t)] = torch.ones_like(ctx.env[t]).detach()
+        ctx.env[grad_var_name(w)] = g
+        ctx.env[w] = leaf.detach()
+    for i, t in enumerate(target_names):
+        ctx.env[grad_var_name(t)] = (
+            ctx.env[tg_names[i]].detach() if i < len(tg_names)
+            else torch.ones_like(ctx.env[t]).detach())
     with torch.no_grad():
         interpret_ops(ctx, post)
 
@@ -451,6 +494,13 @@ class Executor:
         out = {}
         blk = program.global_block()
         for name, val in feed.items():
+            if isinstance(val, LoDArray):
+                out[name + "@LENGTHS"] = _as_tensor(val.lengths, torch.int32,
+                                                    self.device)
+                if val.sub_lengths is not None:
+                    out[name + "@SUBLENGTHS"] = _as_tensor(
+                        val.sub_lengths, torch.int32, self.device)
+                val = val.data
             if not isinstance(val, torch.Tensor):
                 val = np.asarray(val)
             dtype = None

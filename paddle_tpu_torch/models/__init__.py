@@ -1,1 +1,1 @@
-"""Models of the port (see :mod:`.transformer`)."""
+"""Models of the port (see :mod:`.transformer` and :mod:`.mnist`)."""

@@ -15,7 +15,16 @@ op, whose kernels are hand-written for Hopper.  ``fast_decode`` and
 Decode serving.  The decoder-only LM is the counterpart of the decode
 half of ``paddle_tpu/models/transformer.py``: the same post-norm blocks
 (bias-free q/k/v/o projections, relu FFN), scaled token embedding plus
-sinusoid positions, and the same two steps the serving scheduler drives —
+sinusoid positions, and the same steps the serving scheduler drives —
+
+* :func:`lm_prefill`: the legacy whole-prompt prefill.  One causal pass
+  over the padded prompt, each layer's attention the flash forward
+  (:func:`~paddle_tpu_torch.parallel.flash_attention.flash_attention`
+  with ``kv_lens = [length]``; ``use_flash=False`` runs
+  :func:`~paddle_tpu_torch.parallel.flash_attention.mha_reference`);
+  it returns every layer's k/v for the scheduler to scatter into the
+  prompt's pages.  The scheduler takes this path for a model built with
+  ``build_decode_model(..., chunked=False)``;
 
 * :func:`lm_prefill_chunk`: one resumable prefill chunk over the paged
   pool.  Per layer the chunk's k/v are written into the sequence's pages
@@ -37,9 +46,7 @@ harmless because page 0 is never read unmasked.
 
 ``lm_params`` keeps the JAX package's numpy initialiser, so one seed
 gives both packages the same arrays, and :func:`params_from_numpy`
-turns that numpy pytree into a :class:`TransformerLM` on a device.  The
-legacy whole-prompt ``lm_prefill`` is not ported yet: the scheduler
-prefills through chunks.
+turns that numpy pytree into a :class:`TransformerLM` on a device.
 """
 from __future__ import annotations
 
@@ -53,6 +60,8 @@ from ..core import resolve_device
 from ..initializer import NumpyArrayInitializer
 from ..param_attr import ParamAttr
 from ..parallel.flash_attention import (
+    flash_attention,
+    mha_reference,
     paged_decode_attention,
     paged_prefill_attention,
 )
@@ -60,7 +69,8 @@ from ..parallel.flash_attention import (
 __all__ = ["multi_head_attention", "encoder_layer", "decoder_layer",
            "wrap_encoder", "wrap_decoder", "transformer", "get_model",
            "lm_params", "params_from_numpy", "TransformerLM",
-           "lm_prefill_chunk", "lm_decode_step", "build_decode_model"]
+           "lm_prefill", "lm_prefill_chunk", "lm_decode_step",
+           "build_decode_model"]
 
 
 def _position_encoding_table(max_len, d_model):
@@ -556,6 +566,34 @@ def _embed(lm, tokens, positions):
     return lm.tok_emb[ids] * scale + lm.pos_table[positions.long()]
 
 
+def lm_prefill(lm, tokens, length, *, use_flash):
+    """Causal pass over one padded prompt.  ``tokens``: [T] int (pad tail
+    arbitrary), ``length``: the real token count.  Returns
+    ``(last_logits [V], k [L, T, H, Dh], v [L, T, H, Dh])`` — k/v in the
+    page-scatter layout, pad-tail rows masked downstream by kv_lens.
+    Each layer attends with ``flash_attention`` (``use_flash``; the flash
+    forward kernel on a CUDA tensor) or ``mha_reference``, causally over
+    keys below ``length``."""
+    T = tokens.shape[0]
+    H = lm.n_head
+    dh = lm.d_model // H
+    length = int(length)
+    x = _embed(lm, tokens, torch.arange(T, device=tokens.device))
+    lens1 = torch.full((1,), length, dtype=torch.int32, device=tokens.device)
+    attn = flash_attention if use_flash else mha_reference
+    ks, vs = [], []
+    for lp in lm.layers:
+        q = (x @ lp.wq).reshape(T, H, dh)
+        k = (x @ lp.wk).reshape(T, H, dh)
+        v = (x @ lp.wv).reshape(T, H, dh)
+        ks.append(k)
+        vs.append(v)
+        ctx = attn(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                   v.transpose(0, 1)[None], causal=True, kv_lens=lens1)
+        x = _lm_block_tail(lp, x, ctx[0].transpose(0, 1).reshape(T, lm.d_model))
+    return x[length - 1] @ lm.out_w, torch.stack(ks), torch.stack(vs)
+
+
 def lm_prefill_chunk(lm, tokens, start, valid, k_pool, v_pool, chunk_pages,
                      gather_pages):
     """One chunk of a prompt's prefill, resumable at any page boundary.
@@ -621,13 +659,22 @@ def lm_decode_step(lm, tokens, positions, k_pool, v_pool, page_tables,
     return x @ lm.out_w
 
 
-def build_decode_model(params, meta, eos_id=None, device=None):
+def build_decode_model(params, meta, eos_id=None, use_flash=None,
+                       device=None, chunked=True):
     """Wrap LM weights as a serving ``DecodeModel`` on ``device``.
 
     ``params`` is the ``lm_params`` numpy pytree (copied onto ``device``
     by :func:`params_from_numpy`) or a :class:`TransformerLM` already on
     it.  ``device=None`` means the card and raises when there is none;
-    the tests pass ``device="cpu"``."""
+    the tests pass ``device="cpu"``.
+
+    ``use_flash``: the legacy whole-prompt prefill's attention
+    (:func:`lm_prefill`); None means flash on the card and
+    ``mha_reference`` on the CPU.  ``chunked=False`` builds the model
+    with ``prefill_fn`` only — the JAX package's ``DecodeModel`` with
+    ``prefill_chunk_fn=None`` — so the scheduler prefills each prompt in
+    one legacy call; by default the model has both and the scheduler
+    prefills through chunks."""
     from ..serving.decode_scheduler import DecodeModel
 
     dev = resolve_device(device)
@@ -636,6 +683,12 @@ def build_decode_model(params, meta, eos_id=None, device=None):
     if lm.device != dev:
         raise ValueError("TransformerLM lives on %s, not %s"
                          % (lm.device, dev))
+
+    if use_flash is None:
+        use_flash = dev.type == "cuda"
+
+    def prefill_fn(tokens, length):
+        return lm_prefill(lm, tokens, length, use_flash=use_flash)
 
     def prefill_chunk_fn(tokens, start, valid, k_pool, v_pool, chunk_pages,
                          gather_pages):
@@ -647,7 +700,9 @@ def build_decode_model(params, meta, eos_id=None, device=None):
                               page_tables, kv_lens)
 
     return DecodeModel(
-        prefill_chunk_fn, decode_fn, num_layers=meta["n_layer"],
+        prefill_fn, decode_fn,
+        prefill_chunk_fn=prefill_chunk_fn if chunked else None,
+        num_layers=meta["n_layer"],
         num_heads=meta["n_head"], head_dim=meta["head_dim"],
         vocab_size=meta["vocab_size"], eos_id=eos_id, device=dev,
         name="transformer-lm")

@@ -126,6 +126,7 @@ def _reduce_sum(ctx, op):
 _ACTS = {
     "relu": lambda x, a: torch.relu(x),
     "pow": lambda x, a: x ** a.get("factor", 1.0),
+    "square": lambda x, a: x * x,
 }
 
 
@@ -138,6 +139,11 @@ def _make_act(op_type, fn):
 
 for _t, _f in _ACTS.items():
     _make_act(_t, _f)
+
+
+@register("mean")
+def _mean(ctx, op):
+    ctx.set_output(op, "Out", ctx.get_input(op, "X").mean().reshape((1,)))
 
 
 # ---------------------------------------------------------------------------

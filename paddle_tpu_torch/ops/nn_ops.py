@@ -1,18 +1,23 @@
-"""NN op rules: layer_norm, dropout, softmax, the loss, embedding lookup.
+"""NN op rules: conv2d, pool2d, layer_norm, dropout, softmax, the losses,
+embedding lookup and accuracy.
 
 Translated from the JAX package's ``paddle_tpu/ops/nn_ops.py``, for the
-ops the port runs so far.  They are torch ops: XLA fused them on the
-TPU, and no Pallas kernel ever computed them.  An output that no later
+ops the port runs so far.  They are torch ops: XLA fused them (or ran
+its own convolutions) on the TPU, and no Pallas kernel ever computed
+them; on the card conv2d and pool2d are cuDNN's.  An output that no later
 op reads and no fetch asks for (softmax_with_cross_entropy's Softmax,
 dropout's Mask, layer_norm's Mean and Variance) is not computed: XLA
 dropped such dead values from the JAX package's step.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ..registry import register
+from .common import mixed_dtypes
 
 
 def _wrapped_index(idx, n):
@@ -29,6 +34,66 @@ def _in_range(idx, n):
     (negatives in [-n, 0) included); elsewhere the JAX package's gathers
     fill NaN."""
     return (idx >= -n) & (idx < n)
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+@register("conv2d", "depthwise_conv2d")
+def _conv2d(ctx, op):
+    x = ctx.get_input(op, "Input")  # NCHW
+    w = ctx.get_input(op, "Filter")  # OIHW (I = C/groups)
+    x, w = mixed_dtypes(x, w)
+    groups = op.attrs.get("groups", 1) or 1
+    if op.type == "depthwise_conv2d":
+        groups = x.shape[1]
+    out = F.conv2d(x, w, stride=_pair(op.attrs.get("strides", [1, 1])),
+                   padding=_pair(op.attrs.get("paddings", [0, 0])),
+                   dilation=_pair(op.attrs.get("dilations", [1, 1])),
+                   groups=groups)
+    ctx.set_output(op, "Output", out.to(x.dtype))
+
+
+@register("pool2d")
+def _pool2d(ctx, op):
+    """Max or average pooling over NCHW, padded explicitly first: low
+    side ``paddings``, high side the same or, under ``ceil_mode``, as much
+    as the last partial window needs (the JAX package's ``pads_hi``; a
+    window that starts in the right padding still counts, which torch's
+    own ceil_mode would drop).  Average pooling divides by the window's
+    in-bounds count (``exclusive``) only where there is padding."""
+    x = ctx.get_input(op, "X")
+    a = op.attrs
+    ksize = _pair(a.get("ksize"))
+    strides = _pair(a.get("strides", [1, 1]))
+    pads = _pair(a.get("paddings", [0, 0]))
+    if a.get("global_pooling", False):
+        ksize, pads, strides = tuple(x.shape[2:]), (0, 0), (1, 1)
+    pads_hi = list(pads)
+    if a.get("ceil_mode", False):
+        for i in range(2):
+            in_sz = x.shape[2 + i]
+            out_sz = -(-(in_sz - ksize[i] + 2 * pads[i]) // strides[i]) + 1
+            needed = (out_sz - 1) * strides[i] + ksize[i] - in_sz - pads[i]
+            pads_hi[i] = max(needed, pads[i])
+    # F.pad lists the last axis first: (W low, W high, H low, H high)
+    pad = (pads[1], pads_hi[1], pads[0], pads_hi[0])
+    if a.get("pooling_type", "max") == "max":
+        xp = F.pad(x, pad, value=float("-inf"))
+        out = F.max_pool2d(xp, ksize, strides)
+    else:
+        xf = x.float()
+        s = F.avg_pool2d(F.pad(xf, pad), ksize, strides, divisor_override=1)
+        if a.get("exclusive", True) and (any(pads) or any(pads_hi)):
+            ones = F.pad(torch.ones_like(xf[:1, :1]), pad)
+            cnt = F.avg_pool2d(ones, ksize, strides, divisor_override=1)
+            out = (s / cnt).to(x.dtype)
+        else:
+            out = (s / float(math.prod(ksize))).to(x.dtype)
+    ctx.set_output(op, "Out", out)
 
 
 @register("layer_norm")
@@ -78,6 +143,31 @@ def _softmax(ctx, op):
     ctx.set_output(op, "Out", torch.softmax(x.float(), dim=-1).to(x.dtype))
 
 
+@register("cross_entropy")
+def _cross_entropy(ctx, op):
+    """-log of the probability at the label (hard) or the label-weighted
+    sum of -log probabilities (soft), probabilities clipped to
+    [1e-20, 1].  The clip is the JAX package's ``jnp.clip`` (a max then
+    a min), whose gradient at either bound is one half; hard labels are
+    gathered as in softmax_with_cross_entropy."""
+    x = ctx.get_input(op, "X")  # probs [..., C]
+    label = ctx.get_input(op, "Label")
+    ignore = op.attrs.get("ignore_index", -100)
+    xf = x.float()
+    xf = torch.minimum(torch.maximum(xf, xf.new_tensor(1e-20)),
+                       xf.new_tensor(1.0))
+    logp = torch.log(xf)
+    if op.attrs.get("soft_label", False):
+        loss = -torch.sum(label.float() * logp, dim=-1, keepdim=True)
+    else:
+        lab = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 else label
+        lab = lab[..., None]
+        loss = -torch.gather(logp, -1, _wrapped_index(lab, logp.shape[-1]))
+        loss = torch.where(_in_range(lab, logp.shape[-1]), loss, float("nan"))
+        loss = torch.where(lab == ignore, 0.0, loss)
+    ctx.set_output(op, "Y", loss.to(x.dtype))
+
+
 @register("softmax_with_cross_entropy")
 def _softmax_with_cross_entropy(ctx, op):
     logits = ctx.get_input(op, "Logits")
@@ -110,3 +200,16 @@ def _lookup_table(ctx, op):
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((flat == padding_idx)[..., None], 0.0, out)
     ctx.set_output(op, "Out", out)
+
+
+@register("accuracy")
+def _accuracy(ctx, op):
+    idx = ctx.get_input(op, "Indices")  # [N, k] top_k indices
+    label = ctx.get_input(op, "Label")  # [N, 1]
+    correct = (idx == label.to(idx.dtype)).any(dim=-1)
+    n = correct.shape[0]
+    num_correct = correct.float().sum()
+    ctx.set_output(op, "Accuracy", (num_correct / n).reshape(1))
+    ctx.set_output(op, "Correct", num_correct.to(torch.int32).reshape(1))
+    ctx.set_output(op, "Total", torch.tensor([n], dtype=torch.int32,
+                                             device=idx.device))

@@ -86,6 +86,39 @@ def _one_hot(ctx, op):
     ctx.set_output(op, "Out", (flat.long()[..., None] == cols).to(torch.float32))
 
 
+@register("top_k")
+def _top_k(ctx, op):
+    """The k largest entries along the last axis and their int64
+    indices, equal values in index order (``jax.lax.top_k``'s order: a
+    stable descending sort; ``torch.topk`` does not promise one)."""
+    x = ctx.get_input(op, "X")
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    k = op.attrs["k"]
+    ctx.set_output(op, "Out", vals[..., :k])
+    ctx.set_output(op, "Indices", idx[..., :k])
+
+
+def _random_shape(ctx, op):
+    """The op's ``shape`` attr; a ``*_batch_size_like`` op takes dim
+    ``output_dim_idx`` from its ``Input``'s dim ``input_dim_idx``."""
+    a = op.attrs
+    shape = [int(s) for s in a["shape"]]
+    if op.inputs.get("Input"):
+        ref = ctx.get_input(op, "Input")
+        shape[a.get("output_dim_idx", 0)] = ref.shape[a.get("input_dim_idx", 0)]
+    return tuple(shape)
+
+
+@register("gaussian_random", "gaussian_random_batch_size_like")
+def _gaussian_random(ctx, op):
+    a = op.attrs
+    gen = ctx.op_generator(op, a.get("seed", 0))
+    out = torch.randn(_random_shape(ctx, op), generator=gen,
+                      device=ctx.device,
+                      dtype=torch_dtype(a.get("dtype", "float32")))
+    ctx.set_output(op, "Out", out * a.get("std", 1.0) + a.get("mean", 0.0))
+
+
 @register("uniform_random")
 def _uniform_random(ctx, op):
     a = op.attrs

@@ -10,7 +10,9 @@ never does.
 Each worker iteration:
 
 1. **admit** queued requests into free slots (pages reserved up front;
-   no model compute at admission);
+   no model compute at admission, except for a model without a chunk
+   function: its legacy whole-prompt ``prefill_fn`` runs right there,
+   padded to the prompt's bucket, and samples the first token);
 2. run **at most one prefill chunk** — the prefilling slot with the
    fewest chunks left, admission order on ties.  With
    ``DecodeConfig.prefill_chunk_tokens`` unset a prompt is ONE chunk
@@ -62,7 +64,7 @@ from .errors import (
     ServingError,
     ServingTimeout,
 )
-from .kv_cache import PagedKVCache
+from .kv_cache import PagedKVCache, write_prompt_kv
 from .request_queue import Request, RequestQueue
 from .worker import RestartableWorker
 
@@ -130,13 +132,21 @@ def _sample_tokens(logits, temps, seeds, positions, top_k):
 class DecodeModel:
     """The callables a decode-capable model exposes, and where it runs.
 
+    ``prefill_fn(tokens[T], length) -> (last_logits[V], k[L,T,H,D],
+    v[L,T,H,D])`` — run the whole (padded) prompt; ``length`` is the real
+    token count, ``last_logits`` the logits at position ``length - 1``.
+    LEGACY: used only by models that don't provide ``prefill_chunk_fn``;
+    the scheduler scatters k/v into the prompt's pages itself
+    (``kv_cache.write_prompt_kv``).
+
     ``prefill_chunk_fn(tokens[C], start, valid, k_pool, v_pool,
     chunk_pages[C // page_size], gather_pages[MP]) -> last_logits[V]`` —
     one resumable prefill CHUNK: write the window's k/v into
     ``chunk_pages``, attend over the sequence's ``gather_pages`` causally
     by absolute position (``start + row``); ``last_logits`` sits at row
-    ``valid - 1``.  Every prompt is prefilled through this step
-    (monolithic = one bucket-wide chunk).
+    ``valid - 1``.  When present the scheduler prefills every prompt
+    through this step (monolithic = one bucket-wide chunk), and it is
+    what ``prefill_chunk_tokens`` requires.
 
     ``decode_fn(tokens[S], positions[S], k_pool, v_pool,
     page_tables[S,MP], kv_lens[S]) -> logits[S,V]`` — one token per
@@ -144,18 +154,20 @@ class DecodeModel:
     over each slot's first ``kv_lens`` cached tokens.  ``kv_lens[s] ==
     0`` marks an inactive slot (masked, scratch writes).
 
-    Both update the pools IN PLACE.  Index tensors arrive as int32 on
-    ``device`` (None: the card, raising without one).
+    The chunk and decode steps update the pools IN PLACE.  Index tensors
+    arrive as int32 on ``device`` (None: the card, raising without one).
     ``models.transformer.build_decode_model`` is the in-repo producer.
     """
 
-    def __init__(self, prefill_chunk_fn, decode_fn, *, num_layers,
-                 num_heads, head_dim, vocab_size, eos_id=None, device=None,
-                 name="decode-model"):
-        if prefill_chunk_fn is None:
-            raise ServingError("a DecodeModel needs a prefill_chunk_fn")
-        self.prefill_chunk_fn = prefill_chunk_fn
+    def __init__(self, prefill_fn, decode_fn, prefill_chunk_fn=None, *,
+                 num_layers, num_heads, head_dim, vocab_size, eos_id=None,
+                 device=None, name="decode-model"):
+        if prefill_fn is None and prefill_chunk_fn is None:
+            raise ServingError(
+                "a DecodeModel needs a prefill_fn or a prefill_chunk_fn")
+        self.prefill_fn = prefill_fn
         self.decode_fn = decode_fn
+        self.prefill_chunk_fn = prefill_chunk_fn
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
@@ -317,11 +329,30 @@ class DecodeScheduler:
     step -> retire); clients only touch the bounded queue and their
     request futures.  The KV pools live on ``model.device``.
     ``role`` and ``sessions`` exist for the JAX package's signature;
-    anything but their defaults raises ``NotImplementedError``.
+    anything but their defaults raises ``NotImplementedError``, after the
+    JAX package's ``ServingError`` checks (a model without
+    ``prefill_chunk_fn`` takes no ``prefill_chunk_tokens``,
+    ``prefix_cache`` or ``role="prefill"``).
     """
 
     def __init__(self, model, config=None, autostart=True, role="both",
                  sessions=None):
+        cfg = self.config = config or DecodeConfig()
+        self._use_chunks = model.prefill_chunk_fn is not None
+        if not self._use_chunks and (cfg.prefill_chunk_tokens is not None
+                                     or cfg.prefix_cache):
+            raise ServingError(
+                "prefill_chunk_tokens / prefix_cache require a model with "
+                "prefill_chunk_fn (see models.transformer."
+                "build_decode_model); %r has none" % (model.name,))
+        if role not in ("both", "prefill", "decode"):
+            raise ServingError(
+                "role must be 'both', 'prefill', or 'decode', got %r"
+                % (role,))
+        if role == "prefill" and not self._use_chunks:
+            raise ServingError(
+                "role='prefill' requires the chunked prefill path "
+                "(a model with prefill_chunk_fn)")
         if role != "both":
             raise NotImplementedError(
                 "DecodeScheduler(role=%r) is not ported to paddle_tpu_torch "
@@ -331,7 +362,6 @@ class DecodeScheduler:
                 "DecodeScheduler(sessions=...) is not ported to "
                 "paddle_tpu_torch yet")
         self.model = model
-        cfg = self.config = config or DecodeConfig()
         self._device = model.device
         self._cache = PagedKVCache(
             model.num_layers,
@@ -388,8 +418,8 @@ class DecodeScheduler:
         return torch.as_tensor(array, device=self._device)
 
     def _chunk_widths(self):
-        """The prefill-chunk widths this config can dispatch: the bucket
-        ladder (monolithic), or the chunk budget plus every smaller
+        """The prefill widths this config can dispatch: the bucket ladder
+        (monolithic or legacy), or the chunk budget plus every smaller
         ladder bucket (chunked) — a short remainder runs at its own
         bucket instead of padding to the budget."""
         if self.config.prefill_chunk_tokens is None:
@@ -411,10 +441,14 @@ class DecodeScheduler:
                 self._dev(zeros), self._dev(zeros), cache.k_pool,
                 cache.v_pool, self._dev(self._tables), self._dev(zeros))
             for w in self._chunk_widths():
+                page_vec = np.zeros((w // cfg.page_size,), np.int32)
+                if not self._use_chunks:
+                    self._prefill_into(np.zeros((w,), np.int32), 1,
+                                       page_vec)
+                    continue
                 self.model.prefill_chunk_fn(
                     self._dev(np.zeros((w,), np.int32)), 0, 1,
-                    cache.k_pool, cache.v_pool,
-                    self._dev(np.zeros((w // cfg.page_size,), np.int32)),
+                    cache.k_pool, cache.v_pool, self._dev(page_vec),
                     self._dev(np.zeros((cache.max_pages_per_seq,),
                                        np.int32)))
             if self._device.type == "cuda":
@@ -629,11 +663,14 @@ class DecodeScheduler:
                 with self._hol_lock:
                     self._hol = req
                 return
-            self._place(req, pages)
+            idx = self._place(req, pages)
+            if not self._use_chunks:
+                self._prefill(idx)
 
     def _place(self, req, pages):
         """Seat one admitted request in a free slot in the PREFILLING
-        state: pages are reserved, but no model compute happens here."""
+        state and return the slot's index: pages are reserved, but no
+        model compute happens here."""
         idx = self._slots.index(None)
         now = time.perf_counter()
         wait = now - req.enqueue_ts
@@ -649,6 +686,68 @@ class DecodeScheduler:
         self._slots[idx] = _Slot(req, pages)
         self._tables[idx] = self._cache.table_row(pages)
         _active_slots.set(self._active_count())
+        return idx
+
+    def _prefill_into(self, tokens, length, page_vec):
+        """The legacy whole-prompt prefill: ``prefill_fn`` over the padded
+        ``tokens``, its k/v scattered in whole pages into ``page_vec``'s
+        pages (scratch past the prompt's pages).  Returns the logits at
+        ``length - 1``."""
+        logits, k, v = self.model.prefill_fn(self._dev(tokens), int(length))
+        write_prompt_kv(self._cache.k_pool, self._cache.v_pool, k, v,
+                        self._dev(page_vec))
+        return logits
+
+    def _prefill(self, idx):
+        """Prefill the just-seated slot at ``idx`` in one legacy call
+        (a model without ``prefill_chunk_fn``): the prompt padded to its
+        bucket, its pages written, and the first token sampled at key
+        (seed, prompt length) — the key the final chunk of a chunked
+        prefill uses."""
+        cfg = self.config
+        slot = self._slots[idx]
+        req = slot.req
+        plen = req.prompt_len
+        bucket = next(b for b in self.prefill_buckets if b >= plen)
+        tokens = np.zeros((bucket,), np.int32)
+        tokens[:plen] = req.prompt
+        page_vec = np.zeros((bucket // cfg.page_size,), np.int32)
+        n_prompt_pages = self._cache.pages_for(plen)
+        page_vec[:n_prompt_pages] = slot.pages[:n_prompt_pages]
+        temp, seed = self._sampling_params(req)
+        t0 = time.perf_counter()
+        prefill_wall = time.time()
+        try:
+            with self._telemetry.timed("serving.decode.prefill",
+                                       bucket=bucket, rows=plen,
+                                       seq=req.seq), torch.no_grad():
+                logits = self._prefill_into(tokens, plen, page_vec)
+                first = int(_sample_tokens(
+                    logits[None], np.array([temp]), np.array([seed]),
+                    np.array([plen]), self._top_k)[0])
+        except Exception as exc:  # noqa: BLE001 — worker must survive
+            self._retire(idx, error=exc)
+            return
+        except BaseException:
+            self._retire(idx, error=ServingDegraded(
+                "decode worker died mid-prefill; request aborted"))
+            raise
+        done = time.perf_counter()
+        _prefill_timer.observe(done - t0)
+        _ttft_hist.observe(done - req.enqueue_ts)
+        tel = self._telemetry
+        if tel.span_active() and req.trace is not None:
+            tel.record_span(
+                "serving.execute", prefill_wall, done - t0,
+                tags=req.trace.child().tags(phase="prefill", bucket=bucket,
+                                            rows=plen))
+        slot.prefill_pos = slot.kv_len = plen
+        slot.generated.append(first)
+        req.token_times.append(time.perf_counter())
+        _prefills.inc()
+        _prefill_tokens.inc(plen)
+        _tokens.inc()
+        self._finish_if_done(idx)
 
     def _chunk_width_for(self, remaining):
         """Dispatch width for a chunk with ``remaining`` prompt tokens

@@ -37,7 +37,7 @@ import torch
 from .. import observability as _obs
 from .errors import ServingError
 
-__all__ = ["PagedKVCache", "torch_dtype"]
+__all__ = ["PagedKVCache", "torch_dtype", "write_prompt_kv"]
 
 _pages_total = _obs.gauge("serving.decode.kv_pages_total")
 _pages_used = _obs.gauge("serving.decode.kv_pages_used")
@@ -58,6 +58,24 @@ def torch_dtype(dtype):
     except KeyError:
         raise ServingError("unsupported kv dtype %r (know %s)"
                            % (dtype, sorted(_DTYPES))) from None
+
+
+def write_prompt_kv(k_pool, v_pool, k_new, v_new, pages):
+    """Scatter a prefilled prompt's whole-page blocks into the pools, IN
+    PLACE (the legacy whole-prompt prefill's write).
+
+    k_new/v_new: ``[L, T, H, D]`` with ``T % page_size == 0`` (the prefill
+    bucket is a page multiple); ``pages``: ``[T // page_size]`` int page
+    ids on the pools' device — entries past the sequence's real need
+    point at the scratch page 0, so the scatter's shape is fixed per
+    bucket (which of the colliding scratch writes lands is unspecified;
+    nothing reads the scratch page)."""
+    L, T, H, D = k_new.shape
+    ps = k_pool.shape[2]
+    n = T // ps
+    idx = pages.long()
+    k_pool.index_copy_(1, idx, k_new.reshape(L, n, ps, H, D).to(k_pool.dtype))
+    v_pool.index_copy_(1, idx, v_new.reshape(L, n, ps, H, D).to(v_pool.dtype))
 
 
 class PagedKVCache:

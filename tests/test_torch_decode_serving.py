@@ -2,11 +2,13 @@
 
 Cross-package: a port ``InferenceEngine(decode_model=..., device="cpu")``
 and the JAX package's engine serve the same prompts greedily from the
-same ``lm_params`` arrays and must return identical token arrays.
-Port-vs-port: the scheduler's own contracts — continuous batching ==
-``max_active=1``, chunked == monolithic prefill, sampling keyed on
-(seed, position), EOS, typed errors, page accounting, thread hygiene,
-and the knobs whose machinery is not ported yet.
+same ``lm_params`` arrays and must return identical token arrays, through
+the chunked prefill and through the legacy whole-prompt prefill (a model
+without a chunk function).  Port-vs-port: the scheduler's own contracts —
+continuous batching == ``max_active=1``, chunked == monolithic == legacy
+prefill, sampling keyed on (seed, position), EOS, typed errors, page
+accounting, thread hygiene, and the knobs whose machinery is not ported
+yet.
 """
 import threading
 import time
@@ -84,6 +86,109 @@ def test_greedy_tokens_identical_to_jax_engine(lm, decode_model):
     assert health["ready"] and health["device"] == "cpu"
     assert health["decode"]["kv_pages_used"] == 0
     assert health["decode"]["completed"] == len(prompts)
+
+
+@pytest.fixture(scope="module")
+def legacy_model(lm):
+    params, meta = lm
+    return TT.build_decode_model(params, meta, device="cpu", chunked=False)
+
+
+def test_legacy_greedy_tokens_identical_to_jax_engine(lm, legacy_model):
+    # both engines prefill each prompt in one whole-prompt call: the JAX
+    # package's DecodeModel with prefill_chunk_fn=None, the port's built
+    # with chunked=False
+    params, meta = lm
+    prompts = _prompts(6, seed=10)
+    cfg = dict(num_slots=4, page_size=8, max_seq_len=64, max_new_tokens=8)
+    jm = JT.build_decode_model(params, meta)
+    jm = jserving.DecodeModel(
+        jm.prefill_fn, jm.decode_fn, num_layers=meta["n_layer"],
+        num_heads=meta["n_head"], head_dim=meta["head_dim"],
+        vocab_size=meta["vocab_size"])
+    jeng = jserving.InferenceEngine(
+        decode_model=jm, decode_config=jserving.DecodeConfig(**cfg))
+    try:
+        want = [f.result(timeout=120)
+                for f in [jeng.generate_async(p) for p in prompts]]
+    finally:
+        jeng.stop()
+    teng = serving.InferenceEngine(decode_model=legacy_model,
+                                   decode_config=serving.DecodeConfig(**cfg),
+                                   device="cpu")
+    try:
+        got = [f.result(timeout=60)
+               for f in [teng.generate_async(p) for p in prompts]]
+        health = teng.health()
+    finally:
+        teng.stop()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == np.int32 and g.tobytes() == w.tobytes(), (i, g, w)
+    assert health["decode"]["kv_pages_used"] == 0
+    assert health["decode"]["completed"] == len(prompts)
+
+
+def test_legacy_batching_equals_max_active_1_and_chunked(legacy_model,
+                                                         decode_model):
+    prompts = _prompts(9, seed=11, lo=2, hi=40)
+    batched = _serve(legacy_model, prompts)
+    naive = _serve(legacy_model, prompts, _cfg(max_active=1))
+    chunked = _serve(decode_model, prompts, _cfg(prefill_chunk_tokens=16))
+    for i, (b, n, c) in enumerate(zip(batched, naive, chunked)):
+        assert b.tobytes() == n.tobytes(), i
+        assert b.tobytes() == c.tobytes(), i
+
+
+def test_decode_model_takes_the_reference_positional_order(lm):
+    # DecodeModel(prefill_fn, decode_fn, prefill_chunk_fn=None, *, ...)
+    # with only a whole-prompt function serves through generate
+    params, meta = lm
+    lmod = TT.params_from_numpy(params, "cpu", meta=meta)
+
+    def prefill_fn(tokens, length):
+        return TT.lm_prefill(lmod, tokens, length, use_flash=True)
+
+    def decode_fn(tokens, positions, k_pool, v_pool, tables, kv_lens):
+        return TT.lm_decode_step(lmod, tokens, positions, k_pool, v_pool,
+                                 tables, kv_lens)
+
+    dm = serving.DecodeModel(prefill_fn, decode_fn, num_layers=meta["n_layer"],
+                             num_heads=meta["n_head"],
+                             head_dim=meta["head_dim"],
+                             vocab_size=meta["vocab_size"], device="cpu")
+    assert dm.prefill_chunk_fn is None
+    eng = serving.InferenceEngine(decode_model=dm, decode_config=_cfg(),
+                                  device="cpu")
+    try:
+        prompt = _prompts(1, seed=12)[0]
+        out = eng.generate(prompt, max_new_tokens=5, timeout=60)
+    finally:
+        eng.stop()
+    want = _serve(TT.build_decode_model(params, meta, device="cpu"),
+                  [prompt], max_new_tokens=5)[0]
+    assert out.tobytes() == want.tobytes()
+    with pytest.raises(serving.ServingError, match="prefill_fn"):
+        serving.DecodeModel(None, decode_fn, None, num_layers=2, num_heads=2,
+                            head_dim=16, vocab_size=50, device="cpu")
+
+
+def test_legacy_model_refuses_chunk_only_knobs(legacy_model):
+    with pytest.raises(serving.ServingError, match="prefill_chunk_fn"):
+        serving.DecodeScheduler(legacy_model,
+                                _cfg(prefill_chunk_tokens=8, warmup=False),
+                                autostart=False)
+    # DecodeConfig(prefix_cache=True) itself raises NotImplementedError
+    # (the cache is not ported); the scheduler's own check comes first
+    cfg = _cfg(warmup=False)
+    cfg.prefix_cache = True
+    with pytest.raises(serving.ServingError, match="prefix_cache"):
+        serving.DecodeScheduler(legacy_model, cfg, autostart=False)
+    with pytest.raises(serving.ServingError, match="role='prefill'"):
+        serving.DecodeScheduler(legacy_model, _cfg(warmup=False),
+                                autostart=False, role="prefill")
+    with pytest.raises(serving.ServingError, match="role must be"):
+        serving.DecodeScheduler(legacy_model, _cfg(warmup=False),
+                                autostart=False, role="replica")
 
 
 def test_continuous_batching_equals_max_active_1(decode_model):

@@ -1,8 +1,9 @@
-"""Op rules of the port against the JAX package's where an index can fall
-outside its axis, on the CPU: ``softmax_with_cross_entropy`` with hard
-labels, ``one_hot`` and ``lookup_table``.  Each case builds the same
-one-op Program with each package's layers, runs both Executors on the
-same seeded numpy feed, and compares the outputs exactly, NaNs in the
+"""Op rules of the port against the JAX package's on the CPU.
+
+Where an index can fall outside its axis: ``softmax_with_cross_entropy``
+with hard labels, ``one_hot`` and ``lookup_table``.  Each case builds the
+same one-op Program with each package's layers, runs both Executors on
+the same seeded numpy feed, and compares the outputs exactly, NaNs in the
 same places.  The loss cases feed logits whose log-softmax is exact in
 float32 (each row a permutation of 0, -100, -200, ...: the max is 0 and
 the exp-sum rounds to 1), so every finite loss is 100 times the class
@@ -13,7 +14,15 @@ and zero positions still exact.
 The JAX package's rules gather with ``jnp.take_along_axis`` /
 ``jnp.take`` (an index in [-n, 0) wraps, one outside [-n, n) reads NaN)
 and one-hot with ``jax.nn.one_hot`` (an id outside [0, depth) gives a
-row of zeros)."""
+row of zeros).
+
+The core IR's rules (conv2d, depthwise_conv2d, pool2d, cross_entropy,
+mean, top_k, accuracy) the same way, with the JAX startup's parameters
+copied into the port: float outputs and the gradients that
+``calc_gradient`` gives within 1e-5 (XLA and torch sum in different
+orders), integer outputs exact.  ``gaussian_random`` draws from the
+port's own generator, so it is held to its distribution instead.
+"""
 import numpy as np
 import pytest
 
@@ -161,3 +170,259 @@ def test_lookup_table_matches_jax(case):
         assert np.isnan(got).any() and np.isfinite(got).any()
     if padding_idx is not None:
         assert (got[::4] == 0).all()
+
+
+def _pair(build, feed, n_fetch=1, edit=None):
+    """Build ``build(fl)`` (a list of fetch targets) with each package,
+    copy the JAX startup's persistables into the port, run both mains on
+    ``feed`` and return (jax fetches, port fetches) as numpy lists.
+    ``edit(main)`` may change each main Program before it runs."""
+    outs = []
+    state = None
+    for fl in (jfluid, tfluid):
+        main, startup = fl.Program(), fl.Program()
+        with fl.unique_name.guard(), fl.program_guard(main, startup):
+            fetch = build(fl)
+        if edit is not None:
+            edit(main)
+        scope = fl.Scope()
+        with fl.scope_guard(scope):
+            exe = fl.Executor(fl.CPUPlace())
+            exe.run(startup)
+            if state is None:
+                state = {n: np.asarray(scope[n])
+                         for n in main.persistable_names() if n in scope}
+            else:
+                fl.load_numpy_state(main, state, scope=scope, device="cpu")
+            outs.append([np.asarray(o) for o in
+                         exe.run(main, feed=feed, fetch_list=fetch)])
+    return outs
+
+
+def _close(got, want, tol=1e-5):
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+#: conv2d cases: (C, num_filters, filter, stride, padding, dilation, groups)
+CONV_CASES = {
+    "plain": (3, 4, 3, 1, 0, 1, 1),
+    "stride_padding": (3, 4, 3, 2, 1, 1, 1),
+    "dilation": (3, 5, 3, 1, 2, 2, 1),
+    "rect": (3, 4, [3, 2], [2, 1], [1, 0], 1, 1),
+    "groups": (4, 6, 3, 1, 1, 1, 2),
+    "depthwise": (4, 8, 3, 1, 1, 1, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(CONV_CASES))
+def test_conv2d_matches_jax(case):
+    C, nf, fs, st, pad, dil, groups = CONV_CASES[case]
+    x = np.random.RandomState(6).randn(2, C, 9, 8).astype("float32")
+
+    def build(fl):
+        xv = fl.layers.data(name="x", shape=[C, 9, 8], dtype="float32",
+                            stop_gradient=False)
+        y = fl.layers.conv2d(xv, num_filters=nf, filter_size=fs, stride=st,
+                             padding=pad, dilation=dil, groups=groups,
+                             bias_attr=False)
+        loss = fl.layers.mean(fl.layers.square(y))
+        w = fl.default_main_program().global_block().all_parameters()[0]
+        return [y] + fl.backward.calc_gradient(loss, [xv, w])
+
+    def depthwise(main):
+        # the layer builds conv2d; the depthwise rule takes its groups
+        # from the input's channels, whatever the attr says
+        (op,) = [o for o in main.global_block().ops if o.type == "conv2d"]
+        op.type = "depthwise_conv2d"
+        op.attrs["groups"] = 1
+
+    want, got = _pair(build, {"x": x},
+                      edit=depthwise if case == "depthwise" else None)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+#: pool2d cases: (type, ksize, stride, padding, ceil_mode, exclusive,
+#: global, H/W of the input)
+POOL_CASES = {
+    "max": ("max", 2, 2, 0, False, True, False, 8),
+    "max_padded": ("max", 3, 2, 1, False, True, False, 7),
+    "max_ceil": ("max", 3, 2, 0, True, True, False, 8),
+    # the last window starts in the right padding: the reference keeps it
+    # (-inf for max, 0/0 for the exclusive average); torch's ceil_mode
+    # would drop it
+    "max_ceil_window_in_padding": ("max", 2, 2, 1, True, True, False, 5),
+    "avg": ("avg", 2, 2, 0, False, True, False, 8),
+    "avg_padded_exclusive": ("avg", 3, 1, 1, False, True, False, 7),
+    "avg_padded_inclusive": ("avg", 3, 1, 1, False, False, False, 7),
+    "avg_ceil": ("avg", 3, 2, 0, True, True, False, 8),
+    "avg_ceil_window_in_padding": ("avg", 2, 2, 1, True, True, False, 5),
+    "global_max": ("max", 2, 1, 0, False, True, True, 7),
+    "global_avg": ("avg", 2, 1, 0, False, True, True, 7),
+}
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_pool2d_matches_jax(case):
+    ptype, k, st, pad, ceil, excl, glob, hw = POOL_CASES[case]
+    x = np.random.RandomState(7).randn(2, 3, hw, hw).astype("float32")
+
+    def build(fl):
+        xv = fl.layers.data(name="x", shape=[3, hw, hw], dtype="float32",
+                            stop_gradient=False)
+        y = fl.layers.pool2d(xv, pool_size=k, pool_type=ptype, pool_stride=st,
+                             pool_padding=pad, global_pooling=glob,
+                             ceil_mode=ceil, exclusive=excl)
+        fetch = [y]
+        if "in_padding" not in case:  # -inf / NaN windows: no gradient
+            fetch += fl.backward.calc_gradient(fl.layers.mean(y), [xv])
+        return fetch
+
+    want, got = _pair(build, {"x": x})
+    for g, w in zip(got, want):
+        _close(g, w)
+    if "in_padding" in case:
+        edge = got[0][..., -1, :]
+        assert (np.isneginf(edge) if ptype == "max" else np.isnan(edge)).all()
+
+
+def _probs(seed, rows, c):
+    z = np.random.RandomState(seed).randn(rows, c).astype("float64") * 2
+    p = np.exp(z - z.max(-1, keepdims=True))
+    return (p / p.sum(-1, keepdims=True)).astype("float32")
+
+
+#: cross_entropy cases: (soft labels, label range [lo, hi), ignore_index
+#: or None for the default -100, rows forced to the ignore index, with
+#: probabilities at the clip's bounds, gradient checked)
+CE_CASES = {
+    "soft": (True, None, None, False, False, True),
+    "hard": (False, (0, N_CLASSES), None, False, False, True),
+    "hard_at_the_clip": (False, (0, N_CLASSES), None, False, True, True),
+    "soft_at_the_clip": (True, None, None, False, True, True),
+    "default_ignore": (False, (0, N_CLASSES), None, True, False, True),
+    "custom_ignore": (False, (0, N_CLASSES), 2, True, False, True),
+    "out_of_range": (False, (-2 * N_CLASSES, 2 * N_CLASSES), None, False,
+                     False, False),
+    "out_of_range_ignore": (False, (-2 * N_CLASSES, 2 * N_CLASSES), 30, True,
+                            False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(CE_CASES))
+def test_cross_entropy_matches_jax(case):
+    soft, rng_lab, ignore, force, at_clip, grad = CE_CASES[case]
+    x = _probs(8, ROWS, N_CLASSES)
+    if at_clip:
+        # exact 1.0 and 0.0 (the top clip is hit exactly; 0 and 1e-30 are
+        # raised to 1e-20), as a saturated softmax gives them
+        x[0] = 0.0
+        x[0, 1] = 1.0
+        x[1, :3] = [1e-30, 0.0, 1e-20]
+        x[2] = 0.0
+        x[2, 0] = 1.0
+    if soft:
+        label = _probs(9, ROWS, N_CLASSES)
+    else:
+        label = _ids(10, *rng_lab)
+        if at_clip:
+            label[:3, 0] = [1, 1, 3]   # picks 1.0, 1e-30 and 0.0
+        if force:
+            label[::3] = -100 if ignore is None else ignore
+    kw = {} if ignore is None else {"ignore_index": ignore}
+
+    def build(fl):
+        xv = fl.layers.data(name="x", shape=[N_CLASSES], dtype="float32",
+                            stop_gradient=False)
+        if soft:
+            yv = fl.layers.data(name="y", shape=[N_CLASSES], dtype="float32")
+        else:
+            yv = fl.layers.data(name="y", shape=[1], dtype="int64")
+        loss = fl.layers.cross_entropy(xv, yv, soft_label=soft, **kw)
+        fetch = [loss]
+        if grad:
+            fetch += fl.backward.calc_gradient(fl.layers.mean(loss), [xv])
+        return fetch
+
+    want, got = _pair(build, {"x": x, "y": label})
+    _assert_same(np.isnan(got[0]), np.isnan(want[0]))
+    for g, w in zip(got, want):
+        _close(g, w)
+    if case.startswith("out_of_range"):
+        assert np.isnan(got[0]).any() and np.isfinite(got[0]).any()
+    if force:
+        assert (got[0][::3] == 0).all()
+    if at_clip and not soft:
+        assert got[0][0, 0] == 0.0 and got[0].max() > 40   # -log(1e-20)
+
+
+def test_mean_matches_jax():
+    x = np.random.RandomState(11).randn(6, 5).astype("float32")
+
+    def build(fl):
+        xv = fl.layers.data(name="x", shape=[5], dtype="float32",
+                            stop_gradient=False)
+        y = fl.layers.mean(xv)
+        return [y] + fl.backward.calc_gradient(y, [xv])
+
+    want, got = _pair(build, {"x": x})
+    assert got[0].shape == (1,)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_top_k_and_accuracy_match_jax(k):
+    rng = np.random.RandomState(12)
+    # values from a small set, so rows hold ties: equal values come out in
+    # index order (jax.lax.top_k's order)
+    x = rng.randint(0, 4, size=(ROWS, N_CLASSES)).astype("float32")
+    label = _ids(13, 0, N_CLASSES)
+
+    def build(fl):
+        xv = fl.layers.data(name="x", shape=[N_CLASSES], dtype="float32")
+        yv = fl.layers.data(name="y", shape=[1], dtype="int64")
+        vals, idx = fl.layers.topk(xv, k=k)
+        correct = fl.layers.create_tensor(dtype="int32")
+        total = fl.layers.create_tensor(dtype="int32")
+        acc = fl.layers.accuracy(xv, yv, k=k, correct=correct, total=total)
+        return [vals, idx, acc, correct, total]
+
+    want, got = _pair(build, {"x": x, "y": label})
+    vals, idx, acc, correct, total = got
+    _assert_same(vals, want[0])
+    assert idx.dtype == np.int64
+    np.testing.assert_array_equal(idx, want[1])
+    order = np.argsort(-x, axis=-1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(idx, order)
+    _assert_same(acc, want[2])
+    assert correct.dtype == total.dtype == np.int32
+    np.testing.assert_array_equal(correct, want[3])
+    np.testing.assert_array_equal(total, [ROWS])
+    assert acc[0] == np.float32(correct[0] / ROWS)
+
+
+def test_gaussian_random_distribution():
+    """10^5 draws: the sample mean within 5 standard errors (std/sqrt(n))
+    of ``mean`` and the sample std within 5 of its own (std/sqrt(2n));
+    the batch-size-like op takes its batch from its input."""
+    n, mean, std = 100_000, 0.5, 2.0
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = 4
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[3], dtype="float32")
+        g = tfluid.layers.gaussian_random([n], mean=mean, std=std)
+        like = tfluid.layers.gaussian_random_batch_size_like(
+            x, shape=[-1, 4], mean=mean, std=std)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    out, lk = exe.run(main, feed={"x": np.zeros((7, 3), "float32")},
+                      fetch_list=[g, like], scope=scope)
+    assert out.shape == (n,) and out.dtype == np.float32
+    assert abs(out.mean() - mean) < 5 * std / np.sqrt(n)
+    assert abs(out.std() - std) < 5 * std / np.sqrt(2 * n)
+    assert lk.shape == (7, 4)
+    again = exe.run(main, feed={"x": np.zeros((7, 3), "float32")},
+                    fetch_list=[g], scope=scope)[0]
+    assert again.tobytes() != out.tobytes()   # the next run draws anew

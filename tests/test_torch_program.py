@@ -1,8 +1,10 @@
 """The port's Fluid Program surface (paddle_tpu_torch) against the JAX
 package's, on the CPU: the same layer functions give the same Program, the
 startup constants come out bitwise equal, the op rules cover the
-Transformer's Programs, and the executor's entry points behave as
-documented.  Sizes are small (2 layers, d_model 32)."""
+Transformer's, the MNIST MLP's and LeNet's Programs (the op-coverage
+report prints what is left), and the executor's entry points and
+``program_fn`` behave as documented.  Sizes are small (2 layers,
+d_model 32)."""
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,8 @@ import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu.models import transformer as JT
 from paddle_tpu_torch.models import transformer as TT
+from paddle_tpu.registry import registered_ops as jax_registered_ops
+from paddle_tpu_torch.models import mnist as TM
 from paddle_tpu_torch.registry import registered_ops
 
 SMALL = dict(batch_size=2, seq_len=16, src_vocab_size=60, trg_vocab_size=60,
@@ -91,6 +95,122 @@ def test_op_rules_cover_both_programs(use_flash):
     needed = {op.type for p in ("main", "startup")
               for op in tm[p].global_block().ops} - {"backward"}
     assert needed <= set(registered_ops()), needed - set(registered_ops())
+
+
+def _mlp_programs():
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        img = tfluid.layers.data(name="img", shape=[784], dtype="float32")
+        label = tfluid.layers.data(name="label", shape=[1], dtype="int64")
+        hidden = tfluid.layers.fc(input=img, size=64, act="relu")
+        prediction = tfluid.layers.fc(input=hidden, size=10, act="softmax")
+        loss = tfluid.layers.cross_entropy(input=prediction, label=label)
+        avg_loss = tfluid.layers.mean(loss)
+        tfluid.layers.accuracy(input=prediction, label=label)
+        tfluid.optimizer.SGD(learning_rate=0.5).minimize(avg_loss)
+    return main, startup, img, avg_loss
+
+
+def test_op_coverage_report():
+    """The port's rules are a subset of the JAX package's, and cover every
+    op of the MNIST MLP's and LeNet's Programs; the gap left is
+    printed."""
+    port, ref = set(registered_ops()), set(jax_registered_ops())
+    assert port <= ref, port - ref
+    with tfluid.unique_name.guard():
+        m = TM.get_model()
+    mlp_main, mlp_startup, _, _ = _mlp_programs()
+    programs = {"mlp": (mlp_main, mlp_startup),
+                "mnist": (m["main"], m["startup"], m["test"])}
+    for name, progs in programs.items():
+        needed = {op.type for p in progs for op in p.global_block().ops}
+        needed -= {"backward"}
+        assert needed <= port, (name, needed - port)
+    gap = sorted(ref - port)
+    print("op coverage: the port registers %d of the reference's %d ops; "
+          "%d left: %s" % (len(port), len(ref), len(gap), ", ".join(gap)))
+    assert len(port) >= 52
+
+
+def test_program_fn_matches_the_executor():
+    from paddle_tpu_torch import program_fn
+
+    main, startup, img, avg_loss = _mlp_programs()
+    x = np.random.RandomState(0).randn(5, 784).astype(np.float32)
+    y = np.arange(5).reshape(5, 1)
+    state = program_fn.init_state(startup, seed=3, device="cpu")
+    assert sorted(state) == sorted(
+        n for n in startup.persistable_names() if n in state) and state
+    fn = program_fn.program_to_fn(main, [avg_loss], return_state=True,
+                                  device="cpu")
+    (loss,), new_state = fn(state, {"img": x, "label": y})
+    scope = tfluid.Scope()
+    tfluid.load_numpy_state(main, {n: v.numpy() for n, v in state.items()},
+                            scope=scope, device="cpu")
+    (want,) = tfluid.Executor(tfluid.CPUPlace()).run(
+        main, feed={"img": x, "label": y}, fetch_list=[avg_loss], scope=scope)
+    assert loss.numpy().tobytes() == want.tobytes()
+    for n, v in new_state.items():
+        if n in scope:
+            assert torch.equal(v, scope[n]), n
+    assert not torch.equal(new_state["fc_0.w_0"], state["fc_0.w_0"])
+
+
+@pytest.mark.parametrize("layer", ["py_reader", "double_buffer", "shuffle",
+                                   "batch", "open_files"])
+def test_reader_layers_raise_naming_what_they_wait_for(layer):
+    fn = getattr(tfluid.layers, layer)
+    nargs = fn.__code__.co_argcount - len(fn.__defaults__ or ())
+    with pytest.raises(NotImplementedError, match="A6"):
+        fn(*([None] * nargs))
+
+
+def test_io_layers_random_data_generator_and_preprocessor():
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = 2
+    with tfluid.program_guard(main, startup):
+        src = tfluid.layers.random_data_generator(-2.0, 3.0, [[6, 4]])
+        pre = tfluid.layers.Preprocessor(src)
+        with pre.block():
+            (x,) = pre.inputs()
+            pre.outputs(tfluid.layers.scale(x, scale=2.0))
+        (y,) = tfluid.layers.read_file(pre())
+    xv, yv = tfluid.Executor(tfluid.CPUPlace()).run(
+        main, fetch_list=[src.vars[0], y], scope=tfluid.Scope())
+    assert xv.shape == (6, 4) and xv.min() >= -2.0 and xv.max() < 3.0
+    np.testing.assert_array_equal(yv, xv * 2)
+
+
+def test_nets_build_the_reference_programs():
+    """simple_img_conv_pool, img_conv_group (its batch-norm variant builds
+    a batch_norm op, which has no rule yet) and
+    scaled_dot_product_attention give the JAX package's Programs; the
+    attention also its values."""
+    q = np.random.RandomState(1).randn(2, 5, 8).astype(np.float32)
+    outs = []
+    for fl in (jfluid, tfluid):
+        conv, conv_start = fl.Program(), fl.Program()
+        with fl.unique_name.guard(), fl.program_guard(conv, conv_start):
+            img = fl.layers.data(name="img", shape=[3, 12, 12],
+                                 dtype="float32")
+            fl.nets.simple_img_conv_pool(img, num_filters=4, filter_size=3,
+                                         pool_size=2, pool_stride=2,
+                                         act="relu")
+            fl.nets.img_conv_group(img, conv_num_filter=[4, 4], pool_size=2,
+                                   conv_act="relu")
+            fl.nets.img_conv_group(img, conv_num_filter=[4], pool_size=2,
+                                   conv_with_batchnorm=True)
+        att_main, att_start = fl.Program(), fl.Program()
+        with fl.unique_name.guard(), fl.program_guard(att_main, att_start):
+            x = fl.layers.data(name="q", shape=[5, 8], dtype="float32")
+            att = fl.nets.scaled_dot_product_attention(x, x, x, num_heads=2)
+        (val,) = fl.Executor(fl.CPUPlace()).run(
+            att_main, feed={"q": q}, fetch_list=[att], scope=fl.Scope())
+        outs.append(([p.to_string() for p in (conv, conv_start, att_main)],
+                     val))
+    assert outs[0][0] == outs[1][0]
+    assert "batch_norm" in outs[1][0][0]
+    np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=1e-5, atol=1e-6)
 
 
 def test_unported_op_raises_naming_it():

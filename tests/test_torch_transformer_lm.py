@@ -100,6 +100,48 @@ def test_prefill_chunk_matches_jax(model, n, C):
         _assert_close(g, w)
 
 
+# (prompt length, bucket): a prompt that ends part-way through its last
+# page, one that fills its bucket, a one-token prompt
+@pytest.mark.parametrize("use_flash", [True, False])
+@pytest.mark.parametrize("n,T", [(13, 16), (16, 16), (1, 8)])
+def test_lm_prefill_matches_jax(model, use_flash, n, T):
+    params, meta, lm = model
+    rng = np.random.RandomState(n)
+    tokens = np.zeros(T, np.int32)
+    tokens[:n] = rng.randint(1, DIMS["vocab_size"], size=n)
+    want = JT.lm_prefill(params, jnp.asarray(tokens), jnp.int32(n),
+                         n_head=meta["n_head"], use_flash=use_flash)
+    with torch.no_grad():
+        got = TT.lm_prefill(lm, torch.from_numpy(tokens), n,
+                            use_flash=use_flash)
+    assert got[1].shape == (DIMS["n_layer"], T, DIMS["n_head"], 16)
+    for g, w in zip(got, want):
+        _assert_close(g.numpy(), np.asarray(w))
+
+
+def test_write_prompt_kv_matches_jax():
+    from paddle_tpu.serving import kv_cache as JK
+    from paddle_tpu_torch.serving import kv_cache as TK
+
+    kp, vp = _pools(8)
+    rng = np.random.RandomState(9)
+    L, H, D = DIMS["n_layer"], DIMS["n_head"], 16
+    k_new = rng.randn(L, 4 * PS, H, D).astype(np.float32)
+    v_new = rng.randn(L, 4 * PS, H, D).astype(np.float32)
+    pages = np.array([5, 2, 0, 0], np.int32)   # two live pages, two scratch
+    jk, jv = JK.write_prompt_kv(jnp.asarray(kp), jnp.asarray(vp),
+                                jnp.asarray(k_new), jnp.asarray(v_new),
+                                jnp.asarray(pages))
+    kt, vt = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    TK.write_prompt_kv(kt, vt, torch.from_numpy(k_new), torch.from_numpy(v_new),
+                       torch.from_numpy(pages))
+    # every page but the scratch page, whose colliding writes land in an
+    # unspecified order
+    np.testing.assert_array_equal(kt.numpy()[:, 1:], np.asarray(jk)[:, 1:])
+    np.testing.assert_array_equal(vt.numpy()[:, 1:], np.asarray(jv)[:, 1:])
+    np.testing.assert_array_equal(kt.numpy()[:, 2], k_new[:, PS:2 * PS])
+
+
 def test_chunked_prefill_matches_jax_and_itself(model):
     # 20 tokens in three 8-wide chunks == JAX's three chunks, and == one
     # 32-wide chunk bitwise on the port
@@ -239,9 +281,36 @@ def test_bf16_pools_match_jax(model):
                                rtol=1e-2, atol=1e-2)
 
 
+def test_legacy_prefill_matches_chunked_prefill(model):
+    # one prompt through the whole-prompt prefill and through one
+    # bucket-wide chunk: the same first-token logits (different attention
+    # engines, so within 1e-5) and the same k/v in the prompt's pages
+    _, _, lm = model
+    rng = np.random.RandomState(4)
+    n, T = 21, 32
+    tokens = np.zeros(T, np.int32)
+    tokens[:n] = rng.randint(1, DIMS["vocab_size"], size=n)
+    table = np.zeros(MP, np.int32)
+    table[:3] = [6, 3, 8]
+    kp, vp = _pools(10)
+    chunk = _port_chunk(lm, tokens, 0, n, kp, vp, table[:4].copy(), table)
+    for use_flash in (True, False):
+        with torch.no_grad():
+            logits, k, v = TT.lm_prefill(lm, torch.from_numpy(tokens), n,
+                                         use_flash=use_flash)
+        _assert_close(logits.numpy(), chunk[0])
+        for pos in range(n):
+            page, off = table[pos // PS], pos % PS
+            _assert_close(k.numpy()[:, pos], chunk[1][:, page, off])
+            _assert_close(v.numpy()[:, pos], chunk[2][:, page, off])
+
+
 def test_build_decode_model_on_cpu(model):
     params, meta, lm = model
     dm = TT.build_decode_model(params, meta, eos_id=3, device="cpu")
+    assert dm.prefill_fn is not None and dm.prefill_chunk_fn is not None
+    legacy = TT.build_decode_model(params, meta, device="cpu", chunked=False)
+    assert legacy.prefill_fn is not None and legacy.prefill_chunk_fn is None
     assert dm.device.type == "cpu" and dm.eos_id == 3
     assert (dm.num_layers, dm.num_heads, dm.head_dim, dm.vocab_size) == (
         2, 2, 16, 50)

@@ -91,14 +91,35 @@ caught):
    bucket, 64] causal, kv_lens = bucket - 7): against its plain version,
    its CUDA-event time, the plain version's, the bound (4*D operations a
    visible pair), one causal SDPA call and B5 over the same prompt;
-9. MNIST LeNet (models.mnist.get_model, batch 128, f32, TF32 off): one
+9. predict serving: Transformer-base scoring (get_model(use_flash=True)
+   pruned to its logits, at the training width: 6+6 layers, d_model 512,
+   vocab 30000, 256 tokens, seeded parameters, f32 with TF32 off) saved
+   by ``io.save_inference_model(..., aot=True)`` into a temporary
+   directory and served by InferenceEngine(model_dir=...) on the card:
+   two rows on the Program backend against the port's plain CPU path
+   (LOGIT_TOL); the AOT graph (torch.export, B1 inside it as the
+   custom op) against the Program, bits or the difference stated; B1
+   launched 18 times a dispatch on each backend, no other kernel; the
+   all-pad warm-up feed (kv_lens 0) finite at every bucket; each 2-row
+   request alone (bucket 2) against the same request coalesced into one
+   dispatch at buckets 4, 8 and 16, held to PREDICT_BATCH_TOL; a hot
+   swap to a second seeded version under 4 client threads (every answer
+   one version's bits, the new version served after); then the load
+   (64 requests of 1-4 rows with their own lengths from 8 clients,
+   buckets 2-16, a 2 ms window): requests/s, rows/s, latency p50/p95,
+   the bucket histogram, peak memory, a profiled window (device busy
+   and idle share, B1's share, GEMMs, the device-to-host copy of the
+   logits), batch-1 clients with batching on and off, and B1 at
+   [16, 8, 256, 64] (the encoder's and the decoder's causal lengths)
+   against its plain version, its bound and one SDPA call;
+10. MNIST LeNet (models.mnist.get_model, batch 128, f32, TF32 off): one
    step on the card against the port's CPU path from one set of numpy
    parameters (loss 1e-6 relative, each gradient 1e-5 of its max |g|),
    and the same step with TF32 on, which must exceed those limits; then
    20 steps through Executor.run fed by DataFeeder (every loss finite,
    every parameter moved, the loss falling); step ms, images/s, peak
    memory, and a profiled step's device busy time and idle share;
-10. training, card vs CPU: Transformer-base at full width (6+6 layers,
+11. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
    (1e-3 of that tensor's max |g|; the few fc units whose ReLU gate opens
@@ -110,7 +131,7 @@ caught):
    uneven last one); their flash launches are counted apart from the
    main paths' (each step is its engine's main path when ``auto`` runs
    that engine on neither training leg);
-11. training: Transformer-base as the JAX package's headline leg
+12. training: Transformer-base as the JAX package's headline leg
    (bench.py: batch 64 x 256, vocab 30000, dropout 0.1, Adam with noam
    decay, use_flash=True, float32 with TF32 off) through
    Executor.run(startup) and 10 Executor.run(main) steps on seeded token
@@ -120,13 +141,15 @@ caught):
    times a step; step time, target tokens/s, peak memory, the loss
    trajectory, and a profiled step split by kernel family with the
    device's idle share;
-12. the long-context leg: the same model at bench.py's longest leg
+13. the long-context leg: the same model at bench.py's longest leg
    (batch 4 x 4096, max_length 4096, rows of 64-4096 tokens), 5 steps
    under ``auto``: the same checks, with B1 and the backward ``auto``
    picks launched 18 times a step and the other engine not at all;
-13. a ``kernels`` JSON line (all six kernels: times at the shape of
+14. a ``kernels`` JSON line (all six kernels: times at the shape of
    their main path, launches from it; B1's entry also carries its legacy
-   serving launches and its figures at bucket 1024; B4's entry names its two kernels
+   serving launches and its figures at bucket 1024, and its predict
+   launches (on the load) and figures at [16, 8, 256, 64]; B4's entry
+   names its two kernels
    and carries each one's device time; B3's two kernels have no library
    call of their own, so their entries also carry the pair's time beside
    SDPA's whole backward; B1's and B2's also carry their figures at the
@@ -139,9 +162,11 @@ exits non-zero before printing any result.
 """
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -160,6 +185,19 @@ N_REQUESTS, NEW_TOKENS = 16, 64
 # kv_lens = bucket - 7, the kernels line's figure at the second
 LEGACY_NEW_TOKENS = 32
 LEGACY_BUCKETS = (256, 1024, 2048)
+# predict serving: Transformer-base scoring at TRAIN_CFG's width, the
+# engine's default bucket ladder, and the load's requests (1-4 rows each)
+PREDICT_BUCKETS = (2, 4, 8, 16)
+PREDICT_REQUESTS = 64
+# batch-1 clients with batching on and off (the JAX package's scenario 5)
+PREDICT_BATCH1_REQUESTS = 32
+# each request alone (bucket 2) against the same request coalesced into a
+# larger bucket, max abs logit difference (0 would be bitwise).  Measured
+# on an NVIDIA H100 80GB HBM3 (700 W): 1.07e-6 at bucket 4, 1.13e-6 at 8
+# and 16, not bitwise (ROADMAP F-6); the limit is that reading with
+# about 9x of room for f32 summation order, as the card-vs-CPU reading
+# (1.25e-6) is held under LOGIT_TOL
+PREDICT_BATCH_TOL = 1e-5
 # MNIST LeNet (benchmark/fluid/models/mnist.py), batch 128, f32
 LENET_BATCH, LENET_STEPS = 128, 20
 # LeNet card vs CPU, TF32 off: the float32 step reads about 1e-7 (loss)
@@ -915,6 +953,456 @@ def legacy_phase(torch, T, serving, fa, obs, dev, prompts, chunked_outs):
                               r["bound"][1]))
     stats["b1"] = b1
     return stats
+
+
+def predict_rows(rng, n, seq, vocab):
+    """``n`` seeded scoring rows: source and target ids in [3, vocab),
+    each row its own lengths (64..seq), PAD_IDX (0) tails."""
+    src = rng.randint(3, vocab, size=(n, seq)).astype(np.int64)
+    trg = rng.randint(3, vocab, size=(n, seq)).astype(np.int64)
+    for b in range(n):
+        ls, lt = rng.randint(min(64, seq), seq + 1, size=2)
+        src[b, ls:] = 0
+        trg[b, lt:] = 0
+    return src, trg
+
+
+def predict_feed(src, trg):
+    return {"src_word": src, "trg_word": trg}
+
+
+def word_lens(ids):
+    return (ids != 0).sum(1).astype(np.int32)
+
+
+def save_predict_model(fluid, T, dirname, seed, aot):
+    """Transformer-base scoring at TRAIN_CFG's width, pruned to its
+    logits, from a seeded startup on the card; returns the seconds the
+    save took (the torch.export trace included with ``aot``)."""
+    with fluid.unique_name.guard():
+        m = T.get_model(**TRAIN_CFG)
+    m["startup"].random_seed = seed
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(m["startup"])
+        t0 = time.perf_counter()
+        fluid.io.save_inference_model(
+            dirname, ["src_word", "trg_word"], [m["predict"]], exe,
+            main_program=m["test"], aot=aot)
+        return time.perf_counter() - t0
+
+
+def predict_engine(serving, dirname, dev, **kw):
+    kw.setdefault("batch_buckets", PREDICT_BUCKETS)
+    return serving.InferenceEngine(dirname, device=dev, **kw)
+
+
+def predict_launch_check(fa, launches, dispatches, what):
+    """B1 launched 18 times a dispatch (6 encoder, 6 decoder causal, 6
+    cross attention), every other kernel not at all."""
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention_fwd"] = 18 * dispatches
+    check(dispatches > 0 and launches == want, what + " launches",
+          dispatches, launches)
+
+
+def serve_clients(engine, feeds, n_threads):
+    """Send ``feeds`` from ``n_threads`` client threads (each its share in
+    order); returns (outputs, per-request seconds, wall seconds)."""
+    outs = [None] * len(feeds)
+    lat = [None] * len(feeds)
+    errors = []
+
+    def client(idx):
+        try:
+            for i in idx:
+                t0 = time.perf_counter()
+                outs[i] = engine.predict(feeds[i], timeout=600)[0]
+                lat[i] = time.perf_counter() - t0
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client,
+                                args=(range(t, len(feeds), n_threads),))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          "predict clients", errors[:1])
+    return outs, lat, wall
+
+
+def bucket_counts(obs):
+    return {b: obs.counter("serving.batch_bucket_%d" % b).value
+            for b in PREDICT_BUCKETS}
+
+
+def profile_predict(torch, engine, feeds):
+    """Where a predict window's device time goes: ``feeds`` from 8
+    clients under torch.profiler.  Device time by family (B1, GEMMs, the
+    device-to-host copy of the logits, other elementwise work), the
+    device's idle share of the window's wall time, and B1's share; "not
+    measured" when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_clients(engine, feeds, 8)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return "not measured (the profiler recorded no device activity)"
+    families = {"flash_fwd": 0.0, "gemm": 0.0, "memcpy_dtoh": 0.0,
+                "memcpy_other": 0.0, "other": 0.0}
+    b1_calls = 0
+    for e in events:
+        name = e.name.lower()
+        if "flash_fwd_kernel" in name:
+            fam = "flash_fwd"
+            b1_calls += 1
+        elif any(k in name for k in ("gemm", "xmma", "cutlass", "gemv",
+                                      "sm90_", "sm80_")):
+            fam = "gemm"
+        elif "memcpy" in name:
+            fam = "memcpy_dtoh" if "dtoh" in name else "memcpy_other"
+        else:
+            fam = "other"
+        families[fam] += e.time_range.elapsed_us()
+    busy = sum(families.values())
+    return {"window_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+            "device_ms_by_family": {k: v / 1e3 for k, v in families.items()},
+            "b1_share_of_busy": families["flash_fwd"] / busy,
+            "b1_calls_seen": b1_calls, "device_events": len(events)}
+
+
+def logits_d2h(torch, dev, vocab, seq):
+    """One bucket-16 logits tensor ([16, seq, vocab] float32, 491 MB at
+    the phase's width) copied to the host as the serving path copies it
+    (``.cpu()``, to pageable memory), and into a pinned host buffer:
+    seconds each (host clock; the copies are synchronous)."""
+    x = torch.zeros((16, seq, vocab), device=dev)
+    pinned = torch.empty(x.shape, pin_memory=True)
+    torch.cuda.synchronize()
+    out = {"bytes": x.numel() * 4}
+    for name, copy in (("pageable_s", lambda: x.cpu()),
+                       ("pinned_s", lambda: pinned.copy_(x))):
+        copy()   # first touch of the host pages
+        t0 = time.perf_counter()
+        copy()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+def predict_b1_row(torch, fa, dev, src, trg):
+    """B1 at this phase's shape, [16, 8, 256, 64] float32 with the
+    traffic's lengths, as the Program calls it (q/k/v the [B, T, H, D] ->
+    [B, H, T, D] views): the encoder (and cross) attention, not causal
+    with kv_lens the source lengths, and the decoder's causal self
+    attention with the target lengths.  Against the plain version, then
+    the kernel's CUDA-event time, the plain version's, the bound (4*D
+    operations a visible pair, or the bytes moved once) and one SDPA
+    call over the same keys."""
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    B, T = src.shape
+    scale = 1.0 / FD ** 0.5
+    rows = {}
+    for case, causal, lens_np in (("encoder", False, word_lens(src)),
+                                  ("decoder_causal", True, word_lens(trg))):
+        q, k, v, _ = flash_inputs(torch, dev, gen, torch.float32, T, T, B=B)
+        lens = torch.as_tensor(lens_np, device=dev)
+        mask = (torch.arange(T, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones((T, T), dtype=torch.bool,
+                                     device=dev).tril()
+        with torch.no_grad():
+            out, _ = fa._flash_fwd_cuda(q, k, v, lens, causal, scale)
+            ref, _ = fa._flash_fwd_reference(q, k, v, lens, causal, scale)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            check(err <= KERNEL_TOL, "predict B1 vs plain", case, err)
+            rows[case] = {
+                "shape": [B, FH, T, FD], "causal": causal,
+                "kv_lens_mean": float(lens_np.mean()), "max_abs_err": err,
+                "ms": time_ms(lambda: fa._flash_fwd_cuda(
+                    q, k, v, lens, causal, scale), 20, flush),
+                "plain_ms": time_ms(lambda: fa._flash_fwd_reference(
+                    q, k, v, lens, causal, scale), 5, flush),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), 20, flush),
+                "bound": flash_bounds(lens_np, T, T, causal, 4)[0]}
+    return rows
+
+
+def predict_phase(torch, fluid, T, serving, fa, obs, dev):
+    """Predict serving of Transformer-base scoring (the forward that
+    ``get_model(use_flash=True)`` prunes to its logits) at TRAIN_CFG's
+    width, saved by ``io.save_inference_model(..., aot=True)`` into a
+    temporary directory and served by InferenceEngine(model_dir=...) on
+    the card.  Checks: card vs the port's plain CPU path on two rows
+    (LOGIT_TOL); the AOT graph against the Program (bits, or the
+    difference stated); B1 = 18 launches a dispatch on each backend and
+    no other kernel; the all-pad warm-up feed gives finite logits at
+    every bucket; each request alone (bucket 2) against the same request
+    coalesced into buckets 4, 8 and 16 (within PREDICT_BATCH_TOL, 0 =
+    bitwise); a hot swap under 4 client threads answers every request
+    with exactly one version's bits at the same bucket.  Then the load
+    (PREDICT_REQUESTS requests of 1-4 rows from 8 clients: requests/s,
+    rows/s, latency, the bucket histogram, peak memory, a profiled
+    window), batching off against on (batch-1 clients), and B1's row at
+    [16, 8, 256, 64] (PERF.md row 1S)."""
+    import shutil
+    import tempfile
+
+    resident = resident_gib(torch, dev)
+    vocab, seq = TRAIN_CFG["trg_vocab_size"], TRAIN_CFG["seq_len"]
+    # host seconds of each step of the phase, in order
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+
+    tmp = tempfile.mkdtemp(prefix="predict_")
+    try:
+        d1, d2 = os.path.join(tmp, "v1"), os.path.join(tmp, "v2")
+        save_s = save_predict_model(fluid, T, d1, SEED + 50, aot=True)
+        save_program_s = save_predict_model(fluid, T, d2, SEED + 51,
+                                            aot=False)
+        torch.cuda.empty_cache()
+        lap("save_v1_v2")
+        rng = np.random.RandomState(SEED + 52)
+        src, trg = predict_rows(rng, 16, seq, vocab)
+        x2 = predict_feed(src[:2], trg[:2])
+
+        # 1. the card (Program backend) against the plain CPU path
+        t0 = time.perf_counter()
+        prog = predict_engine(serving, d1, dev, backend="program",
+                              max_batch_size=16, batch_timeout_ms=100)
+        prog_setup_s = time.perf_counter() - t0
+        card2 = prog.predict(x2, timeout=600)[0]
+        cpu_model = serving.ModelStore(place="cpu").load(d1, "program")
+        cpu2 = cpu_model.predict_batch(x2)[0]
+        cpu_model.close()
+        del cpu_model
+        check(card2.shape == (2, seq, vocab) and np.isfinite(card2).all(),
+              "predict logits", card2.shape)
+        card_vs_cpu = float(np.abs(card2 - cpu2).max())
+        check(card_vs_cpu <= LOGIT_TOL, "predict card vs cpu", card_vs_cpu)
+        log("predict: logits card vs cpu (2 x %d tokens): max abs diff %.3g "
+            "(tol %g)" % (seq, card_vs_cpu, LOGIT_TOL))
+        lap("card_vs_cpu")
+
+        # 2 + 3. the AOT graph against the Program, and each backend's
+        # launches (B1 through the custom op, 18 a dispatch)
+        t0 = time.perf_counter()
+        aot = predict_engine(serving, d1, dev, backend="aot",
+                             max_batch_size=16)
+        aot_setup_s = time.perf_counter() - t0
+        check(aot.health()["backend"] == "aot", aot.health()["backend"])
+        x16 = predict_feed(src, trg)
+        backend_launches, outs = {}, {}
+        for name, eng in (("program", prog), ("aot", aot)):
+            b0 = obs.counter("serving.batches").value
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            outs[name] = [eng.predict(x, timeout=600)[0] for x in (x2, x16)]
+            torch.cuda.synchronize()
+            launches = dict(fa.KERNEL_LAUNCHES)
+            dispatches = obs.counter("serving.batches").value - b0
+            predict_launch_check(fa, launches, dispatches, name)
+            backend_launches[name] = {"dispatches": dispatches,
+                                      "launches": launches}
+        aot_diff = max(float(np.abs(a - p).max())
+                       for a, p in zip(outs["aot"], outs["program"]))
+        aot_bitwise = all(a.tobytes() == p.tobytes()
+                          for a, p in zip(outs["aot"], outs["program"]))
+        check(aot_diff <= LOGIT_TOL, "aot vs program", aot_diff)
+        log("predict: AOT vs Program on the card (buckets 2 and 16): %s, "
+            "max abs diff %.3g; launches %s"
+            % ("bitwise" if aot_bitwise else "NOT bitwise", aot_diff,
+               json.dumps(backend_launches)))
+        aot.stop()
+        del aot
+        lap("aot_vs_program")
+
+        # 4. the all-pad warm-up feed (kv_lens 0 in every row) at every
+        # bucket gives finite logits
+        for b in PREDICT_BUCKETS:
+            zeros = np.zeros((b, seq), np.int64)
+            pad_out = prog.predict(predict_feed(zeros, zeros),
+                                   timeout=600)[0]
+            check(np.isfinite(pad_out).all(), "all-pad logits", b)
+        lap("all_pad")
+
+        # 5. each request alone (bucket 2) against the same request
+        # coalesced into one dispatch at buckets 4, 8 and 16
+        reqs = [predict_feed(src[i:i + 2], trg[i:i + 2])
+                for i in range(0, 16, 2)]
+        alone = [prog.predict(r, timeout=600)[0] for r in reqs]
+        batch_diff = {}
+        for b in PREDICT_BUCKETS[1:]:
+            c0 = bucket_counts(obs)
+            futs = [prog.predict_async(r) for r in reqs[:b // 2]]
+            got = [f.result(timeout=600)[0] for f in futs]
+            moved = {k: v - c0[k] for k, v in bucket_counts(obs).items()}
+            check(moved == {k: int(k == b) for k in PREDICT_BUCKETS},
+                  "one dispatch at bucket %d" % b, moved)
+            batch_diff[b] = max(float(np.abs(g - a).max())
+                                for g, a in zip(got, alone))
+        batch_bitwise = all(v == 0.0 for v in batch_diff.values())
+        log("predict: alone (bucket 2) vs coalesced, max abs diff by "
+            "bucket %s (%s; PREDICT_BATCH_TOL %g)"
+            % (json.dumps(batch_diff),
+               "bitwise" if batch_bitwise else "NOT bitwise",
+               PREDICT_BATCH_TOL))
+        check(all(v <= PREDICT_BATCH_TOL for v in batch_diff.values()),
+              "batched vs alone", batch_diff)
+        prog.stop()
+        del prog
+        lap("batched_vs_alone")
+
+        # 6. hot swap under load: one bucket (4), so each request's
+        # reference is its own row at the bucket it is served at; 8 rows,
+        # each sent twice
+        swap_feeds = [predict_feed(src[i:i + 1], trg[i:i + 1])
+                      for i in range(8)]
+        ref2 = predict_engine(serving, d2, dev, batch_buckets=(4,),
+                              backend="program")
+        want2 = [ref2.predict(f, timeout=600)[0] for f in swap_feeds]
+        ref2.stop()
+        swap = predict_engine(serving, d1, dev, batch_buckets=(4,),
+                              backend="program")
+        want1 = [swap.predict(f, timeout=600)[0] for f in swap_feeds]
+        v1 = swap.model_version
+        results = [None] * (2 * len(swap_feeds))
+
+        def swap_client(idx):
+            for i in idx:
+                results[i] = swap.predict(swap_feeds[i % 8],
+                                          timeout=600)[0]
+
+        clients = [threading.Thread(target=swap_client,
+                                    args=(range(t, len(results), 4),))
+                   for t in range(4)]
+        for t in clients:
+            t.start()
+        v2 = swap.swap_model(d2)
+        for t in clients:
+            t.join(timeout=900)
+        check(not any(t.is_alive() for t in clients), "swap clients hung")
+        served = {"v1": 0, "v2": 0}
+        for i, r in enumerate(results):
+            check(r is not None, "request %d dropped across the swap" % i)
+            hits = [k for k, w in (("v1", want1[i % 8]),
+                                   ("v2", want2[i % 8]))
+                    if r.tobytes() == w.tobytes()]
+            check(len(hits) == 1, "request %d matches %s" % (i, hits))
+            served[hits[0]] += 1
+        after = swap.predict(swap_feeds[0], timeout=600)[0]
+        check(v2 > v1 and swap.model_version == v2 and swap.ready()
+              and after.tobytes() == want2[0].tobytes(),
+              "after the swap the engine serves v2")
+        swap.stop()
+        del swap, ref2
+        log("predict: hot swap v%d -> v%d under 4 clients: %d requests "
+            "answered, %s" % (v1, v2, len(results), json.dumps(served)))
+        lap("hot_swap")
+
+        # 7. the load (the main path: counts from 0 here, read after)
+        load = predict_engine(serving, d1, dev, backend="program",
+                              batch_timeout_ms=2)
+        sizes = rng.randint(1, 5, size=PREDICT_REQUESTS)
+        load_feeds = [predict_feed(*predict_rows(rng, int(n), seq, vocab))
+                      for n in sizes]
+        c0, b0 = bucket_counts(obs), obs.counter("serving.batches").value
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.reset_launch_counts()
+        outs, lat, wall = serve_clients(load, load_feeds, 8)
+        torch.cuda.synchronize()
+        launches = dict(fa.KERNEL_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        dispatches = obs.counter("serving.batches").value - b0
+        histogram = {k: v - c0[k] for k, v in bucket_counts(obs).items()}
+        predict_launch_check(fa, launches, dispatches, "predict load")
+        for f, o in zip(load_feeds, outs):
+            check(o.shape == (f["src_word"].shape[0], seq, vocab)
+                  and np.isfinite(o).all(), "load logits", o.shape)
+        rows = int(sizes.sum())
+        lap("load")
+        profile = profile_predict(torch, load, load_feeds[:16])
+        lap("profile")
+        # scenario 5 of the JAX package's gate, recorded: batch-1 clients
+        # with batching on (this engine) and off (max_batch_size 1)
+        one_row = [predict_feed(src[i % 16:i % 16 + 1],
+                                trg[i % 16:i % 16 + 1])
+                   for i in range(PREDICT_BATCH1_REQUESTS)]
+        _, _, on_wall = serve_clients(load, one_row, 8)
+        load.stop()
+        del load
+        off = predict_engine(serving, d1, dev, batch_buckets=(2,),
+                             max_batch_size=1, backend="program")
+        _, _, off_wall = serve_clients(off, one_row, 8)
+        off.stop()
+        del off
+        lap("batching_off")
+        stats = {
+            "model": "Transformer-base scoring (6+6 layers, d_model 512, "
+                     "vocab %d, %d tokens), f32, TF32 off" % (vocab, seq),
+            "save_s_with_export": save_s,
+            "save_s_program_only": save_program_s,
+            "logits_d2h": logits_d2h(torch, dev, vocab, seq),
+            "program_engine_setup_s":
+            prog_setup_s, "aot_engine_setup_s": aot_setup_s,
+            "card_vs_cpu_max_abs": card_vs_cpu,
+            "aot_vs_program_bitwise": aot_bitwise,
+            "aot_vs_program_max_abs": aot_diff,
+            "backend_launches": backend_launches,
+            "batched_vs_alone_max_abs": batch_diff,
+            "batched_vs_alone_bitwise": batch_bitwise,
+            "swap_served": served,
+            "requests": PREDICT_REQUESTS, "rows": rows, "wall_s": wall,
+            "requests_per_s": PREDICT_REQUESTS / wall,
+            "rows_per_s": rows / wall,
+            "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "latency_p95_ms": float(np.percentile(lat, 95) * 1e3),
+            "dispatches": dispatches, "bucket_histogram": histogram,
+            "peak_memory_gib": peak / 2 ** 30,
+            "resident_before_gib": resident, "launches": launches,
+            "profile": profile,
+            "batch1_requests_per_s_batched":
+            PREDICT_BATCH1_REQUESTS / on_wall,
+            "batch1_requests_per_s_unbatched":
+            PREDICT_BATCH1_REQUESTS / off_wall,
+            "batching_speedup": off_wall / on_wall}
+        log("predict serving: " + json.dumps(stats))
+        stats["b1"] = predict_b1_row(torch, fa, dev, src, trg)
+        lap("b1_row")
+        stats["phase_s"] = laps
+        log("predict phase seconds: " + json.dumps(laps))
+        for case, r in stats["b1"].items():
+            log("predict B1 %s %s: err %.3g, kernel %.4f ms plain %.4f ms "
+                "sdpa %.4f ms bound %.4f ms (%s), kv_lens mean %.1f"
+                % (case, r["shape"], r["max_abs_err"], r["ms"],
+                   r["plain_ms"], r["library_ms"], r["bound"][0],
+                   r["bound"][1], r["kv_lens_mean"]))
+        return stats
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def synthetic_mnist(n, seed):
@@ -1729,6 +2217,8 @@ def main():
     leg = legacy_phase(torch, T, serving, fa, obs, dev, srv_prompts,
                        srv_outs)
     torch.cuda.empty_cache()
+    prd = predict_phase(torch, fluid, T, serving, fa, obs, dev)
+    torch.cuda.empty_cache()
     lenet_phase(torch, fluid, dev)
     torch.cuda.empty_cache()
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
@@ -1798,6 +2288,19 @@ def main():
                  "legacy_library_ms": b1_1024["library_ms"],
                  "legacy_b5_ms": b1_1024["b5_ms"],
                  "legacy_launches": leg["launches"]["flash_attention_fwd"]}
+    # B1 on predict serving: its launches on the load (the main path) and
+    # its figures at [16, 8, 256, 64] (PERF.md row 1S)
+    enc, dec_c = prd["b1"]["encoder"], prd["b1"]["decoder_causal"]
+    predict_b1 = {"predict_shape": enc["shape"],
+                  "predict_ms": enc["ms"], "predict_plain_ms": enc["plain_ms"],
+                  "predict_bound_ms": enc["bound"][0],
+                  "predict_bound_by": enc["bound"][1],
+                  "predict_library_ms": enc["library_ms"],
+                  "predict_causal_ms": dec_c["ms"],
+                  "predict_causal_plain_ms": dec_c["plain_ms"],
+                  "predict_causal_bound_ms": dec_c["bound"][0],
+                  "predict_causal_library_ms": dec_c["library_ms"],
+                  "predict_launches": prd["launches"]["flash_attention_fwd"]}
     f32_pairs = [c for c in pair_cases if c["dtype"] == "float32"]
     sweep_errs = lambda key: [r["errs"][key] for r in sweep]  # noqa: E731
     kernels = []
@@ -1806,7 +2309,8 @@ def main():
              "paddle_tpu/parallel/flash_attention.py:73",
              "paddle_tpu_torch/csrc/flash_attention.cu",
              [c["fwd_err"] for c in flash_cases if c["dtype"] == "float32"]
-             + sweep_errs("fwd") + [r["max_abs_err"] for r in leg["b1"]]),
+             + sweep_errs("fwd") + [r["max_abs_err"] for r in leg["b1"]]
+             + [r["max_abs_err"] for r in prd["b1"].values()]),
             ("flash_attention_bwd", b2_path["launches"], full["bwd"],
              "paddle_tpu/parallel/flash_attention.py:513",
              "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -1841,6 +2345,7 @@ def main():
         if name == "flash_attention_fwd":
             kernels[-1].update(fwd_long)
             kernels[-1].update(legacy_b1)
+            kernels[-1].update(predict_b1)
         if name == "flash_attention_bwd":
             kernels[-1].update(bwd_long)
         if name == "paged_decode_attention":

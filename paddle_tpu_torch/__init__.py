@@ -17,6 +17,12 @@ held against.  It imports torch and numpy, never jax and nothing of
 * the core IR — conv/pool/loss/metric ops, every update rule,
   ``backward.calc_gradient``, ``lod`` and ``DataFeeder``:
   ``models.mnist.get_model()`` (LeNet) trains through ``Executor.run``.
+* predict serving — ``io.save_inference_model`` (the JAX package's
+  on-disk format, plus a ``torch.export`` artifact with ``aot=True``)
+  and ``serving.InferenceEngine(model_dir=...)``: dynamic batching over
+  the Program or the exported graph, with retry, bisection, a circuit
+  breaker, a worker supervisor and hot swap; Transformer-base scoring
+  runs the flash forward kernel in both.
 
 Use it like the JAX package::
 
@@ -46,6 +52,8 @@ from . import executor
 from . import lod
 from . import data_feeder
 from . import program_fn
+from . import resilience
+from . import io
 from . import models, observability, parallel, serving
 from .core import CPUPlace, CUDAPlace, resolve_device
 from .data_feeder import DataFeeder
@@ -66,7 +74,7 @@ from .param_attr import ParamAttr, WeightNormParamAttr
 __all__ = [
     "core", "unique_name", "framework", "initializer", "layers", "nets",
     "optimizer", "regularizer", "clip", "backward", "executor", "lod",
-    "data_feeder", "program_fn", "models",
+    "data_feeder", "program_fn", "resilience", "io", "models",
     "observability", "parallel", "serving", "CPUPlace", "CUDAPlace",
     "resolve_device", "Executor", "Scope", "global_scope",
     "load_numpy_state", "scope_guard", "Program", "Variable",

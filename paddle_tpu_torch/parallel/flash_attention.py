@@ -30,15 +30,32 @@ zero gradients); keys past a row's visibility are skipped; key/value
 rows past ``kv_lens`` never reach a sum, so non-finite values there
 change nothing.
 
+The flash forward (B1) is also a PyTorch operator,
+``torch.ops.paddle_tpu_torch.flash_fwd`` (a ``torch.library.custom_op``
+registered when this module is imported): its CPU implementation is the
+plain version ``_flash_fwd_reference``, its CUDA implementation the
+kernel wrapper ``_flash_fwd_cuda``, and its fake implementation gives
+the ``out`` and ``lse`` shapes.  Every forward goes through it, so
+``torch.export`` traces B1 as one node of the graph (the serving AOT
+backend, ``io.save_inference_model(..., aot=True)``) and a saved graph
+launches the same kernel when it runs; the wrapper's checks, alignment
+copies and its empty-input guard stay inside the implementation, out of
+the traced graph.  Training keeps the autograd ``Function``
+(``_FlashAttention``) around it.
+
 Each kernel wrapper counts its launches in :data:`KERNEL_LAUNCHES`
-(plain integers, incremented only where the kernel is launched), so a
-run can show that its main path went through the kernels.
+(plain integers, incremented only where the kernel is launched, under a
+lock: the predict batcher and the decode worker launch from their own
+threads), so a run can show that its main path went through the
+kernels; a graph loaded from an AOT artifact counts too, since the count
+is in the operator's CUDA implementation.
 """
 from __future__ import annotations
 
 import functools
 import math
 import os
+import threading
 import warnings
 
 import torch
@@ -58,6 +75,16 @@ KERNEL_LAUNCHES = {"flash_attention_fwd": 0,
                    "flash_attention_bwd_dq": 0,
                    "paged_decode_attention": 0,
                    "paged_prefill_attention": 0}
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(*names):
+    """Add one to each named kernel's launch count (the increments of
+    two serving threads must not lose one another's)."""
+    with _LAUNCH_LOCK:
+        for name in names:
+            KERNEL_LAUNCHES[name] += 1
+
 
 # Backward engine switch, the counterpart of the JAX package's
 # FLASH_BWD_IMPL: "fused" is B2 (a delta pre-pass, one walk over key tiles
@@ -127,8 +154,9 @@ def _sm_count(index):
 
 def reset_launch_counts():
     """Set every kernel's launch count to 0."""
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in KERNEL_LAUNCHES:
+            KERNEL_LAUNCHES[name] = 0
 
 
 def mha_reference(q, k, v, causal=False, sm_scale=None, kv_lens=None):
@@ -397,7 +425,7 @@ def _flash_fwd_cuda(q, k, v, kv_lens, causal, sm_scale):
         int(causal), float(sm_scale), int(q.dtype == torch.bfloat16),
         _device_index(q), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    KERNEL_LAUNCHES[name] += 1
+    _count_launch(name)
     return out, lse
 
 
@@ -457,7 +485,7 @@ def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
         int(q.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    KERNEL_LAUNCHES[name] += 1
+    _count_launch(name)
     return dq, dk, dv
 
 
@@ -491,15 +519,32 @@ def _flash_bwd_pair_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
         int(q.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    KERNEL_LAUNCHES["flash_attention_bwd_dkv"] += 1
-    KERNEL_LAUNCHES["flash_attention_bwd_dq"] += 1
+    _count_launch("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     return dq, dk, dv
 
 
+# B1 as a PyTorch operator: one schema, the plain version on the CPU, the
+# kernel on the card, and shapes alone under tracing (torch.export)
+_flash_fwd_op = torch.library.custom_op(
+    "paddle_tpu_torch::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? kv_lens, bool causal, "
+           "float sm_scale) -> (Tensor, Tensor)")(_flash_fwd_reference)
+_flash_fwd_op.register_kernel("cuda")(_flash_fwd_cuda)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, kv_lens, causal, sm_scale):
+    """(out [B, H, T, D] in q's dtype, lse [B, H, T] float32, float64 for
+    float64 inputs), as both implementations give them."""
+    B, H, T, D = q.shape
+    lse_dtype = torch.promote_types(q.dtype, torch.float32)
+    return q.new_empty((B, H, T, D)), q.new_empty((B, H, T), dtype=lse_dtype)
+
+
 def _flash_fwd(q, k, v, kv_lens, causal, sm_scale):
-    if _dispatch(q, "flash_attention") == "plain":
-        return _flash_fwd_reference(q, k, v, kv_lens, causal, sm_scale)
-    return _flash_fwd_cuda(q, k, v, kv_lens, causal, sm_scale)
+    _dispatch(q, "flash_attention")
+    return torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, kv_lens, causal,
+                                                sm_scale)
 
 
 def _flash_bwd(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
@@ -699,7 +744,7 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_tables, kv_lens, sm_scale):
         int(k_pool.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    KERNEL_LAUNCHES[name] += 1
+    _count_launch(name)
     return out
 
 
@@ -724,7 +769,7 @@ def _paged_prefill_cuda(q, k_pool, v_pool, pages, start, sm_scale):
         int(k_pool.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    KERNEL_LAUNCHES[name] += 1
+    _count_launch(name)
     return out
 
 

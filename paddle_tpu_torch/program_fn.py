@@ -5,8 +5,9 @@ The port's counterpart of the JAX package's ``paddle_tpu/jax_bridge.py``
 ``program_to_fn`` returns ``fn(state, feeds, seed=0) -> [fetches]`` over
 dicts of tensors, run by the same op rules as ``Executor.run`` but with
 no scope; ``init_state`` runs a startup Program into a fresh state dict.
-``aot_compile`` (the JAX package's ahead-of-time ``jax.jit`` lowering)
-waits for the port of the predict path's ``torch.export`` (ROADMAP A3).
+The JAX package's ``aot_compile`` (an ahead-of-time ``jax.jit``
+lowering for fixed shapes) is not ported; the port's ahead-of-time path
+is ``io.save_inference_model(..., aot=True)``, a ``torch.export`` graph.
 """
 from __future__ import annotations
 

@@ -1,9 +1,21 @@
-"""Serving runtime of the port: continuous-batching generation.
+"""Serving runtime of the port: predict serving and continuous-batching
+generation.
 
-Counterpart of ``paddle_tpu/serving``.  This slice carries the decode
-path::
+Counterpart of ``paddle_tpu/serving``.  Predict serving over a saved
+inference model (the Program backend, or the ``torch.export`` AOT
+backend)::
 
+    import paddle_tpu_torch as fluid
     from paddle_tpu_torch import serving
+
+    fluid.io.save_inference_model(model_dir, ["x"], [out], exe,
+                                  main_program=test, aot=True)
+    engine = serving.InferenceEngine(model_dir)          # on the card
+    (probs,) = engine.predict({"x": batch})
+    engine.stop()
+
+and generation on the decode path::
+
     from paddle_tpu_torch.models import transformer as T
 
     params, meta = T.lm_params(vocab_size=32000, n_layer=12, n_head=8,
@@ -16,21 +28,24 @@ path::
     tokens = engine.generate(prompt_ids)                  # greedy
     engine.stop()
 
-The engine and the model run on the card unless ``device="cpu"`` is
-passed to both; without a GPU the default raises.  Admission keeps the
-JAX package's contracts (priority lanes, bounded queue, deadlines, typed
-errors); the predict path, replica pool, router, sessions and prefix
-cache are not ported yet.
+One engine may serve both (``model_dir`` and ``decode_model``).  The
+engine and the model run on the card unless ``device="cpu"`` is passed
+(to both, for a decode model); without a GPU the default raises.
+Admission keeps the JAX package's contracts (priority lanes, bounded
+queue, deadlines, typed errors, retry and bisection, the circuit breaker
+and the worker supervisor); the replica pool, router, sessions and
+prefix cache are not ported yet.
 """
 from __future__ import annotations
 
+from .batcher import CompletionTracker, DynamicBatcher
 from .decode_scheduler import (
     DecodeConfig,
     DecodeModel,
     DecodeScheduler,
     GenerateRequest,
 )
-from .engine import InferenceEngine
+from .engine import BatchExecutor, InferenceEngine
 from .errors import (
     KVCorruption,
     ServingCancelled,
@@ -43,11 +58,21 @@ from .errors import (
     ServingTimeout,
 )
 from .kv_cache import PagedKVCache
+from .model_store import LoadedModel, ModelStore
 from .request_queue import PRIORITY_CLASSES, Request, RequestQueue
+from .resilient import CircuitBreaker, ResilientDispatcher, WorkerSupervisor
 from .worker import RestartableWorker
 
 __all__ = [
     "InferenceEngine",
+    "BatchExecutor",
+    "DynamicBatcher",
+    "CompletionTracker",
+    "ModelStore",
+    "LoadedModel",
+    "CircuitBreaker",
+    "ResilientDispatcher",
+    "WorkerSupervisor",
     "DecodeScheduler",
     "DecodeModel",
     "DecodeConfig",

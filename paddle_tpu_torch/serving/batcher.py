@@ -1,0 +1,337 @@
+"""Dynamic batcher: the worker thread that coalesces queued requests.
+
+Counterpart of ``paddle_tpu/serving/batcher.py``, on the port's
+``RequestQueue`` and ``RestartableWorker``.  One thread owns dispatch
+(the Program or the exported graph runs from a single thread; clients
+only touch the queue and their request events).
+The loop is the classic adaptive-batching shape (Clipper, NSDI'17):
+
+    head = queue.get()                        # block for the first request
+    window = head ARRIVAL + batch_timeout     # aging in queue counts
+    drain every queued request that fits      # never idle under backlog
+    while rows < max_batch_size and now < window:
+        wait for the next FITTING request     # FIFO; no queue search
+    execute(batch)                            # one padded-bucket dispatch
+
+with ``batch_timeout = 0`` (the default) the loop is EAGER: it takes
+whatever is queued right now and dispatches.  That is throughput-optimal
+in both regimes that matter — under backlog the queue refills while a
+batch executes (so batches stay full without any waiting), and when the
+queue runs empty the arrival rate is below the service rate, where
+waiting buys nothing and only adds latency.  A nonzero timeout is the
+latency/efficiency trade for sparse-but-bursty traffic, and it is
+measured from the HEAD request's arrival: time the head already spent
+queued behind the previous dispatch consumes its window, so a backlogged
+engine still never stalls.  Requests whose deadline expired while queued
+are shed here, at pop time, with a ``ServingTimeout`` — never executed,
+because the client has already stopped listening.  (The queue ALSO sheds
+deadline-doomed requests at admission once its service-rate estimate is
+warm; pop-time shedding is the backstop for estimate error.)
+
+The batcher also maintains the COMPLETION WATERMARK: with priority lanes
+requests may complete out of admission order, so ``_mark_done`` tracks
+the completed-seq SET and advances ``completed_seq`` only over a
+contiguous prefix — :meth:`wait_for` ("everything admitted at or before
+seq N is finished") stays exact, which is what hot swap's drain step
+blocks on.  The watermark lives in a :class:`CompletionTracker` so a
+replica pool can hand ONE tracker to every replica's batcher: requests
+complete on whichever replica served them, and the pool-level drain
+("everything admitted before the rolling swap began is answered")
+still blocks on one exact, global watermark.
+
+Two pool hooks, both inert for a standalone engine: ``tracker=`` (the
+shared watermark above) and ``gate=`` — a callable consulted before
+every queue pop.  A False gate parks the worker WITHOUT popping: the
+request stays in the shared queue for other replicas, which is how a
+pool ejects a replica from rotation (breaker open, draining for a
+rolling swap, quiesced by the autoscaler) while keeping its thread,
+model, and warmed buckets intact.
+
+Failure discipline: per-batch faults are ``Exception``s and the worker
+survives them (the engine's ResilientDispatcher retries/bisects before
+anything even reaches the worker's last-resort handler).
+``BaseException`` — the chaos harness's ``kill_worker``, interpreter
+teardown — kills the worker *silently but observably*: the death lands
+on the ``serving.worker_deaths`` counter and the engine's supervisor
+restarts the thread or fails pending requests fast.
+"""
+from __future__ import annotations
+
+import threading
+import time
+
+from .. import observability as _obs
+from .errors import ServingClosed, ServingDegraded, ServingTimeout
+from .worker import RestartableWorker
+
+__all__ = ["CompletionTracker", "DynamicBatcher"]
+
+_expired = _obs.counter("serving.expired")
+_queue_wait = _obs.timer("serving.queue_wait")
+_queue_wait_hist = _obs.histogram("serving.queue_wait")
+
+
+class CompletionTracker:
+    """Exact completion watermark over admission seqs.
+
+    ``mark_done`` records completed seqs (in any order — priority lanes
+    and multi-replica serving both complete out of admission order) and
+    advances ``completed_seq`` only over the contiguous prefix, so
+    :meth:`wait_for` ("everything admitted at or before seq N finished")
+    is exact.  One batcher owns one by default; a replica pool shares a
+    single tracker across every replica's batcher so its rolling-swap
+    drain has one global watermark.
+    """
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self.completed_seq = 0
+        self._done_seqs = set()        # completed seqs above the watermark
+
+    def mark_done(self, requests):
+        with self._cond:
+            for r in requests:
+                if r.seq is not None and r.seq > self.completed_seq:
+                    self._done_seqs.add(r.seq)
+            while (self.completed_seq + 1) in self._done_seqs:
+                self.completed_seq += 1
+                self._done_seqs.discard(self.completed_seq)
+            self._cond.notify_all()
+
+    def wait_for(self, seq, timeout=None):
+        """Block until every request admitted at or before ``seq`` has
+        completed (answered, failed, or shed).  Returns False on timeout."""
+        with self._cond:
+            return self._cond.wait_for(
+                lambda: self.completed_seq >= seq, timeout)
+
+
+class DynamicBatcher:
+    """Coalesce requests from ``queue`` and hand batches to ``execute``.
+
+    ``execute(requests)`` (the engine's resilient padded-bucket dispatch)
+    is called with a non-empty list whose total rows <=
+    ``max_batch_size``; any ``Exception`` it raises fails every request
+    in the batch and the worker keeps serving — a poison request must
+    not take the engine down.
+
+    ``tracker``: a shared :class:`CompletionTracker` (a replica pool's
+    global watermark); default = a private one.  ``gate``: pool hook —
+    a callable checked before every pop; False parks the worker without
+    claiming work (see module docstring).  A stop always exits a parked
+    worker, drain or not — a closed gate means the queued backlog
+    belongs to OTHER consumers, so this worker draining it would be
+    wrong; a caller that wants a gated worker to participate in its
+    drain must open the gate first (the pool's ``stop`` force-opens
+    every gate before it drains the shared watermark).
+
+    ``service_key``: consumer-group key stamped onto every
+    ``note_service`` sample (``RequestQueue.register_consumers``), so a
+    queue shared across pools can keep per-group rate EMAs.
+    ``owns_queue=False`` marks the queue as SHARED with consumers
+    outside this batcher's owner (another pool): stop() then never
+    ``drain_remaining``s the leftovers — they belong to someone else —
+    and whoever coordinates the sharing (the router) fails them after
+    every consumer is stopped.
+    """
+
+    def __init__(self, queue, execute, max_batch_size, batch_timeout_s,
+                 name="paddle-tpu-torch-serving-batcher", tracker=None,
+                 gate=None, label="batcher", service_key=None,
+                 owns_queue=True):
+        self._queue = queue
+        self._execute = execute
+        self.max_batch_size = int(max_batch_size)
+        self.batch_timeout_s = float(batch_timeout_s)
+        self._drain = True
+        self._tracker = tracker if tracker is not None else CompletionTracker()
+        self._gate = gate
+        self._service_key = service_key
+        self._owns_queue = bool(owns_queue)
+        self.batches = 0
+        self._inflight = None          # batch being dispatched right now
+        # thread lifecycle (single-use Thread re-arming, life lock
+        # against start/restart races, BaseException death choke) lives
+        # in the shared RestartableWorker — see worker.py
+        self._worker = RestartableWorker(self._serve_loop, name,
+                                         on_death=self._fail_inflight,
+                                         label=label)
+
+    def start(self):
+        self._worker.start()
+        return self
+
+    def restart(self):
+        """Re-arm a DEAD worker with a fresh thread (the supervisor's
+        recovery path); queue, watermark, and batch counts carry over.
+        No-op (False) while stopping or still alive."""
+        return self._worker.restart()
+
+    @property
+    def started(self):
+        return self._worker.started
+
+    @property
+    def alive(self):
+        return self._worker.alive
+
+    @property
+    def stopping(self):
+        return self._worker.stopping
+
+    # -- drain watermark -----------------------------------------------------
+    @property
+    def completed_seq(self):
+        return self._tracker.completed_seq
+
+    def _mark_done(self, requests):
+        self._tracker.mark_done(requests)
+
+    def wait_for(self, seq, timeout=None):
+        """Block until every request admitted at or before ``seq`` has
+        completed (answered, failed, or shed) — on THIS batcher's tracker,
+        which a pool shares across replicas.  False on timeout."""
+        return self._tracker.wait_for(seq, timeout)
+
+    # -- worker --------------------------------------------------------------
+    def _pop_live(self, timeout, max_rows):
+        """Pop the next request that is still worth executing; expired ones
+        are shed (completed with ServingTimeout) without consuming the
+        coalescing window."""
+        while True:
+            req = self._queue.get(timeout=timeout, max_rows=max_rows)
+            if req is None:
+                return None
+            if req.expired():
+                _expired.inc()
+                req.fail(ServingTimeout(
+                    "deadline expired after %.3fs in queue"
+                    % (time.perf_counter() - req.enqueue_ts)))
+                self._mark_done([req])
+                timeout = 0.0  # the wait already happened; just drain heads
+                continue
+            return req
+
+    def _fail_inflight(self):
+        """Death cleanup (runs inside the worker's BaseException choke):
+        fail the batch the worker died holding — those requests are in
+        neither the queue nor a terminal state, and nobody else will
+        ever touch them."""
+        inflight, self._inflight = self._inflight, None
+        if inflight:
+            for r in inflight:
+                if not r.done():
+                    r.fail(ServingDegraded(
+                        "serving worker died mid-dispatch; request "
+                        "aborted"))
+            self._mark_done(inflight)
+
+    def _serve_loop(self):
+        while True:
+            if self._worker.stopping and not self._drain:
+                # non-drain stop: exit after the in-flight batch instead
+                # of serving the backlog — stop() fails the leftovers
+                # via drain_remaining once the thread is gone
+                return
+            if self._gate is not None and not self._gate():
+                # parked out of rotation: claim nothing (the shared
+                # queue's requests belong to the other replicas).  The
+                # gate callable itself records the park instant — the
+                # pool's drain handshake: a single-threaded worker seen
+                # at the gate has no dispatch in flight.
+                if self._worker.stopping:
+                    return
+                time.sleep(0.005)
+                continue
+            head = self._pop_live(timeout=0.05, max_rows=None)
+            if head is None:
+                if self._worker.stopping and (not self._drain
+                                              or self._queue.depth() == 0):
+                    return
+                continue
+            batch = [head]
+            rows = head.rows
+            window_end = head.enqueue_ts + self.batch_timeout_s
+            while rows < self.max_batch_size:
+                remaining = window_end - time.perf_counter()
+                if remaining <= 0 and self._queue.depth() == 0:
+                    break
+                nxt = self._pop_live(timeout=max(0.0, remaining),
+                                     max_rows=self.max_batch_size - rows)
+                if nxt is None:
+                    break
+                batch.append(nxt)
+                rows += nxt.rows
+            now = time.perf_counter()
+            wall_now = time.time()
+            tel = _obs.get_telemetry()
+            spans = tel.span_active()
+            for r in batch:
+                r.dispatch_ts = now
+                wait = now - r.enqueue_ts
+                _queue_wait.observe(wait)
+                _queue_wait_hist.observe(wait)
+                if spans and r.trace is not None:
+                    # the queue-wait leg of the request's trace tree,
+                    # parented under its admission root
+                    tel.record_span(
+                        "serving.queue_wait", r.enqueue_wall, wait,
+                        tags=r.trace.child().tags(priority=r.priority,
+                                                  seq=r.seq))
+            self._inflight = batch
+            try:
+                self._execute(batch)
+            except Exception as exc:  # noqa: BLE001 - worker must survive
+                for r in batch:
+                    if not r.done():
+                        r.fail(exc)
+            # feed the queue's service-rate EMA (deadline-aware
+            # admission): failed dispatches occupied the worker too
+            elapsed = time.perf_counter() - now
+            note = getattr(self._queue, "note_service", None)
+            if note is not None:
+                if self._service_key is not None:
+                    note(rows, elapsed, self._service_key)
+                else:
+                    note(rows, elapsed)
+            if spans:
+                for r in batch:
+                    if r.trace is not None:
+                        # batch membership: how long this request's
+                        # coalesced dispatch (incl. retries/bisection)
+                        # held the worker, and with whom
+                        tel.record_span(
+                            "serving.batch", wall_now, elapsed,
+                            tags=r.trace.child().tags(
+                                rows=rows, requests=len(batch)))
+            self._mark_done(batch)
+            self._inflight = None
+            self.batches += 1
+
+    def stop(self, drain=True, timeout=None):
+        """Stop the worker.  ``drain=True`` finishes everything already
+        queued first (the queue must be closed so no new work arrives);
+        ``drain=False`` exits after the in-flight batch.  Either way,
+        requests still queued once the worker is gone — it was already
+        dead, it never started, drain was off, or the join timed out —
+        are failed via ``drain_remaining`` instead of left hanging."""
+        self._drain = bool(drain)
+        self._worker.request_stop()
+        stopped = self._worker.join(timeout)
+        if not self._owns_queue:
+            # shared queue: the leftovers belong to the OTHER pools
+            # still draining it — failing them here would shed requests
+            # a live sibling was about to answer.  The sharing
+            # coordinator drains typed once every consumer is stopped.
+            return stopped
+        if self._queue.depth() and (stopped or timeout is not None):
+            # nothing will ever pop these (dead/wedged worker): fail fast.
+            # A wedged-but-alive worker popping concurrently is safe —
+            # pop and drain each hand any given request to exactly one
+            # owner.
+            self._queue.drain_remaining(
+                lambda r: ServingClosed(
+                    "engine stopped before request ran (worker %s)"
+                    % ("wedged" if not stopped else "exited")),
+                on_fail=lambda r: self._mark_done([r]))
+        return stopped

@@ -41,7 +41,10 @@ Admission reuses the serving contracts: bounded queue with typed
 ``ServingQueueFull`` backpressure, per-request deadlines shed with
 ``ServingTimeout`` (in queue, between chunks and mid-decode),
 ``GenerateRequest.cancel()``, ``ServingClosed`` after stop.  Everything
-reports as ``serving.decode.*`` telemetry.
+reports as ``serving.decode.*`` telemetry.  In an ``InferenceEngine`` the
+``WorkerSupervisor`` watches the worker: a dead one is re-armed
+(:meth:`DecodeScheduler.restart`), or past its budget its requests fail
+fast (:meth:`DecodeScheduler.fail_pending`).
 
 Not ported yet (each raises ``NotImplementedError`` naming the knob):
 the prefix cache, the KV integrity guard, prefill/decode roles,
@@ -460,9 +463,37 @@ class DecodeScheduler:
         self._worker.start()
         return self
 
+    def restart(self):
+        """Re-arm a DEAD worker with a fresh thread (the supervisor's
+        recovery path); queue, slots, and KV state carry over — a kill
+        lands between state updates, so resuming the loop continues
+        every live sequence.  No-op (False) while stopping or alive."""
+        return self._worker.restart()
+
+    @property
+    def started(self):
+        return self._worker.started
+
     @property
     def alive(self):
         return self._worker.alive
+
+    @property
+    def stopping(self):
+        return self._worker.stopping
+
+    def fail_pending(self, exc):
+        """Fail every queued and active request with ``exc`` — the
+        supervisor's give-up path for a worker that is dead past its
+        restart budget.  ``_fail_all`` mutates worker-owned slot/KV
+        state, so this enforces the dead-worker precondition: under the
+        worker's life lock, a live worker is left alone (returns
+        False)."""
+        with self._worker.life_lock:
+            if self._worker.alive:
+                return False
+            self._fail_all(exc)
+        return True
 
     def stop(self, drain=True, timeout=None):
         """Stop generating.  ``drain=True`` finishes every admitted and

@@ -374,9 +374,11 @@ def test_unported_scheduler_and_engine_options_raise(decode_model):
     with pytest.raises(NotImplementedError, match="sessions"):
         serving.DecodeScheduler(decode_model, _cfg(warmup=False),
                                 autostart=False, sessions=object())
-    with pytest.raises(NotImplementedError, match="model_dir"):
-        serving.InferenceEngine("some_model_dir", decode_model=decode_model,
-                                device="cpu")
+    eng = serving.InferenceEngine(decode_model=decode_model, device="cpu",
+                                  warmup=False, autostart=False)
+    with pytest.raises(NotImplementedError, match="A6"):
+        eng.serve_metrics()
+    eng.stop()
 
 
 def test_cancel_mid_decode_frees_pages(lm):

@@ -3,8 +3,9 @@
 The import check runs in a subprocess with ``jax`` blocked, because this
 test process (tests/conftest.py) has already imported jax and
 paddle_tpu.  The same subprocess checks that the entry points (the
-serving engine and model, ``Executor``, ``CUDAPlace``,
-``load_numpy_state``) default to the card and raise when there is none.
+serving engine and model, the model store, the AOT loader,
+``Executor``, ``CUDAPlace``, ``load_numpy_state``) default to the card
+and raise when there is none.
 """
 import os
 import re
@@ -50,7 +51,10 @@ main = fluid.Program()
 for call in (lambda: fluid.Executor(), lambda: fluid.Executor(place=None),
              lambda: fluid.Executor(device=None),
              lambda: fluid.CUDAPlace(0),
-             lambda: fluid.load_numpy_state(main, {})):
+             lambda: fluid.load_numpy_state(main, {}),
+             lambda: serving.ModelStore(),
+             lambda: serving.InferenceEngine(model_dir="unused"),
+             lambda: fluid.io.load_aot_inference_model("unused")):
     try:
         call()
     except RuntimeError as exc:

@@ -102,12 +102,17 @@ caught):
    launched 18 times a dispatch on each backend, no other kernel; the
    all-pad warm-up feed (kv_lens 0) finite at every bucket; each 2-row
    request alone (bucket 2) against the same request coalesced into one
-   dispatch at buckets 4, 8 and 16, held to PREDICT_BATCH_TOL; a hot
+   dispatch at buckets 4, 8 and 16, held to PREDICT_BATCH_TOL; the
+   first op whose bits move from bucket 2 to bucket 16 (ROADMAP F-6),
+   with one product a mul and with the engine's blocks of the smallest
+   bucket's rows; a hot
    swap to a second seeded version under 4 client threads (every answer
    one version's bits, the new version served after); then the load
    (64 requests of 1-4 rows with their own lengths from 8 clients,
    buckets 2-16, a 2 ms window): requests/s, rows/s, latency p50/p95,
-   the bucket histogram, peak memory, a profiled window (device busy
+   the bucket histogram, peak memory, the same load on engines with
+   and without the blocks in turns (requests/s), a profiled window
+   (device busy
    and idle share, B1's share, GEMMs, the device-to-host copy of the
    logits), batch-1 clients with batching on and off, and B1 at
    [16, 8, 256, 64] (the encoder's and the decoder's causal lengths)
@@ -119,7 +124,25 @@ caught):
    20 steps through Executor.run fed by DataFeeder (every loss finite,
    every parameter moved, the loss falling); step ms, images/s, peak
    memory, and a profiled step's device busy time and idle share;
-11. training, card vs CPU: Transformer-base at full width (6+6 layers,
+11. op rules on the card: ``mean`` of an int64 input and a float32 cast
+   to int32 and uint8 (NaN, +-inf and values past the range) give the
+   JAX package's values exactly (ROADMAP F-8, F-9);
+12. ResNet-50 (models.resnet.get_model at 224 x 224, 1000 classes, f32,
+   TF32 off): one step at batch 2 on the card against the port's CPU
+   path from one set of numpy parameters, in float64 at the training
+   limits (loss LOSS_RTOL, each gradient GRAD_RTOL of its max |g|, the
+   running statistics, the accuracy), and in float32 against the CPU's
+   float64 step where no ReLU gate reaches (the loss, fc_0's gradients,
+   the running statistics) and over all gradients in L2
+   (RESNET_GLOBAL_L2), with a TF32 step that must fail those limits;
+   then RESNET_STEPS momentum steps at batch 128 on one seeded batch
+   (finite, every parameter moved, the loss falling), step ms, images/s,
+   the share of the f32 bound, peak memory, and a profiled step's
+   device time by op type and idle share; then the test Program with
+   non-trivial statistics folded by InferenceTranspiler (logits within
+   RESNET_FOLD_RTOL of the unfolded Program's), saved with ``aot=True``,
+   loaded and run, images/s of each; B1-B5 launched not at all;
+13. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
    (1e-3 of that tensor's max |g|; the few fc units whose ReLU gate opens
@@ -131,7 +154,7 @@ caught):
    uneven last one); their flash launches are counted apart from the
    main paths' (each step is its engine's main path when ``auto`` runs
    that engine on neither training leg);
-12. training: Transformer-base as the JAX package's headline leg
+14. training: Transformer-base as the JAX package's headline leg
    (bench.py: batch 64 x 256, vocab 30000, dropout 0.1, Adam with noam
    decay, use_flash=True, float32 with TF32 off) through
    Executor.run(startup) and 10 Executor.run(main) steps on seeded token
@@ -141,11 +164,11 @@ caught):
    times a step; step time, target tokens/s, peak memory, the loss
    trajectory, and a profiled step split by kernel family with the
    device's idle share;
-13. the long-context leg: the same model at bench.py's longest leg
+15. the long-context leg: the same model at bench.py's longest leg
    (batch 4 x 4096, max_length 4096, rows of 64-4096 tokens), 5 steps
    under ``auto``: the same checks, with B1 and the backward ``auto``
    picks launched 18 times a step and the other engine not at all;
-14. a ``kernels`` JSON line (all six kernels: times at the shape of
+16. a ``kernels`` JSON line (all six kernels: times at the shape of
    their main path, launches from it; B1's entry also carries its legacy
    serving launches and its figures at bucket 1024, and its predict
    launches (on the load) and figures at [16, 8, 256, 64]; B4's entry
@@ -192,18 +215,43 @@ PREDICT_REQUESTS = 64
 # batch-1 clients with batching on and off (the JAX package's scenario 5)
 PREDICT_BATCH1_REQUESTS = 32
 # each request alone (bucket 2) against the same request coalesced into a
-# larger bucket, max abs logit difference (0 would be bitwise).  Measured
-# on an NVIDIA H100 80GB HBM3 (700 W): 1.07e-6 at bucket 4, 1.13e-6 at 8
-# and 16, not bitwise (ROADMAP F-6); the limit is that reading with
-# about 9x of room for f32 summation order, as the card-vs-CPU reading
-# (1.25e-6) is held under LOGIT_TOL
-PREDICT_BATCH_TOL = 1e-5
+# larger bucket, max abs logit difference: bitwise.  With one product a
+# mul, cuBLAS picked its SGEMM per bucket and a row moved by 1.07e-6 to
+# 1.13e-6 (ROADMAP F-6); the Program backend now multiplies in blocks of
+# the smallest bucket's rows, one shape for every bucket
+PREDICT_BATCH_TOL = 0.0
 # MNIST LeNet (benchmark/fluid/models/mnist.py), batch 128, f32
 LENET_BATCH, LENET_STEPS = 128, 20
 # LeNet card vs CPU, TF32 off: the float32 step reads about 1e-7 (loss)
 # and 1e-6 (gradients); TF32 rounds inputs to 10 mantissa bits (2**-11),
 # so its control step must land above these
 LENET_LOSS_RTOL, LENET_GRAD_RTOL = 1e-6, 1e-5
+# ResNet-50 (benchmark/fluid/models/resnet.py, models.resnet.get_model)
+# at bench.py's leg: 224 x 224, 1000 classes, batch 128, momentum 0.9 at
+# lr 0.1, 30 iterations (bench.py:153); f32 with TF32 off; seeded normal
+# images, as bench.py's.  On one batch at lr 0.1 the loss falls for two
+# steps, then climbs for several before it falls again (the JAX package's
+# get_model does the same on the CPU), so the fall is checked at the end
+RESNET_CFG = dict(class_dim=1000, depth=50, image_shape=(3, 224, 224))
+RESNET_BATCH, RESNET_STEPS, RESNET_CHECK_BATCH = 128, 30, 2
+# bench.py:157: about 3.8e9 FLOPs an image forward, 3x for training
+RESNET_TRAIN_FLOPS = 3 * 3.8e9
+# ResNet-50's float32 training gradient jumps where a ReLU gate's input
+# lies within rounding of 0 (tests/test_torch_resnet.py): the card's and
+# the CPU's float32 gradients cannot meet GRAD_RTOL whatever computes
+# them.  The float64 step holds LOSS_RTOL and GRAD_RTOL; the float32
+# step is held to the CPU's float64 step where no gate reaches (the loss,
+# fc_0's gradient, the running statistics) and, over all gradients
+# together, to RESNET_GLOBAL_L2 (L2 distance of the L2 norm)
+RESNET_STAT_RTOL = 1e-4    # running statistics, of each tensor's max
+RESNET_GLOBAL_L2 = 0.1
+# folded against unfolded logits, of their largest magnitude
+RESNET_FOLD_RTOL = 1e-4
+RESNET_INFER_RUNS = 5
+# F-9: float32 cast to int32 and uint8, the JAX package's values
+CAST_IN = [-2.7, -0.5, 0.5, 2.7, 3e9, -3e9, float("nan"), float("inf")]
+CAST_WANT = {"int32": [-2, 0, 0, 2, 2147483647, -2147483648, 0, 2147483647],
+             "uint8": [0, 0, 0, 2, 255, 0, 0, 255]}
 KERNEL_TOL = 2e-5   # kernel vs plain, f32 math on both: summation order only
 # the decode slice's kv_lens: empty slots, one key, a page, a page + 1, and
 # longer walks up to 2047 keys
@@ -1146,6 +1194,70 @@ def predict_b1_row(torch, fa, dev, src, trg):
     return rows
 
 
+def first_moving_op(torch, fluid, dirname, src, trg, batch_block=None):
+    """Where a request's bits move between buckets (ROADMAP F-6, A13's
+    first step): the saved Program run on the card once on the first
+    request alone (its 2 rows, bucket 2) and once on 16 rows that start
+    with it (bucket 16), every op's outputs fetched.  Each output is
+    compared on the request's rows (the leading rows of a batch-major
+    tensor, or the whole tensor where the shape does not depend on the
+    batch); returns the ops in Program order whose outputs differ there,
+    the first one first, with its type, output, shape and max abs
+    difference.  ``batch_block`` is the executor's (the serving Program
+    backend runs with the smallest bucket's)."""
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.batch_block = batch_block
+    with fluid.scope_guard(fluid.Scope()):
+        prog, _, _ = fluid.io.load_inference_model(dirname, exe)
+        ops = prog.global_block().ops
+        # dropout gives no Mask for test
+        names = list(dict.fromkeys(
+            n for op in ops for slot, ns in op.outputs.items() for n in ns
+            if not (op.type == "dropout" and slot == "Mask")))
+        runs = []
+        for rows in (2, 16):
+            feed = predict_feed(src[:rows], trg[:rows])
+            while True:
+                try:
+                    with torch.no_grad():
+                        out = exe.run(prog, feed=feed, fetch_list=names,
+                                      return_numpy=False)
+                    break
+                except KeyError as exc:   # an output its rule leaves out
+                    missing = re.search(r"fetch target '([^']+)'",
+                                        str(exc))
+                    check(missing is not None, "first_moving_op", str(exc))
+                    names.remove(missing.group(1))
+            runs.append(dict(zip(names, out)))
+    alone, coalesced = runs
+    moved, seen, incomparable = [], set(), 0
+    for i, op in enumerate(ops):
+        for n in (n for ns in op.outputs.values() for n in ns):
+            if (n in seen or n not in alone
+                    or not isinstance(alone[n], torch.Tensor)):
+                continue
+            seen.add(n)
+            a, c = alone[n], coalesced[n]
+            if a.shape != c.shape:
+                if (a.dim() != c.dim() or a.shape[1:] != c.shape[1:]
+                        or c.shape[0] != 8 * a.shape[0]):
+                    incomparable += 1
+                    continue
+                c = c[:a.shape[0]]
+            if not torch.equal(a, c):
+                diff = (a.double() - c.double()).abs().max().item() if (
+                    a.is_floating_point()) else None
+                moved.append({"index": i, "type": op.type, "output": n,
+                              "shape": list(a.shape), "max_abs": diff})
+    del runs, alone, coalesced
+    torch.cuda.empty_cache()
+    return {"ops": len(ops), "outputs_compared": len(seen) - incomparable,
+            "incomparable": incomparable, "moved": len(moved),
+            "first": moved[0] if moved else None,
+            "moved_types": sorted({m["type"] for m in moved}),
+            "first_ten": moved[:10]}
+
+
 def predict_phase(torch, fluid, T, serving, fa, obs, dev):
     """Predict serving of Transformer-base scoring (the forward that
     ``get_model(use_flash=True)`` prunes to its logits) at TRAIN_CFG's
@@ -1274,6 +1386,15 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
         prog.stop()
         del prog
         lap("batched_vs_alone")
+        moving = first_moving_op(torch, fluid, d1, src, trg)
+        log("predict: first op whose bits move from bucket 2 to bucket 16, "
+            "one product a mul (F-6): %s" % json.dumps(moving))
+        moving_blocked = first_moving_op(torch, fluid, d1, src, trg,
+                                         PREDICT_BUCKETS[0])
+        log("predict: the same, each mul in blocks of %d rows of the batch "
+            "as the engine runs it: %s"
+            % (PREDICT_BUCKETS[0], json.dumps(moving_blocked)))
+        lap("first_moving_op")
 
         # 6. hot swap under load: one bucket (4), so each request's
         # reference is its own row at the bucket it is served at; 8 rows,
@@ -1344,6 +1465,19 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
                   and np.isfinite(o).all(), "load logits", o.shape)
         rows = int(sizes.sum())
         lap("load")
+        # F-6's fix against one product a mul (the engine's executor with
+        # its blocks switched off): the same load, in turns
+        blocks_ab = {"blocks": [], "one_product": []}
+        for tag in ("blocks", "one_product", "one_product", "blocks"):
+            eng = predict_engine(serving, d1, dev, backend="program",
+                                 batch_timeout_ms=2)
+            if tag == "one_product":
+                eng._model._exe.batch_block = None
+            _, _, ab_wall = serve_clients(eng, load_feeds, 8)
+            eng.stop()
+            blocks_ab[tag].append(PREDICT_REQUESTS / ab_wall)
+        del eng
+        lap("blocks_ab")
         profile = profile_predict(torch, load, load_feeds[:16])
         lap("profile")
         # scenario 5 of the JAX package's gate, recorded: batch-1 clients
@@ -1374,9 +1508,12 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
             "backend_launches": backend_launches,
             "batched_vs_alone_max_abs": batch_diff,
             "batched_vs_alone_bitwise": batch_bitwise,
+            "first_moving_op": moving["first"],
+            "first_moving_op_blocked": moving_blocked["first"],
             "swap_served": served,
             "requests": PREDICT_REQUESTS, "rows": rows, "wall_s": wall,
             "requests_per_s": PREDICT_REQUESTS / wall,
+            "requests_per_s_blocks_vs_one_product": blocks_ab,
             "rows_per_s": rows / wall,
             "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
             "latency_p95_ms": float(np.percentile(lat, 95) * 1e3),
@@ -1525,6 +1662,453 @@ def lenet_phase(torch, fluid, dev):
     log("lenet (MNIST, batch %d, f32, TF32 off): %s"
         % (LENET_BATCH, json.dumps(stats)))
     return stats
+
+
+def op_rule_checks(fluid, dev):
+    """ROADMAP F-8 and F-9 on the card: ``mean`` of an int64 [4, 5] input
+    in [-7, 7] gives float32, the JAX package's bits (its float32 sum
+    times the float32 reciprocal of the count); a float32 cast to int32
+    and to uint8 saturates, NaN to 0, the JAX package's values."""
+    def run(build, feed):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            out = build()
+        return fluid.Executor(device=dev).run(
+            main, feed=feed, fetch_list=[out], scope=fluid.Scope())[0]
+
+    ints = np.random.RandomState(0).randint(-7, 8, size=(4, 5))
+    got = run(lambda: fluid.layers.mean(fluid.layers.data(
+        name="x", shape=[4, 5], dtype="int64", append_batch_size=False)),
+        {"x": ints})
+    want = np.float32(ints.sum()) * np.float32(1.0 / ints.size)
+    check(got.dtype == np.float32 and got.shape == (1,)
+          and got[0].tobytes() == want.tobytes(), "F-8 mean", got, want)
+    x = np.array(CAST_IN, np.float32)
+    for dtype, want_cast in CAST_WANT.items():
+        got_cast = run(lambda: fluid.layers.cast(fluid.layers.data(
+            name="x", shape=[len(CAST_IN)], dtype="float32",
+            append_batch_size=False), dtype), {"x": x})
+        check(got_cast.dtype == np.dtype(dtype)
+              and got_cast.tolist() == want_cast, "F-9 cast", dtype,
+              got_cast.tolist())
+    log("op rules on the card: mean of int64 %r (float32), cast %s"
+        % (float(got[0]), json.dumps(CAST_WANT)))
+
+
+def resnet_model(fluid, resnet, dtype="float32"):
+    with fluid.unique_name.guard():
+        return resnet.get_model(dtype=dtype, **RESNET_CFG)
+
+
+def resnet_images(rng, n):
+    """``n`` seeded images (standard normal, as bench.py's) and labels."""
+    shape = RESNET_CFG["image_shape"]
+    return (rng.randn(n, *shape).astype(np.float32),
+            rng.randint(0, RESNET_CFG["class_dim"], size=(n, 1))
+            .astype(np.int64))
+
+
+def resnet_step(torch, fluid, m, state, x, y, dev, tf32=False):
+    """One training step of ``m`` on ``dev`` from the numpy ``state``:
+    (loss, accuracy, every trainable parameter's gradient, the running
+    statistics after the step), as numpy.  ``tf32`` switches TF32 on for
+    the step's convolutions and GEMMs."""
+    blk = m["main"].global_block()
+    grads = [p.name + "@GRAD" for p in blk.all_parameters() if p.trainable]
+    stats = [p.name for p in blk.all_parameters() if not p.trainable]
+    dtype = np.float64 if blk.var("data").dtype == "float64" else np.float32
+    scope = fluid.Scope()
+    fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        out = fluid.Executor(device=dev).run(
+            m["main"], feed={"data": x.astype(dtype), "label": y},
+            fetch_list=[m["loss"], m["acc"]] + grads, scope=scope)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return {"loss": float(out[0][0]), "acc": float(out[1][0]),
+            "grads": dict(zip(grads, out[2:])),
+            "stats": {n: scope[n].cpu().numpy() for n in stats}}
+
+
+def resnet_errors(a, ref):
+    """``a``'s step against ``ref``'s: the loss relative, each gradient's
+    and statistic's max error of its tensor's max, fc_0's gradients
+    apart, all gradients' L2 distance of their L2 norm, the accuracy."""
+    per = {n: float(np.abs(g - ref["grads"][n]).max())
+           / float(np.abs(ref["grads"][n]).max()) for n, g in a["grads"].items()}
+    num = sum(float(np.sum((g - ref["grads"][n]) ** 2))
+              for n, g in a["grads"].items())
+    den = sum(float(np.sum(g ** 2)) for g in ref["grads"].values())
+    worst = max(per, key=per.get)
+    return {"loss_rel": abs(a["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_worst_of_max": per[worst], "grad_worst": worst,
+            "fc_grad_worst_of_max": max(v for n, v in per.items()
+                                        if n.startswith("fc_0.")),
+            "grad_global_l2": (num / den) ** 0.5,
+            "stat_worst_of_max": max(
+                float(np.abs(v - ref["stats"][n]).max())
+                / float(np.abs(ref["stats"][n]).max())
+                for n, v in a["stats"].items()),
+            "acc_equal": a["acc"] == ref["acc"]}
+
+
+def resnet_f32_ok(e):
+    return (e["loss_rel"] <= LOSS_RTOL and e["fc_grad_worst_of_max"]
+            <= GRAD_RTOL and e["grad_global_l2"] <= RESNET_GLOBAL_L2
+            and e["stat_worst_of_max"] <= RESNET_STAT_RTOL)
+
+
+def resnet_check(torch, fluid, resnet, dev):
+    """One training step at full width, batch RESNET_CHECK_BATCH, from one
+    set of numpy parameters, on the card and on the port's CPU path:
+    in float64, the loss (LOSS_RTOL), every gradient (GRAD_RTOL of its
+    max |g|), the running statistics (RESNET_STAT_RTOL) and the
+    accuracy; in float32 (TF32 off), the card and the CPU each against
+    the CPU's float64 step, by resnet_f32_ok; and the float32 step with
+    TF32 on, which must fail resnet_f32_ok."""
+    m32, m64 = (resnet_model(fluid, resnet, d) for d in ("float32",
+                                                          "float64"))
+    m32["startup"].random_seed = SEED + 60
+    cpu = torch.device("cpu")
+    scope = fluid.Scope()
+    fluid.Executor(device=cpu).run(m32["startup"], scope=scope)
+    state = {n: scope[n].numpy() for n in m32["main"].persistable_names()
+             if n in scope}
+    del scope
+    x, y = resnet_images(np.random.RandomState(SEED + 61),
+                         RESNET_CHECK_BATCH)
+    t0 = time.perf_counter()
+    cpu64 = resnet_step(torch, fluid, m64, state, x, y, cpu)
+    cpu32 = resnet_step(torch, fluid, m32, state, x, y, cpu)
+    cpu_s = time.perf_counter() - t0
+    card64 = resnet_step(torch, fluid, m64, state, x, y, dev)
+    card32 = resnet_step(torch, fluid, m32, state, x, y, dev)
+    tf32 = resnet_step(torch, fluid, m32, state, x, y, dev, tf32=True)
+    e64 = resnet_errors(card64, cpu64)
+    check(e64["loss_rel"] <= LOSS_RTOL and e64["grad_worst_of_max"]
+          <= GRAD_RTOL and e64["stat_worst_of_max"] <= RESNET_STAT_RTOL
+          and e64["acc_equal"], "resnet float64 card vs cpu", e64)
+    out = {"float64_card_vs_cpu": e64,
+           "float32_card_vs_cpu64": resnet_errors(card32, cpu64),
+           "float32_cpu_vs_cpu64": resnet_errors(cpu32, cpu64),
+           "float32_card_vs_cpu32": resnet_errors(card32, cpu32),
+           "tf32_card_vs_cpu64": resnet_errors(tf32, cpu64),
+           "loss": {"cpu64": cpu64["loss"], "card64": card64["loss"],
+                    "cpu32": cpu32["loss"], "card32": card32["loss"],
+                    "tf32": tf32["loss"]},
+           "cpu_steps_s": cpu_s}
+    check(resnet_f32_ok(out["float32_card_vs_cpu64"])
+          and out["float32_card_vs_cpu32"]["acc_equal"],
+          "resnet float32 card vs cpu", out["float32_card_vs_cpu64"])
+    check(resnet_f32_ok(out["float32_cpu_vs_cpu64"]),
+          "resnet float32 cpu vs cpu float64", out["float32_cpu_vs_cpu64"])
+    check(not resnet_f32_ok(out["tf32_card_vs_cpu64"]),
+          "resnet limits pass a TF32 step", out["tf32_card_vs_cpu64"])
+    log("resnet-50 card vs cpu (batch %d, %s): %s"
+        % (RESNET_CHECK_BATCH, RESNET_CFG, json.dumps(out)))
+    return out
+
+
+RESNET_FAMILIES = {"conv2d": "conv", "batch_norm": "batch_norm",
+                   "mul": "gemm"}
+
+
+def profile_ops(torch, exe, m, feed, scope, fetch):
+    """One run of ``m["main"]`` profiled, its device time by op type:
+    each rule runs inside a ``record_function`` of its type, and a
+    backward kernel goes to the forward op whose autograd node launched
+    it (the profiler's sequence numbers).  Returns the wall time, device
+    busy time, idle share, ms by family (RESNET_FAMILIES, the rest
+    "other") and by op type; "not measured" without device events."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddle_tpu_torch import executor as executor_mod
+
+    rule = executor_mod.get_rule
+
+    def tagged(op_type):
+        fn = rule(op_type)
+
+        def run(ctx, op):
+            with record_function("op:" + op_type):
+                fn(ctx, op)
+        return run
+
+    torch.cuda.synchronize()
+    executor_mod.get_rule = tagged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            exe.run(m["main"], feed=feed, fetch_list=fetch, scope=scope)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        executor_mod.get_rule = rule
+    events = prof.events()
+    # the device timeline also carries the op: ranges; they are not work
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("op:")]
+    if not device:
+        return "not measured (the profiler recorded no device activity)"
+    # busy: the union of the device events' intervals (cuDNN may run
+    # kernels side by side on its own streams)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in device):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    summed = sum(e.time_range.elapsed_us() for e in device)
+
+    def tag(e):
+        while e is not None:
+            if e.name.startswith("op:"):
+                return e.name[3:]
+            e = e.cpu_parent
+        return None
+
+    forward = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            t = tag(e)
+            if t is not None:
+                forward.setdefault(e.sequence_nr, t)
+
+    def owner(e):
+        while e is not None:
+            if e.name.startswith("op:"):
+                return e.name[3:]
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return forward.get(e.sequence_nr, "unattributed")
+            e = e.cpu_parent
+        return "unattributed"
+
+    by_op, linked = {}, {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA or not e.kernels:
+            continue
+        k = owner(e)
+        by_op[k] = by_op.get(k, 0.0) + sum(x.duration for x in e.kernels)
+        for x in e.kernels:
+            linked[x.name] = linked.get(x.name, 0.0) + x.duration
+    # device time the profiler tied to no launching op, by kernel name
+    unlinked = {}
+    for e in device:
+        unlinked[e.name] = (unlinked.get(e.name, 0.0)
+                            + e.time_range.elapsed_us())
+    unlinked = {k: v - linked.get(k, 0.0) for k, v in unlinked.items()}
+    unlinked = dict(sorted(((k[:80], v / 1e3) for k, v in unlinked.items()
+                            if v > 1.0), key=lambda kv: -kv[1])[:8])
+    families = {}
+    for k, v in by_op.items():
+        fam = RESNET_FAMILIES.get(k, "other")
+        families[fam] = families.get(fam, 0.0) + v
+    return {"step_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+            "device_ms_by_family": {k: v / 1e3 for k, v in families.items()},
+            "device_ms_by_op": {k: v / 1e3 for k, v in sorted(
+                by_op.items(), key=lambda kv: -kv[1])},
+            "attributed_ms": sum(by_op.values()) / 1e3,
+            "device_events_summed_ms": summed / 1e3,
+            "unlinked_ms_by_kernel": unlinked,
+            "device_events": len(device)}
+
+
+def resnet_train(torch, fluid, resnet, dev):
+    """RESNET_STEPS steps at batch RESNET_BATCH through Executor.run on
+    the card, on one seeded batch fed each step (bench.py feeds one
+    device-resident batch too): every loss finite, every parameter
+    finite and moved, the last loss under the first, the accuracy above
+    chance at some step; step ms (steps 2 on), images/s,
+    the share of the f32 bound, peak memory, a profiled step.  Returns
+    the stats, the model and its scope."""
+    m = resnet_model(fluid, resnet)
+    m["startup"].random_seed = SEED + 62
+    exe = fluid.Executor(device=dev)
+    scope = fluid.Scope()
+    exe.run(m["startup"], scope=scope)
+    params = [p.name for p in m["main"].global_block().all_parameters()
+              if p.trainable]
+    before = {p: scope[p].clone() for p in params}
+    x, y = resnet_images(np.random.RandomState(SEED + 63), RESNET_BATCH)
+    feed = {"data": torch.as_tensor(x, device=dev),
+            "label": torch.as_tensor(y, device=dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, accs, step_s = [], [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        loss, acc = exe.run(m["main"], feed=feed,
+                            fetch_list=[m["loss"], m["acc"]], scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss[0]))
+        accs.append(float(acc[0]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)), "resnet non-finite loss", losses)
+    for p in params:
+        check(bool(torch.isfinite(scope[p]).all()), "resnet non-finite", p)
+        check(not torch.equal(scope[p], before[p]), "resnet param still", p)
+    del before
+    check(losses[-1] < losses[0], "resnet loss did not fall", losses)
+    check(max(accs) > 1.0 / RESNET_CFG["class_dim"], "resnet accuracy",
+          accs)
+    steady = float(np.mean(step_s[1:]))
+    images_s = RESNET_BATCH / steady
+    bound_images_s = PEAK_F32_FLOPS / RESNET_TRAIN_FLOPS
+    profile = profile_ops(torch, exe, m, feed, scope, [m["loss"]])
+    stats = {"batch": RESNET_BATCH, "steps": RESNET_STEPS,
+             "params": len(params),
+             "param_values": int(sum(scope[p].numel() for p in params)),
+             "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
+             "step_ms_all": [t * 1e3 for t in step_s],
+             "images_per_s": images_s, "bound_images_per_s": bound_images_s,
+             "share_of_f32_bound": images_s / bound_images_s,
+             "peak_memory_gib": peak / 2 ** 30, "losses": losses,
+             "accuracies": accs, "profile": profile}
+    log("resnet-50 training (batch %d, 224 x 224, f32, TF32 off): %s"
+        % (RESNET_BATCH, json.dumps(stats)))
+    return stats, m, scope
+
+
+def copy_scope(fluid, scope, names):
+    out = fluid.Scope()
+    for n in names:
+        if n in scope:
+            out[n] = scope[n].clone()
+    return out
+
+
+def images_per_s(exe, prog, feed, fetch, scope):
+    """The ``prog`` run RESNET_INFER_RUNS times after one warm-up (each
+    run ends in the logits' numpy fetch): (images/s, the last logits)."""
+    out = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)[0]
+    t0 = time.perf_counter()
+    for _ in range(RESNET_INFER_RUNS):
+        out = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)[0]
+    dt = (time.perf_counter() - t0) / RESNET_INFER_RUNS
+    return len(feed["data"]) / dt, out
+
+
+def resnet_infer(torch, fluid, resnet, dev, m, scope):
+    """Folded inference of the trained model's ``test`` Program at batch
+    RESNET_BATCH.  Each batch_norm's Scale and Bias (found through the
+    op's inputs) are set to seeded values in [0.5, 1.5] and [-0.5, 0.5],
+    and its Mean and Variance to this batch's statistics under them, so
+    that the fold has a scale and a shift to carry in every layer.
+    Then: the unfolded logits (the softmax's
+    input), the InferenceTranspiler's folded Program's logits (within
+    RESNET_FOLD_RTOL), save_inference_model(aot=True) of the folded
+    Program, loaded and run (bits against the folded Program, or the
+    difference stated), images/s of each."""
+    import shutil
+    import tempfile
+
+    test = m["test"]
+    blk = test.global_block()
+    bns = [op for op in blk.ops if op.type == "batch_norm"]
+    (logits,) = [op.inputs["X"][0] for op in blk.ops if op.type == "softmax"]
+    names = [n for n in m["main"].persistable_names() if n in scope]
+    rng = np.random.RandomState(SEED + 64)
+    for op in bns:
+        for slot, lo, hi in (("Scale", 0.5, 1.5), ("Bias", -0.5, 0.5)):
+            n = op.inputs[slot][0]
+            scope[n] = torch.as_tensor(rng.uniform(
+                lo, hi, tuple(scope[n].shape)).astype(np.float32),
+                device=dev)
+    x, y = resnet_images(np.random.RandomState(SEED + 65), RESNET_BATCH)
+    feed = {"data": torch.as_tensor(x, device=dev),
+            "label": torch.as_tensor(y, device=dev)}
+    exe = fluid.Executor(device=dev)
+    # the batch statistics under these Scale and Bias: one training
+    # forward in a copy of the scope
+    probe = copy_scope(fluid, scope, names)
+    saved = exe.run(m["main"], feed=feed, scope=probe, fetch_list=[
+        op.outputs[s][0] for op in bns for s in ("SavedMean",
+                                                 "SavedVariance")],
+        return_numpy=False)
+    del probe
+    for k, op in enumerate(bns):
+        scope[op.inputs["Mean"][0]] = saved[2 * k].detach().clone()
+        scope[op.inputs["Variance"][0]] = saved[2 * k + 1].detach().clone()
+    del saved
+    unfolded_ips, unfolded = images_per_s(exe, test, feed, [logits], scope)
+    folded = test.clone()
+    fscope = copy_scope(fluid, scope, names)
+    t0 = time.perf_counter()
+    fluid.InferenceTranspiler().transpile(folded, scope=fscope)
+    fold_s = time.perf_counter() - t0
+    check(not any(op.type == "batch_norm" for op in folded.global_block().ops),
+          "a batch_norm left after the fold")
+    folded_ips, got = images_per_s(exe, folded, feed, [logits], fscope)
+    scale = float(np.abs(unfolded).max())
+    fold_diff = float(np.abs(got - unfolded).max())
+    check(np.isfinite(got).all() and got.shape == (RESNET_BATCH,
+                                                   RESNET_CFG["class_dim"])
+          and fold_diff <= RESNET_FOLD_RTOL * scale,
+          "resnet folded vs unfolded", fold_diff, scale)
+    tmp = tempfile.mkdtemp(prefix="resnet_")
+    try:
+        t0 = time.perf_counter()
+        with fluid.scope_guard(fscope):
+            fluid.io.save_inference_model(tmp, ["data"], [logits], exe,
+                                          main_program=folded, aot=True)
+        save_s = time.perf_counter() - t0
+        predict, feeds, fetches = fluid.io.load_aot_inference_model(
+            tmp, device=dev)
+        check(feeds == ["data"] and fetches == [logits], feeds, fetches)
+        aot = predict({"data": feed["data"]})[0]
+        t0 = time.perf_counter()
+        for _ in range(RESNET_INFER_RUNS):
+            aot = predict({"data": feed["data"]})[0]
+        aot_ips = RESNET_BATCH / ((time.perf_counter() - t0)
+                                  / RESNET_INFER_RUNS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    aot_diff = float(np.abs(aot - got).max())
+    check(aot_diff <= RESNET_FOLD_RTOL * scale, "resnet aot vs folded",
+          aot_diff)
+    stats = {"batch": RESNET_BATCH, "batch_norms_folded": len(bns),
+             "logits_max_abs": scale,
+             "folded_vs_unfolded_max_abs": fold_diff,
+             "folded_vs_unfolded_of_max": fold_diff / scale,
+             "aot_vs_folded_bitwise": aot.tobytes() == got.tobytes(),
+             "aot_vs_folded_max_abs": aot_diff,
+             "fold_s": fold_s, "save_aot_s": save_s,
+             "images_per_s_unfolded": unfolded_ips,
+             "images_per_s_folded": folded_ips,
+             "images_per_s_aot_folded": aot_ips}
+    log("resnet-50 folded inference (batch %d): %s"
+        % (RESNET_BATCH, json.dumps(stats)))
+    return stats
+
+
+def resnet_phase(torch, fluid, fa, dev):
+    """ResNet-50 at full width (224 x 224, 1000 classes): card against
+    CPU (resnet_check), RESNET_STEPS training steps at batch RESNET_BATCH
+    (resnet_train), folded inference (resnet_infer).  No kernel of this
+    repo runs: B1-B5 launch 0 times in the phase."""
+    from paddle_tpu_torch.models import resnet
+
+    resident = resident_gib(torch, dev)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {"check": resnet_check(torch, fluid, resnet, dev)}
+    t1 = time.perf_counter()
+    out["train"], m, scope = resnet_train(torch, fluid, resnet, dev)
+    t2 = time.perf_counter()
+    out["infer"] = resnet_infer(torch, fluid, resnet, dev, m, scope)
+    t3 = time.perf_counter()
+    launches = dict(fa.KERNEL_LAUNCHES)
+    check(not any(launches.values()), "a kernel launched in the resnet phase",
+          launches)
+    out["phase_s"] = {"check": t1 - t0, "train": t2 - t1, "infer": t3 - t2}
+    log("resnet-50 phase: launches %s, resident before %.2f GiB, seconds %s"
+        % (json.dumps(launches), resident, json.dumps(out["phase_s"])))
+    return out
 
 
 def flash_inputs(torch, dev, gen, dtype, T, S, B=FB, H=FH, D=FD):
@@ -2220,6 +2804,9 @@ def main():
     prd = predict_phase(torch, fluid, T, serving, fa, obs, dev)
     torch.cuda.empty_cache()
     lenet_phase(torch, fluid, dev)
+    op_rule_checks(fluid, dev)
+    torch.cuda.empty_cache()
+    resnet_phase(torch, fluid, fa, dev)
     torch.cuda.empty_cache()
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,

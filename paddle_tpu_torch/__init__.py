@@ -23,6 +23,10 @@ held against.  It imports torch and numpy, never jax and nothing of
   the Program or the exported graph, with retry, bisection, a circuit
   breaker, a worker supervisor and hot swap; Transformer-base scoring
   runs the flash forward kernel in both.
+* ResNet — ``models.resnet.get_model()`` (ResNet-50 by default: conv2d,
+  batch_norm, pool2d, momentum) trains through ``Executor.run``, and
+  ``InferenceTranspiler`` folds each batch_norm of its test Program into
+  the conv before it.
 
 Use it like the JAX package::
 
@@ -54,7 +58,7 @@ from . import data_feeder
 from . import program_fn
 from . import resilience
 from . import io
-from . import models, observability, parallel, serving
+from . import models, observability, parallel, serving, transpiler
 from .core import CPUPlace, CUDAPlace, resolve_device
 from .data_feeder import DataFeeder
 from .executor import (Executor, Scope, global_scope, load_numpy_state,
@@ -70,12 +74,14 @@ from .framework import (
 from .lod import (LoDArray, LoDTensorArray, create_lod_array,
                   create_lod_tensor, create_random_int_lodtensor)
 from .param_attr import ParamAttr, WeightNormParamAttr
+from .transpiler import InferenceTranspiler
 
 __all__ = [
     "core", "unique_name", "framework", "initializer", "layers", "nets",
     "optimizer", "regularizer", "clip", "backward", "executor", "lod",
     "data_feeder", "program_fn", "resilience", "io", "models",
-    "observability", "parallel", "serving", "CPUPlace", "CUDAPlace",
+    "observability", "parallel", "serving", "transpiler", "CPUPlace",
+    "CUDAPlace", "InferenceTranspiler",
     "resolve_device", "Executor", "Scope", "global_scope",
     "load_numpy_state", "scope_guard", "Program", "Variable",
     "default_main_program", "default_startup_program", "name_scope",

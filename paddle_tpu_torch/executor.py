@@ -250,11 +250,13 @@ class LoweringContext:
     the op-slot helpers the rules use."""
 
     def __init__(self, program, env, device, seed=0, step=0, is_test=False,
-                 reads=None):
+                 reads=None, feed_batch=None, batch_block=None):
         self.program = program
         self.env = env
         self.device = device
         self.is_test = is_test
+        self.feed_batch = feed_batch    # the feeds' leading dim, if shared
+        self.batch_block = batch_block  # see row_blocks
         self.mesh = None  # the port's Executor takes no mesh yet
         self._seed = int(seed)
         self._step = int(step)
@@ -279,6 +281,18 @@ class LoweringContext:
             pos = self._op_pos[id(op.block)] = {
                 id(o): i for i, o in enumerate(op.block.ops)}
         return pos[id(op)]
+
+    def row_blocks(self, rows):
+        """How many equal blocks a product over ``rows`` rows runs in: with
+        ``batch_block`` set (the serving Program backend sets the smallest
+        bucket) and ``rows`` a multiple of the feed batch, one block per
+        ``batch_block`` samples, so that every bucket multiplies blocks of
+        one shape and cuBLAS picks one kernel for all of them (a row's
+        bits then do not depend on the bucket); else 1."""
+        b, blk = self.feed_batch, self.batch_block
+        if not blk or not b or b <= blk or b % blk or rows % b:
+            return 1
+        return b // blk
 
     # env access -------------------------------------------------------------
     def get(self, name: str):
@@ -425,7 +439,12 @@ class Executor:
 
     ``place`` (a ``CUDAPlace``/``CPUPlace``) or ``device`` (a string or
     ``torch.device``) names where the program runs; with neither, it runs
-    on the card, and raises when there is none."""
+    on the card, and raises when there is none.  ``batch_block`` (None:
+    off) makes each ``mul`` run in blocks of that many samples of the
+    feed batch (:meth:`LoweringContext.row_blocks`); the serving Program
+    backend sets it, training never does."""
+
+    batch_block = None
 
     def __init__(self, place=None, device=None):
         if place is not None and device is not None:
@@ -467,8 +486,12 @@ class Executor:
                  for ns in op.inputs.values() for n in ns}
         reads.update(fetch_names)
         reads.update(persistable)
-        ctx = LoweringContext(program, env, self.device, seed, step,
-                              reads=reads)
+        batches = {int(v.shape[0]) for v in feeds.values()
+                    if isinstance(v, torch.Tensor) and v.dim() > 0}
+        ctx = LoweringContext(
+            program, env, self.device, seed, step, reads=reads,
+            feed_batch=batches.pop() if len(batches) == 1 else None,
+            batch_block=self.batch_block)
         lower_block(ctx, program.global_block())
         fetches = []
         for f in fetch_names:

@@ -2,8 +2,8 @@
 
 The port's copy of the JAX package's ``paddle_tpu/nets.py``, for the
 helpers whose ops the port runs: ``simple_img_conv_pool`` (conv2d +
-pool2d), ``img_conv_group`` (whose ``conv_with_batchnorm`` builds a
-batch_norm op, which has no rule yet and raises when run) and
+pool2d), ``img_conv_group`` (conv2d, batch_norm where
+``conv_with_batchnorm`` asks, dropout, pool2d) and
 ``scaled_dot_product_attention``.  ``sequence_conv_pool`` and ``glu``
 wait for the sequence ops and split/sigmoid (ROADMAP A10).
 """

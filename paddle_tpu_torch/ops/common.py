@@ -4,7 +4,6 @@ from __future__ import annotations
 import torch
 
 
-
 def bcast_y(x, y, axis: int):
     """Reference elementwise broadcast semantics
     (paddle/fluid/operators/elementwise_op_function.h): ``y``'s shape is
@@ -25,6 +24,15 @@ def reduce_axes(dim, ndim):
     if isinstance(dim, int):
         dim = [dim]
     return tuple(d % ndim for d in dim)
+
+
+def at_least_f32(x):
+    """``x`` in float32 where it is a half type, else as it is: the JAX
+    package does statistics, softmaxes and updates in float32, and a
+    float64 Program keeps float64."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.float()
+    return x
 
 
 _FLOAT_ORDER = {torch.bfloat16: 0, torch.float16: 0, torch.float32: 1,

@@ -53,7 +53,11 @@ def _scale(ctx, op):
 @register("mul")
 def _mul(ctx, op):
     """x flattened at x_num_col_dims @ y flattened at y_num_col_dims
-    (reference operators/mul_op.cc)."""
+    (reference operators/mul_op.cc), plus an optional ``Bias`` per output
+    column.  Layers never give mul a ``Bias``; the inference
+    transpiler's mul+BN fold does (the JAX package's rule never reads
+    one).  The rows run in ``ctx.row_blocks`` equal blocks (one product
+    unless the serving backend asks for blocks)."""
     x = ctx.get_input(op, "X")
     y = ctx.get_input(op, "Y")
     x, y = mixed_dtypes(x, y)
@@ -62,7 +66,12 @@ def _mul(ctx, op):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape((-1, _prod(xs[xn:])))
     y2 = y.reshape((_prod(ys[:yn]), -1))
-    out = torch.matmul(x2, y2)
+    n = ctx.row_blocks(x2.shape[0])
+    out = (torch.matmul(x2, y2) if n == 1 else
+           torch.cat([torch.matmul(c, y2) for c in x2.chunk(n)]))
+    bias = ctx.get_input(op, "Bias")
+    if bias is not None:
+        out = out + bias.to(out.dtype).reshape(1, -1)
     ctx.set_output(op, "Out", out.reshape(xs[:xn] + ys[yn:]))
 
 
@@ -143,7 +152,18 @@ for _t, _f in _ACTS.items():
 
 @register("mean")
 def _mean(ctx, op):
-    ctx.set_output(op, "Out", ctx.get_input(op, "X").mean().reshape((1,)))
+    """The mean of every element.  An integer or bool input gives
+    float32, as ``jnp.mean`` does: its float32 sum times the float32
+    reciprocal of the count, which is how XLA divides by a constant (the
+    sum is exact below 2**24)."""
+    x = ctx.get_input(op, "X")
+    if x.is_floating_point():
+        out = x.mean()
+    else:
+        inv = torch.tensor(1.0 / max(x.numel(), 1), dtype=torch.float32,
+                           device=x.device)
+        out = x.float().sum() * inv
+    ctx.set_output(op, "Out", out.reshape((1,)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""NN op rules: conv2d, pool2d, layer_norm, dropout, softmax, the losses,
-embedding lookup and accuracy.
+"""NN op rules: conv2d, pool2d, batch_norm, layer_norm, dropout, softmax,
+the losses, embedding lookup and accuracy.
 
 Translated from the JAX package's ``paddle_tpu/ops/nn_ops.py``, for the
 ops the port runs so far.  They are torch ops: XLA fused them (or ran
@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..registry import register
-from .common import mixed_dtypes
+from .common import at_least_f32, mixed_dtypes
 
 
 def _wrapped_index(idx, n):
@@ -44,6 +44,9 @@ def _pair(v, n=2):
 
 @register("conv2d", "depthwise_conv2d")
 def _conv2d(ctx, op):
+    """The convolution, plus an optional ``Bias`` per output channel.
+    Layers never give conv2d a ``Bias``; the inference transpiler's
+    conv+BN fold does (the JAX package's rule never reads one)."""
     x = ctx.get_input(op, "Input")  # NCHW
     w = ctx.get_input(op, "Filter")  # OIHW (I = C/groups)
     x, w = mixed_dtypes(x, w)
@@ -54,6 +57,9 @@ def _conv2d(ctx, op):
                    padding=_pair(op.attrs.get("paddings", [0, 0])),
                    dilation=_pair(op.attrs.get("dilations", [1, 1])),
                    groups=groups)
+    bias = ctx.get_input(op, "Bias")
+    if bias is not None:
+        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
     ctx.set_output(op, "Output", out.to(x.dtype))
 
 
@@ -85,7 +91,7 @@ def _pool2d(ctx, op):
         xp = F.pad(x, pad, value=float("-inf"))
         out = F.max_pool2d(xp, ksize, strides)
     else:
-        xf = x.float()
+        xf = at_least_f32(x)
         s = F.avg_pool2d(F.pad(xf, pad), ksize, strides, divisor_override=1)
         if a.get("exclusive", True) and (any(pads) or any(pads_hi)):
             ones = F.pad(torch.ones_like(xf[:1, :1]), pad)
@@ -96,6 +102,55 @@ def _pool2d(ctx, op):
     ctx.set_output(op, "Out", out)
 
 
+@register("batch_norm")
+def _batch_norm(ctx, op):
+    """Batch normalization over every axis but the channel's (axis 1 in
+    NCHW, the last in NHWC), in the JAX package's order, in float32 (or
+    float64 for a float64 input):
+    ``(x - m) * rsqrt(v + eps) * Scale + Bias``.  Training uses the
+    batch's mean and biased variance (the gradient of ``Y`` flows
+    through both) and updates the running statistics as
+    ``running * momentum + batch * (1 - momentum)``, without gradient,
+    stored back in their own dtype through ``MeanOut``/``VarianceOut``
+    (which name the same persistable variables).  ``is_test`` (the
+    attribute, or a run for test) uses the running statistics and passes
+    them through."""
+    x = ctx.get_input(op, "X")
+    scale = ctx.get_input(op, "Scale")
+    bias = ctx.get_input(op, "Bias")
+    mean = ctx.get_input(op, "Mean")
+    var = ctx.get_input(op, "Variance")
+    eps = op.attrs.get("epsilon", 1e-5)
+    momentum = op.attrs.get("momentum", 0.9)
+    is_test = op.attrs.get("is_test", False) or ctx.is_test
+    c_axis = 1 if op.attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != c_axis)
+    shape = [1] * x.dim()
+    shape[c_axis] = -1
+
+    xf = at_least_f32(x)
+    if is_test:
+        m, v = mean, var
+    else:
+        m = xf.mean(axes)
+        v = xf.var(axes, unbiased=False)
+        ctx.set_output(op, "MeanOut", (
+            at_least_f32(mean) * momentum + m.detach() * (1 - momentum)
+        ).to(mean.dtype))
+        ctx.set_output(op, "VarianceOut", (
+            at_least_f32(var) * momentum + v.detach() * (1 - momentum)
+        ).to(var.dtype))
+    inv = torch.rsqrt(v + eps)
+    y = ((xf - m.reshape(shape)) * inv.reshape(shape) * scale.reshape(shape)
+         + bias.reshape(shape))
+    ctx.set_output(op, "Y", y.to(x.dtype))
+    ctx.set_output(op, "SavedMean", m)
+    ctx.set_output(op, "SavedVariance", v)
+    if is_test:
+        ctx.set_output(op, "MeanOut", mean)
+        ctx.set_output(op, "VarianceOut", var)
+
+
 @register("layer_norm")
 def _layer_norm(ctx, op):
     x = ctx.get_input(op, "X")
@@ -104,13 +159,13 @@ def _layer_norm(ctx, op):
     norm_shape = tuple(x.shape[begin:])
     scale = ctx.get_input(op, "Scale")
     bias = ctx.get_input(op, "Bias")
-    y = F.layer_norm(x.float(), norm_shape,
+    y = F.layer_norm(at_least_f32(x), norm_shape,
                      None if scale is None else scale.reshape(norm_shape),
                      None if bias is None else bias.reshape(norm_shape), eps)
     ctx.set_output(op, "Y", y.to(x.dtype))
     if ctx.reads(op, "Mean") or ctx.reads(op, "Variance"):
         axes = tuple(range(begin, x.dim()))
-        xf = x.float()
+        xf = at_least_f32(x)
         ctx.set_output(op, "Mean", xf.mean(axes).reshape(x.shape[:begin]))
         ctx.set_output(op, "Variance", xf.var(axes, unbiased=False)
                        .reshape(x.shape[:begin]))
@@ -140,7 +195,8 @@ def _dropout(ctx, op):
 @register("softmax")
 def _softmax(ctx, op):
     x = ctx.get_input(op, "X")
-    ctx.set_output(op, "Out", torch.softmax(x.float(), dim=-1).to(x.dtype))
+    ctx.set_output(op, "Out",
+                   torch.softmax(at_least_f32(x), dim=-1).to(x.dtype))
 
 
 @register("cross_entropy")
@@ -153,7 +209,7 @@ def _cross_entropy(ctx, op):
     x = ctx.get_input(op, "X")  # probs [..., C]
     label = ctx.get_input(op, "Label")
     ignore = op.attrs.get("ignore_index", -100)
-    xf = x.float()
+    xf = at_least_f32(x)
     xf = torch.minimum(torch.maximum(xf, xf.new_tensor(1e-20)),
                        xf.new_tensor(1.0))
     logp = torch.log(xf)
@@ -174,7 +230,7 @@ def _softmax_with_cross_entropy(ctx, op):
     label = ctx.get_input(op, "Label")
     soft = op.attrs.get("soft_label", False)
     ignore = op.attrs.get("ignore_index", -100)
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(at_least_f32(logits), dim=-1)
     if soft:
         loss = -torch.sum(label.float() * logp, dim=-1, keepdim=True)
     else:

@@ -19,12 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..registry import register
-
-
-def _f32(x):
-    if x.dtype in (torch.bfloat16, torch.float16):
-        return x.float()
-    return x
+from .common import at_least_f32 as _f32
 
 
 def _read(ctx, op, *slots):

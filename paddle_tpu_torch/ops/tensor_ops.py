@@ -33,8 +33,23 @@ def _assign_value(ctx, op):
 
 @register("cast")
 def _cast(ctx, op):
+    """``x`` in ``out_dtype``.  A float cast to an integer type saturates
+    as the JAX package's ``astype`` does: NaN gives 0, and a value past
+    the target's range gives its nearest end (torch's own conversion is
+    undefined there, and differs between the CPU and the card)."""
     x = ctx.get_input(op, "X")
-    ctx.set_output(op, "Out", x.to(torch_dtype(op.attrs["out_dtype"])))
+    dtype = torch_dtype(op.attrs["out_dtype"])
+    if x.is_floating_point() and not (dtype.is_floating_point
+                                      or dtype == torch.bool):
+        info = torch.iinfo(dtype)
+        xd = torch.nan_to_num(x.double(), nan=0.0, posinf=info.max,
+                              neginf=info.min)
+        out = xd.clamp(info.min, info.max).to(dtype)
+        # float64 rounds int64's upper end up to 2**63, past the range
+        out = torch.where(xd >= float(info.max), info.max, out)
+        ctx.set_output(op, "Out", out)
+        return
+    ctx.set_output(op, "Out", x.to(dtype))
 
 
 @register("reshape", "reshape2")

@@ -377,7 +377,8 @@ class InferenceEngine:
         self.default_deadline_ms = default_deadline_ms
         self._warmup = bool(warmup)
         self._state = "loading"
-        self._store = ModelStore(place=self.device, feed_shapes=feed_shapes)
+        self._store = ModelStore(place=self.device, feed_shapes=feed_shapes,
+                                 batch_block=buckets[0])
         self._model_lock = threading.Lock()   # guards the active-model flip
         self._swap_lock = threading.Lock()    # serializes swap_model calls
         self._model = (None if model_dir is None

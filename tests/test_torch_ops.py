@@ -17,7 +17,8 @@ and one-hot with ``jax.nn.one_hot`` (an id outside [0, depth) gives a
 row of zeros).
 
 The core IR's rules (conv2d, depthwise_conv2d, pool2d, cross_entropy,
-mean, top_k, accuracy) the same way, with the JAX startup's parameters
+mean, top_k, accuracy) the same way (mean of an integer input and a
+float cast to an integer type, ROADMAP F-8 and F-9, exactly), with the JAX startup's parameters
 copied into the port: float outputs and the gradients that
 ``calc_gradient`` gives within 1e-5 (XLA and torch sum in different
 orders), integer outputs exact.  ``gaussian_random`` draws from the
@@ -370,6 +371,72 @@ def test_mean_matches_jax():
     assert got[0].shape == (1,)
     for g, w in zip(got, want):
         _close(g, w)
+
+
+@pytest.mark.parametrize("shape", [(4, 5), (3, 7), (6, 11), (9, 13)])
+@pytest.mark.parametrize("dtype", ["int64", "int32"])
+def test_mean_of_integers_matches_jax(dtype, shape):
+    """ROADMAP F-8: an integer input is averaged as float32 and gives
+    float32, the JAX package's bits exactly (XLA multiplies the float32
+    sum by the float32 reciprocal of the count).  [4, 5] is the ROADMAP
+    case, -0.9 up to float32's last bit."""
+    x = np.random.RandomState(0).randint(-7, 8, size=shape).astype(dtype)
+
+    def build(fl):
+        xv = fl.layers.data(name="x", shape=list(shape), dtype=dtype,
+                            append_batch_size=False)
+        return [fl.layers.mean(xv)]
+
+    (want,), (got,) = _pair(build, {"x": x})
+    assert got.dtype == np.float32 and got.shape == (1,)
+    assert got.tobytes() == want.tobytes(), (got, want)
+    if shape == (4, 5):
+        np.testing.assert_allclose(got, [-0.9], rtol=1e-7)
+
+
+#: ROADMAP F-9: float32 values past every integer range, NaN and +-inf
+CAST_IN = [-2.7, -0.5, 0.5, 2.7, 3e9, -3e9, np.nan, np.inf, -np.inf,
+           300.0, -300.0, 127.9, -128.9]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint8", "int16", "int8"])
+def test_cast_float_to_int_saturates_as_jax(dtype):
+    x = np.array(CAST_IN, np.float32)
+
+    def build(fl):
+        xv = fl.layers.data(name="x", shape=[len(CAST_IN)], dtype="float32",
+                            append_batch_size=False)
+        return [fl.layers.cast(xv, dtype)]
+
+    (want,), (got,) = _pair(build, {"x": x})
+    _assert_same(got, want)
+    if dtype == "int32":   # the ROADMAP case
+        assert got[:8].tolist() == [-2, 0, 0, 2, 2147483647, -2147483648, 0,
+                                    2147483647]
+    if dtype == "uint8":
+        assert got[:8].tolist() == [0, 0, 0, 2, 255, 0, 0, 255]
+
+
+def test_cast_float_to_int64_saturates():
+    """int64 (the JAX package, x64 off, gives int32 here): NaN to 0, each
+    value past int64's range to its nearest end, the rest truncated."""
+    x = np.array(CAST_IN + [1e19, -1e19, 2.0 ** 62], np.float32)
+
+    def build(fl):
+        xv = fl.layers.data(name="x", shape=[len(x)], dtype="float32",
+                            append_batch_size=False)
+        return [fl.layers.cast(xv, "int64")]
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        (out,) = build(tfluid)
+    (got,) = tfluid.Executor(tfluid.CPUPlace()).run(
+        main, feed={"x": x}, fetch_list=[out], scope=tfluid.Scope())
+    top, bottom = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+    assert got.dtype == np.int64
+    assert got.tolist() == [-2, 0, 0, 2, 3000000000, -3000000000, 0, top,
+                            bottom, 300, -300, 127, -128, top, bottom,
+                            2 ** 62]
 
 
 @pytest.mark.parametrize("k", [1, 3])

@@ -98,14 +98,18 @@ caught):
    directory and served by InferenceEngine(model_dir=...) on the card:
    two rows on the Program backend against the port's plain CPU path
    (LOGIT_TOL); the AOT graph (torch.export, B1 inside it as the
-   custom op) against the Program, bits or the difference stated; B1
+   custom op) against the Program at buckets 2, 4, 8 and 16, bitwise; B1
    launched 18 times a dispatch on each backend, no other kernel; the
    all-pad warm-up feed (kv_lens 0) finite at every bucket; each 2-row
    request alone (bucket 2) against the same request coalesced into one
-   dispatch at buckets 4, 8 and 16, held to PREDICT_BATCH_TOL; the
+   dispatch at buckets 4, 8 and 16, on each backend, held to
+   PREDICT_BATCH_TOL (0); the
    first op whose bits move from bucket 2 to bucket 16 (ROADMAP F-6),
-   with one product a mul and with the engine's blocks of the smallest
-   bucket's rows; a hot
+   with one product a mul and with the engine's blocks (256-row blocks,
+   at least two, in one batched product a mul); the same AOT-against-
+   Program and alone-against-coalesced checks for a model whose samples
+   are one row (the Fluid book's MNIST MLP, 784-200-200-10), with the
+   one-product engine's difference recorded beside; a hot
    swap to a second seeded version under 4 client threads (every answer
    one version's bits, the new version served after); then the load
    (64 requests of 1-4 rows with their own lengths from 8 clients,
@@ -168,7 +172,42 @@ caught):
    (batch 4 x 4096, max_length 4096, rows of 64-4096 tokens), 5 steps
    under ``auto``: the same checks, with B1 and the backward ``auto``
    picks launched 18 times a step and the other engine not at all;
-16. a ``kernels`` JSON line (all six kernels: times at the shape of
+16. ResNet-50 in bf16, bench.py's leg (get_model(dtype="bfloat16"),
+   224 x 224, 1000 classes): one step at batch 2 from one bf16 state on
+   the card and on the CPU, each held against the CPU's float64 step from
+   the same state widened (the card within RESNET_BF16_FACTOR of the
+   CPU's distance in the loss, fc_0's gradients and the running
+   statistics; the loss also within RESNET_BF16_LOSS_RTOL and the
+   statistics within one bf16 rounding; all gradients in L2 recorded),
+   and the card's step with PyTorch's reduced-precision bf16 reduction
+   recorded; then RESNET_STEPS steps at batch 128 on seeded
+   bf16 images (finite; moved, or the last update under half the bf16
+   spacing; the last loss under the first; the state's dtypes: bf16
+   parameters and statistics, float32 velocities), images/s
+   against the bf16 bound (989.4e12 / (3 x 3.8e9)), peak memory, device
+   ms by op and idle share, beside the f32 leg's; then inference at
+   batch 256 with bf16 state and images, unfolded and folded (the folded
+   logits no farther from the f32 Program's than RESNET_BF16_FACTOR times
+   the unfolded bf16 logits are), images/s;
+17. Transformer-base from bench.py's bf16 state (bench.py:363-389): one
+   step at batch 2 x 64 (dropout 0, full width) through program_to_fn on
+   the card against the CPU (loss BF16_LOSS_ULPS bf16 ulps, gradients
+   BF16_GRAD_GLOBAL_L2 together in L2, their median BF16_GRAD_MEDIAN_L2,
+   each within BF16_GRAD_FACTOR times its own bf16 noise where that noise
+   is under BF16_NOISE_CEIL, flipped ReLU units left out), B1 and B2 on
+   bf16 tensors, with PyTorch's
+   reduced-precision reduction recorded beside; then 64 x 256, dropout
+   0.1, TRAIN_STEPS steps: finite, moved, parameters still bf16 and
+   Adam's moments float32, B1 and B2 launched 18 times a step on bf16
+   tensors; step ms, tokens/s, peak memory, device ms by family and idle
+   share beside the f32 leg's;
+18. Transformer-base at 64 x 256 through contrib.mixed_precision's
+   decorate (bf16 mul and matmul, f32 master weights, the flash kernels
+   in f32): DECORATE_STEPS steps from the f32 leg's parameters and feeds,
+   every loss within DECORATE_LOSS_RTOL of the f32 leg's at the same
+   step, B1 and B2 18 launches a step in float32; step ms, tokens/s,
+   device ms by op;
+19. a ``kernels`` JSON line (all six kernels: times at the shape of
    their main path, launches from it; B1's entry also carries its legacy
    serving launches and its figures at bucket 1024, and its predict
    launches (on the load) and figures at [16, 8, 256, 64]; B4's entry
@@ -176,13 +215,16 @@ caught):
    and carries each one's device time; B3's two kernels have no library
    call of their own, so their entries also carry the pair's time beside
    SDPA's whole backward; B1's and B2's also carry their figures at the
-   long leg's shape (B2's dq sum apart) and their launches there), the
-   card line, and the final
+   long leg's shape (B2's dq sum apart) and their launches there, and
+   their bf16 figures at [64, 8, 256, 64] (the bound at the bf16
+   tensor-core peak, SDPA in bf16) with their launches on the bf16 leg),
+   the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It needs the repository beside it and a CUDA device; without either it
 exits non-zero before printing any result.
 """
+import contextlib
 import gc
 import json
 import os
@@ -217,9 +259,18 @@ PREDICT_BATCH1_REQUESTS = 32
 # each request alone (bucket 2) against the same request coalesced into a
 # larger bucket, max abs logit difference: bitwise.  With one product a
 # mul, cuBLAS picked its SGEMM per bucket and a row moved by 1.07e-6 to
-# 1.13e-6 (ROADMAP F-6); the Program backend now multiplies in blocks of
-# the smallest bucket's rows, one shape for every bucket
+# 1.13e-6 (ROADMAP F-6).  Both backends now multiply each mul's rows in
+# blocks of SERVING_BLOCK_ROWS (256) rows, padded to at least two blocks,
+# as one batched product (cuBLAS's strided batched SGEMM, the weight
+# expanded with a batch stride of 0): a block's bits do not depend on the
+# block count (tools/serving_gemm_probe.py), and the AOT graph calls the
+# same function as an operator at every batch, so the AOT backend gives
+# the Program backend's bits.  Held for Transformer-base (256 rows a
+# sample) and for a model whose samples are one row
 PREDICT_BATCH_TOL = 0.0
+# the one-row model: the Fluid book's recognize_digits MLP (784 -> 200 ->
+# 200 -> 10, ReLU, softmax), seeded, f32
+MLP_SIZES = (200, 200, 10)
 # MNIST LeNet (benchmark/fluid/models/mnist.py), batch 128, f32
 LENET_BATCH, LENET_STEPS = 128, 20
 # LeNet card vs CPU, TF32 off: the float32 step reads about 1e-7 (loss)
@@ -248,6 +299,44 @@ RESNET_GLOBAL_L2 = 0.1
 # folded against unfolded logits, of their largest magnitude
 RESNET_FOLD_RTOL = 1e-4
 RESNET_INFER_RUNS = 5
+# bf16 (bench.py's legs: ResNet-50 trained with get_model(dtype=
+# "bfloat16") at 30 steps of batch 128, then inference at batch 256 with
+# bf16 state and images, bench.py:277-328).  Card against CPU at batch 2:
+# the card's bf16 step and the CPU's are each held against the CPU's
+# float64 step from the same bf16 state (widened), and the card may lie
+# no farther from it than RESNET_BF16_FACTOR times the CPU's distance, in
+# the loss, fc_0's gradients, all gradients (L2) and the running
+# statistics.  Both bf16 steps round every activation, gradient and
+# statistic to bf16 once, with f32 sums in other orders (cuDNN and cuBLAS
+# against the CPU's), so each lies its own bf16 noise away from the
+# float64 step; on the CPU, two such steps (ResNet-50 at 64 x 64, batch
+# 2: 1 thread against 8, and the port against the JAX package) lie
+# within 0.96-1.06 times each other's distance in the gradients and the
+# statistics (tools/bf16_probe.py resnet --jax; 1 and 8 threads give the
+# same bits).  2 leaves room for that spread.  The loss is one bf16 value
+# over two images, and bf16's noise through 50 layers moves it by whole
+# ulps: the port's lay 0.008 from the float64 loss, the JAX package's
+# 0.066, so the loss may also lie RESNET_BF16_LOSS_RTOL (twice the wider)
+# from it; the statistics are stored in bf16, so they may also be off by
+# one bf16 rounding, BF16_ROUNDING of the tensor's max.  Which limits can
+# fail a wrong step (a zeroed tensor lies 1.0 of its max away, a sign
+# flip 2.0): fc_0's gradients (the card read 0.23 of max against a limit
+# of 2 x 0.22) and the statistics (0.077 against 2 x 0.077) can; the loss
+# cannot fail a forward that gives uniform logits (ln 1000 lies 0.081
+# from the f64 loss, inside 0.15).  All gradients in L2 are recorded, not
+# held: the CPU's own bf16 step lies 1.32 of their norm from f64, so any
+# limit above that passes a zeroed gradient (1.0)
+RESNET_BF16_FACTOR = 2.0
+RESNET_BF16_LOSS_RTOL = 0.15
+BF16_ROUNDING = 2.0 ** -8
+# bf16 inference at bench.py's batch.  The folded bf16 logits are held
+# against the float32 unfolded Program's on the same state and images: no
+# farther than RESNET_BF16_FACTOR times the unfolded bf16 logits are.
+# (Against the unfolded bf16 logits directly there is no fixed limit:
+# each folded weight w * k is rounded to bf16 once more and both Programs
+# round every layer's output, and over 53 layers the two lie 15% of the
+# logits' max apart on the CPU at 64 x 64, tools/bf16_probe.py fold.)
+RESNET_INFER_BATCH = 256
 # F-9: float32 cast to int32 and uint8, the JAX package's values
 CAST_IN = [-2.7, -0.5, 0.5, 2.7, 3e9, -3e9, float("nan"), float("inf")]
 CAST_WANT = {"int32": [-2, 0, 0, 2, 2147483647, -2147483648, 0, 2147483647],
@@ -273,6 +362,40 @@ FLASH_TOL = {"float32": (2e-5, 5e-5), "bfloat16": (1e-2, 1e-2)}
 TRAIN_CFG = dict(batch_size=64, seq_len=256, src_vocab_size=30000,
                  trg_vocab_size=30000, max_length=256, use_flash=True)
 TRAIN_STEPS = 10
+# bench.py's bf16 Transformer, card against CPU at CHECK_CFG from one bf16
+# state (bf16_step_errors), with limits fixed on the CPU from two
+# implementations of the same bf16 step that sum in other orders, the
+# port against the JAX package (tools/bf16_probe.py transformer, 6+6
+# layers at d_model 128): the loss 0 ulps apart (limit 2); all gradients
+# 0.036 apart in L2 and the median gradient 0.040 (limit 0.1 each).  No
+# fixed limit holds a single gradient: where its signal is small, bf16's
+# own noise exceeds its norm (fc_86.w_0 at full width: 2.70 of its norm
+# between the CPU's bf16 and f32 steps).  So each gradient is held to
+# its own bf16 noise, the CPU's bf16 step against the CPU's float32 step
+# from the same state (bf16_noise_ratios): at most BF16_GRAD_FACTOR times
+# it, the noise floored at BF16_NOISE_FLOOR.  The port against the JAX
+# package lies 1.23 times the port's noise at the median, 1.42 at the
+# 90th percentile and 1.85 at worst.  Which limits can fail a wrong step
+# (a zeroed gradient lies 1.0 of its norm away, one of the same norm in
+# another direction about 1.41, a sign flip 2.0): all gradients in L2
+# and their median (0.1 each; the card read 0.021 and 0.036); each
+# gradient held to its noise, where the limit stays under 1.0: a
+# gradient whose noise exceeds BF16_NOISE_CEIL is left out of that check
+# (counted and named in the log), since 3x its noise would pass a zeroed
+# one.  The loss cannot fail a wrong forward at this random start: it
+# reads 10.3125 = ln 30000 to a bf16 ulp, what uniform logits give
+BF16_LOSS_ULPS = 2
+BF16_GRAD_GLOBAL_L2 = 0.1
+BF16_GRAD_MEDIAN_L2 = 0.1
+BF16_GRAD_FACTOR = 3.0
+BF16_NOISE_FLOOR = 0.02
+BF16_NOISE_CEIL = 0.3
+# through decorate: each loss against the f32 leg's at the same step, from
+# the same parameters and feeds (the dropout draws differ; bf16 products
+# round): up to 0.0064 at the CPU rehearsal's width (d_model 64, vocab
+# 100, tools/bf16_probe.py rehearse), 3x that allowed
+DECORATE_STEPS = 5
+DECORATE_LOSS_RTOL = 0.02
 CHECK_CFG = dict(TRAIN_CFG, batch_size=2, seq_len=64, dropout=0.0)
 # the card-vs-CPU step with the pair engine: several 64-row tiles and an
 # uneven last one
@@ -300,9 +423,11 @@ FLASH_BWD_KERNELS = {"fused": ("flash_attention_bwd",),
 LOSS_RTOL = 1e-4    # card vs CPU loss: GEMM summation orders differ
 GRAD_RTOL = 1e-3    # card vs CPU, of each tensor's max |g|
 LOGIT_TOL = 2e-3    # card vs CPU over 12 layers: GEMM summation orders differ
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak,
+# and the dense bfloat16 tensor-core peak (989.4 TFLOP/s, no sparsity)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989.4e12
 # the device-side wait before each timed launch: about 0.5 ms at the
 # H100's 1.98 GHz boost clock, longer than any wrapper takes to enqueue
 SLEEP_CYCLES = 1_000_000
@@ -389,9 +514,9 @@ def kernel_ms(torch, fn, iters, flush, names):
     return {n: total[n] / count[n] / 1e3 for n in names}, count
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1194,7 +1319,7 @@ def predict_b1_row(torch, fa, dev, src, trg):
     return rows
 
 
-def first_moving_op(torch, fluid, dirname, src, trg, batch_block=None):
+def first_moving_op(torch, fluid, dirname, src, trg, block_rows=None):
     """Where a request's bits move between buckets (ROADMAP F-6, A13's
     first step): the saved Program run on the card once on the first
     request alone (its 2 rows, bucket 2) and once on 16 rows that start
@@ -1203,10 +1328,10 @@ def first_moving_op(torch, fluid, dirname, src, trg, batch_block=None):
     tensor, or the whole tensor where the shape does not depend on the
     batch); returns the ops in Program order whose outputs differ there,
     the first one first, with its type, output, shape and max abs
-    difference.  ``batch_block`` is the executor's (the serving Program
-    backend runs with the smallest bucket's)."""
+    difference.  ``block_rows`` is the executor's (the serving Program
+    backend runs with SERVING_BLOCK_ROWS)."""
     exe = fluid.Executor(fluid.CUDAPlace(0))
-    exe.batch_block = batch_block
+    exe.block_rows = block_rows
     with fluid.scope_guard(fluid.Scope()):
         prog, _, _ = fluid.io.load_inference_model(dirname, exe)
         ops = prog.global_block().ops
@@ -1258,18 +1383,101 @@ def first_moving_op(torch, fluid, dirname, src, trg, batch_block=None):
             "first_ten": moved[:10]}
 
 
+def alone_vs_coalesced(eng, reqs, obs, name):
+    """Each 2-row request of ``reqs`` alone (bucket 2) against the same
+    request coalesced with the next ones into one dispatch at each larger
+    bucket: the max abs difference by bucket (0.0: bitwise)."""
+    alone = [eng.predict(r, timeout=600)[0] for r in reqs]
+    diff = {}
+    for b in PREDICT_BUCKETS[1:]:
+        c0 = bucket_counts(obs)
+        futs = [eng.predict_async(r) for r in reqs[:b // 2]]
+        got = [f.result(timeout=600)[0] for f in futs]
+        moved = {k: v - c0[k] for k, v in bucket_counts(obs).items()}
+        check(moved == {k: int(k == b) for k in PREDICT_BUCKETS},
+              "one dispatch at bucket %d" % b, name, moved)
+        diff[b] = max(float(np.abs(g - a).max())
+                      for g, a in zip(got, alone))
+    return diff
+
+
+def save_mlp_model(fluid, dirname, seed):
+    """The one-row model (MLP_SIZES over 784 pixels), seeded on the card,
+    saved with ``aot=True``."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        h = fluid.layers.data(name="img", shape=[784], dtype="float32")
+        for i, size in enumerate(MLP_SIZES):
+            h = fluid.layers.fc(h, size=size, act="softmax" if i == len(
+                MLP_SIZES) - 1 else "relu")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(dirname, ["img"], [h], exe,
+                                      main_program=main, aot=True)
+
+
+def one_row_check(torch, fluid, serving, obs, dev, dirname):
+    """F-6 for samples of one row (the MLP): on both backends each 2-row
+    request alone against the same request coalesced at buckets 4, 8 and
+    16 (PREDICT_BATCH_TOL), and the AOT graph against the Program at
+    every bucket (bitwise); the card against the port's plain CPU path
+    (KERNEL_TOL); the alone-against-coalesced difference of an engine
+    that runs one product a mul recorded beside (what the blocks
+    repair)."""
+    save_mlp_model(fluid, dirname, SEED + 53)
+    x = np.random.RandomState(SEED + 54).rand(16, 784).astype(np.float32)
+    reqs = [{"img": x[i:i + 2]} for i in range(0, 16, 2)]
+    engines = {name: predict_engine(serving, dirname, dev, backend=name,
+                                    max_batch_size=16, batch_timeout_ms=100)
+               for name in ("program", "aot")}
+    try:
+        outs = {name: [eng.predict({"img": x[:b]}, timeout=600)[0]
+                       for b in PREDICT_BUCKETS]
+                for name, eng in engines.items()}
+        aot_bitwise = all(a.tobytes() == p.tobytes() for a, p in
+                          zip(outs["aot"], outs["program"]))
+        diff = {name: alone_vs_coalesced(eng, reqs, obs, name)
+                for name, eng in engines.items()}
+        engines["program"]._model._exe.block_rows = None
+        one_product = alone_vs_coalesced(engines["program"], reqs, obs,
+                                         "one product")
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    cpu_model = serving.ModelStore(place="cpu").load(dirname, "program")
+    cpu = cpu_model.predict_batch({"img": x})[0]
+    cpu_model.close()
+    card = outs["program"][-1]
+    card_vs_cpu = float(np.abs(card - cpu).max())
+    out = {"model": "MLP 784-%s, f32" % "-".join(map(str, MLP_SIZES)),
+           "aot_vs_program_bitwise": aot_bitwise,
+           "batched_vs_alone_max_abs": diff,
+           "one_product_batched_vs_alone_max_abs": one_product,
+           "card_vs_cpu_max_abs": card_vs_cpu}
+    log("predict, one-row model (F-6): %s" % json.dumps(out))
+    check(card.shape == (16, MLP_SIZES[-1]) and np.isfinite(card).all()
+          and card_vs_cpu <= KERNEL_TOL, "one-row model card vs cpu",
+          card_vs_cpu)
+    check(aot_bitwise, "one-row model: aot vs program not bitwise")
+    check(all(v <= PREDICT_BATCH_TOL for d in diff.values()
+              for v in d.values()), "one-row model: batched vs alone", diff)
+    return out
+
+
 def predict_phase(torch, fluid, T, serving, fa, obs, dev):
     """Predict serving of Transformer-base scoring (the forward that
     ``get_model(use_flash=True)`` prunes to its logits) at TRAIN_CFG's
     width, saved by ``io.save_inference_model(..., aot=True)`` into a
     temporary directory and served by InferenceEngine(model_dir=...) on
     the card.  Checks: card vs the port's plain CPU path on two rows
-    (LOGIT_TOL); the AOT graph against the Program (bits, or the
-    difference stated); B1 = 18 launches a dispatch on each backend and
+    (LOGIT_TOL); the AOT graph against the Program at every bucket
+    (bitwise); B1 = 18 launches a dispatch on each backend and
     no other kernel; the all-pad warm-up feed gives finite logits at
     every bucket; each request alone (bucket 2) against the same request
-    coalesced into buckets 4, 8 and 16 (within PREDICT_BATCH_TOL, 0 =
-    bitwise); a hot swap under 4 client threads answers every request
+    coalesced into buckets 4, 8 and 16 on each backend (within
+    PREDICT_BATCH_TOL, 0 = bitwise); a hot swap under 4 client threads answers every request
     with exactly one version's bits at the same bucket.  Then the load
     (PREDICT_REQUESTS requests of 1-4 rows from 8 clients: requests/s,
     rows/s, latency, the bucket histogram, peak memory, a profiled
@@ -1325,13 +1533,14 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
                              max_batch_size=16)
         aot_setup_s = time.perf_counter() - t0
         check(aot.health()["backend"] == "aot", aot.health()["backend"])
-        x16 = predict_feed(src, trg)
         backend_launches, outs = {}, {}
         for name, eng in (("program", prog), ("aot", aot)):
             b0 = obs.counter("serving.batches").value
             torch.cuda.synchronize()
             fa.reset_launch_counts()
-            outs[name] = [eng.predict(x, timeout=600)[0] for x in (x2, x16)]
+            outs[name] = [eng.predict(predict_feed(src[:b], trg[:b]),
+                                      timeout=600)[0]
+                          for b in PREDICT_BUCKETS]
             torch.cuda.synchronize()
             launches = dict(fa.KERNEL_LAUNCHES)
             dispatches = obs.counter("serving.batches").value - b0
@@ -1342,13 +1551,12 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
                        for a, p in zip(outs["aot"], outs["program"]))
         aot_bitwise = all(a.tobytes() == p.tobytes()
                           for a, p in zip(outs["aot"], outs["program"]))
-        check(aot_diff <= LOGIT_TOL, "aot vs program", aot_diff)
-        log("predict: AOT vs Program on the card (buckets 2 and 16): %s, "
+        log("predict: AOT vs Program on the card (buckets %s): %s, "
             "max abs diff %.3g; launches %s"
-            % ("bitwise" if aot_bitwise else "NOT bitwise", aot_diff,
-               json.dumps(backend_launches)))
-        aot.stop()
-        del aot
+            % (list(PREDICT_BUCKETS), "bitwise" if aot_bitwise
+               else "NOT bitwise", aot_diff, json.dumps(backend_launches)))
+        # F-6: both backends multiply in the same blocks
+        check(aot_bitwise, "aot vs program not bitwise", aot_diff)
         lap("aot_vs_program")
 
         # 4. the all-pad warm-up feed (kv_lens 0 in every row) at every
@@ -1362,39 +1570,38 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
 
         # 5. each request alone (bucket 2) against the same request
         # coalesced into one dispatch at buckets 4, 8 and 16
+        # on both backends (F-6: the AOT graph multiplies in the Program
+        # backend's blocks)
         reqs = [predict_feed(src[i:i + 2], trg[i:i + 2])
                 for i in range(0, 16, 2)]
-        alone = [prog.predict(r, timeout=600)[0] for r in reqs]
-        batch_diff = {}
-        for b in PREDICT_BUCKETS[1:]:
-            c0 = bucket_counts(obs)
-            futs = [prog.predict_async(r) for r in reqs[:b // 2]]
-            got = [f.result(timeout=600)[0] for f in futs]
-            moved = {k: v - c0[k] for k, v in bucket_counts(obs).items()}
-            check(moved == {k: int(k == b) for k in PREDICT_BUCKETS},
-                  "one dispatch at bucket %d" % b, moved)
-            batch_diff[b] = max(float(np.abs(g - a).max())
-                                for g, a in zip(got, alone))
-        batch_bitwise = all(v == 0.0 for v in batch_diff.values())
+        batch_diff = {name: alone_vs_coalesced(eng, reqs, obs, name)
+                      for name, eng in (("program", prog), ("aot", aot))}
+        batch_bitwise = all(v == 0.0 for d in batch_diff.values()
+                            for v in d.values())
         log("predict: alone (bucket 2) vs coalesced, max abs diff by "
-            "bucket %s (%s; PREDICT_BATCH_TOL %g)"
+            "backend and bucket %s (%s; PREDICT_BATCH_TOL %g)"
             % (json.dumps(batch_diff),
                "bitwise" if batch_bitwise else "NOT bitwise",
                PREDICT_BATCH_TOL))
-        check(all(v <= PREDICT_BATCH_TOL for v in batch_diff.values()),
-              "batched vs alone", batch_diff)
+        check(all(v <= PREDICT_BATCH_TOL for d in batch_diff.values()
+                  for v in d.values()), "batched vs alone", batch_diff)
         prog.stop()
-        del prog
+        aot.stop()
+        del prog, aot
         lap("batched_vs_alone")
         moving = first_moving_op(torch, fluid, d1, src, trg)
         log("predict: first op whose bits move from bucket 2 to bucket 16, "
             "one product a mul (F-6): %s" % json.dumps(moving))
         moving_blocked = first_moving_op(torch, fluid, d1, src, trg,
-                                         PREDICT_BUCKETS[0])
-        log("predict: the same, each mul in blocks of %d rows of the batch "
-            "as the engine runs it: %s"
-            % (PREDICT_BUCKETS[0], json.dumps(moving_blocked)))
+                                         fluid.executor.SERVING_BLOCK_ROWS)
+        log("predict: the same, each mul in blocks of %d rows in one "
+            "batched product, as the engine runs it: %s"
+            % (fluid.executor.SERVING_BLOCK_ROWS,
+               json.dumps(moving_blocked)))
         lap("first_moving_op")
+        one_row_model = one_row_check(torch, fluid, serving, obs, dev,
+                                      os.path.join(tmp, "mlp"))
+        lap("one_row_model")
 
         # 6. hot swap under load: one bucket (4), so each request's
         # reference is its own row at the bucket it is served at; 8 rows,
@@ -1465,14 +1672,15 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
                   and np.isfinite(o).all(), "load logits", o.shape)
         rows = int(sizes.sum())
         lap("load")
-        # F-6's fix against one product a mul (the engine's executor with
-        # its blocks switched off): the same load, in turns
+        # F-6's fix (one batched product of 256-row blocks a mul)
+        # against one product a mul (the engine's executor with its blocks
+        # switched off): the same load, in turns
         blocks_ab = {"blocks": [], "one_product": []}
         for tag in ("blocks", "one_product", "one_product", "blocks"):
             eng = predict_engine(serving, d1, dev, backend="program",
                                  batch_timeout_ms=2)
             if tag == "one_product":
-                eng._model._exe.batch_block = None
+                eng._model._exe.block_rows = None
             _, _, ab_wall = serve_clients(eng, load_feeds, 8)
             eng.stop()
             blocks_ab[tag].append(PREDICT_REQUESTS / ab_wall)
@@ -1510,6 +1718,7 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
             "batched_vs_alone_bitwise": batch_bitwise,
             "first_moving_op": moving["first"],
             "first_moving_op_blocked": moving_blocked["first"],
+            "one_row_model": one_row_model,
             "swap_served": served,
             "requests": PREDICT_REQUESTS, "rows": rows, "wall_s": wall,
             "requests_per_s": PREDICT_REQUESTS / wall,
@@ -1716,21 +1925,22 @@ def resnet_step(torch, fluid, m, state, x, y, dev, tf32=False):
     blk = m["main"].global_block()
     grads = [p.name + "@GRAD" for p in blk.all_parameters() if p.trainable]
     stats = [p.name for p in blk.all_parameters() if not p.trainable]
-    dtype = np.float64 if blk.var("data").dtype == "float64" else np.float32
+    dtype = getattr(torch, str(blk.var("data").dtype))
     scope = fluid.Scope()
     fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
     torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         out = fluid.Executor(device=dev).run(
-            m["main"], feed={"data": x.astype(dtype), "label": y},
+            m["main"], feed={"data": torch.as_tensor(x).to(dtype),
+                             "label": y},
             fetch_list=[m["loss"], m["acc"]] + grads, scope=scope)
     finally:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return {"loss": float(out[0][0]), "acc": float(out[1][0]),
             "grads": dict(zip(grads, out[2:])),
-            "stats": {n: scope[n].cpu().numpy() for n in stats}}
+            "stats": {n: fluid.executor.as_numpy(scope[n]) for n in stats}}
 
 
 def resnet_errors(a, ref):
@@ -1809,6 +2019,147 @@ def resnet_check(torch, fluid, resnet, dev):
           "resnet limits pass a TF32 step", out["tf32_card_vs_cpu64"])
     log("resnet-50 card vs cpu (batch %d, %s): %s"
         % (RESNET_CHECK_BATCH, RESNET_CFG, json.dumps(out)))
+    return out
+
+
+def resnet_bf16_state(torch, fluid, resnet, seed):
+    """A bf16 ResNet-50's startup state (bf16 parameters and statistics,
+    float32 velocities) as CPU tensors, with its bf16 and float64
+    models."""
+    mbf, m64 = (resnet_model(fluid, resnet, d) for d in ("bfloat16",
+                                                          "float64"))
+    mbf["startup"].random_seed = seed
+    scope = fluid.Scope()
+    fluid.Executor(device=torch.device("cpu")).run(mbf["startup"],
+                                                   scope=scope)
+    state = {n: scope[n] for n in mbf["main"].persistable_names()
+             if n in scope}
+    return mbf, m64, state
+
+
+def bf16_within(e, ref):
+    """A bf16 step's errors ``e`` against the CPU float64 step, held to
+    RESNET_BF16_FACTOR times the CPU bf16 step's ``ref`` in the loss,
+    fc_0's gradients and the statistics (the loss also to
+    RESNET_BF16_LOSS_RTOL, the statistics to one bf16 rounding,
+    BF16_ROUNDING): the names of the measures that miss, empty when all
+    hold.  All gradients' L2 distance is not held (see
+    RESNET_BF16_FACTOR)."""
+    floors = {"loss_rel": RESNET_BF16_LOSS_RTOL,
+              "stat_worst_of_max": BF16_ROUNDING,
+              "fc_grad_worst_of_max": 0.0}
+    return [k for k, floor in floors.items()
+            if e[k] > max(RESNET_BF16_FACTOR * ref[k], floor)]
+
+
+@contextlib.contextmanager
+def reduced_precision_reduction(torch):
+    """A control run on PyTorch's own bf16 setting: the port's
+    ``f32_bf16_reduction`` made a no-op where the executor and
+    program_to_fn call it (a seam of this script, not an option of the
+    port) and cuBLAS's reduced-precision bf16 reduction on; all restored
+    after."""
+    from paddle_tpu_torch import executor, program_fn
+
+    matmul = torch.backends.cuda.matmul
+    saved = (executor.f32_bf16_reduction, program_fn.f32_bf16_reduction,
+             matmul.allow_bf16_reduced_precision_reduction)
+    executor.f32_bf16_reduction = program_fn.f32_bf16_reduction = (
+        lambda device: contextlib.nullcontext())
+    matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        yield
+    finally:
+        (executor.f32_bf16_reduction, program_fn.f32_bf16_reduction,
+         matmul.allow_bf16_reduced_precision_reduction) = saved
+
+
+def resnet_bf16_check(torch, fluid, resnet, dev):
+    """One bf16 training step at full width, batch RESNET_CHECK_BATCH,
+    from one bf16 state, on the card and on the port's CPU path, each
+    held against the CPU's float64 step from the same state widened
+    (bf16_within), with cuBLAS's bf16 reduction in float32 (the port's
+    setting); the card's step with PyTorch's reduced-precision reduction
+    is recorded beside it."""
+    mbf, m64, state = resnet_bf16_state(torch, fluid, resnet, SEED + 66)
+    x, y = resnet_images(np.random.RandomState(SEED + 67),
+                         RESNET_CHECK_BATCH)
+    x = torch.as_tensor(x).to(torch.bfloat16).float().numpy()  # bf16 images
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cpu64 = resnet_step(torch, fluid, m64, state, x, y, cpu)
+    cpubf = resnet_step(torch, fluid, mbf, state, x, y, cpu)
+    cpu_s = time.perf_counter() - t0
+    cardbf = resnet_step(torch, fluid, mbf, state, x, y, dev)
+    with reduced_precision_reduction(torch):
+        reduced = resnet_step(torch, fluid, mbf, state, x, y, dev)
+    out = {"cpu_bf16_vs_cpu64": resnet_errors(cpubf, cpu64),
+           "card_bf16_vs_cpu64": resnet_errors(cardbf, cpu64),
+           "card_bf16_reduced_reduction_vs_cpu64":
+           resnet_errors(reduced, cpu64),
+           "card_bf16_vs_cpu_bf16": resnet_errors(cardbf, cpubf),
+           "loss": {"cpu64": cpu64["loss"], "cpu_bf16": cpubf["loss"],
+                    "card_bf16": cardbf["loss"],
+                    "card_bf16_reduced_reduction": reduced["loss"]},
+           "factor": RESNET_BF16_FACTOR, "cpu_steps_s": cpu_s}
+    ref = out["cpu_bf16_vs_cpu64"]
+    out["card_ratio_to_cpu"] = {
+        k: out["card_bf16_vs_cpu64"][k] / max(ref[k], 1e-30)
+        for k in ("loss_rel", "fc_grad_worst_of_max", "grad_global_l2",
+                  "stat_worst_of_max")}
+    missed = bf16_within(out["card_bf16_vs_cpu64"], ref)
+    out["missed_with_reduced_reduction"] = bf16_within(
+        out["card_bf16_reduced_reduction_vs_cpu64"], ref)
+    log("resnet-50 bf16 card vs cpu (batch %d, against the cpu's float64 "
+        "step): %s" % (RESNET_CHECK_BATCH, json.dumps(out)))
+    check(np.isfinite(cardbf["loss"]) and not missed,
+          "resnet bf16 card vs cpu", missed, out["card_ratio_to_cpu"])
+    return out
+
+
+def resnet_bf16_phase(torch, fluid, fa, dev, f32):
+    """bench.py's bf16 ResNet-50 leg (models.resnet.get_model(dtype=
+    "bfloat16"), 224 x 224, 1000 classes): the card against the CPU
+    (resnet_bf16_check), RESNET_STEPS training steps at batch
+    RESNET_BATCH on bf16 images (resnet_train: images/s against the
+    bf16 bound, peak memory, device ms by op, idle share), then inference
+    at batch RESNET_INFER_BATCH with bf16 state and images, unfolded and
+    folded (resnet_infer, against the f32 Program).  ``f32`` is the
+    f32 phase's result, logged beside.  No kernel of this repo runs."""
+    from paddle_tpu_torch.models import resnet
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {"check": resnet_bf16_check(torch, fluid, resnet, dev)}
+    t1 = time.perf_counter()
+    out["train"], m, scope = resnet_train(torch, fluid, resnet, dev,
+                                          "bfloat16")
+    t2 = time.perf_counter()
+    out["infer"] = resnet_infer(torch, fluid, resnet, dev, m, scope,
+                                RESNET_INFER_BATCH,
+                                resnet_model(fluid, resnet)["test"])
+    t3 = time.perf_counter()
+    del m, scope
+    launches = dict(fa.KERNEL_LAUNCHES)
+    check(not any(launches.values()),
+          "a kernel launched in the resnet bf16 phase", launches)
+    tr = out["train"]
+    out["beside_f32"] = {
+        "images_per_s": [tr["images_per_s"], f32["train"]["images_per_s"]],
+        "share_of_bound": [tr["share_of_bound"],
+                           f32["train"]["share_of_bound"]],
+        "peak_memory_gib": [tr["peak_memory_gib"],
+                            f32["train"]["peak_memory_gib"]],
+        "step_ms": [tr["step_ms"], f32["train"]["step_ms"]],
+        "inference_images_per_s_unfolded": [
+            out["infer"]["images_per_s_unfolded"],
+            f32["infer"]["images_per_s_unfolded"]],
+        "inference_images_per_s_folded": [
+            out["infer"]["images_per_s_folded"],
+            f32["infer"]["images_per_s_folded"]]}
+    out["phase_s"] = {"check": t1 - t0, "train": t2 - t1, "infer": t3 - t2}
+    log("resnet-50 bf16 phase: bf16 beside f32 %s, seconds %s"
+        % (json.dumps(out["beside_f32"]), json.dumps(out["phase_s"])))
     return out
 
 
@@ -1918,24 +2269,28 @@ def profile_ops(torch, exe, m, feed, scope, fetch):
             "device_events": len(device)}
 
 
-def resnet_train(torch, fluid, resnet, dev):
+def resnet_train(torch, fluid, resnet, dev, dtype="float32"):
     """RESNET_STEPS steps at batch RESNET_BATCH through Executor.run on
     the card, on one seeded batch fed each step (bench.py feeds one
-    device-resident batch too): every loss finite, every parameter
-    finite and moved, the last loss under the first, the accuracy above
-    chance at some step; step ms (steps 2 on), images/s,
-    the share of the f32 bound, peak memory, a profiled step.  Returns
-    the stats, the model and its scope."""
-    m = resnet_model(fluid, resnet)
+    device-resident batch too), the model and the images in ``dtype``:
+    every loss finite, every parameter finite and moved (in bf16: moved,
+    or its last update under half its bf16 spacing), the last loss
+    under the first, the accuracy above chance at some step, every
+    persistable in its declared dtype (in bfloat16: the parameters and
+    running statistics bfloat16, the velocities float32, as the JAX
+    package's optimizer declares them); step ms (steps 2 on), images/s,
+    the share of the bound at ``dtype``'s peak, peak memory, a profiled
+    step.  Returns the stats, the model and its scope."""
+    m = resnet_model(fluid, resnet, dtype)
     m["startup"].random_seed = SEED + 62
     exe = fluid.Executor(device=dev)
     scope = fluid.Scope()
     exe.run(m["startup"], scope=scope)
-    params = [p.name for p in m["main"].global_block().all_parameters()
-              if p.trainable]
+    blk = m["main"].global_block()
+    params = [p.name for p in blk.all_parameters() if p.trainable]
     before = {p: scope[p].clone() for p in params}
     x, y = resnet_images(np.random.RandomState(SEED + 63), RESNET_BATCH)
-    feed = {"data": torch.as_tensor(x, device=dev),
+    feed = {"data": torch.as_tensor(x, device=dev).to(getattr(torch, dtype)),
             "label": torch.as_tensor(y, device=dev)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1949,28 +2304,67 @@ def resnet_train(torch, fluid, resnet, dev):
         accs.append(float(acc[0]))
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(np.isfinite(losses)), "resnet non-finite loss", losses)
+    unmoved = []
     for p in params:
         check(bool(torch.isfinite(scope[p]).all()), "resnet non-finite", p)
-        check(not torch.equal(scope[p], before[p]), "resnet param still", p)
+        if torch.equal(scope[p], before[p]):
+            unmoved.append(p)
+    if dtype == "float32":
+        check(not unmoved, "resnet param still", unmoved)
+    else:
+        # a bf16 parameter takes p - lr * v rounded to bf16: where every
+        # element's update stays under half its bf16 spacing it rounds
+        # back (batch_norm scales at 1.0 in deep layers), in the JAX
+        # package too.  Such a parameter must show it: its last update,
+        # lr times its float32 velocity, under half its spacing everywhere
+        mom = {op.inputs["Param"][0]: op for op in blk.ops
+               if op.type == "momentum"}
+        for p in unmoved:
+            op = mom[p]
+            lr = float(scope[op.inputs["LearningRate"][0]].float().max())
+            v = scope[op.inputs["Velocity"][0]].float().abs()
+            w = before[p].float().abs().clamp_min(2.0 ** -126)
+            spacing = torch.exp2(torch.floor(torch.log2(w)) - 7)
+            check(bool((lr * v < spacing / 2).all()),
+                  "resnet bf16 param still where its update shows", p)
+        check(len(unmoved) < len(params) / 2, "resnet bf16 params still",
+              unmoved)
     del before
     check(losses[-1] < losses[0], "resnet loss did not fall", losses)
     check(max(accs) > 1.0 / RESNET_CFG["class_dim"], "resnet accuracy",
           accs)
+    dtypes = {}
+    for v in m["main"].list_vars():
+        if v.persistable and v.name in scope and isinstance(
+                scope[v.name], torch.Tensor):
+            got = str(scope[v.name].dtype).replace("torch.", "")
+            check(got == str(v.dtype), "resnet state dtype", v.name, got,
+                  v.dtype)
+            kind = ("velocity" if "velocity" in v.name else "parameter"
+                    if v.name in params else "other")
+            dtypes.setdefault(kind, set()).add(got)
+    dtypes = {k: sorted(v) for k, v in dtypes.items()}
+    if dtype == "bfloat16":
+        check(dtypes["parameter"] == ["bfloat16"]
+              and dtypes["velocity"] == ["float32"], "resnet bf16 dtypes",
+              dtypes)
     steady = float(np.mean(step_s[1:]))
     images_s = RESNET_BATCH / steady
-    bound_images_s = PEAK_F32_FLOPS / RESNET_TRAIN_FLOPS
+    peak_flops = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    bound_images_s = peak_flops / RESNET_TRAIN_FLOPS
     profile = profile_ops(torch, exe, m, feed, scope, [m["loss"]])
-    stats = {"batch": RESNET_BATCH, "steps": RESNET_STEPS,
+    stats = {"dtype": dtype, "batch": RESNET_BATCH, "steps": RESNET_STEPS,
              "params": len(params),
              "param_values": int(sum(scope[p].numel() for p in params)),
+             "state_dtypes": dtypes, "params_unmoved": unmoved,
              "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
              "step_ms_all": [t * 1e3 for t in step_s],
              "images_per_s": images_s, "bound_images_per_s": bound_images_s,
-             "share_of_f32_bound": images_s / bound_images_s,
+             "share_of_bound": images_s / bound_images_s,
              "peak_memory_gib": peak / 2 ** 30, "losses": losses,
              "accuracies": accs, "profile": profile}
-    log("resnet-50 training (batch %d, 224 x 224, f32, TF32 off): %s"
-        % (RESNET_BATCH, json.dumps(stats)))
+    log("resnet-50 training (batch %d, 224 x 224, %s, TF32 off): %s"
+        % (RESNET_BATCH, dtype, json.dumps(stats)))
     return stats, m, scope
 
 
@@ -1993,21 +2387,28 @@ def images_per_s(exe, prog, feed, fetch, scope):
     return len(feed["data"]) / dt, out
 
 
-def resnet_infer(torch, fluid, resnet, dev, m, scope):
-    """Folded inference of the trained model's ``test`` Program at batch
-    RESNET_BATCH.  Each batch_norm's Scale and Bias (found through the
+def resnet_infer(torch, fluid, resnet, dev, m, scope, batch=RESNET_BATCH,
+                 f32_test=None):
+    """Folded inference of the trained model's ``test`` Program at
+    ``batch``, in the model's dtype (its images too).  Each
+    batch_norm's Scale and Bias (found through the
     op's inputs) are set to seeded values in [0.5, 1.5] and [-0.5, 0.5],
     and its Mean and Variance to this batch's statistics under them, so
     that the fold has a scale and a shift to carry in every layer.
     Then: the unfolded logits (the softmax's
     input), the InferenceTranspiler's folded Program's logits (within
-    RESNET_FOLD_RTOL), save_inference_model(aot=True) of the folded
-    Program, loaded and run (bits against the folded Program, or the
-    difference stated), images/s of each."""
+    RESNET_FOLD_RTOL of their max; in bf16, where ``f32_test`` is the
+    same test Program in float32: no farther from its logits on the same
+    state and images than RESNET_BF16_FACTOR times the unfolded bf16
+    logits are), save_inference_model(aot=True) of the
+    folded Program, loaded and run (within RESNET_FOLD_RTOL of the
+    folded Program's logits; bits or the difference stated), images/s of
+    each."""
     import shutil
     import tempfile
 
     test = m["test"]
+    dtype = getattr(torch, str(test.global_block().var("data").dtype))
     blk = test.global_block()
     bns = [op for op in blk.ops if op.type == "batch_norm"]
     (logits,) = [op.inputs["X"][0] for op in blk.ops if op.type == "softmax"]
@@ -2018,9 +2419,9 @@ def resnet_infer(torch, fluid, resnet, dev, m, scope):
             n = op.inputs[slot][0]
             scope[n] = torch.as_tensor(rng.uniform(
                 lo, hi, tuple(scope[n].shape)).astype(np.float32),
-                device=dev)
-    x, y = resnet_images(np.random.RandomState(SEED + 65), RESNET_BATCH)
-    feed = {"data": torch.as_tensor(x, device=dev),
+                device=dev).to(scope[n].dtype)
+    x, y = resnet_images(np.random.RandomState(SEED + 65), batch)
+    feed = {"data": torch.as_tensor(x, device=dev).to(dtype),
             "label": torch.as_tensor(y, device=dev)}
     exe = fluid.Executor(device=dev)
     # the batch statistics under these Scale and Bias: one training
@@ -2046,10 +2447,24 @@ def resnet_infer(torch, fluid, resnet, dev, m, scope):
     folded_ips, got = images_per_s(exe, folded, feed, [logits], fscope)
     scale = float(np.abs(unfolded).max())
     fold_diff = float(np.abs(got - unfolded).max())
-    check(np.isfinite(got).all() and got.shape == (RESNET_BATCH,
-                                                   RESNET_CFG["class_dim"])
-          and fold_diff <= RESNET_FOLD_RTOL * scale,
-          "resnet folded vs unfolded", fold_diff, scale)
+    check(np.isfinite(got).all() and got.shape == (batch,
+                                                   RESNET_CFG["class_dim"]),
+          "resnet folded logits", got.shape)
+    against_f32 = None
+    if f32_test is None:
+        check(fold_diff <= RESNET_FOLD_RTOL * scale,
+              "resnet folded vs unfolded", fold_diff, scale)
+    else:
+        ref = exe.run(f32_test, feed={"data": feed["data"].float(),
+                                      "label": feed["label"]},
+                      fetch_list=[logits],
+                      scope=copy_scope(fluid, scope, names))[0]
+        against_f32 = {"unfolded_max_abs": float(np.abs(unfolded - ref).max()),
+                       "folded_max_abs": float(np.abs(got - ref).max()),
+                       "f32_logits_max_abs": float(np.abs(ref).max())}
+        check(against_f32["folded_max_abs"] <= RESNET_BF16_FACTOR
+              * against_f32["unfolded_max_abs"],
+              "resnet bf16 folded vs f32", against_f32)
     tmp = tempfile.mkdtemp(prefix="resnet_")
     try:
         t0 = time.perf_counter()
@@ -2064,25 +2479,26 @@ def resnet_infer(torch, fluid, resnet, dev, m, scope):
         t0 = time.perf_counter()
         for _ in range(RESNET_INFER_RUNS):
             aot = predict({"data": feed["data"]})[0]
-        aot_ips = RESNET_BATCH / ((time.perf_counter() - t0)
-                                  / RESNET_INFER_RUNS)
+        aot_ips = batch / ((time.perf_counter() - t0) / RESNET_INFER_RUNS)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     aot_diff = float(np.abs(aot - got).max())
     check(aot_diff <= RESNET_FOLD_RTOL * scale, "resnet aot vs folded",
           aot_diff)
-    stats = {"batch": RESNET_BATCH, "batch_norms_folded": len(bns),
+    stats = {"batch": batch, "dtype": str(dtype).replace("torch.", ""),
+             "batch_norms_folded": len(bns),
              "logits_max_abs": scale,
              "folded_vs_unfolded_max_abs": fold_diff,
              "folded_vs_unfolded_of_max": fold_diff / scale,
+             "against_f32": against_f32,
              "aot_vs_folded_bitwise": aot.tobytes() == got.tobytes(),
              "aot_vs_folded_max_abs": aot_diff,
              "fold_s": fold_s, "save_aot_s": save_s,
              "images_per_s_unfolded": unfolded_ips,
              "images_per_s_folded": folded_ips,
              "images_per_s_aot_folded": aot_ips}
-    log("resnet-50 folded inference (batch %d): %s"
-        % (RESNET_BATCH, json.dumps(stats)))
+    log("resnet-50 folded inference (batch %d, %s): %s"
+        % (batch, stats["dtype"], json.dumps(stats)))
     return stats
 
 
@@ -2146,7 +2562,11 @@ def visible_pairs(lens, T, S, causal, H=FH):
 
 def flash_bounds(lens, T, S, causal, itemsize, H=FH, D=FD):
     """(forward, backward) bounds: the function's bytes moved once and
-    4*D (forward) or 10*D (backward) operations a visible pair."""
+    4*D (forward) or 10*D (backward) operations a visible pair, at the
+    peak rate of the inputs' type (float32: the CUDA cores; bfloat16:
+    the tensor cores' dense bf16 rate, which the kernels, doing float32
+    FMAs on widened bf16, cannot reach)."""
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
     B = len(lens)
     pairs = visible_pairs(lens, T, S, causal, H)
     q_el, kv_el = B * H * T * D, B * H * S * D
@@ -2154,8 +2574,8 @@ def flash_bounds(lens, T, S, causal, itemsize, H=FH, D=FD):
         + q_el * itemsize + B * H * T * 4
     bwd_bytes = (3 * q_el + 2 * kv_el) * itemsize + B * H * T * 4 + B * 4 \
         + (q_el + 2 * kv_el) * itemsize
-    return (bound_ms(fwd_bytes, 4 * D * pairs),
-            bound_ms(bwd_bytes, 10 * D * pairs))
+    return (bound_ms(fwd_bytes, 4 * D * pairs, peak),
+            bound_ms(bwd_bytes, 10 * D * pairs, peak))
 
 
 def pair_bounds(lens, T, S, causal, itemsize, H=FH, D=FD):
@@ -2241,12 +2661,14 @@ def flash_case(torch, fa, dev, gen, rng, dtype, causal, T, S, nan_check):
             "zero_rows": int((lens_np == 0).sum())}
 
 
-def flash_timing(torch, fa, dev, gen, rng, causal, flush):
-    """Both kernels' times at the slice's shape (float32, the training
-    feeds' lengths), beside the plain versions, the bound and SDPA."""
+def flash_timing(torch, fa, dev, gen, rng, causal, flush, dtype="float32"):
+    """Both kernels' times at the slice's shape (``dtype``, the training
+    feeds' lengths), beside the plain versions, the bound and SDPA (in
+    ``dtype``: in bfloat16 SDPA runs on the tensor cores)."""
     import torch.nn.functional as F
 
-    q, k, v, do = flash_inputs(torch, dev, gen, torch.float32, FT, FT)
+    q, k, v, do = flash_inputs(torch, dev, gen, getattr(torch, dtype), FT,
+                               FT)
     lens_np = flash_lens(rng, FT, with_zeros=False)
     lens = torch.as_tensor(lens_np, device=dev)
     scale = 1.0 / FD ** 0.5
@@ -2257,9 +2679,10 @@ def flash_timing(torch, fa, dev, gen, rng, causal, flush):
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
     with torch.enable_grad():
         s_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
-    fwd_b, bwd_b = flash_bounds(lens_np, FT, FT, causal, 4)
+    fwd_b, bwd_b = flash_bounds(lens_np, FT, FT, causal, q.element_size())
     row = {
-        "causal": causal, "kv_lens_mean": float(lens_np.mean()),
+        "causal": causal, "dtype": dtype,
+        "kv_lens_mean": float(lens_np.mean()),
         "fwd": {"ms": time_ms(lambda: fa._flash_fwd_cuda(
                     q, k, v, lens, causal, scale), 20, flush),
                 "plain_ms": time_ms(lambda: fa._flash_fwd_reference(
@@ -2293,15 +2716,15 @@ def flash_phase(torch, fa, dev, flush):
                c["S"], c["fwd_err"], c["bwd_err"], *FLASH_TOL[c["dtype"]],
                c["zero_rows"], ", NaN/Inf past kv_lens inert"
                if c["nan_checked"] else ""))
-    timing = [flash_timing(torch, fa, dev, gen, rng, causal, flush)
-              for causal in (False, True)]
+    timing = [flash_timing(torch, fa, dev, gen, rng, causal, flush, dtype)
+              for dtype in ("float32", "bfloat16") for causal in (False, True)]
     for t in timing:
         for kind in ("fwd", "bwd"):
             r = t[kind]
-            log("flash %s %-6s [%d,%d,%d,%d] f32 kv_lens mean %.1f: kernel "
+            log("flash %s %-6s [%d,%d,%d,%d] %s kv_lens mean %.1f: kernel "
                 "%.4f ms plain %.4f ms sdpa %.4f ms bound %.4f ms (%s)"
                 % (kind, "causal" if t["causal"] else "full", FB, FH, FT, FD,
-                   t["kv_lens_mean"], r["ms"], r["plain_ms"],
+                   t["dtype"], t["kv_lens_mean"], r["ms"], r["plain_ms"],
                    r["library_ms"], r["bound"][0], r["bound"][1]))
     return cases, timing
 
@@ -2653,13 +3076,19 @@ def profile_step(torch, exe, m, feed, scope):
     """Where one training step's device time goes, by kernel family, and
     the device's idle share of the step's wall time; "not measured" when
     the profiler records no device activity."""
+    return profile_call(torch, lambda: exe.run(
+        m["main"], feed=feed, fetch_list=[m["loss"]], scope=scope))
+
+
+def profile_call(torch, step):
+    """profile_step's split for one call of ``step``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(m["main"], feed=feed, fetch_list=[m["loss"]], scope=scope)
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -2673,18 +3102,26 @@ def profile_step(torch, exe, m, feed, scope):
              "flash_bwd_dkv_kernel": "flash_bwd_dkv",
              "flash_bwd_dq_kernel": "flash_bwd_dq"}
     families = dict.fromkeys(list(flash.values()) + ["gemm", "other"], 0.0)
+    other = {}
     for e in kernels:
         name = e.name.lower()
         fam = next((f for k, f in flash.items() if k in name), None)
         if fam is None:
+            # cuBLAS's Hopper bf16 kernels are named nvjet_*
             fam = ("gemm" if any(k in name for k in (
-                "gemm", "xmma", "cutlass", "gemv", "sm90_", "sm80_"))
-                else "other")
+                "gemm", "xmma", "cutlass", "gemv", "sm90_", "sm80_",
+                "nvjet")) else "other")
         families[fam] += e.time_range.elapsed_us()
+        if fam == "other":
+            other[e.name[:60]] = (other.get(e.name[:60], 0.0)
+                                  + e.time_range.elapsed_us())
     busy = sum(families.values())
     return {"step_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
             "device_ms_by_family": {k: v / 1e3 for k, v in families.items()},
+            "other_ms_by_kernel": dict(sorted(
+                ((k, v / 1e3) for k, v in other.items()),
+                key=lambda kv: -kv[1])[:6]),
             "device_events": len(kernels)}
 
 
@@ -2751,6 +3188,328 @@ def train_phase(torch, fluid, T, fa, dev, cfg, steps, engine, label):
     return stats
 
 
+def bf16_state(torch, program_fn, m, dev, seed):
+    """bench.py:383-389's bf16 state: the startup run on ``dev``, then
+    every float32 entry cast to bfloat16 (parameters, Adam's moments, the
+    learning rate, the step counter and the beta powers alike)."""
+    state = program_fn.init_state(m["startup"], seed=seed, device=dev)
+    return {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 else v)
+            for k, v in state.items()}
+
+
+def bf16_step_errors(grads, gates, a, b):
+    """One bf16 training step ``a`` (the loss, then each of ``grads``,
+    then each ReLU gate's pre-activation of ``gates``, as float64 numpy)
+    against ``b``: the loss in bf16 ulps of ``b``'s; all gradients
+    together, L2 distance over L2 norm; each gradient's L2 distance
+    relative to its norm, where a unit whose ReLU gate is open on one side
+    only is left out of its own fc's weight column and bias element (in
+    bf16 many pre-activations lie within a rounding of 0: such a flip
+    moves the unit's column by a token's whole contribution; counted)."""
+    n = len(grads)
+    loss, ref = float(a[0].ravel()[0]), float(b[0].ravel()[0])
+    ulp = 2.0 ** (np.floor(np.log2(abs(ref))) - 7)
+    flipped, flips = {}, 0
+    for i, (_, w, bias) in enumerate(gates):
+        diff = (a[1 + n + i] > 0) != (b[1 + n + i] > 0)
+        flips += int(diff.sum())
+        units = np.nonzero(diff.reshape(-1, diff.shape[-1]).any(0))[0]
+        if len(units):
+            flipped[w + "@GRAD"] = flipped[bias + "@GRAD"] = units
+    num = den = 0.0
+    per = {}
+    for name, g, r in zip(grads, a[1:1 + n], b[1:1 + n]):
+        num += float(np.sum((g - r) ** 2))
+        den += float(np.sum(r ** 2))
+        d, rr = g - r, r
+        if name in flipped:
+            keep = np.ones(r.shape[-1], bool)
+            keep[flipped[name]] = False
+            d, rr = d[..., keep], r[..., keep]
+        per[name] = float(np.linalg.norm(d)) / max(float(np.linalg.norm(rr)),
+                                                   1e-30)
+    worst = max(per, key=per.get)
+    return {"loss": loss, "loss_ulps": abs(loss - ref) / ulp,
+            "grad_global_l2": (num / max(den, 1e-300)) ** 0.5,
+            "grad_l2_worst": per[worst], "grad_l2_worst_name": worst,
+            "grad_l2_median": float(np.median(list(per.values()))),
+            "relu_gate_flips": flips,
+            "units_left_out": int(sum(len(v) for v in flipped.values()) // 2),
+            "grad_l2": per}
+
+
+def bf16_noise_ratios(errs, noise):
+    """Each gradient's distance in ``errs`` over its bf16 noise in
+    ``noise`` (bf16_step_errors of the same bf16 step against the float32
+    step from the same state), the noise floored at BF16_NOISE_FLOOR;
+    gradients whose noise exceeds BF16_NOISE_CEIL are left out."""
+    return {n: d / max(noise["grad_l2"][n], BF16_NOISE_FLOOR)
+            for n, d in errs["grad_l2"].items()
+            if noise["grad_l2"][n] <= BF16_NOISE_CEIL}
+
+
+def transformer_bf16_check(torch, fluid, T, fa, dev):
+    """One training step of Transformer-base at full width, batch
+    CHECK_CFG (2 x 64, dropout 0), from bench.py's bf16 state through
+    program_to_fn on the card (B1 and B2 on bf16 tensors) and on the
+    port's plain CPU path (bf16_step_errors): the loss within
+    BF16_LOSS_ULPS bf16 ulps of the CPU's, all gradients (bf16, as their
+    parameters) within BF16_GRAD_GLOBAL_L2 in L2, their median within
+    BF16_GRAD_MEDIAN_L2, and each within BF16_GRAD_FACTOR times its own
+    bf16 noise (the CPU's bf16 step against its float32 step from the
+    same state, bf16_noise_ratios); the same step with PyTorch's
+    reduced-precision bf16 reduction recorded beside it."""
+    from paddle_tpu_torch import program_fn
+
+    with fluid.unique_name.guard():
+        m = T.get_model(**CHECK_CFG)
+    cpu = torch.device("cpu")
+    state = bf16_state(torch, program_fn, m, cpu, SEED + 70)
+    feed = make_feeds(np.random.RandomState(SEED + 71),
+                      CHECK_CFG["batch_size"], CHECK_CFG["seq_len"],
+                      CHECK_CFG["trg_vocab_size"])
+    grads = [p.name + "@GRAD"
+             for p in m["main"].global_block().all_parameters() if p.trainable]
+    gates = relu_gates(m["main"])
+    fetch = [m["loss"]] + grads + [pre for pre, _, _ in gates]
+
+    def step(device):
+        fn = program_fn.program_to_fn(m["main"], fetch, device=device)
+        return [t.cpu() for t in fn(state, feed)]
+
+    fa.reset_launch_counts()
+    card = step(dev)
+    launches = {k: dict(v) for k, v in fa.KERNEL_LAUNCHES_BY_DTYPE.items()}
+    with reduced_precision_reduction(torch):
+        reduced = step(dev)
+    t0 = time.perf_counter()
+    ref = step(cpu)
+    cpu_s = time.perf_counter() - t0
+    # the CPU's float32 step from the same state widened: each gradient's
+    # own bf16 noise
+    bf16 = state
+    state = {k: (v.float() if v.dtype == torch.bfloat16 else v)
+             for k, v in bf16.items()}
+    wide = step(cpu)
+    state = bf16
+
+    def errors(a, b=ref):
+        out = bf16_step_errors(grads, gates, [t.double().numpy() for t in a],
+                               [t.double().numpy() for t in b])
+        out["dtypes"] = sorted({str(t.dtype) for t in a[:1 + len(grads)]})
+        return out
+
+    noise = errors(ref, wide)
+
+    def against_noise(e):
+        ratios = bf16_noise_ratios(e, noise)
+        worst = max(ratios, key=ratios.get)
+        return {"worst": ratios[worst], "worst_name": worst,
+                "worst_noise": noise["grad_l2"][worst],
+                "median": float(np.median(list(ratios.values()))),
+                "held": len(ratios),
+                "left_out": sorted(set(e["grad_l2"]) - set(ratios))}
+
+    out = {"loss_cpu": float(ref[0].double()), "card": errors(card),
+           "card_reduced_reduction": errors(reduced),
+           "cpu_bf16_vs_cpu_f32": noise,
+           "launches_by_dtype": launches, "cpu_step_s": cpu_s,
+           "limits": {"loss_ulps": BF16_LOSS_ULPS,
+                      "grad_global_l2": BF16_GRAD_GLOBAL_L2,
+                      "grad_median_l2": BF16_GRAD_MEDIAN_L2,
+                      "grad_of_noise": BF16_GRAD_FACTOR,
+                      "noise_floor": BF16_NOISE_FLOOR,
+                      "noise_ceil": BF16_NOISE_CEIL}}
+    out["card"]["of_noise"] = against_noise(out["card"])
+    out["card_reduced_reduction"]["of_noise"] = against_noise(
+        out["card_reduced_reduction"])
+    for k in ("card", "card_reduced_reduction", "cpu_bf16_vs_cpu_f32"):
+        out[k].pop("grad_l2")   # per-gradient figures: too long to log
+    log("transformer bf16 card vs cpu (batch %d x %d, dropout 0, bench.py's "
+        "bf16 state): %s" % (CHECK_CFG["batch_size"], CHECK_CFG["seq_len"],
+                             json.dumps(out)))
+    e = out["card"]
+    check(all(np.isfinite(float(t.double().abs().max()))
+              for t in card[:1 + len(grads)]),
+          "transformer bf16: non-finite loss or gradient")
+    check(e["dtypes"] == ["torch.bfloat16"],
+          "transformer bf16: loss or gradients not bf16", e["dtypes"])
+    check(e["loss_ulps"] <= BF16_LOSS_ULPS
+          and e["grad_global_l2"] <= BF16_GRAD_GLOBAL_L2
+          and e["grad_l2_median"] <= BF16_GRAD_MEDIAN_L2
+          and e["of_noise"]["worst"] <= BF16_GRAD_FACTOR,
+          "transformer bf16 card vs cpu", e)
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(launches[name] == {"float32": 0, "bfloat16": 18},
+              "transformer bf16 check launches", name, launches[name])
+    return out
+
+
+def transformer_bf16_phase(torch, fluid, T, fa, dev, f32):
+    """bench.py's Transformer-base leg as bench.py runs it on bf16
+    (bench.py:363-389): get_model(**TRAIN_CFG) (64 x 256, dropout 0.1,
+    Adam with noam decay, use_flash=True), the startup's state cast to
+    bf16, TRAIN_STEPS steps through program_to_fn on seeded device-
+    resident feeds: every loss finite, every parameter finite and still
+    bf16 and moved where a warmup update can show in bf16, the
+    accumulators float32, B1 and B2 launched 18 times
+    a step on bf16 tensors (none on float32); step ms, target tokens/s,
+    peak memory, a profiled step's device ms by family and idle share,
+    beside the f32 leg ``f32`` of this run."""
+    from paddle_tpu_torch import program_fn
+
+    out = {"check": transformer_bf16_check(torch, fluid, T, fa, dev)}
+    torch.cuda.empty_cache()
+    with fluid.unique_name.guard():
+        m = T.get_model(**TRAIN_CFG)
+    state = bf16_state(torch, program_fn, m, dev, SEED + 72)
+    trainable = [p.name for p in m["main"].global_block().all_parameters()
+                 if p.trainable]
+    before = {p: state[p].clone() for p in trainable}
+    rng = np.random.RandomState(SEED + 73)
+    feeds = [{k: torch.as_tensor(v, device=dev) for k, v in make_feeds(
+        rng, TRAIN_CFG["batch_size"], TRAIN_CFG["seq_len"],
+        TRAIN_CFG["trg_vocab_size"]).items()} for _ in range(TRAIN_STEPS + 1)]
+    fn = program_fn.program_to_fn(m["main"], [m["loss"]], return_state=True,
+                                  device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launch_counts()
+    losses, step_s = [], []
+    for i, feed in enumerate(feeds[:TRAIN_STEPS]):
+        t0 = time.perf_counter()
+        (loss,), state = fn(state, feed, seed=SEED + i)
+        losses.append(float(loss.float()))   # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: dict(v) for k, v in fa.KERNEL_LAUNCHES_BY_DTYPE.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)), "transformer bf16 loss", losses)
+    # noam's warmup keeps the first steps' Adam updates near
+    # learning_rate * d_model**-0.5 * step * warmup**-1.5 * sqrt(1 - b2) /
+    # (1 - b1) (1.7e-7 at step 1); bf16 rounds a value v to a spacing of
+    # at most v * 2**-7, so an update shows only on values below about
+    # 2**8 times it.  A parameter holding such a value must move (in the
+    # JAX package too the layer norms' scales, all 1.0, stay put)
+    update = 2.0 * TRAIN_CFG.get("d_model", 512) ** -0.5 * 8000 ** -1.5 \
+        * 0.02 ** 0.5 / 0.1
+    unmoved = []
+    for p in trainable:
+        check(state[p].dtype == torch.bfloat16
+              and bool(torch.isfinite(state[p]).all()),
+              "transformer bf16 parameter", p)
+        if torch.equal(state[p], before[p]):
+            check(float(before[p].float().abs().min()) >= update * 2 ** 7,
+                  "transformer bf16 parameter did not move", p)
+            unmoved.append(p)
+    check(len(unmoved) < len(trainable) / 2, "transformer bf16 moved",
+          unmoved)
+    del before
+    dtypes = sorted({str(v.dtype).replace("torch.", "")
+                     for k, v in state.items() if k not in trainable})
+    check("float32" in dtypes and all(
+        state[k].dtype == torch.float32 for k in state if "moment" in k),
+        "transformer bf16 accumulators", dtypes)
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(launches[name] == {"float32": 0,
+                                 "bfloat16": 18 * TRAIN_STEPS},
+              "transformer bf16 launches", name, launches[name])
+    profile = profile_call(torch, lambda: fn(state, feeds[TRAIN_STEPS]))
+    steady = float(np.mean(step_s[1:]))
+    tokens = TRAIN_CFG["batch_size"] * TRAIN_CFG["seq_len"]
+    out["train"] = {
+        "steps": TRAIN_STEPS, "first_step_ms": step_s[0] * 1e3,
+        "step_ms": steady * 1e3, "step_ms_all": [t * 1e3 for t in step_s],
+        "target_tokens_per_s": tokens / steady,
+        "peak_memory_gib": peak / 2 ** 30, "losses": losses,
+        "params_unmoved": unmoved, "params": len(trainable),
+        "other_state_dtypes": dtypes, "launches_by_dtype": launches,
+        "profile": profile,
+        "f32_leg": {"step_ms": f32["step_ms"],
+                    "target_tokens_per_s": f32["target_tokens_per_s"],
+                    "peak_memory_gib": f32["peak_memory_gib"],
+                    "profile": f32["profile"]}}
+    log("training 64 x 256 bf16 (bench.py's bf16 state, program_to_fn): %s"
+        % json.dumps(out["train"]))
+    out["launches"] = {k: v["bfloat16"] for k, v in launches.items()}
+    return out
+
+
+def decorated_transformer(fluid, T, cfg):
+    """get_model(**cfg)'s ``main`` and ``startup`` with the Adam optimizer
+    wrapped in contrib.mixed_precision's ``decorate`` (get_model's body,
+    which takes no such option in either package)."""
+    from paddle_tpu_torch.contrib import mixed_precision
+
+    c = dict(dict(n_layer=T.N_LAYER, n_head=T.N_HEAD, d_model=T.D_MODEL,
+                  d_inner=T.D_INNER, dropout=T.DROPOUT), **cfg)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        words = [fluid.layers.data(name=n, shape=[c["seq_len"]],
+                                   dtype="int64")
+                 for n in ("src_word", "trg_word", "lbl_word")]
+        loss, _, _, _ = T.transformer(
+            *words, c["src_vocab_size"], c["trg_vocab_size"],
+            c["max_length"], c["n_layer"], c["n_head"], c["d_model"],
+            c["d_inner"], c["dropout"], use_flash=c["use_flash"])
+        main.clone(for_test=True)
+        lr = fluid.layers.scale(x=fluid.layers.noam_decay(c["d_model"], 8000),
+                                scale=2.0)
+        mixed_precision.decorate(fluid.optimizer.AdamOptimizer(
+            learning_rate=lr, beta1=0.9, beta2=0.98,
+            epsilon=1e-9)).minimize(loss)
+    return {"main": main, "startup": startup, "loss": loss}
+
+
+def transformer_decorate_phase(torch, fluid, T, fa, dev, f32):
+    """Transformer-base at TRAIN_CFG through contrib.mixed_precision's
+    ``decorate`` (decorated_transformer): bf16 ``mul`` and ``matmul``
+    on float32 master weights, the flash kernels in float32, Executor.run
+    from the f32 leg's startup seed on its first feeds, DECORATE_STEPS
+    steps: every loss finite and within DECORATE_LOSS_RTOL of the f32
+    leg's loss at the same step (``f32``: the same parameters and feeds;
+    the dropout draws differ); B1 and B2 18 launches a step in float32;
+    step ms, target tokens/s and a profiled step's device ms by op."""
+    with fluid.unique_name.guard():
+        m = decorated_transformer(fluid, T, TRAIN_CFG)
+    m["startup"].random_seed = SEED + 7     # train_phase's
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(m["startup"], scope=scope)
+    rng = np.random.RandomState(SEED + 8)   # train_phase's feeds
+    feeds = [make_feeds(rng, TRAIN_CFG["batch_size"], TRAIN_CFG["seq_len"],
+                        TRAIN_CFG["trg_vocab_size"])
+             for _ in range(DECORATE_STEPS)]
+    fa.reset_launch_counts()
+    losses, step_s = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
+                          scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {k: dict(v) for k, v in fa.KERNEL_LAUNCHES_BY_DTYPE.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, f32["losses"])]
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(launches[name] == {"float32": 18 * DECORATE_STEPS,
+                                 "bfloat16": 0},
+              "decorate launches", name, launches[name])
+    check(all(np.isfinite(losses)) and max(rel) <= DECORATE_LOSS_RTOL,
+          "decorate losses", losses, f32["losses"][:DECORATE_STEPS])
+    casts = sum(op.type == "cast" for op in m["main"].global_block().ops)
+    profile = profile_ops(torch, exe, m, feeds[-1], scope, [m["loss"]])
+    steady = float(np.mean(step_s[1:]))
+    tokens = TRAIN_CFG["batch_size"] * TRAIN_CFG["seq_len"]
+    out = {"steps": DECORATE_STEPS, "casts": casts, "losses": losses,
+           "f32_losses": f32["losses"][:DECORATE_STEPS],
+           "loss_rel_to_f32": rel, "limit": DECORATE_LOSS_RTOL,
+           "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
+           "target_tokens_per_s": tokens / steady,
+           "launches_by_dtype": launches, "profile": profile}
+    log("training 64 x 256 through decorate (bf16 mul/matmul, f32 master "
+        "weights, flash f32): %s" % json.dumps(out))
+    return out
+
+
 def main():
     import torch
 
@@ -2806,7 +3565,7 @@ def main():
     lenet_phase(torch, fluid, dev)
     op_rule_checks(fluid, dev)
     torch.cuda.empty_cache()
-    resnet_phase(torch, fluid, fa, dev)
+    rsn = resnet_phase(torch, fluid, fa, dev)
     torch.cuda.empty_cache()
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
@@ -2818,6 +3577,12 @@ def main():
     torch.cuda.empty_cache()
     lng = train_phase(torch, fluid, T, fa, dev, LONG_CFG, LONG_STEPS,
                       "auto", "4 x 4096")
+    torch.cuda.empty_cache()
+    resnet_bf16_phase(torch, fluid, fa, dev, rsn)
+    torch.cuda.empty_cache()
+    tbf = transformer_bf16_phase(torch, fluid, T, fa, dev, trn)
+    torch.cuda.empty_cache()
+    transformer_decorate_phase(torch, fluid, T, fa, dev, trn)
 
     # each backward engine's main path: the first training leg that auto
     # runs it on, else the full-width card-vs-CPU step that runs it by name
@@ -2828,7 +3593,10 @@ def main():
                if r["label"] == "table" and r["dtype"] == "float32")
     p32 = next(r for r in pre if r["dtype"] == "float32"
                and (r["start"], r["C"]) == PREFILL_TIMED[0])
-    full = next(t for t in flash_times if not t["causal"])
+    full = next(t for t in flash_times
+                if not t["causal"] and t["dtype"] == "float32")
+    full_bf16 = next(t for t in flash_times
+                     if not t["causal"] and t["dtype"] == "bfloat16")
     # the long leg's shape, not causal.  No single PyTorch call computes
     # dk/dv alone or dq alone, so their library_ms is null; the pair as a
     # whole stands beside SDPA's autograd backward (dq, dk and dv)
@@ -2929,6 +3697,16 @@ def main():
             "bound_by": row["bound"][1], "library_ms": row["library_ms"]})
         if name in pair_rows:
             kernels[-1].update(pair_vs_library)
+        if name in ("flash_attention_fwd", "flash_attention_bwd"):
+            # bf16 at [64, 8, 256, 64], not causal, and the bf16 leg's
+            # launches (its main path)
+            r = full_bf16["fwd" if name == "flash_attention_fwd" else "bwd"]
+            kernels[-1].update({
+                "bf16_shape": [FB, FH, FT, FD], "bf16_ms": r["ms"],
+                "bf16_plain_ms": r["plain_ms"], "bf16_bound_ms": r["bound"][0],
+                "bf16_bound_by": r["bound"][1],
+                "bf16_library_ms": r["library_ms"],
+                "bf16_launches": tbf["launches"][name]})
         if name == "flash_attention_fwd":
             kernels[-1].update(fwd_long)
             kernels[-1].update(legacy_b1)

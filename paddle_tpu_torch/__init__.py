@@ -58,7 +58,7 @@ from . import data_feeder
 from . import program_fn
 from . import resilience
 from . import io
-from . import models, observability, parallel, serving, transpiler
+from . import contrib, models, observability, parallel, serving, transpiler
 from .core import CPUPlace, CUDAPlace, resolve_device
 from .data_feeder import DataFeeder
 from .executor import (Executor, Scope, global_scope, load_numpy_state,

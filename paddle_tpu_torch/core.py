@@ -13,11 +13,49 @@ are canonical strings, mapped here to numpy and torch dtypes.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
 __all__ = ["resolve_device", "Place", "CPUPlace", "CUDAPlace",
-           "canonical_dtype", "np_dtype", "torch_dtype", "is_float_dtype"]
+           "canonical_dtype", "np_dtype", "torch_dtype", "is_float_dtype",
+           "f32_bf16_reduction"]
+
+_reduction_lock = threading.Lock()
+_reduction_runs = 0
+_reduction_saved = None
+
+
+@contextlib.contextmanager
+def f32_bf16_reduction(device):
+    """Within the block, cuBLAS reduces bfloat16 products on ``device`` (a
+    card) in float32, as the JAX package's reference does: PyTorch lets
+    cuBLAS reduce them in reduced precision by default
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``).
+    The global switch is turned off at the first of the runs that overlap
+    (the serving workers run from their own threads) and restored to the
+    caller's value when the last of them ends, so no setting is left
+    changed behind the caller's back."""
+    global _reduction_runs, _reduction_saved
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    matmul = torch.backends.cuda.matmul
+    with _reduction_lock:
+        if _reduction_runs == 0:
+            _reduction_saved = matmul.allow_bf16_reduced_precision_reduction
+            matmul.allow_bf16_reduced_precision_reduction = False
+        _reduction_runs += 1
+    try:
+        yield
+    finally:
+        with _reduction_lock:
+            _reduction_runs -= 1
+            if _reduction_runs == 0:
+                matmul.allow_bf16_reduced_precision_reduction = \
+                    _reduction_saved
 
 
 def resolve_device(device=None):

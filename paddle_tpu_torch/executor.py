@@ -46,14 +46,14 @@ import contextlib
 import numpy as np
 import torch
 
-from .core import resolve_device, torch_dtype
+from .core import f32_bf16_reduction, resolve_device, torch_dtype
 from .framework import Program, Variable, default_main_program, grad_var_name
 from .lod import LoDArray
 from .registry import get_rule
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
            "load_numpy_state", "LoweringContext", "interpret_ops",
-           "lower_block"]
+           "lower_block", "SERVING_BLOCK_ROWS"]
 
 
 # ---------------------------------------------------------------------------
@@ -188,13 +188,19 @@ def as_numpy(tensor):
 
 def _as_tensor(value, dtype, device):
     """``value`` (numpy, a scalar or a tensor) as a tensor of ``dtype``
-    (None: its own) on ``device``."""
+    (None: its own; an ml_dtypes bfloat16 array stays bfloat16) on
+    ``device``."""
     if isinstance(value, torch.Tensor):
         return value.to(device=device, dtype=dtype)
     arr = np.asarray(value)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes arrays: torch cannot wrap them
-        arr = arr.astype(np.float32)
-    elif not arr.flags.writeable:  # torch wraps only writable arrays
+    if arr.dtype.name == "bfloat16":
+        # torch cannot wrap ml_dtypes arrays; their bits are torch's
+        # bfloat16 bits, so reinterpret them rather than widen
+        t = torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.uint16).copy()).view(
+                torch.bfloat16)
+        return t.to(device=device, dtype=dtype)
+    if not arr.flags.writeable:  # torch wraps only writable arrays
         arr = arr.copy()
     return torch.as_tensor(arr).to(device=device, dtype=dtype)
 
@@ -231,6 +237,17 @@ def load_numpy_state(program, arrays, scope=None, device=None):
 # ---------------------------------------------------------------------------
 
 
+#: Rows a block of the serving backends' blocked products (the ``mul``
+#: rule, ``ops.math_ops.blocked_matmul``): each product's rows are padded
+#: with zero rows to whole blocks of this many, at least two, and run as
+#: one batched product, so that a request's rows meet the same product
+#: shape at every bucket.  256 is one sample of Transformer-base scoring
+#: (no padding there); samples of one row (an MLP or a classifier head)
+#: fill two padded blocks up to a bucket of 512.  Blocks are counted in
+#: rows, not samples, so any batch size has its blocks.
+SERVING_BLOCK_ROWS = 256
+
+
 def _mix64(*words):
     """splitmix64 over ``words``: one well-mixed 63-bit seed (the low 32
     bits are mixed as well as the high ones — a CPU generator keeps only
@@ -250,13 +267,14 @@ class LoweringContext:
     the op-slot helpers the rules use."""
 
     def __init__(self, program, env, device, seed=0, step=0, is_test=False,
-                 reads=None, feed_batch=None, batch_block=None):
+                 reads=None, block_rows=None):
         self.program = program
         self.env = env
         self.device = device
         self.is_test = is_test
-        self.feed_batch = feed_batch    # the feeds' leading dim, if shared
-        self.batch_block = batch_block  # see row_blocks
+        # rows a block of the ``mul`` rule's blocked product (None: one
+        # product); the serving backends set SERVING_BLOCK_ROWS
+        self.block_rows = block_rows
         self.mesh = None  # the port's Executor takes no mesh yet
         self._seed = int(seed)
         self._step = int(step)
@@ -281,18 +299,6 @@ class LoweringContext:
             pos = self._op_pos[id(op.block)] = {
                 id(o): i for i, o in enumerate(op.block.ops)}
         return pos[id(op)]
-
-    def row_blocks(self, rows):
-        """How many equal blocks a product over ``rows`` rows runs in: with
-        ``batch_block`` set (the serving Program backend sets the smallest
-        bucket) and ``rows`` a multiple of the feed batch, one block per
-        ``batch_block`` samples, so that every bucket multiplies blocks of
-        one shape and cuBLAS picks one kernel for all of them (a row's
-        bits then do not depend on the bucket); else 1."""
-        b, blk = self.feed_batch, self.batch_block
-        if not blk or not b or b <= blk or b % blk or rows % b:
-            return 1
-        return b // blk
 
     # env access -------------------------------------------------------------
     def get(self, name: str):
@@ -439,12 +445,13 @@ class Executor:
 
     ``place`` (a ``CUDAPlace``/``CPUPlace``) or ``device`` (a string or
     ``torch.device``) names where the program runs; with neither, it runs
-    on the card, and raises when there is none.  ``batch_block`` (None:
-    off) makes each ``mul`` run in blocks of that many samples of the
-    feed batch (:meth:`LoweringContext.row_blocks`); the serving Program
-    backend sets it, training never does."""
+    on the card, and raises when there is none.  ``block_rows`` (None:
+    off) makes each ``mul`` run in blocks of that many rows, padded, as
+    one batched product (``LoweringContext.block_rows``); the serving
+    Program backend sets it (``SERVING_BLOCK_ROWS``), training never
+    does."""
 
-    batch_block = None
+    block_rows = None
 
     def __init__(self, place=None, device=None):
         if place is not None and device is not None:
@@ -486,13 +493,11 @@ class Executor:
                  for ns in op.inputs.values() for n in ns}
         reads.update(fetch_names)
         reads.update(persistable)
-        batches = {int(v.shape[0]) for v in feeds.values()
-                    if isinstance(v, torch.Tensor) and v.dim() > 0}
         ctx = LoweringContext(
             program, env, self.device, seed, step, reads=reads,
-            feed_batch=batches.pop() if len(batches) == 1 else None,
-            batch_block=self.batch_block)
-        lower_block(ctx, program.global_block())
+            block_rows=self.block_rows)
+        with f32_bf16_reduction(self.device):
+            lower_block(ctx, program.global_block())
         fetches = []
         for f in fetch_names:
             if f not in ctx.env:

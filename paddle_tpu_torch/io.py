@@ -40,9 +40,10 @@ import torch
 
 from . import observability as _obs
 from . import resilience
-from .core import canonical_dtype, resolve_device, torch_dtype
-from .executor import (LoweringContext, _as_tensor, as_numpy, global_scope,
-                       interpret_ops)
+from .core import (canonical_dtype, f32_bf16_reduction, resolve_device,
+                   torch_dtype)
+from .executor import (SERVING_BLOCK_ROWS, LoweringContext, _as_tensor,
+                       as_numpy, global_scope, interpret_ops)
 from .framework import Parameter, Program, Variable, default_main_program
 # registers torch.ops.paddle_tpu_torch.flash_fwd, which exported graphs call
 from .parallel import flash_attention  # noqa: F401
@@ -244,7 +245,12 @@ class _InferenceModule(torch.nn.Module):
     ``torch.no_grad()``, so the forward calls ``interpret_ops`` itself
     rather than ``lower_block``: a grad-mode switch inside the traced
     function would cost the exporter a pass that splits the graph at it
-    (about 40% of the trace on the CPU)."""
+    (about 40% of the trace on the CPU).  Each ``mul`` runs as the
+    serving Program backend runs it, through the operator
+    ``paddle_tpu_torch::blocked_mm`` (blocks of ``SERVING_BLOCK_ROWS``
+    rows in one batched product), which the export keeps as one node
+    over the symbolic batch, so both backends give a request the same
+    bits at every bucket."""
 
     def __init__(self, program, feed_names, fetch_names, state, device):
         super().__init__()
@@ -260,7 +266,8 @@ class _InferenceModule(torch.nn.Module):
         env = {n: getattr(self, "s%d" % i)
                for i, n in enumerate(self._state_names)}
         env.update(zip(self._feed_names, feeds))
-        ctx = LoweringContext(self._program, env, self._device, is_test=True)
+        ctx = LoweringContext(self._program, env, self._device,
+                              is_test=True, block_rows=SERVING_BLOCK_ROWS)
         interpret_ops(ctx, self._program.global_block().ops)
         return tuple(ctx.env[n] for n in self._fetch_names)
 
@@ -344,7 +351,7 @@ def load_aot_inference_model(dirname, device=None):
     def predict(feed):
         args = [_as_tensor(feed[n], dt, dev)
                 for n, dt in zip(feed_names, dtypes)]
-        with torch.no_grad():
+        with torch.no_grad(), f32_bf16_reduction(dev):
             return [as_numpy(o) for o in call(*args)]
 
     return predict, feed_names, meta["fetch_names"]

@@ -56,8 +56,8 @@ def _mul(ctx, op):
     (reference operators/mul_op.cc), plus an optional ``Bias`` per output
     column.  Layers never give mul a ``Bias``; the inference
     transpiler's mul+BN fold does (the JAX package's rule never reads
-    one).  The rows run in ``ctx.row_blocks`` equal blocks (one product
-    unless the serving backend asks for blocks)."""
+    one).  Where ``ctx.block_rows`` is set (the serving backends), the
+    product runs as :func:`blocked_matmul`; else as one product."""
     x = ctx.get_input(op, "X")
     y = ctx.get_input(op, "Y")
     x, y = mixed_dtypes(x, y)
@@ -66,13 +66,45 @@ def _mul(ctx, op):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape((-1, _prod(xs[xn:])))
     y2 = y.reshape((_prod(ys[:yn]), -1))
-    n = ctx.row_blocks(x2.shape[0])
-    out = (torch.matmul(x2, y2) if n == 1 else
-           torch.cat([torch.matmul(c, y2) for c in x2.chunk(n)]))
+    out = (torch.matmul(x2, y2) if ctx.block_rows is None else
+           torch.ops.paddle_tpu_torch.blocked_mm(x2, y2, ctx.block_rows))
     bias = ctx.get_input(op, "Bias")
     if bias is not None:
         out = out + bias.to(out.dtype).reshape(1, -1)
     ctx.set_output(op, "Out", out.reshape(xs[:xn] + ys[yn:]))
+
+
+def blocked_matmul(x, y, block_rows):
+    """``x [rows, K] @ y [K, N]`` as one batched product over blocks of
+    ``block_rows`` rows, ``x`` padded with zero rows to whole blocks, at
+    least two, and ``y`` expanded with a batch stride of 0 (no copy): a
+    row then meets one product shape, a block of ``block_rows`` rows,
+    whatever the number of rows around it, and cuBLAS's strided batched
+    SGEMM gives it the same bits at every block count from 2 (PyTorch
+    runs a batch of one block as a plain GEMM, whose bits differ).
+    tools/serving_gemm_probe.py holds this on the card; the CPU
+    multiplies each block alone."""
+    rows, k = x.shape
+    cols = y.shape[1]
+    n = max(2, -(-rows // block_rows))
+    if n * block_rows != rows:
+        x = torch.cat([x, x.new_zeros((n * block_rows - rows, k))])
+    out = torch.bmm(x.reshape(n, block_rows, k), y.expand(n, k, cols))
+    return out.reshape(n * block_rows, cols)[:rows]
+
+
+# the serving backends' product as a PyTorch operator: under torch.export
+# its rows stay the symbolic batch and the block count, derived from them,
+# is never traced (a traced block count guards on its value), so the
+# exported graph runs this same function at every batch
+_blocked_mm_op = torch.library.custom_op(
+    "paddle_tpu_torch::blocked_mm", mutates_args=(),
+    schema="(Tensor x, Tensor y, int block_rows) -> Tensor")(blocked_matmul)
+
+
+@_blocked_mm_op.register_fake
+def _blocked_mm_fake(x, y, block_rows):
+    return x.new_empty((x.shape[0], y.shape[1]))
 
 
 def _prod(dims):

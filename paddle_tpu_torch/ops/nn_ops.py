@@ -153,19 +153,25 @@ def _batch_norm(ctx, op):
 
 @register("layer_norm")
 def _layer_norm(ctx, op):
+    """Normalized over the axes from ``begin_norm_axis`` on, in float32
+    (or float64 for a float64 input), times ``Scale`` plus ``Bias``,
+    both widened to that type, and ``Y`` cast back to ``X``'s dtype: the
+    JAX package's order, where a bfloat16 ``Scale`` multiplies a float32
+    product."""
     x = ctx.get_input(op, "X")
     begin = op.attrs.get("begin_norm_axis", 1)
     eps = op.attrs.get("epsilon", 1e-5)
     norm_shape = tuple(x.shape[begin:])
+    xf = at_least_f32(x)
     scale = ctx.get_input(op, "Scale")
     bias = ctx.get_input(op, "Bias")
-    y = F.layer_norm(at_least_f32(x), norm_shape,
-                     None if scale is None else scale.reshape(norm_shape),
-                     None if bias is None else bias.reshape(norm_shape), eps)
+    y = F.layer_norm(
+        xf, norm_shape,
+        None if scale is None else scale.to(xf.dtype).reshape(norm_shape),
+        None if bias is None else bias.to(xf.dtype).reshape(norm_shape), eps)
     ctx.set_output(op, "Y", y.to(x.dtype))
     if ctx.reads(op, "Mean") or ctx.reads(op, "Variance"):
         axes = tuple(range(begin, x.dim()))
-        xf = at_least_f32(x)
         ctx.set_output(op, "Mean", xf.mean(axes).reshape(x.shape[:begin]))
         ctx.set_output(op, "Variance", xf.var(axes, unbiased=False)
                        .reshape(x.shape[:begin]))

@@ -62,6 +62,7 @@ import torch
 
 __all__ = ["flash_attention", "mha_reference", "paged_decode_attention",
            "paged_prefill_attention", "KERNEL_LAUNCHES",
+           "KERNEL_LAUNCHES_BY_DTYPE",
            "reset_launch_counts", "FLASH_BWD_IMPL"]
 
 NEG_INF = -1e30
@@ -75,15 +76,23 @@ KERNEL_LAUNCHES = {"flash_attention_fwd": 0,
                    "flash_attention_bwd_dq": 0,
                    "paged_decode_attention": 0,
                    "paged_prefill_attention": 0}
+#: The same launches split by the dtype of the tensors the kernel ran on:
+#: ``{name: {"float32": n, "bfloat16": n}}`` (a run can show that its main
+#: path ran a kernel on bfloat16 tensors).
+KERNEL_LAUNCHES_BY_DTYPE = {name: {"float32": 0, "bfloat16": 0}
+                            for name in KERNEL_LAUNCHES}
 _LAUNCH_LOCK = threading.Lock()
 
 
-def _count_launch(*names):
-    """Add one to each named kernel's launch count (the increments of
-    two serving threads must not lose one another's)."""
+def _count_launch(*names, dtype):
+    """Add one to each named kernel's launch count, and to its count for
+    ``dtype``, the dtype of the tensors it ran on (the increments of two
+    serving threads must not lose one another's)."""
+    key = str(dtype).replace("torch.", "")
     with _LAUNCH_LOCK:
         for name in names:
             KERNEL_LAUNCHES[name] += 1
+            KERNEL_LAUNCHES_BY_DTYPE[name][key] += 1
 
 
 # Backward engine switch, the counterpart of the JAX package's
@@ -153,10 +162,12 @@ def _sm_count(index):
 
 
 def reset_launch_counts():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0, per dtype too."""
     with _LAUNCH_LOCK:
         for name in KERNEL_LAUNCHES:
             KERNEL_LAUNCHES[name] = 0
+            for key in KERNEL_LAUNCHES_BY_DTYPE[name]:
+                KERNEL_LAUNCHES_BY_DTYPE[name][key] = 0
 
 
 def mha_reference(q, k, v, causal=False, sm_scale=None, kv_lens=None):
@@ -425,7 +436,7 @@ def _flash_fwd_cuda(q, k, v, kv_lens, causal, sm_scale):
         int(causal), float(sm_scale), int(q.dtype == torch.bfloat16),
         _device_index(q), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    _count_launch(name)
+    _count_launch(name, dtype=q.dtype)
     return out, lse
 
 
@@ -485,7 +496,7 @@ def _flash_bwd_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
         int(q.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    _count_launch(name)
+    _count_launch(name, dtype=q.dtype)
     return dq, dk, dv
 
 
@@ -519,7 +530,8 @@ def _flash_bwd_pair_cuda(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
         int(q.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    _count_launch("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    _count_launch("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                  dtype=q.dtype)
     return dq, dk, dv
 
 
@@ -744,7 +756,7 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_tables, kv_lens, sm_scale):
         int(k_pool.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    _count_launch(name)
+    _count_launch(name, dtype=k_pool.dtype)
     return out
 
 
@@ -769,7 +781,7 @@ def _paged_prefill_cuda(q, k_pool, v_pool, pages, start, sm_scale):
         int(k_pool.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
-    _count_launch(name)
+    _count_launch(name, dtype=k_pool.dtype)
     return out
 
 

@@ -11,7 +11,7 @@ is ``io.save_inference_model(..., aot=True)``, a ``torch.export`` graph.
 """
 from __future__ import annotations
 
-from .core import resolve_device
+from .core import f32_bf16_reduction, resolve_device
 from .executor import LoweringContext, _as_tensor, lower_block
 from .framework import Program, Variable
 
@@ -22,8 +22,10 @@ def program_to_fn(program: Program, fetch_list, is_test=False,
                   return_state=False, device=None):
     """``fn(state, feeds, seed=0)``: run ``program`` once on ``device``
     (None: the card, raising without one) from ``state`` and ``feeds``
-    (``{name: tensor or ndarray}``) and return the fetches as tensors —
-    and, with ``return_state``, the persistables it left, as a dict."""
+    (``{name: tensor or ndarray}``, each in its own dtype: a bfloat16
+    state runs the Program in bfloat16, as the JAX package's does) and
+    return the fetches as tensors — and, with ``return_state``, the
+    persistables it left, as a dict."""
     dev = resolve_device(device)
     fetch_names = [f.name if isinstance(f, Variable) else str(f) for f in fetch_list]
     persistable = program.persistable_names()
@@ -32,7 +34,8 @@ def program_to_fn(program: Program, fetch_list, is_test=False,
         env = {n: _as_tensor(v, None, dev) for n, v in state.items()}
         env.update({n: _as_tensor(v, None, dev) for n, v in feeds.items()})
         ctx = LoweringContext(program, env, dev, seed=seed, is_test=is_test)
-        lower_block(ctx, program.global_block())
+        with f32_bf16_reduction(dev):
+            lower_block(ctx, program.global_block())
         fetches = [ctx.env[n].detach() for n in fetch_names]
         if return_state:
             new_state = {n: v.detach() for n, v in ctx.env.items()

@@ -55,6 +55,7 @@ import numpy as np
 from .. import observability as _obs
 from .. import resilience as _resilience
 from ..core import resolve_device
+from ..executor import SERVING_BLOCK_ROWS
 from .batcher import DynamicBatcher
 from .decode_scheduler import DecodeConfig, DecodeScheduler
 from .errors import ServingClosed, ServingDegraded, ServingError
@@ -378,7 +379,7 @@ class InferenceEngine:
         self._warmup = bool(warmup)
         self._state = "loading"
         self._store = ModelStore(place=self.device, feed_shapes=feed_shapes,
-                                 batch_block=buckets[0])
+                                 block_rows=SERVING_BLOCK_ROWS)
         self._model_lock = threading.Lock()   # guards the active-model flip
         self._swap_lock = threading.Lock()    # serializes swap_model calls
         self._model = (None if model_dir is None

@@ -157,18 +157,19 @@ class ModelStore:
     the artifact exists).  Versions are monotonically numbered per store
     — the engine reports the active one in its health state.  ``place``
     (a Place, device string or ``torch.device``; None: the card) is
-    where every version runs.  ``batch_block`` (the engine passes its
-    smallest bucket) makes the Program backend run each ``mul`` in
-    blocks of that many rows of the batch, so that a request's rows come
-    out with the same bits at every bucket
-    (``Executor.batch_block``); the AOT graph runs one product a call.
+    where every version runs.  ``block_rows`` (the engine passes
+    ``SERVING_BLOCK_ROWS``) makes the Program backend run each ``mul`` in
+    blocks of that many rows, as one batched product, so that a
+    request's rows come out with the same bits at every bucket
+    (``Executor.block_rows``); the AOT graph was exported with the same
+    blocks, so the two backends agree bit for bit.
     """
 
-    def __init__(self, place=None, feed_shapes=None, batch_block=None):
+    def __init__(self, place=None, feed_shapes=None, block_rows=None):
         self.place = place
         self.device = resolve_device(place)
         self.feed_shapes = feed_shapes
-        self.batch_block = batch_block
+        self.block_rows = block_rows
         self._version = 0
         self._lock = threading.Lock()
 
@@ -210,7 +211,7 @@ class ModelStore:
 
     def _load_program(self, dirname, version):
         exe = Executor(device=self.device)
-        exe.batch_block = self.batch_block
+        exe.block_rows = self.block_rows
         scope = Scope()
         with scope_guard(scope):
             program, feed_names, fetch_vars = io_mod.load_inference_model(

@@ -83,7 +83,10 @@ def dirs(tmp_path_factory):
 
 
 def _program_predict(dirname, feed):
+    """The serving Program backend's answer: each ``mul`` in blocks of
+    ``SERVING_BLOCK_ROWS`` rows, as the exported graph multiplies."""
     exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.block_rows = tfluid.executor.SERVING_BLOCK_ROWS
     with tfluid.scope_guard(tfluid.Scope()):
         prog, _, fetch = tfluid.io.load_inference_model(dirname, exe)
         return exe.run(prog, feed=feed, fetch_list=fetch)
@@ -180,6 +183,8 @@ def test_launch_counts_survive_concurrent_increments():
     threads; no increment may be lost (a shortened switch interval makes
     a lost read-modify-write likely if the count were not locked)."""
     saved = dict(tfa.KERNEL_LAUNCHES)
+    saved_by_dtype = {k: dict(v) for k, v in
+                      tfa.KERNEL_LAUNCHES_BY_DTYPE.items()}
     interval = sys.getswitchinterval()
     n_threads, per = 8, 2000
     try:
@@ -189,7 +194,8 @@ def test_launch_counts_survive_concurrent_increments():
         def work():
             for _ in range(per):
                 tfa._count_launch("flash_attention_fwd",
-                                  "paged_decode_attention")
+                                  "paged_decode_attention",
+                                  dtype=torch.bfloat16)
 
         threads = [threading.Thread(target=work) for _ in range(n_threads)]
         for t in threads:
@@ -200,9 +206,13 @@ def test_launch_counts_survive_concurrent_increments():
         assert tfa.KERNEL_LAUNCHES["flash_attention_fwd"] == n_threads * per
         assert tfa.KERNEL_LAUNCHES["paged_decode_attention"] == \
             n_threads * per
+        assert tfa.KERNEL_LAUNCHES_BY_DTYPE["flash_attention_fwd"] == {
+            "float32": 0, "bfloat16": n_threads * per}
     finally:
         sys.setswitchinterval(interval)
         tfa.KERNEL_LAUNCHES.update(saved)
+        for k, v in saved_by_dtype.items():
+            tfa.KERNEL_LAUNCHES_BY_DTYPE[k].update(v)
 
 
 _CHILD = r"""

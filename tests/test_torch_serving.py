@@ -379,39 +379,33 @@ def test_one_engine_serves_predict_and_generate(model_dir):
 
 def test_program_backend_multiplies_in_blocks_of_the_smallest_bucket(
         model_dir, monkeypatch):
-    """ROADMAP F-6: the Program backend runs each ``mul`` in blocks of the
-    smallest bucket's rows, so every bucket multiplies blocks of one
-    shape; training executors run one product."""
-    from paddle_tpu_torch.executor import LoweringContext
+    """ROADMAP F-6: the Program backend runs each ``mul`` in blocks of
+    ``SERVING_BLOCK_ROWS`` rows, at least two, as one batched product, so
+    every bucket multiplies blocks of one shape (the smallest bucket's
+    rows and every other's fill the same two padded blocks here);
+    training executors run one product (``block_rows`` None)."""
+    from paddle_tpu_torch.executor import SERVING_BLOCK_ROWS
 
-    def blocks(feed_batch, batch_block, rows):
-        return LoweringContext(None, {}, "cpu", feed_batch=feed_batch,
-                               batch_block=batch_block).row_blocks(rows)
-
-    assert blocks(16, 2, 16 * 256) == 8
-    assert blocks(16, 2, 16) == 8
-    assert blocks(2, 2, 512) == 1       # the smallest bucket: one block
-    assert blocks(16, None, 16) == 1    # training
-    assert blocks(6, 4, 24) == 1        # 6 rows do not split into 4s
-    assert blocks(16, 2, 100) == 1      # rows not a multiple of the batch
-    assert fluid.Executor(fluid.CPUPlace()).batch_block is None
+    assert SERVING_BLOCK_ROWS == 256
+    assert fluid.Executor(fluid.CPUPlace()).block_rows is None
 
     import torch
 
-    sizes = []
-    real = torch.matmul
+    shapes = []
+    real = torch.bmm
 
     def counting(a, b):
-        sizes.append(a.shape[0])
+        shapes.append(tuple(a.shape[:2]))
         return real(a, b)
 
     with _engine(model_dir, backend="program", batch_buckets=(2, 4, 8)) as eng:
-        assert eng._store.batch_block == 2
+        assert eng._store.block_rows == SERVING_BLOCK_ROWS
         X = np.random.RandomState(3).randn(8, 8).astype("float32")
         alone = eng.predict({"x": X[:2]})[0]
-        monkeypatch.setattr(torch, "matmul", counting)
+        monkeypatch.setattr(torch, "bmm", counting)
         futs = [eng.predict_async({"x": X[i:i + 2]}) for i in range(0, 8, 2)]
         got = [f.result(timeout=60)[0] for f in futs]
         monkeypatch.undo()
-    assert sizes and set(sizes) == {2}   # two fcs, four blocks each
+    # two fcs a dispatch, each one product of two 256-row blocks
+    assert shapes and set(shapes) == {(2, SERVING_BLOCK_ROWS)}
     assert got[0].tobytes() == alone.tobytes()

@@ -207,7 +207,25 @@ caught):
    every loss within DECORATE_LOSS_RTOL of the f32 leg's at the same
    step, B1 and B2 18 launches a step in float32; step ms, tokens/s,
    device ms by op;
-19. a ``kernels`` JSON line (all six kernels: times at the shape of
+19. Transformer-base beam-search inference (get_inference_model's
+   defaults, beam 4, max_out_len 32, seq_len 64, at bench.py's widths,
+   the parameters of get_model's training startup, f32 with TF32 off)
+   through Executor(CUDAPlace(0)).run: first two sources at max_out_len
+   16 in float64 on the card and on the port's CPU path (ids and
+   lengths bitwise, scores within BEAM_SCORE_RTOL) with the float32
+   decode's agreement recorded; then 64 sources of 8-64 tokens: every
+   score finite and non-increasing within a source, every id in the
+   vocabulary, every length in [1, 32], B1-B5 launched not at all;
+   sentences/s, generated tokens/s, ms an iteration, the device syncs
+   of a decode, peak memory, and a profiled decode's device ms by op and
+   idle share;
+20. bench.py's two other long legs on bf16 (16 x 1024 for 15 steps,
+   8 x 2048 for 12; bench.py's feeds, max_length = seq): the checks of
+   phase 17's leg (B1 and B2 18 times a step on bf16); step ms, tokens/s,
+   peak memory, idle share; then B1 and B2 at each leg's attention shape
+   ([16, 8, 1024, 64], [8, 8, 2048, 64], bf16, not causal) against their
+   plain versions, with their times, bounds and SDPA's;
+21. a ``kernels`` JSON line (all six kernels: times at the shape of
    their main path, launches from it; B1's entry also carries its legacy
    serving launches and its figures at bucket 1024, and its predict
    launches (on the load) and figures at [16, 8, 256, 64]; B4's entry
@@ -217,7 +235,9 @@ caught):
    SDPA's whole backward; B1's and B2's also carry their figures at the
    long leg's shape (B2's dq sum apart) and their launches there, and
    their bf16 figures at [64, 8, 256, 64] (the bound at the bf16
-   tensor-core peak, SDPA in bf16) with their launches on the bf16 leg),
+   tensor-core peak, SDPA in bf16) with their launches on the bf16 leg,
+   and at [16, 8, 1024, 64] and [8, 8, 2048, 64] with their launches on
+   the 16 x 1024 and 8 x 2048 legs),
    the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -423,6 +443,26 @@ FLASH_BWD_KERNELS = {"fused": ("flash_attention_bwd",),
 LOSS_RTOL = 1e-4    # card vs CPU loss: GEMM summation orders differ
 GRAD_RTOL = 1e-3    # card vs CPU, of each tensor's max |g|
 LOGIT_TOL = 2e-3    # card vs CPU over 12 layers: GEMM summation orders differ
+# Transformer-base beam-search inference: get_inference_model's defaults
+# at bench.py's widths (6+6 layers, 8 heads, d_model 512, d_inner 2048,
+# vocab 30000, max_length 256), 64 seeded sources of 8-64 tokens; the
+# float64 card-vs-CPU check on two of them at max_out_len 16
+BEAM_WIDTHS = dict(src_vocab_size=30000, trg_vocab_size=30000,
+                   max_length=256, n_layer=6, n_head=8, d_model=512,
+                   d_inner=2048)
+BEAM_SIZE, BEAM_OUT_LEN, BEAM_SEQ = 4, 32, 64
+BEAM_SOURCES = 64
+BEAM_RUNS = 3
+BEAM_CHECK_SOURCES, BEAM_CHECK_OUT_LEN = 2, 16
+BEAM_SCORE_RTOL = 1e-9   # float64 card vs CPU: DGEMM summation orders only
+DECODE_FAMILIES = {"mul": "gemm", "matmul": "gemm", "softmax": "softmax",
+                   "layer_norm": "layer_norm", "top_k": "top_k",
+                   "elementwise_mul": "elementwise",
+                   "elementwise_add": "elementwise",
+                   "reduce_sum": "reduce_sum"}
+# bench.py's two other long Transformer legs (bench.py:458-461), on bf16:
+# (batch, seq, steps)
+BENCH_BF16_LEGS = ((16, 1024, 15), (8, 2048, 12))
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak,
 # and the dense bfloat16 tensor-core peak (989.4 TFLOP/s, no sparsity)
 PEAK_BYTES_S = 3.35e12
@@ -2167,13 +2207,15 @@ RESNET_FAMILIES = {"conv2d": "conv", "batch_norm": "batch_norm",
                    "mul": "gemm"}
 
 
-def profile_ops(torch, exe, m, feed, scope, fetch):
+def profile_ops(torch, exe, m, feed, scope, fetch, families=None):
     """One run of ``m["main"]`` profiled, its device time by op type:
-    each rule runs inside a ``record_function`` of its type, and a
-    backward kernel goes to the forward op whose autograd node launched
-    it (the profiler's sequence numbers).  Returns the wall time, device
-    busy time, idle share, ms by family (RESNET_FAMILIES, the rest
-    "other") and by op type; "not measured" without device events."""
+    each rule runs inside a ``record_function`` of its type (the ops of
+    a sub-block under their own type), and a backward kernel goes to the
+    forward op whose autograd node launched it (the profiler's sequence
+    numbers).  Returns the wall time, device busy time, idle share, ms by
+    family (``families``, RESNET_FAMILIES by default, the rest "other")
+    and by op type; "not measured" without device events."""
+    families_of = RESNET_FAMILIES if families is None else families
     from torch.profiler import ProfilerActivity, profile, record_function
     from paddle_tpu_torch import executor as executor_mod
 
@@ -2256,7 +2298,7 @@ def profile_ops(torch, exe, m, feed, scope, fetch):
                             if v > 1.0), key=lambda kv: -kv[1])[:8])
     families = {}
     for k, v in by_op.items():
-        fam = RESNET_FAMILIES.get(k, "other")
+        fam = families_of.get(k, "other")
         families[fam] = families.get(fam, 0.0) + v
     return {"step_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
@@ -2661,27 +2703,30 @@ def flash_case(torch, fa, dev, gen, rng, dtype, causal, T, S, nan_check):
             "zero_rows": int((lens_np == 0).sum())}
 
 
-def flash_timing(torch, fa, dev, gen, rng, causal, flush, dtype="float32"):
-    """Both kernels' times at the slice's shape (``dtype``, the training
+def flash_timing(torch, fa, dev, gen, rng, causal, flush, dtype="float32",
+                 B=FB, T=FT, lens_np=None):
+    """Both kernels' times at [B, FH, T, FD] (the slice's shape by
+    default; ``dtype``; kv_lens ``lens_np``, by default the training
     feeds' lengths), beside the plain versions, the bound and SDPA (in
     ``dtype``: in bfloat16 SDPA runs on the tensor cores)."""
     import torch.nn.functional as F
 
-    q, k, v, do = flash_inputs(torch, dev, gen, getattr(torch, dtype), FT,
-                               FT)
-    lens_np = flash_lens(rng, FT, with_zeros=False)
+    q, k, v, do = flash_inputs(torch, dev, gen, getattr(torch, dtype), T,
+                               T, B=B)
+    if lens_np is None:
+        lens_np = flash_lens(rng, T, with_zeros=False, B=B)
     lens = torch.as_tensor(lens_np, device=dev)
     scale = 1.0 / FD ** 0.5
     out, lse = fa._flash_fwd_cuda(q, k, v, lens, causal, scale)
-    mask = (torch.arange(FT, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     if causal:
-        mask = mask & torch.ones((FT, FT), dtype=torch.bool, device=dev).tril()
+        mask = mask & torch.ones((T, T), dtype=torch.bool, device=dev).tril()
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
     with torch.enable_grad():
         s_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
-    fwd_b, bwd_b = flash_bounds(lens_np, FT, FT, causal, q.element_size())
+    fwd_b, bwd_b = flash_bounds(lens_np, T, T, causal, q.element_size())
     row = {
-        "causal": causal, "dtype": dtype,
+        "shape": [B, FH, T, FD], "causal": causal, "dtype": dtype,
         "kv_lens_mean": float(lens_np.mean()),
         "fwd": {"ms": time_ms(lambda: fa._flash_fwd_cuda(
                     q, k, v, lens, causal, scale), 20, flush),
@@ -3345,92 +3390,105 @@ def transformer_bf16_check(torch, fluid, T, fa, dev):
     return out
 
 
-def transformer_bf16_phase(torch, fluid, T, fa, dev, f32):
-    """bench.py's Transformer-base leg as bench.py runs it on bf16
-    (bench.py:363-389): get_model(**TRAIN_CFG) (64 x 256, dropout 0.1,
-    Adam with noam decay, use_flash=True), the startup's state cast to
-    bf16, TRAIN_STEPS steps through program_to_fn on seeded device-
-    resident feeds: every loss finite, every parameter finite and still
-    bf16 and moved where a warmup update can show in bf16, the
-    accumulators float32, B1 and B2 launched 18 times
-    a step on bf16 tensors (none on float32); step ms, target tokens/s,
-    peak memory, a profiled step's device ms by family and idle share,
-    beside the f32 leg ``f32`` of this run."""
+def bf16_leg(torch, fluid, T, fa, dev, cfg, steps, feeds, seed, label):
+    """One of bench.py's Transformer-base legs as bench.py runs it on
+    bf16 (bench.py:363-389): get_model(**cfg) (dropout 0.1, Adam with
+    noam decay, use_flash=True), the startup's state cast to bf16,
+    ``steps`` steps through program_to_fn on device-resident feeds
+    (``feeds[i]``; the last one profiled): every loss finite, every
+    parameter finite and still bf16 and moved where a warmup update can
+    show in bf16, the accumulators float32, B1 and B2 launched 18 times a
+    step on bf16 tensors (none on float32); step ms, target tokens/s,
+    peak memory, a profiled step's device ms by family and idle share."""
     from paddle_tpu_torch import program_fn
 
-    out = {"check": transformer_bf16_check(torch, fluid, T, fa, dev)}
-    torch.cuda.empty_cache()
     with fluid.unique_name.guard():
-        m = T.get_model(**TRAIN_CFG)
-    state = bf16_state(torch, program_fn, m, dev, SEED + 72)
+        m = T.get_model(**cfg)
+    state = bf16_state(torch, program_fn, m, dev, seed)
     trainable = [p.name for p in m["main"].global_block().all_parameters()
                  if p.trainable]
     before = {p: state[p].clone() for p in trainable}
-    rng = np.random.RandomState(SEED + 73)
-    feeds = [{k: torch.as_tensor(v, device=dev) for k, v in make_feeds(
-        rng, TRAIN_CFG["batch_size"], TRAIN_CFG["seq_len"],
-        TRAIN_CFG["trg_vocab_size"]).items()} for _ in range(TRAIN_STEPS + 1)]
+    feeds = [{k: torch.as_tensor(v, device=dev) for k, v in f.items()}
+             for f in feeds]
     fn = program_fn.program_to_fn(m["main"], [m["loss"]], return_state=True,
                                   device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fa.reset_launch_counts()
     losses, step_s = [], []
-    for i, feed in enumerate(feeds[:TRAIN_STEPS]):
+    for i in range(steps):
         t0 = time.perf_counter()
-        (loss,), state = fn(state, feed, seed=SEED + i)
+        (loss,), state = fn(state, feeds[i], seed=SEED + i)
         losses.append(float(loss.float()))   # waits for the step
         step_s.append(time.perf_counter() - t0)
     launches = {k: dict(v) for k, v in fa.KERNEL_LAUNCHES_BY_DTYPE.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    check(all(np.isfinite(losses)), "transformer bf16 loss", losses)
+    check(all(np.isfinite(losses)), label, "bf16 loss", losses)
     # noam's warmup keeps the first steps' Adam updates near
     # learning_rate * d_model**-0.5 * step * warmup**-1.5 * sqrt(1 - b2) /
     # (1 - b1) (1.7e-7 at step 1); bf16 rounds a value v to a spacing of
     # at most v * 2**-7, so an update shows only on values below about
     # 2**8 times it.  A parameter holding such a value must move (in the
     # JAX package too the layer norms' scales, all 1.0, stay put)
-    update = 2.0 * TRAIN_CFG.get("d_model", 512) ** -0.5 * 8000 ** -1.5 \
+    update = 2.0 * cfg.get("d_model", 512) ** -0.5 * 8000 ** -1.5 \
         * 0.02 ** 0.5 / 0.1
     unmoved = []
     for p in trainable:
         check(state[p].dtype == torch.bfloat16
               and bool(torch.isfinite(state[p]).all()),
-              "transformer bf16 parameter", p)
+              label, "bf16 parameter", p)
         if torch.equal(state[p], before[p]):
             check(float(before[p].float().abs().min()) >= update * 2 ** 7,
-                  "transformer bf16 parameter did not move", p)
+                  label, "bf16 parameter did not move", p)
             unmoved.append(p)
-    check(len(unmoved) < len(trainable) / 2, "transformer bf16 moved",
-          unmoved)
+    check(len(unmoved) < len(trainable) / 2, label, "bf16 moved", unmoved)
     del before
     dtypes = sorted({str(v.dtype).replace("torch.", "")
                      for k, v in state.items() if k not in trainable})
     check("float32" in dtypes and all(
         state[k].dtype == torch.float32 for k in state if "moment" in k),
-        "transformer bf16 accumulators", dtypes)
+        label, "bf16 accumulators", dtypes)
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
-        check(launches[name] == {"float32": 0,
-                                 "bfloat16": 18 * TRAIN_STEPS},
-              "transformer bf16 launches", name, launches[name])
-    profile = profile_call(torch, lambda: fn(state, feeds[TRAIN_STEPS]))
+        check(launches[name] == {"float32": 0, "bfloat16": 18 * steps},
+              label, "bf16 launches", name, launches[name])
+    profile = profile_call(torch, lambda: fn(state, feeds[-1]))
     steady = float(np.mean(step_s[1:]))
-    tokens = TRAIN_CFG["batch_size"] * TRAIN_CFG["seq_len"]
-    out["train"] = {
-        "steps": TRAIN_STEPS, "first_step_ms": step_s[0] * 1e3,
+    tokens = cfg["batch_size"] * cfg["seq_len"]
+    out = {
+        "shape": [cfg["batch_size"], cfg["seq_len"]], "steps": steps,
+        "first_step_ms": step_s[0] * 1e3,
         "step_ms": steady * 1e3, "step_ms_all": [t * 1e3 for t in step_s],
         "target_tokens_per_s": tokens / steady,
         "peak_memory_gib": peak / 2 ** 30, "losses": losses,
         "params_unmoved": unmoved, "params": len(trainable),
         "other_state_dtypes": dtypes, "launches_by_dtype": launches,
-        "profile": profile,
-        "f32_leg": {"step_ms": f32["step_ms"],
-                    "target_tokens_per_s": f32["target_tokens_per_s"],
-                    "peak_memory_gib": f32["peak_memory_gib"],
-                    "profile": f32["profile"]}}
-    log("training 64 x 256 bf16 (bench.py's bf16 state, program_to_fn): %s"
-        % json.dumps(out["train"]))
-    out["launches"] = {k: v["bfloat16"] for k, v in launches.items()}
+        "profile": profile}
+    log("training %s bf16 (bench.py's bf16 state, program_to_fn): %s"
+        % (label, json.dumps(out)))
+    return out
+
+
+def transformer_bf16_phase(torch, fluid, T, fa, dev, f32):
+    """bench.py's Transformer-base leg on bf16 at TRAIN_CFG (64 x 256):
+    the card-against-CPU step (transformer_bf16_check), then bf16_leg
+    for TRAIN_STEPS steps on seeded feeds whose rows have their own
+    lengths, beside the f32 leg ``f32`` of this run."""
+    out = {"check": transformer_bf16_check(torch, fluid, T, fa, dev)}
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(SEED + 73)
+    feeds = [make_feeds(rng, TRAIN_CFG["batch_size"], TRAIN_CFG["seq_len"],
+                        TRAIN_CFG["trg_vocab_size"])
+             for _ in range(TRAIN_STEPS + 1)]
+    out["train"] = bf16_leg(torch, fluid, T, fa, dev, TRAIN_CFG, TRAIN_STEPS,
+                            feeds, SEED + 72, "64 x 256")
+    out["train"]["f32_leg"] = {
+        "step_ms": f32["step_ms"],
+        "target_tokens_per_s": f32["target_tokens_per_s"],
+        "peak_memory_gib": f32["peak_memory_gib"], "profile": f32["profile"]}
+    log("training 64 x 256 bf16, the f32 leg beside it: %s"
+        % json.dumps(out["train"]["f32_leg"]))
+    out["launches"] = {k: v["bfloat16"]
+                       for k, v in out["train"]["launches_by_dtype"].items()}
     return out
 
 
@@ -3510,6 +3568,274 @@ def transformer_decorate_phase(torch, fluid, T, fa, dev, f32):
     return out
 
 
+def bench_feeds(batch, seq, vocab):
+    """bench.py's feeds (bench.py:391-395): one batch of ids in
+    [1, vocab) from RandomState(0), no padding, reused every step."""
+    rng = np.random.RandomState(0)
+    return {name: rng.randint(1, vocab, size=(batch, seq)).astype(np.int64)
+            for name in ("src_word", "trg_word", "lbl_word")}
+
+
+def flash_bf16_row(torch, fa, dev, flush, batch, seq):
+    """B1 and B2 on bfloat16 at [batch, FH, seq, FD], not causal, every
+    key visible (bench.py's feeds have no padding): against their plain
+    versions (FLASH_TOL's bf16 limits), then flash_timing's times,
+    bounds and SDPA in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 84 + seq)
+    q, k, v, do = flash_inputs(torch, dev, gen, torch.bfloat16, seq, seq,
+                               B=batch)
+    lens_np = np.full(batch, seq, np.int32)
+    lens = torch.as_tensor(lens_np, device=dev)
+    scale = 1.0 / FD ** 0.5
+    out, lse = fa._flash_fwd_cuda(q, k, v, lens, False, scale)
+    grads = fa._flash_bwd_cuda(q, k, v, lens, out, lse, do, False, scale)
+    f32 = [x.float() for x in (q, k, v, out, do)]
+    r_out, r_lse = fa._flash_fwd_reference(*f32[:3], lens, False, scale)
+    r_grads = fa._flash_bwd_reference(*f32[:3], lens, f32[3], lse, f32[4],
+                                      False, scale)
+    fwd_err = max(flash_err(out, r_out, "bfloat16"),
+                  flash_err(lse, r_lse, "bfloat16"))
+    bwd_err = max(flash_err(g, r, "bfloat16") for g, r in zip(grads, r_grads))
+    del q, k, v, do, out, lse, grads, f32, r_out, r_lse, r_grads
+    tol_f, tol_b = FLASH_TOL["bfloat16"]
+    check(fwd_err <= tol_f and bwd_err <= tol_b, "flash bf16 vs plain",
+          batch, seq, fwd_err, bwd_err)
+    row = flash_timing(torch, fa, dev, gen, None, False, flush, "bfloat16",
+                       B=batch, T=seq, lens_np=lens_np)
+    row["fwd"]["max_abs_err"], row["bwd"]["max_abs_err"] = fwd_err, bwd_err
+    torch.cuda.empty_cache()
+    return row
+
+
+def long_bf16_phase(torch, fluid, T, fa, dev):
+    """bench.py's two other long legs (bench.py:458-461), 16 x 1024 for
+    15 steps and 8 x 2048 for 12, through bf16_leg on bench.py's feeds
+    (max_length = seq, vocab 30000, dropout 0.1, use_flash=True); then B1
+    and B2 at each leg's attention shape ([16, 8, 1024, 64] and
+    [8, 8, 2048, 64], bf16, not causal) by flash_bf16_row."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = []
+    for batch, seq, steps in BENCH_BF16_LEGS:
+        cfg = dict(TRAIN_CFG, batch_size=batch, seq_len=seq, max_length=seq)
+        feed = bench_feeds(batch, seq, cfg["trg_vocab_size"])
+        leg = bf16_leg(torch, fluid, T, fa, dev, cfg, steps,
+                       [feed] * (steps + 1), SEED + 80, "%d x %d" % (batch,
+                                                                   seq))
+        torch.cuda.empty_cache()
+        row = flash_bf16_row(torch, fa, dev, flush, batch, seq)
+        for kind in ("fwd", "bwd"):
+            r = row[kind]
+            log("flash %s bf16 %s full: kernel %.4f ms plain %.4f ms sdpa "
+                "%.4f ms bound %.4f ms (%s), err %.3g"
+                % (kind, row["shape"], r["ms"], r["plain_ms"],
+                   r["library_ms"], r["bound"][0], r["bound"][1],
+                   r["max_abs_err"]))
+        out.append({"seq": seq, "steps": steps, "leg": leg, "flash": row})
+    return out
+
+
+def beam_sources(rng, n):
+    """``n`` source sentences of 8-BEAM_SEQ tokens (ids in [3, vocab)),
+    PAD_IDX tails to BEAM_SEQ."""
+    src = rng.randint(3, BEAM_WIDTHS["src_vocab_size"],
+                      size=(n, BEAM_SEQ)).astype(np.int64)
+    for b, n_tok in enumerate(rng.randint(8, BEAM_SEQ + 1, size=n)):
+        src[b, n_tok:] = 0
+    return src
+
+
+def widened(fluid, program):
+    """``program`` with every float32 variable, dtype attribute and
+    constant array float64."""
+    def wide(o):
+        if isinstance(o, dict):
+            return {k: wide(v) for k, v in o.items()}
+        if isinstance(o, list):
+            return [wide(v) for v in o]
+        return "float64" if o == "float32" else o
+    return fluid.Program.from_dict(wide(program.to_dict()))
+
+
+def beam_decode(fluid, device, inf, program, state, src):
+    """Decode ``src`` with ``program`` (``inf``'s or its widened copy)
+    through Executor.run on ``device`` from ``state`` (in a scope of its
+    own); returns the sentence ids and scores as LoDArrays."""
+    scope = fluid.Scope()
+    for name, value in state.items():
+        scope[name] = value
+    return fluid.Executor(device=device).run(
+        program, feed={"src_word": src},
+        fetch_list=[inf["ids"].name, inf["scores"].name], scope=scope,
+        return_numpy=False)
+
+
+def beam_check(torch, fluid, fa, dev, inf, state, src):
+    """``inf`` (max_out_len BEAM_CHECK_OUT_LEN) on ``src`` in float64, the
+    parameters ``state`` widened, on the card (cuBLAS DGEMMs) and on the
+    port's CPU path: the sentence ids and both levels of lengths bitwise,
+    the scores within BEAM_SCORE_RTOL; and the float32 decode's agreement
+    with the float64 one (recorded, not held: near-ties among 30000
+    random logits lie inside float32's card-vs-CPU gap)."""
+    cpu = torch.device("cpu")
+    state64 = {n: (v.double() if v.is_floating_point() else v).to(cpu)
+               for n, v in state.items()}
+    p64 = widened(fluid, inf["infer"])
+    fa.reset_launch_counts()
+    card64 = beam_decode(fluid, dev, inf, p64, state64, src)
+    t0 = time.perf_counter()
+    cpu64 = beam_decode(fluid, cpu, inf, p64, state64, src)
+    cpu_s = time.perf_counter() - t0
+    card32 = beam_decode(fluid, dev, inf, inf["infer"], state, src)
+    launches = dict(fa.KERNEL_LAUNCHES)
+    ids64, sc64 = card64[0], np.asarray(card64[1].data)
+    check(ids64.data.dtype == np.int64 and sc64.dtype == np.float64,
+          "beam float64 dtypes", ids64.data.dtype, sc64.dtype)
+    for field in ("data", "lengths", "sub_lengths"):
+        check(np.array_equal(getattr(ids64, field), getattr(cpu64[0], field)),
+              "beam float64 card vs cpu", field, getattr(ids64, field),
+              getattr(cpu64[0], field))
+    ref = np.asarray(cpu64[1].data)
+    rel = float(np.max(np.abs(sc64 - ref) / np.maximum(np.abs(ref), 1e-300)))
+    check(rel <= BEAM_SCORE_RTOL, "beam float64 scores card vs cpu", rel)
+    check(all(n == 0 for n in launches.values()), "beam check launched a "
+          "flash kernel", launches)
+    ids32 = card32[0]
+    rows = ids64.data.shape[0]
+    same_rows = [bool(np.array_equal(a, b) and la == lb) for a, b, la, lb in
+                 zip(ids32.data, ids64.data, ids32.lengths, ids64.lengths)]
+    out = {"sources": len(src), "max_out_len": BEAM_CHECK_OUT_LEN,
+           "float64_ids_equal": True, "float64_scores_rel": rel,
+           "cpu64_decode_s": cpu_s,
+           "float32_vs_float64": {
+               "hypotheses_equal": sum(same_rows), "hypotheses": rows,
+               "tokens_equal": int((ids32.data == ids64.data).sum()),
+               "tokens": int(ids64.data.size),
+               "lengths_equal": int((ids32.lengths == ids64.lengths).sum()),
+               "scores_max_rel": float(np.max(
+                   np.abs(np.asarray(card32[1].data, np.float64) - sc64)
+                   / np.abs(sc64)))},
+           "float64_lengths": ids64.lengths.tolist()}
+    log("beam search float64 card vs cpu (%d sources, max_out_len %d): %s"
+        % (len(src), BEAM_CHECK_OUT_LEN, json.dumps(out)))
+    return out
+
+
+def count_syncs(torch, fn):
+    """Run ``fn`` with CUDA's sync debug mode warning, and count the
+    device syncs by the Python line that made them."""
+    import warnings
+
+    where = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message).lower():
+            key = "%s:%d" % (os.path.basename(w.filename), w.lineno)
+            where[key] = where.get(key, 0) + 1
+    return where
+
+
+def beam_phase(torch, fluid, T, fa, dev):
+    """Transformer-base beam-search inference at bench.py's widths:
+    get_inference_model(beam 4, max_out_len 32, seq_len 64) with the
+    parameters of get_model(**TRAIN_CFG)'s startup (built under its own
+    unique_name guard, as the inference model is), through
+    Executor(CUDAPlace(0)).run on BEAM_SOURCES seeded sources; first
+    beam_check on two of them.  Checks: every score finite, each source's
+    beams' scores non-increasing, every id in [0, vocab), every length in
+    [1, max_out_len], ``beam`` rows a source, B1-B5 launched 0 times.
+    Recorded: sentences/s, generated tokens/s (sources x max_out_len /
+    wall), ms an iteration, the device syncs of a decode by line, peak
+    memory, and a profiled decode's device ms by op and idle share."""
+    with fluid.unique_name.guard():
+        m = T.get_model(**TRAIN_CFG)
+    with fluid.unique_name.guard():
+        inf = T.get_inference_model(BEAM_SIZE, BEAM_OUT_LEN, BEAM_SEQ,
+                                    **BEAM_WIDTHS)
+    with fluid.unique_name.guard():
+        inf16 = T.get_inference_model(BEAM_SIZE, BEAM_CHECK_OUT_LEN,
+                                      BEAM_SEQ, **BEAM_WIDTHS)
+    m["startup"].random_seed = SEED + 90
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(m["startup"], scope=scope)
+    names = inf["infer"].persistable_names()
+    check(names == inf16["infer"].persistable_names()
+          and all(n in scope for n in names),
+          "inference parameters missing from the training startup",
+          [n for n in names if n not in scope])
+    # the decode needs the parameters alone, not Adam's moments
+    state = {n: scope[n] for n in names}
+    scope = fluid.Scope()
+    for n, v in state.items():
+        scope[n] = v
+    src = beam_sources(np.random.RandomState(SEED + 91), BEAM_SOURCES)
+    out = {"check": beam_check(torch, fluid, fa, dev, inf16, state,
+                               src[:BEAM_CHECK_SOURCES])}
+    fetch = [inf["ids"], inf["scores"]]
+
+    def decode():
+        return exe.run(inf["infer"], feed={"src_word": src},
+                       fetch_list=fetch, scope=scope, return_numpy=False)
+
+    decode()   # warm-up: cuBLAS's handles and the allocator's pools
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launch_counts()
+    walls = []
+    for _ in range(BEAM_RUNS):
+        t0 = time.perf_counter()
+        ids, scores = decode()   # the LoDArray fetches wait for the decode
+        walls.append(time.perf_counter() - t0)
+    launches = dict(fa.KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    vocab = BEAM_WIDTHS["trg_vocab_size"]
+    data, lens = ids.data, ids.lengths
+    sc = np.asarray(scores.data).reshape(BEAM_SOURCES, BEAM_SIZE)
+    check(data.shape == (BEAM_SOURCES * BEAM_SIZE, BEAM_OUT_LEN),
+          "beam ids shape", data.shape)
+    check(bool(np.isfinite(sc).all()), "beam scores not finite")
+    check(bool((np.diff(sc, axis=1) <= 0).all()),
+          "beam scores not non-increasing within a source")
+    check(bool(((data >= 0) & (data < vocab)).all()), "beam id out of range")
+    check(bool(((lens >= 1) & (lens <= BEAM_OUT_LEN)).all()),
+          "beam length out of range", lens.min(), lens.max())
+    check(ids.sub_lengths.tolist() == [BEAM_SIZE] * BEAM_SOURCES,
+          "beam rows a source", ids.sub_lengths)
+    check(all(n == 0 for n in launches.values()),
+          "beam search launched a flash kernel", launches)
+    syncs = count_syncs(torch, decode)
+    profile = profile_ops(torch, exe, {"main": inf["infer"]},
+                          {"src_word": src}, scope, fetch,
+                          families=DECODE_FAMILIES)
+    wall = float(np.median(walls))
+    iters = BEAM_OUT_LEN - 1
+    out["decode"] = {
+        "sources": BEAM_SOURCES, "beam": BEAM_SIZE,
+        "max_out_len": BEAM_OUT_LEN, "iterations": iters,
+        "decode_ms_all": [t * 1e3 for t in walls], "decode_ms": wall * 1e3,
+        "sentences_per_s": BEAM_SOURCES / wall,
+        "generated_tokens_per_s": BEAM_SOURCES * BEAM_OUT_LEN / wall,
+        "ms_per_iteration": wall * 1e3 / iters,
+        "host_syncs_by_line": syncs,
+        "host_syncs_per_iteration": sum(syncs.values()) / iters,
+        "resident_gib": resident / 2 ** 30, "peak_gib": peak / 2 ** 30,
+        "decode_peak_over_resident_gib": (peak - resident) / 2 ** 30,
+        "hyp_len_mean": float(lens.mean()),
+        "hyps_ended": int((data[:, :iters] == T.EOS_IDX).any(1).sum()),
+        "launches": launches, "profile": profile}
+    log("beam search (Transformer-base, %d sources of 8-%d tokens, beam %d, "
+        "max_out_len %d, f32): %s" % (BEAM_SOURCES, BEAM_SEQ, BEAM_SIZE,
+                                      BEAM_OUT_LEN, json.dumps(out["decode"])))
+    return out
+
+
 def main():
     import torch
 
@@ -3583,6 +3909,10 @@ def main():
     tbf = transformer_bf16_phase(torch, fluid, T, fa, dev, trn)
     torch.cuda.empty_cache()
     transformer_decorate_phase(torch, fluid, T, fa, dev, trn)
+    torch.cuda.empty_cache()
+    beam_phase(torch, fluid, T, fa, dev)
+    torch.cuda.empty_cache()
+    lbf = long_bf16_phase(torch, fluid, T, fa, dev)
 
     # each backward engine's main path: the first training leg that auto
     # runs it on, else the full-width card-vs-CPU step that runs it by name
@@ -3707,6 +4037,22 @@ def main():
                 "bf16_bound_by": r["bound"][1],
                 "bf16_library_ms": r["library_ms"],
                 "bf16_launches": tbf["launches"][name]})
+            # bench.py's 16 x 1024 and 8 x 2048 bf16 legs: the figures at
+            # their attention shape and their launches (their main paths)
+            for leg in lbf:
+                r = leg["flash"]["fwd" if name == "flash_attention_fwd"
+                                 else "bwd"]
+                n = leg["leg"]["launches_by_dtype"][name]["bfloat16"]
+                tag = "bf16_%d_" % leg["seq"]
+                kernels[-1].update({
+                    tag + "shape": leg["flash"]["shape"], tag + "ms": r["ms"],
+                    tag + "plain_ms": r["plain_ms"],
+                    tag + "bound_ms": r["bound"][0],
+                    tag + "bound_by": r["bound"][1],
+                    tag + "library_ms": r["library_ms"],
+                    tag + "max_abs_err": r["max_abs_err"],
+                    tag + "launches": n,
+                    tag + "launches_per_step": n / leg["steps"]})
         if name == "flash_attention_fwd":
             kernels[-1].update(fwd_long)
             kernels[-1].update(legacy_b1)

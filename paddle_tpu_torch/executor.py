@@ -33,6 +33,12 @@ Feeds are numpy arrays, tensors, or ``lod.LoDArray``s (a ragged feed:
 its padded data under the var's name, its lengths as
 ``<name>@LENGTHS``, nested lengths as ``<name>@SUBLENGTHS``).
 
+Sub-blocks (``while``, ``conditional_block``; their rules are in
+``layers/control_flow.py``) run their ops through ``interpret_ops`` on a
+``LoweringContext.child`` over a copy of the outer environment: the
+body's own variables stay there, and only the outer variables it writes
+and its tensor arrays (``<name>@ARRAY``, ``<name>@ARRAYLEN``) come back.
+
 Not ported yet: the fast path (bound programs, lazy fetches, the jit step
 cache), the compile cache, readers, the parameter-server runtime,
 recompute, meshes and the telemetry hooks.  Asking
@@ -325,6 +331,12 @@ class LoweringContext:
             return bool(names)
         return any(n in self._reads for n in names)
 
+    def has(self, name: str) -> bool:
+        return name in self.env
+
+    def set(self, name: str, value):
+        self.env[name] = value
+
     # op-slot helpers --------------------------------------------------------
     def get_input(self, op, slot, default=None):
         names = op.inputs.get(slot) or []
@@ -332,10 +344,17 @@ class LoweringContext:
             return default
         return self.get(names[0])
 
+    def get_inputs(self, op, slot):
+        return [self.get(n) for n in (op.inputs.get(slot) or [])]
+
     def set_output(self, op, slot, value):
         names = op.outputs.get(slot) or []
         if names:
             self._bind(names[0], value, op)
+
+    def set_outputs(self, op, slot, values):
+        for n, v in zip(op.outputs.get(slot) or [], values):
+            self._bind(n, v, op)
 
     def _bind(self, name, value, op):
         var = self.var(name, op.block)
@@ -344,6 +363,34 @@ class LoweringContext:
                 and value.is_floating_point()):
             value = value.detach()
         self.env[name] = value
+
+    # lengths companions (ragged sequences) ----------------------------------
+    def get_lengths(self, name: str, default=None):
+        return self.env.get(name + "@LENGTHS", default)
+
+    def set_lengths(self, name: str, lengths):
+        self.env[name + "@LENGTHS"] = lengths
+
+    def copy_lengths(self, src: str, dst: str):
+        for suffix in ("@LENGTHS", "@SUBLENGTHS"):
+            if src + suffix in self.env:
+                self.env[dst + suffix] = self.env[src + suffix]
+
+    # outer-level (lod level 0) companions of nested LoD: rows per outer
+    # group (lod.py's nested convention)
+    def get_sub_lengths(self, name: str, default=None):
+        return self.env.get(name + "@SUBLENGTHS", default)
+
+    def set_sub_lengths(self, name: str, sub_lengths):
+        self.env[name + "@SUBLENGTHS"] = sub_lengths
+
+    def child(self, env):
+        """A context over ``env`` (a sub-block's environment) sharing this
+        one's program, device, run seed and step, reads and block rows."""
+        c = LoweringContext.__new__(LoweringContext)
+        c.__dict__.update(self.__dict__)
+        c.env = env
+        return c
 
 
 def interpret_ops(ctx: LoweringContext, ops):
@@ -474,8 +521,10 @@ class Executor:
         state gathered from ``scope`` (default: the global scope), the
         block run op by op, the persistables it wrote put back, and the
         fetches returned (numpy with ``return_numpy``, else tensors on the
-        device).  ``use_program_cache`` is accepted for the reference's
-        signature; nothing is compiled, so there is nothing to cache."""
+        device; a fetch that carries lengths, as ``beam_search_decode``'s
+        do, as a ``lod.LoDArray`` on the host).  ``use_program_cache`` is
+        accepted for the reference's signature; nothing is compiled, so
+        there is nothing to cache."""
         if nan_guard:
             raise NotImplementedError(
                 "nan_guard needs the executor's fast path, which is not "
@@ -515,7 +564,19 @@ class Executor:
         key_owner.vars["__rng_key__"] = (seed, step + 1)
         if return_numpy:
             return [as_numpy(v) for v in fetches]
-        return [v.detach() if isinstance(v, torch.Tensor) else v for v in fetches]
+        # a fetch with a lengths companion comes back as a host-side
+        # LoDArray, as the reference's fetched LoDTensors keep their lod;
+        # the others stay tensors on the device
+        out = []
+        for f, v in zip(fetch_names, fetches):
+            lengths = ctx.env.get(f + "@LENGTHS")
+            if lengths is not None:
+                sub = ctx.env.get(f + "@SUBLENGTHS")
+                out.append(LoDArray(as_numpy(v), as_numpy(lengths),
+                                    None if sub is None else as_numpy(sub)))
+            else:
+                out.append(v.detach() if isinstance(v, torch.Tensor) else v)
+        return out
 
     # -- internals -----------------------------------------------------------
     def _prepare_feed(self, program, feed):

@@ -1,9 +1,12 @@
 """Layer library (reference: python/paddle/fluid/layers/__init__.py).
 
-The port's layer functions so far: nn, io (``data`` and the layers that
-need no reader runtime), metric_op, ops, tensor, control_flow's
-``equal`` and the learning-rate schedules.  The sub-block control flow,
-sequences, detection and the pipeline are not ported yet.
+The port's layer functions so far: nn (``beam_search`` and
+``beam_search_decode`` among them), io (``data`` and the layers that
+need no reader runtime), metric_op, ops, tensor, control_flow (``While``,
+``ConditionalBlock``, ``Switch``, ``IfElse``, the comparisons and the
+tensor arrays) and the learning-rate schedules.  ``StaticRNN``,
+``DynamicRNN``, sequences, detection and the pipeline are not ported
+yet.
 """
 from . import nn
 from . import io

@@ -9,8 +9,17 @@ build the same Fluid Program (post-norm Transformer-base, n_layer=6,
 d_model=512, n_head=8, d_inner=2048, sinusoid positions, label smoothing
 0.1, Adam + noam decay), which the port's ``Executor.run`` trains on the
 card; with ``use_flash=True`` every attention is the ``flash_attention``
-op, whose kernels are hand-written for Hopper.  ``fast_decode`` and
-``get_inference_model`` (While, beam search) are not ported yet.
+op, whose kernels are hand-written for Hopper.
+
+Beam-search inference.  :func:`get_inference_model` /
+:func:`fast_decode` are copies of the JAX package's: a ``While`` loop
+whose body re-runs the decoder over the whole padded prefix, takes
+``top_k`` and ``beam_search``, and writes three tensor arrays, then
+``beam_search_decode`` backtracks the beams.  Built under a fresh
+``unique_name.guard()``, as the training graph is, their parameters are
+named as the trained ones; ``Executor.run`` runs the loop eagerly
+(``layers/control_flow.py``) with cuBLAS products and torch ops on the
+card — no flash kernel, as in the JAX package.
 
 Decode serving.  The decoder-only LM is the counterpart of the decode
 half of ``paddle_tpu/models/transformer.py``: the same post-norm blocks
@@ -68,6 +77,7 @@ from ..parallel.flash_attention import (
 
 __all__ = ["multi_head_attention", "encoder_layer", "decoder_layer",
            "wrap_encoder", "wrap_decoder", "transformer", "get_model",
+           "fast_decode", "get_inference_model",
            "lm_params", "params_from_numpy", "TransformerLM",
            "lm_prefill", "lm_prefill_chunk", "lm_decode_step",
            "build_decode_model"]
@@ -440,6 +450,201 @@ def get_model(
         "token_num": token_num,
         "predict": logits,
     }
+
+
+def fast_decode(
+    src_word,
+    beam_size,
+    max_out_len,
+    src_vocab_size=SRC_VOCAB,
+    trg_vocab_size=TRG_VOCAB,
+    max_length=MAX_LENGTH,
+    n_layer=N_LAYER,
+    n_head=N_HEAD,
+    d_model=D_MODEL,
+    d_inner=D_INNER,
+):
+    """Beam-search inference graph (reference analog: the transformer
+    benchmark's fast_decoder), a copy of the JAX package's: beam lanes
+    fold into the batch axis and each While step re-runs the decoder on
+    the *whole padded prefix* with causal masking, so every iteration has
+    the same shapes.  Its attention is ``matmul`` + ``softmax`` (no flash
+    kernel), as in the JAX package; there is no k/v cache.
+
+    Build INSIDE the same unique_name scope as the training graph clone so
+    parameter names line up with the trained scope.
+    """
+    enc_out, src_bias = wrap_encoder(src_word, src_vocab_size, max_length, n_layer, n_head, d_model, d_inner, 0.0)
+
+    def expand_to_beam(x):
+        ex = layers.expand(layers.unsqueeze(x, axes=[1]), [1, beam_size] + [1] * (len(x.shape) - 1))
+        return layers.reshape(x=ex, shape=[-1] + [int(d) for d in x.shape[1:]])
+
+    enc_out_b = expand_to_beam(enc_out)          # [B*beam, Ts, D]
+    src_bias_b = expand_to_beam(src_bias)        # [B*beam, 1, 1, Ts]
+
+    batch_ref = layers.reduce_sum(enc_out, dim=[1, 2], keep_dim=True)  # [B,1,1] batch-size anchor
+    batch_ref = layers.reshape(batch_ref, shape=[-1, 1])
+
+    # decoded tokens so far, padded: [B*beam, max_out_len], starts all PAD
+    # with BOS at position 0
+    tokens0 = layers.fill_constant_batch_size_like(
+        input=enc_out_b, shape=[-1, max_out_len], dtype="int64", value=float(PAD_IDX)
+    )
+    pos_onehot0 = layers.cast(
+        layers.equal(
+            layers.cumsum(
+                layers.fill_constant_batch_size_like(
+                    input=enc_out_b, shape=[-1, max_out_len], dtype="float32", value=1.0
+                ),
+                axis=1,
+            ),
+            layers.fill_constant(shape=[1], dtype="float32", value=1.0),
+        ),
+        "int64",
+    )  # one-hot at column 0
+    tokens0 = layers.elementwise_add(
+        tokens0, layers.scale(pos_onehot0, scale=float(BOS_IDX))
+    )
+    tokens = layers.assign(tokens0)
+
+    init_ids = layers.fill_constant_batch_size_like(
+        input=batch_ref, shape=[-1, beam_size], dtype="int64", value=float(BOS_IDX)
+    )
+    lane = layers.cumsum(
+        layers.fill_constant_batch_size_like(
+            input=batch_ref, shape=[-1, beam_size], dtype="float32", value=1.0
+        ),
+        axis=1,
+    )
+    one = layers.fill_constant(shape=[1], dtype="float32", value=1.0)
+    init_scores = layers.scale(
+        x=layers.cast(layers.logical_not(layers.equal(lane, one)), "float32"), scale=-1e9
+    )
+    pre_ids = layers.assign(init_ids)
+    pre_scores = layers.assign(init_scores)
+
+    ids_arr = layers.create_array("int64", capacity=max_out_len)
+    scores_arr = layers.create_array("float32", capacity=max_out_len)
+    parents_arr = layers.create_array("int32", capacity=max_out_len)
+
+    counter = layers.zeros(shape=[1], dtype="int64", force_cpu=True)
+    max_len_const = layers.fill_constant(shape=[1], dtype="int64", value=max_out_len - 1)
+    cond = layers.less_than(x=counter, y=max_len_const)
+
+    row_base = layers.scale(
+        x=layers.cumsum(
+            layers.fill_constant_batch_size_like(
+                input=batch_ref, shape=[-1, 1], dtype="float32", value=1.0
+            ),
+            axis=0,
+        ),
+        scale=float(beam_size), bias=-float(beam_size),
+    )
+
+    while_op = layers.While(cond=cond, maxlen=max_out_len)
+    with while_op.block():
+        # full-prefix decoder pass with causal mask; positions > counter are
+        # PAD so their keys are masked out by the decoder's pad bias
+        logits = wrap_decoder(
+            tokens, enc_out_b, src_bias_b, trg_vocab_size, max_length,
+            n_layer, n_head, d_model, d_inner, 0.0, causal=True,
+        )  # [B*beam, max_out_len, V]
+
+        # logits at the current position: one-hot(counter) row-reduce
+        step_f = layers.cast(counter, "float32")
+        col = layers.cumsum(
+            layers.fill_constant_batch_size_like(
+                input=enc_out_b, shape=[-1, max_out_len], dtype="float32", value=1.0
+            ),
+            axis=1,
+        )  # 1..L
+        onehot = layers.cast(
+            layers.equal(col, layers.elementwise_add(step_f, one)), "float32"
+        )  # [B*beam, L], 1 at column == counter
+        cur_logits = layers.reduce_sum(
+            layers.elementwise_mul(logits, layers.unsqueeze(onehot, axes=[2]), axis=0),
+            dim=1,
+        )  # [B*beam, V]
+        probs = layers.softmax(cur_logits)
+
+        topk_scores, topk_ids = layers.topk(probs, k=beam_size)
+        topk_scores = layers.reshape(x=topk_scores, shape=[-1, beam_size, beam_size])
+        topk_ids = layers.reshape(x=topk_ids, shape=[-1, beam_size, beam_size])
+        acc_scores = layers.elementwise_add(
+            x=layers.log(topk_scores), y=layers.unsqueeze(pre_scores, axes=[2])
+        )
+        sel_ids, sel_scores, parents = layers.beam_search(
+            pre_ids, pre_scores, topk_ids, acc_scores, beam_size, EOS_IDX
+        )
+
+        layers.array_write(sel_ids, i=counter, array=ids_arr)
+        layers.array_write(sel_scores, i=counter, array=scores_arr)
+        layers.array_write(parents, i=counter, array=parents_arr)
+
+        # reorder token prefixes by parent lane, then append sel_ids at
+        # position counter+1
+        flat_parents = layers.cast(
+            layers.elementwise_add(
+                layers.cast(parents, "float32"), row_base
+            ),
+            "int64",
+        )  # [B, beam] flat indices into B*beam
+        flat_parents = layers.reshape(flat_parents, shape=[-1])
+        tokens_re = layers.gather(tokens, flat_parents)  # [B*beam, L]
+        next_onehot = layers.cast(
+            layers.equal(col, layers.elementwise_add(layers.elementwise_add(step_f, one), one)),
+            "int64",
+        )  # 1 at column counter+1
+        new_tok = layers.elementwise_mul(
+            next_onehot, layers.reshape(sel_ids, shape=[-1, 1]), axis=0
+        )
+        keep = layers.elementwise_mul(
+            tokens_re,
+            layers.elementwise_sub(
+                layers.fill_constant_batch_size_like(
+                    input=tokens_re, shape=[-1, max_out_len], dtype="int64", value=1.0
+                ),
+                next_onehot,
+            ),
+        )
+        layers.assign(layers.elementwise_add(keep, new_tok), output=tokens)
+
+        layers.assign(layers.reshape(sel_ids, shape=[-1, beam_size]), output=pre_ids)
+        layers.assign(sel_scores, output=pre_scores)
+        layers.increment(x=counter, value=1, in_place=True)
+        layers.less_than(x=counter, y=max_len_const, cond=cond)
+
+    sentence_ids, sentence_scores = layers.beam_search_decode(
+        ids_arr, scores_arr, parents_arr, beam_size, EOS_IDX
+    )
+    return sentence_ids, sentence_scores
+
+
+def get_inference_model(
+    beam_size=4,
+    max_out_len=32,
+    seq_len=64,
+    src_vocab_size=SRC_VOCAB,
+    trg_vocab_size=TRG_VOCAB,
+    max_length=MAX_LENGTH,
+    n_layer=N_LAYER,
+    n_head=N_HEAD,
+    d_model=D_MODEL,
+    d_inner=D_INNER,
+):
+    """Standalone decode program sharing parameter names with get_model's
+    training program (build both under the same fresh unique_name guard)."""
+    infer = framework.Program()
+    startup = framework.Program()
+    with framework.program_guard(infer, startup):
+        src_word = layers.data(name="src_word", shape=[seq_len], dtype="int64")
+        ids, scores = fast_decode(
+            src_word, beam_size, max_out_len, src_vocab_size, trg_vocab_size,
+            max_length, n_layer, n_head, d_model, d_inner,
+        )
+    return {"infer": infer, "startup": startup, "ids": ids, "scores": scores,
+            "feeds": ["src_word"]}
 
 
 # ---------------------------------------------------------------------------

@@ -51,3 +51,19 @@ def mixed_dtypes(x, y):
         return x, y
     target = x.dtype if dx <= dy else y.dtype
     return x.to(target), y.to(target)
+
+
+def wrapped_index(idx, n):
+    """``idx`` as int64 indices into an axis of length ``n`` the way the
+    JAX package's ``jnp.take``/``take_along_axis`` read them: an index in
+    [-n, 0) wraps to ``n + idx``; one outside [-n, n) is clamped to a
+    valid row here, and :func:`in_range` marks it for the fill."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
+
+
+def in_range(idx, n):
+    """Where ``idx`` is a valid index into an axis of length ``n``
+    (negatives in [-n, 0) included); elsewhere the JAX package's gathers
+    fill (NaN for a float)."""
+    return (idx >= -n) & (idx < n)

@@ -1,5 +1,5 @@
 """Math op rules: elementwise (reference broadcast semantics), mul/matmul,
-reductions, activations, compares, logicals.
+reductions, activations, compares, logicals, cumsum.
 
 Translated from the JAX package's ``paddle_tpu/ops/math_ops.py``, for the
 ops the port runs so far.  Each is a plain torch expression: XLA fused
@@ -19,6 +19,7 @@ from .common import bcast_y, mixed_dtypes, reduce_axes
 
 _BINOPS = {
     "elementwise_add": lambda x, y: x + y,
+    "elementwise_sub": lambda x, y: x - y,
     "elementwise_mul": lambda x, y: x * y,
     "elementwise_div": lambda x, y: x / y,
     "elementwise_min": torch.minimum,
@@ -168,6 +169,7 @@ _ACTS = {
     "relu": lambda x, a: torch.relu(x),
     "pow": lambda x, a: x ** a.get("factor", 1.0),
     "square": lambda x, a: x * x,
+    "log": lambda x, a: torch.log(x),
 }
 
 
@@ -203,13 +205,71 @@ def _mean(ctx, op):
 # ---------------------------------------------------------------------------
 
 
-@register("equal")
-def _equal(ctx, op):
-    x = ctx.get_input(op, "X")
-    y = ctx.get_input(op, "Y")
-    ctx.set_output(op, "Out", x == y)
+_CMP = {
+    "less_than": lambda x, y: x < y,
+    "less_equal": lambda x, y: x <= y,
+    "greater_than": lambda x, y: x > y,
+    "greater_equal": lambda x, y: x >= y,
+    "equal": lambda x, y: x == y,
+    "not_equal": lambda x, y: x != y,
+}
+
+
+def _make_cmp(op_type, fn):
+    @register(op_type)
+    def _rule(ctx, op, fn=fn):
+        ctx.set_output(op, "Out", fn(ctx.get_input(op, "X"),
+                                     ctx.get_input(op, "Y")))
+
+
+for _t, _f in _CMP.items():
+    _make_cmp(_t, _f)
+
+_LOGICAL = {
+    "logical_and": lambda x, y: x & y,
+    "logical_or": lambda x, y: x | y,
+    "logical_xor": lambda x, y: x ^ y,
+}
+
+
+def _make_logical(op_type, fn):
+    @register(op_type)
+    def _rule(ctx, op, fn=fn):
+        x = ctx.get_input(op, "X").to(torch.bool)
+        y = ctx.get_input(op, "Y").to(torch.bool)
+        ctx.set_output(op, "Out", fn(x, y))
+
+
+for _t, _f in _LOGICAL.items():
+    _make_logical(_t, _f)
 
 
 @register("logical_not")
 def _logical_not(ctx, op):
     ctx.set_output(op, "Out", ~ctx.get_input(op, "X").to(torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# misc math
+# ---------------------------------------------------------------------------
+
+
+@register("cumsum")
+def _cumsum(ctx, op):
+    """The running sum along ``axis``; ``reverse`` sums from the end,
+    ``exclusive`` leaves each element out of its own sum (the running
+    sum minus the element, as the JAX package computes it).  An integer
+    or bool input sums in its own type (a bool in int64), not in the
+    int64 that ``torch.cumsum`` promotes to."""
+    x = ctx.get_input(op, "X")
+    if x.dtype == torch.bool:
+        x = x.long()
+    axis = op.attrs.get("axis", -1)
+    if op.attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), axis,
+                                      dtype=x.dtype), (axis,))
+    else:
+        out = torch.cumsum(x, axis, dtype=x.dtype)
+    if op.attrs.get("exclusive", False):
+        out = out - x
+    ctx.set_output(op, "Out", out)

@@ -17,23 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..registry import register
-from .common import at_least_f32, mixed_dtypes
-
-
-def _wrapped_index(idx, n):
-    """``idx`` as int64 indices into an axis of length ``n`` the way the
-    JAX package's ``jnp.take``/``take_along_axis`` read them: an index in
-    [-n, 0) wraps to ``n + idx``; one outside [-n, n) is clamped to a
-    valid row here, and :func:`_in_range` marks it for the NaN fill."""
-    idx = idx.long()
-    return torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
-
-
-def _in_range(idx, n):
-    """Where ``idx`` is a valid index into an axis of length ``n``
-    (negatives in [-n, 0) included); elsewhere the JAX package's gathers
-    fill NaN."""
-    return (idx >= -n) & (idx < n)
+from .common import at_least_f32, in_range, mixed_dtypes, wrapped_index
 
 
 def _pair(v, n=2):
@@ -224,8 +208,8 @@ def _cross_entropy(ctx, op):
     else:
         lab = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 else label
         lab = lab[..., None]
-        loss = -torch.gather(logp, -1, _wrapped_index(lab, logp.shape[-1]))
-        loss = torch.where(_in_range(lab, logp.shape[-1]), loss, float("nan"))
+        loss = -torch.gather(logp, -1, wrapped_index(lab, logp.shape[-1]))
+        loss = torch.where(in_range(lab, logp.shape[-1]), loss, float("nan"))
         loss = torch.where(lab == ignore, 0.0, loss)
     ctx.set_output(op, "Y", loss.to(x.dtype))
 
@@ -242,8 +226,8 @@ def _softmax_with_cross_entropy(ctx, op):
     else:
         lab = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 else label
         lab = lab[..., None]
-        loss = -torch.gather(logp, -1, _wrapped_index(lab, logp.shape[-1]))
-        loss = torch.where(_in_range(lab, logp.shape[-1]), loss, float("nan"))
+        loss = -torch.gather(logp, -1, wrapped_index(lab, logp.shape[-1]))
+        loss = torch.where(in_range(lab, logp.shape[-1]), loss, float("nan"))
         loss = torch.where(lab == ignore, 0.0, loss)
     if ctx.reads(op, "Softmax"):
         ctx.set_output(op, "Softmax", torch.exp(logp).to(logits.dtype))
@@ -256,8 +240,8 @@ def _lookup_table(ctx, op):
     ids = ctx.get_input(op, "Ids")
     padding_idx = op.attrs.get("padding_idx", -1)
     flat = ids.reshape(ids.shape[:-1]) if (ids.dim() > 1 and ids.shape[-1] == 1) else ids
-    out = F.embedding(_wrapped_index(flat, w.shape[0]), w)
-    out = torch.where(_in_range(flat, w.shape[0])[..., None], out,
+    out = F.embedding(wrapped_index(flat, w.shape[0]), w)
+    out = torch.where(in_range(flat, w.shape[0])[..., None], out,
                       float("nan"))
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((flat == padding_idx)[..., None], 0.0, out)

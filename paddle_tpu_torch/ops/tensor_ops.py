@@ -13,6 +13,7 @@ import torch
 
 from ..registry import register
 from ..core import torch_dtype
+from .common import in_range, wrapped_index
 
 
 @register("fill_constant")
@@ -21,6 +22,25 @@ def _fill_constant(ctx, op):
     out = torch.full(tuple(int(s) for s in a["shape"]), a["value"],
                      dtype=torch_dtype(a["dtype"]), device=ctx.device)
     ctx.set_output(op, "Out", out)
+
+
+@register("fill_constant_batch_size_like")
+def _fill_constant_batch_size_like(ctx, op):
+    a = op.attrs
+    ref = ctx.get_input(op, "Input")
+    shape = [int(s) for s in a["shape"]]
+    shape[a.get("output_dim_idx", 0)] = ref.shape[a.get("input_dim_idx", 0)]
+    out = torch.full(tuple(shape), a["value"], dtype=torch_dtype(a["dtype"]),
+                     device=ctx.device)
+    ctx.set_output(op, "Out", out)
+
+
+@register("assign")
+def _assign(ctx, op):
+    """``Out`` is ``X`` (the same tensor: no rule writes a tensor in
+    place), with ``X``'s lengths companions."""
+    ctx.set_output(op, "Out", ctx.get_input(op, "X"))
+    ctx.copy_lengths(op.inputs["X"][0], op.outputs["Out"][0])
 
 
 @register("assign_value")
@@ -75,6 +95,42 @@ def _unsqueeze(ctx, op):
 def _transpose(ctx, op):
     # a view: the flash attention kernels take strided q/k/v
     ctx.set_output(op, "Out", ctx.get_input(op, "X").permute(*op.attrs["axis"]))
+
+
+@register("expand")
+def _expand(ctx, op):
+    """``X`` tiled ``expand_times`` times along each axis (``jnp.tile``'s
+    semantics, which ``torch.tile`` shares)."""
+    times = tuple(int(t) for t in op.attrs["expand_times"])
+    ctx.set_output(op, "Out", torch.tile(ctx.get_input(op, "X"), times))
+
+
+def _gather_fill(dtype):
+    """What the JAX package's ``jnp.take`` gives a row past the end: NaN
+    for a float, True for a bool, the largest value of an unsigned type
+    and the smallest of a signed one.  The JAX package runs int64 as
+    int32 (x64 is off), so an int64 row gets int32's smallest value."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    if dtype == torch.uint8:
+        return torch.iinfo(dtype).max
+    return torch.iinfo(torch.int32 if dtype == torch.int64 else dtype).min
+
+
+@register("gather")
+def _gather(ctx, op):
+    """The rows of ``X`` at ``Index`` (flattened), as the JAX package's
+    ``jnp.take`` reads them: an index in [-n, 0) wraps to ``n + index``,
+    and one outside [-n, n) gives a row of ``_gather_fill`` (where
+    ``index_select`` would raise)."""
+    x = ctx.get_input(op, "X")
+    idx = ctx.get_input(op, "Index").reshape(-1)
+    n = x.shape[0]
+    out = torch.index_select(x, 0, wrapped_index(idx, n))
+    keep = in_range(idx, n).reshape((-1,) + (1,) * (x.dim() - 1))
+    ctx.set_output(op, "Out", torch.where(keep, out, _gather_fill(x.dtype)))
 
 
 @register("slice")

@@ -111,25 +111,42 @@ def _mlp_programs():
     return main, startup, img, avg_loss
 
 
+#: the control flow's rules beyond what get_inference_model runs
+CONTROL_FLOW_OPS = {"conditional_block", "while", "write_to_array",
+                    "read_from_array", "lod_array_length", "is_empty",
+                    "less_than", "less_equal", "greater_than",
+                    "greater_equal", "equal", "not_equal", "logical_and",
+                    "logical_or", "logical_xor", "logical_not"}
+
+
 def test_op_coverage_report():
     """The port's rules are a subset of the JAX package's, and cover every
-    op of the MNIST MLP's and LeNet's Programs; the gap left is
-    printed."""
+    op of the MNIST MLP's and LeNet's Programs, of every block of the
+    Transformer's beam-search inference Program, and the control flow's;
+    the gap left is printed."""
     port, ref = set(registered_ops()), set(jax_registered_ops())
     assert port <= ref, port - ref
     with tfluid.unique_name.guard():
         m = TM.get_model()
+    with tfluid.unique_name.guard():
+        inf = TT.get_inference_model(beam_size=2, max_out_len=4, seq_len=8,
+                                     **{k: SMALL[k] for k in SMALL
+                                        if k not in ("batch_size",
+                                                     "seq_len")})
     mlp_main, mlp_startup, _, _ = _mlp_programs()
     programs = {"mlp": (mlp_main, mlp_startup),
-                "mnist": (m["main"], m["startup"], m["test"])}
+                "mnist": (m["main"], m["startup"], m["test"]),
+                "transformer inference": (inf["infer"], inf["startup"])}
     for name, progs in programs.items():
-        needed = {op.type for p in progs for op in p.global_block().ops}
+        needed = {op.type for p in progs for blk in p.blocks
+                  for op in blk.ops}
         needed -= {"backward"}
         assert needed <= port, (name, needed - port)
+    assert CONTROL_FLOW_OPS <= port, CONTROL_FLOW_OPS - port
     gap = sorted(ref - port)
     print("op coverage: the port registers %d of the reference's %d ops; "
           "%d left: %s" % (len(port), len(ref), len(gap), ", ".join(gap)))
-    assert len(port) >= 52
+    assert len(port) >= 76
 
 
 def test_program_fn_matches_the_executor():

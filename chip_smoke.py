@@ -4,7 +4,13 @@
     python3 chip_smoke.py
 
 Phases, in order (any failure exits non-zero; no phase is skipped or
-caught):
+caught).  Every ``Executor.run`` leg goes through the executor's fast
+path, as a user's would: a bound entry's first step runs eager, its
+second captures the step as one CUDA graph, every later step is one
+replay; step times are taken from the third step on.  The windows that
+split device time by op or kernel family run a step on the eager path
+(``use_program_cache=False``: a replay emits no ranges) and say so
+(``"path"``); a replay is profiled for its busy and idle time only:
 
 1. the card: name and power limit (nvidia-smi), TF32 switched off for
    matmuls and convolutions;
@@ -118,7 +124,10 @@ caught):
    and without the blocks in turns (requests/s), a profiled window
    (device busy
    and idle share, B1's share, GEMMs, the device-to-host copy of the
-   logits), batch-1 clients with batching on and off, and B1 at
+   logits), batch-1 clients with batching on and off, the logits' copy
+   to pageable and to pinned memory (``executor.as_numpy``); the Program
+   backend's dispatches replay one CUDA graph a bucket (captured at the
+   warm-up, none under the load); and B1 at
    [16, 8, 256, 64] (the encoder's and the decoder's causal lengths)
    against its plain version, its bound and one SDPA call;
 10. MNIST LeNet (models.mnist.get_model, batch 128, f32, TF32 off): one
@@ -126,8 +135,10 @@ caught):
    parameters (loss 1e-6 relative, each gradient 1e-5 of its max |g|),
    and the same step with TF32 on, which must exceed those limits; then
    20 steps through Executor.run fed by DataFeeder (every loss finite,
-   every parameter moved, the loss falling); step ms, images/s, peak
-   memory, and a profiled step's device busy time and idle share;
+   every parameter moved, the loss falling); step ms, images/s (CUDA-graph
+   replays, and LENET_EAGER_STEPS eager steps beside them), peak
+   memory, and a profiled step's device busy time and idle share each
+   way;
 11. op rules on the card: ``mean`` of an int64 input and a float32 cast
    to int32 and uint8 (NaN, +-inf and values past the range) give the
    JAX package's values exactly (ROADMAP F-8, F-9);
@@ -168,11 +179,26 @@ caught):
    times a step; step time, target tokens/s, peak memory, the loss
    trajectory, and a profiled step split by kernel family with the
    device's idle share;
-15. the long-context leg: the same model at bench.py's longest leg
+15. the executor's fast path (fast_path_phase): Transformer-base at the
+   training leg's 64 x 256, dropout 0.1, from one seeded start state,
+   FAST_STEPS steps eager and FAST_STEPS graphed: losses, parameters
+   and Adam's accumulators bitwise equal, one capture (none over steps
+   3-10), B1 and B2 18 launches a step with replays, fetched values
+   (numpy, an unread LazyFetch, a return_numpy=False tensor, a scope
+   value read as numpy) unchanged by later steps; FAST_CYCLE's batch
+   sizes (64, 56, 48 and 40 x 256) in turn through one executor: one
+   graph a shape in one shared pool, none evicted, bitwise equal to the
+   same steps op by op; nan_guard: finite
+   guarded steps (eager, then graphed) equal to unguarded eager steps, a
+   NaN parameter set through the scope gives False twice with every
+   persistable bitwise unchanged, restored True twice; JitStepCache's
+   graphed callable; step ms and tokens/s each way, idle shares,
+   capture ms, the graph's pool, peak memory;
+16. the long-context leg: the same model at bench.py's longest leg
    (batch 4 x 4096, max_length 4096, rows of 64-4096 tokens), 5 steps
    under ``auto``: the same checks, with B1 and the backward ``auto``
    picks launched 18 times a step and the other engine not at all;
-16. ResNet-50 in bf16, bench.py's leg (get_model(dtype="bfloat16"),
+17. ResNet-50 in bf16, bench.py's leg (get_model(dtype="bfloat16"),
    224 x 224, 1000 classes): one step at batch 2 from one bf16 state on
    the card and on the CPU, each held against the CPU's float64 step from
    the same state widened (the card within RESNET_BF16_FACTOR of the
@@ -189,7 +215,7 @@ caught):
    batch 256 with bf16 state and images, unfolded and folded (the folded
    logits no farther from the f32 Program's than RESNET_BF16_FACTOR times
    the unfolded bf16 logits are), images/s;
-17. Transformer-base from bench.py's bf16 state (bench.py:363-389): one
+18. Transformer-base from bench.py's bf16 state (bench.py:363-389): one
    step at batch 2 x 64 (dropout 0, full width) through program_to_fn on
    the card against the CPU (loss BF16_LOSS_ULPS bf16 ulps, gradients
    BF16_GRAD_GLOBAL_L2 together in L2, their median BF16_GRAD_MEDIAN_L2,
@@ -201,13 +227,13 @@ caught):
    Adam's moments float32, B1 and B2 launched 18 times a step on bf16
    tensors; step ms, tokens/s, peak memory, device ms by family and idle
    share beside the f32 leg's;
-18. Transformer-base at 64 x 256 through contrib.mixed_precision's
+19. Transformer-base at 64 x 256 through contrib.mixed_precision's
    decorate (bf16 mul and matmul, f32 master weights, the flash kernels
    in f32): DECORATE_STEPS steps from the f32 leg's parameters and feeds,
    every loss within DECORATE_LOSS_RTOL of the f32 leg's at the same
    step, B1 and B2 18 launches a step in float32; step ms, tokens/s,
    device ms by op;
-19. Transformer-base beam-search inference (get_inference_model's
+20. Transformer-base beam-search inference (get_inference_model's
    defaults, beam 4, max_out_len 32, seq_len 64, at bench.py's widths,
    the parameters of get_model's training startup, f32 with TF32 off)
    through Executor(CUDAPlace(0)).run: first two sources at max_out_len
@@ -215,17 +241,19 @@ caught):
    lengths bitwise, scores within BEAM_SCORE_RTOL) with the float32
    decode's agreement recorded; then 64 sources of 8-64 tokens: every
    score finite and non-increasing within a source, every id in the
-   vocabulary, every length in [1, 32], B1-B5 launched not at all;
+   vocabulary, every length in [1, 32], B1-B5 launched not at all; the
+   fast path refuses to capture it (``while`` reads the host: counted
+   once, the bound entry runs eager with the first decode's bits);
    sentences/s, generated tokens/s, ms an iteration, the device syncs
    of a decode, peak memory, and a profiled decode's device ms by op and
    idle share;
-20. bench.py's two other long legs on bf16 (16 x 1024 for 15 steps,
+21. bench.py's two other long legs on bf16 (16 x 1024 for 15 steps,
    8 x 2048 for 12; bench.py's feeds, max_length = seq): the checks of
-   phase 17's leg (B1 and B2 18 times a step on bf16); step ms, tokens/s,
+   phase 18's leg (B1 and B2 18 times a step on bf16); step ms, tokens/s,
    peak memory, idle share; then B1 and B2 at each leg's attention shape
    ([16, 8, 1024, 64], [8, 8, 2048, 64], bf16, not causal) against their
    plain versions, with their times, bounds and SDPA's;
-21. a ``kernels`` JSON line (all six kernels: times at the shape of
+22. a ``kernels`` JSON line (all six kernels: times at the shape of
    their main path, launches from it; B1's entry also carries its legacy
    serving launches and its figures at bucket 1024, and its predict
    launches (on the load) and figures at [16, 8, 256, 64]; B4's entry
@@ -293,6 +321,7 @@ PREDICT_BATCH_TOL = 0.0
 MLP_SIZES = (200, 200, 10)
 # MNIST LeNet (benchmark/fluid/models/mnist.py), batch 128, f32
 LENET_BATCH, LENET_STEPS = 128, 20
+LENET_EAGER_STEPS = 10
 # LeNet card vs CPU, TF32 off: the float32 step reads about 1e-7 (loss)
 # and 1e-6 (gradients); TF32 rounds inputs to 10 mantissa bits (2**-11),
 # so its control step must land above these
@@ -382,6 +411,17 @@ FLASH_TOL = {"float32": (2e-5, 5e-5), "bfloat16": (1e-2, 1e-2)}
 TRAIN_CFG = dict(batch_size=64, seq_len=256, src_vocab_size=30000,
                  trg_vocab_size=30000, max_length=256, use_flash=True)
 TRAIN_STEPS = 10
+# the executor's fast path (fast_path_phase): TRAIN_CFG (dropout 0.1) for
+# FAST_STEPS steps eager and FAST_STEPS graphed from one start state; the
+# loss of step FAST_HELD is held as numpy, that of the next step as an
+# unread LazyFetch, that of the one after as a return_numpy=False tensor
+FAST_STEPS = 10
+FAST_HELD = 6
+# batch sizes of 256 tokens through one executor in this order (a training
+# loop's other batch sizes and last partial batches): each new one runs
+# eager beside the graphs captured before, then is captured into their
+# pool; the last round replays them all
+FAST_CYCLE = (64, 64, 64, 56, 56, 48, 48, 40, 40, 64, 56, 48, 40)
 # bench.py's bf16 Transformer, card against CPU at CHECK_CFG from one bf16
 # state (bf16_step_errors), with limits fixed on the CPU from two
 # implementations of the same bf16 step that sum in other orders, the
@@ -1298,10 +1338,19 @@ def profile_predict(torch, engine, feeds):
 
 def logits_d2h(torch, dev, vocab, seq):
     """One bucket-16 logits tensor ([16, seq, vocab] float32, 491 MB at
-    the phase's width) copied to the host as the serving path copies it
-    (``.cpu()``, to pageable memory), and into a pinned host buffer:
-    seconds each (host clock; the copies are synchronous)."""
-    x = torch.zeros((16, seq, vocab), device=dev)
+    the phase's width) copied to the host: to pageable memory
+    (``.cpu()``, the serving path before the fast path), into a pinned
+    buffer made beforehand, and through ``executor.as_numpy`` (the
+    serving path now: staged through a pinned buffer of the caching host
+    allocator, then copied out into pageable memory), the first time and
+    again, and three times while the earlier arrays are held; the bits
+    equal.  Seconds each (host clock; the copies are waited for).  The
+    host allocator's pinned bytes (``torch.cuda.host_memory_stats``,
+    where this PyTorch has it) must not grow while arrays are held: the
+    caller keeps pageable copies, not pinned blocks."""
+    from paddle_tpu_torch import executor as executor_mod
+
+    x = torch.randn((16, seq, vocab), device=dev)
     pinned = torch.empty(x.shape, pin_memory=True)
     torch.cuda.synchronize()
     out = {"bytes": x.numel() * 4}
@@ -1312,6 +1361,36 @@ def logits_d2h(torch, dev, vocab, seq):
         copy()
         torch.cuda.synchronize()
         out[name] = time.perf_counter() - t0
+    want = x.cpu().numpy()
+    del pinned
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+
+    def pinned_bytes():
+        return (host_stats().get("allocated_bytes.current")
+                if host_stats is not None else None)
+
+    for name in ("as_numpy_first_s", "as_numpy_again_s"):
+        t0 = time.perf_counter()
+        got = executor_mod.as_numpy(x)
+        out[name] = time.perf_counter() - t0
+        check(np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+              "pinned fetch bits", name)
+        del got
+    before = pinned_bytes()
+    held, out["as_numpy_held_s"] = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        held.append(executor_mod.as_numpy(x))
+        out["as_numpy_held_s"].append(time.perf_counter() - t0)
+    after = pinned_bytes()
+    del held
+    if before is None or after is None:
+        out["pinned_bytes_held"] = "not measured (no host_memory_stats)"
+    else:
+        out["pinned_bytes_before_held"] = before
+        out["pinned_bytes_after_held"] = after
+        check(after <= before, "pinned host memory grew with the arrays "
+              "the caller holds", before, after)
     return out
 
 
@@ -1386,7 +1465,8 @@ def first_moving_op(torch, fluid, dirname, src, trg, block_rows=None):
                 try:
                     with torch.no_grad():
                         out = exe.run(prog, feed=feed, fetch_list=names,
-                                      return_numpy=False)
+                                      return_numpy=False,
+                                      use_program_cache=False)
                     break
                 except KeyError as exc:   # an output its rule leaves out
                     missing = re.search(r"fetch target '([^']+)'",
@@ -1522,9 +1602,14 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
     (PREDICT_REQUESTS requests of 1-4 rows from 8 clients: requests/s,
     rows/s, latency, the bucket histogram, peak memory, a profiled
     window), batching off against on (batch-1 clients), and B1's row at
-    [16, 8, 256, 64] (PERF.md row 1S)."""
+    [16, 8, 256, 64] (PERF.md row 1S).  The Program backend's dispatches
+    are CUDA-graph replays: the warm-up captures one graph a bucket, and
+    the load captures none; the logits come back through pinned memory
+    (logits_d2h)."""
     import shutil
     import tempfile
+
+    from paddle_tpu_torch import executor as executor_mod
 
     resident = resident_gib(torch, dev)
     vocab, seq = TRAIN_CFG["trg_vocab_size"], TRAIN_CFG["seq_len"]
@@ -1697,12 +1782,23 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
         load_feeds = [predict_feed(*predict_rows(rng, int(n), seq, vocab))
                       for n in sizes]
         c0, b0 = bucket_counts(obs), obs.counter("serving.batches").value
+        compiles0 = executor_mod.compile_count()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         fa.reset_launch_counts()
         outs, lat, wall = serve_clients(load, load_feeds, 8)
         torch.cuda.synchronize()
         launches = dict(fa.KERNEL_LAUNCHES)
+        load_compiles = executor_mod.compile_count() - compiles0
+        # the warm-up ran each bucket twice: eager, then a capture; the
+        # load replays those graphs and captures none
+        graphed = {b.static_feeds["src_word"].shape[0]: b.pool_bytes
+                   for b in load._model._exe._bound.values()
+                   if b.graph is not None}
+        graphs = sorted(graphed)
+        check(graphs == sorted(PREDICT_BUCKETS) and load_compiles == 0,
+              "one graph a bucket, none captured under load", graphs,
+              load_compiles)
         peak = torch.cuda.max_memory_allocated(dev)
         dispatches = obs.counter("serving.batches").value - b0
         histogram = {k: v - c0[k] for k, v in bucket_counts(obs).items()}
@@ -1767,6 +1863,9 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
             "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
             "latency_p95_ms": float(np.percentile(lat, 95) * 1e3),
             "dispatches": dispatches, "bucket_histogram": histogram,
+            "graphs_by_bucket": graphs, "captures_under_load": load_compiles,
+            "graph_pool_gib_by_bucket": {
+                b: v / 2 ** 30 for b, v in sorted(graphed.items())},
             "peak_memory_gib": peak / 2 ** 30,
             "resident_before_gib": resident, "launches": launches,
             "profile": profile,
@@ -1813,7 +1912,11 @@ def lenet_phase(torch, fluid, dev):
     step with one batch of seeded synthetic images: every loss finite,
     every parameter moved, the last loss under 0.9 of the first (the net
     fits the batch; fresh batches of this teacher move the loss too
-    little in 20 steps to show), and one more step profiled."""
+    little in 20 steps to show); step ms from the third step on (the
+    first runs eager, the second captures the CUDA graph, the rest are
+    replays) against LENET_EAGER_STEPS steps run op by op
+    (``use_program_cache=False``) in images/s; a replay profiled for its
+    busy and idle time, and an eager step by kernel family."""
     from paddle_tpu_torch.models import mnist
 
     resident = resident_gib(torch, dev)
@@ -1886,16 +1989,30 @@ def lenet_phase(torch, fluid, dev):
         t0 = time.perf_counter()
         loss, acc = exe.run(m["main"], feed=feeder.feed(b),
                             fetch_list=[m["loss"], m["acc"]], scope=scope)
-        step_s.append(time.perf_counter() - t0)
+        # reading a lazy fetch waits for the step
         losses.append(float(loss[0]))
         accs.append(float(acc[0]))
+        step_s.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(np.isfinite(losses)), "lenet non-finite loss", losses)
     for p in params:
         check(bool(torch.isfinite(scope[p]).all()), "lenet non-finite", p)
         check(not torch.equal(scope[p], before[p]), "lenet param still", p)
     check(losses[-1] < 0.9 * losses[0], "lenet loss did not fall", losses)
-    steady = float(np.mean(step_s[1:]))
+    steady = steady_ms(step_s) / 1e3
+    graphed = profile_graphed(torch, exe, m, feeder.feed(batches[0]), scope,
+                              [m["loss"], m["acc"]])
+    # the same steps op by op (use_program_cache=False), against the
+    # graph replays above
+    eager_s = []
+    for b in batches[:LENET_EAGER_STEPS]:
+        t0 = time.perf_counter()
+        loss, = exe.run(m["main"], feed=feeder.feed(b),
+                        fetch_list=[m["loss"]], scope=scope,
+                        use_program_cache=False)
+        eager_s.append(time.perf_counter() - t0)
+        check(np.isfinite(float(loss[0])), "lenet eager loss")
+    eager = float(np.mean(eager_s[1:]))
     profile = profile_step(torch, exe, m, feeder.feed(batches[0]), scope)
     stats = {"batch": LENET_BATCH, "steps": LENET_STEPS,
              "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
@@ -1903,11 +2020,16 @@ def lenet_phase(torch, fluid, dev):
              "worst_grad_err_of_max": worst,
              "tf32_control_loss_rel_err": tf32_loss_err,
              "tf32_control_worst_grad_err_of_max": tf32_worst,
-             "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
+             "first_step_ms": step_s[0] * 1e3,
+             "capture_step_ms": step_s[1] * 1e3, "step_ms": steady * 1e3,
+             "step_ms_all": [t * 1e3 for t in step_s],
              "images_per_s": LENET_BATCH / steady,
+             "eager_step_ms": eager * 1e3,
+             "eager_images_per_s": LENET_BATCH / eager,
              "peak_memory_gib": peak / 2 ** 30,
              "resident_before_gib": resident, "losses": losses,
-             "accuracies": accs, "profile": profile}
+             "accuracies": accs, "graphed_profile": graphed,
+             "profile": profile}
     log("lenet (MNIST, batch %d, f32, TF32 off): %s"
         % (LENET_BATCH, json.dumps(stats)))
     return stats
@@ -2208,7 +2330,9 @@ RESNET_FAMILIES = {"conv2d": "conv", "batch_norm": "batch_norm",
 
 
 def profile_ops(torch, exe, m, feed, scope, fetch, families=None):
-    """One run of ``m["main"]`` profiled, its device time by op type:
+    """One run of ``m["main"]`` profiled, its device time by op type, on
+    the eager path (``use_program_cache=False``: a CUDA-graph replay runs
+    no rule, so it emits no range to attribute time by):
     each rule runs inside a ``record_function`` of its type (the ops of
     a sub-block under their own type), and a backward kernel goes to the
     forward op whose autograd node launched it (the profiler's sequence
@@ -2235,7 +2359,8 @@ def profile_ops(torch, exe, m, feed, scope, fetch, families=None):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            exe.run(m["main"], feed=feed, fetch_list=fetch, scope=scope)
+            exe.run(m["main"], feed=feed, fetch_list=fetch, scope=scope,
+                    use_program_cache=False)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
@@ -2300,7 +2425,8 @@ def profile_ops(torch, exe, m, feed, scope, fetch, families=None):
     for k, v in by_op.items():
         fam = families_of.get(k, "other")
         families[fam] = families.get(fam, 0.0) + v
-    return {"step_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    return {"path": "eager (use_program_cache=False)",
+            "step_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
             "device_ms_by_family": {k: v / 1e3 for k, v in families.items()},
             "device_ms_by_op": {k: v / 1e3 for k, v in sorted(
@@ -2322,7 +2448,8 @@ def resnet_train(torch, fluid, resnet, dev, dtype="float32"):
     running statistics bfloat16, the velocities float32, as the JAX
     package's optimizer declares them); step ms (steps 2 on), images/s,
     the share of the bound at ``dtype``'s peak, peak memory, a profiled
-    step.  Returns the stats, the model and its scope."""
+    step (eager) and a replay's busy and idle time.  Returns the stats,
+    the model and its scope."""
     m = resnet_model(fluid, resnet, dtype)
     m["startup"].random_seed = SEED + 62
     exe = fluid.Executor(device=dev)
@@ -2341,9 +2468,10 @@ def resnet_train(torch, fluid, resnet, dev, dtype="float32"):
         t0 = time.perf_counter()
         loss, acc = exe.run(m["main"], feed=feed,
                             fetch_list=[m["loss"], m["acc"]], scope=scope)
-        step_s.append(time.perf_counter() - t0)
+        # reading a lazy fetch waits for the step
         losses.append(float(loss[0]))
         accs.append(float(acc[0]))
+        step_s.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(np.isfinite(losses)), "resnet non-finite loss", losses)
     unmoved = []
@@ -2390,10 +2518,12 @@ def resnet_train(torch, fluid, resnet, dev, dtype="float32"):
         check(dtypes["parameter"] == ["bfloat16"]
               and dtypes["velocity"] == ["float32"], "resnet bf16 dtypes",
               dtypes)
-    steady = float(np.mean(step_s[1:]))
+    steady = steady_ms(step_s) / 1e3
     images_s = RESNET_BATCH / steady
     peak_flops = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
     bound_images_s = peak_flops / RESNET_TRAIN_FLOPS
+    graphed = profile_graphed(torch, exe, m, feed, scope,
+                              [m["loss"], m["acc"]])
     profile = profile_ops(torch, exe, m, feed, scope, [m["loss"]])
     stats = {"dtype": dtype, "batch": RESNET_BATCH, "steps": RESNET_STEPS,
              "params": len(params),
@@ -2404,7 +2534,8 @@ def resnet_train(torch, fluid, resnet, dev, dtype="float32"):
              "images_per_s": images_s, "bound_images_per_s": bound_images_s,
              "share_of_bound": images_s / bound_images_s,
              "peak_memory_gib": peak / 2 ** 30, "losses": losses,
-             "accuracies": accs, "profile": profile}
+             "accuracies": accs, "graphed_profile": graphed,
+             "profile": profile}
     log("resnet-50 training (batch %d, 224 x 224, %s, TF32 off): %s"
         % (RESNET_BATCH, dtype, json.dumps(stats)))
     return stats, m, scope
@@ -2419,12 +2550,17 @@ def copy_scope(fluid, scope, names):
 
 
 def images_per_s(exe, prog, feed, fetch, scope):
-    """The ``prog`` run RESNET_INFER_RUNS times after one warm-up (each
-    run ends in the logits' numpy fetch): (images/s, the last logits)."""
-    out = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)[0]
+    """The ``prog`` run RESNET_INFER_RUNS times after two warm-up runs
+    (the first eager, the second captures the CUDA graph; each run ends
+    in the logits' numpy fetch, read at once): (images/s, the last
+    logits)."""
+    for _ in range(2):
+        out = np.asarray(exe.run(prog, feed=feed, fetch_list=fetch,
+                                 scope=scope)[0])
     t0 = time.perf_counter()
     for _ in range(RESNET_INFER_RUNS):
-        out = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)[0]
+        out = np.asarray(exe.run(prog, feed=feed, fetch_list=fetch,
+                                 scope=scope)[0])
     dt = (time.perf_counter() - t0) / RESNET_INFER_RUNS
     return len(feed["data"]) / dt, out
 
@@ -3119,10 +3255,33 @@ def train_check_phase(torch, fluid, T, fa, dev, cfg, engine):
 
 def profile_step(torch, exe, m, feed, scope):
     """Where one training step's device time goes, by kernel family, and
-    the device's idle share of the step's wall time; "not measured" when
-    the profiler records no device activity."""
-    return profile_call(torch, lambda: exe.run(
-        m["main"], feed=feed, fetch_list=[m["loss"]], scope=scope))
+    the device's idle share of the step's wall time, on the eager path
+    (``use_program_cache=False``); "not measured" when the profiler
+    records no device activity."""
+    out = profile_call(torch, lambda: exe.run(
+        m["main"], feed=feed, fetch_list=[m["loss"]], scope=scope,
+        use_program_cache=False))
+    if isinstance(out, dict):
+        out["path"] = "eager (use_program_cache=False)"
+    return out
+
+
+def profile_graphed(torch, exe, m, feed, scope, fetch=None):
+    """A replay of the step's CUDA graph profiled (``fetch`` the list the
+    steps before it fetched, so that it replays their entry): busy and
+    idle only.  Fails unless it replayed a graph the executor held
+    (no entry bound or rebound)."""
+    entries = {id(b): b for b in exe._bound.values()}
+    check(any(b.program is m["main"] and b.graph is not None
+              for b in entries.values()), "no graph to profile")
+    out = busy_idle(profile_call(torch, lambda: exe.run(
+        m["main"], feed=feed, fetch_list=fetch or [m["loss"]],
+        scope=scope)))
+    check({id(b) for b in exe._bound.values()} == set(entries),
+          "the profiled step did not replay a held graph")
+    if isinstance(out, dict):
+        out["path"] = "graphed (a CUDA-graph replay)"
+    return out
 
 
 def profile_call(torch, step):
@@ -3170,6 +3329,313 @@ def profile_call(torch, step):
             "device_events": len(kernels)}
 
 
+def steady_ms(step_s):
+    """Mean ms of the steps from the third on: through Executor.run's
+    fast path the first step runs eager and the second captures the CUDA
+    graph."""
+    return float(np.mean(step_s[2:])) * 1e3
+
+
+def busy_idle(profile):
+    """Only the busy and idle figures of a profile_call result (a graph
+    replay emits no record_function ranges, so no split by op)."""
+    if isinstance(profile, str):
+        return profile
+    return {k: profile[k] for k in ("step_wall_ms", "device_busy_ms",
+                                    "device_idle_share", "device_events")}
+
+
+def bits_equal(torch, a, b):
+    """Whether two tensors hold the same bits (NaNs included)."""
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.detach().reshape(-1).contiguous().view(torch.uint8),
+        b.detach().reshape(-1).contiguous().view(torch.uint8)))
+
+
+def fast_path_phase(torch, fluid, T, fa, dev):
+    """The executor's fast path on Transformer-base at TRAIN_CFG (64 x 256,
+    dropout 0.1, Adam with noam decay, f32 with TF32 off) from one seeded
+    start state copied into two scopes: FAST_STEPS steps eager
+    (``use_program_cache=False``) and FAST_STEPS through the default path
+    (eager, capture, then one CUDA-graph replay a step).  Checks: the
+    losses, every parameter and every Adam accumulator bitwise equal; 1
+    capture (``compile_count`` moves by 1 at step 2 and 0 over steps
+    3-10); B1 and B2 18 launches on every step, replays included; the
+    loss of step FAST_HELD as numpy, the next one's as a LazyFetch read
+    only after the last step, the one after as a ``return_numpy=False``
+    tensor, and a parameter read through the scope as numpy at step
+    FAST_HELD, each unchanged after the later steps.  Then ``nan_guard``
+    on a fresh executor: two finite guarded steps (the slow path, then a
+    captured graph) bitwise equal to two unguarded eager steps; a
+    parameter set to NaN through the scope (rebinding the entry): two
+    guarded steps (slow, then graphed) read False with every persistable
+    bitwise unchanged; the parameter restored: True, True.  JitStepCache
+    on the card: a graphed callable equal to its eager call.  Recorded:
+    step ms and tokens/s each way, the device's idle share of a profiled
+    step each way (the eager one split by kernel family, the graphed one
+    busy and idle only), capture ms, the graph's pool, peak memory."""
+    import gc
+
+    from paddle_tpu_torch import executor as executor_mod
+
+    cfg = TRAIN_CFG
+    with fluid.unique_name.guard():
+        m = T.get_model(**cfg)
+    m["startup"].random_seed = SEED + 100
+    m["main"].random_seed = SEED + 101   # the run seed of both paths
+    start = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(m["startup"], scope=start)
+    names = sorted(n for n in m["main"].persistable_names() if n in start)
+    rng = np.random.RandomState(SEED + 102)
+    feeds = [make_feeds(rng, cfg["batch_size"], cfg["seq_len"],
+                        cfg["trg_vocab_size"]) for _ in range(FAST_STEPS + 7)]
+    tokens = cfg["batch_size"] * cfg["seq_len"]
+    run_kw = {"fetch_list": [m["loss"]]}
+
+    def state_equal(a, b):
+        return [n for n in names if not bits_equal(torch, a[n], b[n])]
+
+    # eager: the step op by op, every time
+    s_eager = copy_scope(fluid, start, names)
+    exe_e = fluid.Executor(fluid.CUDAPlace(0))
+    eager_losses, eager_s = [], []
+    for feed in feeds[:FAST_STEPS]:
+        t0 = time.perf_counter()
+        (loss,) = exe_e.run(m["main"], feed=feed, scope=s_eager,
+                            use_program_cache=False, **run_kw)
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+        eager_losses.append(np.array(loss))
+
+    # graphed: eager, capture, replays
+    s_graph = copy_scope(fluid, start, names)
+    exe_g = fluid.Executor(fluid.CUDAPlace(0))
+    pname = m["main"].global_block().all_parameters()[-1].name
+    c0 = executor_mod.compile_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    graph_losses, graph_s, compiles, step_launches = [], [], [], []
+    held = {}
+    for i, feed in enumerate(feeds[:FAST_STEPS], 1):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        (loss,) = exe_g.run(m["main"], feed=feed, scope=s_graph,
+                            return_numpy=i != FAST_HELD + 2, **run_kw)
+        if i == FAST_HELD:
+            loss = np.asarray(loss)   # read at once, inside the step
+        torch.cuda.synchronize()
+        graph_s.append(time.perf_counter() - t0)
+        compiles.append(executor_mod.compile_count() - c0)
+        step_launches.append([fa.KERNEL_LAUNCHES["flash_attention_fwd"],
+                              fa.KERNEL_LAUNCHES["flash_attention_bwd"]])
+        if i == FAST_HELD:
+            held["numpy"] = (loss, loss.copy())
+            w = np.asarray(s_graph.find_var(pname).get_tensor())
+            held["param"] = (w, w.copy())
+        elif i == FAST_HELD + 1:
+            held["lazy"] = loss
+        elif i == FAST_HELD + 2:
+            held["tensor"] = (loss, loss.clone())
+        if i not in (FAST_HELD + 1, FAST_HELD + 2):
+            graph_losses.append(np.array(loss))
+        else:
+            graph_losses.append(None)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(isinstance(held["lazy"], executor_mod.LazyFetch),
+          "a graphed fetch is a LazyFetch", type(held["lazy"]))
+    graph_losses[FAST_HELD] = np.array(held["lazy"])   # read only now
+    graph_losses[FAST_HELD + 1] = held["tensor"][0].cpu().numpy()
+    check(all(a.tobytes() == b.tobytes()
+              for a, b in zip(eager_losses, graph_losses)),
+          "graphed losses not bitwise eager", eager_losses, graph_losses)
+    moved = state_equal(s_eager, s_graph)
+    check(not moved, "graphed state not bitwise eager", moved[:8])
+    check(compiles[0] == 0 and compiles[1] == 1 and compiles[-1] == 1,
+          "one capture, at step 2", compiles)
+    check(all(n == [18, 18] for n in step_launches),
+          "B1 and B2 18 launches a step", step_launches)
+    a, a_copy = held["numpy"]
+    w, w_copy = held["param"]
+    t, t_copy = held["tensor"]
+    check(a.tobytes() == a_copy.tobytes() == eager_losses[FAST_HELD - 1]
+          .tobytes(), "a numpy fetch changed")
+    check(w.tobytes() == w_copy.tobytes(), "a scope value read as numpy "
+          "changed")
+    check(not np.array_equal(w, s_graph[pname].cpu().numpy()),
+          "the parameter did not move after step %d" % FAST_HELD)
+    check(bits_equal(torch, t, t_copy), "a return_numpy=False fetch changed")
+    entry = next(b for b in exe_g._bound.values() if b.graph is not None)
+    # profiled: a replay (busy and idle only), then an eager step
+    graph_profile = busy_idle(profile_call(torch, lambda: exe_g.run(
+        m["main"], feed=feeds[FAST_STEPS], scope=s_graph, **run_kw)))
+    eager_profile = profile_call(torch, lambda: exe_e.run(
+        m["main"], feed=feeds[FAST_STEPS], scope=s_eager,
+        use_program_cache=False, **run_kw))
+    moved = state_equal(s_eager, s_graph)
+    check(not moved, "state after the profiled steps", moved[:8])
+    stats = {"steps": FAST_STEPS, "dropout": 0.1,
+             "eager_step_ms_all": [x * 1e3 for x in eager_s],
+             "graphed_step_ms_all": [x * 1e3 for x in graph_s],
+             "eager_step_ms": float(np.mean(eager_s[1:])) * 1e3,
+             "graphed_step_ms": steady_ms(graph_s),
+             "capture_step_ms": graph_s[1] * 1e3,
+             "capture_ms": entry.capture_s * 1e3,
+             "graph_pool_gib": entry.pool_bytes / 2 ** 30,
+             "peak_memory_gib": peak / 2 ** 30,
+             "compiles_by_step": compiles,
+             "launches_by_step": step_launches,
+             "graph_launches_per_replay": {
+                 "%s/%s" % k: n for k, n in entry.launches.items()},
+             "bitwise_losses_and_state": True, "state_tensors": len(names),
+             "graphed_profile": graph_profile, "eager_profile": eager_profile}
+    stats["eager_tokens_per_s"] = tokens / stats["eager_step_ms"] * 1e3
+    stats["graphed_tokens_per_s"] = tokens / stats["graphed_step_ms"] * 1e3
+    # dropping the executor frees its graph and the graph's pool
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(dev)
+    pool = entry.pool_bytes
+    del exe_g, entry
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = reserved - torch.cuda.memory_reserved(dev)
+    stats["freed_on_drop_gib"] = freed / 2 ** 30
+    check(freed >= 0.9 * pool, "dropping the executor kept its graph's pool",
+          freed, pool)
+    stats["shape_cycle"] = shape_cycle_check(torch, fluid, m, start, names,
+                                             executor_mod, dev)
+    del start
+
+    # nan_guard, on a fresh executor: finite, NaN, restored
+    exe_n = fluid.Executor(fluid.CUDAPlace(0))
+    g_feeds = iter(feeds[FAST_STEPS + 1:])
+    verdicts, guard_compiles = [], []
+
+    def guarded():
+        c = executor_mod.compile_count()
+        exe_n.run(m["main"], feed=next(g_feeds), scope=s_graph,
+                  nan_guard=True, **run_kw)
+        guard_compiles.append(executor_mod.compile_count() - c)
+        verdicts.append(exe_n.last_step_ok())
+
+    for _ in range(2):
+        guarded()
+    for f in feeds[FAST_STEPS + 1:FAST_STEPS + 3]:
+        exe_e.run(m["main"], feed=f, scope=s_eager, use_program_cache=False,
+                  **run_kw)
+    moved = state_equal(s_eager, s_graph)
+    check(verdicts == [True, True] and not moved,
+          "finite guarded steps against unguarded eager", verdicts, moved[:8])
+    saved = s_graph[pname].clone()
+    bad = saved.clone()
+    bad.view(-1)[0] = float("nan")
+    s_graph[pname] = bad
+    snapshot = {n: s_graph[n].clone() for n in names}
+    for _ in range(2):
+        guarded()
+        changed = [n for n in names
+                   if not bits_equal(torch, s_graph[n], snapshot[n])]
+        check(verdicts[-1] is False and not changed,
+              "a NaN step changed state", verdicts, changed[:8])
+    s_graph[pname] = saved
+    for _ in range(2):
+        guarded()
+    check(verdicts == [True, True, False, False, True, True],
+          "nan_guard verdicts", verdicts)
+    check(guard_compiles == [0, 1] * 3, "a guarded entry captures at its "
+          "second run", guard_compiles)
+    stats["nan_guard"] = {"verdicts": verdicts, "compiles": guard_compiles,
+                          "nan_param": pname,
+                          "finite_guarded_equals_unguarded": True,
+                          "nan_steps_state_unchanged": True}
+    del exe_n, snapshot, s_eager, s_graph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # JitStepCache on the card: warm-up, capture, replays
+    cache = executor_mod.JitStepCache(lambda key: (lambda x: x * key + 1))
+    c = executor_mod.compile_count()
+    fn = cache.get(3)
+    xs = [torch.randn(4096, device=dev) for _ in range(3)]
+    outs = [fn(x) for x in xs]
+    check(fn._graph is not None and all(
+        bits_equal(torch, o, x * 3 + 1) for o, x in zip(outs, xs))
+          and executor_mod.compile_count() - c == 1,
+          "JitStepCache graphed callable")
+    stats["jit_step_cache"] = {"graphed": True, "compiles": 1}
+    log("fast path (Transformer-base 64 x 256, dropout 0.1, eager against "
+        "graphed): %s" % json.dumps(stats))
+    return stats
+
+
+def shape_cycle_check(torch, fluid, m, start, names, executor_mod, dev):
+    """FAST_CYCLE's feed shapes through one executor, from ``start``'s
+    state: one graph a shape, all in the executor's one pool, none
+    evicted; the losses and every state tensor bitwise equal to the same
+    sequence op by op.  Recorded: what each capture added to the pool,
+    and the card's reserved memory before and at its peak."""
+    import gc
+
+    cfg = TRAIN_CFG
+    rng = np.random.RandomState(SEED + 103)
+    feeds = [make_feeds(rng, b, cfg["seq_len"], cfg["trg_vocab_size"])
+             for b in FAST_CYCLE]
+    run_kw = {"fetch_list": [m["loss"]]}
+    s_eager = copy_scope(fluid, start, names)
+    exe_e = fluid.Executor(fluid.CUDAPlace(0))
+    eager = [np.array(exe_e.run(m["main"], feed=f, scope=s_eager,
+                                use_program_cache=False, **run_kw)[0])
+             for f in feeds]
+    del exe_e
+    s_graph = copy_scope(fluid, start, names)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    c0 = executor_mod.compile_count()
+    e0 = executor_mod.cache_eviction_count()
+    graphed = [np.array(exe.run(m["main"], feed=f, scope=s_graph,
+                                **run_kw)[0]) for f in feeds]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_reserved(dev)
+    captures = executor_mod.compile_count() - c0
+    evictions = [a - b for a, b in
+                 zip(executor_mod.cache_eviction_count(), e0)]
+    pools = {b.static_feeds["src_word"].shape[0]: b.pool_bytes
+             for b in exe._bound.values() if b.graph is not None}
+    check(sorted(pools) == sorted(set(FAST_CYCLE))
+          and captures == len(pools) and evictions == [0, 0],
+          "cycled shapes: one graph a shape, none evicted", sorted(pools),
+          captures, evictions)
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(eager, graphed)),
+          "cycled shapes: graphed losses not bitwise eager", eager, graphed)
+    check(all(np.isfinite(x).all() for x in graphed),
+          "cycled shapes: non-finite loss", graphed)
+    moved = [n for n in names
+             if not bits_equal(torch, s_eager[n], s_graph[n])]
+    check(not moved, "cycled shapes: graphed state not bitwise eager",
+          moved[:8])
+    first, total = pools[FAST_CYCLE[0]], sum(pools.values())
+    # four pools of their own would take about 3.25 times the first
+    check(total < 2 * first, "cycled shapes: the graphs did not share "
+          "one pool", {b: v / 2 ** 30 for b, v in pools.items()})
+    out = {"batches": list(FAST_CYCLE), "seq_len": cfg["seq_len"],
+           "captures": captures, "evictions": evictions,
+           "pool_gib_by_capture": {b: v / 2 ** 30
+                                   for b, v in sorted(pools.items())},
+           "pool_gib_total": total / 2 ** 30,
+           "reserved_before_gib": reserved / 2 ** 30,
+           "reserved_peak_gib": peak / 2 ** 30,
+           "bitwise_losses_and_state": True}
+    del exe, s_eager, s_graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("fast path, cycled shapes (Transformer-base, batches %s x %d): %s"
+        % (list(FAST_CYCLE), cfg["seq_len"], json.dumps(out)))
+    return out
+
+
 def train_phase(torch, fluid, T, fa, dev, cfg, steps, engine, label):
     """Transformer-base trains through Executor.run on the card, with the
     flash backward engine ``engine``."""
@@ -3201,9 +3667,9 @@ def train_phase(torch, fluid, T, fa, dev, cfg, steps, engine, label):
         for feed in feeds[:steps]:
             t0 = time.perf_counter()
             (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
-                              scope=scope)  # the numpy fetch waits for it
+                              scope=scope)
+            losses.append(float(loss))   # reading it waits for the step
             step_s.append(time.perf_counter() - t0)
-            losses.append(float(loss))
         launches = dict(fa.KERNEL_LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         check(all(np.isfinite(losses)), "non-finite loss", losses)
@@ -3214,19 +3680,24 @@ def train_phase(torch, fluid, T, fa, dev, cfg, steps, engine, label):
         del before
         ran = bwd_engine(fa, engine, cfg)
         check_flash_launches(fa, launches, ran, 18 * steps, label)
+        # the replay first: an eager step replaces the state the graph
+        # holds, and the next run would bind again
+        graphed = profile_graphed(torch, exe, m, feeds[steps], scope)
         profile = profile_step(torch, exe, m, feeds[steps], scope)
     finally:
         fa.FLASH_BWD_IMPL = saved
-    steady = float(np.mean(step_s[1:]))
+    steady = steady_ms(step_s) / 1e3
     tokens = cfg["batch_size"] * cfg["seq_len"]
     stats = {"params": len(params), "param_values": int(n_values),
              "steps": steps, "engine": engine, "engine_ran": ran,
              "startup_s": startup_s,
-             "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
+             "first_step_ms": step_s[0] * 1e3,
+             "capture_step_ms": step_s[1] * 1e3, "step_ms": steady * 1e3,
              "step_ms_all": [t * 1e3 for t in step_s],
              "target_tokens_per_s": tokens / steady,
              "peak_memory_gib": peak / 2 ** 30, "losses": losses,
-             "launches": launches, "profile": profile}
+             "launches": launches, "graphed_profile": graphed,
+             "profile": profile}
     log("training %s (Transformer-base, batch %d x %d, vocab %d, dropout "
         "0.1): %s" % (label, cfg["batch_size"], cfg["seq_len"],
                       cfg["trg_vocab_size"], json.dumps(stats)))
@@ -3525,8 +3996,10 @@ def transformer_decorate_phase(torch, fluid, T, fa, dev, f32):
     from the f32 leg's startup seed on its first feeds, DECORATE_STEPS
     steps: every loss finite and within DECORATE_LOSS_RTOL of the f32
     leg's loss at the same step (``f32``: the same parameters and feeds;
-    the dropout draws differ); B1 and B2 18 launches a step in float32;
-    step ms, target tokens/s and a profiled step's device ms by op."""
+    the dropout draws differ); B1 and B2 18 launches a step in float32,
+    replays included (the steps from the second run as one CUDA graph);
+    step ms (steps 3 on), target tokens/s, a replay's idle share and an
+    eager step's device ms by op."""
     with fluid.unique_name.guard():
         m = decorated_transformer(fluid, T, TRAIN_CFG)
     m["startup"].random_seed = SEED + 7     # train_phase's
@@ -3543,8 +4016,8 @@ def transformer_decorate_phase(torch, fluid, T, fa, dev, f32):
         t0 = time.perf_counter()
         (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
                           scope=scope)
+        losses.append(float(loss))   # reading it waits for the step
         step_s.append(time.perf_counter() - t0)
-        losses.append(float(loss))
     launches = {k: dict(v) for k, v in fa.KERNEL_LAUNCHES_BY_DTYPE.items()}
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, f32["losses"])]
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
@@ -3554,15 +4027,17 @@ def transformer_decorate_phase(torch, fluid, T, fa, dev, f32):
     check(all(np.isfinite(losses)) and max(rel) <= DECORATE_LOSS_RTOL,
           "decorate losses", losses, f32["losses"][:DECORATE_STEPS])
     casts = sum(op.type == "cast" for op in m["main"].global_block().ops)
+    graphed = profile_graphed(torch, exe, m, feeds[-1], scope)
     profile = profile_ops(torch, exe, m, feeds[-1], scope, [m["loss"]])
-    steady = float(np.mean(step_s[1:]))
+    steady = steady_ms(step_s) / 1e3
     tokens = TRAIN_CFG["batch_size"] * TRAIN_CFG["seq_len"]
     out = {"steps": DECORATE_STEPS, "casts": casts, "losses": losses,
            "f32_losses": f32["losses"][:DECORATE_STEPS],
            "loss_rel_to_f32": rel, "limit": DECORATE_LOSS_RTOL,
            "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
            "target_tokens_per_s": tokens / steady,
-           "launches_by_dtype": launches, "profile": profile}
+           "launches_by_dtype": launches, "graphed_profile": graphed,
+           "profile": profile}
     log("training 64 x 256 through decorate (bf16 mul/matmul, f32 master "
         "weights, flash f32): %s" % json.dumps(out))
     return out
@@ -3748,7 +4223,10 @@ def beam_phase(torch, fluid, T, fa, dev):
     Executor(CUDAPlace(0)).run on BEAM_SOURCES seeded sources; first
     beam_check on two of them.  Checks: every score finite, each source's
     beams' scores non-increasing, every id in [0, vocab), every length in
-    [1, max_out_len], ``beam`` rows a source, B1-B5 launched 0 times.
+    [1, max_out_len], ``beam`` rows a source, B1-B5 launched 0 times;
+    the fast path refuses to capture the Program (its ``while`` rule
+    reads the host), counts the refusal once and runs the bound entry
+    eager, with the first decode's bits.
     Recorded: sentences/s, generated tokens/s (sources x max_out_len /
     wall), ms an iteration, the device syncs of a decode by line, peak
     memory, and a profiled decode's device ms by op and idle share."""
@@ -3783,7 +4261,14 @@ def beam_phase(torch, fluid, T, fa, dev):
         return exe.run(inf["infer"], feed={"src_word": src},
                        fetch_list=fetch, scope=scope, return_numpy=False)
 
-    decode()   # warm-up: cuBLAS's handles and the allocator's pools
+    from paddle_tpu_torch import executor as executor_mod, observability
+
+    refused = observability.counter("executor.graph_refused", {"op": "while"})
+    r0, c0 = refused.value, executor_mod.compile_count()
+    # warm-up (cuBLAS's handles and the allocator's pools), then the timed
+    # decodes, each op by op: the ``while`` rule reads its condition on
+    # the host, so the Program is never bound or captured
+    first = decode()
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3793,6 +4278,15 @@ def beam_phase(torch, fluid, T, fa, dev):
         t0 = time.perf_counter()
         ids, scores = decode()   # the LoDArray fetches wait for the decode
         walls.append(time.perf_counter() - t0)
+        check(all(np.array_equal(getattr(a, k), getattr(b, k))
+                  for a, b in ((ids, first[0]), (scores, first[1]))
+                  for k in ("data", "lengths", "sub_lengths")),
+              "the bound decode differs from the first")
+    entries = [b for b in exe._bound.values() if b.program is inf["infer"]]
+    check(refused.value - r0 == 1 + BEAM_RUNS and not entries
+          and executor_mod.compile_count() == c0,
+          "beam search refused capture by while", refused.value - r0,
+          len(entries), executor_mod.compile_count() - c0)
     launches = dict(fa.KERNEL_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     vocab = BEAM_WIDTHS["trg_vocab_size"]
@@ -3829,7 +4323,9 @@ def beam_phase(torch, fluid, T, fa, dev):
         "decode_peak_over_resident_gib": (peak - resident) / 2 ** 30,
         "hyp_len_mean": float(lens.mean()),
         "hyps_ended": int((data[:, :iters] == T.EOS_IDX).any(1).sum()),
-        "launches": launches, "profile": profile}
+        "graph_refused_by": "while",
+        "runs_refused": refused.value - r0, "launches": launches,
+        "profile": profile}
     log("beam search (Transformer-base, %d sources of 8-%d tokens, beam %d, "
         "max_out_len %d, f32): %s" % (BEAM_SOURCES, BEAM_SEQ, BEAM_SIZE,
                                       BEAM_OUT_LEN, json.dumps(out["decode"])))
@@ -3900,6 +4396,8 @@ def main():
                                    "pair")
     trn = train_phase(torch, fluid, T, fa, dev, TRAIN_CFG, TRAIN_STEPS,
                       "auto", "64 x 256")
+    torch.cuda.empty_cache()
+    fast = fast_path_phase(torch, fluid, T, fa, dev)
     torch.cuda.empty_cache()
     lng = train_phase(torch, fluid, T, fa, dev, LONG_CFG, LONG_STEPS,
                       "auto", "4 x 4096")
@@ -4053,6 +4551,15 @@ def main():
                     tag + "max_abs_err": r["max_abs_err"],
                     tag + "launches": n,
                     tag + "launches_per_step": n / leg["steps"]})
+        if name in ("flash_attention_fwd", "flash_attention_bwd"):
+            # the fast path's graphed steps: launches a step, replays
+            # included, and a replay's recorded launches
+            kernels[-1].update({
+                "graphed_launches_by_step": [
+                    n[0 if name == "flash_attention_fwd" else 1]
+                    for n in fast["launches_by_step"]],
+                "graphed_launches_per_replay":
+                fast["graph_launches_per_replay"].get(name + "/float32", 0)})
         if name == "flash_attention_fwd":
             kernels[-1].update(fwd_long)
             kernels[-1].update(legacy_b1)

@@ -315,7 +315,7 @@ def _run_body(ctx, block):
     return env
 
 
-@register("while")
+@register("while", reads_host=True)
 def _while(ctx, op):
     """Run the body while the condition holds (read on the host before
     each iteration).  The carried names are the condition, the op's
@@ -399,8 +399,8 @@ def _lod_array_length(ctx, op):
 @register("is_empty")
 def _is_empty(ctx, op):
     x = ctx.get_input(op, "X")
-    ctx.set_output(op, "Out", torch.tensor([x.numel() == 0],
-                                           device=ctx.device))
+    ctx.set_output(op, "Out", torch.full((1,), x.numel() == 0,
+                                         dtype=torch.bool, device=ctx.device))
 
 
 # ---------------------------------------------------------------------------
@@ -459,7 +459,7 @@ class ConditionalBlock:
         )
 
 
-@register("conditional_block")
+@register("conditional_block", reads_host=True)
 def _conditional_block(ctx, op):
     """Run the body when every element of every ``Cond`` holds (read on
     the host) and bind its ``Out`` and arrays.  Otherwise leave the bound

@@ -46,7 +46,7 @@ def _beam_search(ctx, op):
     ctx.set_output(op, "parent_idx", (flat_idx // K).to(torch.int32))
 
 
-@register("beam_search_decode")
+@register("beam_search_decode", reads_host=True)
 def _beam_search_decode(ctx, op):
     """Backtrace the step arrays ``Ids``, ``Parents`` and ``Scores`` (each
     ``[capacity, B, beam]``, ``@ARRAYLEN`` steps of them written) into one

@@ -194,8 +194,8 @@ def _mean(ctx, op):
     if x.is_floating_point():
         out = x.mean()
     else:
-        inv = torch.tensor(1.0 / max(x.numel(), 1), dtype=torch.float32,
-                           device=x.device)
+        inv = torch.full((), 1.0 / max(x.numel(), 1), dtype=torch.float32,
+                         device=x.device)
         out = x.float().sum() * inv
     ctx.set_output(op, "Out", out.reshape((1,)))
 

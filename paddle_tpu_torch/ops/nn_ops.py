@@ -200,8 +200,8 @@ def _cross_entropy(ctx, op):
     label = ctx.get_input(op, "Label")
     ignore = op.attrs.get("ignore_index", -100)
     xf = at_least_f32(x)
-    xf = torch.minimum(torch.maximum(xf, xf.new_tensor(1e-20)),
-                       xf.new_tensor(1.0))
+    xf = torch.minimum(torch.maximum(xf, xf.new_full((), 1e-20)),
+                       xf.new_full((), 1.0))
     logp = torch.log(xf)
     if op.attrs.get("soft_label", False):
         loss = -torch.sum(label.float() * logp, dim=-1, keepdim=True)
@@ -257,5 +257,5 @@ def _accuracy(ctx, op):
     num_correct = correct.float().sum()
     ctx.set_output(op, "Accuracy", (num_correct / n).reshape(1))
     ctx.set_output(op, "Correct", num_correct.to(torch.int32).reshape(1))
-    ctx.set_output(op, "Total", torch.tensor([n], dtype=torch.int32,
-                                             device=idx.device))
+    ctx.set_output(op, "Total", torch.full((1,), n, dtype=torch.int32,
+                                           device=idx.device))

@@ -43,8 +43,10 @@ def _assign(ctx, op):
     ctx.copy_lengths(op.inputs["X"][0], op.outputs["Out"][0])
 
 
-@register("assign_value")
+@register("assign_value", reads_host=True)
 def _assign_value(ctx, op):
+    """The op's ``values`` as a tensor, copied from the host at every run:
+    a synchronous copy, which a CUDA graph cannot hold (``reads_host``)."""
     vals = np.asarray(op.attrs["values"])
     out = torch.as_tensor(vals).to(device=ctx.device,
                                    dtype=torch_dtype(op.attrs["dtype"]))

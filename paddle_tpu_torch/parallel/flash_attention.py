@@ -48,10 +48,14 @@ Each kernel wrapper counts its launches in :data:`KERNEL_LAUNCHES`
 lock: the predict batcher and the decode worker launch from their own
 threads), so a run can show that its main path went through the
 kernels; a graph loaded from an AOT artifact counts too, since the count
-is in the operator's CUDA implementation.
+is in the operator's CUDA implementation.  A wrapper called while its
+stream is being captured into a CUDA graph launches nothing: its count
+goes to the capture's record (:func:`recording_launches`), and each
+replay of the graph adds the record (:func:`add_launches`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
@@ -82,17 +86,54 @@ KERNEL_LAUNCHES = {"flash_attention_fwd": 0,
 KERNEL_LAUNCHES_BY_DTYPE = {name: {"float32": 0, "bfloat16": 0}
                             for name in KERNEL_LAUNCHES}
 _LAUNCH_LOCK = threading.Lock()
+# the records of the captures under way: capture stream handle ->
+# {(kernel name, dtype name): launches}
+_RECORDERS = {}
 
 
 def _count_launch(*names, dtype):
     """Add one to each named kernel's launch count, and to its count for
     ``dtype``, the dtype of the tensors it ran on (the increments of two
-    serving threads must not lose one another's)."""
+    serving threads must not lose one another's).  On a stream being
+    captured (the autograd thread runs a backward on its forward's
+    stream) the launch goes to that capture's record instead."""
     key = str(dtype).replace("torch.", "")
     with _LAUNCH_LOCK:
+        record = (_RECORDERS.get(torch.cuda.current_stream().cuda_stream)
+                  if _RECORDERS else None)
         for name in names:
-            KERNEL_LAUNCHES[name] += 1
-            KERNEL_LAUNCHES_BY_DTYPE[name][key] += 1
+            if record is not None:
+                record[(name, key)] = record.get((name, key), 0) + 1
+            else:
+                KERNEL_LAUNCHES[name] += 1
+                KERNEL_LAUNCHES_BY_DTYPE[name][key] += 1
+
+
+@contextlib.contextmanager
+def recording_launches(stream):
+    """Record, instead of count, the launches the wrappers make on
+    ``stream`` while it is being captured into a CUDA graph; yields the
+    record, ``{(kernel name, dtype name): launches}``, that each replay
+    adds with :func:`add_launches`."""
+    record = {}
+    with _LAUNCH_LOCK:
+        _RECORDERS[stream.cuda_stream] = record
+    try:
+        yield record
+    finally:
+        with _LAUNCH_LOCK:
+            _RECORDERS.pop(stream.cuda_stream, None)
+
+
+def add_launches(record):
+    """Count the launches of one replay of a captured graph (the record
+    :func:`recording_launches` made while it was captured)."""
+    if not record:
+        return
+    with _LAUNCH_LOCK:
+        for (name, key), n in record.items():
+            KERNEL_LAUNCHES[name] += n
+            KERNEL_LAUNCHES_BY_DTYPE[name][key] += n
 
 
 # Backward engine switch, the counterpart of the JAX package's

@@ -277,6 +277,8 @@ def test_executor_feed_cast_fetch_and_writeback():
             assert int(c[0]) == step and int(scope["@C@"][0]) == step
     with pytest.raises(ValueError, match="feed 'x'"):
         exe.run(main, feed={"x": np.zeros((2, 4))}, scope=scope)
-    with pytest.raises(NotImplementedError, match="nan_guard"):
-        exe.run(main, feed={"x": np.zeros((2, 3))}, scope=scope,
-                nan_guard=True)
+    # nan_guard runs (the step writes the counter, so it has a verdict)
+    out, = exe.run(main, feed={"x": np.zeros((2, 3))}, fetch_list=[y],
+                   scope=scope, nan_guard=True)
+    np.testing.assert_array_equal(out, np.ones((2, 3)))
+    assert exe.last_step_ok() is True

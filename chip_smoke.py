@@ -194,11 +194,40 @@ split device time by op or kernel family run a step on the eager path
    persistable bitwise unchanged, restored True twice; JitStepCache's
    graphed callable; step ms and tokens/s each way, idle shares,
    capture ms, the graph's pool, peak memory;
-16. the long-context leg: the same model at bench.py's longest leg
+16. the Trainer (trainer_phase): Transformer-base at 64 x 256, dropout
+   0.1, through ``fluid.Trainer`` (``layers.data`` and
+   ``T.transformer(..., use_flash=True)``, Adam with noam decay), the
+   reader ``reader.batch(reader.buffered(samples), 64)`` of seeded
+   samples: TRAINER_STEPS steps with device prefetch (a side CUDA
+   stream) and ``nan_guard``, a checkpoint every TRAINER_CKPT_STEPS
+   steps (the newest TRAINER_KEEP kept): losses finite, B1 and B2 18
+   launches every step, 1 capture, feed host copies flat from the third
+   step on, the serials on disk manifest-intact; a fresh Trainer resumes
+   from the serial after step TRAINER_RESUME_AT and trains to
+   TRAINER_STEPS without prefetch: losses, parameters, Adam's moments
+   and the noam counter bitwise the first run's, 1 capture;
+   ``Trainer.test`` on TRAINER_TEST_BATCHES batches (B1 18 a batch, B2
+   none); unread steps without and with ``nan_guard`` and without
+   prefetch; a rebind after ``load_checkpoint`` (one capture more, the
+   pool grown by less than one state); no reader thread left.  Step ms
+   and tokens/s beside the fast path's, a replay's idle share, each
+   save's seconds and bytes, the validated load's seconds.  Then LeNet
+   at batch 128 through the Trainer (lenet_trainer_phase): prefetch on
+   and off bitwise (losses and state), images/s each way beside phase
+   10's; ``fetch_metrics`` off on odd steps makes a second entry; NaN
+   images in two batches under ``nan_guard=2``: the first guarded step
+   leaves the state bitwise unchanged, the second rewinds it to the
+   checkpoint's bits, one capture more, then finite steps; an
+   ``Inferencer`` on the saved parameters against the test Program's
+   probabilities; the test Program fed by ``DataFeeder.to_device_reader``
+   (no host feed copy); a ``layers.py_reader`` Program trained without
+   feeds until ``core.EOFException``, never bound; a ``FailureMonitor``
+   with a stale peer: a checkpoint and a stop before the first step;
+17. the long-context leg: the same model at bench.py's longest leg
    (batch 4 x 4096, max_length 4096, rows of 64-4096 tokens), 5 steps
    under ``auto``: the same checks, with B1 and the backward ``auto``
    picks launched 18 times a step and the other engine not at all;
-17. ResNet-50 in bf16, bench.py's leg (get_model(dtype="bfloat16"),
+18. ResNet-50 in bf16, bench.py's leg (get_model(dtype="bfloat16"),
    224 x 224, 1000 classes): one step at batch 2 from one bf16 state on
    the card and on the CPU, each held against the CPU's float64 step from
    the same state widened (the card within RESNET_BF16_FACTOR of the
@@ -215,7 +244,7 @@ split device time by op or kernel family run a step on the eager path
    batch 256 with bf16 state and images, unfolded and folded (the folded
    logits no farther from the f32 Program's than RESNET_BF16_FACTOR times
    the unfolded bf16 logits are), images/s;
-18. Transformer-base from bench.py's bf16 state (bench.py:363-389): one
+19. Transformer-base from bench.py's bf16 state (bench.py:363-389): one
    step at batch 2 x 64 (dropout 0, full width) through program_to_fn on
    the card against the CPU (loss BF16_LOSS_ULPS bf16 ulps, gradients
    BF16_GRAD_GLOBAL_L2 together in L2, their median BF16_GRAD_MEDIAN_L2,
@@ -227,13 +256,13 @@ split device time by op or kernel family run a step on the eager path
    Adam's moments float32, B1 and B2 launched 18 times a step on bf16
    tensors; step ms, tokens/s, peak memory, device ms by family and idle
    share beside the f32 leg's;
-19. Transformer-base at 64 x 256 through contrib.mixed_precision's
+20. Transformer-base at 64 x 256 through contrib.mixed_precision's
    decorate (bf16 mul and matmul, f32 master weights, the flash kernels
    in f32): DECORATE_STEPS steps from the f32 leg's parameters and feeds,
    every loss within DECORATE_LOSS_RTOL of the f32 leg's at the same
    step, B1 and B2 18 launches a step in float32; step ms, tokens/s,
    device ms by op;
-20. Transformer-base beam-search inference (get_inference_model's
+21. Transformer-base beam-search inference (get_inference_model's
    defaults, beam 4, max_out_len 32, seq_len 64, at bench.py's widths,
    the parameters of get_model's training startup, f32 with TF32 off)
    through Executor(CUDAPlace(0)).run: first two sources at max_out_len
@@ -247,13 +276,13 @@ split device time by op or kernel family run a step on the eager path
    sentences/s, generated tokens/s, ms an iteration, the device syncs
    of a decode, peak memory, and a profiled decode's device ms by op and
    idle share;
-21. bench.py's two other long legs on bf16 (16 x 1024 for 15 steps,
+22. bench.py's two other long legs on bf16 (16 x 1024 for 15 steps,
    8 x 2048 for 12; bench.py's feeds, max_length = seq): the checks of
-   phase 18's leg (B1 and B2 18 times a step on bf16); step ms, tokens/s,
+   phase 19's leg (B1 and B2 18 times a step on bf16); step ms, tokens/s,
    peak memory, idle share; then B1 and B2 at each leg's attention shape
    ([16, 8, 1024, 64], [8, 8, 2048, 64], bf16, not causal) against their
    plain versions, with their times, bounds and SDPA's;
-22. a ``kernels`` JSON line (all six kernels: times at the shape of
+23. a ``kernels`` JSON line (all six kernels: times at the shape of
    their main path, launches from it; B1's entry also carries its legacy
    serving launches and its figures at bucket 1024, and its predict
    launches (on the load) and figures at [16, 8, 256, 64]; B4's entry
@@ -265,7 +294,8 @@ split device time by op or kernel family run a step on the eager path
    their bf16 figures at [64, 8, 256, 64] (the bound at the bf16
    tensor-core peak, SDPA in bf16) with their launches on the bf16 leg,
    and at [16, 8, 1024, 64] and [8, 8, 2048, 64] with their launches on
-   the 16 x 1024 and 8 x 2048 legs),
+   the 16 x 1024 and 8 x 2048 legs, and their launches a step on the
+   Trainer's path and on ``Trainer.test``),
    the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -422,6 +452,25 @@ FAST_HELD = 6
 # eager beside the graphs captured before, then is captured into their
 # pool; the last round replays them all
 FAST_CYCLE = (64, 64, 64, 56, 56, 48, 48, 40, 40, 64, 56, 48, 40)
+# the Trainer (trainer_phase): TRAIN_CFG through fluid.Trainer, a
+# checkpoint every TRAINER_CKPT_STEPS steps (the newest TRAINER_KEEP
+# kept), stopped after TRAINER_STEPS; a fresh Trainer resumes from the
+# checkpoint after step TRAINER_RESUME_AT; Trainer.test on
+# TRAINER_TEST_BATCHES batches; TRAINER_TIMED_STEPS steps a timed leg
+TRAINER_STEPS = 12
+TRAINER_CKPT_STEPS = 4
+TRAINER_KEEP = 2
+TRAINER_RESUME_AT = 8
+TRAINER_TEST_BATCHES = 4
+TRAINER_TIMED_STEPS = 12
+# LeNet through fluid.Trainer (lenet_trainer_phase): LENET_TRAINER_STEPS
+# steps a leg; the rewind leg runs LENET_REWIND_STEPS steps under
+# nan_guard=2 with a checkpoint every LENET_CKPT_STEPS steps and NaN
+# images in the batches of steps LENET_NAN_STEPS (0-based)
+LENET_TRAINER_STEPS = 40
+LENET_REWIND_STEPS = 12
+LENET_CKPT_STEPS = 4
+LENET_NAN_STEPS = (5, 6)
 # bench.py's bf16 Transformer, card against CPU at CHECK_CFG from one bf16
 # state (bf16_step_errors), with limits fixed on the CPU from two
 # implementations of the same bf16 step that sum in other orders, the
@@ -3704,6 +3753,774 @@ def train_phase(torch, fluid, T, fa, dev, cfg, steps, engine, label):
     return stats
 
 
+class RecordSink:
+    """A telemetry sink that keeps the trainer's step records (each
+    checkpointing step's carries ``checkpoint_save_s``)."""
+
+    wants_records = True
+    wants_spans = False
+
+    def __init__(self):
+        self.records = []
+
+    def emit(self, record):
+        if record.get("source") == "trainer":
+            self.records.append(record)
+
+
+def trainer_samples(n, seed, cfg):
+    """``n`` seeded Transformer samples: (src, trg, lbl) rows of
+    ``cfg["seq_len"]`` tokens with their own lengths, as make_feeds'."""
+    f = make_feeds(np.random.RandomState(seed), n, cfg["seq_len"],
+                   cfg["trg_vocab_size"])
+    return list(zip(f["src_word"], f["trg_word"], f["lbl_word"]))
+
+
+def transformer_trainer_funcs(fluid, T, cfg):
+    """Trainer's train_func (``layers.data`` and ``T.transformer`` at
+    ``cfg``'s widths, dropout 0.1, flash attention) and optimizer_func
+    (Adam with noam decay, as get_model's)."""
+    def train_func():
+        words = [fluid.layers.data(name=n, shape=[cfg["seq_len"]],
+                                   dtype="int64")
+                 for n in ("src_word", "trg_word", "lbl_word")]
+        avg_cost, _sum_cost, _tokens, _logits = T.transformer(
+            *words, cfg["src_vocab_size"], cfg["trg_vocab_size"],
+            cfg["max_length"], T.N_LAYER, T.N_HEAD, T.D_MODEL, T.D_INNER,
+            T.DROPOUT, use_flash=True)
+        return avg_cost
+
+    def optimizer_func():
+        lr = fluid.layers.scale(x=fluid.layers.noam_decay(T.D_MODEL, 8000),
+                                scale=2.0)
+        return fluid.optimizer.AdamOptimizer(learning_rate=lr, beta1=0.9,
+                                             beta2=0.98, epsilon=1e-9)
+
+    return train_func, optimizer_func
+
+
+def host_state(torch, scope, names):
+    """Copies of ``names``' values on the host, as CPU tensors."""
+    out = {}
+    for n in names:
+        v = scope[n]
+        out[n] = (v.detach().cpu().clone() if isinstance(v, torch.Tensor)
+                  else torch.as_tensor(np.array(v)))
+    return out
+
+
+def state_moved(torch, scope, want):
+    """The names whose value in ``scope`` differs in bits from ``want``'s
+    (host copies; a value loaded from a checkpoint may still be numpy in
+    a wider dtype, and is compared in ``want``'s)."""
+    out = []
+    for n, w in want.items():
+        v = scope[n]
+        v = (v.detach().cpu() if isinstance(v, torch.Tensor)
+             else torch.as_tensor(np.array(v)))
+        if not bits_equal(torch, v.to(w.dtype), w):
+            out.append(n)
+    return out
+
+
+def pipeline_threads():
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("paddle-tpu-")]
+
+
+def trainer_run(fluid, fa, executor_mod, trainer, reader, feed_order,
+                stop_at, read=True, **train_kw):
+    """One ``trainer.train`` epoch, stopped after step ``stop_at``.  At
+    each EndStepEvent: the step's loss (read there when ``read``, which
+    waits for the step; else kept as the LazyFetch), the time, B1 and B2
+    launches of the step, captures and feed host copies so far.  With
+    ``read`` off the run ends with a device sync."""
+    import torch
+
+    out = {"steps": [], "losses": [], "end_s": [], "launches": [],
+           "compiles": [], "feed_copies": [], "verdicts": []}
+    c0 = executor_mod.compile_count()
+    f0 = executor_mod.feed_host_copy_count()
+
+    def handler(e):
+        if isinstance(e, fluid.BeginStepEvent):
+            fa.reset_launch_counts()
+        elif isinstance(e, fluid.EndStepEvent):
+            loss = e.metrics[0]
+            out["losses"].append(np.array(loss) if read else loss)
+            out["end_s"].append(time.perf_counter())
+            out["steps"].append(e.step)
+            out["launches"].append(
+                [fa.KERNEL_LAUNCHES["flash_attention_fwd"],
+                 fa.KERNEL_LAUNCHES["flash_attention_bwd"]])
+            out["compiles"].append(executor_mod.compile_count() - c0)
+            out["feed_copies"].append(
+                executor_mod.feed_host_copy_count() - f0)
+            if train_kw.get("nan_guard"):
+                out["verdicts"].append(trainer.exe.last_step_ok())
+            if e.step == stop_at:
+                trainer.stop()
+
+    out["t0"] = time.perf_counter()
+    trainer.train(num_epochs=1, event_handler=handler, reader=reader,
+                  feed_order=feed_order, **train_kw)
+    torch.cuda.synchronize()
+    out["t_end"] = time.perf_counter()
+    if not read:
+        out["losses"] = [np.array(x) for x in out["losses"]]
+    return out
+
+
+def piped_ms(run, first=2):
+    """Mean ms a step of a run whose steps were not read one by one: from
+    the end of step ``first - 1`` to the device sync after the last."""
+    n = len(run["steps"]) - first
+    return (run["t_end"] - run["end_s"][first - 1]) / n * 1e3
+
+
+def synced_ms(run, skip=(), first=2):
+    """Mean ms between EndStepEvents from step ``first`` on (each step's
+    loss read at its event), leaving out the steps in ``skip`` (0-based:
+    one that follows a checkpoint save)."""
+    gaps = [run["end_s"][i] - run["end_s"][i - 1]
+            for i in range(first, len(run["end_s"])) if i not in skip]
+    return float(np.mean(gaps)) * 1e3
+
+
+def trainer_phase(torch, fluid, T, fa, obs, dev, fast):
+    """Transformer-base at TRAIN_CFG (64 x 256, dropout 0.1, Adam with noam
+    decay, f32 with TF32 off) through ``fluid.Trainer`` on the card, the
+    reader ``reader.batch(reader.buffered(samples), 64)`` of seeded
+    samples.  Trainer A: TRAINER_STEPS steps with device prefetch and
+    ``nan_guard``, checkpoints every TRAINER_CKPT_STEPS steps (the newest
+    TRAINER_KEEP kept), stopped there: every loss finite and every
+    verdict True, B1 and B2 18 launches every step, 1 capture, feed host
+    copies flat from the third step on, the serials on disk those after
+    steps 8 and 12, each manifest-intact (sizes and crc32s).  Trainer R,
+    a fresh one, resumes from the serial after step TRAINER_RESUME_AT
+    (``load_serial``) and trains to TRAINER_STEPS without prefetch (its
+    feeds converted on the step loop): its losses, every parameter,
+    Adam's moments and the noam step counter bitwise A's, 1 capture; then
+    ``Trainer.test`` on TRAINER_TEST_BATCHES batches (B1 18 launches a
+    batch, B2 none).  Trainer B: TRAINER_TIMED_STEPS steps with losses
+    unread, without ``nan_guard``, with it, and without prefetch (the
+    cost of the guard's host sync a step), then ``load_checkpoint`` and
+    four more steps: one capture more, and what it adds to the pool
+    against one state's bytes.  Recorded: step ms and target tokens/s
+    from the third step on beside ``train_phase``'s and
+    ``fast_path_phase``'s, a profiled replay's idle share, each
+    checkpoint save's seconds and bytes, the validated load's seconds,
+    peak memory; no ``paddle-tpu-*`` thread left."""
+    import gc
+    import resource
+    import shutil
+    import tempfile
+    import warnings
+
+    from paddle_tpu_torch import executor as executor_mod
+    from paddle_tpu_torch import trainer as trainer_mod
+    from paddle_tpu_torch.reader import device_prefetch
+
+    cfg = TRAIN_CFG
+    batch = cfg["batch_size"]
+    tokens = batch * cfg["seq_len"]
+    order = ["src_word", "trg_word", "lbl_word"]
+    samples = trainer_samples((TRAINER_STEPS + 4) * batch, SEED + 60, cfg)
+    reader = fluid.reader.batch(
+        fluid.reader.buffered(lambda: iter(samples), 2 * batch), batch)
+    train_func, optimizer_func = transformer_trainer_funcs(fluid, T, cfg)
+    cdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    sink = RecordSink()
+    obs.add_sink(sink)
+    stats = {"batch": batch, "seq_len": cfg["seq_len"], "dropout": 0.1,
+             "steps": TRAINER_STEPS}
+
+    def ckpt_config(load_serial=None):
+        c = fluid.CheckpointConfig(
+            checkpoint_dir=cdir, max_num_checkpoints=TRAINER_KEEP,
+            step_interval=TRAINER_CKPT_STEPS)
+        c.load_serial = load_serial
+        return c
+
+    def replay_profile(t):
+        """A replay of ``t``'s guarded training entry, profiled (busy
+        and idle only); fails if it captured or bound anything."""
+        feeder = fluid.DataFeeder([t.train_program.global_block().var(n)
+                                   for n in order], fluid.CUDAPlace(0),
+                                  program=t.train_program)
+        feed = device_prefetch.put_feed_on_device(
+            feeder._feed_host(samples[:batch]), t.exe, t.train_program)
+        entries = set(map(id, t.exe._bound.values()))
+        c = executor_mod.compile_count()
+        with fluid.scope_guard(t.scope):
+            out = busy_idle(profile_call(torch, lambda: t.exe.run(
+                t.train_program, feed=feed, fetch_list=t.train_func_outputs,
+                nan_guard=True)))
+        check(executor_mod.compile_count() == c
+              and set(map(id, t.exe._bound.values())) == entries,
+              "the profiled trainer step did not replay its entry")
+        if isinstance(out, dict):
+            out["path"] = "graphed (a CUDA-graph replay of the Trainer's entry)"
+        return out
+
+    try:
+        # -- A: train, checkpoint, stop after TRAINER_STEPS --------------
+        np.random.seed(SEED + 61)
+        t0 = time.perf_counter()
+        a = fluid.Trainer(train_func, optimizer_func,
+                          place=fluid.CUDAPlace(0),
+                          checkpoint_config=ckpt_config())
+        torch.cuda.synchronize()
+        stats["construct_s"] = time.perf_counter() - t0
+        names = sorted(n for n in a.train_program.persistable_names()
+                       if n in a.scope)
+        state_bytes = sum(a.scope[n].numel() * a.scope[n].element_size()
+                          for n in names)
+        stats.update({"persistables": len(names),
+                      "state_bytes": int(state_bytes),
+                      "param_values": int(sum(
+                          a.scope[p.name].numel() for p in
+                          a.train_program.global_block().all_parameters()))})
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run_a = trainer_run(fluid, fa, executor_mod, a, reader, order,
+                            TRAINER_STEPS - 1, nan_guard=True, prefetch=True)
+        peak = torch.cuda.max_memory_allocated(dev)
+        rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        check(run_a["steps"] == list(range(TRAINER_STEPS)),
+              "trainer A steps", run_a["steps"])
+        check(all(np.isfinite(x).all() for x in run_a["losses"])
+              and run_a["verdicts"] == [True] * TRAINER_STEPS
+              and a.nan_bad_steps == 0, "trainer A: a non-finite step",
+              run_a["losses"], run_a["verdicts"])
+        check(all(n == [18, 18] for n in run_a["launches"]),
+              "trainer A: B1 and B2 18 launches a step", run_a["launches"])
+        check(run_a["compiles"][0] == 0 and run_a["compiles"][1:]
+              == [1] * (TRAINER_STEPS - 1), "trainer A: one capture",
+              run_a["compiles"])
+        check(len(set(run_a["feed_copies"][2:])) == 1,
+              "trainer A: feed host copies after the second step",
+              run_a["feed_copies"])
+        serials = trainer_mod._serials(cdir)
+        saves = [r["checkpoint_save_s"] for r in sink.records
+                 if "checkpoint_save_s" in r]
+        want_serials = list(range(TRAINER_STEPS // TRAINER_CKPT_STEPS
+                                  - TRAINER_KEEP + 1,
+                                  TRAINER_STEPS // TRAINER_CKPT_STEPS + 1))
+        check(serials == want_serials and len(saves)
+              == TRAINER_STEPS // TRAINER_CKPT_STEPS,
+              "trainer A: checkpoint serials", serials, saves)
+        for s in serials:
+            d = os.path.join(cdir, "checkpoint_%d" % s)
+            man = json.load(open(os.path.join(d, "MANIFEST.json")))
+            check(trainer_mod._checkpoint_intact(d) and set(man["files"])
+                  == {"params.npz", "meta.json", "rng_state.npy"}
+                  and man["meta"] == {"epoch": 0,
+                                      "step": s * TRAINER_CKPT_STEPS},
+                  "trainer A: checkpoint %d" % s, man)
+        ckpt_bytes = {s: sum(os.path.getsize(os.path.join(
+            cdir, "checkpoint_%d" % s, f)) for f in os.listdir(
+                os.path.join(cdir, "checkpoint_%d" % s))) for s in serials}
+        # gaps ending at a step that follows a save hold the save
+        after_save = {i for i in range(TRAINER_STEPS)
+                      if i % TRAINER_CKPT_STEPS == 0 and i}
+        step_ms = synced_ms(run_a, skip=after_save)
+        stats.update({
+            "step_ms": step_ms, "target_tokens_per_s": tokens / step_ms * 1e3,
+            "step_ms_all": [(end - start) * 1e3 for start, end in zip(
+                [run_a["t0"]] + run_a["end_s"][:-1], run_a["end_s"])],
+            "steps_left_out_for_saves": sorted(after_save),
+            "losses": [float(x) for x in run_a["losses"]],
+            "launches_by_step": run_a["launches"],
+            "compiles_by_step": run_a["compiles"],
+            "feed_host_copies_by_step": run_a["feed_copies"],
+            "peak_memory_gib": peak / 2 ** 30,
+            "checkpoint_save_s": saves,
+            "checkpoint_bytes": {str(s): b for s, b in ckpt_bytes.items()},
+            "host_maxrss_gib_before_after": [rss0 / 2 ** 20, rss1 / 2 ** 20],
+            "fast_path_graphed_step_ms": fast["graphed_step_ms"]})
+        stats["vs_fast_path"] = step_ms / fast["graphed_step_ms"] - 1.0
+        want = host_state(torch, a.scope, names)   # the state after step 12
+        stats["graphed_profile"] = replay_profile(a)
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- R: a fresh Trainer resumes from the serial after step 8 ------
+        load0 = obs.timer("checkpoint.load").total
+        np.random.seed(SEED + 62)   # another start: the checkpoint sets it
+        t0 = time.perf_counter()
+        r = fluid.Trainer(
+            train_func, optimizer_func, place=fluid.CUDAPlace(0),
+            checkpoint_config=ckpt_config(
+                load_serial=TRAINER_RESUME_AT // TRAINER_CKPT_STEPS))
+        torch.cuda.synchronize()
+        stats["resume_construct_s"] = time.perf_counter() - t0
+        stats["resume_load_s"] = obs.timer("checkpoint.load").total - load0
+        check(r._step_start == TRAINER_RESUME_AT, "resume position",
+              r._step_start)
+        run_r = trainer_run(fluid, fa, executor_mod, r, reader, order,
+                            TRAINER_STEPS - 1, nan_guard=True, prefetch=False)
+        check(run_r["steps"] == list(range(TRAINER_RESUME_AT, TRAINER_STEPS)),
+              "resumed steps", run_r["steps"])
+        check([x.tobytes() for x in run_r["losses"]]
+              == [x.tobytes() for x in run_a["losses"][TRAINER_RESUME_AT:]],
+              "resumed losses not bitwise the first run's",
+              [float(x) for x in run_r["losses"]])
+        moved = state_moved(torch, r.scope, want)
+        check(not moved, "resumed state not bitwise the first run's",
+              moved[:8])
+        check(run_r["compiles"][-1] == 1 and all(
+            n == [18, 18] for n in run_r["launches"]),
+              "resumed run: one capture, B1 and B2 18 a step",
+              run_r["compiles"], run_r["launches"])
+        del want
+        test_samples = trainer_samples(TRAINER_TEST_BATCHES * batch,
+                                       SEED + 64, cfg)
+        fa.reset_launch_counts()
+        c0 = executor_mod.compile_count()
+        t0 = time.perf_counter()
+        metrics = r.test(reader=fluid.reader.batch(
+            lambda: iter(test_samples), batch), feed_order=order)
+        test_s = time.perf_counter() - t0
+        test_launches = dict(fa.KERNEL_LAUNCHES)
+        check(len(metrics) == 1 and np.isfinite(metrics[0])
+              and test_launches["flash_attention_fwd"]
+              == 18 * TRAINER_TEST_BATCHES
+              and test_launches["flash_attention_bwd"] == 0,
+              "Trainer.test: B1 18 a batch, B2 none", metrics, test_launches)
+        stats["resume"] = {
+            "serial": TRAINER_RESUME_AT // TRAINER_CKPT_STEPS,
+            "steps": run_r["steps"], "prefetch": False,
+            "bitwise_losses_and_state": True,
+            "compiles_by_step": run_r["compiles"],
+            "launches_by_step": run_r["launches"]}
+        stats["test"] = {"batches": TRAINER_TEST_BATCHES,
+                         "mean_loss": metrics[0], "seconds": test_s,
+                         "launches": test_launches,
+                         "compiles": executor_mod.compile_count() - c0}
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- B: the guard's sync, prefetch off, a rebind -----------------
+        np.random.seed(SEED + 63)
+        b = fluid.Trainer(train_func, optimizer_func,
+                          place=fluid.CUDAPlace(0))
+        timed = {}
+        for label, kw in (("plain", dict(nan_guard=False, prefetch=True)),
+                          ("nan_guard", dict(nan_guard=True, prefetch=True)),
+                          ("no_prefetch", dict(nan_guard=False,
+                                               prefetch=False))):
+            run = trainer_run(fluid, fa, executor_mod, b, reader, order,
+                              TRAINER_TIMED_STEPS - 1, read=False, **kw)
+            check(all(np.isfinite(x).all() for x in run["losses"])
+                  and all(n == [18, 18] for n in run["launches"]),
+                  "trainer B %s" % label, run["launches"])
+            timed[label] = {"step_ms": piped_ms(run),
+                            "captures": run["compiles"][-1],
+                            "feed_host_copies": run["feed_copies"][-1]}
+            timed[label]["target_tokens_per_s"] = (
+                tokens / timed[label]["step_ms"] * 1e3)
+        check([timed[k]["captures"] for k in ("plain", "nan_guard",
+                                              "no_prefetch")] == [1, 1, 0],
+              "trainer B captures", timed)
+        timed["guard_sync_cost"] = (timed["nan_guard"]["step_ms"]
+                                    / timed["plain"]["step_ms"] - 1.0)
+        stats["timed_unread"] = timed
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        with fluid.scope_guard(b.scope):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                t0 = time.perf_counter()
+                meta = fluid.load_checkpoint(b.exe, cdir, b.train_program)
+                stats["validated_load_s"] = time.perf_counter() - t0
+        check(meta["serial"] == serials[-1], "load_checkpoint serial", meta)
+        run = trainer_run(fluid, fa, executor_mod, b, reader, order, 3,
+                          prefetch=True)
+        grown = [e.pool_bytes for e in b.exe._bound.values()
+                 if e.step is not None]
+        check(run["compiles"] == [0, 1, 1, 1], "rebind: one capture more",
+              run["compiles"])
+        new_pool = max(e.pool_bytes for e in b.exe._bound.values()
+                       if e.step is not None and e.program is b.train_program
+                       and not e.nan_guard)
+        check(new_pool <= state_bytes, "the rebind's capture grew the pool "
+              "by more than one state", new_pool, state_bytes)
+        stats["rebind"] = {
+            "compiles_by_step": run["compiles"],
+            "capture_added_to_pool_gib": new_pool / 2 ** 30,
+            "pool_gib_by_capture": [g / 2 ** 30 for g in grown],
+            "state_gib": state_bytes / 2 ** 30,
+            "reserved_gib_before_after": [
+                reserved0 / 2 ** 30,
+                torch.cuda.memory_reserved(dev) / 2 ** 30]}
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        obs.remove_sink(sink)
+        shutil.rmtree(cdir, ignore_errors=True)
+    deadline = time.monotonic() + 5
+    while pipeline_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(not pipeline_threads(), "reader threads left", pipeline_threads())
+    log("trainer (Transformer-base %d x %d, dropout 0.1, through "
+        "fluid.Trainer): %s" % (batch, cfg["seq_len"], json.dumps(stats)))
+    return stats
+
+
+def lenet_trainer_funcs(fluid, mnist, holder):
+    """LeNet's train_func ([loss, accuracy]; the prediction kept in
+    ``holder``), optimizer_func (Adam 1e-3) and infer_func, as
+    models.mnist.get_model's."""
+    def train_func():
+        images = fluid.layers.data(name="pixel", shape=[1, 28, 28],
+                                   dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        predict = holder["predict"] = mnist.cnn_model(images)
+        cost = fluid.layers.cross_entropy(input=predict, label=label)
+        return [fluid.layers.mean(x=cost),
+                fluid.layers.accuracy(input=predict, label=label)]
+
+    def optimizer_func():
+        return fluid.optimizer.AdamOptimizer(learning_rate=0.001, beta1=0.9,
+                                             beta2=0.999)
+
+    def infer_func():
+        return mnist.cnn_model(fluid.layers.data(
+            name="pixel", shape=[1, 28, 28], dtype="float32"))
+
+    return train_func, optimizer_func, infer_func
+
+
+def lenet_trainer_phase(torch, fluid, fa, dev, lenet):
+    """MNIST LeNet at batch LENET_BATCH through ``fluid.Trainer`` on the
+    card, on synthetic_mnist's samples.  Prefetch on, then off, from one
+    start, with cuDNN's deterministic algorithms: LENET_TRAINER_STEPS
+    steps, losses and state bitwise equal between the two.  Then, with
+    the default algorithms on fresh trainers, as many steps with each
+    loss read at its event and as many unread: images/s each way beside
+    ``lenet_phase``'s graphed figure.  A handler turning ``fetch_metrics`` off on odd steps: a
+    second entry, one capture more.  The rewind: ``nan_guard=2``,
+    checkpoints every LENET_CKPT_STEPS steps, the batches of steps
+    LENET_NAN_STEPS with NaN images: the first guarded step leaves the
+    state bitwise unchanged, the second rewinds it to the checkpoint's
+    bits (those of checkpoint_1's params.npz), ``nan_rewinds == 1``, one
+    capture more after the rewind, then finite steps.  An ``Inferencer``
+    on the saved parameters gives the test Program's probabilities on
+    one batch.  Then the reader entry points (lenet_reader_checks) and
+    a ``FailureMonitor`` checkpoint-then-stop."""
+    import gc
+    import shutil
+    import tempfile
+    import warnings
+
+    from paddle_tpu_torch import executor as executor_mod
+    from paddle_tpu_torch import trainer as trainer_mod
+    from paddle_tpu_torch.models import mnist
+
+    holder = {}
+    train_func, optimizer_func, infer_func = lenet_trainer_funcs(
+        fluid, mnist, holder)
+    order = ["pixel", "label"]
+    samples = synthetic_mnist(LENET_BATCH * LENET_TRAINER_STEPS, SEED + 70)
+    reader = fluid.reader.batch(lambda: iter(samples), LENET_BATCH)
+    stats = {"batch": LENET_BATCH, "steps": LENET_TRAINER_STEPS,
+             "lenet_phase_graphed_images_per_s": lenet["images_per_s"]}
+    # cuDNN's default convolution algorithms are not deterministic (two
+    # runs of one trainer differ in the last bits from the third step on),
+    # so the bitwise legs run with deterministic algorithms, each on a
+    # trainer of its own (a captured graph keeps the algorithms it was
+    # captured with); the timed legs run the defaults, as lenet_phase
+    exact, timed_t = {}, {}
+    for prefetch in (True, False):
+        kw = dict(prefetch=prefetch)
+        np.random.seed(SEED + 71)
+        t = fluid.Trainer(train_func, optimizer_func,
+                          place=fluid.CUDAPlace(0))
+        torch.backends.cudnn.deterministic = True
+        try:
+            run = trainer_run(fluid, fa, executor_mod, t, reader, order,
+                              LENET_TRAINER_STEPS - 1, **kw)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        names = sorted(n for n in t.train_program.persistable_names()
+                       if n in t.scope)
+        exact[prefetch] = (run, host_state(torch, t.scope, names))
+        np.random.seed(SEED + 71)
+        t = timed_t[prefetch] = fluid.Trainer(
+            train_func, optimizer_func, place=fluid.CUDAPlace(0))
+        synced = trainer_run(fluid, fa, executor_mod, t, reader, order,
+                             LENET_TRAINER_STEPS - 1, **kw)
+        piped = trainer_run(fluid, fa, executor_mod, t, reader, order,
+                            LENET_TRAINER_STEPS - 1, read=False, **kw)
+        check(all(np.isfinite(x).all() for x in synced["losses"]
+                  + piped["losses"]), "lenet trainer: a non-finite loss")
+        stats["prefetch" if prefetch else "no_prefetch"] = {
+            "images_per_s_read_each_step":
+                LENET_BATCH / synced_ms(synced) * 1e3,
+            "images_per_s_unread": LENET_BATCH / piped_ms(piped) * 1e3,
+            "step_ms_read_each_step": synced_ms(synced),
+            "step_ms_unread": piped_ms(piped),
+            "captures": [run["compiles"][-1], synced["compiles"][-1],
+                         piped["compiles"][-1]],
+            "feed_host_copies": [synced["feed_copies"][-1],
+                                 piped["feed_copies"][-1]],
+            "losses_read_each_step": [x.tobytes() for x in
+                                      synced["losses"]]}
+    on = [x.tobytes() for x in exact[True][0]["losses"]]
+    off = [x.tobytes() for x in exact[False][0]["losses"]]
+    check(on == off and all(np.isfinite(x).all()
+                            for x in exact[True][0]["losses"]),
+          "lenet trainer: prefetch on and off losses differ",
+          [float(x) for x in exact[True][0]["losses"]],
+          [float(x) for x in exact[False][0]["losses"]])
+    moved = [n for n in exact[True][1] if not bits_equal(
+        torch, exact[True][1][n], exact[False][1][n])]
+    check(not moved, "lenet trainer: prefetch on and off state differs",
+          moved)
+    default_same = (stats["prefetch"].pop("losses_read_each_step")
+                    == stats["no_prefetch"].pop("losses_read_each_step"))
+    stats["prefetch_on_off_bitwise"] = {
+        "cudnn_deterministic": True,
+        "default_algorithms_losses_equal": default_same}
+    stats["prefetch_gain"] = (stats["prefetch"]["images_per_s_read_each_step"]
+                              / stats["no_prefetch"][
+                                  "images_per_s_read_each_step"] - 1.0)
+
+    # a handler turning fetch_metrics off: a second entry, a second capture
+    t = timed_t[True]
+    c0 = executor_mod.compile_count()
+
+    def every_other(e):
+        if isinstance(e, fluid.BeginStepEvent):
+            e.fetch_metrics = e.step % 2 == 0
+
+    t.train(num_epochs=1, reader=reader, feed_order=order,
+            event_handler=every_other)
+    graphs = [e for e in t.exe._bound.values()
+              if e.program is t.train_program and e.step is not None]
+    check(len(graphs) == 2 and executor_mod.compile_count() - c0 == 1,
+          "lenet trainer: fetch_metrics off makes one more entry",
+          len(graphs), executor_mod.compile_count() - c0)
+    stats["fetch_metrics_off"] = {
+        "graphed_entries": len(graphs),
+        "captures_added": executor_mod.compile_count() - c0,
+        "pool_gib_by_capture": [e.pool_bytes / 2 ** 30 for e in graphs]}
+    del exact, timed_t, t, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the rewind: two NaN batches under nan_guard=2
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_lenet_ckpt_")
+    pdir = tempfile.mkdtemp(prefix="chip_smoke_lenet_params_")
+    try:
+        np.random.seed(SEED + 72)
+        w = fluid.Trainer(
+            train_func, optimizer_func, place=fluid.CUDAPlace(0),
+            checkpoint_config=fluid.CheckpointConfig(
+                checkpoint_dir=ckdir, max_num_checkpoints=LENET_REWIND_STEPS,
+                step_interval=LENET_CKPT_STEPS))
+        names = sorted(n for n in w.train_program.persistable_names()
+                       if n in w.scope)
+        clean = synthetic_mnist(LENET_BATCH * LENET_REWIND_STEPS, SEED + 73)
+        batches = [clean[i * LENET_BATCH:(i + 1) * LENET_BATCH]
+                   for i in range(LENET_REWIND_STEPS)]
+        for s in LENET_NAN_STEPS:
+            batches[s] = [(np.full_like(x, np.nan), y) for x, y in batches[s]]
+        snaps, verdicts, losses, compiles = {}, [], [], []
+        c0 = executor_mod.compile_count()
+
+        def handler(e):
+            if isinstance(e, fluid.EndStepEvent):
+                verdicts.append(w.exe.last_step_ok())
+                losses.append(np.array(e.metrics[0]))
+                compiles.append(executor_mod.compile_count() - c0)
+                snaps[e.step] = host_state(torch, w.scope, names)
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            w.train(num_epochs=1, event_handler=handler,
+                    reader=lambda: iter(batches), feed_order=order,
+                    nan_guard=2)
+        first, second = LENET_NAN_STEPS
+        ckpt_step = (first // LENET_CKPT_STEPS) * LENET_CKPT_STEPS - 1
+        check([i for i, v in enumerate(verdicts) if v is not True]
+              == list(LENET_NAN_STEPS), "lenet rewind: verdicts", verdicts)
+        check(w.nan_bad_steps == 2 and w.nan_rewinds == 1
+              and any("rewound" in str(c.message) for c in caught),
+              "lenet rewind: counts", w.nan_bad_steps, w.nan_rewinds)
+        moved = [n for n in names if not bits_equal(
+            torch, snaps[first][n], snaps[first - 1][n])]
+        check(not moved, "lenet rewind: a guarded step changed state", moved)
+        moved = [n for n in names if not bits_equal(
+            torch, snaps[second][n], snaps[ckpt_step][n])]
+        check(not moved, "lenet rewind: state after the rewind is not the "
+              "checkpoint's", moved)
+        serial = 1 + ckpt_step // LENET_CKPT_STEPS
+        saved = np.load(os.path.join(ckdir, "checkpoint_%d" % serial,
+                                     "params.npz"))
+        moved = [n for n in names if n in saved and
+                 snaps[second][n].numpy().tobytes() != saved[n].tobytes()]
+        check(not moved and len(saved.files) == len(names),
+              "lenet rewind: state is not checkpoint_%d's" % serial, moved)
+        check(all(np.isfinite(x).all() for x in losses[second + 1:])
+              and all(bool(torch.isfinite(v).all())
+                      for v in snaps[LENET_REWIND_STEPS - 1].values()
+                      if v.is_floating_point()),
+              "lenet rewind: training did not go on finite", losses)
+        # one capture before the NaN steps, one more after the rewind
+        check(compiles[second] == 1 and compiles[-1] == 2
+              and compiles[second + 1] == 1 and compiles[second + 2] == 2,
+              "lenet rewind: captures", compiles)
+        stats["rewind"] = {"nan_steps": list(LENET_NAN_STEPS),
+                           "verdicts": verdicts,
+                           "checkpoint_serial": serial,
+                           "nan_bad_steps": w.nan_bad_steps,
+                           "nan_rewinds": w.nan_rewinds,
+                           "compiles_by_step": compiles,
+                           "losses": [float(x) for x in losses]}
+
+        # the Inferencer on the saved parameters against the test Program
+        w.save_params(pdir)
+        inf = fluid.Inferencer(infer_func, pdir, place=fluid.CUDAPlace(0))
+        images = np.stack([x for x, _ in clean[:LENET_BATCH]])
+        labels = np.array([[y] for _, y in clean[:LENET_BATCH]], np.int64)
+        (got,) = inf.infer({"pixel": images})
+        with fluid.scope_guard(w.scope):
+            (want,) = w.exe.run(w.test_program,
+                                feed={"pixel": images, "label": labels},
+                                fetch_list=[holder["predict"]])
+        got, want = np.asarray(got), np.asarray(want)
+        err = float(np.abs(got - want).max())
+        check(got.shape == want.shape == (LENET_BATCH, 10)
+              and err <= 1e-6 * float(np.abs(want).max()),
+              "Inferencer against Trainer.test's Program", err)
+        stats["inferencer"] = {"max_abs_err": err,
+                               "bitwise": got.tobytes() == want.tobytes()}
+        stats["reader_entry_points"] = lenet_reader_checks(
+            torch, fluid, mnist, executor_mod, w, order, clean, holder)
+        del w, inf
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        shutil.rmtree(pdir, ignore_errors=True)
+    stats["failure_monitor"] = lenet_failure_monitor_check(
+        fluid, trainer_mod, train_func, optimizer_func, order, reader)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("lenet trainer (MNIST, batch %d, through fluid.Trainer): %s"
+        % (LENET_BATCH, json.dumps(stats)))
+    return stats
+
+
+def lenet_reader_checks(torch, fluid, mnist, executor_mod, w, order,
+                        samples, holder):
+    """The reader entry points on the card, on LeNet: the test Program
+    fed by ``DataFeeder.to_device_reader`` (feeds already on the card, no
+    host feed copy, each loss finite), and a ``layers.py_reader``
+    Program trained without feeds until ``core.EOFException``: each loss
+    finite, every run counted as ``graph_refused{op=py_reader}`` and
+    none bound."""
+    from paddle_tpu_torch import observability as obs
+
+    batches = [samples[i * LENET_BATCH:(i + 1) * LENET_BATCH]
+               for i in range(3)]
+    feeder = fluid.DataFeeder([w.test_program.global_block().var(n)
+                               for n in order], fluid.CUDAPlace(0),
+                              program=w.test_program)
+    feeds = feeder.to_device_reader(lambda: iter(batches), w.exe,
+                                    w.test_program)()
+    f0 = executor_mod.feed_host_copy_count()
+    losses = []
+    with fluid.scope_guard(w.scope):
+        for feed in feeds:
+            check(all(v.is_cuda for v in feed.values()),
+                  "to_device_reader gave a host feed")
+            (loss,) = w.exe.run(w.test_program, feed=feed,
+                                fetch_list=[w.train_func_outputs[0]])
+            losses.append(float(np.ravel(loss)[0]))
+    check(len(losses) == len(batches) and np.isfinite(losses).all()
+          and executor_mod.feed_host_copy_count() == f0,
+          "DataFeeder.to_device_reader on the card", losses)
+    out = {"to_device_reader_losses": losses}
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        r = fluid.layers.py_reader(
+            capacity=4, shapes=[(-1, 1, 28, 28), (-1, 1)],
+            dtypes=["float32", "int64"])
+        images, label = fluid.layers.read_file(fluid.layers.double_buffer(r))
+        predict = mnist.cnn_model(images)
+        loss = fluid.layers.mean(
+            x=fluid.layers.cross_entropy(input=predict, label=label))
+        fluid.optimizer.AdamOptimizer(learning_rate=0.001).minimize(loss)
+    host = [(np.stack([x for x, _ in b]),
+             np.array([[y] for _, y in b], np.int64)) for b in batches]
+    r.decorate_paddle_reader(lambda: iter(host))
+    refused = obs.counter("executor.graph_refused", {"op": "py_reader"})
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    losses = []
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        r0 = refused.value
+        r.start()
+        while True:
+            try:
+                (lv,) = exe.run(main, fetch_list=[loss])
+            except fluid.core.EOFException:
+                break
+            losses.append(float(np.ravel(lv)[0]))
+        r.reset()
+    check(len(losses) == len(host) and np.isfinite(losses).all()
+          and refused.value - r0 == len(host)
+          and not any(b.program is main for b in exe._bound.values()),
+          "py_reader on the card", losses, refused.value - r0)
+    out.update({"py_reader_losses": losses,
+                "py_reader_runs_refused": refused.value - r0})
+    return out
+
+
+def lenet_failure_monitor_check(fluid, trainer_mod, train_func,
+                                optimizer_func, order, reader):
+    """``FailureMonitor`` with a stale peer heartbeat: ``Trainer.train``
+    on the card saves a checkpoint and stops before its first step."""
+    import shutil
+    import tempfile
+
+    hb = tempfile.mkdtemp(prefix="chip_smoke_hb_")
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_fm_ckpt_")
+    try:
+        with open(os.path.join(hb, "trainer1.hb"), "w") as f:
+            f.write(str(time.time() - 100))
+        mon = fluid.FailureMonitor(hb, trainer_id="trainer0", interval=0.05,
+                                   timeout=1.0, check_every=0.0)
+        t = fluid.Trainer(train_func, optimizer_func,
+                          place=fluid.CUDAPlace(0),
+                          checkpoint_config=fluid.CheckpointConfig(
+                              checkpoint_dir=ckdir, step_interval=100))
+        steps = []
+        t.train(num_epochs=2, reader=reader, feed_order=order,
+                failure_monitor=mon,
+                event_handler=lambda e: steps.append(e.step)
+                if isinstance(e, fluid.EndStepEvent) else None)
+        meta = json.load(open(os.path.join(ckdir, "checkpoint_1",
+                                           "meta.json")))
+        check(mon.failed_peers == ["trainer1"] and steps == []
+              and trainer_mod._serials(ckdir) == [1]
+              and meta == {"epoch": 0, "step": 0} and not mon._started,
+              "FailureMonitor checkpoint-then-stop", mon.failed_peers,
+              steps, meta)
+    finally:
+        shutil.rmtree(hb, ignore_errors=True)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return {"failed_peers": ["trainer1"], "steps_run": 0,
+            "checkpoint_meta": meta}
+
+
 def bf16_state(torch, program_fn, m, dev, seed):
     """bench.py:383-389's bf16 state: the startup run on ``dev``, then
     every float32 entry cast to bfloat16 (parameters, Adam's moments, the
@@ -4384,7 +5201,7 @@ def main():
     torch.cuda.empty_cache()
     prd = predict_phase(torch, fluid, T, serving, fa, obs, dev)
     torch.cuda.empty_cache()
-    lenet_phase(torch, fluid, dev)
+    lenet = lenet_phase(torch, fluid, dev)
     op_rule_checks(fluid, dev)
     torch.cuda.empty_cache()
     rsn = resnet_phase(torch, fluid, fa, dev)
@@ -4398,6 +5215,10 @@ def main():
                       "auto", "64 x 256")
     torch.cuda.empty_cache()
     fast = fast_path_phase(torch, fluid, T, fa, dev)
+    torch.cuda.empty_cache()
+    trainer = trainer_phase(torch, fluid, T, fa, obs, dev, fast)
+    torch.cuda.empty_cache()
+    lenet_trainer_phase(torch, fluid, fa, dev, lenet)
     torch.cuda.empty_cache()
     lng = train_phase(torch, fluid, T, fa, dev, LONG_CFG, LONG_STEPS,
                       "auto", "4 x 4096")
@@ -4551,6 +5372,16 @@ def main():
                     tag + "max_abs_err": r["max_abs_err"],
                     tag + "launches": n,
                     tag + "launches_per_step": n / leg["steps"]})
+        if name in ("flash_attention_fwd", "flash_attention_bwd"):
+            # the Trainer's path: its launches a step (the first run and
+            # the resumed run, replays included) and on Trainer.test
+            i = 0 if name == "flash_attention_fwd" else 1
+            kernels[-1].update({
+                "trainer_launches_by_step": [
+                    n[i] for n in trainer["launches_by_step"]],
+                "trainer_resumed_launches_by_step": [
+                    n[i] for n in trainer["resume"]["launches_by_step"]],
+                "trainer_test_launches": trainer["test"]["launches"][name]})
         if name in ("flash_attention_fwd", "flash_attention_bwd"):
             # the fast path's graphed steps: launches a step, replays
             # included, and a replay's recorded launches

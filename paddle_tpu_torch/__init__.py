@@ -27,6 +27,10 @@ held against.  It imports torch and numpy, never jax and nothing of
   batch_norm, pool2d, momentum) trains through ``Executor.run``, and
   ``InferenceTranspiler`` folds each batch_norm of its test Program into
   the conv before it.
+* the runtime around the step — ``Trainer`` (atomic checkpoints, bitwise
+  resume, ``nan_guard`` rewind, ``FailureMonitor``), ``Inferencer``, the
+  ``reader`` decorators, ``layers.py_reader`` and the device prefetch
+  pipeline (``reader.device_prefetch``, a side CUDA stream).
 
 Use it like the JAX package::
 
@@ -59,6 +63,13 @@ from . import program_fn
 from . import resilience
 from . import io
 from . import contrib, models, observability, parallel, serving, transpiler
+from . import reader
+from . import trainer
+from . import trainer as trainer_mod
+from .reader import batch
+from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
+                      EndEpochEvent, EndStepEvent, FailureMonitor,
+                      Inferencer, Trainer, load_checkpoint, save_checkpoint)
 from .core import CPUPlace, CUDAPlace, resolve_device
 from .data_feeder import DataFeeder
 from .executor import (Executor, Scope, global_scope, load_numpy_state,
@@ -87,5 +98,8 @@ __all__ = [
     "default_main_program", "default_startup_program", "name_scope",
     "program_guard", "ParamAttr", "WeightNormParamAttr", "DataFeeder",
     "LoDArray", "LoDTensorArray", "create_lod_array", "create_lod_tensor",
-    "create_random_int_lodtensor",
+    "create_random_int_lodtensor", "reader", "batch", "trainer",
+    "trainer_mod", "Trainer", "Inferencer", "CheckpointConfig",
+    "BeginEpochEvent", "EndEpochEvent", "BeginStepEvent", "EndStepEvent",
+    "save_checkpoint", "load_checkpoint", "FailureMonitor",
 ]

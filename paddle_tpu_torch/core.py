@@ -21,7 +21,7 @@ import torch
 
 __all__ = ["resolve_device", "Place", "CPUPlace", "CUDAPlace",
            "canonical_dtype", "np_dtype", "torch_dtype", "is_float_dtype",
-           "f32_bf16_reduction"]
+           "f32_bf16_reduction", "EOFException"]
 
 _reduction_lock = threading.Lock()
 _reduction_runs = 0
@@ -113,6 +113,13 @@ class CUDAPlace(Place):
     def __init__(self, device_id: int = 0):
         super().__init__(device_id)
         resolve_device(self.torch_device_name())
+
+
+class EOFException(Exception):
+    """Raised when a started py_reader pipeline is exhausted (reference:
+    fluid.core.EOFException).  Deliberately NOT a StopIteration subclass:
+    PEP 479 would mutate that into RuntimeError inside generator frames
+    and silently end iterator-driven for-loops."""
 
 
 # ---------------------------------------------------------------------------

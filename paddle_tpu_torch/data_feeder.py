@@ -34,7 +34,8 @@ class DataToLoDTensorConverter:
     def feed(self, data):
         self.data.append(data)
 
-    def done(self):
+    def done(self, host=False):
+        """The slot's feed; ``host`` keeps a dense slot a numpy array."""
         if self.lod_level == 0:
             arr = np.asarray(self.data, dtype=np_dtype(self.dtype))
             if self.shape is not None:
@@ -46,6 +47,8 @@ class DataToLoDTensorConverter:
                         arr = arr.reshape((arr.shape[0],) + tuple(int(d) for d in (want or [])))
                     except ValueError:
                         pass
+            if host:
+                return arr
             return torch.as_tensor(arr).to(resolve_device(self.place))
         if self.lod_level >= 2:
             # nested samples: each sample is a list of innermost sequences
@@ -84,6 +87,15 @@ class DataFeeder:
         self.place = resolve_device(place)
 
     def feed(self, iterable):
+        return self._convert(iterable, host=False)
+
+    def _feed_host(self, iterable):
+        """``feed``'s dict with its dense slots left as numpy arrays on
+        the host (what the JAX package's feeder gives): the device
+        prefetch pipeline casts, pins and transfers them itself."""
+        return self._convert(iterable, host=True)
+
+    def _convert(self, iterable, host):
         converters = [
             DataToLoDTensorConverter(self.place, lod, shape, dtype)
             for lod, shape, dtype in zip(self.feed_lod_level, self.feed_shapes, self.feed_dtypes)
@@ -95,7 +107,8 @@ class DataFeeder:
                                  % (len(each_sample), len(converters)))
             for each_converter, each_slot in zip(converters, each_sample):
                 each_converter.feed(each_slot)
-        return {name: conv.done() for name, conv in zip(self.feed_names, converters)}
+        return {name: conv.done(host)
+                for name, conv in zip(self.feed_names, converters)}
 
     def feed_parallel(self, iterable, num_places=None):
         """Yield one feed dict per place, the batch split evenly across
@@ -165,6 +178,14 @@ class DataFeeder:
 
     def to_device_reader(self, reader, executor, program=None,
                          buffer_size=2, transfer_threads=1):
-        raise NotImplementedError(
-            "DataFeeder.to_device_reader waits for the port of the device "
-            "prefetch pipeline (ROADMAP A6)")
+        """Wrap a sample-batch reader into a creator yielding ON-DEVICE
+        feed dicts: conversion and the host->device transfer (pinned
+        memory, a side CUDA stream) both run on a background thread,
+        double-buffered, so batch N+1 converts and transfers while the
+        step for batch N computes (reader.device_prefetch).  The feeds
+        land on the executor's device."""
+        from .reader.device_prefetch import decorate_device_feed
+
+        return decorate_device_feed(reader, self, executor, program=program,
+                                    buffer_size=buffer_size,
+                                    transfer_threads=transfer_threads)

@@ -62,8 +62,13 @@ Sub-blocks (``while``, ``conditional_block``; their rules are in
 body's own variables stay there, and only the outer variables it writes
 and its tensor arrays (``<name>@ARRAY``, ``<name>@ARRAYLEN``) come back.
 
+Readers: a run given no feed takes one batch from each started
+``layers.py_reader`` of the Program (``core.EOFException`` when one is
+exhausted, the others' batches pushed back); such a run is never bound
+(``executor.graph_refused{op=py_reader}``).
+
 Not ported yet: the persistent compile cache (a CUDA graph cannot be
-saved), readers, the parameter-server runtime, recompute and meshes.
+saved), the parameter-server runtime, recompute and meshes.
 ``Program.enable_recompute`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -77,6 +82,7 @@ import numpy as np
 import torch
 
 from . import observability as _obs
+from . import resilience
 from .core import f32_bf16_reduction, resolve_device, torch_dtype
 from .framework import Program, Variable, default_main_program, grad_var_name
 from .lod import LoDArray
@@ -1212,8 +1218,37 @@ class Executor:
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
 
+        # started py_reader pipelines feed the step when the caller passes
+        # no feed (the reference's in-graph reader semantics); an exhausted
+        # pipeline raises core.EOFException out of run().  Items are pulled
+        # from EVERY reader before any is consumed, so one reader hitting
+        # EOF pushes the others' items back instead of desynchronizing.
+        # A reader-fed run is never bound: each takes the path below
+        reader_fed = False
+        if not feed:
+            from .layers.io import program_readers
+
+            # every registered reader is consulted: an unstarted one raises
+            # the diagnostic EOF instead of the step failing on missing vars
+            started = program_readers(program)
+            if started:
+                self._last_guard_flag = None  # an EOF reports no verdict
+                pulled = []
+                try:
+                    for reader in started:
+                        pulled.append((reader, reader.feed_dict()))
+                except Exception:
+                    for reader, item_feed in reversed(pulled):
+                        reader._pushback.appendleft(
+                            tuple(item_feed[n] for n in reader.names))
+                    raise
+                feed = {}
+                for _, item_feed in pulled:
+                    feed.update(item_feed)
+                reader_fed = True
+
         bound_key = None
-        if use_program_cache:
+        if use_program_cache and not reader_fed:
             # each feed's shape is in the key, so a batcher cycling its
             # bucket ladder keeps one entry per shape; sorted, so feed
             # dicts built in different orders share one
@@ -1237,6 +1272,8 @@ class Executor:
         self._last_guard_flag = None
         with self._telemetry.span("executor.prepare_feed"):
             feeds = self._prepare_feed(program, feed)
+        if resilience._feed_fault is not None:  # fault-injection harness
+            feeds = resilience._feed_fault(feeds)
         state_in = self._collect_state(program, scope)
         seed, step = self._rng_state(program, scope)
         persistable = program.persistable_names()
@@ -1295,7 +1332,11 @@ class Executor:
         key_owner = scope._owner("__rng_key__") or scope
         key_owner.vars["__rng_key__"] = (seed, step + 1)
 
-        if bound_key is not None:
+        if reader_fed:
+            # not a rule that reads the host: the feed itself comes from a
+            # reader queue each run
+            _obs.counter("executor.graph_refused", {"op": "py_reader"}).inc()
+        elif bound_key is not None:
             refused = _graph_refusal(program, ctx.env, fetch_names)
             if refused is not None:
                 # a rule waits on the host: every run takes this path
@@ -1463,6 +1504,8 @@ class Executor:
             return _BOUND_MISS
         seed, step = key
 
+        if resilience._feed_fault is not None:  # fault-injection harness
+            feed = resilience._feed_fault(feed)
         self._last_guard_flag = None
         compiled = bound.step is None
         with self._telemetry.span("executor.dispatch"):

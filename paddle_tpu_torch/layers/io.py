@@ -1,17 +1,24 @@
 """Data-side layers (reference: python/paddle/fluid/layers/io.py).
 
-Copies of the JAX package's layers that need no reader runtime:
-``data`` declares a feed slot, ``read_file`` hands out a reader's slots,
-``random_data_generator`` is an in-graph uniform source, ``load`` builds
-the load op (its rule waits for io, ROADMAP A6) and ``Preprocessor``
-puts a reader's transform ops in the main graph.  The reader pipelines
-(``py_reader``, ``double_buffer``, ``shuffle``, ``batch``) wait for the
-port of the reader runtime (ROADMAP A6), and the recordio readers
-(``open_recordio_file``, ``open_files``) for its recordio files (A12):
-each raises ``NotImplementedError`` naming what it waits for.
+Copies of the JAX package's layers: ``data`` declares a feed slot,
+``py_reader`` creates a host-side prefetching pipeline bound to feed
+slots (the Executor pulls a batch from each started reader when a run
+gets no feed; an exhausted reader raises ``core.EOFException``),
+``read_file`` hands out a reader's slots, ``shuffle``/``batch`` are the
+reader decorators and ``double_buffer`` the identity (the device
+prefetch pipeline, ``reader.device_prefetch``, is the port's double
+buffer), ``random_data_generator`` is an in-graph uniform source,
+``load`` builds the load op (its rule waits for io, ROADMAP A6) and
+``Preprocessor`` puts a reader's transform ops in the main graph.  The
+recordio readers (``open_recordio_file``, ``open_files``) wait for the
+recordio files (ROADMAP A12) and raise ``NotImplementedError`` naming
+it.
 """
 from __future__ import annotations
 
+import weakref
+
+from ..framework import default_main_program
 from ..layer_helper import LayerHelper
 
 __all__ = ["data", "read_file", "py_reader", "shuffle", "batch",
@@ -40,38 +47,154 @@ def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0, type
     )
 
 
-def _not_ported(name, waits_for):
-    raise NotImplementedError(
-        "layers.%s is not ported to paddle_tpu_torch yet: it waits for %s"
-        % (name, waits_for))
+_PROGRAM_READERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def py_reader(capacity, shapes, dtypes, lod_levels=None, name=None,
-              use_double_buffer=True):
-    _not_ported("py_reader", "the reader runtime (ROADMAP A6)")
+def program_readers(program, create=False):
+    """py_readers bound to ``program`` (empty list if none)."""
+    if create and program not in _PROGRAM_READERS:
+        _PROGRAM_READERS[program] = []
+    return _PROGRAM_READERS.get(program, [])
 
 
-def double_buffer(reader, place=None, name=None):
-    _not_ported("double_buffer", "the reader runtime (ROADMAP A6)")
+class _PyReader:
+    """Host-side prefetch queue bound to feed slots.  ``decorate_paddle_reader``
+    / ``start`` / ``reset`` mirror the reference py_reader surface; iteration
+    happens in Executor.run via the feeder hook."""
+
+    def __init__(self, capacity, shapes, dtypes, lod_levels, names):
+        import collections
+        import queue
+
+        self.capacity = capacity
+        self.shapes = shapes
+        self.dtypes = dtypes
+        self.lod_levels = lod_levels
+        self.names = names
+        self.queue = queue.Queue(maxsize=capacity)
+        self._reader = None
+        self._thread = None
+        self._stop = False
+        self._pushback = collections.deque()  # items returned by the executor
+        self.vars = None
+
+    def decorate_paddle_reader(self, reader):
+        self._reader = reader
+
+    decorate_sample_list_generator = decorate_paddle_reader
+    decorate_batch_generator = decorate_paddle_reader
+
+    def start(self):
+        import threading
+
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError(
+                "py_reader already started — call reset() before start()ing "
+                "again (two producers on one queue desynchronize epochs)")
+        self._stop = False
+        # the worker closes over ITS queue: after reset() swaps self.queue,
+        # a producer that outlived the join timeout can only touch the old
+        # (discarded) queue, never poison the new epoch with its sentinel
+        q = self.queue
+
+        def worker():
+            try:
+                for item in self._reader():
+                    if self._stop:
+                        return
+                    q.put(item)
+            finally:
+                q.put(None)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def reset(self):
+        self._stop = True
+        if self._thread is not None:
+            while not self.queue.empty():
+                self.queue.get_nowait()
+            self._thread.join(timeout=1.0)
+            self._thread = None  # next() before the next start() raises EOF
+        self._pushback.clear()
+        self.queue = __import__("queue").Queue(maxsize=self.capacity)
+
+    def next(self):
+        from ..core import EOFException
+
+        if self._pushback:
+            return self._pushback.popleft()
+        if self._thread is None:
+            raise EOFException(
+                "py_reader is not started — call start() (again after reset())")
+        item = self.queue.get()
+        if item is None:
+            # leave the sentinel in place: a further next() must raise
+            # again instead of blocking on an empty queue forever
+            self.queue.put(None)
+            raise EOFException("py_reader pipeline exhausted")
+        return item
+
+    def feed_dict(self):
+        """One prefetched item as a feed dict over this reader's slots."""
+        item = self.next()
+        if len(item) != len(self.names):
+            raise ValueError(
+                "reader produced %d slots, expected %d (%s)"
+                % (len(item), len(self.names), self.names))
+        return dict(zip(self.names, item))
+
+
+def py_reader(capacity, shapes, dtypes, lod_levels=None, name=None, use_double_buffer=True):
+    names = []
+    vars_ = []
+    lod_levels = lod_levels or [0] * len(shapes)
+    for i, (shape, dtype, ll) in enumerate(zip(shapes, dtypes, lod_levels)):
+        v = data(
+            name=(name or "py_reader") + "_slot%d" % i,
+            shape=list(shape)[1:],
+            dtype=dtype,
+            lod_level=ll,
+        )
+        names.append(v.name)
+        vars_.append(v)
+    r = _PyReader(capacity, shapes, dtypes, lod_levels, names)
+    r.vars = vars_
+    # registered in a weak side table, NOT as a program attribute: the
+    # reader holds queues/threads that would break Program.clone()'s
+    # deepcopy; clones intentionally start with no readers
+    program_readers(default_main_program(), create=True).append(r)
+    return r
 
 
 def shuffle(reader, buffer_size):
-    _not_ported("shuffle", "the reader runtime (ROADMAP A6)")
+    from ..reader import decorator
+
+    return decorator.shuffle(reader, buffer_size)
 
 
 def batch(reader, batch_size):
-    _not_ported("batch", "the reader runtime (ROADMAP A6)")
+    from .. import reader as reader_mod
+
+    return reader_mod.batch(reader, batch_size)
+
+
+def double_buffer(reader, place=None, name=None):
+    return reader
 
 
 def open_recordio_file(filename, shapes, lod_levels, dtypes, pass_num=1,
                        for_parallel=True):
-    _not_ported("open_recordio_file",
-                "the reader runtime (A6) and recordio (A12)")
+    raise NotImplementedError(
+        "layers.open_recordio_file is not ported to paddle_tpu_torch yet: "
+        "it waits for the recordio files (ROADMAP A12)")
 
 
 def open_files(filenames, shapes, lod_levels, dtypes, thread_num=1,
                buffer_size=None, pass_num=1):
-    _not_ported("open_files", "the reader runtime (A6) and recordio (A12)")
+    raise NotImplementedError(
+        "layers.open_files is not ported to paddle_tpu_torch yet: it waits "
+        "for the recordio files (ROADMAP A12)")
 
 
 def read_file(reader):

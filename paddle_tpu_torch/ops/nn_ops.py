@@ -234,6 +234,14 @@ def _softmax_with_cross_entropy(ctx, op):
     ctx.set_output(op, "Loss", loss.to(logits.dtype))
 
 
+@register("square_error_cost")
+def _square_error_cost(ctx, op):
+    x = ctx.get_input(op, "X")
+    y = ctx.get_input(op, "Y")
+    d = x - y
+    ctx.set_output(op, "Out", d * d)
+
+
 @register("lookup_table")
 def _lookup_table(ctx, op):
     w = ctx.get_input(op, "W")  # [V, D]

@@ -37,8 +37,10 @@ choke point for model and parameter file IO, and ``_serve_fault`` the
 one for a serving dispatch attempt: ``paddle_tpu_torch.testing.faults``
 installs hooks on them (intermittent IOError, flaky, slow or poisoned
 dispatches, a killed worker) so every recovery path is deterministically
-testable without monkeypatching ``open`` globally.  Torn writes, NaN
-feeds and checkpoint IO wait for the training runtime's port.
+testable without monkeypatching ``open`` globally.  Checkpoint files
+(``trainer.py``) go through the same primitives, where ``_write_fault``
+tears a write at an exact byte, and ``_feed_fault`` is the Executor's
+feed choke point (``testing.faults.torn_write`` / ``nan_feeds``).
 """
 from __future__ import annotations
 
@@ -237,17 +239,25 @@ def retry(policy=None, on_retry=None):
 # transient runtime fault, a poison request, or a worker kill; sleep to
 # simulate a slow device (testing.faults.flaky_execute / slow_execute /
 # poison_request / kill_worker).
+# _write_fault(path, data, fileobj) may perform (part of) a write itself
+# and raise (a torn write); _feed_fault(feeds) maps one Executor.run's
+# feeds, slow path and bound replays alike (a NaN feed)
+_write_fault = None
 _io_fault = None
+_feed_fault = None
 _serve_fault = None
 
 
 def fs_write_bytes(path, data, sync=True):
     """Write ``data`` to ``path`` (followed by flush+fsync) through the
-    fault-injection choke point."""
+    fault-injection choke point.  Checkpoint and parameter file writes
+    go through here, so torn and flaky writes are injectable at an exact
+    byte offset."""
     if _io_fault is not None:
         _io_fault(path, "write")
     with open(path, "wb") as f:
-        f.write(data)
+        if _write_fault is None or not _write_fault(path, data, f):
+            f.write(data)
         f.flush()
         if sync:
             os.fsync(f.fileno())

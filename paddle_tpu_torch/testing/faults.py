@@ -24,11 +24,22 @@ request list)::
         ...                                  # next dispatch KILLS the
                                              # worker thread (supervisor!)
 
+The training runtime's faults: a checkpoint write killed at an exact
+byte (``torn_write``), NaN feeds on chosen ``Executor.run`` dispatches
+(``nan_feeds``, through ``resilience._feed_fault``) and a reader that
+raises at a chosen sample (``flaky_reader``)::
+
+    with faults.torn_write("checkpoint_9", at_byte=64):
+        save_checkpoint(...)                 # staging dir torn, raises
+
+    with faults.nan_feeds(at_steps=[3, 4]):
+        trainer.train(..., nan_guard=2)      # two bad steps -> rewind
+
 No global monkeypatching: only code routed through the resilience
 primitives sees the faults, and exiting the context always restores the
 hooks.  The serving managers COMPOSE (flaky + poison nested is the
-standard chaos scenario).  Torn writes, NaN feeds, flaky readers and the
-decode-runtime hooks wait for the training and decode runtimes' ports.
+standard chaos scenario).  The decode-runtime hooks wait for the decode
+runtime's port.
 """
 from __future__ import annotations
 
@@ -36,13 +47,17 @@ import contextlib
 import time
 
 import numpy as np
+import torch
 
 from .. import resilience
 
 __all__ = [
     "FaultInjected",
     "WorkerKilled",
+    "torn_write",
     "flaky_io",
+    "nan_feeds",
+    "flaky_reader",
     "flaky_execute",
     "slow_execute",
     "poison_request",
@@ -64,6 +79,34 @@ class WorkerKilled(BaseException):
 
 def _match(path, substr):
     return substr in str(path)
+
+
+@contextlib.contextmanager
+def torn_write(match, at_byte):
+    """Kill the next write to a path containing ``match`` after exactly
+    ``at_byte`` bytes have hit the file — simulating a preemption mid
+    checkpoint write.  The partial bytes ARE written (and flushed), so the
+    torn file is really on disk; the write then raises FaultInjected.
+    Every subsequent matching write in the context is killed the same way
+    (a retry of the same doomed write also dies, like a dying host)."""
+    if resilience._write_fault is not None:
+        raise RuntimeError("a torn_write fault is already installed")
+    cut = int(at_byte)
+
+    def hook(path, data, fileobj):
+        if not _match(path, match):
+            return False
+        fileobj.write(data[:cut])
+        fileobj.flush()
+        raise FaultInjected(
+            "injected torn write: %r killed at byte %d of %d"
+            % (path, min(cut, len(data)), len(data)))
+
+    resilience._write_fault = hook
+    try:
+        yield
+    finally:
+        resilience._write_fault = None
 
 
 @contextlib.contextmanager
@@ -94,6 +137,65 @@ def flaky_io(match, times=1, op=None, exc_factory=None):
         yield fired
     finally:
         resilience._io_fault = None
+
+
+def _nan_like(val):
+    """``val`` (a tensor or an array) with every float element NaN; other
+    dtypes pass through."""
+    if isinstance(val, torch.Tensor):
+        if val.is_floating_point():
+            return torch.full_like(val, float("nan"))
+        return val
+    arr = np.asarray(val)
+    if np.issubdtype(arr.dtype, np.floating):
+        return np.full_like(arr, np.nan)
+    return arr
+
+
+@contextlib.contextmanager
+def nan_feeds(at_steps=(0,)):
+    """Poison every float feed with NaN on the given ``Executor.run``
+    dispatches (0-based, counted from context entry).  The NaN flows
+    through the real step — loss and gradients go non-finite on the
+    device — which is exactly what the nan_guard must catch.  Yields a
+    one-item list with the dispatch count so far."""
+    if resilience._feed_fault is not None:
+        raise RuntimeError("a nan_feeds fault is already installed")
+    steps = frozenset(int(s) for s in at_steps)
+    count = [0]
+
+    def hook(feeds):
+        idx = count[0]
+        count[0] += 1
+        if idx not in steps:
+            return feeds
+        return {name: _nan_like(val) for name, val in feeds.items()}
+
+    resilience._feed_fault = hook
+    try:
+        yield count
+    finally:
+        resilience._feed_fault = None
+
+
+def flaky_reader(reader, fail_at, times=1, exc_factory=None):
+    """Wrap a reader creator so iteration raises just before yielding the
+    sample at absolute index ``fail_at`` — on the first ``times``
+    traversals only.  The deterministic partner of
+    ``reader.retry_reader``: recovery must resume at the exact sample
+    where the failure hit, with no duplicates and no drops."""
+    remaining = [int(times)]
+    make_exc = exc_factory or (
+        lambda i: FaultInjected("injected reader error at sample %d" % i))
+
+    def faulty():
+        for i, sample in enumerate(reader()):
+            if i == fail_at and remaining[0] > 0:
+                remaining[0] -= 1
+                raise make_exc(i)
+            yield sample
+
+    return faulty
 
 
 # ---------------------------------------------------------------------------

@@ -176,10 +176,27 @@ def test_program_fn_matches_the_executor():
 @pytest.mark.parametrize("layer", ["py_reader", "double_buffer", "shuffle",
                                    "batch", "open_files"])
 def test_reader_layers_raise_naming_what_they_wait_for(layer):
+    """The reader runtime (ROADMAP A6) is ported: py_reader, double_buffer,
+    shuffle and batch build their readers; the recordio readers still
+    raise, naming the recordio files (A12)."""
     fn = getattr(tfluid.layers, layer)
-    nargs = fn.__code__.co_argcount - len(fn.__defaults__ or ())
-    with pytest.raises(NotImplementedError, match="A6"):
-        fn(*([None] * nargs))
+    samples = lambda: iter(range(10))  # noqa: E731
+    if layer == "open_files":
+        nargs = fn.__code__.co_argcount - len(fn.__defaults__ or ())
+        with pytest.raises(NotImplementedError, match="A12"):
+            fn(*([None] * nargs))
+    elif layer == "py_reader":
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.program_guard(main, startup):
+            r = fn(capacity=2, shapes=[(-1, 3)], dtypes=["float32"])
+            (x,) = tfluid.layers.read_file(r)
+        assert x.name == r.names[0] and tuple(x.shape) == (-1, 3)
+    elif layer == "double_buffer":
+        assert fn(samples) is samples
+    elif layer == "shuffle":
+        assert sorted(fn(samples, 4)()) == list(range(10))
+    else:
+        assert list(fn(samples, 4)()) == [[0, 1, 2, 3], [4, 5, 6, 7], [8, 9]]
 
 
 def test_io_layers_random_data_generator_and_preprocessor():

@@ -85,7 +85,15 @@ split device time by op or kernel family run a step on the eager path
    the LM's logits on the card are held against the plain CPU versions
    on a short input; a short profiled window then splits the device
    time by kernel family (B4's two kernels in one) and gives the
-   device's idle share and B4's share of the window's wall time;
+   device's idle share and B4's share of the window's wall time.  The
+   engine's export plane (``serve_metrics`` on 127.0.0.1) is scraped
+   every SCRAPE_EVERY_S while the requests are served, each exposition
+   parsed strictly; after them the decode histograms' bucket ladders
+   are monotone and end at le="+Inf" equal to their ``_count``,
+   ``/healthz`` answers 200, and after ``stop()`` the endpoint is down
+   and a fresh one answers 503; the tokens are bitwise those of the
+   same requests served first on an engine without an endpoint, whose
+   tokens/s is recorded beside;
 8. legacy serving: the same LM and prompts through an engine whose model
    has no chunk function (``build_decode_model(..., chunked=False)``), so
    each prompt is prefilled whole by ``lm_prefill`` on the flash forward
@@ -124,7 +132,10 @@ split device time by op or kernel family run a step on the eager path
    and without the blocks in turns (requests/s), a profiled window
    (device busy
    and idle share, B1's share, GEMMs, the device-to-host copy of the
-   logits), batch-1 clients with batching on and off, the logits' copy
+   logits), the export plane scraped during the load as in phase 7
+   (the serving histograms' ladders, ``/healthz`` 200 then 503, the
+   load's logits bitwise those of the same load on an engine without
+   an endpoint), batch-1 clients with batching on and off, the logits' copy
    to pageable and to pinned memory (``executor.as_numpy``); the Program
    backend's dispatches replay one CUDA graph a bucket (captured at the
    warm-up, none under the load); and B1 at
@@ -227,6 +238,14 @@ split device time by op or kernel family run a step on the eager path
    (batch 4 x 4096, max_length 4096, rows of 64-4096 tokens), 5 steps
    under ``auto``: the same checks, with B1 and the backward ``auto``
    picks launched 18 times a step and the other engine not at all;
+   then recompute (recompute_phase): the same model at 4 x 4096,
+   dropout 0.1, RECOMPUTE_STEPS steps through Executor.run without
+   recompute and as many with ``enable_recompute(RECOMPUTE_SEGMENTS)``,
+   from one start state on the same batches: losses and every
+   persistable bitwise equal, one capture each, B2 18 launches a step
+   and B1 18 without recompute, 18 plus the attention calls of the
+   checkpointed segments with it (replays included); step ms,
+   tokens/s, peak memory and the graph's pool each way;
 18. ResNet-50 in bf16, bench.py's leg (get_model(dtype="bfloat16"),
    224 x 224, 1000 classes): one step at batch 2 from one bf16 state on
    the card and on the CPU, each held against the CPU's float64 step from
@@ -295,7 +314,7 @@ split device time by op or kernel family run a step on the eager path
    tensor-core peak, SDPA in bf16) with their launches on the bf16 leg,
    and at [16, 8, 1024, 64] and [8, 8, 2048, 64] with their launches on
    the 16 x 1024 and 8 x 2048 legs, and their launches a step on the
-   Trainer's path and on ``Trainer.test``),
+   Trainer's path and on ``Trainer.test``, and on the recompute leg),
    the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -332,6 +351,10 @@ LEGACY_BUCKETS = (256, 1024, 2048)
 # engine's default bucket ladder, and the load's requests (1-4 rows each)
 PREDICT_BUCKETS = (2, 4, 8, 16)
 PREDICT_REQUESTS = 64
+# the export plane: seconds between two scrapes of /metrics while an
+# engine serves its load (30 times a 15 s Prometheus scrape; two or more
+# scrapes a load)
+SCRAPE_EVERY_S = 0.5
 # batch-1 clients with batching on and off (the JAX package's scenario 5)
 PREDICT_BATCH1_REQUESTS = 32
 # each request alone (bucket 2) against the same request coalesced into a
@@ -512,6 +535,12 @@ PAIR_CHECK_CFG = dict(CHECK_CFG, seq_len=200, max_length=200)
 # the long-context leg: bench.py's longest Transformer leg (4 x 4096)
 LONG_CFG = dict(TRAIN_CFG, batch_size=4, seq_len=4096, max_length=4096)
 LONG_STEPS = 5
+# recompute (recompute_phase): LONG_CFG for RECOMPUTE_STEPS steps through
+# the bound step without recompute, then as many with
+# enable_recompute(RECOMPUTE_SEGMENTS), from one start state and the same
+# batches
+RECOMPUTE_SEGMENTS = 4
+RECOMPUTE_STEPS = 4
 # the flash kernel cases: (causal, T, S, NaN/Inf check)
 FLASH_CASES = ((False, FT, FT, True), (True, FT, FT, True),
                (True, 128, FT, False), (False, 200, 200, False),
@@ -1035,6 +1064,98 @@ def profile_window(torch, engine, meta):
             "device_events": len(kernels)}
 
 
+class Scraper:
+    """Scrapes a MetricsServer's ``/metrics`` on a thread of its own,
+    every SCRAPE_EVERY_S seconds until ``stop()``, each exposition parsed
+    with ``parse_prometheus(strict=True)``; keeps the count and the
+    first error."""
+
+    def __init__(self, obs, srv):
+        self.obs, self.srv = obs, srv
+        self.scrapes, self.errors = 0, []
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="chip-smoke-scraper")
+        self._thread.start()
+
+    def _loop(self):
+        import urllib.request
+
+        while not self._done.wait(SCRAPE_EVERY_S):
+            try:
+                with urllib.request.urlopen(self.srv.url + "/metrics",
+                                            timeout=30) as r:
+                    self.obs.parse_prometheus(r.read().decode(),
+                                              strict=True)
+                self.scrapes += 1
+            except Exception as exc:  # noqa: BLE001 - checked by stop()
+                self.errors.append(repr(exc))
+
+    def stop(self):
+        self._done.set()
+        self._thread.join(timeout=60)
+        check(not self._thread.is_alive() and not self.errors
+              and self.scrapes > 0, "scrapes under load", self.scrapes,
+              self.errors[:1])
+        return self.scrapes
+
+
+def http_get(url):
+    """(status, body) of a GET, an HTTP error's included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def export_checks(obs, engine, srv, bases):
+    """The engine's endpoint after its load: ``/metrics`` parses strictly,
+    each histogram of ``bases`` (registry names) has a bucket ladder that
+    is monotone, ends at le="+Inf" and equals its ``_count`` there, with
+    observations; ``/healthz`` answers 200 and ready.  Returns the
+    sample count and each ladder's count."""
+    status, body = http_get(srv.url + "/metrics")
+    check(status == 200, "/metrics status", status)
+    samples = obs.parse_prometheus(body, strict=True)
+    counts = {}
+    for base in bases:
+        m = obs.prometheus_name(base) + "_seconds"
+        ladder = sorted(
+            ((k, v) for k, v in samples.items()
+             if k.startswith(m + "_bucket")),
+            key=lambda kv: float(kv[0].split('le="')[1].split('"')[0]
+                                 .replace("Inf", "inf")))
+        values = [v for _, v in ladder]
+        check(ladder and values == sorted(values)
+              and 'le="+Inf"' in ladder[-1][0]
+              and values[-1] == samples[m + "_count"] > 0,
+              "bucket ladder of %s" % m, ladder[-3:])
+        counts[base] = samples[m + "_count"]
+    status, body = http_get(srv.url + "/healthz")
+    check(status == 200 and json.loads(body)["ready"] is True,
+          "/healthz while ready", status, body[:200])
+    return {"samples": len(samples), "ladder_counts": counts}
+
+
+def stopped_health_check(engine, srv):
+    """After ``engine.stop()``: its endpoint is down, and a fresh one
+    from ``serve_metrics`` answers /healthz with 503, not ready."""
+    check(not srv.running, "the endpoint outlived its engine")
+    again = engine.serve_metrics(host="127.0.0.1")
+    try:
+        status, body = http_get(again.url + "/healthz")
+        check(again is not srv and status == 503
+              and json.loads(body)["ready"] is False,
+              "/healthz after stop", status, body[:200])
+    finally:
+        again.stop()
+    return status
+
+
 def serving_phase(torch, T, serving, fa, obs, dev):
     params, meta = T.lm_params(seed=SEED, **LM_WIDTH)
     logit_err = logits_check(torch, T, params, meta, dev)
@@ -1045,11 +1166,24 @@ def serving_phase(torch, T, serving, fa, obs, dev):
     prompts = [rng.randint(0, meta["vocab_size"],
                            size=int(n)).astype(np.int32)
                for n in rng.randint(32, 1501, size=N_REQUESTS)]
+    # the same requests on an engine without the export plane first: its
+    # tokens/s and tokens beside the scraped run's
+    plain = serving.InferenceEngine(
+        decode_model=model, decode_config=serving.DecodeConfig(
+            **DECODE_CONFIG), device=dev)
+    t0 = time.perf_counter()
+    plain_outs = [f.result(timeout=600) for f in [
+        plain.generate_async(p, max_new_tokens=NEW_TOKENS) for p in prompts]]
+    plain_wall = time.perf_counter() - t0
+    plain.stop()
+    del plain
     t0 = time.perf_counter()
     engine = serving.InferenceEngine(
         decode_model=model, decode_config=serving.DecodeConfig(
             **DECODE_CONFIG), device=dev)
     setup_s = time.perf_counter() - t0
+    # the export plane, scraped while the requests are served
+    srv = engine.serve_metrics(host="127.0.0.1")
     steps = obs.counter("serving.decode.steps")
     prefills = obs.counter("serving.decode.prefills")
     step_timer = obs.timer("serving.decode.decode_step")
@@ -1058,6 +1192,7 @@ def serving_phase(torch, T, serving, fa, obs, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fa.reset_launch_counts()
+    scraper = Scraper(obs, srv)
     t0 = time.perf_counter()
     futs = [engine.generate_async(p, max_new_tokens=NEW_TOKENS)
             for p in prompts]
@@ -1067,8 +1202,18 @@ def serving_phase(torch, T, serving, fa, obs, dev):
     peak = torch.cuda.max_memory_allocated(dev)
     n_steps = steps.value - steps0
     n_prefills = prefills.value - prefills0
+    export = {"scrapes_under_load": scraper.stop()}
+    export.update(export_checks(obs, engine, srv, (
+        "serving.decode.queue_wait", "serving.decode.ttft",
+        "serving.decode.step")))
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(outs, plain_outs)),
+          "decode tokens with the export plane not bitwise without")
+    export["bitwise_without_endpoint"] = True
+    export["tokens_per_s_without_endpoint"] = (
+        sum(len(o) for o in plain_outs) / plain_wall)
     profile = profile_window(torch, engine, meta)
     engine.stop()
+    export["healthz_after_stop"] = stopped_health_check(engine, srv)
     L = meta["n_layer"]
     check(launches["paged_decode_attention"] == L * n_steps > 0,
           launches, n_steps)
@@ -1090,7 +1235,7 @@ def serving_phase(torch, T, serving, fa, obs, dev):
              "decode_step_ms": step_ms, "decode_steps": n_steps,
              "prefill_chunks": n_prefills,
              "peak_memory_gib": peak / 2 ** 30, "engine_setup_s": setup_s,
-             "launches": launches, "profile": profile}
+             "launches": launches, "profile": profile, "export": export}
     log("serving: " + json.dumps(stats))
     # continuous batching == serving alone, bitwise
     solo = serving.InferenceEngine(
@@ -1183,6 +1328,8 @@ def legacy_phase(torch, T, serving, fa, obs, dev, prompts, chunked_outs):
         decode_model=model, decode_config=serving.DecodeConfig(
             **DECODE_CONFIG), device=dev)
     setup_s = time.perf_counter() - t0
+    # the export plane, scraped while the requests are served
+    srv = engine.serve_metrics(host="127.0.0.1")
     steps = obs.counter("serving.decode.steps")
     prefills = obs.counter("serving.decode.prefills")
     step_timer = obs.timer("serving.decode.decode_step")
@@ -1832,12 +1979,19 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
                       for n in sizes]
         c0, b0 = bucket_counts(obs), obs.counter("serving.batches").value
         compiles0 = executor_mod.compile_count()
+        # the export plane, scraped while the load is served
+        srv = load.serve_metrics(host="127.0.0.1")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         fa.reset_launch_counts()
+        scraper = Scraper(obs, srv)
         outs, lat, wall = serve_clients(load, load_feeds, 8)
         torch.cuda.synchronize()
         launches = dict(fa.KERNEL_LAUNCHES)
+        export = {"scrapes_under_load": scraper.stop()}
+        export.update(export_checks(obs, load, srv, (
+            "serving.queue_wait", "serving.execute",
+            "serving.request_latency_batch")))
         load_compiles = executor_mod.compile_count() - compiles0
         # the warm-up ran each bucket twice: eager, then a capture; the
         # load replays those graphs and captures none
@@ -1861,15 +2015,24 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
         # against one product a mul (the engine's executor with its blocks
         # switched off): the same load, in turns
         blocks_ab = {"blocks": [], "one_product": []}
+        plain_outs = None
         for tag in ("blocks", "one_product", "one_product", "blocks"):
             eng = predict_engine(serving, d1, dev, backend="program",
                                  batch_timeout_ms=2)
             if tag == "one_product":
                 eng._model._exe.block_rows = None
-            _, _, ab_wall = serve_clients(eng, load_feeds, 8)
+            ab_outs, _, ab_wall = serve_clients(eng, load_feeds, 8)
             eng.stop()
             blocks_ab[tag].append(PREDICT_REQUESTS / ab_wall)
+            if plain_outs is None:
+                plain_outs = ab_outs
         del eng
+        # the load's logits, served with the endpoint scraped, against
+        # the same load on an engine without one
+        check(all(a.tobytes() == b.tobytes()
+                  for a, b in zip(outs, plain_outs)),
+              "predict logits with the export plane not bitwise without")
+        export["bitwise_without_endpoint"] = True
         lap("blocks_ab")
         profile = profile_predict(torch, load, load_feeds[:16])
         lap("profile")
@@ -1880,7 +2043,8 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
                    for i in range(PREDICT_BATCH1_REQUESTS)]
         _, _, on_wall = serve_clients(load, one_row, 8)
         load.stop()
-        del load
+        export["healthz_after_stop"] = stopped_health_check(load, srv)
+        del load, srv
         off = predict_engine(serving, d1, dev, batch_buckets=(2,),
                              max_batch_size=1, backend="program")
         _, _, off_wall = serve_clients(off, one_row, 8)
@@ -1922,7 +2086,8 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
             PREDICT_BATCH1_REQUESTS / on_wall,
             "batch1_requests_per_s_unbatched":
             PREDICT_BATCH1_REQUESTS / off_wall,
-            "batching_speedup": off_wall / on_wall}
+            "batching_speedup": off_wall / on_wall,
+            "export": export}
         log("predict serving: " + json.dumps(stats))
         stats["b1"] = predict_b1_row(torch, fa, dev, src, trg)
         lap("b1_row")
@@ -3753,19 +3918,115 @@ def train_phase(torch, fluid, T, fa, dev, cfg, steps, engine, label):
     return stats
 
 
-class RecordSink:
-    """A telemetry sink that keeps the trainer's step records (each
-    checkpointing step's carries ``checkpoint_save_s``)."""
+def recompute_phase(torch, fluid, T, fa, dev):
+    """Recompute on the bound training step: Transformer-base at LONG_CFG
+    (4 x 4096, dropout 0.1, Adam with noam decay, flash, f32 with TF32
+    off) from one seeded start state, RECOMPUTE_STEPS steps through
+    Executor.run without recompute and as many with
+    ``enable_recompute(RECOMPUTE_SEGMENTS)``, on the same batches, each
+    run on a fresh executor (eager, capture, replays).  Checks: losses
+    and every persistable bitwise equal; one capture each; B2 18
+    launches every step, B1 18 without recompute and 18 plus the
+    attention calls of the checkpointed segments with it (the rerun of
+    each in the backward), replays included.  Recorded for both: step
+    ms and tokens/s from the third step, the capture step, peak device
+    memory (reset before each run) and the graph's pool."""
+    from paddle_tpu_torch import executor as executor_mod
 
-    wants_records = True
-    wants_spans = False
+    cfg = LONG_CFG
+    with fluid.unique_name.guard():
+        m = T.get_model(**cfg)
+    m["startup"].random_seed = SEED + 110
+    m["main"].random_seed = SEED + 111   # the run seed of both runs
+    start = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(m["startup"], scope=start)
+    names = sorted(n for n in m["main"].persistable_names() if n in start)
+    rng = np.random.RandomState(SEED + 112)
+    feeds = [make_feeds(rng, cfg["batch_size"], cfg["seq_len"],
+                        cfg["trg_vocab_size"])
+             for _ in range(RECOMPUTE_STEPS)]
+    tokens = cfg["batch_size"] * cfg["seq_len"]
+    ops = m["main"].global_block().ops
+    pre = ops[:next(i for i, op in enumerate(ops) if op.type == "backward")]
+    segments = executor_mod.recompute_segments(pre, RECOMPUTE_SEGMENTS)
+    rerun = sum(op.type == "flash_attention" for seg in segments[:-1]
+                for op in seg)
+    attention = sum(op.type == "flash_attention" for op in pre)
+    check(attention == 18 and len(segments) == RECOMPUTE_SEGMENTS,
+          "attention calls and segments", attention, len(segments))
 
-    def __init__(self):
-        self.records = []
+    def run(segs):
+        m["main"]._recompute_segments = 0
+        if segs:
+            m["main"].enable_recompute(segs)
+        scope = copy_scope(fluid, start, names)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        c0 = executor_mod.compile_count()
+        losses, step_s, compiles, launches = [], [], [], []
+        for feed in feeds:
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
+                              scope=scope)
+            losses.append(np.array(loss))   # reading it waits for the step
+            step_s.append(time.perf_counter() - t0)
+            compiles.append(executor_mod.compile_count() - c0)
+            launches.append([fa.KERNEL_LAUNCHES["flash_attention_fwd"],
+                             fa.KERNEL_LAUNCHES["flash_attention_bwd"]])
+        peak = torch.cuda.max_memory_allocated(dev)
+        (entry,) = [b for b in exe._bound.values() if b.graph is not None]
+        out = {"segments": segs, "losses": [float(x) for x in losses],
+               "step_ms_all": [t * 1e3 for t in step_s],
+               "step_ms": steady_ms(step_s),
+               "capture_step_ms": step_s[1] * 1e3,
+               "tokens_per_s": tokens / steady_ms(step_s) * 1e3,
+               "peak_memory_gib": peak / 2 ** 30,
+               "graph_pool_gib": entry.pool_bytes / 2 ** 30,
+               "capture_ms": entry.capture_s * 1e3,
+               "compiles_by_step": compiles, "launches_by_step": launches}
+        state = host_state(torch, scope, names)
+        del exe, entry, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, losses, state
 
-    def emit(self, record):
-        if record.get("source") == "trainer":
-            self.records.append(record)
+    plain, plain_losses, plain_state = run(0)
+    rec, rec_losses, rec_state = run(RECOMPUTE_SEGMENTS)
+    m["main"]._recompute_segments = 0
+    check(all(np.isfinite(x).all() for x in plain_losses), "non-finite loss",
+          plain["losses"])
+    check(all(a.tobytes() == b.tobytes()
+              for a, b in zip(plain_losses, rec_losses)),
+          "recompute losses not bitwise", plain["losses"], rec["losses"])
+    moved = [n for n in names
+             if not bits_equal(torch, plain_state[n], rec_state[n])]
+    check(not moved, "recompute state not bitwise", moved[:8])
+    for r, b1 in ((plain, 18), (rec, 18 + rerun)):
+        check(r["compiles_by_step"][0] == 0
+              and r["compiles_by_step"][1:] == [1] * (RECOMPUTE_STEPS - 1),
+              "one capture, at step 2", r["segments"], r["compiles_by_step"])
+        check(all(n == [b1, 18] for n in r["launches_by_step"]),
+              "B1 %d and B2 18 launches a step" % b1, r["segments"],
+              r["launches_by_step"])
+    stats = {"config": "4 x 4096, dropout 0.1", "steps": RECOMPUTE_STEPS,
+             "segments": RECOMPUTE_SEGMENTS,
+             "segment_ops": [len(seg) for seg in segments],
+             "attention_calls": attention,
+             "attention_calls_rerun": rerun,
+             "b1_launches_per_step": 18 + rerun, "b2_launches_per_step": 18,
+             "bitwise_losses_and_state": True, "state_tensors": len(names),
+             "without": plain, "with": rec,
+             "step_ms_ratio": rec["step_ms"] / plain["step_ms"],
+             "peak_memory_ratio": (rec["peak_memory_gib"]
+                                   / plain["peak_memory_gib"])}
+    log("recompute (Transformer-base 4 x 4096, dropout 0.1, "
+        "enable_recompute(%d) against none): %s"
+        % (RECOMPUTE_SEGMENTS, json.dumps(stats)))
+    return stats
 
 
 def trainer_samples(n, seed, cfg):
@@ -3930,7 +4191,7 @@ def trainer_phase(torch, fluid, T, fa, obs, dev, fast):
         fluid.reader.buffered(lambda: iter(samples), 2 * batch), batch)
     train_func, optimizer_func = transformer_trainer_funcs(fluid, T, cfg)
     cdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    sink = RecordSink()
+    sink = obs.RingBufferSink()
     obs.add_sink(sink)
     stats = {"batch": batch, "seq_len": cfg["seq_len"], "dropout": 0.1,
              "steps": TRAINER_STEPS}
@@ -4004,7 +4265,7 @@ def trainer_phase(torch, fluid, T, fa, obs, dev, fast):
               run_a["feed_copies"])
         serials = trainer_mod._serials(cdir)
         saves = [r["checkpoint_save_s"] for r in sink.records
-                 if "checkpoint_save_s" in r]
+                 if r.get("source") == "trainer" and "checkpoint_save_s" in r]
         want_serials = list(range(TRAINER_STEPS // TRAINER_CKPT_STEPS
                                   - TRAINER_KEEP + 1,
                                   TRAINER_STEPS // TRAINER_CKPT_STEPS + 1))
@@ -5223,6 +5484,8 @@ def main():
     lng = train_phase(torch, fluid, T, fa, dev, LONG_CFG, LONG_STEPS,
                       "auto", "4 x 4096")
     torch.cuda.empty_cache()
+    rcp = recompute_phase(torch, fluid, T, fa, dev)
+    torch.cuda.empty_cache()
     resnet_bf16_phase(torch, fluid, fa, dev, rsn)
     torch.cuda.empty_cache()
     tbf = transformer_bf16_phase(torch, fluid, T, fa, dev, trn)
@@ -5391,6 +5654,13 @@ def main():
                     for n in fast["launches_by_step"]],
                 "graphed_launches_per_replay":
                 fast["graph_launches_per_replay"].get(name + "/float32", 0)})
+        if name in ("flash_attention_fwd", "flash_attention_bwd"):
+            # the recompute leg (4 x 4096, enable_recompute(4)): launches
+            # a step with recompute, replays included
+            i = 0 if name == "flash_attention_fwd" else 1
+            kernels[-1].update({
+                "recompute_launches_by_step": [
+                    n[i] for n in rcp["with"]["launches_by_step"]]})
         if name == "flash_attention_fwd":
             kernels[-1].update(fwd_long)
             kernels[-1].update(legacy_b1)

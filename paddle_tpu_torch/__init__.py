@@ -85,14 +85,14 @@ from .framework import (
 from .lod import (LoDArray, LoDTensorArray, create_lod_array,
                   create_lod_tensor, create_random_int_lodtensor)
 from .param_attr import ParamAttr, WeightNormParamAttr
-from .transpiler import InferenceTranspiler
+from .transpiler import InferenceTranspiler, memory_optimize, release_memory
 
 __all__ = [
     "core", "unique_name", "framework", "initializer", "layers", "nets",
     "optimizer", "regularizer", "clip", "backward", "executor", "lod",
     "data_feeder", "program_fn", "resilience", "io", "models",
     "observability", "parallel", "serving", "transpiler", "CPUPlace",
-    "CUDAPlace", "InferenceTranspiler",
+    "CUDAPlace", "InferenceTranspiler", "memory_optimize", "release_memory",
     "resolve_device", "Executor", "Scope", "global_scope",
     "load_numpy_state", "scope_guard", "Program", "Variable",
     "default_main_program", "default_startup_program", "name_scope",

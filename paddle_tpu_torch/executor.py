@@ -67,9 +67,14 @@ Readers: a run given no feed takes one batch from each started
 exhausted, the others' batches pushed back); such a run is never bound
 (``executor.graph_refused{op=py_reader}``).
 
+Recompute (``Program.enable_recompute(n)``): the backward's forward
+prefix runs as ``n`` segments, all but the last checkpointed, with the
+environment pruned at each boundary (``lower_block``); bound and
+captured like any other step, with the same bits as the step without
+it.
+
 Not ported yet: the persistent compile cache (a CUDA graph cannot be
-saved), the parameter-server runtime, recompute and meshes.
-``Program.enable_recompute`` raises ``NotImplementedError``.
+saved), the parameter-server runtime and meshes.
 """
 from __future__ import annotations
 
@@ -90,7 +95,8 @@ from .registry import get_rule, reads_host
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
            "load_numpy_state", "LoweringContext", "interpret_ops",
-           "lower_block", "SERVING_BLOCK_ROWS", "LazyFetch",
+           "lower_block", "recompute_segments", "SERVING_BLOCK_ROWS",
+           "LazyFetch",
            "feed_host_copy_count", "cache_eviction_count", "compile_count",
            "JitStepCache"]
 
@@ -486,11 +492,14 @@ class LoweringContext:
     the op-slot helpers the rules use."""
 
     def __init__(self, program, env, device, seed=0, step=0, is_test=False,
-                 reads=None, block_rows=None):
+                 reads=None, block_rows=None, keep_names=()):
         self.program = program
         self.env = env
         self.device = device
         self.is_test = is_test
+        # names the run hands back (its fetches): recompute keeps them
+        # across the segment boundaries it prunes the environment at
+        self.keep_names = tuple(keep_names)
         # rows a block of the ``mul`` rule's blocked product (None: one
         # product); the serving backends set SERVING_BLOCK_ROWS
         self.block_rows = block_rows
@@ -507,6 +516,10 @@ class LoweringContext:
         # call), registered with the graph and seeded before each replay
         self.generators = None
         self._drawn = set()
+        # True while a checkpointed segment of recompute runs again in
+        # the backward: its random ops then draw from generators of their
+        # own, seeded as the forward's were (op_generator)
+        self.recompute = False
 
     # RNG --------------------------------------------------------------------
     def op_generator(self, op, seed: int = 0):
@@ -516,8 +529,16 @@ class LoweringContext:
         stream across runs).  In a captured step it is the entry's
         generator for the op, which the Executor seeds the same way
         before each replay: its draws start at offset 0 of that seed, as
-        a fresh generator's do, so a replay draws an eager step's bits."""
+        a fresh generator's do, so a replay draws an eager step's bits.
+
+        The recompute pass of a checkpointed segment (``self.recompute``)
+        draws from a second generator an op, keyed ``key + ("recompute",)``
+        and seeded as the first: it repeats the forward's bits, in a
+        captured step as well, where a second draw from one generator
+        would continue its stream."""
         key = (int(seed or 0), op.block.idx * 100003 + self._op_index(op))
+        if self.recompute:
+            key += ("recompute",)
         if self.generators is not None:
             gen = self.generators.get(key)
             if gen is None or key in self._drawn:
@@ -527,7 +548,8 @@ class LoweringContext:
                     "time, or a second draw in one step)" % op.type)
             self._drawn.add(key)
             return gen
-        self.rng_keys.append(key)
+        if key not in self.rng_keys:
+            self.rng_keys.append(key)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_mix64(*_rng_words(key, self._seed, self._step)))
         return gen
@@ -629,8 +651,8 @@ class LoweringContext:
 def _rng_words(key, seed, step):
     """The words :func:`_mix64` seeds an op's generator from: (seed attr,
     uid) for an op with a nonzero ``seed`` attr, else (run seed, step,
-    uid)."""
-    attr, uid = key
+    uid).  A recompute generator's key seeds as its forward's."""
+    attr, uid = key[:2]
     return (attr, uid) if attr else (seed, step, uid)
 
 
@@ -639,6 +661,105 @@ def interpret_ops(ctx: LoweringContext, ops):
     for op in ops:
         ctx.op = op
         get_rule(op.type)(ctx, op)
+
+
+_COMPANION_SUFFIXES = ("@LENGTHS", "@SUBLENGTHS", "@ARRAY", "@ARRAYLEN")
+
+# Ops whose rules read names spelled as their OUTPUTS: while and
+# conditional_block carry variables listed only as outputs, the array
+# writers extend ``<out>@ARRAY``.  Recompute keeps those names alive
+# across the segment boundaries it prunes the environment at.
+_READS_VIA_OUTPUTS = frozenset(
+    {"while", "conditional_block", "array_write", "write_to_array",
+     "array_read", "array_length", "increment", "assign"})
+
+
+def _ops_read_names(ops):
+    """Every environment name an op list may read: declared inputs
+    (recursing into the sub-blocks of control flow, whose bodies read
+    outer names the parent op does not list), the outputs of ops that
+    read through their output names, and the lengths and array
+    companions of all of them."""
+    names = set()
+
+    def walk(op):
+        for ns in op.inputs.values():
+            names.update(ns)
+        sub = op.sub_block
+        if op.type in _READS_VIA_OUTPUTS or sub is not None:
+            for ns in op.outputs.values():
+                names.update(ns)
+        if sub is not None:
+            for o in sub.ops:
+                walk(o)
+
+    for op in ops:
+        walk(op)
+    return names | {n + suf for n in names for suf in _COMPANION_SUFFIXES}
+
+
+def recompute_segments(pre, n_segments):
+    """The forward prefix ``pre`` cut into ``n_segments`` slices by op
+    count, empty slices dropped: every slice but the last runs
+    checkpointed under ``Program.enable_recompute``."""
+    bounds = [len(pre) * i // n_segments for i in range(n_segments + 1)]
+    return [s for s in (pre[bounds[i]:bounds[i + 1]]
+                        for i in range(n_segments)) if s]
+
+
+@contextlib.contextmanager
+def _recompute_pass(ctx):
+    """The recompute context of a checkpointed segment: the segment's
+    random ops draw from their recompute generators."""
+    saved, ctx.recompute = ctx.recompute, True
+    try:
+        yield
+    finally:
+        ctx.recompute = saved
+
+
+def _run_recompute_segments(ctx, pre, n_segments, keep):
+    """Run the forward prefix as ``n_segments`` segments
+    (``Program.enable_recompute``) and return its environment, pruned.
+
+    Each segment runs in a child context over a copy of the boundary
+    environment, and only the names that later segments or ``keep``
+    read come back: the boundary is what a segment's backward holds of
+    it.  Every segment but the last runs under non-reentrant
+    ``torch.utils.checkpoint``, which keeps no tensor the segment saves
+    for its backward and runs the segment again when the backward needs
+    them.  ``preserve_rng_state=False``: the random ops draw from their
+    own generators, never the default ones, and the recompute pass hands
+    each a generator seeded as its forward's (``op_generator``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    keep = set(keep)
+    keep |= {n + suf for n in keep for suf in _COMPANION_SUFFIXES}
+    segments = recompute_segments(pre, n_segments)
+    live_after, acc = [None] * len(segments), set(keep)
+    for i in range(len(segments) - 1, -1, -1):
+        live_after[i] = set(acc)
+        acc |= _ops_read_names(segments[i])
+
+    def contexts():
+        return contextlib.nullcontext(), _recompute_pass(ctx)
+
+    env = ctx.env
+    for i, seg in enumerate(segments):
+        def run(env_in, seg=seg):
+            c2 = ctx.child(dict(env_in))
+            for op in seg:
+                ctx.op = c2.op = op
+                get_rule(op.type)(c2, op)
+            return c2.env
+
+        if i < len(segments) - 1:
+            out = checkpoint(run, env, use_reentrant=False,
+                             preserve_rng_state=False, context_fn=contexts)
+        else:
+            out = run(env)
+        env = {n: v for n, v in out.items() if n in live_after[i]}
+    return env
 
 
 def lower_block(ctx: LoweringContext, block):
@@ -652,7 +773,22 @@ def lower_block(ctx: LoweringContext, block):
     ``torch.autograd.grad`` of the summed (float32) targets, each scaled
     by its constant ``TargetGradients`` entry where one is given, binds
     every ``<name>@GRAD`` that the clip, regularizer and optimizer ops
-    read.  Those post-ops run under ``torch.no_grad``."""
+    read.  Those post-ops run under ``torch.no_grad``.
+
+    Recompute (``Program.enable_recompute(n)``, ``backward`` only, when
+    the prefix has at least ``n`` ops): the prefix runs as ``n``
+    segments by op count (``recompute_segments``), each in a child
+    context, with the environment pruned at each boundary to the names
+    that later segments, the post-ops, the targets, the fetches
+    (``ctx.keep_names``) and the persistables read, with their lengths
+    and array companions.  Every segment but the last is checkpointed
+    (non-reentrant ``torch.utils.checkpoint``): its activations are not
+    kept, and ``torch.autograd.grad`` runs it again to rebuild them.
+    The rerun draws the forward's random bits (each random op a second
+    generator seeded as its first, ``op_generator``), and its kernels
+    launch and count again (the flash forward once more for each
+    attention call in those segments).  The gradients are the bits of
+    the run without recompute."""
     bw_idx = None
     for i, op in enumerate(block.ops):
         if op.type in ("backward", "calc_gradient"):
@@ -664,8 +800,6 @@ def lower_block(ctx: LoweringContext, block):
             interpret_ops(ctx, block.ops)
         return
     pre, bop, post = block.ops[:bw_idx], block.ops[bw_idx], block.ops[bw_idx + 1:]
-    if int(getattr(ctx.program, "_recompute_segments", 0) or 0) > 1:
-        raise NotImplementedError("recompute segments are not ported yet")
     no_grad = set(bop.attrs.get("no_grad_set") or ())
     tg_names = []
     if bop.type == "backward":
@@ -689,9 +823,16 @@ def lower_block(ctx: LoweringContext, block):
     leaves = {w: ctx.env[w].detach().requires_grad_(True)
               for w in wrt_names if w in ctx.env}
     cut = set(wrt_names) if bop.type == "calc_gradient" else set()
+    n_segments = int(getattr(ctx.program, "_recompute_segments", 0) or 0)
     with torch.enable_grad():
         ctx.env.update(leaves)
-        if not cut:
+        if not cut and n_segments > 1 and len(pre) >= n_segments:
+            ctx.env = _run_recompute_segments(
+                ctx, pre, n_segments,
+                keep=set(target_names) | set(tg_names)
+                | _ops_read_names(post) | set(ctx.keep_names)
+                | ctx.program.persistable_names())
+        elif not cut:
             interpret_ops(ctx, pre)
         else:
             for op in pre:
@@ -1285,7 +1426,8 @@ class Executor:
         def lower():
             ctx = LoweringContext(
                 program, {**state_in, **feeds}, self.device, seed, step,
-                reads=reads, block_rows=self.block_rows)
+                reads=reads, block_rows=self.block_rows,
+                keep_names=fetch_names)
             with self._telemetry.span("executor.dispatch"):
                 with f32_bf16_reduction(self.device):
                     lower_block(ctx, program.global_block())
@@ -1459,7 +1601,7 @@ class Executor:
         b.persistable = program.persistable_names()
         b.reads = ctx._reads
         b.written = frozenset(written)
-        b.rng_keys = tuple(dict.fromkeys(ctx.rng_keys))
+        b.rng_keys = tuple(ctx.rng_keys)
         b.nan_guard = nan_guard
         b.step = b.graph = b.state = None
         b.capture_s = b.pool_bytes = None
@@ -1615,7 +1757,7 @@ class Executor:
             env.update(static_feeds)
             ctx = current[0] = LoweringContext(
                 program, env, dev, seed, step, reads=reads,
-                block_rows=block_rows)
+                block_rows=block_rows, keep_names=outputs[0])
             ctx.generators = generators
             with f32_bf16_reduction(dev):
                 lower_block(ctx, program.global_block())

@@ -413,18 +413,24 @@ class Program:
         self._version = 0
         self._seed = 0
         self.random_seed = 0
-        # activation rematerialization: >1 splits the forward prefix into
-        # that many jax.checkpoint segments (see Program.enable_recompute)
+        # activation recompute: >1 splits the forward prefix into that
+        # many checkpointed segments (see Program.enable_recompute)
         self._recompute_segments = 0
 
     def enable_recompute(self, segments=4):
-        """Trade FLOPs for HBM: the backward pass recomputes activations
-        per segment instead of storing them all (TPU-native analog of
-        gradient checkpointing; no reference API — Fluid v0.15 stored every
-        activation).  The forward prefix is partitioned into ``segments``
-        chunks, each wrapped in ``jax.checkpoint``: peak activation memory
-        drops to ~1/segments of the forward (plus one segment's interior),
-        at the cost of one extra forward pass worth of FLOPs."""
+        """Trade FLOPs for device memory: the backward recomputes
+        activations a segment at a time instead of keeping them all
+        (gradient checkpointing; no reference API — Fluid v0.15 kept every
+        activation).  The Executor cuts the forward prefix of a
+        ``backward`` into ``segments`` slices by op count and runs every
+        slice but the last under non-reentrant
+        ``torch.utils.checkpoint``, keeping only the names later ops
+        read at each boundary (``executor.lower_block``): the activations
+        of those slices are freed after the forward and rebuilt in the
+        backward, at the cost of running them twice.  The step's bits are
+        those of the step without recompute, dropout included.  ``0`` or
+        ``1`` switches it off; the version bump makes a bound step bind
+        again."""
         self._recompute_segments = int(segments)
         self._bump()
         return self

@@ -8,7 +8,8 @@ gets no feed; an exhausted reader raises ``core.EOFException``),
 reader decorators and ``double_buffer`` the identity (the device
 prefetch pipeline, ``reader.device_prefetch``, is the port's double
 buffer), ``random_data_generator`` is an in-graph uniform source,
-``load`` builds the load op (its rule waits for io, ROADMAP A6) and
+``load`` builds the load op (its rule reads the ``.npy`` file on the
+host at every run, so a Program that holds one is never bound) and
 ``Preprocessor`` puts a reader's transform ops in the main graph.  The
 recordio readers (``open_recordio_file``, ``open_files``) wait for the
 recordio files (ROADMAP A12) and raise ``NotImplementedError`` naming

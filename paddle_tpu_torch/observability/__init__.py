@@ -1,17 +1,37 @@
-"""Telemetry for the port: counters, gauges, timers, histograms, spans.
+"""Telemetry for the port: counters, gauges, timers, histograms, spans,
+sinks, the Prometheus export and the SLO monitor.
 
-A copy of the framework-agnostic core of the JAX package's
+A copy of the framework-agnostic part of the JAX package's
 observability plane — the registry (:mod:`.registry`), log-bucketed
-latency histograms (:mod:`.histogram`) and request trace contexts
-(:mod:`.tracing`) — so the port's serving runtime reports under the
-same ``serving.decode.*`` names.  Sinks, the Prometheus export, the SLO
-monitor and the compiler-statistics capture are not ported yet.
+latency histograms (:mod:`.histogram`), request trace contexts
+(:mod:`.tracing`), the sinks (:mod:`.sinks`: JSONL, ring buffer, stdout
+summary, Chrome trace), the live ``/metrics`` + ``/healthz`` endpoint
+(:mod:`.export`) and the SLO monitor (:mod:`.slo`) — so the port's
+runtime reports under the same names and a scrape of either package
+parses the same way.  The compiler-statistics capture and the step
+attribution (``xla_stats``, ``StepAttribution``) are not ported (ROADMAP
+A9).
 
 ``PADDLE_TPU_TELEMETRY=0`` is the killswitch for records and spans;
 counters always count.
+
+Usage::
+
+    from paddle_tpu_torch import observability as obs
+
+    sink = obs.JsonlSink("telemetry.jsonl")
+    obs.add_sink(sink)
+    trainer.train(...)          # step records stream to the file
+    sink.close()
 """
 from __future__ import annotations
 
+from .export import (
+    MetricsServer,
+    parse_prometheus,
+    prometheus_name,
+    render_prometheus,
+)
 from .histogram import Histogram, HistogramSnapshot, default_bounds
 from .registry import (
     Counter,
@@ -37,6 +57,15 @@ from .registry import (
     timed,
     timer,
 )
+from .sinks import (
+    ChromeTraceSink,
+    JsonlSink,
+    RingBufferSink,
+    Sink,
+    StdoutSummarySink,
+    print_report,
+)
+from .slo import SLOAlert, SLOMonitor, SLOTarget
 from .tracing import TraceContext, build_trace_tree, new_trace
 
 __all__ = [
@@ -65,7 +94,53 @@ __all__ = [
     "reset",
     "add_sink",
     "remove_sink",
+    "Sink",
+    "JsonlSink",
+    "RingBufferSink",
+    "StdoutSummarySink",
+    "ChromeTraceSink",
+    "print_report",
+    "STEP_SCHEMA",
     "TraceContext",
     "new_trace",
     "build_trace_tree",
+    "MetricsServer",
+    "render_prometheus",
+    "prometheus_name",
+    "parse_prometheus",
+    "SLOMonitor",
+    "SLOTarget",
+    "SLOAlert",
 ]
+
+# The JAX package's step-record schema, which the port's records follow.
+# ``tools/check_observability_torch.py`` validates JSONL sink output
+# against it; keys marked required are in every trainer step record.
+STEP_SCHEMA = {
+    "required": [
+        "type",            # "step"
+        "ts",              # wall-clock seconds (time.time)
+        "source",          # "trainer" | "executor"
+        "run_id",          # opaque id tying one loop's records together
+        "program",         # program tag ("<id-hex>:v<version>")
+        "step",            # 0-based step index within the source's run
+        "duration_s",      # wall seconds of this step
+        "steps_per_s",     # 1 / duration_s
+        "feed_host_copies",    # cumulative executor.feed_host_copy counter
+        "prefetch_transfers",  # cumulative prefetch.transfer counter
+        "nan_ok",          # True/False guard verdict, None when unguarded
+    ],
+    "optional": [
+        "phase",           # trainer records: "train" | "test"
+        "epoch",           # trainer records only
+        "compile",         # True when this run built+compiled a fresh entry
+        "fast_path",       # executor records: bound fast path replayed
+        "nan_guard",       # guard armed for this step
+        "retries",         # cumulative resilience.retry counter
+        "rewinds",         # cumulative trainer nan_rewinds
+        "checkpoint_save_s",  # duration, present on checkpoint steps
+        "checkpoint_load_s",  # duration, present after a rewind/resume
+        "metrics",         # fetched scalar metrics when cheaply available
+        "mfu",             # model flops utilization when xla_stats is armed
+    ],
+}

@@ -152,12 +152,21 @@ def _matmul(ctx, op):
 
 @register("reduce_sum")
 def _reduce_sum(ctx, op):
+    """The sum over ``dim`` (every axis with ``reduce_all``).  An int32
+    or int64 input sums in its own type and wraps on overflow, as the
+    JAX package's int32 ``jnp.sum`` does (``torch.sum`` would promote it
+    to int64).  The narrower types follow the ``cumsum`` rule: int8,
+    int16 and uint8 sum in their own type (``jnp.sum`` widens them to
+    int32 or uint32), a bool input sums in int64."""
     x = ctx.get_input(op, "X")
+    if x.dtype == torch.bool:
+        x = x.long()
     if op.attrs.get("reduce_all", False):
         axes = tuple(range(x.dim()))
     else:
         axes = reduce_axes(op.attrs.get("dim"), x.dim())
-    out = torch.sum(x, dim=axes, keepdim=op.attrs.get("keep_dim", False))
+    out = torch.sum(x, dim=axes, keepdim=op.attrs.get("keep_dim", False),
+                    dtype=None if x.is_floating_point() else x.dtype)
     ctx.set_output(op, "Out", out)
 
 

@@ -53,6 +53,25 @@ def _assign_value(ctx, op):
     ctx.set_output(op, "Out", out)
 
 
+@register("load", reads_host=True)
+def _load(ctx, op):
+    """Bind a variable from an ``io.save_vars`` ``.npy`` file (reference
+    operators/load_op.cc): read on the host at every run, cast to the
+    variable's declared dtype (float16 with ``load_as_fp16``) and copied
+    to the device.  A file read cannot be replayed and a pageable copy
+    cannot be captured (``reads_host``)."""
+    path = op.attrs["file_path"]
+    if not path.endswith(".npy"):
+        path = path + ".npy"
+    out = torch.as_tensor(np.load(path))
+    var = ctx.var(op.outputs["Out"][0])
+    if var is not None and var.dtype:
+        out = out.to(torch_dtype(var.dtype))
+    if op.attrs.get("load_as_fp16"):
+        out = out.to(torch.float16)
+    ctx.set_output(op, "Out", out.to(ctx.device))
+
+
 @register("cast")
 def _cast(ctx, op):
     """``x`` in ``out_dtype``.  A float cast to an integer type saturates

@@ -33,7 +33,8 @@ def program_to_fn(program: Program, fetch_list, is_test=False,
     def fn(state, feeds, seed=0):
         env = {n: _as_tensor(v, None, dev) for n, v in state.items()}
         env.update({n: _as_tensor(v, None, dev) for n, v in feeds.items()})
-        ctx = LoweringContext(program, env, dev, seed=seed, is_test=is_test)
+        ctx = LoweringContext(program, env, dev, seed=seed, is_test=is_test,
+                              keep_names=fetch_names)
         with f32_bf16_reduction(dev):
             lower_block(ctx, program.global_block())
         fetches = [ctx.env[n].detach() for n in fetch_names]

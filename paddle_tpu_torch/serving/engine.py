@@ -37,8 +37,9 @@ worker is dead past its restart budget); and the runtime reports as
 queue-wait/execute timers, and per-request spans.  Predict dispatch
 faults are retried (transient), bisected (poison) and breaker-counted
 (persistent); a dead worker thread is restarted by the supervisor, or
-its pending requests fail fast.  The live metrics endpoint
-(``serve_metrics``) waits for the metrics export plane's port.
+its pending requests fail fast.  ``serve_metrics`` opens the live
+``/metrics`` + ``/healthz`` endpoint (off until called; it stops with
+the engine).
 
 The engine runs on the card unless asked otherwise: ``device=None`` and
 ``place=None`` resolve to ``cuda`` and raise when there is no GPU.  The
@@ -445,6 +446,7 @@ class InferenceEngine:
                             "is exhausted")))
             self._supervisor = sup
         self._telemetry = _obs.get_telemetry()
+        self._metrics_server = None   # started only by serve_metrics()
         self._state = "ready"
         if autostart:
             self.start()
@@ -502,6 +504,9 @@ class InferenceEngine:
             # rather than closing it under a running batch
             if worker_done and self._model is not None:
                 self._model.close()
+            if self._metrics_server is not None:
+                self._metrics_server.stop()
+                self._metrics_server = None
 
     def __enter__(self):
         return self
@@ -577,13 +582,25 @@ class InferenceEngine:
         return h
 
     def serve_metrics(self, host="127.0.0.1", port=0):
-        """The live ``/metrics`` + ``/healthz`` endpoint of the JAX
-        package's engine needs the metrics export plane (ROADMAP A6),
-        which is not ported yet."""
-        raise NotImplementedError(
-            "InferenceEngine.serve_metrics needs the metrics export plane "
-            "(observability export, ROADMAP A6), which is not ported to "
-            "paddle_tpu_torch yet")
+        """Start (or return the already-running) live export endpoint for
+        THIS engine: ``GET /metrics`` is the Prometheus text exposition
+        of every registry cell (histogram bucket ladders included) and
+        ``GET /healthz`` is :meth:`health` as JSON, answering 503 while
+        :meth:`ready` is False — one endpoint doubles as scrape target
+        and load-balancer readiness probe.  OFF by default: nothing in
+        the engine opens a port unless an operator calls this.  Stops
+        with the engine (:meth:`stop`) or explicitly via the returned
+        :class:`~paddle_tpu_torch.observability.MetricsServer`'s
+        ``stop()``; calling this again after a stop opens a fresh
+        endpoint at the newly requested host/port.  Scrapes run on the
+        server's own threads and read host-side counters only: they add
+        no work to a dispatch."""
+        srv = self._metrics_server
+        if srv is not None and srv.running:
+            return srv
+        self._metrics_server = _obs.MetricsServer(
+            host=host, port=port, health_fn=self.health).start()
+        return self._metrics_server
 
     @property
     def model_version(self):

@@ -374,11 +374,14 @@ def test_unported_scheduler_and_engine_options_raise(decode_model):
     with pytest.raises(NotImplementedError, match="sessions"):
         serving.DecodeScheduler(decode_model, _cfg(warmup=False),
                                 autostart=False, sessions=object())
+    # the engine's export endpoint is ported: it opens, and stops with
+    # the engine
     eng = serving.InferenceEngine(decode_model=decode_model, device="cpu",
                                   warmup=False, autostart=False)
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.serve_metrics()
+    srv = eng.serve_metrics()
+    assert srv.running and eng.serve_metrics() is srv
     eng.stop()
+    assert not srv.running
 
 
 def test_cancel_mid_decode_frees_pages(lm):

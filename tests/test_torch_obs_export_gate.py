@@ -1,0 +1,21 @@
+"""Runs the port's export-plane gate, tools/check_obs_export_torch.py
+(histogram quantiles, ``InferenceEngine.serve_metrics``'s /metrics and
+/healthz, trace trees under retries), in a clean subprocess on the CPU
+with a time limit of its own, and fails on any regression."""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_obs_export_torch_gate():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PADDLE_TPU_TELEMETRY", None)  # the gate needs telemetry on
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "check_obs_export_torch.py")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (
+        "check_obs_export_torch failed:\nstdout:\n%s\nstderr:\n%s"
+        % (proc.stdout, proc.stderr))
+    assert "observability export gate OK" in proc.stdout

@@ -493,3 +493,73 @@ def test_gaussian_random_distribution():
     again = exe.run(main, feed={"x": np.zeros((7, 3), "float32")},
                     fetch_list=[g], scope=scope)[0]
     assert again.tobytes() != out.tobytes()   # the next run draws anew
+
+
+#: F-12 (ROADMAP §C): reduce_sum of an integer or bool feed, dim 0.
+#: (feed dtype, feed, the port's output dtype).  The JAX package sums in
+#: its int32 (x64 off); the port sums int32 and int64 in their own type
+#: and bool in int64, the values the JAX package's exactly.
+REDUCE_SUM_CASES = {
+    "int32_wraps": ("int32", np.full((4, 5), 2 ** 30, "int32"), "int32"),
+    "int64": ("int64", np.random.RandomState(8).randint(
+        -1000, 1000, size=(4, 5)).astype("int64"), "int64"),
+    "bool": ("bool", np.random.RandomState(9).rand(4, 5) > 0.5, "int64"),
+}
+
+
+@pytest.mark.parametrize("case", list(REDUCE_SUM_CASES))
+def test_reduce_sum_of_integers_matches_jax(case):
+    dtype, x, port_dtype = REDUCE_SUM_CASES[case]
+
+    def build(fl):
+        v = fl.layers.data(name="x", shape=[5], dtype=dtype)
+        return fl.layers.reduce_sum(v, dim=0)
+
+    want = _run(jfluid, build, {"x": x}, jfluid.Scope())
+    got = _run(tfluid, build, {"x": x}, tfluid.Scope())
+    assert got.dtype == np.dtype(port_dtype)
+    np.testing.assert_array_equal(got, want)
+    if case == "int32_wraps":
+        _assert_same(got, want)
+        np.testing.assert_array_equal(got, np.zeros(5, "int32"))
+
+
+@pytest.mark.parametrize("declared,fp16", [("float32", False),
+                                           ("float32", True),
+                                           ("int32", False)])
+def test_load_matches_jax(tmp_path, declared, fp16):
+    """``layers.load`` of an ``io.save_vars``-style ``.npy`` (float64 on
+    disk): cast to the declared dtype, float16 with ``load_as_fp16``,
+    exactly the JAX package's values; a Program that holds a ``load``
+    reads the file at every run and is never bound."""
+    w = np.random.RandomState(12).randn(2, 3) * 100
+    path = str(tmp_path / "w")
+    np.save(path + ".npy", w)
+
+    def build(fl):
+        out = fl.layers.create_tensor(dtype=declared, name="loaded_w")
+        fl.layers.load(out, path, load_as_fp16=fp16)
+        return out
+
+    want = _run(jfluid, build, {}, jfluid.Scope())
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        out = build(tfluid)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    got = [np.asarray(exe.run(main, fetch_list=[out], scope=scope)[0])
+           for _ in range(2)]
+    _assert_same(got[0], want)
+    assert got[0].dtype == np.dtype("float16" if fp16 else declared)
+    np.save(path + ".npy", w + 1)   # the next run reads the file again
+    again = np.asarray(exe.run(main, fetch_list=[out], scope=scope)[0])
+    _assert_same(again, (w + 1).astype(got[0].dtype))
+    assert got[1].tobytes() == got[0].tobytes() and not exe._bound
+
+
+def test_memory_optimize_returns_its_input(capsys):
+    main = tfluid.Program()
+    assert tfluid.memory_optimize(main) is main
+    assert tfluid.transpiler.memory_optimize(main, print_log=True) is main
+    assert "caching allocator" in capsys.readouterr().out
+    assert tfluid.release_memory(main, skip_opt_set={"x"}) is main

@@ -335,9 +335,6 @@ def test_entry_points_default_to_the_card(model_dir):
             call()
     with pytest.raises(ValueError, match="place or device"):
         serving.InferenceEngine(model_dir, place="cpu", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        with _engine(model_dir) as eng:
-            eng.serve_metrics()
 
 
 def test_one_engine_serves_predict_and_generate(model_dir):

@@ -25,10 +25,9 @@ Scenario 3 — hot swap with drain:
 Scenario 4 — serving telemetry schema:
   a real serve run must populate the serving.* registry names
   (queue-depth gauge, request/batch/bucket counters, queue-wait/execute/
-  model-load/warm-up timers), emit per-request and per-batch spans, and
-  stream serve_batch records to record sinks.  (The JAX package's gate
-  also writes a Chrome trace; the port's trace sink waits for the
-  observability export plane.)
+  model-load/warm-up timers), emit per-request and per-batch spans,
+  stream serve_batch records to record sinks, and write a Chrome trace
+  holding the request and execute spans.
 
 The JAX package's scenario 5, a >= 2x requests/s timing smoke, depends
 on the host's load and is not part of this CPU gate; ``chip_smoke.py``
@@ -40,6 +39,7 @@ and run under pytest by tests/test_torch_serving_gate.py.
 
 Exit code 0 = every scenario held.
 """
+import json
 import os
 import sys
 import tempfile
@@ -277,36 +277,18 @@ def scenario_hot_swap():
             "incompatible swap refused OK")
 
 
-class _ListSink:
-    """Keeps every record and span it is handed (the registry's sink
-    protocol: ``emit`` for records, ``emit_span`` for spans)."""
-
-    wants_spans = True
-    wants_records = True
-
-    def __init__(self):
-        self.records, self.spans = [], []
-        self._lock = threading.Lock()
-
-    def emit(self, record):
-        with self._lock:
-            self.records.append(dict(record))
-
-    def emit_span(self, name, ts, dur, thread, tags):
-        with self._lock:
-            self.spans.append({"name": name, "ts": ts, "dur": dur,
-                               "thread": thread.name, "tags": dict(tags)})
-
-
 def scenario_telemetry_schema():
     from paddle_tpu_torch import observability as obs
 
     rng = np.random.RandomState(3)
     payloads = _requests(32, rng)
-    sink = _ListSink()
+    sink = obs.RingBufferSink(record_spans=True)
     with tempfile.TemporaryDirectory() as td:
         save_model(os.path.join(td, "m"), seed=31)
+        trace_path = os.path.join(td, "trace.json")
+        trace = obs.ChromeTraceSink(trace_path)
         obs.add_sink(sink)
+        obs.add_sink(trace)
         c0 = {n: obs.counter("serving.%s" % n).value
               for n in ("requests", "batches", "batched_rows",
                         "padded_rows")}
@@ -320,6 +302,10 @@ def scenario_telemetry_schema():
                 eng.stop()
         finally:
             obs.remove_sink(sink)
+            obs.remove_sink(trace)
+            trace.close()
+        with open(trace_path) as f:
+            trace_json = json.load(f)
     n_req = obs.counter("serving.requests").value - c0["requests"]
     n_batch = obs.counter("serving.batches").value - c0["batches"]
     n_rows = obs.counter("serving.batched_rows").value - c0["batched_rows"]
@@ -348,8 +334,12 @@ def scenario_telemetry_schema():
         for k in ("ts", "bucket", "rows", "requests", "padded",
                   "model_version", "queue_depth"):
             assert k in r, "serve_batch record missing %r: %s" % (k, r)
+    # the Chrome trace (loads in Perfetto): the request and execute spans
+    tspans = [e for e in trace_json["traceEvents"] if e.get("ph") == "X"]
+    assert any(e["name"] == "serving.request" for e in tspans)
+    assert any(e["name"] == "serving.execute" for e in tspans)
     return ("serving telemetry: %d requests / %d batches, bucket histogram "
-            "consistent, timers+spans+records flowing OK"
+            "consistent, timers+spans+records+trace flowing OK"
             % (n_req, n_batch))
 
 

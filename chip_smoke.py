@@ -93,11 +93,31 @@ split device time by op or kernel family run a step on the eager path
    ``/healthz`` answers 200, and after ``stop()`` the endpoint is down
    and a fresh one answers 503; the tokens are bitwise those of the
    same requests served first on an engine without an endpoint, whose
-   tokens/s is recorded beside;
+   tokens/s is recorded beside.  Every decode step and prefill chunk is
+   a replay of a CUDA graph the engine's step cache captured at its
+   warm-up: no step is built or captured under the load
+   (``executor.compile_count``), each entry's capture seconds and pool
+   bytes are recorded, and the decode step, the widest chunk and the
+   256-wide chunk are each held against their own function called op
+   by op on the same inputs and a clone of the pools (logits, sampled
+   ids and both pools bitwise; B4 = 12 launches a decode replay, B5 =
+   12 a chunk replay).  B5 also runs captured once with its start in a
+   device tensor and replayed at other starts (bitwise a direct call at
+   each).  Then the rest of the decode runtime (runtime_phase): a
+   shared-prefix load (16 prompts of a 1024-token prefix and a 32-256
+   token tail) on engines without and with the prefix cache (warm
+   tokens bitwise cold, at least half the prefill tokens saved, no page
+   referenced or shared after the drain, TTFT each way); ``kv_guard``
+   with ``faults.corrupt_kv_page`` (exactly one KVCorruption, the other
+   sequences bitwise a clean run, the pools finite after the scrub, the
+   guard's captured sweeps held against their functions); a worker
+   killed mid-decode whose sequences ``evict_if_dead`` harvests and a
+   second scheduler ``resubmit``s from their journals (greedy and
+   seeded, bitwise the fault-free tokens);
 8. legacy serving: the same LM and prompts through an engine whose model
    has no chunk function (``build_decode_model(..., chunked=False)``), so
    each prompt is prefilled whole by ``lm_prefill`` on the flash forward
-   (B1), 32 new tokens each: B1 launched 12 times a prompt, B4 12 times
+   (B1; a captured graph a bucket), 32 new tokens each: B1 launched 12 times a prompt, B4 12 times
    a step, B5 not at all; the greedy tokens equal the chunked engine's
    first 32, and three requests are bitwise equal to a max_active=1
    legacy engine; tokens/s, TTFT p50/p95 and peak memory.  Then B1 as
@@ -347,6 +367,15 @@ N_REQUESTS, NEW_TOKENS = 16, 64
 # kv_lens = bucket - 7, the kernels line's figure at the second
 LEGACY_NEW_TOKENS = 32
 LEGACY_BUCKETS = (256, 1024, 2048)
+# the rest of the decode runtime: a shared-prefix load (16 prompts of a
+# 1024-token prefix and a 32-256-token tail), the KV guard with one
+# corrupted sequence, and journal replay after a worker killed
+# mid-decode (at its dispatch 20, counted from 0: the 8 prompts' chunks
+# and the decode steps between them are dispatches 0-15)
+PREFIX_REQUESTS, PREFIX_TOKENS, PREFIX_TAILS = 16, 1024, (32, 256)
+PREFIX_NEW_TOKENS = 16
+GUARD_REQUESTS, GUARD_NEW_TOKENS = 4, 16
+JOURNAL_REQUESTS, JOURNAL_NEW_TOKENS, JOURNAL_KILL_AT = 8, 32, 20
 # predict serving: Transformer-base scoring at TRAIN_CFG's width, the
 # engine's default bucket ladder, and the load's requests (1-4 rows each)
 PREDICT_BUCKETS = (2, 4, 8, 16)
@@ -906,18 +935,26 @@ def prefill_phase(torch, fa, dev, flush):
     span = MP * PS
     rows = []
     for dtype, (k, v) in make_pools(torch, dev, gen).items():
+        device_start = b5_device_start_check(torch, fa, dev, gen, k, v,
+                                             pages, scale)
+        log("prefill %-8s start read from device memory: one capture "
+            "replayed at starts %s bitwise equal to direct calls, max err "
+            "%.3g vs plain (tol %g)" % (dtype, device_start["starts"],
+                                        device_start["max_abs_err"],
+                                        KERNEL_TOL))
         for start, C in PREFILL_CASES + PREFILL_TIMED:
             q = torch.randn((C, H, DH), generator=gen, device=dev)
-            out = fa.paged_prefill_attention(q, k, v, pages, start)
-            ref = fa._paged_prefill_reference(q, k, v, pages, start, scale)
+            st = torch.tensor([start], dtype=torch.int32, device=dev)
+            out = fa.paged_prefill_attention(q, k, v, pages, st)
+            ref = fa._paged_prefill_reference(q, k, v, pages, st, scale)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             check(err <= KERNEL_TOL, "prefill", dtype, start, C, err)
             half = C // 2
             split = torch.cat([
-                fa.paged_prefill_attention(q[:half], k, v, pages, start),
+                fa.paged_prefill_attention(q[:half], k, v, pages, st),
                 fa.paged_prefill_attention(q[half:], k, v, pages,
-                                           start + half)])
+                                           st + half)])
             check(torch.equal(split, out), "chunk split", start, C)
             # NaN/Inf in the stale keys past the chunk, up to the end of the
             # 64-key tile that holds its last key (rest of its last page
@@ -930,13 +967,15 @@ def prefill_phase(torch, fa, dev, flush):
                          torch.as_tensor(stale % PS, device=dev))
                 kn[where] = float("nan")
                 vn[where] = float("inf")
-                out_nan = fa.paged_prefill_attention(q, kn, vn, pages, start)
+                out_nan = fa.paged_prefill_attention(q, kn, vn, pages, st)
                 check(torch.equal(out_nan, out), "prefill: stale NaN/Inf "
                       "past start + C changed an output", dtype, start, C)
                 del kn, vn
             row = {"dtype": dtype, "start": start, "C": C,
                    "max_abs_err": err, "split_bitwise": True,
                    "stale_nan_inert": nan_checked}
+            if not rows or rows[-1]["dtype"] != dtype:
+                row["device_start"] = device_start
             if (start, C) in PREFILL_TIMED:
                 itemsize = k.element_size()
                 nbytes = ((start + C) * H * DH * 2 * itemsize
@@ -951,9 +990,9 @@ def prefill_phase(torch, fa, dev, flush):
                 q4 = q.transpose(0, 1)[None]
                 row.update({
                     "ms": time_ms(lambda: fa.paged_prefill_attention(
-                        q, k, v, pages, start), 20, flush),
+                        q, k, v, pages, st), 20, flush),
                     "plain_ms": time_ms(lambda: fa._paged_prefill_reference(
-                        q, k, v, pages, start, scale), 5, flush),
+                        q, k, v, pages, st, scale), 5, flush),
                     "library_ms": time_ms(
                         lambda: F.scaled_dot_product_attention(
                             q4, kg, vg, attn_mask=mask), 10, flush),
@@ -973,6 +1012,40 @@ def prefill_phase(torch, fa, dev, flush):
                ", stale NaN/Inf inert" if r["stale_nan_inert"] else "",
                extra))
     return rows
+
+
+def b5_device_start_check(torch, fa, dev, gen, k, v, pages, scale):
+    """B5 reads its chunk's start from device memory: one call captured
+    in a CUDA graph with ``start`` a [1] int32 tensor, replayed after
+    other starts are written into that tensor, gives at each start the
+    bits of a direct call there (so the launch did not freeze the start
+    it was captured with) within KERNEL_TOL of the plain version."""
+    C = 256
+    q = torch.randn((C, H, DH), generator=gen, device=dev)
+    start = torch.zeros((1,), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fa.paged_prefill_attention(q, k, v, pages, start)  # warm-up
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.paged_prefill_attention(q, k, v, pages, start)
+    starts = (0, 16, 700, 1024, MP * PS - C)
+    worst = 0.0
+    for s in starts:
+        start.fill_(s)
+        graph.replay()
+        st = torch.tensor([s], dtype=torch.int32, device=dev)
+        direct = fa.paged_prefill_attention(q, k, v, pages, st)
+        ref = fa._paged_prefill_reference(q, k, v, pages, st, scale)
+        check(torch.equal(out, direct),
+              "B5 replayed at start %d differs from a direct call" % s)
+        worst = max(worst, (out - ref).abs().max().item())
+    check(worst <= KERNEL_TOL, "B5 replays vs plain", worst)
+    del graph
+    return {"starts": list(starts), "max_abs_err": worst,
+            "replay_bitwise_direct": True}
 
 
 def logits_check(torch, T, params, meta, dev):
@@ -1043,7 +1116,7 @@ def profile_window(torch, engine, meta):
              "paged_prefill_kernel": "paged_prefill"}
     families = {"paged_decode": 0.0, "paged_prefill": 0.0, "gemm": 0.0,
                 "memcpy": 0.0, "other": 0.0}
-    merge_us, b4_calls = 0.0, 0
+    merge_us, b4_calls, b5_calls = 0.0, 0, 0
     for e in kernels:
         name = e.name.lower()
         fam = next((f for k, f in paged.items() if k in name), None)
@@ -1055,20 +1128,28 @@ def profile_window(torch, engine, meta):
         if "paged_decode_merge_kernel" in name:  # once a B4 call
             merge_us += e.time_range.elapsed_us()
             b4_calls += 1
+        b5_calls += "paged_prefill_kernel" in name
     busy = sum(families.values())
     return {"window_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
             "device_ms_by_family": {k: v / 1e3 for k, v in families.items()},
             "b4_merge_ms": merge_us / 1e3, "b4_calls_seen": b4_calls,
             "b4_share_of_wall": families["paged_decode"] / wall_us,
+            # a call's device time as the replayed steps run it
+            "b4_ms_per_call": (families["paged_decode"] / b4_calls / 1e3
+                               if b4_calls else None),
+            "b5_calls_seen": b5_calls,
+            "b5_ms_per_call": (families["paged_prefill"] / b5_calls / 1e3
+                               if b5_calls else None),
             "device_events": len(kernels)}
 
 
 class Scraper:
-    """Scrapes a MetricsServer's ``/metrics`` on a thread of its own,
-    every SCRAPE_EVERY_S seconds until ``stop()``, each exposition parsed
-    with ``parse_prometheus(strict=True)``; keeps the count and the
-    first error."""
+    """Scrapes a MetricsServer's ``/metrics`` on a thread of its own, at
+    once and then every SCRAPE_EVERY_S seconds until ``stop()`` (a load
+    shorter than the period is still scraped while it runs), each
+    exposition parsed with ``parse_prometheus(strict=True)``; keeps the
+    count and the first error."""
 
     def __init__(self, obs, srv):
         self.obs, self.srv = obs, srv
@@ -1081,7 +1162,7 @@ class Scraper:
     def _loop(self):
         import urllib.request
 
-        while not self._done.wait(SCRAPE_EVERY_S):
+        while True:
             try:
                 with urllib.request.urlopen(self.srv.url + "/metrics",
                                             timeout=30) as r:
@@ -1090,6 +1171,8 @@ class Scraper:
                 self.scrapes += 1
             except Exception as exc:  # noqa: BLE001 - checked by stop()
                 self.errors.append(repr(exc))
+            if self._done.wait(SCRAPE_EVERY_S):
+                return
 
     def stop(self):
         self._done.set()
@@ -1156,7 +1239,100 @@ def stopped_health_check(engine, srv):
     return status
 
 
+def step_graph_stats(sched):
+    """A scheduler's compiled steps on the card: each key's capture
+    seconds and the bytes its private pool added, every entry captured,
+    and the sums."""
+    rows = {}
+    for key, st in sched.step_stats().items():
+        check(st["captured"], "decode step %r not captured" % (key,))
+        rows["/".join(str(k) for k in key)] = {
+            "capture_s": st["capture_s"], "pool_bytes": st["pool_bytes"]}
+    return {"steps": rows, "captures": len(rows),
+            "capture_s": sum(r["capture_s"] for r in rows.values()),
+            "pool_bytes": sum(r["pool_bytes"] for r in rows.values())}
+
+
+def graph_inputs(sched, key, rng):
+    """Packed int32 inputs for a scheduler's step ``key`` (the layout its
+    ``_build_step`` unpacks) that write and read real pages: decode,
+    eight slots at kv_lens across the table's span (two inactive); a
+    chunk, the first prompt's worth at width 2048 or a tail at start
+    1024; kvguard, a page vector of the pool's pages."""
+    cache = sched._cache
+    mp, ps, S = cache.max_pages_per_seq, cache.page_size, \
+        sched.config.num_slots
+    V = sched.model.vocab_size
+    row = lambda: rng.permutation(np.arange(1, cache.num_pages))[:mp]  # noqa
+    if key[0] == "decode":
+        # disjoint pages a slot, so no two slots write one row
+        lens = np.array([0, 1, 17, 300, 1024, 2047, 5, 0], np.int32)[:S]
+        perm = rng.permutation(np.arange(1, cache.num_pages))
+        tables = np.stack([perm[i * mp:(i + 1) * mp] if n
+                           else np.zeros(mp, np.int64)
+                           for i, n in enumerate(lens)])
+        pos = np.maximum(lens - 1, 0)
+        return np.concatenate([rng.randint(0, V, S), pos, lens,
+                               tables.reshape(-1)]).astype(np.int32)
+    if key[0] == "kvguard":
+        return row()[:key[1]].astype(np.int32)
+    w = key[1]
+    start, valid = (0, min(w, 1500)) if w > 1024 else (1024, w - 56)
+    table = row()
+    chunk = np.zeros(w // ps, np.int64)
+    n = -(-valid // ps)
+    chunk[:n] = table[start // ps:start // ps + n]
+    return np.concatenate([rng.randint(0, V, w), [start, valid], chunk,
+                           table]).astype(np.int32)
+
+
+def graph_check(torch, fa, sched, key, L):
+    """A captured step against its own function called op by op, on the
+    same inputs and on a clone of the pools as they were before: every
+    output (logits, sampled ids, or the guard's booleans) and both pools
+    after the step bitwise equal (the scratch page 0, which collects the
+    pad rows' colliding writes and is never read, left out); the replay
+    adds B4 = L launches (decode) or B5 = L (a chunk)."""
+    entry = sched._jit.get(key)
+    check(entry.captured, "step %r is not captured" % (key,))
+    rng = np.random.RandomState(SEED + 40 + len(str(key)))
+    x = sched._dev(graph_inputs(sched, key, rng))
+    cache = sched._cache
+    k0, v0 = cache.k_pool.clone(), cache.v_pool.clone()
+    before = dict(fa.KERNEL_LAUNCHES)
+    with torch.no_grad():
+        out_g = entry(x)
+    torch.cuda.synchronize()
+    added = {n: fa.KERNEL_LAUNCHES[n] - before[n] for n in before}
+    k_g, v_g = cache.k_pool, cache.v_pool
+    cache.k_pool, cache.v_pool = k0, v0
+    try:
+        with torch.no_grad():
+            out_e = entry.fn(x)
+        torch.cuda.synchronize()
+    finally:
+        cache.k_pool, cache.v_pool = k_g, v_g
+    outs_g = out_g if isinstance(out_g, tuple) else (out_g,)
+    outs_e = out_e if isinstance(out_e, tuple) else (out_e,)
+    for a, b in zip(outs_g, outs_e):
+        check(torch.equal(a, b), "graph %r output differs from op by op"
+              % (key,))
+    check(torch.equal(k_g[:, 1:], k0[:, 1:])
+          and torch.equal(v_g[:, 1:], v0[:, 1:]),
+          "graph %r pools differ from op by op" % (key,))
+    want = {"decode": {"paged_decode_attention": L},
+            "chunk": {"paged_prefill_attention": L},
+            "kvguard": {}}[key[0]]
+    check({n: c for n, c in added.items() if c} == want,
+          "launches of a %r replay" % (key,), added)
+    del k0, v0
+    return {"key": list(key), "bitwise": True, "replay_launches": want,
+            "capture_s": entry.capture_s, "pool_bytes": entry.pool_bytes}
+
+
 def serving_phase(torch, T, serving, fa, obs, dev):
+    from paddle_tpu_torch.executor import compile_count
+
     params, meta = T.lm_params(seed=SEED, **LM_WIDTH)
     logit_err = logits_check(torch, T, params, meta, dev)
     log("logits card vs cpu (prefill + 4 decode steps): max abs diff %.3g "
@@ -1191,6 +1367,7 @@ def serving_phase(torch, T, serving, fa, obs, dev):
     timer0 = (step_timer.count, step_timer.total)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    compiles0 = compile_count()
     fa.reset_launch_counts()
     scraper = Scraper(obs, srv)
     t0 = time.perf_counter()
@@ -1202,6 +1379,10 @@ def serving_phase(torch, T, serving, fa, obs, dev):
     peak = torch.cuda.max_memory_allocated(dev)
     n_steps = steps.value - steps0
     n_prefills = prefills.value - prefills0
+    compiles = compile_count() - compiles0
+    check(compiles == 0, "the decode load built or captured a step",
+          compiles)
+    graphs = step_graph_stats(engine._decoder)
     export = {"scrapes_under_load": scraper.stop()}
     export.update(export_checks(obs, engine, srv, (
         "serving.decode.queue_wait", "serving.decode.ttft",
@@ -1211,6 +1392,10 @@ def serving_phase(torch, T, serving, fa, obs, dev):
     export["bitwise_without_endpoint"] = True
     export["tokens_per_s_without_endpoint"] = (
         sum(len(o) for o in plain_outs) / plain_wall)
+    widths = engine._decoder._chunk_widths()
+    graph_checks = [graph_check(torch, fa, engine._decoder, key, L=meta[
+        "n_layer"]) for key in (("decode",), ("chunk", widths[-1]),
+                                ("chunk", 256))]
     profile = profile_window(torch, engine, meta)
     engine.stop()
     export["healthz_after_stop"] = stopped_health_check(engine, srv)
@@ -1235,6 +1420,8 @@ def serving_phase(torch, T, serving, fa, obs, dev):
              "decode_step_ms": step_ms, "decode_steps": n_steps,
              "prefill_chunks": n_prefills,
              "peak_memory_gib": peak / 2 ** 30, "engine_setup_s": setup_s,
+             "compiles_during_load": compiles, "graphs": graphs,
+             "graph_checks": graph_checks,
              "launches": launches, "profile": profile, "export": export}
     log("serving: " + json.dumps(stats))
     # continuous batching == serving alone, bitwise
@@ -1249,6 +1436,192 @@ def serving_phase(torch, T, serving, fa, obs, dev):
     solo.stop()
     log("serving: requests 0, 7, 15 bitwise equal to a max_active=1 engine")
     return stats, prompts, outs
+
+
+def prefix_leg(torch, serving, obs, dev, model, meta):
+    """The prefix cache on a shared-prefix load: PREFIX_REQUESTS prompts
+    that share a PREFIX_TOKENS-token prefix, each with a tail of
+    PREFIX_TAILS tokens, PREFIX_NEW_TOKENS new tokens each; the first
+    request alone, then the rest together, on an engine without the
+    cache (cold) and one with it (warm).  Warm tokens bitwise the cold
+    ones, at least half the prefill tokens saved, no page referenced or
+    shared after the drain, no step built or captured under the load;
+    TTFT p50/p95 each way."""
+    from paddle_tpu_torch.executor import compile_count
+
+    rng = np.random.RandomState(SEED + 30)
+    V = meta["vocab_size"]
+    prefix = rng.randint(0, V, PREFIX_TOKENS)
+    prompts = [np.concatenate([prefix, rng.randint(0, V, int(n))])
+               .astype(np.int32)
+               for n in rng.randint(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1,
+                                    size=PREFIX_REQUESTS)]
+    prefill_tokens = obs.counter("serving.decode.prefill_tokens")
+    res = {}
+    for name, kw in (("cold", {}), ("warm", {"prefix_cache": True})):
+        engine = serving.InferenceEngine(
+            decode_model=model, decode_config=serving.DecodeConfig(
+                **dict(DECODE_CONFIG, **kw)), device=dev)
+        p0, c0 = prefill_tokens.value, compile_count()
+        t0 = time.perf_counter()
+        futs = [engine.generate_async(prompts[0],
+                                      max_new_tokens=PREFIX_NEW_TOKENS)]
+        futs[0].result(timeout=600)
+        futs += [engine.generate_async(p, max_new_tokens=PREFIX_NEW_TOKENS)
+                 for p in prompts[1:]]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        dec = engine._decoder
+        st, cache = dec.stats(), dec.cache_stats()
+        engine.stop()
+        check(st["kv_pages_used"] == 0 and cache["shared_pages"] == 0
+              and cache["rc_errors"] == [] and cache["rc_sum_matches"],
+              "prefix leg %s left pages referenced" % name, st, cache)
+        check(compile_count() == c0, "prefix leg %s built a step" % name)
+        ttft = np.array([f.token_times[0] - f.enqueue_ts for f in futs])
+        res[name] = {
+            "outs": outs, "prefill_tokens": prefill_tokens.value - p0,
+            "wall_s": wall,
+            "tokens_per_s": sum(len(o) for o in outs) / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50) * 1e3),
+            "ttft_p95_ms": float(np.percentile(ttft, 95) * 1e3),
+            "prefix": st.get("prefix"), "kv_pages_used": st["kv_pages_used"],
+            "kv_shared_pages": cache["shared_pages"]}
+        del engine, dec
+        gc.collect()
+    warm, cold = res["warm"], res["cold"]
+    bad = [i for i, (a, b) in enumerate(zip(warm["outs"], cold["outs"]))
+           if a.tobytes() != b.tobytes()]
+    check(not bad, "prefix leg: warm tokens differ from cold", bad)
+    saved = 1.0 - warm["prefill_tokens"] / cold["prefill_tokens"]
+    check(saved >= 0.5 and warm["prefix"]["kv_hit_pages"] > 0,
+          "prefix leg: prefill tokens saved", saved, warm["prefix"])
+    for r in res.values():
+        del r["outs"]
+    out = {"requests": PREFIX_REQUESTS, "prefix_tokens": PREFIX_TOKENS,
+           "tails": list(PREFIX_TAILS), "new_tokens": PREFIX_NEW_TOKENS,
+           "warm_bitwise_cold": True, "prefill_tokens_saved": saved,
+           "cold": cold, "warm": warm}
+    log("prefix leg: " + json.dumps(out))
+    return out
+
+
+def guard_leg(torch, serving, fa, dev, model, meta, prompts):
+    """kv_guard=True on one engine: GUARD_REQUESTS requests served clean,
+    then again with ``faults.corrupt_kv_page`` writing NaN into one
+    decoding sequence's tail page: exactly that sequence fails with
+    KVCorruption (kv_guard_trips +1), the others' tokens are bitwise the
+    clean run's, and both pools are finite after the scrub.  The guard's
+    captured steps (the decode step's tail pages and the widest chunk's
+    pages) are held against their functions op by op."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.testing import faults
+
+    engine = serving.InferenceEngine(
+        decode_model=model, decode_config=serving.DecodeConfig(
+            **dict(DECODE_CONFIG, kv_guard=True)), device=dev)
+    dec = engine._decoder
+    batch = prompts[:GUARD_REQUESTS]
+    clean = [f.result(timeout=600) for f in [
+        engine.generate_async(p, max_new_tokens=GUARD_NEW_TOKENS)
+        for p in batch]]
+    trips = obs.counter("serving.decode.kv_guard_trips")
+    t0 = trips.value
+    futs = [engine.generate_async(p, max_new_tokens=GUARD_NEW_TOKENS)
+            for p in batch]
+    # the NaN goes to row 0 of the tail page; a sequence whose next
+    # token would open a fresh page would overwrite it, so the target is
+    # one whose length after its second token is off a page boundary
+    ti = next(i for i, p in enumerate(batch)
+              if i and (len(p) + 1) % DECODE_CONFIG["page_size"])
+    with faults.corrupt_kv_page(dec, seq=futs[ti].seq, after_tokens=2) \
+            as fired:
+        failed = []
+        for i, f in enumerate(futs):
+            try:
+                out = f.result(timeout=600)
+            except serving.KVCorruption:
+                failed.append(i)
+                continue
+            check(out.tobytes() == clean[i].tobytes(),
+                  "guard leg: request %d differs from the clean run" % i)
+    check(fired[0] == 1 and failed == [ti] and trips.value - t0 == 1,
+          "guard leg: one KVCorruption", fired, failed, trips.value - t0)
+    finite = bool(torch.isfinite(dec._cache.k_pool).all()
+                  and torch.isfinite(dec._cache.v_pool).all())
+    check(finite, "guard leg: pools not finite after the scrub")
+    checks = [graph_check(torch, fa, dec, ("kvguard", n), meta["n_layer"])
+              for n in (DECODE_CONFIG["num_slots"],
+                        dec._chunk_widths()[-1] // DECODE_CONFIG["page_size"])]
+    st = dec.stats()
+    engine.stop()
+    check(st["kv_pages_used"] == 0, "guard leg leaked pages", st)
+    out = {"requests": len(batch), "failed": failed,
+           "kv_guard_trips": trips.value - t0, "others_bitwise": True,
+           "pools_finite": finite, "graph_checks": checks}
+    log("guard leg: " + json.dumps(out))
+    return out
+
+
+def journal_leg(torch, serving, dev, model, prompts):
+    """DecodeJournal replay: JOURNAL_REQUESTS requests (every other one
+    sampled at a fixed seed) served fault-free on scheduler A; the same
+    requests on scheduler B, whose worker is killed at dispatch
+    JOURNAL_KILL_AT (mid-decode); ``evict_if_dead`` harvests them and
+    each is resubmitted to A from its journal.  Every sequence's tokens
+    are bitwise the fault-free run's."""
+    from paddle_tpu_torch.testing import faults
+
+    cfg = serving.DecodeConfig(**DECODE_CONFIG)
+    batch = prompts[:JOURNAL_REQUESTS]
+    kws = [dict(temperature=0.8, seed=100 + i) if i % 2 else {}
+           for i in range(len(batch))]
+    a = serving.DecodeScheduler(model, cfg)
+    want = [f.result(timeout=600) for f in [
+        a.submit(p, max_new_tokens=JOURNAL_NEW_TOKENS, **kw)
+        for p, kw in zip(batch, kws)]]
+    b = serving.DecodeScheduler(model, cfg, autostart=False)
+    reqs = [b.submit(p, max_new_tokens=JOURNAL_NEW_TOKENS, **kw)
+            for p, kw in zip(batch, kws)]
+    with faults.kill_worker(at_dispatch=JOURNAL_KILL_AT):
+        b.start()
+        deadline = time.time() + 300
+        while b.alive and time.time() < deadline:
+            time.sleep(0.01)
+    check(not b.alive, "journal leg: the worker was not killed")
+    accepted = [len(r.journal.accepted) for r in reqs]
+    harvested = b.evict_if_dead()
+    check(len(harvested) == len(reqs) and b.cache_stats()["used_pages"] == 0
+          and all(0 < n < JOURNAL_NEW_TOKENS for n in accepted),
+          "journal leg: harvest", len(harvested), accepted)
+    for r in harvested:
+        a.resubmit(r)
+    got = [r.result(timeout=600) for r in reqs]
+    a.stop()
+    b.stop()
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if g.tobytes() != w.tobytes()]
+    check(not bad, "journal leg: resumed tokens differ", bad)
+    out = {"requests": len(batch), "sampled": sum(1 for k in kws if k),
+           "accepted_at_kill": accepted, "bitwise_fault_free": True}
+    log("journal leg: " + json.dumps(out))
+    return out
+
+
+def runtime_phase(torch, T, serving, fa, obs, dev, prompts):
+    """The rest of the decode runtime on the card: the prefix, guard and
+    journal legs on the serving phase's model."""
+    resident_gib(torch, dev)
+    params, meta = T.lm_params(seed=SEED, **LM_WIDTH)
+    model = T.build_decode_model(params, meta, device=dev)
+    t0 = time.perf_counter()
+    out = {"prefix": prefix_leg(torch, serving, obs, dev, model, meta),
+           "guard": guard_leg(torch, serving, fa, dev, model, meta,
+                              prompts),
+           "journal": journal_leg(torch, serving, dev, model, prompts)}
+    out["seconds"] = time.perf_counter() - t0
+    log("decode runtime legs: %.1f s" % out["seconds"])
+    return out
 
 
 def resident_gib(torch, dev):
@@ -5457,6 +5830,9 @@ def main():
     srv, srv_prompts, srv_outs = serving_phase(torch, T, serving, fa, obs,
                                                dev)
     torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    rt = runtime_phase(torch, T, serving, fa, obs, dev, srv_prompts)
+    torch.cuda.empty_cache()
     leg = legacy_phase(torch, T, serving, fa, obs, dev, srv_prompts,
                        srv_outs)
     torch.cuda.empty_cache()
@@ -5600,7 +5976,9 @@ def main():
             ("paged_prefill_attention", srv["launches"], p32,
              "paddle_tpu/parallel/flash_attention.py:991",
              "paddle_tpu_torch/csrc/paged_attention.cu",
-             [r["max_abs_err"] for r in pre])):
+             [r["max_abs_err"] for r in pre]
+             + [r["device_start"]["max_abs_err"] for r in pre
+                if "device_start" in r])):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
@@ -5672,6 +6050,12 @@ def main():
                                 "split_ms": d32["split_ms"],
                                 "merge_ms": d32["merge_ms"],
                                 "merge_share": d32["merge_share"]})
+        if name in ("paged_decode_attention", "paged_prefill_attention"):
+            # every decode step and prefill chunk is a CUDA graph replay
+            # adding the L launches its capture recorded
+            kernels[-1]["launches_are_replays"] = True
+        if name == "paged_prefill_attention":
+            kernels[-1]["start"] = "device memory (a [1] int32 tensor)"
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its main path", kernels)
     log("total: %.1f s" % (time.perf_counter() - t_start))

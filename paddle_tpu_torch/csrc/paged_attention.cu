@@ -7,7 +7,8 @@
 //   q            [S, H, Dh] (decode) or [C, H, Dh] (prefill), float32
 //   k/v pool     [P, ps, H, Dh], float32 or bfloat16 (one layer's slice)
 //   page_tables  [S, MP] int32 (decode), pages [MP] int32 (prefill)
-//   kv_lens      [S] int32 (decode); start is a host int (prefill)
+//   kv_lens      [S] int32 (decode); start [1] int32 (prefill), read on
+//                the device so that a captured launch takes a new start
 //   out          like q, float32
 //   workspace    [S, H, splits, Dh + 2] float32 (decode): each split's
 //                unnormalised (acc[Dh], m, l)
@@ -435,8 +436,9 @@ __global__ void __launch_bounds__(kPrefillThreads)
                          const KV* __restrict__ k_pool,
                          const KV* __restrict__ v_pool,
                          const int* __restrict__ pages,
+                         const int* __restrict__ start_arr,
                          float* __restrict__ out, int C, int H, int ps,
-                         int mp, int start, float scale) {
+                         int mp, float scale) {
   constexpr int RQ = DH + 4;  // q tile row stride (floats)
   constexpr int RK = DH + 16 / static_cast<int>(sizeof(KV));
   constexpr int NJ = DH / 16;
@@ -456,6 +458,9 @@ __global__ void __launch_bounds__(kPrefillThreads)
   const int ca = (lane & 7) + 8 * (warp & 1);    // P V step: columns
   const int rb = (lane >> 3) + 4 * (warp >> 1);  // P V step: rows 4rb + i
   const int span = mp * ps;  // keys the page row can hold
+  // the chunk's first absolute position, read from device memory so that
+  // a captured launch replays whatever start the caller wrote there
+  const int start = __ldg(start_arr);
   const int rows = min(kPR, C - q0);
   // keys [0, kend) hold every key a row of the tile sees
   const int kend = min(start + q0 + rows, span);
@@ -609,8 +614,8 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 
 template <int DH, typename KV>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v,
-                           const void* pages, void* out, int C, int H,
-                           int ps, int mp, int start, float scale,
+                           const void* pages, const void* start, void* out,
+                           int C, int H, int ps, int mp, float scale,
                            cudaStream_t st) {
   constexpr size_t smem = prefill_smem<DH, KV>();
   const cudaError_t err = cudaFuncSetAttribute(
@@ -621,7 +626,8 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
       <<<dim3(H, (C + kPR - 1) / kPR), kPrefillThreads, smem, st>>>(
           static_cast<const float*>(q), static_cast<const KV*>(k),
           static_cast<const KV*>(v), static_cast<const int*>(pages),
-          static_cast<float*>(out), C, H, ps, mp, start, scale);
+          static_cast<const int*>(start), static_cast<float*>(out), C, H, ps,
+          mp, scale);
   return cudaGetLastError();
 }
 
@@ -665,15 +671,15 @@ extern "C" int pt_paged_decode(const void* q, const void* k_pool,
 
 extern "C" int pt_paged_prefill(const void* q, const void* k_pool,
                                 const void* v_pool, const void* pages,
-                                void* out, int C, int H, int Dh, int ps,
-                                int mp, int start, float scale, int kv_bf16,
-                                int device, void* stream) {
+                                const void* start, void* out, int C, int H,
+                                int Dh, int ps, int mp, float scale,
+                                int kv_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PT_PREFILL(DH, KV) \
-  err = launch_prefill<DH, KV>(q, k_pool, v_pool, pages, out, C, H, ps, mp, \
-                               start, scale, st)
+  err = launch_prefill<DH, KV>(q, k_pool, v_pool, pages, start, out, C, H, \
+                               ps, mp, scale, st)
   if (kv_bf16) {
     if (Dh == 32) PT_PREFILL(32, __nv_bfloat16);
     else if (Dh == 64) PT_PREFILL(64, __nv_bfloat16);

@@ -40,7 +40,7 @@ _SIGNATURES = (
     ("pt_paged_decode",
      [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
     ("pt_paged_prefill",
-     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
     ("pt_flash_fwd",
      [_P] * 6 + [_I] * 5 + [_L] * 9 + [_I, _F, _I, _I, _P]),
     ("pt_flash_bwd",

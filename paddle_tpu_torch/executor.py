@@ -1085,7 +1085,15 @@ class _GraphedCall:
     with, so every call must pass what the first one did: tensors of the
     same shape, dtype and device, and equal other arguments.  Any other
     call raises ``ValueError``, on the CPU as well (the key of the cache
-    entry is the place for what varies)."""
+    entry is the place for what varies).
+
+    Every tensor argument is copied into its static input at each call,
+    and the graph writes the static copy, never the caller's tensor.
+    So large state that ``fn`` updates in place (a KV cache's pools) must
+    be closed over by ``fn`` — read from its owner inside ``fn`` — and
+    never passed as an argument: as an argument it would be copied in
+    full every call and the writes would land in the copy.  Nothing may
+    rebind such state after the capture, which holds its address."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -1093,7 +1101,14 @@ class _GraphedCall:
         self._warm = False
         self._keys = None
         self._static_in = self._static_out = self._launches = None
+        # the capture's wall seconds and the bytes it added to the card's
+        # reserved memory (its private pool), once captured
+        self.capture_s = self.pool_bytes = None
         self._lock = threading.Lock()
+
+    @property
+    def captured(self):
+        return self._graph is not None
 
     def _check(self, args):
         if self._keys is None:
@@ -1126,7 +1141,8 @@ class _GraphedCall:
                 self._static_in = [a.clone() if isinstance(a, torch.Tensor)
                                    else a for a in args]
                 self._graph = torch.cuda.CUDAGraph()
-                self._static_out, self._launches, _, _ = _capture(
+                (self._static_out, self._launches, self.capture_s,
+                 self.pool_bytes) = _capture(
                     self._graph, cuda[0].device,
                     lambda: self.fn(*self._static_in), lambda: "callable")
             for s, a in zip(self._static_in, args):
@@ -1162,6 +1178,11 @@ class JitStepCache:
 
     def keys(self):
         return list(self._entries)
+
+    def items(self):
+        """(key, entry) pairs, without building or LRU-touching any."""
+        with self._lock:
+            return list(self._entries.items())
 
     def get(self, key):
         """The callable for ``key``, built (and counted as a compile) on

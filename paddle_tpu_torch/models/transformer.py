@@ -771,20 +771,38 @@ def _embed(lm, tokens, positions):
     return lm.tok_emb[ids] * scale + lm.pos_table[positions.long()]
 
 
+def _step_scalar(value, device):
+    """A step's scalar (a chunk's start, its valid rows, a prompt's
+    length) as a [1] int32 tensor on ``device``.  The scheduler passes
+    tensors already there, which a CUDA graph captures by address; a
+    Python int is uploaded (a direct caller's convenience)."""
+    if isinstance(value, torch.Tensor):
+        return value.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([int(value)], dtype=torch.int32, device=device)
+
+
+def _row_logits(lm, x, row):
+    """Logits of row ``row`` ([1] int32 on x's device) of ``x`` [T, d]:
+    the row picked on the device (no host index), then the vector
+    product the JAX steps' ``x[i] @ out_w`` is."""
+    return torch.index_select(x, 0, row.long())[0] @ lm.out_w
+
+
 def lm_prefill(lm, tokens, length, *, use_flash):
     """Causal pass over one padded prompt.  ``tokens``: [T] int (pad tail
-    arbitrary), ``length``: the real token count.  Returns
+    arbitrary), ``length``: the real token count, a [1] int32 tensor on
+    the tokens' device (or an int).  Returns
     ``(last_logits [V], k [L, T, H, Dh], v [L, T, H, Dh])`` — k/v in the
     page-scatter layout, pad-tail rows masked downstream by kv_lens.
     Each layer attends with ``flash_attention`` (``use_flash``; the flash
     forward kernel on a CUDA tensor) or ``mha_reference``, causally over
-    keys below ``length``."""
+    keys below ``length``.  Nothing reads ``length`` on the host, so the
+    pass can be captured once a bucket and replayed for any length."""
     T = tokens.shape[0]
     H = lm.n_head
     dh = lm.d_model // H
-    length = int(length)
+    lens1 = _step_scalar(length, tokens.device)
     x = _embed(lm, tokens, torch.arange(T, device=tokens.device))
-    lens1 = torch.full((1,), length, dtype=torch.int32, device=tokens.device)
     attn = flash_attention if use_flash else mha_reference
     ks, vs = [], []
     for lp in lm.layers:
@@ -796,7 +814,7 @@ def lm_prefill(lm, tokens, length, *, use_flash):
         ctx = attn(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
                    v.transpose(0, 1)[None], causal=True, kv_lens=lens1)
         x = _lm_block_tail(lp, x, ctx[0].transpose(0, 1).reshape(T, lm.d_model))
-    return x[length - 1] @ lm.out_w, torch.stack(ks), torch.stack(vs)
+    return _row_logits(lm, x, lens1 - 1), torch.stack(ks), torch.stack(vs)
 
 
 def lm_prefill_chunk(lm, tokens, start, valid, k_pool, v_pool, chunk_pages,
@@ -805,21 +823,25 @@ def lm_prefill_chunk(lm, tokens, start, valid, k_pool, v_pool, chunk_pages,
 
     ``tokens``: [C] int — the chunk's token window (pad tail arbitrary),
     absolute positions ``start .. start + C - 1``; ``valid``: real
-    tokens in this window; ``chunk_pages``: [C // page_size] int32 page
-    ids this chunk's k/v are written into (tail entries -> scratch);
-    ``gather_pages``: [max_pages] int32 — the sequence's full page-table
-    row, what the chunk attends over.  ``k_pool``/``v_pool``
-    ([L, P, ps, H, Dh]) are updated IN PLACE.  Returns the logits [V] at
-    row ``valid - 1`` (only the final chunk's are meaningful).
+    tokens in this window; ``start`` and ``valid`` are [1] int32
+    tensors on the tokens' device (or ints); ``chunk_pages``:
+    [C // page_size] int32 page ids this chunk's k/v are written into
+    (tail entries -> scratch); ``gather_pages``: [max_pages] int32 — the
+    sequence's full page-table row, what the chunk attends over.
+    ``k_pool``/``v_pool`` ([L, P, ps, H, Dh]) are updated IN PLACE.
+    Returns the logits [V] at row ``valid - 1`` (only the final chunk's
+    are meaningful).  Nothing here reads a value on the host, so one
+    capture a width serves every start.
     """
     C = tokens.shape[0]
     ps = k_pool.shape[2]
     nb = C // ps
     H = lm.n_head
     dh = lm.d_model // H
-    start = int(start)
+    start = _step_scalar(start, tokens.device)
+    valid = _step_scalar(valid, tokens.device)
     positions = torch.clamp_max(
-        start + torch.arange(C, device=tokens.device),
+        start + torch.arange(C, dtype=torch.int32, device=tokens.device),
         lm.pos_table.shape[0] - 1)
     x = _embed(lm, tokens, positions)
     chunk_idx = chunk_pages.long()
@@ -834,7 +856,7 @@ def lm_prefill_chunk(lm, tokens, start, valid, k_pool, v_pool, chunk_pages,
         ctx = paged_prefill_attention(q, k_pool[li], v_pool[li],
                                       gather_pages, start)
         x = _lm_block_tail(lp, x, ctx.reshape(C, lm.d_model))
-    return x[int(valid) - 1] @ lm.out_w
+    return _row_logits(lm, x, valid - 1)
 
 
 def lm_decode_step(lm, tokens, positions, k_pool, v_pool, page_tables,

@@ -65,7 +65,7 @@ import warnings
 import torch
 
 __all__ = ["flash_attention", "mha_reference", "paged_decode_attention",
-           "paged_prefill_attention", "KERNEL_LAUNCHES",
+           "paged_prefill_attention", "paged_kv_finite", "KERNEL_LAUNCHES",
            "KERNEL_LAUNCHES_BY_DTYPE",
            "reset_launch_counts", "FLASH_BWD_IMPL"]
 
@@ -692,8 +692,9 @@ def _paged_prefill_reference(q, k_pool, v_pool, pages, start, sm_scale):
     v = v_pool[idx].reshape(mp * ps, H, Dh).float()
     s = torch.einsum("chd,khd->chk", q.float(), k) * sm_scale
     # causal over cache order: row i (absolute position start + i) sees
-    # keys [0, start + i], itself included
-    lens = int(start) + torch.arange(C, device=q.device) + 1
+    # keys [0, start + i], itself included; start ([1] int32) stays on the
+    # device
+    lens = start.long() + torch.arange(C, device=q.device) + 1
     ok = torch.arange(mp * ps, device=q.device)[None, :] < lens[:, None]
     s = torch.where(ok[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -802,6 +803,9 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_tables, kv_lens, sm_scale):
 
 
 def _paged_prefill_cuda(q, k_pool, v_pool, pages, start, sm_scale):
+    """B5: one block per (head, 32-row query tile).  ``start`` is a [1]
+    int32 tensor on the card that the kernel reads, so a captured launch
+    replays with whatever start was written there."""
     from ..cuda_kernels import load_library
 
     name = "paged_prefill_attention"
@@ -810,6 +814,10 @@ def _paged_prefill_cuda(q, k_pool, v_pool, pages, start, sm_scale):
     if pages.dim() != 1:
         raise ValueError("%s: pages must be [max_pages], got %s"
                          % (name, tuple(pages.shape)))
+    if (start.dtype != torch.int32 or start.numel() != 1
+            or start.device != q.device):
+        raise ValueError("%s: start must be a one-element int32 tensor on "
+                         "%s" % (name, q.device))
     out = torch.empty_like(q)
     if C == 0:
         return out
@@ -817,8 +825,8 @@ def _paged_prefill_cuda(q, k_pool, v_pool, pages, start, sm_scale):
     q, k_pool, v_pool = (_aligned16(t)[0] for t in (q, k_pool, v_pool))
     err = load_library().pt_paged_prefill(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        pages.data_ptr(), out.data_ptr(), C, H, Dh, k_pool.shape[1],
-        pages.shape[0], int(start), float(sm_scale),
+        pages.data_ptr(), start.data_ptr(), out.data_ptr(), C, H, Dh,
+        k_pool.shape[1], pages.shape[0], float(sm_scale),
         int(k_pool.dtype == torch.bfloat16), _device_index(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
@@ -845,8 +853,12 @@ def paged_prefill_attention(q, k_pool, v_pool, pages, start, sm_scale=None):
         the chunk's own k/v must already be written in.
     pages: [max_pages] int32 — the sequence's full page-table row in
         order; unused entries must point at a valid (scratch) page.
-    start: int — absolute position of the chunk's first row.  Row i
-        attends keys ``[0, start + i]`` (causal over cache order).
+    start: [1] int32 tensor on q's device (the reference's scalar-prefetch
+        ``start_arr``; a Python int is put there first) — absolute
+        position of the chunk's first row.  Row i attends keys
+        ``[0, start + i]`` (causal over cache order).  Neither version
+        reads it on the host, so a call captured in a CUDA graph takes
+        a new start at each replay.
 
     Every row's result depends on its absolute position alone, not on C
     or ``start``: chunked and monolithic prefill give the same bits on
@@ -856,7 +868,11 @@ def paged_prefill_attention(q, k_pool, v_pool, pages, start, sm_scale=None):
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if _dispatch(q, "paged_prefill_attention") == "plain":
+    engine = _dispatch(q, "paged_prefill_attention")
+    if not isinstance(start, torch.Tensor):
+        start = torch.tensor([int(start)], dtype=torch.int32, device=q.device)
+    start = start.reshape(1)
+    if engine == "plain":
         return _paged_prefill_reference(q, k_pool, v_pool, pages, start,
                                         sm_scale)
     return _paged_prefill_cuda(q, k_pool, v_pool, pages, start, sm_scale)
@@ -887,3 +903,24 @@ def paged_decode_attention(q, k_pool, v_pool, page_tables, kv_lens,
                                 sm_scale)
     return _paged_decode_cuda(q, k_pool, v_pool, page_tables, kv_lens,
                               sm_scale)
+
+
+def paged_kv_finite(k_pool, v_pool, pages):
+    """Per-page isfinite sweep over freshly written KV pages (the JAX
+    package's ``paged_kv_finite``; plain torch ops there and here, no
+    kernel of its own).
+
+    k_pool / v_pool: the cache's stacked ``[L, num_pages, ps, H, D]``
+    pools (all layers: a bad write in any layer must trip).
+    pages: ``[N]`` int32 page ids to check (per-slot decode tail pages,
+    or the pages a chunk wrote; padding entries may aim at scratch page
+    0).
+
+    Returns ``[N]`` bool on the pools' device — ``False`` marks a page
+    holding a non-finite value.  One gather and one reduction a pool;
+    only the N booleans need to cross to the host."""
+    idx = pages.long()
+    k = k_pool.index_select(1, idx)        # [L, N, ps, H, D]
+    v = v_pool.index_select(1, idx)
+    dims = (0, 2, 3, 4)
+    return torch.isfinite(k).all(dim=dims) & torch.isfinite(v).all(dim=dims)

@@ -41,6 +41,7 @@ from __future__ import annotations
 from .batcher import CompletionTracker, DynamicBatcher
 from .decode_scheduler import (
     DecodeConfig,
+    DecodeJournal,
     DecodeModel,
     DecodeScheduler,
     GenerateRequest,
@@ -76,6 +77,7 @@ __all__ = [
     "DecodeScheduler",
     "DecodeModel",
     "DecodeConfig",
+    "DecodeJournal",
     "GenerateRequest",
     "PagedKVCache",
     "Request",

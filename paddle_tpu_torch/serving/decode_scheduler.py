@@ -9,10 +9,11 @@ never does.
 
 Each worker iteration:
 
-1. **admit** queued requests into free slots (pages reserved up front;
-   no model compute at admission, except for a model without a chunk
-   function: its legacy whole-prompt ``prefill_fn`` runs right there,
-   padded to the prompt's bucket, and samples the first token);
+1. **admit** queued requests into free slots (pages reserved up front,
+   a prefix-cache probe first when ``prefix_cache`` is on; no model
+   compute at admission, except for a model without a chunk function:
+   its legacy whole-prompt ``prefill_fn`` runs right there, padded to
+   the prompt's bucket, and samples the first token);
 2. run **at most one prefill chunk** — the prefilling slot with the
    fewest chunks left, admission order on ties.  With
    ``DecodeConfig.prefill_chunk_tokens`` unset a prompt is ONE chunk
@@ -23,6 +24,20 @@ Each worker iteration:
    writes);
 4. **retire** sequences that hit EOS or their token cap.
 
+**Compiled steps.**  Every dispatch goes through an
+:class:`~paddle_tpu_torch.executor.JitStepCache` under the JAX package's
+keys: ``("decode",)``, ``("chunk", width)`` (chunked and monolithic
+prefill), ``("prefill", bucket)`` (the legacy whole-prompt prefill) and
+``("kvguard", n)``.  On the card an entry is a CUDA graph: ``warmup()``
+calls each entry twice (the first call warms, the second captures), so
+a live step is one upload of its packed int32 inputs, one replay and one
+read of its sampled ids, and ``executor.compile_count()`` does not move
+in steady state.  The pools are never arguments of a step: each step
+closes over the cache's ``k_pool``/``v_pool`` and writes them in place
+(an argument would be copied into the graph's static inputs every call),
+so nothing may rebind them.  The greedy argmax runs inside the step;
+rows with ``temperature > 0`` draw on the host from the step's logits.
+
 A sequence's tokens depend only on its own slot's row — matmul rows,
 layer norm, attention over its own pages and sampling are all
 row-independent — so continuous batching returns the same bits as
@@ -32,10 +47,29 @@ row, so it is deterministic per ``(seed, prompt)`` and independent of
 batch composition.  Its bits cannot match the JAX package's
 ``jax.random`` draws; greedy decoding matches it token for token.
 
+**Prefix caching** (``DecodeConfig.prefix_cache=True``): admission
+probes the KV cache's content-hash page index with the prompt's chain
+hashes and maps the cached leading full pages read-only (refcounted, see
+:mod:`~paddle_tpu_torch.serving.kv_cache`); only the uncached tail is
+prefilled, resuming at a page boundary at the smallest warmed width
+that covers it, and each full page a chunk writes is registered.
+
+**Durability**: every request carries a host-side :class:`DecodeJournal`
+(the original prompt and the accepted tokens, no KV).
+:meth:`DecodeScheduler.evict_inflight` harvests the in-flight sequences
+(pages freed, futures untouched) and :meth:`DecodeScheduler.resubmit`
+re-admits one anywhere from ``prompt + accepted``; sampling keyed on the
+absolute position makes the continuation the fault-free tokens.  The
+opt-in ``kv_guard`` sweeps the pages each chunk and decode step wrote
+for non-finite values and fails exactly the owning sequence
+(``KVCorruption``), its pages scrubbed in place.
+
 The model's steps update the KV pools IN PLACE.  A failed step may have
 written part of its KV, so it is not replayable and is never retried:
 the port has no ``prefill_retries``/``decode_retries`` (the JAX package
-forces both to 0 under pool donation for the same reason).
+forces both to 0 under pool donation for the same reason).  The fault
+choke point ``resilience._serve_fault`` is consulted before the legacy
+prefill, each chunk and each decode dispatch.
 
 Admission reuses the serving contracts: bounded queue with typed
 ``ServingQueueFull`` backpressure, per-request deadlines shed with
@@ -46,9 +80,10 @@ reports as ``serving.decode.*`` telemetry.  In an ``InferenceEngine`` the
 (:meth:`DecodeScheduler.restart`), or past its budget its requests fail
 fast (:meth:`DecodeScheduler.fail_pending`).
 
-Not ported yet (each raises ``NotImplementedError`` naming the knob):
-the prefix cache, the KV integrity guard, prefill/decode roles,
-conversational sessions, and journal replay on a replica pool.
+Not ported yet (each raises ``NotImplementedError`` naming it):
+prefill/decode roles and conversational sessions; the replica pool that
+replays journals on siblings (and its ``replay_budget``) is not ported
+either.
 """
 from __future__ import annotations
 
@@ -59,8 +94,12 @@ import numpy as np
 import torch
 
 from .. import observability as _obs
+from .. import resilience as _resilience
 from ..core import resolve_device
+from ..executor import JitStepCache
+from ..parallel.flash_attention import paged_kv_finite
 from .errors import (
+    KVCorruption,
     ServingCancelled,
     ServingClosed,
     ServingDegraded,
@@ -71,8 +110,8 @@ from .kv_cache import PagedKVCache, write_prompt_kv
 from .request_queue import Request, RequestQueue
 from .worker import RestartableWorker
 
-__all__ = ["DecodeModel", "DecodeConfig", "GenerateRequest",
-           "DecodeScheduler"]
+__all__ = ["DecodeModel", "DecodeConfig", "DecodeJournal",
+           "GenerateRequest", "DecodeScheduler"]
 
 _requests = _obs.counter("serving.decode.requests")
 _tokens = _obs.counter("serving.decode.tokens")
@@ -85,6 +124,7 @@ _expired_mid_prefill = _obs.counter("serving.decode.expired_mid_prefill")
 _queue_full = _obs.counter("serving.decode.queue_full")
 _cancelled = _obs.counter("serving.decode.cancelled")
 _prefill_tokens = _obs.counter("serving.decode.prefill_tokens")
+_kv_guard_trips = _obs.counter("serving.decode.kv_guard_trips")
 _queue_depth = _obs.gauge("serving.decode.queue_depth")
 _active_slots = _obs.gauge("serving.decode.active_slots")
 _prefill_timer = _obs.timer("serving.decode.prefill_step")
@@ -111,14 +151,21 @@ def _row_generator(seed, position):
     return torch.Generator().manual_seed((x ^ (x >> 32)) & 0xFFFFFFFF)
 
 
-def _sample_tokens(logits, temps, seeds, positions, top_k):
-    """One token id per row of ``logits`` ([S, V], any device) as an
-    int32 numpy array.  Rows with ``temps <= 0`` take the argmax; the
-    others draw from the temperature-scaled (optionally top-k-truncated)
-    softmax by the Gumbel-max trick, with noise from
+def _greedy(logits):
+    """The argmax ids of ``logits`` ([V] or [S, V]) as an int32 vector,
+    computed inside a step (one small device-to-host copy a step)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32).reshape(-1)
+
+
+def _sample_tokens(greedy, logits, temps, seeds, positions, top_k):
+    """One token id per row as an int32 numpy array.  Rows with
+    ``temps <= 0`` keep their argmax from ``greedy`` (the step's int32
+    ids); the others draw from the temperature-scaled (optionally
+    top-k-truncated) softmax of their row of ``logits`` ([S, V], any
+    device) by the Gumbel-max trick, with noise from
     :func:`_row_generator` — so a row's draw depends on its own logits,
     seed and position only."""
-    out = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+    out = greedy.cpu().numpy().astype(np.int32)
     for i in np.flatnonzero(temps > 0):
         z = logits[i].detach().to("cpu", torch.float64) / max(
             float(temps[i]), 1e-6)
@@ -132,24 +179,42 @@ def _sample_tokens(logits, temps, seeds, positions, top_k):
     return out
 
 
+def _unpack(flat, sizes):
+    """Consecutive slices of the packed int32 input ``flat``, one of each
+    size in ``sizes``: views, contiguous, so a captured step reads its
+    static input buffer in place."""
+    out, at = [], 0
+    for n in sizes:
+        out.append(flat[at:at + n])
+        at += n
+    return out
+
+
+def _pack(*parts):
+    """One int32 host vector of ``parts`` (arrays or ints), in order."""
+    return np.concatenate([np.asarray(p, np.int32).reshape(-1)
+                           for p in parts])
+
+
 class DecodeModel:
     """The callables a decode-capable model exposes, and where it runs.
 
     ``prefill_fn(tokens[T], length) -> (last_logits[V], k[L,T,H,D],
-    v[L,T,H,D])`` — run the whole (padded) prompt; ``length`` is the real
-    token count, ``last_logits`` the logits at position ``length - 1``.
-    LEGACY: used only by models that don't provide ``prefill_chunk_fn``;
-    the scheduler scatters k/v into the prompt's pages itself
-    (``kv_cache.write_prompt_kv``).
+    v[L,T,H,D])`` — run the whole (padded) prompt; ``length`` ([1] int32
+    on ``device``) is the real token count, ``last_logits`` the logits at
+    position ``length - 1``.  LEGACY: used only by models that don't
+    provide ``prefill_chunk_fn``; the scheduler scatters k/v into the
+    prompt's pages itself (``kv_cache.write_prompt_kv``).
 
     ``prefill_chunk_fn(tokens[C], start, valid, k_pool, v_pool,
     chunk_pages[C // page_size], gather_pages[MP]) -> last_logits[V]`` —
     one resumable prefill CHUNK: write the window's k/v into
     ``chunk_pages``, attend over the sequence's ``gather_pages`` causally
     by absolute position (``start + row``); ``last_logits`` sits at row
-    ``valid - 1``.  When present the scheduler prefills every prompt
-    through this step (monolithic = one bucket-wide chunk), and it is
-    what ``prefill_chunk_tokens`` requires.
+    ``valid - 1``.  ``start``/``valid`` are [1] int32 on ``device``.
+    When present the scheduler prefills every prompt through this step
+    (monolithic = one bucket-wide chunk), and it is what
+    ``prefill_chunk_tokens`` and ``prefix_cache`` require.
 
     ``decode_fn(tokens[S], positions[S], k_pool, v_pool,
     page_tables[S,MP], kv_lens[S]) -> logits[S,V]`` — one token per
@@ -158,7 +223,9 @@ class DecodeModel:
     0`` marks an inactive slot (masked, scratch writes).
 
     The chunk and decode steps update the pools IN PLACE.  Index tensors
-    arrive as int32 on ``device`` (None: the card, raising without one).
+    arrive as int32 on ``device`` (None: the card, raising without one),
+    and a function must not read a value on the host: on the card each
+    is captured once a shape and replayed.
     ``models.transformer.build_decode_model`` is the in-repo producer.
     """
 
@@ -195,9 +262,10 @@ class DecodeConfig:
         (default ``num_slots``); ``1`` is the per-sequence baseline.
     queue_capacity / default_deadline_ms: the admission contract.
     kv_dtype: pool dtype ("float32" or "bfloat16").
-    warmup: run the decode step and every prefill width once against
-        the scratch page at construction (builds the kernels, grows the
-        allocator) so no live request pays for it.
+    warmup: build every step at construction — the decode step, every
+        prefill width and (with ``kv_guard``) every guard length, run
+        against the scratch page; on the card each is called twice, so
+        its CUDA graph is captured before any request arrives.
     default_temperature: sampling temperature for requests that don't
         carry their own; ``0`` (the default) is greedy argmax.
     top_k: restrict sampling to the k highest logits (None = the full
@@ -205,8 +273,16 @@ class DecodeConfig:
     prefill_chunk_tokens: per-iteration prefill token budget (a
         page-size multiple); None prefills each prompt as ONE chunk
         padded to the bucket ladder.
-    prefix_cache / kv_guard: not ported yet; True raises
-        ``NotImplementedError``.
+    prefix_cache: probe the KV pool's content-hash page index at
+        admission and map cached prompt-prefix pages read-only instead
+        of recomputing them (refcounted sharing, LRU eviction of
+        refcount-zero pages).  Requires ``prefill_chunk_fn``.
+        Generated tokens are the same warm and cold.
+    kv_guard: after every prefill chunk and decode step, an isfinite
+        sweep over the pages it wrote; a non-finite write fails exactly
+        the owning sequence with ``KVCorruption`` and scrubs its pages.
+        One small graph and a read of its N booleans a step; off by
+        default.
     """
 
     def __init__(self, num_slots=4, page_size=16, max_seq_len=256,
@@ -216,12 +292,6 @@ class DecodeConfig:
                  default_temperature=0.0, top_k=None,
                  prefill_chunk_tokens=None, prefix_cache=False,
                  kv_guard=False):
-        for knob, value in (("prefix_cache", prefix_cache),
-                            ("kv_guard", kv_guard)):
-            if value:
-                raise NotImplementedError(
-                    "DecodeConfig(%s=True) is not ported to "
-                    "paddle_tpu_torch yet" % knob)
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
         self.max_seq_len = int(max_seq_len)
@@ -238,8 +308,8 @@ class DecodeConfig:
         self.top_k = None if top_k is None else int(top_k)
         self.prefill_chunk_tokens = (None if prefill_chunk_tokens is None
                                      else int(prefill_chunk_tokens))
-        self.prefix_cache = False
-        self.kv_guard = False
+        self.prefix_cache = bool(prefix_cache)
+        self.kv_guard = bool(kv_guard)
         if self.prefill_chunk_tokens is not None:
             if (self.prefill_chunk_tokens < self.page_size
                     or self.prefill_chunk_tokens % self.page_size):
@@ -259,6 +329,42 @@ class DecodeConfig:
             raise ValueError("max_seq_len must be >= page_size")
 
 
+class DecodeJournal:
+    """Host-side record of one generation — the replay unit.
+
+    Holds the ORIGINAL prompt and generation cap plus every accepted
+    token, O(tokens) host memory and no KV: with the request's sampling
+    knobs (seed/temperature) this is a sequence's complete decode state.
+    :meth:`DecodeScheduler.resubmit` re-admits a request from
+    :meth:`resume_prompt` with :meth:`remaining` as its cap, and
+    sampling keyed on the absolute position continues the uninterrupted
+    run.  ``replays`` counts re-admissions.
+    """
+
+    __slots__ = ("prompt0", "max_new0", "accepted", "replays")
+
+    def __init__(self, prompt, max_new_tokens):
+        self.prompt0 = prompt
+        self.max_new0 = int(max_new_tokens)
+        self.accepted = []           # every token the client will receive
+        self.replays = 0
+
+    def remaining(self):
+        return self.max_new0 - len(self.accepted)
+
+    def resume_prompt(self):
+        """``prompt + accepted`` — what a replay prefills.  Its chain
+        hashes over the original prompt are the prompt's own, so
+        surviving prefix-cache pages answer warm."""
+        return np.concatenate(
+            [np.asarray(self.prompt0, np.int32),
+             np.asarray(self.accepted, np.int32)])
+
+    def tokens(self):
+        """The accepted tokens as the client-facing int32 array."""
+        return np.asarray(self.accepted, np.int32)
+
+
 class GenerateRequest(Request):
     """One admitted generation request; doubles as the caller's future.
 
@@ -269,11 +375,15 @@ class GenerateRequest(Request):
     temperature ``<= 0`` (or None with a greedy default config) is
     argmax; positive temperature draws with noise keyed on ``(seed,
     absolute position)``.  ``seed=None`` defaults to the request's
-    admission seq.
+    admission seq (:meth:`DecodeScheduler.resubmit` pins it first).
+
+    ``journal`` is the request's :class:`DecodeJournal`; ``prompt`` /
+    ``max_new_tokens`` are the CURRENT incarnation's (rewritten by a
+    resubmit), the journal keeps the originals and the accepted tokens.
     """
 
     __slots__ = ("prompt", "max_new_tokens", "token_times", "temperature",
-                 "seed", "cancelled")
+                 "seed", "journal", "cancelled")
 
     def __init__(self, prompt, max_new_tokens, deadline=None, priority=None,
                  temperature=None, seed=None):
@@ -284,6 +394,7 @@ class GenerateRequest(Request):
         self.token_times = []
         self.temperature = temperature
         self.seed = seed
+        self.journal = DecodeJournal(prompt, max_new_tokens)
         self.cancelled = False
 
     @property
@@ -304,20 +415,22 @@ class GenerateRequest(Request):
 
 class _Slot:
     """Worker-private state of one active sequence.  It enters
-    PREFILLING: ``prefill_pos`` tracks prompt tokens already cached and
-    advances one chunk per scheduled iteration; the first sampled token
-    (from the final chunk) flips it to decoding."""
+    PREFILLING: ``prefill_pos`` tracks prompt tokens already cached
+    (starting past any prefix-cache hit) and advances one chunk per
+    scheduled iteration; the first sampled token (from the final chunk)
+    flips it to decoding."""
 
     __slots__ = ("req", "pages", "prompt_len", "kv_len", "generated",
-                 "prefill_pos")
+                 "prefill_pos", "hashes")
 
-    def __init__(self, req, pages):
+    def __init__(self, req, pages, prefill_pos=0, hashes=None):
         self.req = req
         self.pages = pages
         self.prompt_len = req.prompt_len
-        self.kv_len = 0                # tokens written to the paged cache
+        self.kv_len = int(prefill_pos)  # tokens written to the paged cache
         self.generated = []            # sampled tokens (last one not yet fed)
-        self.prefill_pos = 0
+        self.prefill_pos = int(prefill_pos)
+        self.hashes = hashes           # prompt chain hashes (prefix cache)
 
     @property
     def prefilling(self):
@@ -400,7 +513,18 @@ class DecodeScheduler:
         self._slots = [None] * cfg.num_slots
         self._tables = np.zeros(
             (cfg.num_slots, self._cache.max_pages_per_seq), np.int32)
-        self._hol = None               # head-of-line request awaiting pages
+        # reset_pools refuses to zero pages under these sequences unless
+        # its caller says force=True
+        self._cache.live_seqs = lambda: [
+            s.req.seq for s in self._slots if s is not None]
+        # the compiled steps (a CUDA graph each on the card), under the
+        # JAX package's keys and cap
+        self._jit = JitStepCache(
+            self._build_step, cap=2 * len(self.prefill_buckets) + 12,
+            name="decode-steps")
+        # the parked head-of-line entry: (request, pinned prefix pages,
+        # chain hashes), or None
+        self._hol = None
         # serializes _hol handoff between the worker and a stop() that
         # timed out joining a wedged-but-alive worker
         self._hol_lock = threading.Lock()
@@ -415,45 +539,111 @@ class DecodeScheduler:
         if autostart:
             self.start()
 
-    # -- device helpers ------------------------------------------------------
+    # -- compiled steps ------------------------------------------------------
+    def _build_step(self, key):
+        """The step of a JitStepCache key.  Each takes ONE packed int32
+        vector (see the callers for its layout) and closes over the model
+        and the cache — never the scheduler, never the pools as
+        arguments: the pools are read from the cache at each call and
+        written in place, so a step captured on the card writes the
+        cache's own tensors."""
+        model, cache = self.model, self._cache
+        S, ps = self.config.num_slots, self.config.page_size
+        mp = cache.max_pages_per_seq
+        kind = key[0]
+        if kind == "kvguard":
+            def kvguard(pages):
+                return paged_kv_finite(cache.k_pool, cache.v_pool, pages)
+
+            return kvguard
+        if kind == "decode":
+            def decode(ints):
+                tokens, positions, kv_lens, tables = _unpack(
+                    ints, (S, S, S, S * mp))
+                logits = model.decode_fn(
+                    tokens, positions, cache.k_pool, cache.v_pool,
+                    tables.view(S, mp), kv_lens)
+                return logits, _greedy(logits)
+
+            return decode
+        width = key[1]
+        if kind == "chunk":
+            def chunk(ints):
+                tokens, start, valid, chunk_pages, gather = _unpack(
+                    ints, (width, 1, 1, width // ps, mp))
+                logits = model.prefill_chunk_fn(
+                    tokens, start, valid, cache.k_pool, cache.v_pool,
+                    chunk_pages, gather)
+                return logits, _greedy(logits)
+
+            return chunk
+        if kind != "prefill":
+            raise ValueError("unknown decode step key %r" % (key,))
+
+        def prefill(ints):
+            tokens, length, pages = _unpack(ints, (width, 1, width // ps))
+            logits, k, v = model.prefill_fn(tokens, length)
+            write_prompt_kv(cache.k_pool, cache.v_pool, k, v, pages)
+            return logits, _greedy(logits)
+
+        return prefill
+
     def _dev(self, array):
-        """A host numpy array as a tensor on the model's device."""
-        return torch.as_tensor(array, device=self._device)
+        """A packed host int32 vector on the model's device: on the card
+        through pinned memory with a copy that does not wait (the host
+        allocator keeps the pinned block until the copy is done)."""
+        t = torch.from_numpy(np.ascontiguousarray(array, np.int32))
+        if self._device.type != "cuda":
+            return t
+        return t.pin_memory().to(self._device, non_blocking=True)
+
+    def _run_step(self, key, ints):
+        """Dispatch the compiled step ``key`` on the packed inputs."""
+        return self._jit.get(key)(self._dev(ints))
 
     def _chunk_widths(self):
         """The prefill widths this config can dispatch: the bucket ladder
         (monolithic or legacy), or the chunk budget plus every smaller
-        ladder bucket (chunked) — a short remainder runs at its own
-        bucket instead of padding to the budget."""
+        ladder bucket (chunked) — a short remainder, or the uncached
+        tail of a prefix-cache hit, runs at its own bucket instead of
+        padding to the budget."""
         if self.config.prefill_chunk_tokens is None:
             return self.prefill_buckets
         ct = self.config.prefill_chunk_tokens
         return tuple(sorted({b for b in self.prefill_buckets if b < ct}
                             | {ct}))
 
+    def _guard_lengths(self):
+        """The page-vector lengths the KV guard sweeps: the decode
+        step's tail pages and each prefill width's pages."""
+        ps = self.config.page_size
+        return sorted({self.config.num_slots}
+                      | {w // ps for w in self._chunk_widths()})
+
     def warmup(self):
-        """Run the decode step and every prefill width once against the
-        scratch page, so no live sequence pays the kernel build or the
-        allocator's first growth."""
+        """Build every step this config dispatches and run it against the
+        scratch page — on the card twice, so its CUDA graph is captured
+        now and no live sequence pays a build or a capture."""
         cfg = self.config
-        cache = self._cache
+        mp = self._cache.max_pages_per_seq
+        S, ps = cfg.num_slots, cfg.page_size
+        calls = 2 if self._device.type == "cuda" else 1
+        runs = [(("decode",), np.zeros(3 * S + S * mp, np.int32))]
+        for w in self._chunk_widths():
+            tokens, pages = np.zeros(w), np.zeros(w // ps)
+            if self._use_chunks:
+                runs.append((("chunk", w),
+                             _pack(tokens, 0, 1, pages, np.zeros(mp))))
+            else:
+                runs.append((("prefill", w), _pack(tokens, 1, pages)))
+        if cfg.kv_guard:
+            runs += [(("kvguard", n), np.zeros(n, np.int32))
+                     for n in self._guard_lengths()]
         with _obs.timed("serving.decode.warmup", slots=cfg.num_slots), \
                 torch.no_grad():
-            zeros = np.zeros((cfg.num_slots,), np.int32)
-            self.model.decode_fn(
-                self._dev(zeros), self._dev(zeros), cache.k_pool,
-                cache.v_pool, self._dev(self._tables), self._dev(zeros))
-            for w in self._chunk_widths():
-                page_vec = np.zeros((w // cfg.page_size,), np.int32)
-                if not self._use_chunks:
-                    self._prefill_into(np.zeros((w,), np.int32), 1,
-                                       page_vec)
-                    continue
-                self.model.prefill_chunk_fn(
-                    self._dev(np.zeros((w,), np.int32)), 0, 1,
-                    cache.k_pool, cache.v_pool, self._dev(page_vec),
-                    self._dev(np.zeros((cache.max_pages_per_seq,),
-                                       np.int32)))
+            for key, ints in runs:
+                for _ in range(calls):
+                    self._run_step(key, ints)
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
         return self
@@ -513,7 +703,9 @@ class DecodeScheduler:
         elif timeout is not None:
             hol = self._take_hol()
             if hol is not None:
-                hol.fail(ServingClosed(
+                # the future only: the wedged worker still owns the
+                # cache, so its pinned prefix pages stay referenced
+                hol[0].fail(ServingClosed(
                     "engine stopped before request ran (decode worker "
                     "wedged)"))
             self._queue.drain_remaining(lambda r: ServingClosed(
@@ -566,8 +758,39 @@ class DecodeScheduler:
                            deadline_ms=deadline_ms, temperature=temperature,
                            seed=seed).result(timeout=timeout)
 
+    def resubmit(self, req):
+        """Re-admit a request harvested by :meth:`evict_inflight` (here
+        or on another scheduler of the same model): it resumes from its
+        journal — ``prompt + accepted`` prefilled, the remaining cap as
+        its budget — and completes with every accepted token, the same
+        tokens the uninterrupted run gives.  A seedless request's seed
+        is pinned to its first admission's seq first.  Returns the
+        request (already complete when nothing remained)."""
+        if req.done():
+            return req
+        j = req.journal
+        if j.remaining() <= 0:
+            req.complete(j.tokens())
+            return req
+        prompt = j.resume_prompt()
+        if (len(prompt) > self.prefill_buckets[-1]
+                or len(prompt) + j.remaining() > self.config.max_seq_len):
+            raise ServingError(
+                "resumed prompt %d + %d tokens does not fit this "
+                "scheduler's buckets / max_seq_len"
+                % (len(prompt), j.remaining()))
+        if req.seed is None:
+            req.seed = req.seq or 0
+        j.replays += 1
+        req.prompt = prompt
+        req.max_new_tokens = j.remaining()
+        # a fresh seq and enqueue stamp; the deadline stays absolute
+        self._queue.put(req)
+        _requests.inc()
+        return req
+
     def stats(self):
-        return {
+        st = {
             "num_slots": self.config.num_slots,
             "max_active": self.config.max_active,
             "active": self._active_count(),
@@ -581,12 +804,24 @@ class DecodeScheduler:
             "kv_occupancy": self._cache.occupancy(),
             "prefill_buckets": list(self.prefill_buckets),
             "prefill_chunk_tokens": self.config.prefill_chunk_tokens,
+            "prefix_cache": self.config.prefix_cache,
             "device": str(self._device),
         }
+        if self.config.prefix_cache:
+            st["prefix"] = self._cache.prefix_stats()
+        return st
 
     def cache_stats(self):
         """The cache allocator snapshot with the leaked-refcount sweep."""
         return self._cache.stats()
+
+    def step_stats(self):
+        """Each compiled step by key: whether it is a captured CUDA graph,
+        the capture's seconds and the bytes its private pool added to the
+        card's reserved memory (None on the CPU)."""
+        return {key: {"captured": e.captured, "capture_s": e.capture_s,
+                      "pool_bytes": e.pool_bytes}
+                for key, e in self._jit.items()}
 
     # -- worker --------------------------------------------------------------
     def _sampling_params(self, req):
@@ -601,19 +836,75 @@ class DecodeScheduler:
         return sum(1 for s in self._slots if s is not None)
 
     def _take_hol(self):
-        """Exclusively claim the parked head-of-line request (or None)."""
+        """Exclusively claim the parked head-of-line entry — a
+        ``(request, pinned prefix pages, chain hashes)`` triple — or
+        None: the worker, a wedged-timeout stop(), and _fail_all all
+        hand off through here so exactly one owner ever fails/serves
+        it."""
         with self._hol_lock:
-            req, self._hol = self._hol, None
-            return req
+            entry, self._hol = self._hol, None
+            return entry
+
+    def _park_hol(self, req, cached_pages, hashes):
+        """Park the head-of-line request WITH its prefix-probe result:
+        the hit pages stay pinned while parked, so the request isn't
+        re-probed (and the hit/miss counters not re-counted) every
+        iteration the pool stays exhausted, and its prefix can't be
+        evicted out from under it."""
+        with self._hol_lock:
+            self._hol = (req, cached_pages, hashes)
 
     def _fail_all(self, exc):
         hol = self._take_hol()
         if hol is not None:
-            hol.fail(exc)
+            req, cached_pages, _ = hol
+            if cached_pages:
+                # the worker thread, or the worker provably dead
+                self._cache.release_prefix(cached_pages)
+            req.fail(exc)
         self._queue.drain_remaining(lambda r: exc)
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._retire(i, error=exc)
+
+    def evict_inflight(self):
+        """Harvest every in-flight sequence for replay elsewhere: clear
+        the slots and the parked head-of-line entry, free their pages and
+        pinned prefix references, and return the (unfailed) requests —
+        futures untouched, journals intact; :meth:`resubmit` re-admits
+        each.  The worker must be dead or stopped (or never started):
+        :meth:`evict_if_dead` holds that proof."""
+        harvested = []
+        hol = self._take_hol()
+        if hol is not None:
+            req, cached_pages, _ = hol
+            if cached_pages:
+                self._cache.release_prefix(cached_pages)
+            if not req.done():
+                harvested.append(req)
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            self._slots[i] = None
+            self._tables[i] = 0
+            self._cache.free(slot.pages)
+            if not slot.req.done():
+                harvested.append(slot.req)
+        _active_slots.set(0)
+        return harvested
+
+    def evict_if_dead(self):
+        """:meth:`evict_inflight` under the dead-worker proof (the
+        worker's life lock serializes the aliveness check with any
+        restart).  Returns None (no-op) while the worker is alive."""
+        with self._worker.life_lock:
+            if self._worker.alive:
+                return None
+            return self.evict_inflight()
+
+    def idle(self):
+        """No active sequence and no parked head-of-line request."""
+        return self._active_count() == 0 and self._hol is None
 
     def _serve_loop(self):
         # (BaseException escaping this loop is the death path: the
@@ -658,31 +949,45 @@ class DecodeScheduler:
         while self._active_count() < cfg.max_active:
             if self._worker.stopping and not self._drain:
                 return
-            req = self._take_hol()
-            if req is None:
+            hol = self._take_hol()
+            if hol is not None:
+                req, cached_pages, hashes = hol
+            else:
                 req = self._queue.get(
                     timeout=0.0 if self._active_count() else 0.05)
+                cached_pages, hashes = [], None
             if req is None:
                 return
-            if req.cancelled:
-                _cancelled.inc()
-                req.fail(ServingCancelled(
-                    "request cancelled before decode started"))
-                self._completed += 1
-                continue
-            if req.expired():
-                _expired.inc()
-                req.fail(ServingTimeout(
-                    "deadline expired after %.3fs in decode queue"
-                    % (time.perf_counter() - req.enqueue_ts)))
+            if req.cancelled or req.expired():
+                if cached_pages:
+                    cache.release_prefix(cached_pages)
+                if req.cancelled:
+                    _cancelled.inc()
+                    req.fail(ServingCancelled(
+                        "request cancelled before decode started"))
+                else:
+                    _expired.inc()
+                    req.fail(ServingTimeout(
+                        "deadline expired after %.3fs in decode queue"
+                        % (time.perf_counter() - req.enqueue_ts)))
                 self._completed += 1
                 continue
             need = cache.pages_for(req.prompt_len + req.max_new_tokens)
-            pages = cache.alloc(need)
+            if cfg.prefix_cache and hashes is None:
+                # probe ONCE, before the fresh alloc: hits shrink the
+                # fresh reservation and stay pinned (a re-parked request
+                # carries its probe result)
+                cached_pages, hashes = cache.lookup_prefix(req.prompt)
+            pages = cache.alloc(need - len(cached_pages))
             if pages is None:
-                if not self._active_count() and need > cache.free_pages:
+                # pinned hit pages are not in free_pages: count them
+                # toward what this reservation can ever assemble
+                if (not self._active_count()
+                        and need > cache.free_pages + len(cached_pages)):
                     # nothing will ever free enough: the reservation is
                     # larger than the whole (idle) pool
+                    if cached_pages:
+                        cache.release_prefix(cached_pages)
                     req.fail(ServingError(
                         "sequence needs %d pages but the pool has %d "
                         "usable; raise num_pages or shrink the request"
@@ -691,17 +996,18 @@ class DecodeScheduler:
                     continue
                 # pool exhausted: hold the head (FIFO) until a retirement
                 # frees its reservation
-                with self._hol_lock:
-                    self._hol = req
+                self._park_hol(req, cached_pages, hashes)
                 return
-            idx = self._place(req, pages)
+            idx = self._place(req, cached_pages + pages,
+                              len(cached_pages) * cfg.page_size, hashes)
             if not self._use_chunks:
                 self._prefill(idx)
 
-    def _place(self, req, pages):
+    def _place(self, req, pages, cached_tokens=0, hashes=None):
         """Seat one admitted request in a free slot in the PREFILLING
-        state and return the slot's index: pages are reserved, but no
-        model compute happens here."""
+        state and return the slot's index: pages are reserved (the first
+        ``cached_tokens`` tokens' pages already hold a shared prompt
+        prefix), but no model compute happens here."""
         idx = self._slots.index(None)
         now = time.perf_counter()
         wait = now - req.enqueue_ts
@@ -714,20 +1020,17 @@ class DecodeScheduler:
                 "serving.queue_wait", req.enqueue_wall, wait,
                 tags=req.trace.child().tags(priority=req.priority,
                                             seq=req.seq))
-        self._slots[idx] = _Slot(req, pages)
+        self._slots[idx] = _Slot(req, pages, cached_tokens, hashes)
         self._tables[idx] = self._cache.table_row(pages)
         _active_slots.set(self._active_count())
         return idx
 
-    def _prefill_into(self, tokens, length, page_vec):
-        """The legacy whole-prompt prefill: ``prefill_fn`` over the padded
-        ``tokens``, its k/v scattered in whole pages into ``page_vec``'s
-        pages (scratch past the prompt's pages).  Returns the logits at
-        ``length - 1``."""
-        logits, k, v = self.model.prefill_fn(self._dev(tokens), int(length))
-        write_prompt_kv(self._cache.k_pool, self._cache.v_pool, k, v,
-                        self._dev(page_vec))
-        return logits
+    @staticmethod
+    def _consult_faults(requests):
+        """The serving-dispatch fault choke point (testing.faults)."""
+        serve_fault = _resilience._serve_fault
+        if serve_fault is not None:
+            serve_fault(requests)
 
     def _prefill(self, idx):
         """Prefill the just-seated slot at ``idx`` in one legacy call
@@ -749,13 +1052,15 @@ class DecodeScheduler:
         t0 = time.perf_counter()
         prefill_wall = time.time()
         try:
+            self._consult_faults([req])
             with self._telemetry.timed("serving.decode.prefill",
                                        bucket=bucket, rows=plen,
                                        seq=req.seq), torch.no_grad():
-                logits = self._prefill_into(tokens, plen, page_vec)
+                logits, greedy = self._run_step(
+                    ("prefill", bucket), _pack(tokens, plen, page_vec))
                 first = int(_sample_tokens(
-                    logits[None], np.array([temp]), np.array([seed]),
-                    np.array([plen]), self._top_k)[0])
+                    greedy, logits[None], np.array([temp]),
+                    np.array([seed]), np.array([plen]), self._top_k)[0])
         except Exception as exc:  # noqa: BLE001 — worker must survive
             self._retire(idx, error=exc)
             return
@@ -765,18 +1070,28 @@ class DecodeScheduler:
             raise
         done = time.perf_counter()
         _prefill_timer.observe(done - t0)
-        _ttft_hist.observe(done - req.enqueue_ts)
         tel = self._telemetry
         if tel.span_active() and req.trace is not None:
             tel.record_span(
                 "serving.execute", prefill_wall, done - t0,
                 tags=req.trace.child().tags(phase="prefill", bucket=bucket,
                                             rows=plen))
+        if cfg.kv_guard and self._guard_pages(
+                [idx] * len(page_vec), page_vec, phase="prefill"):
+            return
         slot.prefill_pos = slot.kv_len = plen
-        slot.generated.append(first)
-        req.token_times.append(time.perf_counter())
         _prefills.inc()
         _prefill_tokens.inc(plen)
+        self._accept_first(idx, first, done)
+
+    def _accept_first(self, idx, first, done):
+        """The final prefill's sample is the sequence's first token."""
+        slot = self._slots[idx]
+        req = slot.req
+        slot.generated.append(first)
+        req.journal.accepted.append(first)
+        req.token_times.append(time.perf_counter())
+        _ttft_hist.observe(done - req.enqueue_ts)
         _tokens.inc()
         self._finish_if_done(idx)
 
@@ -800,7 +1115,9 @@ class DecodeScheduler:
     def _chunk_step(self, idx):
         """Run ONE prefill chunk for the slot at ``idx``: write the next
         page-multiple token window's k/v, attend over everything cached
-        so far, and — on the final chunk — sample the first token."""
+        so far (shared prefix pages included), register the full pages
+        it completed, and — on the final chunk — sample the first
+        token."""
         cfg = self.config
         slot = self._slots[idx]
         req = slot.req
@@ -817,26 +1134,26 @@ class DecodeScheduler:
         n_prompt_pages = self._cache.pages_for(req.prompt_len)
         p0 = start // ps
         chunk_vec = np.zeros((width // ps,), np.int32)
-        for i in range(width // ps):
-            if p0 + i < n_prompt_pages:
-                chunk_vec[i] = slot.pages[p0 + i]
+        n_own = max(0, min(width // ps, n_prompt_pages - p0))
+        chunk_vec[:n_own] = slot.pages[p0:p0 + n_own]
         temp, seed = self._sampling_params(req)
         t0 = time.perf_counter()
         chunk_wall = time.time()
         try:
+            self._consult_faults([req])
             with self._telemetry.timed("serving.decode.prefill",
                                        bucket=width, rows=valid,
                                        start=start, seq=req.seq), \
                     torch.no_grad():
-                logits = self.model.prefill_chunk_fn(
-                    self._dev(tokens), start, valid, self._cache.k_pool,
-                    self._cache.v_pool, self._dev(chunk_vec),
-                    self._dev(self._tables[idx]))
+                logits, greedy = self._run_step(
+                    ("chunk", width),
+                    _pack(tokens, start, valid, chunk_vec, self._tables[idx]))
                 # the first generated token sits at absolute position
                 # start + valid; only the final chunk's sample is used
                 first = int(_sample_tokens(
-                    logits[None], np.array([temp]), np.array([seed]),
-                    np.array([start + valid]), self._top_k)[0])
+                    greedy, logits[None], np.array([temp]),
+                    np.array([seed]), np.array([start + valid]),
+                    self._top_k)[0])
         except Exception as exc:  # noqa: BLE001 — worker must survive
             self._retire(idx, error=exc)
             return
@@ -855,17 +1172,52 @@ class DecodeScheduler:
                 "serving.execute", chunk_wall, done - t0,
                 tags=req.trace.child().tags(phase="prefill", bucket=width,
                                             rows=valid, start=start))
+        if cfg.kv_guard and self._guard_pages(
+                [idx] * len(chunk_vec), chunk_vec, phase="prefill"):
+            return
         slot.prefill_pos = start + valid
         slot.kv_len = slot.prefill_pos
         _prefills.inc()
         _prefill_tokens.inc(valid)
+        if cfg.prefix_cache and slot.hashes:
+            # publish every full page this chunk completed: its content
+            # is immutable from now on (decode appends past the prompt)
+            for pi in range(p0, min((start + valid) // ps,
+                                    len(slot.hashes))):
+                self._cache.register_prefix(slot.hashes, pi, slot.pages[pi])
         if slot.prefill_pos >= req.prompt_len:
-            # final chunk: its sample is the sequence's first token
-            slot.generated.append(first)
-            req.token_times.append(time.perf_counter())
-            _ttft_hist.observe(done - req.enqueue_ts)
-            _tokens.inc()
-            self._finish_if_done(idx)
+            self._accept_first(idx, first, done)
+
+    def _guard_pages(self, owners, page_vec, phase):
+        """KV integrity sweep over ``page_vec`` (``owners[j]`` = the slot
+        that wrote entry j; scratch-page entries are skipped).  A
+        non-finite page fails its owning slot typed (``KVCorruption``)
+        and scrubs the bad pages in place, so the poison cannot outlive
+        the sequence into a future page owner or a prefix hit.  Returns
+        the set of tripped slot indices (empty = clean)."""
+        with torch.no_grad():
+            ok = self._run_step(("kvguard", len(page_vec)),
+                                page_vec).cpu().numpy()
+        bad = [j for j in range(len(page_vec))
+               if page_vec[j] and not ok[j]]
+        if not bad:
+            return set()
+        tripped = {}
+        for j in bad:
+            tripped.setdefault(owners[j], []).append(int(page_vec[j]))
+        for idx, pages in tripped.items():
+            slot = self._slots[idx]
+            _kv_guard_trips.inc()
+            self._retire(idx, error=KVCorruption(
+                "non-finite KV write in page(s) %s during %s (seq %s, "
+                "%d/%d tokens); sequence failed, pages scrubbed"
+                % (pages, phase, slot.req.seq, len(slot.generated),
+                   slot.req.max_new_tokens)))
+            # after the retire's free the pages are rc=0 (the guard only
+            # trips on privately written pages): zero them and drop any
+            # index entries before the allocator reuses them
+            self._cache.scrub_pages(pages)
+        return set(tripped)
 
     def _finish_if_done(self, idx):
         slot = self._slots[idx]
@@ -930,11 +1282,12 @@ class DecodeScheduler:
             self._cache.publish_gauges(
                 sum(s.kv_len for s in self._slots if s is not None))
             return
-        tokens = np.zeros((cfg.num_slots,), np.int32)
-        positions = np.zeros((cfg.num_slots,), np.int32)
-        kv_lens = np.zeros((cfg.num_slots,), np.int32)
-        seeds = np.zeros((cfg.num_slots,), np.uint32)
-        temps = np.zeros((cfg.num_slots,), np.float32)
+        S = cfg.num_slots
+        tokens = np.zeros((S,), np.int32)
+        positions = np.zeros((S,), np.int32)
+        kv_lens = np.zeros((S,), np.int32)
+        seeds = np.zeros((S,), np.uint32)
+        temps = np.zeros((S,), np.float32)
         for i, slot in active:
             tokens[i] = slot.generated[-1]   # feed the last sampled token
             positions[i] = slot.kv_len       # ... at the next cache index
@@ -942,9 +1295,9 @@ class DecodeScheduler:
             temps[i], seeds[i] = self._sampling_params(slot.req)
         # the decode step writes EVERY slot's token k/v at
         # page_tables[s, positions[s] // ps]; a PREFILLING slot's row
-        # already points at its real pages, so its dispatch row must aim
-        # at scratch like any other non-decoding slot, or the write
-        # corrupts position 0 of its cache
+        # already points at its real (possibly shared prefix) pages, so
+        # its dispatch row must aim at scratch like any other
+        # non-decoding slot, or the write corrupts position 0 of a cache
         tables = self._tables
         masked = [i for i, s in enumerate(self._slots)
                   if s is not None and s.prefilling]
@@ -953,15 +1306,14 @@ class DecodeScheduler:
             tables[masked] = 0
         t0 = time.perf_counter()
         try:
+            self._consult_faults([s.req for _, s in active])
             with self._telemetry.timed("serving.decode.step",
                                        active=len(active)), torch.no_grad():
-                logits = self.model.decode_fn(
-                    self._dev(tokens), self._dev(positions),
-                    self._cache.k_pool, self._cache.v_pool,
-                    self._dev(tables), self._dev(kv_lens))
+                logits, greedy = self._run_step(
+                    ("decode",), _pack(tokens, positions, kv_lens, tables))
                 # kv_lens = the sampled token's absolute position
-                sampled = _sample_tokens(logits, temps, seeds, kv_lens,
-                                         self._top_k)
+                sampled = _sample_tokens(greedy, logits, temps, seeds,
+                                         kv_lens, self._top_k)
         except Exception as exc:  # noqa: BLE001 — worker must survive
             # a failed step may have written part of its KV in place:
             # not replayable, so the active sequences fail typed
@@ -971,15 +1323,29 @@ class DecodeScheduler:
         step_s = time.perf_counter() - t0
         _decode_timer.observe(step_s)
         _step_hist.observe(step_s)
+        tripped = ()
+        if cfg.kv_guard:
+            # sweep each active slot's TAIL page — the one this step's
+            # token write landed in (position = pre-step kv_len)
+            guard_vec = np.zeros((S,), np.int32)
+            for i, slot in active:
+                guard_vec[i] = slot.pages[slot.kv_len // cfg.page_size]
+            tripped = self._guard_pages(list(range(S)), guard_vec,
+                                        phase="decode")
         now = time.perf_counter()
         for i, slot in active:
+            if i in tripped:
+                continue           # retired typed by the guard
             slot.kv_len += 1
-            slot.generated.append(int(sampled[i]))
+            tok = int(sampled[i])
+            slot.generated.append(tok)
+            slot.req.journal.accepted.append(tok)
             slot.req.token_times.append(now)
         _steps.inc()
-        _tokens.inc(len(active))
+        _tokens.inc(len(active) - len(tripped))
         for i, _ in active:
-            self._finish_if_done(i)
+            if self._slots[i] is not None:
+                self._finish_if_done(i)
         _active_slots.set(self._active_count())
         self._cache.publish_gauges(
             sum(s.kv_len for s in self._slots if s is not None))
@@ -997,7 +1363,9 @@ class DecodeScheduler:
         if error is not None:
             req.fail(error)
         else:
-            req.complete(np.asarray(slot.generated, np.int32))
+            # the journal, not the slot: after a resubmit the slot holds
+            # this incarnation's tokens, the journal all of them
+            req.complete(req.journal.tokens())
         _retired.inc()
         _active_slots.set(self._active_count())
         tel = self._telemetry

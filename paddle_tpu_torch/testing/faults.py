@@ -38,8 +38,15 @@ raises at a chosen sample (``flaky_reader``)::
 No global monkeypatching: only code routed through the resilience
 primitives sees the faults, and exiting the context always restores the
 hooks.  The serving managers COMPOSE (flaky + poison nested is the
-standard chaos scenario).  The decode-runtime hooks wait for the decode
-runtime's port.
+standard chaos scenario).  The decode scheduler consults the same choke
+point before its legacy prefill, each prefill chunk and each decode
+step, so ``flaky_execute`` at a decode dispatch fails the active
+sequences typed (the port never retries a step that writes KV in
+place), and :func:`corrupt_kv_page` writes NaN into a page a decoding
+sequence owns (on the owning worker thread, before the dispatch), which
+the opt-in ``kv_guard`` sweep must catch.  The replica-pool faults
+(``kill_replica_mid_decode``, ``kill_session_owner``) wait for the
+pool's port.
 """
 from __future__ import annotations
 
@@ -62,6 +69,7 @@ __all__ = [
     "slow_execute",
     "poison_request",
     "kill_worker",
+    "corrupt_kv_page",
 ]
 
 
@@ -327,3 +335,46 @@ def kill_worker(at_dispatch=0):
 
     with _serve_fault_installed(hook):
         yield count
+
+
+@contextlib.contextmanager
+def corrupt_kv_page(scheduler, seq=None, after_tokens=1):
+    """Write NaN into a KV page OWNED by a decoding sequence on
+    ``scheduler`` — the poison the opt-in ``DecodeConfig(kv_guard=True)``
+    sweep exists to catch: the guard must fail exactly the owning
+    sequence typed (:class:`~..serving.errors.KVCorruption`) and scrub
+    the page, leaving co-resident and prefix-sharing sequences intact.
+    The write lands IN PLACE (the tensors a captured step reads) on the
+    scheduler's own worker thread, before a dispatch (the serve-fault
+    choke point), at row 0 of the tail page the next decode step appends
+    to — a privately held page, never a shared prefix page.  ``seq``
+    targets one request's sequence (default: the first slot decoding
+    with ``after_tokens`` accepted).  Fires once; yields a one-item list
+    with the corruption count."""
+    import threading
+
+    fired = [0]
+    need = int(after_tokens)
+
+    def hook(requests):
+        if fired[0] \
+                or threading.current_thread().name != scheduler._worker.name:
+            return
+        ps = scheduler.config.page_size
+        for slot in scheduler._slots:
+            if slot is None or slot.prefilling:
+                continue
+            if seq is not None and slot.req.seq != seq:
+                continue
+            if len(slot.generated) < need:
+                continue
+            page = int(slot.pages[slot.kv_len // ps])
+            if page == 0:
+                continue
+            with torch.no_grad():
+                scheduler._cache.k_pool[:, page, 0, 0, 0] = float("nan")
+            fired[0] += 1
+            return
+
+    with _serve_fault_installed(hook):
+        yield fired

@@ -7,8 +7,9 @@ the chunked prefill and through the legacy whole-prompt prefill (a model
 without a chunk function).  Port-vs-port: the scheduler's own contracts —
 continuous batching == ``max_active=1``, chunked == monolithic == legacy
 prefill, sampling keyed on (seed, position), EOS, typed errors, page
-accounting, thread hygiene, and the knobs whose machinery is not ported
-yet.
+accounting, thread hygiene, and the options whose machinery is not
+ported yet (roles, sessions).  The prefix cache, the KV guard, journals
+and the compiled steps are in test_torch_decode_runtime.py.
 """
 import threading
 import time
@@ -177,10 +178,7 @@ def test_legacy_model_refuses_chunk_only_knobs(legacy_model):
         serving.DecodeScheduler(legacy_model,
                                 _cfg(prefill_chunk_tokens=8, warmup=False),
                                 autostart=False)
-    # DecodeConfig(prefix_cache=True) itself raises NotImplementedError
-    # (the cache is not ported); the scheduler's own check comes first
-    cfg = _cfg(warmup=False)
-    cfg.prefix_cache = True
+    cfg = _cfg(warmup=False, prefix_cache=True)
     with pytest.raises(serving.ServingError, match="prefix_cache"):
         serving.DecodeScheduler(legacy_model, cfg, autostart=False)
     with pytest.raises(serving.ServingError, match="role='prefill'"):
@@ -359,12 +357,6 @@ def test_malformed_requests(decode_model):
     with pytest.raises(serving.ServingError, match="temperature"):
         sched.submit(np.ones(3, np.int32), temperature=-1)
     sched.stop()
-
-
-@pytest.mark.parametrize("knob", ["prefix_cache", "kv_guard"])
-def test_unported_config_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match=knob):
-        serving.DecodeConfig(**{knob: True})
 
 
 def test_unported_scheduler_and_engine_options_raise(decode_model):

@@ -113,7 +113,24 @@ split device time by op or kernel family run a step on the eager path
    guard's captured sweeps held against their functions); a worker
    killed mid-decode whose sequences ``evict_if_dead`` harvests and a
    second scheduler ``resubmit``s from their journals (greedy and
-   seeded, bitwise the fault-free tokens);
+   seeded, bitwise the fault-free tokens).  Then the replica pool
+   (pool_phase): four decode replicas of the same model on this card,
+   each on its own CUDA stream, serving the 16 prompts three times over
+   at rotations 1, 2 and 4 (set_active_replicas), two timed runs each:
+   every request's tokens bitwise the serving engine's, at least two
+   replicas serving at N >= 2, B4 and B5 12 launches a replay, no
+   capture under load, tokens/s at each N, the captures, pool bytes and
+   memory reserved after warm-up, and a profiled window at N = 1 and
+   N = 2 (idle share of the union of kernel intervals, and the time
+   kernels of two streams overlapped); replica 1's decode worker killed
+   mid-decode at N = 4 (every sequence bitwise its fault-free tokens, a
+   replay counted, the replica revived and serving alone again); a pool
+   with replay_budget=0 (the killed replica's sequences fail typed, the
+   others bitwise); two predict replicas over Transformer-base scoring
+   on each backend (every answer bitwise a single engine's, B1 18 a
+   dispatch) and a rolling swap v1 -> v2 under four clients (ready
+   replicas never 0, answers bitwise a v2 engine's after, memory
+   reserved within 5% of the figure before);
 8. legacy serving: the same LM and prompts through an engine whose model
    has no chunk function (``build_decode_model(..., chunked=False)``), so
    each prompt is prefilled whole by ``lm_prefill`` on the flash forward
@@ -129,7 +146,8 @@ split device time by op or kernel family run a step on the eager path
    pruned to its logits, at the training width: 6+6 layers, d_model 512,
    vocab 30000, 256 tokens, seeded parameters, f32 with TF32 off) saved
    by ``io.save_inference_model(..., aot=True)`` into a temporary
-   directory and served by InferenceEngine(model_dir=...) on the card:
+   directory (once a run, before the pool phase, which serves it first)
+   and served by InferenceEngine(model_dir=...) on the card:
    two rows on the Program backend against the port's plain CPU path
    (LOGIT_TOL); the AOT graph (torch.export, B1 inside it as the
    custom op) against the Program at buckets 2, 4, 8 and 16, bitwise; B1
@@ -346,8 +364,10 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -373,6 +393,14 @@ LEGACY_BUCKETS = (256, 1024, 2048)
 # mid-decode (at its dispatch 20, counted from 0: the 8 prompts' chunks
 # and the decode steps between them are dispatches 0-15)
 PREFIX_REQUESTS, PREFIX_TOKENS, PREFIX_TAILS = 16, 1024, (32, 256)
+# the replica pool on one card: four decode replicas at rotations 1, 2
+# and 4, two timed runs of the serving prompts three times over at each;
+# replica 1 killed mid-decode; two predict replicas at two buckets, and a
+# swap whose memory reserved after may differ by this share of before
+POOL_REPLICAS, POOL_ROTATIONS, POOL_RUNS, POOL_COPIES = 4, (1, 2, 4), 2, 3
+POOL_KILLED, POOL_PROBE_TOKENS = 1, 8
+POOL_PREDICT_REPLICAS, POOL_PREDICT_BUCKETS = 2, (2, 4)
+POOL_PREDICT_REQUESTS, POOL_SWAP_RESERVED_TOL = 16, 0.05
 PREFIX_NEW_TOKENS = 16
 GUARD_REQUESTS, GUARD_NEW_TOKENS = 4, 16
 JOURNAL_REQUESTS, JOURNAL_NEW_TOKENS, JOURNAL_KILL_AT = 8, 32, 20
@@ -1624,6 +1652,328 @@ def runtime_phase(torch, T, serving, fa, obs, dev, prompts):
     return out
 
 
+def union_ms(events):
+    """Busy milliseconds of the union of the kernels' intervals: kernels
+    of two streams that run at once are counted once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def pool_profile(torch, pool, meta):
+    """A replica pool's decode window under torch.profiler: 8 concurrent
+    256-token prompts, 32 new tokens each (profile_window's load).  The
+    idle share is of the union of kernel intervals, since kernels of two
+    replicas' streams may run at once; ``overlap_ms``, the summed kernel
+    time less the union, is the time they did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(SEED + 4)
+    prompts = [rng.randint(0, meta["vocab_size"], size=256).astype(np.int32)
+               for _ in range(8)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        futs = [pool.generate_async(p, max_new_tokens=32) for p in prompts]
+        for f in futs:
+            f.result(timeout=600)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return "not measured (the profiler recorded no device activity)"
+    busy = union_ms(kernels)
+    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"window_wall_ms": wall_ms, "device_busy_ms": busy,
+            "kernel_ms_summed": total, "overlap_ms": total - busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "device_events": len(kernels)}
+
+
+def decode_pool_leg(torch, serving, fa, obs, dev, model, meta, prompts,
+                    want):
+    """POOL_REPLICAS decode replicas of ``model`` on this card: the
+    rotations' timed runs, profiled windows at N = 1 and 2, and the kill
+    at N = 4 (see the docstring's phase 7)."""
+    from paddle_tpu_torch.executor import compile_count
+    from paddle_tpu_torch.testing import faults
+
+    L = meta["n_layer"]
+    reserved0 = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    pool = serving.ReplicaPool(
+        None, replicas=POOL_REPLICAS, devices=[dev], decode_model=model,
+        decode_config=serving.DecodeConfig(**DECODE_CONFIG))
+    setup_s = time.perf_counter() - t0
+    reps = pool._replicas
+    check(len({r.stream.cuda_stream for r in reps}) == POOL_REPLICAS
+          and all(r.device == dev for r in reps), "a stream a replica")
+    graphs = [step_graph_stats(r.decoder) for r in reps]
+    warm = {"setup_s": setup_s,
+            "captures": sum(g["captures"] for g in graphs),
+            "capture_s": sum(g["capture_s"] for g in graphs),
+            "pool_bytes": sum(g["pool_bytes"] for g in graphs),
+            "memory_reserved_gib": torch.cuda.memory_reserved(dev) / 2 ** 30,
+            "reserved_added_gib":
+            (torch.cuda.memory_reserved(dev) - reserved0) / 2 ** 30}
+    log("pool: %d decode replicas warm: %s" % (POOL_REPLICAS,
+                                               json.dumps(warm)))
+    batch = list(prompts) * POOL_COPIES
+    wants = list(want) * POOL_COPIES
+    steps, prefills = (obs.counter("serving.decode.steps"),
+                       obs.counter("serving.decode.prefills"))
+    completed = lambda: [r.decoder.stats()["completed"]  # noqa: E731
+                         for r in reps]
+    torch.cuda.synchronize()
+    compiles0, steps0, prefills0 = (compile_count(), steps.value,
+                                    prefills.value)
+    fa.reset_launch_counts()
+    runs, profiles = {}, {}
+    for n in POOL_ROTATIONS:
+        check(pool.set_active_replicas(n) == n, "rotation", n)
+        runs[n] = []
+        for _ in range(POOL_RUNS):
+            c0 = completed()
+            t0 = time.perf_counter()
+            futs = [pool.generate_async(p, max_new_tokens=NEW_TOKENS)
+                    for p in batch]
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            served = [b - a for a, b in zip(c0, completed())]
+            bad = [i for i, (o, w) in enumerate(zip(outs, wants))
+                   if o.tobytes() != w.tobytes()]
+            check(not bad, "pool N=%d: tokens differ from the engine's" % n,
+                  bad[:4])
+            check(all(c == 0 for c in served[n:])
+                  and sum(1 for c in served if c) >= min(n, 2),
+                  "pool N=%d: replicas that served" % n, served)
+            runs[n].append({"wall_s": wall, "served_by_replica": served,
+                            "tokens_per_s": sum(len(o) for o in outs)
+                            / wall})
+        if n <= 2:
+            profiles[n] = pool_profile(torch, pool, meta)
+    torch.cuda.synchronize()
+    launches = dict(fa.KERNEL_LAUNCHES)
+    n_steps, n_prefills = steps.value - steps0, prefills.value - prefills0
+    compiles = compile_count() - compiles0
+    check(compiles == 0, "the pool's load built or captured a step",
+          compiles)
+    check(launches["paged_decode_attention"] == L * n_steps > 0
+          and launches["paged_prefill_attention"] == L * n_prefills > 0,
+          "pool launches", launches, n_steps, n_prefills)
+    tps = {n: [r["tokens_per_s"] for r in rs] for n, rs in runs.items()}
+    log("pool: tokens/s by rotation (two runs each) %s; profiled window "
+        "at N=1 %s, at N=2 %s" % (json.dumps(tps), json.dumps(profiles[1]),
+                                   json.dumps(profiles[2])))
+    # the kill: replica 1's decode worker dies mid-decode under N = 4
+    replays = obs.counter("serving.decode.replays")
+    r0 = replays.value
+    with faults.kill_replica_mid_decode(POOL_KILLED) as fired:
+        futs = [pool.generate_async(p, max_new_tokens=NEW_TOKENS)
+                for p in batch]
+        outs = [f.result(timeout=600) for f in futs]
+    bad = [i for i, (o, w) in enumerate(zip(outs, wants))
+           if o.tobytes() != w.tobytes()]
+    check(fired[0] == 1 and not bad and replays.value - r0 >= 1,
+          "pool kill: replayed bitwise", fired, bad[:4],
+          replays.value - r0)
+    killed = reps[POOL_KILLED]
+    deadline = time.time() + 60
+    while not killed.decoder.alive and time.time() < deadline:
+        time.sleep(0.01)
+    check(killed.decoder.alive, "pool kill: replica not revived")
+    # the revived replica alone in the rotation serves the probes
+    before = killed.decoder.stats()["completed"]
+    for r in reps:
+        r.active = r is killed
+    time.sleep(0.2)
+    try:
+        probes = [pool.generate(p, max_new_tokens=POOL_PROBE_TOKENS,
+                                timeout=600) for p in prompts[:4]]
+    finally:
+        for r in reps:
+            r.active = True
+    check(killed.decoder.stats()["completed"] - before == 4
+          and all(o.tobytes() == w[:POOL_PROBE_TOKENS].tobytes()
+                  for o, w in zip(probes, want)),
+          "pool kill: the revived replica serves")
+    check(pool.drain_decode(timeout=60) and not any(
+        r.decoder.cache_stats()["used_pages"] for r in reps),
+        "pool leaked pages")
+    pool.stop()
+    kill = {"replays": replays.value - r0, "revived_claimed": 4,
+            "bitwise_fault_free": True}
+    # replay_budget=0: the killed replica's sequences fail typed
+    pool0 = serving.ReplicaPool(
+        None, replicas=2, devices=[dev], decode_model=model,
+        decode_config=serving.DecodeConfig(replay_budget=0,
+                                           **DECODE_CONFIG))
+    with faults.kill_replica_mid_decode(POOL_KILLED) as fired:
+        futs = [pool0.generate_async(p, max_new_tokens=NEW_TOKENS)
+                for p in prompts]
+        failed = []
+        for i, f in enumerate(futs):
+            try:
+                out = f.result(timeout=600)
+            except serving.ServingDegraded as exc:
+                check("replay budget (0)" in str(exc), str(exc))
+                failed.append(i)
+                continue
+            check(out.tobytes() == want[i].tobytes(),
+                  "replay_budget=0: request %d differs" % i)
+    pool0.stop()
+    check(fired[0] == 1 and failed, "replay_budget=0 failed nothing")
+    kill["budget0_failed_typed"] = len(failed)
+    kill["budget0_others_bitwise"] = len(prompts) - len(failed)
+    log("pool kill: " + json.dumps(kill))
+    del pool, pool0
+    return {"warm": warm, "runs": runs, "tokens_per_s": tps,
+            "profiles": profiles, "launches": launches,
+            "decode_steps": n_steps, "prefill_chunks": n_prefills,
+            "compiles_during_load": compiles, "kill": kill}
+
+
+def predict_pool_leg(torch, serving, fa, obs, dev, saved):
+    """POOL_PREDICT_REPLICAS predict replicas over the predict phase's
+    Transformer-base scoring (``saved``) on each backend, every answer
+    against a single engine's, and on the Program backend's pool a
+    rolling swap to v2 under load (the docstring's phase 7)."""
+    (d1, _), (d2, _) = saved
+    vocab, seq = TRAIN_CFG["trg_vocab_size"], TRAIN_CFG["seq_len"]
+    rng = np.random.RandomState(SEED + 60)
+    feeds = [predict_feed(*predict_rows(rng, int(n), seq, vocab))
+             for n in rng.randint(1, 3, size=POOL_PREDICT_REQUESTS)]
+    kw = dict(batch_buckets=POOL_PREDICT_BUCKETS)
+    out = {}
+    for backend in ("program", "aot"):
+        ref = predict_engine(serving, d1, dev, backend=backend, **kw)
+        want = [ref.predict(f, timeout=600)[0] for f in feeds]
+        ref.stop()
+        del ref
+        pool = serving.ReplicaPool(
+            d1, replicas=POOL_PREDICT_REPLICAS, devices=[dev],
+            backend=backend, batch_timeout_ms=2, **kw)
+        b0 = obs.counter("serving.batches").value
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        got, _, wall = serve_clients(pool, feeds, 4)
+        torch.cuda.synchronize()
+        launches = dict(fa.KERNEL_LAUNCHES)
+        dispatches = obs.counter("serving.batches").value - b0
+        predict_launch_check(fa, launches, dispatches, "pool " + backend)
+        served = [st["dispatches"] for st in pool.replica_stats()]
+        check(all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
+              and all(served), "pool %s: not bitwise the engine, or a "
+              "replica idle" % backend, served)
+        out[backend] = {"requests_per_s": len(feeds) / wall,
+                        "dispatches": dispatches,
+                        "dispatches_by_replica": served,
+                        "launches": launches, "bitwise_engine": True}
+        if backend == "program":
+            out["swap"] = pool_swap(torch, serving, dev, pool, d2, feeds,
+                                    kw)
+        pool.stop()
+        del pool
+    log("pool predict: " + json.dumps(out))
+    return out
+
+
+def pool_swap(torch, serving, dev, pool, d2, feeds, kw):
+    """A rolling swap of ``pool`` to ``d2`` under four clients: ready
+    replicas never 0, answers after it bitwise a v2 engine's, memory
+    reserved after it within POOL_SWAP_RESERVED_TOL of before (the old
+    version's graphs and their pool freed)."""
+    ref = predict_engine(serving, d2, dev, backend="program", **kw)
+    want2 = [ref.predict(f, timeout=600)[0] for f in feeds[:4]]
+    ref.stop()
+    del ref
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved_before = torch.cuda.memory_reserved(dev)
+    allocated_before = torch.cuda.memory_allocated(dev)
+    stop, min_ready, errors, answered = (threading.Event(),
+                                         [pool.ready_replicas()], [], [0])
+
+    def client(i):
+        try:
+            while not stop.is_set():
+                pool.predict(feeds[i % len(feeds)], timeout=600)
+                answered[0] += 1
+                i += 4
+        except BaseException as exc:  # noqa: BLE001 - checked below
+            errors.append(exc)
+
+    def sampler():
+        while not stop.is_set():
+            min_ready[0] = min(min_ready[0], pool.ready_replicas())
+            time.sleep(0.001)
+
+    threads = ([threading.Thread(target=sampler)]
+               + [threading.Thread(target=client, args=(i,))
+                  for i in range(4)])
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    try:
+        v2 = pool.swap_model(d2)
+    finally:
+        swap_s = time.perf_counter() - t0
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+    check(not errors and min_ready[0] >= 1 and v2 == 2
+          and pool.health()["model_versions"] == [2],
+          "pool swap under load", errors[:1], min_ready[0])
+    after = [pool.predict(f, timeout=600)[0] for f in feeds[:4]]
+    check(all(a.tobytes() == w.tobytes() for a, w in zip(after, want2)),
+          "pool: answers after the swap not bitwise a v2 engine's")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved_after = torch.cuda.memory_reserved(dev)
+    allocated_after = torch.cuda.memory_allocated(dev)
+    moved = abs(reserved_after - reserved_before) / reserved_before
+    check(moved <= POOL_SWAP_RESERVED_TOL, "pool swap: memory reserved "
+          "moved", reserved_before, reserved_after)
+    return {"seconds": swap_s, "min_ready_replicas": min_ready[0],
+            "answered_during": answered[0],
+            "reserved_before_gib": reserved_before / 2 ** 30,
+            "reserved_after_gib": reserved_after / 2 ** 30,
+            "reserved_moved_share": moved,
+            "allocated_before_gib": allocated_before / 2 ** 30,
+            "allocated_after_gib": allocated_after / 2 ** 30}
+
+
+def pool_phase(torch, T, serving, fa, obs, dev, prompts, want, saved):
+    """The replica pool (A8.1) on one card: the decode leg at the serving
+    phase's width and prompts (``want``: the serving engine's tokens for
+    them), then the predict leg over the predict phase's saved models
+    (``saved``, save_predict_models')."""
+    resident_gib(torch, dev)
+    params, meta = T.lm_params(seed=SEED, **LM_WIDTH)
+    model = T.build_decode_model(params, meta, device=dev)
+    t0 = time.perf_counter()
+    out = {"decode": decode_pool_leg(torch, serving, fa, obs, dev, model,
+                                     meta, prompts, want)}
+    out["decode_s"] = time.perf_counter() - t0
+    del model
+    resident_gib(torch, dev)
+    out["predict"] = predict_pool_leg(torch, serving, fa, obs, dev, saved)
+    out["seconds"] = time.perf_counter() - t0
+    log("pool phase: %.1f s (decode leg %.1f s)" % (out["seconds"],
+                                                    out["decode_s"]))
+    return out
+
+
 def resident_gib(torch, dev):
     """Collect the engines earlier phases left in reference cycles
     (worker threads hold their schedulers), release the cached blocks,
@@ -1812,6 +2162,20 @@ def save_predict_model(fluid, T, dirname, seed, aot):
             dirname, ["src_word", "trg_word"], [m["predict"]], exe,
             main_program=m["test"], aot=aot)
         return time.perf_counter() - t0
+
+
+def save_predict_models(torch, fluid, T, root):
+    """The predict phase's two versions of Transformer-base scoring,
+    saved once a run into ``root`` for the pool and predict phases: v1
+    with its AOT artifact, v2 without.  Returns ((directory, seconds the
+    save took), ...) for v1 and v2."""
+    out = []
+    for name, seed, aot in (("v1", SEED + 50, True),
+                            ("v2", SEED + 51, False)):
+        d = os.path.join(root, name)
+        out.append((d, save_predict_model(fluid, T, d, seed, aot)))
+    torch.cuda.empty_cache()
+    return tuple(out)
 
 
 def predict_engine(serving, dirname, dev, **kw):
@@ -2155,12 +2519,13 @@ def one_row_check(torch, fluid, serving, obs, dev, dirname):
     return out
 
 
-def predict_phase(torch, fluid, T, serving, fa, obs, dev):
+def predict_phase(torch, fluid, T, serving, fa, obs, dev, saved):
     """Predict serving of Transformer-base scoring (the forward that
     ``get_model(use_flash=True)`` prunes to its logits) at TRAIN_CFG's
-    width, saved by ``io.save_inference_model(..., aot=True)`` into a
-    temporary directory and served by InferenceEngine(model_dir=...) on
-    the card.  Checks: card vs the port's plain CPU path on two rows
+    width, saved by ``io.save_inference_model(..., aot=True)``
+    (``saved``: save_predict_models' directories and seconds, saved
+    before the pool phase) and served by InferenceEngine(model_dir=...)
+    on the card.  Checks: card vs the port's plain CPU path on two rows
     (LOGIT_TOL); the AOT graph against the Program at every bucket
     (bitwise); B1 = 18 launches a dispatch on each backend and
     no other kernel; the all-pad warm-up feed gives finite logits at
@@ -2192,12 +2557,8 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev):
 
     tmp = tempfile.mkdtemp(prefix="predict_")
     try:
-        d1, d2 = os.path.join(tmp, "v1"), os.path.join(tmp, "v2")
-        save_s = save_predict_model(fluid, T, d1, SEED + 50, aot=True)
-        save_program_s = save_predict_model(fluid, T, d2, SEED + 51,
-                                            aot=False)
-        torch.cuda.empty_cache()
-        lap("save_v1_v2")
+        (d1, save_s), (d2, save_program_s) = saved
+        laps["save_v1_v2"] = save_s + save_program_s
         rng = np.random.RandomState(SEED + 52)
         src, trg = predict_rows(rng, 16, seq, vocab)
         x2 = predict_feed(src[:2], trg[:2])
@@ -5833,10 +6194,20 @@ def main():
     torch.cuda.empty_cache()
     rt = runtime_phase(torch, T, serving, fa, obs, dev, srv_prompts)
     torch.cuda.empty_cache()
-    leg = legacy_phase(torch, T, serving, fa, obs, dev, srv_prompts,
-                       srv_outs)
-    torch.cuda.empty_cache()
-    prd = predict_phase(torch, fluid, T, serving, fa, obs, dev)
+    # the predict phase's two model versions, saved once: the pool phase
+    # serves them first
+    models = tempfile.mkdtemp(prefix="predict_models_")
+    try:
+        saved = save_predict_models(torch, fluid, T, models)
+        pool = pool_phase(torch, T, serving, fa, obs, dev, srv_prompts,
+                          srv_outs, saved)
+        torch.cuda.empty_cache()
+        leg = legacy_phase(torch, T, serving, fa, obs, dev, srv_prompts,
+                           srv_outs)
+        torch.cuda.empty_cache()
+        prd = predict_phase(torch, fluid, T, serving, fa, obs, dev, saved)
+    finally:
+        shutil.rmtree(models, ignore_errors=True)
     torch.cuda.empty_cache()
     lenet = lenet_phase(torch, fluid, dev)
     op_rule_checks(fluid, dev)
@@ -6043,6 +6414,22 @@ def main():
             kernels[-1].update(fwd_long)
             kernels[-1].update(legacy_b1)
             kernels[-1].update(predict_b1)
+            # the replica pool's predict load on each backend
+            kernels[-1].update({
+                "pool_predict_launches": {
+                    b: pool["predict"][b]["launches"][name]
+                    for b in ("program", "aot")},
+                "pool_predict_dispatches": {
+                    b: pool["predict"][b]["dispatches"]
+                    for b in ("program", "aot")}})
+        if name in ("paged_decode_attention", "paged_prefill_attention"):
+            # the replica pool's decode load: four replicas on this card
+            # at rotations 1, 2 and 4 and two profiled windows
+            kernels[-1].update({
+                "pool_launches": pool["decode"]["launches"][name],
+                "pool_dispatches": pool["decode"][
+                    "decode_steps" if name == "paged_decode_attention"
+                    else "prefill_chunks"]})
         if name == "flash_attention_bwd":
             kernels[-1].update(bwd_long)
         if name == "paged_decode_attention":

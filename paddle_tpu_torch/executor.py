@@ -973,9 +973,14 @@ def _written(env, state, names):
 
 # PyTorch allows one capture at a time in a process
 _CAPTURE_LOCK = threading.Lock()
-# one capture stream a device, as torch.cuda.graph keeps: the free blocks
-# of a private pool serve only allocations on the stream that freed them,
-# so graphs that share a pool reuse its memory only when captured on one
+# one capture stream for each stream that captures are made from (one a
+# device on a thread that keeps the default stream, as torch.cuda.graph
+# keeps): the free blocks of a private pool serve only allocations on the
+# stream that freed them, so graphs that share a pool reuse its memory
+# only when captured on one.  And a captured cuBLAS call keeps the
+# workspace of its handle and capture stream, so graphs replayed at the
+# same time on different streams (a replica pool's, each captured from
+# its replica's own stream) must come from different capture streams
 _CAPTURE_STREAMS = {}
 
 
@@ -990,23 +995,24 @@ def _warm_blas(device):
 
 
 def _capture(graph, device, body, current_op, pool=None):
-    """Capture ``body()`` into ``graph`` on the capture stream of
-    ``device`` (``capture_error_mode="thread_local"``: other threads keep
-    using the card), in the private memory pool ``pool`` where given
-    (shared with the graphs captured into it before), and return (its
-    result, the kernel launches its wrappers recorded, capture seconds,
-    bytes the capture added to the pool).  A failure anywhere in ``body`` raises
-    ``RuntimeError`` naming ``current_op()``: nothing falls back to
-    eager."""
+    """Capture ``body()`` into ``graph`` on the capture stream of the
+    current stream of ``device`` (``capture_error_mode="thread_local"``:
+    other threads keep using the card), in the private memory pool
+    ``pool`` where given (shared with the graphs captured into it
+    before), and return (its result, the kernel launches its wrappers
+    recorded, capture seconds, bytes the capture added to the pool).  A
+    failure anywhere in ``body`` raises ``RuntimeError`` naming
+    ``current_op()``: nothing falls back to eager."""
     from .parallel import flash_attention as fa
 
     cur = torch.cuda.current_stream(device)
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     with _CAPTURE_LOCK:
-        side = _CAPTURE_STREAMS.get(index)
+        side = _CAPTURE_STREAMS.get((index, cur.cuda_stream))
         if side is None:
-            side = _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+            side = _CAPTURE_STREAMS[index, cur.cuda_stream] = \
+                torch.cuda.Stream(index)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             _warm_blas(device)

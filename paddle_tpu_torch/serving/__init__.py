@@ -33,8 +33,17 @@ engine and the model run on the card unless ``device="cpu"`` is passed
 (to both, for a decode model); without a GPU the default raises.
 Admission keeps the JAX package's contracts (priority lanes, bounded
 queue, deadlines, typed errors, retry and bisection, the circuit breaker
-and the worker supervisor); the replica pool, router, sessions and
-prefix cache are not ported yet.
+and the worker supervisor).  :class:`ReplicaPool` serves either path from
+N replicas over one shared queue (on one card, N replicas on ``cuda:0``,
+each on its own CUDA stream)::
+
+    pool = serving.ReplicaPool(model_dir, replicas=2,
+                               decode_model=model, decode_config=cfg)
+    tokens = pool.generate(prompt_ids)
+    pool.swap_model(new_model_dir)                      # rolling
+    pool.stop()
+
+The router and conversational sessions are not ported yet.
 """
 from __future__ import annotations
 
@@ -60,12 +69,14 @@ from .errors import (
 )
 from .kv_cache import PagedKVCache
 from .model_store import LoadedModel, ModelStore
+from .replica_pool import ReplicaPool
 from .request_queue import PRIORITY_CLASSES, Request, RequestQueue
 from .resilient import CircuitBreaker, ResilientDispatcher, WorkerSupervisor
 from .worker import RestartableWorker
 
 __all__ = [
     "InferenceEngine",
+    "ReplicaPool",
     "BatchExecutor",
     "DynamicBatcher",
     "CompletionTracker",

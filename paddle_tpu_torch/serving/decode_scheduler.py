@@ -80,10 +80,23 @@ reports as ``serving.decode.*`` telemetry.  In an ``InferenceEngine`` the
 (:meth:`DecodeScheduler.restart`), or past its budget its requests fail
 fast (:meth:`DecodeScheduler.fail_pending`).
 
-Not ported yet (each raises ``NotImplementedError`` naming it):
-prefill/decode roles and conversational sessions; the replica pool that
-replays journals on siblings (and its ``replay_budget``) is not ported
-either.
+**Pool mode** (:class:`~.replica_pool.ReplicaPool`): ``queue=`` is the
+pool's SHARED admission queue (the scheduler never closes or drains
+it), ``gate=`` a claim predicate consulted before every shared-queue
+pull (never for a parked head-of-line request, whose prefix pages are
+pinned here), ``claim=`` the per-pop predicate the queue runs under its
+lock (``RequestQueue.get(accept=)``), ``name=`` the worker thread's name
+(``decode-replica<i>``, which the supervisor and
+``testing.faults.kill_replica_mid_decode`` address), ``breaker=`` a
+:class:`~.resilient.CircuitBreaker` told the outcome of every dispatch,
+``stream=`` the CUDA stream the worker's loop runs on, and
+``evict_on_death=True`` leaves a killed worker's sequences in their
+slots for the pool to harvest (:meth:`DecodeScheduler.evict_if_dead`)
+and replay on a sibling under ``DecodeConfig.replay_budget``.
+
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
+A8.2): prefill/decode roles with their KV handoff, and conversational
+sessions.
 """
 from __future__ import annotations
 
@@ -125,6 +138,7 @@ _queue_full = _obs.counter("serving.decode.queue_full")
 _cancelled = _obs.counter("serving.decode.cancelled")
 _prefill_tokens = _obs.counter("serving.decode.prefill_tokens")
 _kv_guard_trips = _obs.counter("serving.decode.kv_guard_trips")
+_affinity_honored = _obs.counter("serving.affinity.honored")
 _queue_depth = _obs.gauge("serving.decode.queue_depth")
 _active_slots = _obs.gauge("serving.decode.active_slots")
 _prefill_timer = _obs.timer("serving.decode.prefill_step")
@@ -283,6 +297,10 @@ class DecodeConfig:
         the owning sequence with ``KVCorruption`` and scrubs its pages.
         One small graph and a read of its N booleans a step; off by
         default.
+    replay_budget: times a replica pool may re-admit a sequence after
+        the replica serving it died (a re-prefill of ``prompt +
+        accepted`` on a sibling, continuing the same tokens) before it
+        fails with ``ServingDegraded``.  Only the pool reads it.
     """
 
     def __init__(self, num_slots=4, page_size=16, max_seq_len=256,
@@ -291,7 +309,7 @@ class DecodeConfig:
                  default_deadline_ms=None, kv_dtype="float32", warmup=True,
                  default_temperature=0.0, top_k=None,
                  prefill_chunk_tokens=None, prefix_cache=False,
-                 kv_guard=False):
+                 replay_budget=2, kv_guard=False):
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
         self.max_seq_len = int(max_seq_len)
@@ -309,6 +327,7 @@ class DecodeConfig:
         self.prefill_chunk_tokens = (None if prefill_chunk_tokens is None
                                      else int(prefill_chunk_tokens))
         self.prefix_cache = bool(prefix_cache)
+        self.replay_budget = int(replay_budget)
         self.kv_guard = bool(kv_guard)
         if self.prefill_chunk_tokens is not None:
             if (self.prefill_chunk_tokens < self.page_size
@@ -380,10 +399,13 @@ class GenerateRequest(Request):
     ``journal`` is the request's :class:`DecodeJournal`; ``prompt`` /
     ``max_new_tokens`` are the CURRENT incarnation's (rewritten by a
     resubmit), the journal keeps the originals and the accepted tokens.
+    ``affinity`` / ``affinity_ts``: a replica pool's dispatch hint (the
+    preferred replica's index and when it was stamped), never a
+    requirement: a gate strips a stale or unservable one.
     """
 
     __slots__ = ("prompt", "max_new_tokens", "token_times", "temperature",
-                 "seed", "journal", "cancelled")
+                 "seed", "journal", "cancelled", "affinity", "affinity_ts")
 
     def __init__(self, prompt, max_new_tokens, deadline=None, priority=None,
                  temperature=None, seed=None):
@@ -396,6 +418,8 @@ class GenerateRequest(Request):
         self.seed = seed
         self.journal = DecodeJournal(prompt, max_new_tokens)
         self.cancelled = False
+        self.affinity = None
+        self.affinity_ts = None
 
     @property
     def prompt_len(self):
@@ -443,16 +467,22 @@ class DecodeScheduler:
 
     One worker thread owns the loop (admit -> prefill chunk -> decode
     step -> retire); clients only touch the bounded queue and their
-    request futures.  The KV pools live on ``model.device``.
-    ``role`` and ``sessions`` exist for the JAX package's signature;
-    anything but their defaults raises ``NotImplementedError``, after the
-    JAX package's ``ServingError`` checks (a model without
-    ``prefill_chunk_fn`` takes no ``prefill_chunk_tokens``,
-    ``prefix_cache`` or ``role="prefill"``).
+    request futures.  The KV pools live on ``model.device``.  ``queue``,
+    ``gate``, ``claim``, ``name``, ``evict_on_death``, ``breaker``,
+    ``replica_index`` and ``stream`` are the pool-mode hooks (see the
+    module docstring); ``replica_index`` also counts
+    ``serving.affinity.honored`` when a pulled request's hint names this
+    replica.  ``role`` and ``sessions`` exist for the JAX package's
+    signature; anything but their defaults raises
+    ``NotImplementedError``, after the JAX package's ``ServingError``
+    checks (a model without ``prefill_chunk_fn`` takes no
+    ``prefill_chunk_tokens``, ``prefix_cache`` or ``role="prefill"``).
     """
 
-    def __init__(self, model, config=None, autostart=True, role="both",
-                 sessions=None):
+    def __init__(self, model, config=None, autostart=True, queue=None,
+                 gate=None, name=None, evict_on_death=False, breaker=None,
+                 sessions=None, replica_index=0, role="both", claim=None,
+                 stream=None):
         cfg = self.config = config or DecodeConfig()
         self._use_chunks = model.prefill_chunk_fn is not None
         if not self._use_chunks and (cfg.prefill_chunk_tokens is not None
@@ -472,11 +502,11 @@ class DecodeScheduler:
         if role != "both":
             raise NotImplementedError(
                 "DecodeScheduler(role=%r) is not ported to paddle_tpu_torch "
-                "yet" % (role,))
+                "yet (ROADMAP A8.2)" % (role,))
         if sessions is not None:
             raise NotImplementedError(
                 "DecodeScheduler(sessions=...) is not ported to "
-                "paddle_tpu_torch yet")
+                "paddle_tpu_torch yet (ROADMAP A8.2)")
         self.model = model
         self._device = model.device
         self._cache = PagedKVCache(
@@ -504,11 +534,18 @@ class DecodeScheduler:
         self.prefill_buckets = tuple(buckets)
         self._top_k = (None if cfg.top_k is None
                        else min(cfg.top_k, model.vocab_size))
-        self._queue = RequestQueue(
+        self._owns_queue = queue is None
+        self._queue = queue if queue is not None else RequestQueue(
             cfg.queue_capacity, depth_gauge=_queue_depth,
             full_counter=_queue_full,
             shed_counter=_obs.counter("serving.decode.shed_admission"),
             gauge_prefix="serving.decode.queue_depth")
+        self._gate = gate
+        self._claim = claim
+        self._breaker = breaker
+        self._evict_on_death = bool(evict_on_death)
+        self._replica_index = int(replica_index)
+        self._stream = stream
         self._telemetry = _obs.get_telemetry()
         self._slots = [None] * cfg.num_slots
         self._tables = np.zeros(
@@ -532,8 +569,8 @@ class DecodeScheduler:
         self._completed = 0
         self._retired_total = 0        # SERVED retirements (service-rate EMA)
         self._worker = RestartableWorker(
-            self._serve_loop, "paddle-tpu-torch-decode-scheduler",
-            label="decoder")
+            self._serve_loop, name or "paddle-tpu-torch-decode-scheduler",
+            label=name or "decoder")
         if cfg.warmup:
             self.warmup()
         if autostart:
@@ -693,7 +730,8 @@ class DecodeScheduler:
         failed fast."""
         self._drain = bool(drain)
         self._worker.request_stop()
-        self._queue.close()
+        if self._owns_queue:
+            self._queue.close()
         stopped = self._worker.join(timeout)
         if stopped:
             # leftovers exist only when the worker never ran (or was
@@ -708,9 +746,10 @@ class DecodeScheduler:
                 hol[0].fail(ServingClosed(
                     "engine stopped before request ran (decode worker "
                     "wedged)"))
-            self._queue.drain_remaining(lambda r: ServingClosed(
-                "engine stopped before request ran (decode worker "
-                "wedged)"))
+            if self._owns_queue:
+                self._queue.drain_remaining(lambda r: ServingClosed(
+                    "engine stopped before request ran (decode worker "
+                    "wedged)"))
         return stopped
 
     # -- client API ----------------------------------------------------------
@@ -835,6 +874,12 @@ class DecodeScheduler:
     def _active_count(self):
         return sum(1 for s in self._slots if s is not None)
 
+    def free_slots(self):
+        """Seats this scheduler could fill now: the pool's least-loaded
+        signal, read from other threads (a snapshot; a stale one only
+        skews one claim)."""
+        return self.config.max_active - self._active_count()
+
     def _take_hol(self):
         """Exclusively claim the parked head-of-line entry — a
         ``(request, pinned prefix pages, chain hashes)`` triple — or
@@ -862,7 +907,9 @@ class DecodeScheduler:
                 # the worker thread, or the worker provably dead
                 self._cache.release_prefix(cached_pages)
             req.fail(exc)
-        self._queue.drain_remaining(lambda r: exc)
+        if self._owns_queue:
+            # a shared queue holds the sibling replicas' work too
+            self._queue.drain_remaining(lambda r: exc)
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._retire(i, error=exc)
@@ -907,6 +954,12 @@ class DecodeScheduler:
         return self._active_count() == 0 and self._hol is None
 
     def _serve_loop(self):
+        if self._stream is None:
+            return self._serve()
+        with torch.cuda.stream(self._stream):
+            return self._serve()
+
+    def _serve(self):
         # (BaseException escaping this loop is the death path: the
         # RestartableWorker choke counts and reports it.)
         self._note_ts = time.perf_counter()
@@ -953,9 +1006,19 @@ class DecodeScheduler:
             if hol is not None:
                 req, cached_pages, hashes = hol
             else:
+                # the pool's gate applies to shared-queue pulls only: a
+                # parked head-of-line request already belongs here
+                if self._gate is not None and not self._gate():
+                    if not self._active_count():
+                        time.sleep(0.002)  # don't spin while gated out
+                    return
                 req = self._queue.get(
-                    timeout=0.0 if self._active_count() else 0.05)
+                    timeout=0.0 if self._active_count() else 0.05,
+                    accept=self._claim)
                 cached_pages, hashes = [], None
+                if (req is not None
+                        and req.affinity == self._replica_index):
+                    _affinity_honored.inc()
             if req is None:
                 return
             if req.cancelled or req.expired():
@@ -1063,13 +1126,14 @@ class DecodeScheduler:
                     np.array([seed]), np.array([plen]), self._top_k)[0])
         except Exception as exc:  # noqa: BLE001 — worker must survive
             self._retire(idx, error=exc)
+            self._record(ok=False)
             return
         except BaseException:
-            self._retire(idx, error=ServingDegraded(
-                "decode worker died mid-prefill; request aborted"))
+            self._died_mid_prefill(idx)
             raise
         done = time.perf_counter()
         _prefill_timer.observe(done - t0)
+        self._record(ok=True)
         tel = self._telemetry
         if tel.span_active() and req.trace is not None:
             tel.record_span(
@@ -1083,6 +1147,26 @@ class DecodeScheduler:
         _prefills.inc()
         _prefill_tokens.inc(plen)
         self._accept_first(idx, first, done)
+
+    def _record(self, ok):
+        """A dispatch's outcome on the pool's breaker, where given."""
+        if self._breaker is not None:
+            if ok:
+                self._breaker.record_success()
+            else:
+                self._breaker.record_fatal()
+
+    def _died_mid_prefill(self, idx):
+        """The worker is being killed inside a prefill dispatch.  Alone,
+        the sequence fails typed (the engine is sick, the request was
+        fine) before the death propagates.  In a pool
+        (``evict_on_death``) the slot stays as it is: a prefill writes
+        only pages it has not yet published to the prefix index, so the
+        pool harvests the slot (its pages freed) and a sibling
+        re-prefills the sequence from its journal."""
+        if not self._evict_on_death:
+            self._retire(idx, error=ServingDegraded(
+                "decode worker died mid-prefill; request aborted"))
 
     def _accept_first(self, idx, first, done):
         """The final prefill's sample is the sequence's first token."""
@@ -1156,16 +1240,14 @@ class DecodeScheduler:
                     self._top_k)[0])
         except Exception as exc:  # noqa: BLE001 — worker must survive
             self._retire(idx, error=exc)
+            self._record(ok=False)
             return
         except BaseException:
-            # worker killed mid-chunk: fail the sequence typed (the
-            # engine is sick, the request was fine) before the death
-            # propagates
-            self._retire(idx, error=ServingDegraded(
-                "decode worker died mid-prefill; request aborted"))
+            self._died_mid_prefill(idx)
             raise
         done = time.perf_counter()
         _prefill_timer.observe(done - t0)
+        self._record(ok=True)
         tel = self._telemetry
         if tel.span_active() and req.trace is not None:
             tel.record_span(
@@ -1319,7 +1401,9 @@ class DecodeScheduler:
             # not replayable, so the active sequences fail typed
             for i, _ in active:
                 self._retire(i, error=exc)
+            self._record(ok=False)
             return
+        self._record(ok=True)
         step_s = time.perf_counter() - t0
         _decode_timer.observe(step_s)
         _step_hist.observe(step_s)

@@ -233,6 +233,10 @@ class ModelStore:
         def close(_orig=model.close):
             _orig()
             scope.drop()
+            # the version's graphs and their pool go now, not when the
+            # collector finds this model: a rolling swap loads the next
+            # version beside it
+            exe._drop_graphs()
 
         model.close = close
         return model

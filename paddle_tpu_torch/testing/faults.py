@@ -44,9 +44,9 @@ step, so ``flaky_execute`` at a decode dispatch fails the active
 sequences typed (the port never retries a step that writes KV in
 place), and :func:`corrupt_kv_page` writes NaN into a page a decoding
 sequence owns (on the owning worker thread, before the dispatch), which
-the opt-in ``kv_guard`` sweep must catch.  The replica-pool faults
-(``kill_replica_mid_decode``, ``kill_session_owner``) wait for the
-pool's port.
+the opt-in ``kv_guard`` sweep must catch.  :func:`kill_replica_mid_decode`
+kills one replica pool decode worker while it holds sequences in flight;
+``kill_session_owner`` waits for the sessions' port (ROADMAP A8.2).
 """
 from __future__ import annotations
 
@@ -69,6 +69,7 @@ __all__ = [
     "slow_execute",
     "poison_request",
     "kill_worker",
+    "kill_replica_mid_decode",
     "corrupt_kv_page",
 ]
 
@@ -335,6 +336,35 @@ def kill_worker(at_dispatch=0):
 
     with _serve_fault_installed(hook):
         yield count
+
+
+@contextlib.contextmanager
+def kill_replica_mid_decode(index, min_tokens=1):
+    """KILL one replica pool's DECODE worker mid-generation: the hook
+    fires only on the thread named ``decode-replica<index>`` (each
+    :class:`~..serving.replica_pool.ReplicaPool` decode worker carries
+    that name), and only once some request in the dispatch has accepted
+    ``min_tokens`` tokens, so the dying replica holds real in-flight KV:
+    the state the pool's harvest-and-replay must recover on a sibling.
+    Raises :class:`WorkerKilled` once; sibling replicas never see it
+    fire.  Yields a one-item list with the kill count."""
+    import threading
+
+    name = "decode-replica%d" % int(index)
+    need = int(min_tokens)
+    fired = [0]
+
+    def hook(requests):
+        if fired[0] or threading.current_thread().name != name:
+            return
+        if not any(len(r.journal.accepted) >= need
+                   for r in requests if hasattr(r, "journal")):
+            return
+        fired[0] += 1
+        raise WorkerKilled("injected replica kill mid-decode (%s)" % name)
+
+    with _serve_fault_installed(hook):
+        yield fired
 
 
 @contextlib.contextmanager

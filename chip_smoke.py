@@ -130,7 +130,34 @@ split device time by op or kernel family run a step on the eager path
    on each backend (every answer bitwise a single engine's, B1 18 a
    dispatch) and a rolling swap v1 -> v2 under four clients (ready
    replicas never 0, answers bitwise a v2 engine's after, memory
-   reserved within 5% of the figure before);
+   reserved within 5% of the figure before).  Then conversational
+   sessions and prefill/decode roles (sessions_phase): first the
+   page-bits probe (one 64-token turn of a 300-token prompt; its
+   history's full pages, read at the last dispatch, against those a cold
+   generate of the same history writes on a fresh scheduler, page by
+   page and layer by layer: the largest difference and the elements that
+   differ, prefill-written and decode-written pages apart; ROADMAP
+   F-13); then 8 conversations of 4 turns each (a shared 128-token
+   system prefix and a 128-384-token message, then the history and a
+   32-96-token message a turn, 64 greedy tokens a turn, the
+   conversations at once and each one's turns in order) on three pools
+   of 3 replicas on this card: a control (no sessions, no affinity, no
+   prefix cache: every history prefilled cold), a sessions pool and a
+   roles pool (prefill, decode, decode; every generation's KV handed
+   off through pinned host memory).  Each pool's tokens bitwise the
+   control's, turn by turn; the sessions pool prefills fewer tokens
+   than the control from turn 2 on; the roles pool's packets and
+   injections both 32, no handoff failed, its prefill replica retiring
+   nothing; on the sessions pool, conversation 0 again under its own
+   key with its owner killed mid turn 2 (faults.kill_session_owner;
+   the three turns bitwise the control's, turn 3 sticky to the
+   re-parked session with page hits); after end_session on every key
+   and stop(), every replica's allocator empty with a clean refcount
+   sweep; B4 and B5 12 launches a replay and a chunk, no capture under
+   load.  Logged: prefill tokens, TTFT p50 and the session store's
+   pinned pages by turn, tokens/s of each pool, the handoff's packets,
+   MB and stage ms (gather and scatter apart), the tokens the F-13
+   repair prefills again, the phase's seconds;
 8. legacy serving: the same LM and prompts through an engine whose model
    has no chunk function (``build_decode_model(..., chunked=False)``), so
    each prompt is prefilled whole by ``lm_prefill`` on the flash forward
@@ -402,6 +429,17 @@ POOL_KILLED, POOL_PROBE_TOKENS = 1, 8
 POOL_PREDICT_REPLICAS, POOL_PREDICT_BUCKETS = 2, (2, 4)
 POOL_PREDICT_REQUESTS, POOL_SWAP_RESERVED_TOL = 16, 0.05
 PREFIX_NEW_TOKENS = 16
+# conversational sessions: the page-bits probe (one turn of a
+# SESSION_PROBE_PROMPT-token prompt, SESSION_NEW_TOKENS generated, its
+# history's pages against a cold prefill's), then 8 conversations of 4
+# turns each on three pools of 3 replicas: turn 1 a 128-token system
+# prefix and a 128-384-token message, each later turn the history and a
+# 32-96-token message, 64 greedy tokens a turn; conversation
+# SESSION_KILLED's owner killed mid turn 2 on a fourth conversation set
+SESSION_PROBE_PROMPT, SESSION_NEW_TOKENS = 300, 64
+SESSION_CONVERSATIONS, SESSION_TURNS, SESSION_REPLICAS = 8, 4, 3
+SESSION_SYSTEM, SESSION_FIRST, SESSION_LATER = 128, (128, 384), (32, 96)
+SESSION_ROLES = ("prefill", "decode", "decode")
 GUARD_REQUESTS, GUARD_NEW_TOKENS = 4, 16
 JOURNAL_REQUESTS, JOURNAL_NEW_TOKENS, JOURNAL_KILL_AT = 8, 32, 20
 # predict serving: Transformer-base scoring at TRAIN_CFG's width, the
@@ -1971,6 +2009,311 @@ def pool_phase(torch, T, serving, fa, obs, dev, prompts, want, saved):
     out["seconds"] = time.perf_counter() - t0
     log("pool phase: %.1f s (decode leg %.1f s)" % (out["seconds"],
                                                     out["decode_s"]))
+    return out
+
+
+def page_bits_probe(torch, serving, dev, model, meta):
+    """ROADMAP F-13's question, on this card: are the KV bits of a page
+    that decode steps wrote those a prefill of the same tokens writes?
+    One SESSION_NEW_TOKENS-token turn of a SESSION_PROBE_PROMPT-token
+    prompt on a scheduler with the prefix cache; its slot's pages are
+    read at the last dispatch (the serve-fault choke point, on the
+    worker) and compared, page by page and layer by layer, over the
+    history's full pages (those the JAX package's ``_park_session``
+    pins), with the pages a cold generate of the same history writes on
+    a fresh scheduler.  Pages below prompt_len // page_size were written
+    by a prefill chunk on both sides, the others by decode steps on the
+    warm side."""
+    from paddle_tpu_torch.testing import faults
+
+    rng = np.random.RandomState(SEED + 80)
+    prompt = rng.randint(0, meta["vocab_size"],
+                         SESSION_PROBE_PROMPT).astype(np.int32)
+    cfg = serving.DecodeConfig(**dict(DECODE_CONFIG, prefix_cache=True))
+    ps = cfg.page_size
+    warm = serving.DecodeScheduler(model, config=cfg,
+                                   sessions=serving.SessionStore())
+    seen = {}
+
+    def note(requests):
+        for slot in warm._slots:
+            if slot is not None:
+                seen["pages"], seen["kv_len"] = list(slot.pages), slot.kv_len
+
+    with faults._serve_fault_installed(note):
+        out = warm.generate(prompt, max_new_tokens=SESSION_NEW_TOKENS,
+                            session="probe", timeout=600)
+    history = np.concatenate([prompt, out]).astype(np.int32)
+    kv_len = len(history) - 1             # the last token is never fed
+    n_full = kv_len // ps
+    n_prefill = len(prompt) // ps
+    idx = torch.tensor(seen["pages"][:n_full], dtype=torch.long,
+                       device=dev)
+    warm_k = torch.index_select(warm._cache.k_pool, 1, idx).cpu()
+    warm_v = torch.index_select(warm._cache.v_pool, 1, idx).cpu()
+    warm.stop()
+    cold = serving.DecodeScheduler(model, config=cfg)
+    cold.generate(history, max_new_tokens=1, timeout=600)
+    cache = cold._cache
+    pages = cache._indexed_run(cache.prefix_hashes(history), n_full)
+    check(len(pages) == n_full, "probe: the cold prefill's pages",
+          len(pages), n_full)
+    idx = torch.tensor(pages, dtype=torch.long, device=dev)
+    cold_k = torch.index_select(cache.k_pool, 1, idx).cpu()
+    cold_v = torch.index_select(cache.v_pool, 1, idx).cpu()
+    cold.stop()
+    del warm, cold
+    res = {"prompt_len": len(prompt), "generated": len(out),
+           "full_pages": n_full, "prefill_pages": n_prefill,
+           "decode_pages": n_full - n_prefill}
+    for region, sl in (("prefill", slice(0, n_prefill)),
+                       ("decode", slice(n_prefill, n_full))):
+        row = {}
+        for name, a, b in (("k", warm_k, cold_k), ("v", warm_v, cold_v)):
+            a, b = a[:, sl], b[:, sl]
+            differ = a.view(torch.int32) != b.view(torch.int32)
+            row[name] = {
+                "max_abs_diff": float((a - b).abs().max()),
+                "differing_layer0": int(differ[0].sum()),
+                "differing_later_layers": int(differ[1:].sum()),
+                "elements_later_layers": int(differ[1:].numel()),
+                "pages_differing": int(differ.flatten(2).any(0).any(-1)
+                                       .sum())}
+        res[region] = row
+    res["decode_pages_bitwise"] = all(
+        res["decode"][n]["differing_layer0"]
+        + res["decode"][n]["differing_later_layers"] == 0 for n in "kv")
+    res["prefill_pages_bitwise"] = all(
+        res["prefill"][n]["differing_layer0"]
+        + res["prefill"][n]["differing_later_layers"] == 0 for n in "kv")
+    log("session page-bits probe: " + json.dumps(res))
+    return res
+
+
+def session_traffic(meta):
+    """The sessions phase's conversations: each one's first prompt (the
+    shared system prefix and a message) and its later messages."""
+    rng = np.random.RandomState(SEED + 90)
+    V = meta["vocab_size"]
+    system = rng.randint(0, V, SESSION_SYSTEM)
+    firsts = [np.concatenate([system, rng.randint(0, V, int(n))])
+              .astype(np.int32)
+              for n in rng.randint(SESSION_FIRST[0], SESSION_FIRST[1] + 1,
+                                   size=SESSION_CONVERSATIONS)]
+    later = [[rng.randint(0, V, int(n)).astype(np.int32)
+              for n in rng.randint(SESSION_LATER[0], SESSION_LATER[1] + 1,
+                                   size=SESSION_TURNS - 1)]
+             for _ in range(SESSION_CONVERSATIONS)]
+    return firsts, later
+
+
+def run_conversations(obs, pool, firsts, later, key=None, turns=None):
+    """Every conversation's turns on ``pool``, all conversations at once
+    and each one's turns in order: turn t's prompt is the history (the
+    first prompt, then each turn's message and answer) and message t.
+    ``key`` (``"%d"``-formatted) tags each conversation's session.
+    Returns the tokens by conversation and turn, and a row a turn:
+    prompt and prefill tokens, TTFT p50, wall seconds, the store's
+    pinned pages after it."""
+    prefill = obs.counter("serving.decode.prefill_tokens")
+    hists = [list(map(int, f)) for f in firsts]
+    outs = [[] for _ in firsts]
+    rows = []
+    for t in range(turns or SESSION_TURNS):
+        if t:
+            for c, msgs in enumerate(later):
+                hists[c] += list(map(int, msgs[t - 1]))
+        p0, t0 = prefill.value, time.perf_counter()
+        futs = [pool.generate_async(
+            np.asarray(h, np.int32), max_new_tokens=SESSION_NEW_TOKENS,
+            **({} if key is None else {"session": key % c}))
+            for c, h in enumerate(hists)]
+        prompt_tokens = sum(len(h) for h in hists)
+        for c, f in enumerate(futs):
+            outs[c].append(f.result(timeout=600))
+            hists[c] += list(map(int, outs[c][-1]))
+        wall = time.perf_counter() - t0
+        ttft = [f.token_times[0] - f.enqueue_ts for f in futs]
+        rows.append({"prompt_tokens": prompt_tokens,
+                     "prefill_tokens": prefill.value - p0,
+                     "ttft_p50_ms": float(np.percentile(ttft, 50) * 1e3),
+                     "wall_s": wall,
+                     "pinned_pages": (pool.sessions.stats()["pinned_pages"]
+                                      if pool.sessions is not None else 0)})
+    return outs, rows
+
+
+def pool_caches_clean(pool, what):
+    """After ``end_session`` on every key and ``stop()``: every replica's
+    allocator holds no page and its refcount sweep is clean."""
+    for r in pool._replicas:
+        st = r.decoder.cache_stats()
+        check(st["used_pages"] == 0 and not st["rc_errors"]
+              and st["rc_sum_matches"], "%s: replica %d's pages after "
+              "stop" % (what, r.index), st["used_pages"], st["rc_errors"])
+
+
+def session_kill_leg(obs, pool, firsts, later, want):
+    """Conversation 0 again on the sessions pool, under a key of its own:
+    its owner killed mid turn 2 (``faults.kill_session_owner``), the turn
+    replayed bitwise the control pool's (on whichever replica claims the
+    replay first: a sibling, or the owner once revived), and turn 3
+    sticky to the re-parked session, mapping its pinned pages."""
+    from paddle_tpu_torch.testing import faults
+
+    sticky = obs.counter("serving.affinity.sticky")
+    hits = obs.counter("serving.decode.kv_hit_pages")
+    prefill = obs.counter("serving.decode.prefill_tokens")
+    hist = list(map(int, firsts[0]))
+    outs = [pool.generate(np.asarray(hist, np.int32),
+                          max_new_tokens=SESSION_NEW_TOKENS,
+                          session="kill", timeout=600)]
+    owner = pool.sessions.get("kill", touch=False).replica
+    hist += list(map(int, outs[0])) + list(map(int, later[0][0]))
+    with faults.kill_session_owner(pool, "kill", min_tokens=2) as fired:
+        outs.append(pool.generate(np.asarray(hist, np.int32),
+                                  max_new_tokens=SESSION_NEW_TOKENS,
+                                  session="kill", timeout=600))
+    moved = pool.sessions.get("kill", touch=False).replica
+    hist += list(map(int, outs[1])) + list(map(int, later[0][1]))
+    s0, h0, p0 = sticky.value, hits.value, prefill.value
+    outs.append(pool.generate(np.asarray(hist, np.int32),
+                              max_new_tokens=SESSION_NEW_TOKENS,
+                              session="kill", timeout=600))
+    bad = [t for t in range(3) if outs[t].tobytes() != want[0][t].tobytes()]
+    check(fired[0] == 1 and not bad
+          and sticky.value - s0 == 1 and hits.value - h0 > 0,
+          "sessions: the owner's kill", fired, bad, owner, moved,
+          sticky.value - s0, hits.value - h0)
+    return {"owner": owner, "reparked_on": moved,
+            "turn3_prompt_tokens": len(hist),
+            "turn3_prefill_tokens": prefill.value - p0,
+            "turn3_hit_pages": hits.value - h0, "bitwise_control": True}
+
+
+def sessions_phase(torch, T, serving, fa, obs, dev):
+    """Conversational sessions and prefill/decode roles (A8.2) on one
+    card: the page-bits probe, then SESSION_CONVERSATIONS conversations
+    of SESSION_TURNS turns on three pools of SESSION_REPLICAS replicas on
+    this card at the serving width (the sessions pool, the roles pool
+    and a control that prefills every history cold), each pool's tokens
+    bitwise the control's, turn by turn (the docstring's phase 7)."""
+    from paddle_tpu_torch.executor import compile_count
+
+    resident_gib(torch, dev)
+    t_phase = time.perf_counter()
+    params, meta = T.lm_params(seed=SEED, **LM_WIDTH)
+    model = T.build_decode_model(params, meta, device=dev)
+    L, ps = meta["n_layer"], DECODE_CONFIG["page_size"]
+    out = {"page_bits": page_bits_probe(torch, serving, dev, model, meta)}
+    firsts, later = session_traffic(meta)
+    steps, prefills = (obs.counter("serving.decode.steps"),
+                       obs.counter("serving.decode.prefills"))
+    handoff = {n: obs.counter("serving.handoff." + n) for n in
+               ("packets", "pages", "bytes", "injected", "failed")}
+    legs = {n: obs.timer("serving.handoff.stage", labels={"leg": n})
+            for n in ("gather", "scatter")}
+    n_gen = SESSION_CONVERSATIONS * SESSION_TURNS
+    res, outs = {}, {}
+    for name, kw, cfg in (
+            ("control", {"sessions": False, "affinity_timeout_s": 0}, {}),
+            ("sessions", {}, {"prefix_cache": True}),
+            ("roles", {"roles": SESSION_ROLES}, {"prefix_cache": True})):
+        t0 = time.perf_counter()
+        pool = serving.ReplicaPool(
+            None, replicas=SESSION_REPLICAS, devices=[dev],
+            decode_model=model, decode_config=serving.DecodeConfig(
+                **dict(DECODE_CONFIG, **cfg)), **kw)
+        setup_s = time.perf_counter() - t0
+        check((pool.sessions is None) == (name == "control"),
+              "sessions: %s pool's store" % name)
+        torch.cuda.synchronize()
+        c0, st0, pf0 = compile_count(), steps.value, prefills.value
+        h0 = {n: c.value for n, c in handoff.items()}
+        g0 = {n: (t.count, t.total) for n, t in legs.items()}
+        reserved0 = torch.cuda.memory_reserved(dev)
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[name], rows = run_conversations(
+            obs, pool, firsts, later,
+            key=None if name == "control" else "c%d")
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(fa.KERNEL_LAUNCHES)
+        n_steps, n_chunks = steps.value - st0, prefills.value - pf0
+        check(compile_count() == c0, "sessions: the %s pool's load built "
+              "or captured a step" % name, compile_count() - c0)
+        check(launches["paged_decode_attention"] == L * n_steps > 0
+              and launches["paged_prefill_attention"] == L * n_chunks > 0,
+              "sessions: %s pool launches" % name, launches, n_steps,
+              n_chunks)
+        moved = {n: c.value - h0[n] for n, c in handoff.items()}
+        r = {"setup_s": setup_s, "wall_s": wall, "turns": rows,
+             "tokens_per_s": sum(len(o) for c in outs[name] for o in c)
+             / wall,
+             "peak_pinned_pages": max(row["pinned_pages"] for row in rows),
+             "decode_steps": n_steps, "prefill_chunks": n_chunks,
+             "launches": {k: launches[k] for k in
+                          ("paged_decode_attention",
+                           "paged_prefill_attention")},
+             "reserved_during_load_mib":
+             (torch.cuda.memory_reserved(dev) - reserved0) / 2 ** 20,
+             "completed_by_replica": [rep.decoder.stats()["completed"]
+                                      for rep in pool._replicas]}
+        if name == "roles":
+            check(moved["packets"] == moved["injected"] == n_gen
+                  and moved["failed"] == 0
+                  and r["completed_by_replica"][0] == 0,
+                  "sessions: every generation crossed as a packet", moved,
+                  r["completed_by_replica"])
+            stage = {n: {"calls": t.count - g0[n][0],
+                         "mean_ms": (t.total - g0[n][1]) * 1e3
+                         / max(1, t.count - g0[n][0])}
+                     for n, t in legs.items()}
+            r["handoff"] = dict(moved, mb=moved["bytes"] / 1e6,
+                                mb_per_packet=moved["bytes"] / 1e6
+                                / max(1, moved["packets"]), stage=stage)
+        if name == "sessions":
+            r["kill"] = session_kill_leg(obs, pool, firsts, later,
+                                         outs["control"])
+        if pool.sessions is not None:
+            for key in pool.sessions.keys():
+                check(pool.end_session(key), "sessions: end_session", key)
+        pool.stop()
+        pool_caches_clean(pool, name)
+        res[name] = r
+        log("sessions: %s pool: %s" % (name, json.dumps(r)))
+        del pool
+        gc.collect()
+    for name in ("sessions", "roles"):
+        bad = [(c, t) for c in range(SESSION_CONVERSATIONS)
+               for t in range(SESSION_TURNS)
+               if outs[name][c][t].tobytes()
+               != outs["control"][c][t].tobytes()]
+        check(not bad, "sessions: %s pool's tokens differ from the "
+              "control's" % name, bad[:4])
+    fewer = [res["sessions"]["turns"][t]["prefill_tokens"]
+             < res["control"]["turns"][t]["prefill_tokens"]
+             for t in range(1, SESSION_TURNS)]
+    check(all(fewer), "sessions: prefill tokens not fewer than cold",
+          [row["prefill_tokens"] for row in res["sessions"]["turns"]],
+          [row["prefill_tokens"] for row in res["control"]["turns"]])
+    # the turns' prompts the JAX package's park would have mapped too:
+    # each later turn's previous history, up to its last fed token, in
+    # full pages, against the prompt's full pages that the port pins
+    prev = [len(f) for f in firsts]
+    refused = 0
+    for t in range(1, SESSION_TURNS):
+        refused += sum(((n + SESSION_NEW_TOKENS - 1) // ps - n // ps) * ps
+                       for n in prev)
+        prev = [n + SESSION_NEW_TOKENS + len(later[c][t - 1])
+                for c, n in enumerate(prev)]
+    out.update(res)
+    out["bitwise_control"] = True
+    out["decode_pages_tokens_prefilled_again"] = refused
+    out["seconds"] = time.perf_counter() - t_phase
+    del model
+    log("sessions phase: %.1f s" % out["seconds"])
     return out
 
 
@@ -6202,6 +6545,8 @@ def main():
         pool = pool_phase(torch, T, serving, fa, obs, dev, srv_prompts,
                           srv_outs, saved)
         torch.cuda.empty_cache()
+        sess = sessions_phase(torch, T, serving, fa, obs, dev)
+        torch.cuda.empty_cache()
         leg = legacy_phase(torch, T, serving, fa, obs, dev, srv_prompts,
                            srv_outs)
         torch.cuda.empty_cache()
@@ -6430,6 +6775,16 @@ def main():
                 "pool_dispatches": pool["decode"][
                     "decode_steps" if name == "paged_decode_attention"
                     else "prefill_chunks"]})
+            # the sessions phase's three pools (sessions, roles, control)
+            kernels[-1].update({
+                "sessions_launches": {
+                    p: sess[p]["launches"][name]
+                    for p in ("sessions", "roles", "control")},
+                "sessions_dispatches": {
+                    p: sess[p]["decode_steps"
+                               if name == "paged_decode_attention"
+                               else "prefill_chunks"]
+                    for p in ("sessions", "roles", "control")}})
         if name == "flash_attention_bwd":
             kernels[-1].update(bwd_long)
         if name == "paged_decode_attention":

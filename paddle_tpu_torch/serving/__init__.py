@@ -43,7 +43,12 @@ each on its own CUDA stream)::
     pool.swap_model(new_model_dir)                      # rolling
     pool.stop()
 
-The router and conversational sessions are not ported yet.
+With ``DecodeConfig(prefix_cache=True)`` the pool keeps conversations
+(:class:`SessionStore`): ``pool.generate(history, session="user-42")``
+parks the turn's KV pages pinned on the replica that served it and
+routes the next turn there; ``roles=("prefill", "decode", ...)`` splits
+the replicas into prefill and decode roles, the KV crossing between them
+as a host-staged ``HandoffPacket``.  The router is not ported yet.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from .decode_scheduler import (
     DecodeModel,
     DecodeScheduler,
     GenerateRequest,
+    HandoffPacket,
 )
 from .engine import BatchExecutor, InferenceEngine
 from .errors import (
@@ -72,6 +78,7 @@ from .model_store import LoadedModel, ModelStore
 from .replica_pool import ReplicaPool
 from .request_queue import PRIORITY_CLASSES, Request, RequestQueue
 from .resilient import CircuitBreaker, ResilientDispatcher, WorkerSupervisor
+from .sessions import SessionRecord, SessionStore, scoped_session
 from .worker import RestartableWorker
 
 __all__ = [
@@ -90,6 +97,10 @@ __all__ = [
     "DecodeConfig",
     "DecodeJournal",
     "GenerateRequest",
+    "HandoffPacket",
+    "SessionStore",
+    "SessionRecord",
+    "scoped_session",
     "PagedKVCache",
     "Request",
     "RequestQueue",

@@ -94,12 +94,40 @@ lock (``RequestQueue.get(accept=)``), ``name=`` the worker thread's name
 slots for the pool to harvest (:meth:`DecodeScheduler.evict_if_dead`)
 and replay on a sibling under ``DecodeConfig.replay_budget``.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
-A8.2): prefill/decode roles with their KV handoff, and conversational
-sessions.
+**Sessions** (``sessions=``, a :class:`~.sessions.SessionStore`
+shared by a pool's replicas; requires ``prefix_cache``): a request
+tagged ``session=`` that retires without error *parks* — its full
+prompt pages (the pages a prefill chunk wrote, ROADMAP F-13) are
+registered in the prefix index and pinned with one extra refcount each,
+and the store records this replica as the conversation's owner, so the
+next turn (the whole history plus a new message) maps them instead of
+prefilling them again.  Pins move only the allocator's host-side
+refcounts; the pools stay where the captured steps read them.  The
+allocator belongs to the worker: another thread's release
+(:meth:`DecodeScheduler.release_session_pins`, the store's TTL sweep,
+capacity eviction, ``end_session``) is queued and drained at the top of
+the worker's next iteration, or at once under the worker's life lock
+when the worker is provably dead.
+
+**Roles** (``role=``): a ``"prefill"`` replica prefills a prompt and
+samples its first token, then stages the sequence's KV pages on the
+host as a :class:`HandoffPacket` (``index_select`` on the pools, a
+``non_blocking`` copy into pinned host memory on the replica's stream,
+and a wait on an event recorded after it) and hands it to
+``on_handoff``; its pages are freed, the full prompt pages staying
+indexed at refcount 0.  A ``"decode"`` replica takes packets through
+:meth:`DecodeScheduler.inject_handoff`, ahead of fresh queue work: it
+copies the packet to the device on its own stream, writes it with
+``index_copy_`` into freshly allocated pages, in place, re-registers the
+prompt's full pages and seats the slot already decoding.  Both legs are
+eager torch ops, outside the step cache; a warm-up runs each once at
+its largest size so the first handoff under load allocates nothing new
+on the device.  The KV always crosses through the host, so a waiting
+packet holds no pool pages.
 """
 from __future__ import annotations
 
+import collections
 import threading
 import time
 
@@ -124,7 +152,7 @@ from .request_queue import Request, RequestQueue
 from .worker import RestartableWorker
 
 __all__ = ["DecodeModel", "DecodeConfig", "DecodeJournal",
-           "GenerateRequest", "DecodeScheduler"]
+           "GenerateRequest", "DecodeScheduler", "HandoffPacket"]
 
 _requests = _obs.counter("serving.decode.requests")
 _tokens = _obs.counter("serving.decode.tokens")
@@ -139,6 +167,26 @@ _cancelled = _obs.counter("serving.decode.cancelled")
 _prefill_tokens = _obs.counter("serving.decode.prefill_tokens")
 _kv_guard_trips = _obs.counter("serving.decode.kv_guard_trips")
 _affinity_honored = _obs.counter("serving.affinity.honored")
+# prefill -> decode KV handoffs (roles) and session pins
+_handoff_packets = _obs.counter("serving.handoff.packets")
+_handoff_pages = _obs.counter("serving.handoff.pages")
+_handoff_bytes = _obs.counter("serving.handoff.bytes")
+_handoff_injected = _obs.counter("serving.handoff.injected")
+_handoff_failed = _obs.counter("serving.handoff.failed")
+_handoff_stage_timer = _obs.timer("serving.handoff.stage")
+# the same seconds by leg, so the gather and the scatter read apart
+_handoff_leg_timers = {
+    leg: _obs.timer("serving.handoff.stage", labels={"leg": leg})
+    for leg in ("gather", "scatter")}
+
+
+def _observe_stage(leg, t0):
+    """A handoff leg's seconds since ``t0``, on the stage timer and on
+    the leg's own."""
+    seconds = time.perf_counter() - t0
+    _handoff_stage_timer.observe(seconds)
+    _handoff_leg_timers[leg].observe(seconds)
+_session_parked_pages = _obs.counter("serving.session.pinned")
 _queue_depth = _obs.gauge("serving.decode.queue_depth")
 _active_slots = _obs.gauge("serving.decode.active_slots")
 _prefill_timer = _obs.timer("serving.decode.prefill_step")
@@ -401,14 +449,18 @@ class GenerateRequest(Request):
     resubmit), the journal keeps the originals and the accepted tokens.
     ``affinity`` / ``affinity_ts``: a replica pool's dispatch hint (the
     preferred replica's index and when it was stamped), never a
-    requirement: a gate strips a stale or unservable one.
+    requirement: a gate strips a stale or unservable one.  ``session``:
+    the conversation key (opaque) a successful retirement parks under;
+    ``handoff_origin``: the prefill replica that staged this request's
+    KV handoff (roles), which stays the session's sticky replica.
     """
 
     __slots__ = ("prompt", "max_new_tokens", "token_times", "temperature",
-                 "seed", "journal", "cancelled", "affinity", "affinity_ts")
+                 "seed", "journal", "cancelled", "session", "affinity",
+                 "affinity_ts", "handoff_origin")
 
     def __init__(self, prompt, max_new_tokens, deadline=None, priority=None,
-                 temperature=None, seed=None):
+                 temperature=None, seed=None, session=None):
         super().__init__(feed=None, rows=1, deadline=deadline,
                          priority=priority)
         self.prompt = prompt
@@ -418,8 +470,10 @@ class GenerateRequest(Request):
         self.seed = seed
         self.journal = DecodeJournal(prompt, max_new_tokens)
         self.cancelled = False
+        self.session = session
         self.affinity = None
         self.affinity_ts = None
+        self.handoff_origin = None
 
     @property
     def prompt_len(self):
@@ -462,6 +516,36 @@ class _Slot:
         return self.prefill_pos < self.prompt_len or not self.generated
 
 
+class HandoffPacket:
+    """Host-staged KV of one fully prefilled sequence in transit from a
+    prefill-role replica to a decode-role one.
+
+    ``k_host``/``v_host`` hold only the sequence's ``n_pages`` pages,
+    ``[L, n_pages, page_size, H, D]`` in the pool's dtype, in pinned
+    host memory on the card (the JAX package gathers a fixed
+    ``[L, max_pages_per_seq, ...]`` so that one jitted program serves
+    every length; torch has no such compile cost, so no scratch rows
+    cross).  ``serving.handoff.bytes`` counts these bytes, without the
+    JAX package's scratch rows.  ``first`` is the first sampled token
+    (already journaled on the origin), ``hashes`` the prompt's chain
+    hashes, so the destination re-registers the prefix.
+    """
+
+    __slots__ = ("req", "k_host", "v_host", "n_pages", "kv_len",
+                 "hashes", "origin", "first")
+
+    def __init__(self, req, k_host, v_host, n_pages, kv_len, hashes,
+                 origin, first):
+        self.req = req
+        self.k_host = k_host
+        self.v_host = v_host
+        self.n_pages = int(n_pages)
+        self.kv_len = int(kv_len)
+        self.hashes = hashes
+        self.origin = int(origin)
+        self.first = int(first)
+
+
 class DecodeScheduler:
     """Continuous-batching generation over a :class:`DecodeModel`.
 
@@ -472,17 +556,19 @@ class DecodeScheduler:
     ``replica_index`` and ``stream`` are the pool-mode hooks (see the
     module docstring); ``replica_index`` also counts
     ``serving.affinity.honored`` when a pulled request's hint names this
-    replica.  ``role`` and ``sessions`` exist for the JAX package's
-    signature; anything but their defaults raises
-    ``NotImplementedError``, after the JAX package's ``ServingError``
-    checks (a model without ``prefill_chunk_fn`` takes no
-    ``prefill_chunk_tokens``, ``prefix_cache`` or ``role="prefill"``).
+    replica.  ``sessions`` (a shared :class:`~.sessions.SessionStore`),
+    ``role`` (``"both"``, ``"prefill"`` or ``"decode"``) and
+    ``on_handoff`` (a prefill replica's packet sink, returning True once
+    a decode replica took the packet) are the sessions and roles hooks
+    (see the module docstring).  A model without ``prefill_chunk_fn``
+    takes no ``prefill_chunk_tokens``, ``prefix_cache`` or
+    ``role="prefill"``, and sessions require ``prefix_cache``.
     """
 
     def __init__(self, model, config=None, autostart=True, queue=None,
                  gate=None, name=None, evict_on_death=False, breaker=None,
-                 sessions=None, replica_index=0, role="both", claim=None,
-                 stream=None):
+                 sessions=None, replica_index=0, role="both",
+                 on_handoff=None, claim=None, stream=None):
         cfg = self.config = config or DecodeConfig()
         self._use_chunks = model.prefill_chunk_fn is not None
         if not self._use_chunks and (cfg.prefill_chunk_tokens is not None
@@ -499,14 +585,23 @@ class DecodeScheduler:
             raise ServingError(
                 "role='prefill' requires the chunked prefill path "
                 "(a model with prefill_chunk_fn)")
-        if role != "both":
-            raise NotImplementedError(
-                "DecodeScheduler(role=%r) is not ported to paddle_tpu_torch "
-                "yet (ROADMAP A8.2)" % (role,))
-        if sessions is not None:
-            raise NotImplementedError(
-                "DecodeScheduler(sessions=...) is not ported to "
-                "paddle_tpu_torch yet (ROADMAP A8.2)")
+        if sessions is not None and not cfg.prefix_cache:
+            raise ServingError(
+                "sessions require prefix_cache=True: a session pin is an "
+                "extra refcount on the prompt's prefix-index chain")
+        # the store is SHARED by a pool's replicas; each scheduler parks
+        # into it and releases pins against its OWN cache only
+        self._sessions = sessions
+        self._role = role
+        self._on_handoff = on_handoff
+        # cross-thread queues: other threads (the store's sweeps, a
+        # sibling's handoff dispatch) only enqueue here; the worker
+        # drains them each iteration, or the enqueuer under the life lock
+        # once the worker is provably dead
+        self._pending_lock = threading.Lock()
+        self._pending_release = []
+        self._pending_handoffs = collections.deque()
+        self._copied = None            # the gather's event (on the card)
         self.model = model
         self._device = model.device
         self._cache = PagedKVCache(
@@ -681,9 +776,30 @@ class DecodeScheduler:
             for key, ints in runs:
                 for _ in range(calls):
                     self._run_step(key, ints)
+            self.warm_handoff()
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
         return self
+
+    def warm_handoff(self):
+        """Roles: run the handoff leg this replica runs once at its
+        largest size, against the scratch page, so that the caching
+        allocator holds the blocks the first handoff under load needs.
+        :meth:`warmup` calls it; a pool calls it again once its last
+        replica has warmed, since every capture first hands the cached
+        free blocks back to the device."""
+        c = self._cache
+        scratch = [0] * c.max_pages_per_seq
+        with torch.no_grad():
+            if self._role == "prefill" and self._on_handoff is not None:
+                self._hgather(scratch)
+            if self._role == "decode":
+                zero = torch.zeros(
+                    (c.num_layers, c.max_pages_per_seq, c.page_size,
+                     c.num_heads, c.head_dim), dtype=c.dtype)
+                if self._device.type == "cuda":
+                    zero = zero.pin_memory()
+                self._hscatter(zero, zero, scratch)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self):
@@ -754,10 +870,12 @@ class DecodeScheduler:
 
     # -- client API ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, deadline_ms=None,
-               priority=None, temperature=None, seed=None):
+               priority=None, temperature=None, seed=None, session=None):
         """Admit one prompt; returns its :class:`GenerateRequest` future.
         Raises ``ServingClosed`` when stopped, ``ServingQueueFull`` under
-        backpressure, ``ServingError`` for malformed prompts."""
+        backpressure, ``ServingError`` for malformed prompts.
+        ``session`` tags the request as a turn of that conversation
+        (parked at retirement when the scheduler has ``sessions``)."""
         cfg = self.config
         tokens = np.asarray(prompt)
         if tokens.ndim != 1 or tokens.shape[0] < 1:
@@ -786,16 +904,16 @@ class DecodeScheduler:
         req = self._queue.put(
             GenerateRequest(tokens, n_new, deadline=deadline,
                             priority=priority, temperature=temperature,
-                            seed=seed))
+                            seed=seed, session=session))
         _requests.inc()
         return req
 
     def generate(self, prompt, max_new_tokens=None, deadline_ms=None,
-                 timeout=None, temperature=None, seed=None):
+                 timeout=None, temperature=None, seed=None, session=None):
         """Synchronous generate: the generated int32 token ids."""
         return self.submit(prompt, max_new_tokens=max_new_tokens,
                            deadline_ms=deadline_ms, temperature=temperature,
-                           seed=seed).result(timeout=timeout)
+                           seed=seed, session=session).result(timeout=timeout)
 
     def resubmit(self, req):
         """Re-admit a request harvested by :meth:`evict_inflight` (here
@@ -844,6 +962,7 @@ class DecodeScheduler:
             "prefill_buckets": list(self.prefill_buckets),
             "prefill_chunk_tokens": self.config.prefill_chunk_tokens,
             "prefix_cache": self.config.prefix_cache,
+            "role": self._role,
             "device": str(self._device),
         }
         if self.config.prefix_cache:
@@ -899,7 +1018,97 @@ class DecodeScheduler:
         with self._hol_lock:
             self._hol = (req, cached_pages, hashes)
 
+    # -- sessions & handoff (cross-thread entry points) ----------------------
+    def release_session_pins(self, pages):
+        """Release session-pinned pages back to this scheduler's cache.
+        Safe from any thread (the SessionStore's release callback, fired
+        by TTL sweeps, capacity evictions and end_session): the pages
+        are queued and freed on the worker at its next iteration, or
+        here under the life lock when the worker is provably dead."""
+        with self._pending_lock:
+            self._pending_release.extend(int(p) for p in pages)
+        self.drain_pending_releases()
+
+    def drain_pending_releases(self):
+        """Apply queued pin releases if the worker is provably dead;
+        no-op (False) otherwise, since a live worker drains its own
+        queue.  The pool calls this after stopping a replica, so
+        ``SessionStore.clear()``'s releases land with every worker
+        gone."""
+        with self._worker.life_lock:
+            if self._worker.alive:
+                return False
+            self._drain_pending()
+        return True
+
+    def _drain_pending(self):
+        """Free the queued session-pin releases (the worker thread, or a
+        thread holding the dead-worker proof)."""
+        with self._pending_lock:
+            pages, self._pending_release = self._pending_release, []
+        if pages:
+            self._cache.free(pages)
+
+    def inject_handoff(self, packet):
+        """Queue a prefilled sequence's staged KV for seating on this
+        (decode-role) replica; called by the pool's handoff dispatch on
+        the origin replica's worker thread.  False when this scheduler
+        is stopping (the caller re-routes or fails the request)."""
+        if self._worker.stopping:
+            return False
+        with self._pending_lock:
+            self._pending_handoffs.append(packet)
+        return True
+
+    def _take_packets(self):
+        """Empty the handoff queue and return what it held."""
+        with self._pending_lock:
+            packets = list(self._pending_handoffs)
+            self._pending_handoffs.clear()
+        return packets
+
+    def _hgather(self, pages):
+        """The prefill side of a handoff: ``pages``' K/V of every layer,
+        ``[L, len(pages), ps, H, D]`` each, gathered on the current
+        stream (the replica's own) and, on the card, copied into pinned
+        host memory, waited for by an event recorded after the copy.
+        The event is made once: on a host loaded by the sibling
+        replicas' workers, making one took milliseconds."""
+        cache = self._cache
+        with torch.no_grad():
+            idx = torch.tensor(pages, dtype=torch.long, device=self._device)
+            k = torch.index_select(cache.k_pool, 1, idx)
+            v = torch.index_select(cache.v_pool, 1, idx)
+            if self._device.type != "cuda":
+                return k, v
+            k_host = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
+            v_host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            k_host.copy_(k, non_blocking=True)
+            v_host.copy_(v, non_blocking=True)
+            if self._copied is None:
+                self._copied = torch.cuda.Event()
+            self._copied.record()
+            self._copied.synchronize()
+        return k_host, v_host
+
+    def _hscatter(self, k_host, v_host, pages):
+        """The decode side: the host-staged K/V copied to the device on
+        the current stream and written into ``pages`` of the pools with
+        ``index_copy_``, in place (the captured steps hold the pools'
+        addresses).  The copy is queued ahead of the next step on the
+        same stream, so nothing waits for it here."""
+        cache = self._cache
+        with torch.no_grad():
+            idx = torch.tensor(pages, dtype=torch.long, device=self._device)
+            cache.k_pool.index_copy_(
+                1, idx, k_host.to(self._device, non_blocking=True))
+            cache.v_pool.index_copy_(
+                1, idx, v_host.to(self._device, non_blocking=True))
+
     def _fail_all(self, exc):
+        self._drain_pending()
+        for pk in self._take_packets():
+            pk.req.fail(exc)
         hol = self._take_hol()
         if hol is not None:
             req, cached_pages, _ = hol
@@ -922,6 +1131,11 @@ class DecodeScheduler:
         each.  The worker must be dead or stopped (or never started):
         :meth:`evict_if_dead` holds that proof."""
         harvested = []
+        # queued pin releases apply now; staged packets are harvestable
+        # work (their KV copies go, their journals replay anywhere)
+        self._drain_pending()
+        harvested += [pk.req for pk in self._take_packets()
+                      if not pk.req.done()]
         hol = self._take_hol()
         if hol is not None:
             req, cached_pages, _ = hol
@@ -950,8 +1164,10 @@ class DecodeScheduler:
             return self.evict_inflight()
 
     def idle(self):
-        """No active sequence and no parked head-of-line request."""
-        return self._active_count() == 0 and self._hol is None
+        """No active sequence, no parked head-of-line request and no
+        handoff packet waiting to be seated."""
+        return (self._active_count() == 0 and self._hol is None
+                and not self._pending_handoffs)
 
     def _serve_loop(self):
         if self._stream is None:
@@ -965,6 +1181,9 @@ class DecodeScheduler:
         self._note_ts = time.perf_counter()
         self._note_retired = self._retired_total
         while True:
+            # queued pin releases first: the pages they free may be what
+            # this iteration's admission needs
+            self._drain_pending()
             self._admit()
             if self._active_count():
                 if self._worker.stopping and not self._drain:
@@ -978,7 +1197,8 @@ class DecodeScheduler:
             self._note_retired = self._retired_total
             if self._worker.stopping and (not self._drain
                                           or (self._queue.depth() == 0
-                                              and self._hol is None)):
+                                              and self._hol is None
+                                              and not self._pending_handoffs)):
                 if not self._drain:
                     self._fail_all(ServingClosed("decode scheduler stopped"))
                 return
@@ -999,6 +1219,8 @@ class DecodeScheduler:
         Never blocks while sequences are decoding; waits briefly when
         idle so the loop doesn't spin."""
         cache, cfg = self._cache, self.config
+        if not self._admit_handoffs():
+            return                 # a staged packet waits for pages
         while self._active_count() < cfg.max_active:
             if self._worker.stopping and not self._drain:
                 return
@@ -1065,6 +1287,87 @@ class DecodeScheduler:
                               len(cached_pages) * cfg.page_size, hashes)
             if not self._use_chunks:
                 self._prefill(idx)
+
+    def _admit_handoffs(self):
+        """Seat injected handoff packets (sequences a prefill replica
+        already prefilled) ahead of fresh queue work.  False when a
+        packet waits for pages: fresh admission waits too, the packet
+        being this replica's head of line (it holds host copies only,
+        so waiting holds no pool pages)."""
+        cache = self._cache
+        while self._active_count() < self.config.max_active:
+            with self._pending_lock:
+                packet = (self._pending_handoffs[0]
+                          if self._pending_handoffs else None)
+            if packet is None:
+                return True
+            req = packet.req
+            if req.cancelled or req.expired():
+                with self._pending_lock:
+                    self._pending_handoffs.popleft()
+                if req.cancelled:
+                    _cancelled.inc()
+                    req.fail(ServingCancelled(
+                        "request cancelled during prefill->decode "
+                        "handoff"))
+                else:
+                    _expired.inc()
+                    _expired_mid_decode.inc()
+                    req.fail(ServingTimeout(
+                        "deadline expired during prefill->decode "
+                        "handoff"))
+                self._completed += 1
+                continue
+            need = cache.pages_for(req.prompt_len + req.max_new_tokens)
+            if need > cache.num_pages - 1:
+                with self._pending_lock:
+                    self._pending_handoffs.popleft()
+                req.fail(ServingError(
+                    "handed-off sequence needs %d pages but the pool "
+                    "has %d" % (need, cache.num_pages - 1)))
+                self._completed += 1
+                continue
+            pages = cache.alloc(need)
+            if pages is None:
+                return False
+            with self._pending_lock:
+                self._pending_handoffs.popleft()
+            self._seat_handoff(packet, pages)
+        return not self._pending_handoffs
+
+    def _seat_handoff(self, packet, pages):
+        """Land one packet: its K/V written into our freshly reserved
+        pages, the slot seated already DECODING with the origin's first
+        token (journaled there), the prompt's full pages registered
+        here."""
+        req = packet.req
+        t0 = time.perf_counter()
+        self._hscatter(packet.k_host, packet.v_host, pages[:packet.n_pages])
+        _observe_stage("scatter", t0)
+        idx = self._slots.index(None)
+        slot = _Slot(req, pages, prefill_pos=req.prompt_len,
+                     hashes=packet.hashes)
+        slot.kv_len = packet.kv_len
+        slot.generated.append(packet.first)
+        self._slots[idx] = slot
+        self._tables[idx] = self._cache.table_row(pages)
+        if self.config.prefix_cache and packet.hashes:
+            # the next turn's prefix probe must find the prompt in the
+            # replica that serves the decode
+            for pi in range(min(packet.kv_len // self.config.page_size,
+                                len(packet.hashes), len(pages))):
+                self._cache.register_prefix(packet.hashes, pi, pages[pi])
+        _handoff_injected.inc()
+        _active_slots.set(self._active_count())
+        tel = self._telemetry
+        if tel.recording:
+            tel.emit({
+                "type": "decode_handoff", "ts": time.time(),
+                "source": "serving", "seq": req.seq, "leg": "inject",
+                "origin": packet.origin, "dest": self._replica_index,
+                "pages": packet.n_pages, "kv_len": packet.kv_len,
+            })
+        self._finish_if_done(idx)
 
     def _place(self, req, pages, cached_tokens=0, hashes=None):
         """Seat one admitted request in a free slot in the PREFILLING
@@ -1177,7 +1480,57 @@ class DecodeScheduler:
         req.token_times.append(time.perf_counter())
         _ttft_hist.observe(done - req.enqueue_ts)
         _tokens.inc()
-        self._finish_if_done(idx)
+        if not self._finish_if_done(idx):
+            self._maybe_handoff(idx)
+
+    def _maybe_handoff(self, idx):
+        """Roles, prefill side: a freshly prefilled, unfinished sequence
+        leaves for a decode replica.  Its pages are staged on the host,
+        its seat released (the full prompt pages stay indexed here at
+        refcount 0, so the next turn's probe still finds this replica
+        warm) and the packet handed to ``on_handoff``; a handoff nobody
+        took fails the request with ``ServingDegraded``.  Returns True
+        when the slot left."""
+        if self._role != "prefill" or self._on_handoff is None:
+            return False
+        slot = self._slots[idx]
+        req = slot.req
+        n_pages = self._cache.pages_for(slot.kv_len)
+        t0 = time.perf_counter()
+        k_host, v_host = self._hgather(slot.pages[:n_pages])
+        _observe_stage("gather", t0)
+        packet = HandoffPacket(
+            req, k_host, v_host, n_pages=n_pages, kv_len=slot.kv_len,
+            hashes=slot.hashes, origin=self._replica_index,
+            first=slot.generated[-1])
+        req.handoff_origin = self._replica_index
+        self._slots[idx] = None
+        self._tables[idx] = 0
+        self._cache.free(slot.pages)
+        _active_slots.set(self._active_count())
+        _handoff_packets.inc()
+        _handoff_pages.inc(n_pages)
+        _handoff_bytes.inc(k_host.nbytes + v_host.nbytes)
+        tel = self._telemetry
+        if tel.recording:
+            tel.emit({
+                "type": "decode_handoff", "ts": time.time(),
+                "source": "serving", "seq": req.seq, "leg": "export",
+                "origin": self._replica_index, "pages": n_pages,
+                "kv_len": slot.kv_len,
+            })
+        try:
+            ok = self._on_handoff(packet)
+        except Exception as exc:  # noqa: BLE001 — worker must survive
+            ok, why = False, ": " + repr(exc)[:200]
+        else:
+            why = ""
+        if not ok and not req.done():
+            _handoff_failed.inc()
+            req.fail(ServingDegraded(
+                "prefill->decode KV handoff failed" + why))
+            self._completed += 1
+        return True
 
     def _chunk_width_for(self, remaining):
         """Dispatch width for a chunk with ``remaining`` prompt tokens
@@ -1438,6 +1791,11 @@ class DecodeScheduler:
         slot = self._slots[idx]
         self._slots[idx] = None
         self._tables[idx] = 0
+        if (error is None and self._sessions is not None
+                and slot.req.session is not None):
+            # pin BEFORE the free below: every parked page stays rc >= 1
+            # throughout, so nothing can evict it in between
+            self._park_session(slot)
         self._cache.free(slot.pages)
         self._completed += 1
         if error is None:
@@ -1472,3 +1830,44 @@ class DecodeScheduler:
                 "kv_pages_used": self._cache.used_pages,
                 "queue_depth": self._queue.depth(),
             })
+
+    def _park_session(self, slot):
+        """Park a conversational turn that retired without error (worker
+        thread, called by :meth:`_retire` before the slot's pages are
+        freed): register the prompt's full pages in the prefix index,
+        take a session pin on them, and record the conversation in the
+        shared store.
+
+        Only the pages whose every row a prefill chunk wrote are parked:
+        the first ``prompt_len // page_size``.  The JAX package parks
+        the whole history's full pages, the generated tokens' too, but
+        on the card a decode step computes its K/V through other kernels
+        (B4's split walk against B5, a ``[num_slots, d]`` GEMM against a
+        ``[C, d]`` one) and writes other bits than a prefill of the same
+        tokens (ROADMAP F-13), so a warm turn that mapped them would not
+        be bitwise a cold re-prefill.  The next turn prefills the last
+        turn's generated tokens again.
+
+        Roles: a turn handed off here from a prefill replica stays
+        sticky to its ORIGIN, where the next turn's prefill (and prefix
+        probe) runs; no pin is taken here, the origin's warmth being its
+        registered prompt pages at refcount 0."""
+        req = slot.req
+        history = req.journal.resume_prompt()
+        origin = req.handoff_origin
+        sticky = origin if origin is not None else self._replica_index
+        pinned = []
+        if sticky == self._replica_index:
+            ps = self.config.page_size
+            hashes = self._cache.prefix_hashes(history)
+            # registered as they were written or mapped (idempotent
+            # here); the decode-written pages stay private (F-13)
+            n_full = min(slot.prompt_len // ps, len(slot.pages),
+                         len(hashes))
+            for pi in range(n_full):
+                self._cache.register_prefix(hashes, pi, slot.pages[pi])
+            pinned = self._cache.pin_prefix(history, limit=n_full)
+            _session_parked_pages.inc(len(pinned))
+        self._sessions.park(req.session, replica=sticky,
+                            history_len=len(history), pages=pinned,
+                            release=self.release_session_pins)

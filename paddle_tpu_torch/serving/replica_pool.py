@@ -71,11 +71,28 @@ count on ``serving.decode.replays`` against
 ``DecodeConfig.replay_budget``, past which the sequence fails with
 ``ServingDegraded``.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A8.2):
-conversational sessions (``sessions=``, ``generate(session=)``,
-``end_session``) and prefill/decode roles (``roles=``).  The JAX pool's
-``sessions=None`` builds a ``SessionStore`` whenever the prefix cache is
-on; the port's :attr:`ReplicaPool.sessions` stays None until A8.2.
+**Sessions** (:mod:`~.sessions`): with ``DecodeConfig(prefix_cache=
+True)`` the pool keeps a :class:`~.sessions.SessionStore` (``sessions=
+None``; ``False`` turns it off, a store is used as given).  A turn
+generated with ``session=`` parks on the replica that served it (its
+prefill-written full pages registered and pinned there), and the next
+turn's admission stamps that replica as its affinity
+(``serving.affinity.sticky``) unless it is draining, parked,
+breaker-open or dead (``serving.affinity.fallbacks``): then the prefix
+peek and least-loaded decide, and the sibling prefills the history
+cold.  The store's TTL sweep runs from the decode gate at most once a
+second; ``end_session`` and ``stop()`` release the pins on each owner's
+worker.
+
+**Roles** (``roles=``, one of ``"both"``/``"prefill"``/``"decode"`` a
+replica): a decode-role replica never claims from the queue; a
+prefill-role replica prefills, stages the sequence's KV pages in pinned
+host memory as a :class:`~.decode_scheduler.HandoffPacket` and
+:meth:`ReplicaPool._dispatch_handoff` gives it to the decode-capable
+replica with the most free slots (ready ones first; a quiesced or
+draining replica still takes packets), which writes it into its own
+pages and decodes on.  The KV crosses through the host even on one card,
+so a waiting packet holds no pool pages.
 
 Telemetry, as the JAX package's: ``serving.replica.pool_size`` /
 ``.active`` / ``.ready``; per replica ``serving.replica.state_<i>`` (0
@@ -106,6 +123,7 @@ from .errors import ServingClosed, ServingDegraded, ServingError
 from .model_store import ModelStore
 from .request_queue import PRIORITY_CLASSES, Request, RequestQueue
 from .resilient import CircuitBreaker, ResilientDispatcher, WorkerSupervisor
+from .sessions import SessionStore
 
 __all__ = ["ReplicaPool"]
 
@@ -123,6 +141,7 @@ _decode_replays = _obs.counter("serving.decode.replays")
 # prefix-affinity dispatch: how each admission was routed (the warm
 # replica of its prompt's prefix, or no hint) and how often a stamped
 # hint was stripped because its replica could not take the work in time
+_affinity_sticky = _obs.counter("serving.affinity.sticky")
 _affinity_prefix = _obs.counter("serving.affinity.prefix")
 _affinity_none = _obs.counter("serving.affinity.none")
 _affinity_fallbacks = _obs.counter("serving.affinity.fallbacks")
@@ -133,12 +152,6 @@ REPLICA_STATES = {"parked": 0, "serving": 1, "draining": 2, "ejected": 3,
 
 # consumer-group keys of pools sharing one RequestQueue
 _POOL_IDS = itertools.count()
-
-
-def _sessions_not_ported(what):
-    return NotImplementedError(
-        "ReplicaPool %s: conversational sessions and prefill/decode roles "
-        "are not ported to paddle_tpu_torch yet (ROADMAP A8.2)" % what)
 
 
 def _pool_devices(devices):
@@ -197,6 +210,7 @@ class _Replica:
         self.failed = False         # worker dead past its restart budget
         self.force_serve = False    # pool stop-drain: bypass the breaker
         self.decoder = None         # DecodeScheduler (decode_model= pools)
+        self.role = "both"          # decode role (ReplicaPool roles=)
         self.decode_breaker = None
         self.decode_failed = False  # decode worker dead past its budget
         self.inflight_rows = 0      # rows the worker is dispatching now
@@ -384,8 +398,12 @@ class ReplicaPool:
         ``CompletionTracker`` with other pools; the pool then never
         closes or drains the queue.
     model_label: deployment label stamped on every admitted request.
-    sessions / roles: only ``None``/``False`` and ``None``; anything else
-        raises ``NotImplementedError`` (ROADMAP A8.2).
+    sessions: None builds a :class:`~.sessions.SessionStore` when the
+        decode config has ``prefix_cache``; False disables sessions; a
+        store is used as given (it requires ``prefix_cache``).
+    roles: one decode role a replica (``"both"``, ``"prefill"``,
+        ``"decode"``), at least one prefill-capable and one
+        decode-capable; requires ``decode_model``.
     affinity_timeout_s: how long a prefix-affinity hint holds a queue
         head for its replica (0 disables hints).
     """
@@ -403,10 +421,6 @@ class ReplicaPool:
                  decode_config=None, queue=None, tracker=None,
                  model_label=None, sessions=None, roles=None,
                  affinity_timeout_s=1.0):
-        if sessions is not None and sessions is not False:
-            raise _sessions_not_ported("sessions=")
-        if roles is not None:
-            raise _sessions_not_ported("roles=")
         if model_dir is None and decode_model is None:
             raise ServingError(
                 "pass model_dir= (predict), decode_model= (generate), "
@@ -486,9 +500,44 @@ class ReplicaPool:
         self._decode_enabled = decode_model is not None
         self._decode_config = None
         self._decode_queue = None
+        self._sessions = None
         self._affinity_timeout_s = float(affinity_timeout_s)
+        self._session_sweep_ts = time.perf_counter()
+        self._roles = None
+        if roles is not None and decode_model is None:
+            raise ServingError(
+                "roles= specializes DECODE replicas; pass decode_model=")
         if self._decode_enabled:
             dcfg = self._decode_config = decode_config or DecodeConfig()
+            if roles is not None:
+                role_list = [str(r) for r in roles]
+                if len(role_list) != n:
+                    raise ServingError(
+                        "roles needs one entry per replica (%d), got %d"
+                        % (n, len(role_list)))
+                bad = [r for r in role_list
+                       if r not in ("both", "prefill", "decode")]
+                if bad:
+                    raise ServingError(
+                        "roles must be 'both'/'prefill'/'decode', got %s"
+                        % bad)
+                if not any(r in ("both", "prefill") for r in role_list):
+                    raise ServingError(
+                        "roles leave no prefill-capable replica")
+                if not any(r in ("both", "decode") for r in role_list):
+                    raise ServingError(
+                        "roles leave no decode-capable replica")
+                self._roles = tuple(role_list)
+            # a pin is an extra refcount on the prefix index's chain, so
+            # there is nothing to park without the prefix cache
+            if sessions is None:
+                if dcfg.prefix_cache:
+                    self._sessions = SessionStore()
+            elif sessions is not False:
+                if not dcfg.prefix_cache:
+                    raise ServingError(
+                        "sessions require DecodeConfig(prefix_cache=True)")
+                self._sessions = sessions
             # admission-order seed pinning: a replay re-enqueues the
             # request (a new queue seq), so a seedless request gets a
             # POOL-pinned seed, the same across replays and between a
@@ -503,8 +552,10 @@ class ReplicaPool:
                 gauge_prefix="serving.decode.queue_depth")
             self._decode_queue.set_parallelism(
                 lambda: max(1, sum(1 for r in self._replicas
-                                   if self._decode_ready(r))))
+                                   if self._decode_claimable(r))))
             for rep in self._replicas:
+                if self._roles is not None:
+                    rep.role = self._roles[rep.index]
                 rep.decode_breaker = CircuitBreaker(
                     threshold=self._breaker_threshold,
                     cooldown_s=self._breaker_cooldown_s,
@@ -520,9 +571,21 @@ class ReplicaPool:
                         gate=(lambda r=rep: self._decode_gate(r)),
                         name="decode-replica%d" % rep.index,
                         evict_on_death=True, breaker=rep.decode_breaker,
-                        replica_index=rep.index,
+                        sessions=self._sessions, replica_index=rep.index,
+                        role=rep.role,
+                        on_handoff=(
+                            (lambda packet, r=rep:
+                                self._dispatch_handoff(r, packet))
+                            if rep.role == "prefill" else None),
                         claim=(lambda req, r=rep: self._may_claim(r, req)),
                         stream=rep.stream)
+            if self._roles is not None and dcfg.warmup:
+                # each replica's captures handed the cached free blocks
+                # back to the device, the earlier replicas' handoff
+                # blocks with them: make them again, last
+                for rep in self._replicas:
+                    with _on(rep.stream):
+                        rep.decoder.warm_handoff()
         # what the constructing thread queued (weights, KV pools, warm-up
         # runs, captures) is done before any replica's stream uses it
         _synchronize(placement)
@@ -623,6 +686,12 @@ class ReplicaPool:
                     rep.decoder.stop(drain=drain, timeout=timeout)
                 self._decode_queue.drain_remaining(
                     lambda r: ServingClosed("replica pool is stopped"))
+                if self._sessions is not None:
+                    # a stopped pool holds no sessions: every pin
+                    # released, the dead workers' queues drained here
+                    self._sessions.clear()
+                    for rep in self._replicas:
+                        rep.decoder.drain_pending_releases()
             if self._supervisor is not None:
                 self._supervisor.stop()
             if self._metrics_server is not None:
@@ -687,6 +756,11 @@ class ReplicaPool:
         return (rep.decoder is not None and not rep.decode_failed
                 and rep.decode_breaker.state != "open")
 
+    def _decode_claimable(self, rep):
+        """:meth:`_decode_ready` and allowed to claim fresh queue work: a
+        decode-role replica takes handoff packets only."""
+        return rep.role != "decode" and self._decode_ready(rep)
+
     def _decode_gate(self, rep):
         """Claim gate of one replica's scheduler, consulted before every
         shared-queue pull.  A queue head stamped with an affinity hint
@@ -697,11 +771,15 @@ class ReplicaPool:
         dead, draining, breaker-open or full preference.  Otherwise
         least-loaded by free slots: claim only when no claim-ready
         sibling has MORE free slots (ties claim, so equal replicas race
-        the queue and FIFO decides)."""
+        the queue and FIFO decides).  A decode-role replica never claims;
+        the session store's TTL sweep runs from here."""
         if rep.force_serve and not rep.decode_failed:
             return True                 # pool stop-drain
+        self._session_sweep()
         if (not rep.active or rep.draining or rep.decode_failed
                 or not rep.decode_breaker.allow()):
+            return False
+        if rep.role == "decode":
             return False
         head = self._decode_queue.peek()
         aff = getattr(head, "affinity", None) if head is not None else None
@@ -713,14 +791,15 @@ class ReplicaPool:
             fresh = (head.affinity_ts is not None
                      and (time.perf_counter() - head.affinity_ts
                           <= self._affinity_timeout_s))
-            if fresh and target is not None and self._decode_ready(target):
+            if (fresh and target is not None
+                    and self._decode_claimable(target)):
                 return False            # the warm replica claims it soon
             head.affinity = None
             head.affinity_ts = None
             _affinity_fallbacks.inc()
         mine = rep.decoder.free_slots()
         others = [r.decoder.free_slots() for r in self._replicas
-                  if r is not rep and self._decode_ready(r)]
+                  if r is not rep and self._decode_claimable(r)]
         return not others or mine >= max(others)
 
     def _may_claim(self, rep, req):
@@ -744,6 +823,42 @@ class ReplicaPool:
         req.affinity_ts = None
         _affinity_fallbacks.inc()
         return True
+
+    def _session_sweep(self):
+        """The store's TTL sweep, at most once a second, on whichever
+        worker reaches its gate: expired sessions release their pins
+        through the owners' release queues."""
+        if self._sessions is None:
+            return
+        now = time.perf_counter()
+        if now - self._session_sweep_ts < 1.0:
+            return
+        self._session_sweep_ts = now
+        self._sessions.expire(now)
+
+    def _dispatch_handoff(self, origin, packet):
+        """Give one staged packet to the decode-capable replica with the
+        most free slots, ready replicas first; called on the origin's
+        worker thread by its scheduler's ``on_handoff``.  A quiesced or
+        draining replica still takes it (its worker seats packets while
+        it claims nothing), so a park never strands a conversation.  True
+        once a replica took the packet."""
+        cands = [r for r in self._replicas
+                 if r.role != "prefill" and r.decoder is not None
+                 and not r.decode_failed]
+        cands.sort(key=lambda r: (self._decode_ready(r),
+                                  r.decoder.free_slots()), reverse=True)
+        for r in cands:
+            if r.decoder.inject_handoff(packet):
+                if self._telemetry.recording:
+                    self._telemetry.emit({
+                        "type": "decode_handoff", "ts": time.time(),
+                        "source": "serving", "seq": packet.req.seq,
+                        "leg": "dispatch", "origin": origin.index,
+                        "dest": r.index, "pages": packet.n_pages,
+                    })
+                return True
+        return False
 
     def _revive_decoder(self, rep):
         """The supervisor's restart for one replica's decode worker:
@@ -885,7 +1000,10 @@ class ReplicaPool:
                 "admitted": self._decode_queue.last_seq(),
                 "ready_replicas": sum(1 for r in self._replicas
                                       if self._decode_ready(r)),
+                "roles": [r.role for r in self._replicas],
             }
+            if self._sessions is not None:
+                h["decode"]["sessions"] = self._sessions.stats()
         if self._supervisor is not None:
             h["workers"] = self._supervisor.stats()
         return h
@@ -973,10 +1091,9 @@ class ReplicaPool:
         least-loaded claim-ready replica serves it, and if that replica
         dies mid-decode a sibling continues it from its journal.  The
         scheduler's per-request knobs; a seedless request gets a
-        pool-pinned admission-order seed.  ``session`` raises
-        ``NotImplementedError`` (ROADMAP A8.2)."""
-        if session is not None:
-            raise _sessions_not_ported("generate(session=)")
+        pool-pinned admission-order seed.  ``session`` makes the request
+        a turn of that conversation: routed to the replica holding its
+        pinned pages, and parked there in turn."""
         if not self._decode_enabled:
             raise ServingError(
                 "pool has no decode model (pass decode_model= at "
@@ -1025,7 +1142,7 @@ class ReplicaPool:
         deadline = None if ms is None else time.perf_counter() + ms / 1e3
         greq = GenerateRequest(tokens, n_new, deadline=deadline,
                                priority=priority, temperature=temperature,
-                               seed=seed)
+                               seed=seed, session=session)
         # the labels before put: admission's rejection counters read them
         greq.tenant = tenant
         greq.model = self.model_label
@@ -1036,37 +1153,58 @@ class ReplicaPool:
         return req
 
     def _stamp_affinity(self, req):
-        """Stamp the admission-time placement hint: the claim-ready
+        """Stamp the admission-time placement hint: the session's sticky
+        replica first (where its pinned pages live), then the claimable
         replica holding the LONGEST warm prefix of this prompt (a
         read-only chain-hash peek a replica, the hashes computed once),
-        or no hint.  Best-effort: the peek races the workers' cache
+        else no hint.  A sticky replica that is draining, parked,
+        breaker-open or dead counts a fallback: health overrides
+        affinity.  Best-effort: the peek races the workers' cache
         updates, and a wrong hint costs only placement."""
         pref = None
-        if self._decode_config.prefix_cache:
+        if self._sessions is not None and req.session is not None:
+            rec = self._sessions.get(req.session)
+            if rec is not None:
+                target = (self._replicas[rec.replica]
+                          if 0 <= rec.replica < len(self._replicas)
+                          else None)
+                if target is not None and self._decode_claimable(target):
+                    pref = rec.replica
+                    _affinity_sticky.inc()
+                elif target is not None:
+                    _affinity_fallbacks.inc()
+        if pref is None and self._decode_config.prefix_cache:
             hashes = self._replicas[0].decoder._cache.prefix_hashes(
                 req.prompt)
             if hashes:
                 best_n = 0
                 for r in self._replicas:
-                    if not self._decode_ready(r):
+                    if not self._decode_claimable(r):
                         continue
                     n = r.decoder._cache.peek_hashes(hashes)
                     if n > best_n:
                         pref, best_n = r.index, n
+                if pref is not None:
+                    _affinity_prefix.inc()
         if pref is None:
             _affinity_none.inc()
             return
-        _affinity_prefix.inc()
         req.affinity = pref
         req.affinity_ts = time.perf_counter()
 
     def end_session(self, session):
-        raise _sessions_not_ported("end_session")
+        """Finish a conversation: drop its store record and release its
+        pinned pages (freed on the owning replica's worker at its next
+        iteration).  True when the session existed."""
+        if self._sessions is None:
+            return False
+        return self._sessions.end_session(session)
 
     @property
     def sessions(self):
-        """The session store: None until sessions are ported (A8.2)."""
-        return None
+        """The pool's :class:`~.sessions.SessionStore` (None when
+        sessions are off)."""
+        return self._sessions
 
     def generate(self, prompt, max_new_tokens=None, deadline_ms=None,
                  timeout=None, priority=None, temperature=None, seed=None,

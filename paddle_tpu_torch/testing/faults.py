@@ -45,8 +45,12 @@ sequences typed (the port never retries a step that writes KV in
 place), and :func:`corrupt_kv_page` writes NaN into a page a decoding
 sequence owns (on the owning worker thread, before the dispatch), which
 the opt-in ``kv_guard`` sweep must catch.  :func:`kill_replica_mid_decode`
-kills one replica pool decode worker while it holds sequences in flight;
-``kill_session_owner`` waits for the sessions' port (ROADMAP A8.2).
+kills one replica pool decode worker while it holds sequences in flight,
+and :func:`kill_session_owner` kills the replica that holds a parked
+conversation's pinned pages, mid-decode of its next turn::
+
+    with faults.kill_session_owner(pool, "user-42", min_tokens=2):
+        pool.generate(history, session="user-42")   # replayed on a sibling
 """
 from __future__ import annotations
 
@@ -70,6 +74,7 @@ __all__ = [
     "poison_request",
     "kill_worker",
     "kill_replica_mid_decode",
+    "kill_session_owner",
     "corrupt_kv_page",
 ]
 
@@ -364,6 +369,27 @@ def kill_replica_mid_decode(index, min_tokens=1):
         raise WorkerKilled("injected replica kill mid-decode (%s)" % name)
 
     with _serve_fault_installed(hook):
+        yield fired
+
+
+@contextlib.contextmanager
+def kill_session_owner(pool, session, min_tokens=1):
+    """KILL the replica that OWNS a parked conversation, mid-decode of
+    its next turn: the session's sticky replica is read from the pool's
+    :class:`~..serving.sessions.SessionStore` (without touching its LRU
+    place) and :func:`kill_replica_mid_decode` armed on exactly that
+    replica.  The dead owner's pinned pages go with it; the turn still
+    completes bitwise on a sibling, because its prompt carries the whole
+    history and the journal replays ``prompt + accepted``.  Raises
+    ``LookupError`` when the session is not parked.  Yields the one-item
+    kill-count list."""
+    store = pool.sessions
+    rec = None if store is None else store.get(session, touch=False)
+    if rec is None:
+        raise LookupError("session %r is not parked on this pool"
+                          % (session,))
+    with kill_replica_mid_decode(rec.replica,
+                                 min_tokens=min_tokens) as fired:
         yield fired
 
 

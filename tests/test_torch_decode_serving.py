@@ -7,8 +7,8 @@ the chunked prefill and through the legacy whole-prompt prefill (a model
 without a chunk function).  Port-vs-port: the scheduler's own contracts —
 continuous batching == ``max_active=1``, chunked == monolithic == legacy
 prefill, sampling keyed on (seed, position), EOS, typed errors, page
-accounting, thread hygiene, and the options whose machinery is not
-ported yet (roles, sessions).  The prefix cache, the KV guard, journals
+accounting, thread hygiene, and the roles and sessions options' checks.
+The prefix cache, the KV guard, journals
 and the compiled steps are in test_torch_decode_runtime.py.
 """
 import threading
@@ -360,12 +360,17 @@ def test_malformed_requests(decode_model):
 
 
 def test_unported_scheduler_and_engine_options_raise(decode_model):
-    with pytest.raises(NotImplementedError, match="role"):
+    # roles and sessions are ported (tests/test_torch_sessions.py): a
+    # prefill role is taken, and sessions without the prefix cache raise
+    # the JAX package's ServingError
+    sched = serving.DecodeScheduler(decode_model, _cfg(warmup=False),
+                                    autostart=False, role="prefill")
+    assert sched.stats()["role"] == "prefill"
+    sched.stop()
+    with pytest.raises(serving.ServingError, match="sessions require"):
         serving.DecodeScheduler(decode_model, _cfg(warmup=False),
-                                autostart=False, role="prefill")
-    with pytest.raises(NotImplementedError, match="sessions"):
-        serving.DecodeScheduler(decode_model, _cfg(warmup=False),
-                                autostart=False, sessions=object())
+                                autostart=False,
+                                sessions=serving.SessionStore())
     # the engine's export endpoint is ported: it opens, and stops with
     # the engine
     eng = serving.InferenceEngine(decode_model=decode_model, device="cpu",

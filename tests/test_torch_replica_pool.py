@@ -14,9 +14,10 @@ backends, and decode); the least-loaded claim gate (ties claim, a freer
 sibling wins), prefix-affinity hints (a fresh one holds the head for its
 replica, a stale or unservable one is stripped, the per-pop claim check
 agrees); the replay budget; rotation scaling and autoscale hysteresis;
-the rolling swap (the old version's graphs are dropped); and the options
-that wait for ROADMAP A8.2 (sessions, roles) and A11 (a decode replica
-off the model's device) raise ``NotImplementedError``.
+the rolling swap (the old version's graphs are dropped); the JAX pool's
+validation of ``sessions=`` and ``roles=`` (each a ``ServingError``); and
+a decode replica off the model's device raises ``NotImplementedError``
+naming ROADMAP A11.
 """
 import threading
 import time
@@ -586,22 +587,32 @@ def test_swap_covers_the_sole_ready_replica(model_dir, tmp_path):
         assert pool.health()["model_versions"] == [2]
 
 
-# -- what is not ported yet ---------------------------------------------------
+# -- the JAX pool's sessions and roles validation ----------------------------
 
-@pytest.mark.parametrize("call", ["sessions", "roles", "generate_session",
-                                  "end_session"])
-def test_sessions_and_roles_raise_naming_a8_2(decode_model, call):
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        if call in ("sessions", "roles"):
-            _decode_pool(decode_model, **{call: object() if call ==
-                                          "sessions" else ["both"] * 2})
+@pytest.mark.parametrize("case, match", [
+    ("bad_role", "roles must be 'both'/'prefill'/'decode'"),
+    ("wrong_length", r"roles needs one entry per replica \(2\), got 3"),
+    ("no_prefill", "roles leave no prefill-capable replica"),
+    ("no_decode", "roles leave no decode-capable replica"),
+    ("no_decode_model", "roles= specializes DECODE replicas"),
+    ("sessions_without_prefix_cache",
+     r"sessions require DecodeConfig\(prefix_cache=True\)"),
+])
+def test_sessions_and_roles_validation(decode_model, model_dir, case,
+                                       match):
+    cfg = {"warmup": False}
+    with pytest.raises(serving.ServingError, match=match):
+        if case == "no_decode_model":
+            _pool(model_dir, roles=["both", "both"])
+        elif case == "sessions_without_prefix_cache":
+            _decode_pool(decode_model, cfg=cfg,
+                         sessions=serving.SessionStore())
         else:
-            with _decode_pool(decode_model, cfg={"warmup": False}) as pool:
-                assert pool.sessions is None
-                if call == "end_session":
-                    pool.end_session("s")
-                pool.generate_async(np.array([1, 2], np.int32),
-                                    session="s")
+            roles = {"bad_role": ["both", "encode"],
+                     "wrong_length": ["both"] * 3,
+                     "no_prefill": ["decode", "decode"],
+                     "no_decode": ["prefill", "prefill"]}[case]
+            _decode_pool(decode_model, cfg=cfg, roles=roles)
 
 
 def test_decode_replica_off_the_models_device_raises_naming_a11(lm):

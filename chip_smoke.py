@@ -157,7 +157,32 @@ split device time by op or kernel family run a step on the eager path
    load.  Logged: prefill tokens, TTFT p50 and the session store's
    pinned pages by turn, tokens/s of each pool, the handoff's packets,
    MB and stage ms (gather and scatter apart), the tokens the F-13
-   repair prefills again, the phase's seconds;
+   repair prefills again, the phase's seconds.  Then the model router
+   (router_phase): two decode deployments of the serving LM on a router
+   with no budget, lm-a (SEED) and lm-b (SEED + 1), 2 replicas each, the
+   serving prompts to each, interleaved (lm-a's tokens bitwise the
+   serving engine's, lm-b's a dedicated 2-replica pool's; B4 and B5 12
+   launches a replay; then lm-a alone through the router against a
+   dedicated pool, alternated, tokens/s); the predict phase's two saved
+   scoring versions as "scorer" v1 and v2, one replica each, split
+   0.75/0.25 over 100 requests (counts 75/25 within one and equal to
+   ``serving.router.requests{model,version}``, each answer bitwise its
+   version's dedicated pool's, B1 18 launches a dispatch), then 20 after
+   ``rollback`` all on v1; tenant "tight" on lm-a (rows_per_s 1, burst
+   4, max_inflight 2): four generations admitted, the fifth refused with
+   ServingQuotaExceeded before the decode queue moves, the labeled
+   counter +1, a tenant with no quota passing 8; then a router with
+   replica_budget=2, lm-a warm under 3 open-loop submitters (32 new
+   tokens) and lm-b cold, three LRU cycles (8 lm-b requests park,
+   activate evicting lm-a, answer; lm-a's parked traffic activates it
+   again, evicting lm-b): every future resolved and bitwise, every
+   activation's captures and no other compile, no two live holders
+   sharing a stream (sampled every 20 ms), memory allocated after each
+   cycle within 16 MiB of before it and reserved flat within 5%, the
+   router's /metrics parsed strictly with its labeled families and
+   /healthz 200 then 503 after stop; logged: each activation's pool
+   build, captures and reclaim seconds, the parked requests' TTFT, the
+   memory at each point, the phase's seconds;
 8. legacy serving: the same LM and prompts through an engine whose model
    has no chunk function (``build_decode_model(..., chunked=False)``), so
    each prompt is prefilled whole by ``lm_prefill`` on the flash forward
@@ -440,6 +465,24 @@ SESSION_PROBE_PROMPT, SESSION_NEW_TOKENS = 300, 64
 SESSION_CONVERSATIONS, SESSION_TURNS, SESSION_REPLICAS = 8, 4, 3
 SESSION_SYSTEM, SESSION_FIRST, SESSION_LATER = 128, (128, 384), (32, 96)
 SESSION_ROLES = ("prefill", "decode", "decode")
+# the model router: two decode deployments of the serving LM (lm-a from
+# SEED, lm-b from SEED + 1), ROUTER_REPLICAS replicas each, and the
+# predict phase's two scoring versions as "scorer" v1 and v2, one replica
+# each; the canary's split over ROUTER_CANARY requests, then
+# ROUTER_ROLLBACK after the rollback; tenant "tight"'s quota, and the new
+# tokens of the quota leg's generations; ROUTER_CYCLES LRU cycles under
+# ROUTER_SUBMITTERS open-loop submitters on lm-a (ROUTER_HOT_TOKENS new
+# tokens, a request a thread every ROUTER_HOT_GAP_S), ROUTER_COLD_REQUESTS
+# parked on lm-b in each; memory allocated after a deactivation within
+# ROUTER_ALLOCATED_TOL_MIB of before its activation, and reserved after
+# the last cycle at most ROUTER_RESERVED_GROWTH times the first's
+ROUTER_REPLICAS, ROUTER_CANARY, ROUTER_ROLLBACK = 2, 100, 20
+ROUTER_SPLIT = (0.75, 0.25)
+ROUTER_TIGHT = dict(rows_per_s=1, burst_rows=4, max_inflight=2)
+ROUTER_QUOTA_TOKENS = 8
+ROUTER_CYCLES, ROUTER_SUBMITTERS, ROUTER_COLD_REQUESTS = 3, 3, 8
+ROUTER_HOT_TOKENS, ROUTER_HOT_GAP_S = 32, 0.1
+ROUTER_ALLOCATED_TOL_MIB, ROUTER_RESERVED_GROWTH = 16, 1.05
 GUARD_REQUESTS, GUARD_NEW_TOKENS = 4, 16
 JOURNAL_REQUESTS, JOURNAL_NEW_TOKENS, JOURNAL_KILL_AT = 8, 32, 20
 # predict serving: Transformer-base scoring at TRAIN_CFG's width, the
@@ -1273,9 +1316,12 @@ def export_checks(obs, engine, srv, bases):
     counts = {}
     for base in bases:
         m = obs.prometheus_name(base) + "_seconds"
+        # the engine's own cells carry no label; a labeled cell of the
+        # family (a router's {model=...}, from an earlier phase) is a
+        # ladder of its own
         ladder = sorted(
             ((k, v) for k, v in samples.items()
-             if k.startswith(m + "_bucket")),
+             if k.startswith(m + '_bucket{le="')),
             key=lambda kv: float(kv[0].split('le="')[1].split('"')[0]
                                  .replace("Inf", "inf")))
         values = [v for _, v in ladder]
@@ -2314,6 +2360,533 @@ def sessions_phase(torch, T, serving, fa, obs, dev):
     out["seconds"] = time.perf_counter() - t_phase
     del model
     log("sessions phase: %.1f s" % out["seconds"])
+    return out
+
+
+def stream_holders(executor, streams, pools):
+    """(holder, handle) of every stream a live replica of ``pools`` holds
+    (its worker stream, its load streams and the capture side stream of
+    each) and of the capture side streams kept for the streams the lease
+    did not hand out; ``pools`` maps a name to a pool.  Each replica's
+    streams must be held by its own lease, unless its pool stopped
+    meanwhile (a sampler racing a deactivation)."""
+    out = []
+    for name, pool in pools.items():
+        for r in pool._replicas:
+            own = [(role, s) for role, s in
+                   [("worker", r.stream), ("load0", r._load_streams[0]),
+                    ("load1", r._load_streams[1])] if s is not None]
+            for role, s in own:
+                tag = "%s.r%d.%s" % (name, r.index, role)
+                check(streams.leased(0, s) is r.lease
+                      or pool._state == "stopped",
+                      "router: %s not leased to its replica" % tag)
+                out.append((tag, s.cuda_stream))
+                side = streams.side_of(0, s)
+                if side is not None:
+                    out.append((tag + "-side", side.cuda_stream))
+    for (index, cur), side in list(executor._CAPTURE_STREAMS.items()):
+        out.append(("unleased %#x-side" % cur, side.cuda_stream))
+    return out
+
+
+def distinct_holders(executor, streams, pools, what):
+    """Check that no two live holders share a stream; returns their
+    count."""
+    held = stream_holders(executor, streams, pools)
+    seen = {}
+    for tag, h in held:
+        check(h not in seen, "router: %s shares stream %#x with %s (%s)"
+              % (tag, h, seen.get(h), what))
+        seen[h] = tag
+    return len(held)
+
+
+def warm_pools(router):
+    return {"%s:%s" % (dep.name, ver.version): ver.pool
+            for dep in list(router._deps.values())
+            for ver in list(dep.versions.values()) if ver.pool is not None}
+
+
+def memory_now(torch, dev, collect=True):
+    """memory_allocated and memory_reserved in MiB, after a collection
+    and ``empty_cache`` when ``collect``."""
+    if collect:
+        gc.collect()
+    torch.cuda.synchronize()
+    if collect:
+        torch.cuda.empty_cache()
+    return {"allocated_mib": torch.cuda.memory_allocated(dev) / 2 ** 20,
+            "reserved_mib": torch.cuda.memory_reserved(dev) / 2 ** 20}
+
+
+def router_counter(obs, name, model, version="v1"):
+    return obs.counter("serving.router." + name,
+                       {"model": model, "version": version}).value
+
+
+def router_decode_leg(torch, serving, fa, obs, dev, models, prompts, want,
+                      executor, streams):
+    """Leg 1: lm-a and lm-b warm on a router with no budget, the serving
+    prompts to each, interleaved: lm-a's tokens bitwise the serving
+    engine's (``want``), lm-b's a dedicated pool's; then tokens/s through
+    the router against a dedicated lm-a pool, alternated.  Returns the
+    router (still serving), lm-b's tokens and the leg's figures."""
+    L = LM_WIDTH["n_layer"]
+    cfg = serving.DecodeConfig(**DECODE_CONFIG)
+
+    def dedicated(model):
+        return serving.ReplicaPool(None, replicas=ROUTER_REPLICAS,
+                                   devices=[dev], decode_model=model,
+                                   decode_config=cfg)
+
+    def run(gen):
+        t0 = time.perf_counter()
+        outs = [f.result(timeout=600) for f in
+                [gen(p) for p in prompts]]
+        return outs, sum(len(o) for o in outs) / (time.perf_counter() - t0)
+
+    ded_b = dedicated(models["lm-b"])
+    want_b, _ = run(lambda p: ded_b.generate_async(
+        p, max_new_tokens=NEW_TOKENS))
+    ded_b.stop()
+    del ded_b
+    ded_a = dedicated(models["lm-a"])
+    router = serving.ModelRouter(devices=[dev])
+    setup = {}
+    for name in ("lm-a", "lm-b"):
+        t0 = time.perf_counter()
+        router.deploy(name, None, replicas=ROUTER_REPLICAS,
+                      decode_model=models[name], decode_config=cfg)
+        setup[name] = time.perf_counter() - t0
+    pools = dict(warm_pools(router), dedicated_a=ded_a)
+    holders = distinct_holders(executor, streams, pools, "leg 1")
+    keys = sum(len(r.decoder._jit) for r in router._deps["lm-a"].versions[
+        "v1"].pool._replicas)
+    steps, prefills = (obs.counter("serving.decode.steps"),
+                       obs.counter("serving.decode.prefills"))
+    torch.cuda.synchronize()
+    st0, pf0 = steps.value, prefills.value
+    fa.reset_launch_counts()
+    futs = []
+    for p in prompts:
+        for name in ("lm-a", "lm-b"):
+            futs.append((name, router.generate_async(
+                name, p, max_new_tokens=NEW_TOKENS)))
+    outs = {"lm-a": [], "lm-b": []}
+    for name, f in futs:
+        outs[name].append(f.result(timeout=600))
+    torch.cuda.synchronize()
+    launches = dict(fa.KERNEL_LAUNCHES)
+    n_steps, n_chunks = steps.value - st0, prefills.value - pf0
+    check(launches["paged_decode_attention"] == L * n_steps > 0
+          and launches["paged_prefill_attention"] == L * n_chunks > 0,
+          "router leg 1 launches", launches, n_steps, n_chunks)
+    bad_a = [i for i, (o, w) in enumerate(zip(outs["lm-a"], want))
+             if o.tobytes() != w.tobytes()]
+    bad_b = [i for i, (o, w) in enumerate(zip(outs["lm-b"], want_b))
+             if o.tobytes() != w.tobytes()]
+    check(not bad_a and not bad_b, "router: lm-a's tokens not bitwise the "
+          "serving engine's, or lm-b's not its dedicated pool's",
+          bad_a[:4], bad_b[:4])
+    # the router's host cost: lm-a alone through the router against a
+    # dedicated pool over the same model, alternated
+    tps = {"dedicated": [], "router": []}
+    for how in ("dedicated", "router", "router", "dedicated"):
+        gen = ((lambda p: ded_a.generate_async(p, max_new_tokens=NEW_TOKENS))
+               if how == "dedicated" else
+               (lambda p: router.generate_async(
+                   "lm-a", p, max_new_tokens=NEW_TOKENS)))
+        got, rate = run(gen)
+        check(all(g.tobytes() == w.tobytes() for g, w in zip(got, want)),
+              "router: %s run not bitwise" % how)
+        tps[how].append(rate)
+    distinct_holders(executor, streams, pools, "leg 1, timed")
+    ded_a.stop()
+    del ded_a
+    leg = {"setup_s": setup, "launches": {
+        k: launches[k] for k in ("paged_decode_attention",
+                                 "paged_prefill_attention")},
+           "decode_steps": n_steps, "prefill_chunks": n_chunks,
+           "bitwise": True, "tokens_per_s": tps,
+           "router_over_dedicated": (sum(tps["router"])
+                                     / sum(tps["dedicated"])),
+           "live_holders": holders, "step_keys_per_pool": keys}
+    log("router leg 1 (bitwise per model): " + json.dumps(leg))
+    return router, want_b, leg
+
+
+def router_canary_leg(torch, serving, fa, obs, dev, router, saved):
+    """Leg 2: the predict phase's two saved scoring versions as "scorer"
+    v1 and v2 (one replica each) on the leg-1 router, split 0.75/0.25
+    over ROUTER_CANARY requests: counts exact within one, agreeing with
+    the labeled counter, each answer bitwise its version's dedicated
+    pool's, B1 18 launches a dispatch; after rollback every request on
+    v1."""
+    (d1, _), (d2, _) = saved
+    vocab, seq = TRAIN_CFG["trg_vocab_size"], TRAIN_CFG["seq_len"]
+    rng = np.random.RandomState(SEED + 80)
+    n = ROUTER_CANARY + ROUTER_ROLLBACK
+    feeds = [predict_feed(*predict_rows(rng, int(k), seq, vocab))
+             for k in rng.randint(1, 3, size=n)]
+    kw = dict(batch_buckets=POOL_PREDICT_BUCKETS)
+    wants = {}
+    for v, d in (("v1", d1), ("v2", d2)):
+        ded = serving.ReplicaPool(d, replicas=1, devices=[dev], **kw)
+        wants[v] = [f.result(timeout=600)[0] for f in
+                    [ded.predict_async(x) for x in feeds]]
+        ded.stop()
+        del ded
+    t0 = time.perf_counter()
+    router.deploy("scorer", d1, version="v1", replicas=1, **kw)
+    router.deploy("scorer", d2, version="v2", replicas=1, **kw)
+    setup_s = time.perf_counter() - t0
+    router.route("scorer", dict(zip(("v1", "v2"), ROUTER_SPLIT)))
+    c0 = {v: router_counter(obs, "requests", "scorer", v)
+          for v in ("v1", "v2")}
+    b0 = obs.counter("serving.batches").value
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    futs = [router.predict_async("scorer", x)
+            for x in feeds[:ROUTER_CANARY]]
+    got = [f.result(timeout=600)[0] for f in futs]
+    torch.cuda.synchronize()
+    launches = dict(fa.KERNEL_LAUNCHES)
+    dispatches = obs.counter("serving.batches").value - b0
+    predict_launch_check(fa, launches, dispatches, "router canary")
+    served = []
+    for i, g in enumerate(got):
+        hit = [v for v in ("v1", "v2")
+               if g.tobytes() == wants[v][i].tobytes()]
+        check(len(hit) == 1, "router canary: answer %d bitwise neither or "
+              "both versions" % i, hit)
+        served.append(hit[0])
+    counts = {v: served.count(v) for v in ("v1", "v2")}
+    counted = {v: router_counter(obs, "requests", "scorer", v) - c0[v]
+               for v in ("v1", "v2")}
+    check(abs(counts["v1"] - ROUTER_CANARY * ROUTER_SPLIT[0]) <= 1
+          and counts == counted, "router canary split", counts, counted)
+    router.rollback("scorer")
+    c1 = {v: router_counter(obs, "requests", "scorer", v)
+          for v in ("v1", "v2")}
+    after = [router.predict("scorer", x, timeout=600)[0]
+             for x in feeds[ROUTER_CANARY:]]
+    check(all(a.tobytes() == w.tobytes() for a, w in
+              zip(after, wants["v1"][ROUTER_CANARY:]))
+          and router_counter(obs, "requests", "scorer", "v1") - c1["v1"]
+          == ROUTER_ROLLBACK
+          and router_counter(obs, "requests", "scorer", "v2") == c1["v2"],
+          "router: after rollback not every request on v1")
+    leg = {"setup_s": setup_s, "counts": counts, "counter": counted,
+           "dispatches": dispatches,
+           "launches": launches["flash_attention_fwd"],
+           "bitwise_dedicated": True, "rollback_all_v1": ROUTER_ROLLBACK}
+    log("router leg 2 (canary): " + json.dumps(leg))
+    return leg
+
+
+def router_quota_leg(serving, obs, router, prompts, want):
+    """Leg 3: tenant "tight" (ROUTER_TIGHT) on lm-a: four generations
+    admitted two at a time, the fifth refused typed before any queue is
+    touched, the labeled counter +1; a tenant with no quota passes 8."""
+    router.set_quota("tight", **ROUTER_TIGHT)
+    pool = router._deps["lm-a"].versions["v1"].pool
+    q = pool._decode_queue
+    order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+    n_new = ROUTER_QUOTA_TOKENS
+    rej = obs.counter("serving.router.quota_rejections",
+                      {"model": "lm-a", "tenant": "tight"})
+    r0 = rej.value
+    got = []
+    for pair in (order[:2], order[2:4]):
+        futs = [router.generate_async("lm-a", prompts[i], tenant="tight",
+                                      max_new_tokens=n_new) for i in pair]
+        got += [(i, f.result(timeout=600)) for i, f in zip(pair, futs)]
+    depth, seq = q.depth(), q.last_seq()
+    try:
+        router.generate_async("lm-a", prompts[order[4]], tenant="tight",
+                              max_new_tokens=n_new)
+    except serving.ServingQuotaExceeded as exc:
+        refused = str(exc)
+    else:
+        refused = None
+    check(refused is not None and q.depth() == depth
+          and q.last_seq() == seq and rej.value - r0 == 1,
+          "router quota: the fifth generation not refused typed before "
+          "the queue", refused, rej.value - r0)
+    futs = [(i, router.generate_async("lm-a", prompts[i], tenant="open",
+                                      max_new_tokens=n_new))
+            for i in order[:8]]
+    got += [(i, f.result(timeout=600)) for i, f in futs]
+    check(all(o.tobytes() == want[i][:n_new].tobytes() for i, o in got),
+          "router quota: tokens not bitwise the serving engine's")
+    leg = {"admitted": 4, "refused": refused, "rejections": 1,
+           "open_tenant_passed": 8}
+    log("router leg 3 (quota): " + json.dumps(leg))
+    return leg
+
+
+def router_cold_leg(torch, serving, obs, dev, models, prompts, want,
+                    want_b, executor, streams, leg_keys):
+    """Leg 4 (and 5): ROUTER_CYCLES LRU cycles under live traffic on a
+    router with replica_budget=2 (see the docstring's phase 7)."""
+    from paddle_tpu_torch.executor import compile_count
+
+    cfg = serving.DecodeConfig(**DECODE_CONFIG)
+    router = serving.ModelRouter(replica_budget=ROUTER_REPLICAS,
+                                 devices=[dev])
+    router.deploy("lm-a", None, replicas=ROUTER_REPLICAS,
+                  decode_model=models["lm-a"], decode_config=cfg)
+    router.deploy("lm-b", None, replicas=ROUTER_REPLICAS, warm=False,
+                  decode_model=models["lm-b"], decode_config=cfg)
+    srv = router.serve_metrics(host="127.0.0.1")
+    acts0 = {m: router_counter(obs, "activations", m)
+             for m in ("lm-a", "lm-b")}
+    fails0 = {m: router_counter(obs, "activation_failures", m)
+              for m in ("lm-a", "lm-b")}
+    compiles0 = compile_count()
+    hot, hot_lock, errors = [], threading.Lock(), []
+    stop, resume = threading.Event(), threading.Event()
+    resume.set()
+    holders = {"samples": 0, "max": 0}
+
+    def submitter(t):
+        i = t
+        while not stop.is_set():
+            resume.wait()
+            k = i % len(prompts)
+            try:
+                f = router.generate_async("lm-a", prompts[k],
+                                          max_new_tokens=ROUTER_HOT_TOKENS)
+            except (serving.ServingQueueFull, serving.ServingOverloaded):
+                time.sleep(0.01)
+                continue
+            except BaseException as exc:  # noqa: BLE001 - checked below
+                errors.append(repr(exc))
+                return
+            with hot_lock:
+                hot.append((k, f))
+            i += ROUTER_SUBMITTERS
+            time.sleep(ROUTER_HOT_GAP_S)
+
+    def sampler():
+        try:
+            while not stop.is_set():
+                n = distinct_holders(executor, streams,
+                                     warm_pools(router), "leg 4")
+                holders["samples"] += 1
+                holders["max"] = max(holders["max"], n)
+                time.sleep(0.02)
+        except BaseException as exc:  # noqa: BLE001 - checked below
+            errors.append(repr(exc))
+
+    def quiesce():
+        """Pause the submitters and wait for every hot request so far."""
+        resume.clear()
+        time.sleep(ROUTER_HOT_GAP_S)
+        with hot_lock:
+            pending = [f for _, f in hot]
+        for f in pending:
+            f.result(timeout=600)
+
+    threads = ([threading.Thread(target=submitter, args=(t,))
+                for t in range(ROUTER_SUBMITTERS)]
+               + [threading.Thread(target=sampler)])
+    for t in threads:
+        t.start()
+    cycles, scrape, cold, parks = [], None, [], []
+    try:
+        for cycle in range(ROUTER_CYCLES):
+            quiesce()
+            before = memory_now(torch, dev)
+            resume.set()
+            time.sleep(0.2)                 # traffic flowing on lm-a
+            t0 = time.perf_counter()
+            parked = []
+            for j in range(ROUTER_COLD_REQUESTS):
+                k = (cycle * ROUTER_COLD_REQUESTS + j) % len(prompts)
+                t_park = time.perf_counter()
+                parked.append((k, t_park, router.generate_async(
+                    "lm-b", prompts[k], max_new_tokens=NEW_TOKENS)))
+            parks.append(parked[0][1])
+            check(all(isinstance(f, serving.RoutedRequest)
+                      for _, _, f in parked), "router: lm-b was not cold")
+            outs = [(k, f.result(timeout=600)) for k, _, f in parked]
+            answered_s = time.perf_counter() - t0
+            after_act = memory_now(torch, dev, collect=False)
+            ttft = np.array([f._inner.token_times[0] - t_park
+                             for _, t_park, f in parked])
+            cold += outs
+            # lm-a's parked traffic re-activates it, evicting lm-b
+            deadline = time.time() + 600
+            while time.time() < deadline:
+                h = router.health()["deployments"]
+                if (h["lm-a"]["versions"]["v1"]["tier"] == "warm"
+                        and h["lm-b"]["versions"]["v1"]["tier"] == "cold"):
+                    break
+                time.sleep(0.01)
+            cycle_s = time.perf_counter() - t0
+            if cycle == 0:
+                scrape = router_export_check(obs, router, srv)
+            quiesce()
+            kept = memory_now(torch, dev, collect=False)
+            after = memory_now(torch, dev)
+            resume.set()
+            cycles.append({
+                "parked_answered_s": answered_s, "cycle_s": cycle_s,
+                "parked_ttft_p50_ms": float(np.percentile(ttft, 50) * 1e3),
+                "parked_ttft_max_ms": float(ttft.max() * 1e3),
+                "memory_before": before, "memory_after_activation":
+                after_act, "memory_after_deactivation": after,
+                "allocated_after_deactivation_before_collect_mib":
+                kept["allocated_mib"]})
+            log("router leg 4 cycle %d: %s" % (cycle, json.dumps(
+                cycles[-1])))
+    finally:
+        stop.set()
+        resume.set()
+        for t in threads:
+            t.join(timeout=600)
+    check(not errors, "router: lm-a admission failed under the tier "
+          "cycles", errors[:2])
+    bad = [k for k, f in hot
+           if f.result(timeout=600).tobytes()
+           != want[k][:ROUTER_HOT_TOKENS].tobytes()]
+    bad_b = [k for k, o in cold if o.tobytes() != want_b[k].tobytes()]
+    check(not bad and not bad_b, "router: tier-cycle answers not bitwise",
+          bad[:4], bad_b[:4])
+    acts = {m: router_counter(obs, "activations", m) - acts0[m]
+            for m in ("lm-a", "lm-b")}
+    fails = {m: router_counter(obs, "activation_failures", m) - fails0[m]
+             for m in ("lm-a", "lm-b")}
+    compiles = compile_count() - compiles0
+    check(acts == {"lm-a": ROUTER_CYCLES, "lm-b": ROUTER_CYCLES}
+          and not any(fails.values()), "router activations", acts, fails)
+    for i, c in enumerate(cycles):
+        moved = abs(c["memory_after_deactivation"]["allocated_mib"]
+                    - c["memory_before"]["allocated_mib"])
+        check(moved <= ROUTER_ALLOCATED_TOL_MIB, "router cycle %d: memory "
+              "allocated after the deactivation moved %.1f MiB" % (i, moved))
+    r1 = cycles[0]["memory_after_deactivation"]["reserved_mib"]
+    r3 = cycles[-1]["memory_after_deactivation"]["reserved_mib"]
+    check(r3 <= ROUTER_RESERVED_GROWTH * r1, "router: memory reserved "
+          "grew over the cycles", r1, r3)
+    check(holders["samples"] > 0, "router: the stream sampler never ran")
+    router.stop()
+    healthz = stopped_health_check(router, srv)
+    # each cycle's two activations: lm-b's (from its first park: the
+    # reclaim, which drain-stops lm-a, then the pool's build, its warm-up
+    # and captures) and lm-a's
+    activation_s = []
+    for first_park in parks:
+        b, a = [{k: v for k, v in e.items() if k != "start"}
+                for e in ROUTER_ACTIVATIONS if e["start"] > first_park][:2]
+        check(b["model"] == "lm-b" and a["model"] == "lm-a"
+              and b["captures"] == a["captures"] == leg_keys,
+              "router: a cycle's activations", b, a, leg_keys)
+        b["reclaim_s"] = next(e["start"] for e in ROUTER_ACTIVATIONS
+                              if e["start"] > first_park) - first_park
+        activation_s.append({"lm-b": b, "lm-a": a})
+    check(compiles == 2 * ROUTER_CYCLES * leg_keys, "router: compiles under "
+          "load are not the activations' captures", compiles, leg_keys)
+    leg = {"cycles": cycles, "hot_requests": len(hot),
+           "parked_requests": len(cold), "activations": acts,
+           "activation": activation_s, "compiles_during_load": compiles,
+           "stream_samples": holders["samples"],
+           "max_live_holders": holders["max"],
+           "streams_created": streams.LEASE.created(0),
+           "export": scrape, "healthz_after_stop": healthz}
+    log("router leg 4 (cold tier): " + json.dumps(leg))
+    return leg
+
+
+def router_export_check(obs, router, srv):
+    """Leg 5: the router's /metrics once under leg 4's traffic, parsed
+    strictly, with its labeled families; /healthz 200."""
+    status, body = http_get(srv.url + "/metrics")
+    check(status == 200, "router /metrics status", status)
+    samples = obs.parse_prometheus(body, strict=True)
+    want = ['%s_total{model="lm-%s",version="v1"}'
+            % (obs.prometheus_name("serving.router." + fam), m)
+            for fam in ("requests", "parked", "activations",
+                        "deactivations") for m in ("a", "b")]
+    want += [obs.prometheus_name("serving.router." + g)
+             for g in ("warm_models", "replicas_in_use", "replica_budget")]
+    missing = [k for k in want if k not in samples]
+    check(not missing, "router /metrics lacks", missing)
+    status, body = http_get(srv.url + "/healthz")
+    check(status == 200 and json.loads(body)["ready"] is True,
+          "router /healthz while serving", status, body[:200])
+    return {"samples": len(samples), "router_families": len(want)}
+
+
+ROUTER_ACTIVATIONS = []
+
+
+def instrument_activations(torch):
+    """Time every pool the router builds (its constructor: KV pools,
+    warm-up runs and captures) and read its captures; returns the undo."""
+    from paddle_tpu_torch.serving import router as router_mod
+
+    real = router_mod.ReplicaPool
+
+    def timed_pool(*args, **kw):
+        t0 = time.perf_counter()
+        pool = real(*args, **kw)
+        seconds = time.perf_counter() - t0
+        graphs = [step_graph_stats(r.decoder) for r in pool._replicas
+                  if r.decoder is not None]
+        ROUTER_ACTIVATIONS.append({
+            "model": kw.get("model_label"), "start": t0,
+            "pool_build_s": seconds,
+            "captures": sum(g["captures"] for g in graphs),
+            "capture_s": sum(g["capture_s"] for g in graphs),
+            "warmup_and_rest_s": seconds - sum(g["capture_s"]
+                                               for g in graphs)})
+        return pool
+
+    router_mod.ReplicaPool = timed_pool
+    return lambda: setattr(router_mod, "ReplicaPool", real)
+
+
+def router_phase(torch, T, serving, fa, obs, dev, prompts, want, saved):
+    """The model router (A8.3) on one card: the docstring's phase 7,
+    its legs 1-5.  ``prompts``/``want``: the serving phase's prompts and
+    tokens; ``saved``: save_predict_models'."""
+    from paddle_tpu_torch import executor, streams
+
+    resident_gib(torch, dev)
+    t_phase = time.perf_counter()
+    models = {}
+    for name, seed in (("lm-a", SEED), ("lm-b", SEED + 1)):
+        params, meta = T.lm_params(seed=seed, **LM_WIDTH)
+        models[name] = T.build_decode_model(params, meta, device=dev)
+    del params
+    timing = instrument_activations(torch)
+    try:
+        router, want_b, out = None, None, {}
+        router, want_b, out["bitwise"] = router_decode_leg(
+            torch, serving, fa, obs, dev, models, prompts, want, executor,
+            streams)
+        out["canary"] = router_canary_leg(torch, serving, fa, obs, dev,
+                                          router, saved)
+        out["quota"] = router_quota_leg(serving, obs, router, prompts, want)
+        router.stop()
+        del router
+        resident_gib(torch, dev)
+        del ROUTER_ACTIVATIONS[:]
+        out["cold"] = router_cold_leg(
+            torch, serving, obs, dev, models, prompts, want, want_b,
+            executor, streams, out["bitwise"]["step_keys_per_pool"])
+    finally:
+        timing()
+    left = {k: v for k, v in streams.LEASE.held().items()
+            if v != executor._UNLEASED_SIDES.name}
+    check(not left, "router: streams still leased after every pool "
+          "stopped", left)
+    out["seconds"] = time.perf_counter() - t_phase
+    del models
+    log("router phase: %.1f s" % out["seconds"])
     return out
 
 
@@ -6547,6 +7120,9 @@ def main():
         torch.cuda.empty_cache()
         sess = sessions_phase(torch, T, serving, fa, obs, dev)
         torch.cuda.empty_cache()
+        rtr = router_phase(torch, T, serving, fa, obs, dev, srv_prompts,
+                           srv_outs, saved)
+        torch.cuda.empty_cache()
         leg = legacy_phase(torch, T, serving, fa, obs, dev, srv_prompts,
                            srv_outs)
         torch.cuda.empty_cache()
@@ -6767,6 +7343,18 @@ def main():
                 "pool_predict_dispatches": {
                     b: pool["predict"][b]["dispatches"]
                     for b in ("program", "aot")}})
+        if name == "flash_attention_fwd":
+            # the router's canary: "scorer" v1 and v2 through the router
+            kernels[-1].update({
+                "router_launches": rtr["canary"]["launches"],
+                "router_dispatches": rtr["canary"]["dispatches"]})
+        if name in ("paged_decode_attention", "paged_prefill_attention"):
+            # the router's lm-a and lm-b, the serving prompts to each
+            kernels[-1].update({
+                "router_launches": rtr["bitwise"]["launches"][name],
+                "router_dispatches": rtr["bitwise"][
+                    "decode_steps" if name == "paged_decode_attention"
+                    else "prefill_chunks"]})
         if name in ("paged_decode_attention", "paged_prefill_attention"):
             # the replica pool's decode load: four replicas on this card
             # at rotations 1, 2 and 4 and two profiled windows

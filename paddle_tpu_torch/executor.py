@@ -88,6 +88,7 @@ import torch
 
 from . import observability as _obs
 from . import resilience
+from . import streams as _streams
 from .core import f32_bf16_reduction, resolve_device, torch_dtype
 from .framework import Program, Variable, default_main_program, grad_var_name
 from .lod import LoDArray
@@ -980,8 +981,28 @@ _CAPTURE_LOCK = threading.Lock()
 # only when captured on one.  And a captured cuBLAS call keeps the
 # workspace of its handle and capture stream, so graphs replayed at the
 # same time on different streams (a replica pool's, each captured from
-# its replica's own stream) must come from different capture streams
+# its replica's own stream) must come from different capture streams.
+# The side stream of a leased stream is leased by its holder and goes
+# back with it (streams.Lease.side); this map keeps, for the life of the
+# process, the side streams of the streams the lease did not hand out
+# (the default stream, a caller's own)
 _CAPTURE_STREAMS = {}
+_UNLEASED_SIDES = _streams.Lease("capture side streams of unleased streams")
+
+
+def _capture_stream(index, cur, handle):
+    """The capture side stream of ``cur`` on device ``index`` for a thread
+    whose cuBLAS handle is ``handle`` (the caller holds
+    ``_CAPTURE_LOCK``)."""
+    holder = _streams.leased(index, cur)
+    if holder is not None:
+        # a side stream this handle has a workspace on is preferred
+        return holder.side(index, cur, handle)
+    side = _CAPTURE_STREAMS.get((index, cur.cuda_stream))
+    if side is None:
+        side = _CAPTURE_STREAMS[index, cur.cuda_stream] = \
+            _UNLEASED_SIDES.stream(index)
+    return side
 
 
 def _warm_blas(device):
@@ -1009,13 +1030,14 @@ def _capture(graph, device, body, current_op, pool=None):
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     with _CAPTURE_LOCK:
-        side = _CAPTURE_STREAMS.get((index, cur.cuda_stream))
-        if side is None:
-            side = _CAPTURE_STREAMS[index, cur.cuda_stream] = \
-                torch.cuda.Stream(index)
+        handle = torch.cuda.current_blas_handle()
+        side = _capture_stream(index, cur, handle)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             _warm_blas(device)
+        holder = _streams.leased(index, side)
+        if holder is not None:
+            holder.mark(index, side, handle)
         # the general pool's free blocks cannot serve the graph's private
         # pool; give them back so that the capture can take their memory
         torch.cuda.empty_cache()
@@ -1189,6 +1211,12 @@ class JitStepCache:
         """(key, entry) pairs, without building or LRU-touching any."""
         with self._lock:
             return list(self._entries.items())
+
+    def clear(self):
+        """Drop every entry; on the card their graphs go, and each graph's
+        private pool with it.  The caller makes sure none is replaying."""
+        with self._lock:
+            self._entries.clear()
 
     def get(self, key):
         """The callable for ``key``, built (and counted as a compile) on

@@ -15,7 +15,7 @@ The transfer (the JAX package's ``jax.device_put``) is, for each feed:
 1. a cast to the declared dtype on the host, off the critical path;
 2. a copy into a pinned host tensor (PyTorch's caching host allocator);
 3. a ``non_blocking`` copy to the executor's device on the pipeline's
-   own side ``torch.cuda.Stream``;
+   own side stream, leased from the port's set (``streams.py``);
 4. one ``torch.cuda.Event`` recorded on that stream after the batch's
    last copy.
 
@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from .. import observability as _obs
+from .. import streams as _streams
 from ..core import resolve_device, torch_dtype
 from .decorator import _STOP, _Failure, _cancellable_put, _shutdown_pump
 
@@ -197,8 +198,16 @@ def put_feed_on_device(feed, executor, program=None):
 
     program = program or default_main_program()
     device = _executor_device(executor)
-    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    return _place_feed(feed, device, program, stream).handoff()
+    if device.type != "cuda":
+        return _place_feed(feed, device, program, None).handoff()
+    # a transfer stream of the port's lease for the one transfer: the
+    # calling stream waits on its event before the stream goes back
+    lease = _streams.Lease("put_feed_on_device")
+    try:
+        stream = lease.stream(_streams.device_index(device))
+        return _place_feed(feed, device, program, stream).handoff()
+    finally:
+        lease.release()
 
 
 def shard_feed_list(feed_list, mesh, data_names, program=None):
@@ -340,8 +349,11 @@ def device_feed_reader(feed_reader, executor, program=None, buffer_size=2,
     def prefetching():
         prog = program or default_main_program()
         device = _executor_device(executor)
-        stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                  else None)
+        # the pipeline's transfer stream, leased from the port's set for
+        # as long as the pipeline runs (streams.py)
+        lease = _streams.Lease("device prefetch")
+        stream = (lease.stream(_streams.device_index(device))
+                  if device.type == "cuda" else None)
 
         def place(feed):
             return _place_feed(feed, device, prog, stream)
@@ -354,6 +366,10 @@ def device_feed_reader(feed_reader, executor, program=None, buffer_size=2,
                 yield item
         finally:
             pf.close()
+            # a transfer thread that outlived the close may still copy on
+            # the stream: it stays leased then
+            if not any(t.is_alive() for t in pf._threads):
+                lease.release()
 
     return prefetching
 

@@ -48,7 +48,25 @@ With ``DecodeConfig(prefix_cache=True)`` the pool keeps conversations
 parks the turn's KV pages pinned on the replica that served it and
 routes the next turn there; ``roles=("prefill", "decode", ...)`` splits
 the replicas into prefill and decode roles, the KV crossing between them
-as a host-staged ``HandoffPacket``.  The router is not ported yet.
+as a host-staged ``HandoffPacket``.
+
+:class:`ModelRouter` fronts N named deployments, each version served by
+a pool of its own, with tenant quotas (:class:`TenantQuota`), weighted
+canary routing with one-call rollback, and warm and cold tiers under a
+global replica budget: a request to a cold version parks on a
+:class:`RoutedRequest` while its pool is built, and the least-recently
+used warm version is deactivated to make room (its pool stops and gives
+back its graphs, KV pools and streams)::
+
+    router = serving.ModelRouter(replica_budget=4)      # pools on the card
+    router.deploy("scorer", v1_dir, version="v1", replicas=1)
+    router.deploy("scorer", v2_dir, version="v2", replicas=1)
+    router.route("scorer", {"v1": 0.75, "v2": 0.25})
+    router.deploy("chat", None, replicas=2, warm=False,
+                  decode_model=model, decode_config=cfg)
+    router.set_quota("tenant-a", rows_per_s=100, max_inflight=8)
+    tokens = router.generate("chat", prompt_ids, tenant="tenant-a")
+    router.stop()
 """
 from __future__ import annotations
 
@@ -73,17 +91,21 @@ from .errors import (
     ServingQuotaExceeded,
     ServingTimeout,
 )
-from .kv_cache import PagedKVCache
+from .kv_cache import PagedKVCache, write_prompt_kv, write_token_kv
 from .model_store import LoadedModel, ModelStore
 from .replica_pool import ReplicaPool
 from .request_queue import PRIORITY_CLASSES, Request, RequestQueue
 from .resilient import CircuitBreaker, ResilientDispatcher, WorkerSupervisor
+from .router import ModelRouter, RoutedRequest, TenantQuota
 from .sessions import SessionRecord, SessionStore, scoped_session
 from .worker import RestartableWorker
 
 __all__ = [
     "InferenceEngine",
     "ReplicaPool",
+    "ModelRouter",
+    "TenantQuota",
+    "RoutedRequest",
     "BatchExecutor",
     "DynamicBatcher",
     "CompletionTracker",
@@ -102,6 +124,8 @@ __all__ = [
     "SessionRecord",
     "scoped_session",
     "PagedKVCache",
+    "write_prompt_kv",
+    "write_token_kv",
     "Request",
     "RequestQueue",
     "PRIORITY_CLASSES",

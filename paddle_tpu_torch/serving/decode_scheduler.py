@@ -843,7 +843,9 @@ class DecodeScheduler:
         queued sequence first; ``drain=False`` fails them with
         ``ServingClosed`` after the in-flight iteration.  A worker that
         is still wedged when the join times out gets its QUEUED requests
-        failed fast."""
+        failed fast.  Once the worker has exited, the step graphs and the
+        KV pools are dropped: a stopped scheduler holds no device
+        memory."""
         self._drain = bool(drain)
         self._worker.request_stop()
         if self._owns_queue:
@@ -854,6 +856,7 @@ class DecodeScheduler:
             # asked not to drain): fail them rather than hang futures
             with self._worker.life_lock:
                 self._fail_all(ServingClosed("decode scheduler stopped"))
+                self._release_device_memory()
         elif timeout is not None:
             hol = self._take_hol()
             if hol is not None:
@@ -867,6 +870,16 @@ class DecodeScheduler:
                     "engine stopped before request ran (decode worker "
                     "wedged)"))
         return stopped
+
+    def _release_device_memory(self):
+        """With the worker gone: wait for the work it queued on the card,
+        then drop the step graphs (their private pools with them) and the
+        KV pools, so a stopped scheduler holds no device memory."""
+        if self._device.type == "cuda":
+            (self._stream if self._stream is not None
+             else torch.cuda.default_stream(self._device)).synchronize()
+        self._jit.clear()
+        self._cache.release_pools()
 
     # -- client API ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, deadline_ms=None,

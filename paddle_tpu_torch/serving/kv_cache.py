@@ -95,13 +95,30 @@ def write_prompt_kv(k_pool, v_pool, k_new, v_new, pages):
     ids on the pools' device — entries past the sequence's real need
     point at the scratch page 0, so the scatter's shape is fixed per
     bucket (which of the colliding scratch writes lands is unspecified;
-    nothing reads the scratch page)."""
+    nothing reads the scratch page).  Returns ``(k_pool, v_pool)``."""
     L, T, H, D = k_new.shape
     ps = k_pool.shape[2]
     n = T // ps
     idx = pages.long()
     k_pool.index_copy_(1, idx, k_new.reshape(L, n, ps, H, D).to(k_pool.dtype))
     v_pool.index_copy_(1, idx, v_new.reshape(L, n, ps, H, D).to(v_pool.dtype))
+    return k_pool, v_pool
+
+
+def write_token_kv(k_pool, v_pool, k_tok, v_tok, pages, offsets):
+    """Scatter one decode step's token k/v of each slot into the pools,
+    IN PLACE.
+
+    k_tok/v_tok: ``[L, S, H, D]``; ``pages``/``offsets``: ``[S]`` int
+    tensors on the pools' device — slot s's token lands at
+    ``pool[:, pages[s], offsets[s]]``.  Inactive slots aim at the scratch
+    page (which of their colliding writes lands is unspecified; nothing
+    reads it).  Returns ``(k_pool, v_pool)``."""
+    layers = torch.arange(k_pool.shape[0], device=k_pool.device)
+    idx = (layers[:, None], pages.long()[None], offsets.long()[None])
+    k_pool.index_put_(idx, k_tok.to(k_pool.dtype))
+    v_pool.index_put_(idx, v_tok.to(v_pool.dtype))
+    return k_pool, v_pool
 
 
 class PagedKVCache:
@@ -194,6 +211,12 @@ class PagedKVCache:
             self._free.append(p)
         self._lru.clear()
         _cached_pages.set(0)
+
+    def release_pools(self):
+        """Drop both pools (their owner has stopped, and nothing replays
+        a step that writes them): the allocator's books stay readable,
+        the device memory goes back to the caching allocator."""
+        self.k_pool = self.v_pool = None
 
     def scrub_pages(self, pages):
         """Zero the given pages in both pools, IN PLACE, and drop their

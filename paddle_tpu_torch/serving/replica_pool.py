@@ -34,8 +34,10 @@ serving policies stay global:
 **Devices.**  ``devices=None`` means every CUDA device and raises
 without one; replica ``i`` runs on ``devices[i % len(devices)]``, so on
 one card every replica shares ``cuda:0`` (the JAX pool puts one replica
-on each chip).  Each replica on the card owns a ``torch.cuda.Stream``:
-its predict dispatches and its decode worker's loop run on it, so one
+on each chip).  Each replica on the card holds a stream of its own,
+leased from the port's fixed set (:mod:`paddle_tpu_torch.streams`) and
+given back, with its capture side streams, when the pool stops: its
+predict dispatches and its decode worker's loop run on it, so one
 replica's read of its results waits for its own work only and the
 replicas' kernels overlap while another replica's host code runs.
 Warm-up and every capture run on the constructing thread (under the
@@ -109,11 +111,13 @@ import contextlib
 import itertools
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from .. import observability as _obs
+from .. import streams as _streams
 from ..core import resolve_device
 from ..executor import SERVING_BLOCK_ROWS
 from .batcher import CompletionTracker, DynamicBatcher
@@ -171,6 +175,13 @@ def _on(stream):
             else torch.cuda.stream(stream))
 
 
+def _blas_handle(device):
+    """This thread's cuBLAS handle on ``device``: the warm-up runs it
+    makes on a replica's streams use it (``streams.py``)."""
+    with torch.cuda.device(device):
+        return torch.cuda.current_blas_handle()
+
+
 def _synchronize(devices):
     """Wait for the work queued so far on every CUDA device in
     ``devices``: the loads, warm-ups and captures made on the
@@ -178,6 +189,11 @@ def _synchronize(devices):
     they made."""
     for dev in {d for d in devices if d.type == "cuda"}:
         torch.cuda.synchronize(dev)
+
+
+def _release_all(leases):
+    for lease in leases:
+        lease.release()
 
 
 class _Replica:
@@ -189,17 +205,25 @@ class _Replica:
     def __init__(self, pool, index, device):
         self.index = index
         self.device = device
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        # the replica's streams and their capture side streams, leased
+        # from the port's fixed set while the replica lives: no other
+        # live holder has one of them (streams.py)
+        self.lease = _streams.Lease("%s replica %d" % (pool._consumer_key,
+                                                       index))
+        # the constructing thread's cuBLAS handle: its warm-up runs on
+        # these streams (streams.py prefers streams it has marked)
+        self.blas = _blas_handle(device) if device.type == "cuda" else None
+        self.stream = (self.lease.stream(_streams.device_index(device),
+                                         self.blas)
+                       if device.type == "cuda" else None)
         # the streams a predict version is loaded, warmed and captured on,
-        # in turn: the caching allocator keeps a stream's free blocks for
-        # that stream, so a version's weights (uploaded at its first run)
-        # share no segment with its predecessor's or with the worker's
-        # transient blocks, and the predecessor's segments come back whole
-        # when it closes (a rolling swap does not fragment them)
-        self._load_streams = ((torch.cuda.Stream(device),
-                               torch.cuda.Stream(device))
-                              if self.stream is not None else (None, None))
+        # in turn, leased at the first load: the caching allocator keeps a
+        # stream's free blocks for that stream, so a version's weights
+        # (uploaded at its first run) share no segment with its
+        # predecessor's or with the worker's transient blocks, and the
+        # predecessor's segments come back whole when it closes (a
+        # rolling swap does not fragment them)
+        self._load_streams = (None, None)
         self._loads = 0
         self.store = ModelStore(place=device, feed_shapes=pool._feed_shapes,
                                 block_rows=SERVING_BLOCK_ROWS)
@@ -246,6 +270,12 @@ class _Replica:
         self._rows_counter = _obs.counter("serving.replica.rows_%d" % index)
 
     # -- model ---------------------------------------------------------------
+    def mark_warm(self, stream):
+        """This thread ran cuBLAS on ``stream`` (a warm-up)."""
+        if stream is not None:
+            self.lease.mark(_streams.device_index(self.device), stream,
+                            _blas_handle(self.device))
+
     def _current_model(self):
         with self.model_lock:
             return self.model
@@ -255,6 +285,10 @@ class _Replica:
         CPU): its loads, warm-up runs and captures run from it, so its
         graphs also get a capture stream, and a cuBLAS workspace, that
         no other replica's graphs use."""
+        if self.stream is not None and self._load_streams[0] is None:
+            index = _streams.device_index(self.device)
+            self._load_streams = (self.lease.stream(index, self.blas),
+                                  self.lease.stream(index, self.blas))
         stream = self._load_streams[self._loads % 2]
         self._loads += 1
         return stream
@@ -476,119 +510,133 @@ class ReplicaPool:
         self._below_peak = 0          # max desired seen inside the window
         self._telemetry = _obs.get_telemetry()
         self._metrics_server = None
-        self._replicas = [_Replica(self, i, d)
-                          for i, d in enumerate(placement)]
-        if model_dir is not None:
-            # each replica's own version: its own executor, bucket graphs
-            # and graph pool, or its own exported graph
-            for rep in self._replicas:
-                with _on(rep.next_load_stream()):
-                    rep.model = rep.store.load(model_dir, backend=backend)
-                    if self._warmup:
-                        rep.model.warmup(self.batch_buckets)
-        active0 = self.max_replicas if initial_replicas is None else max(
-            self.min_replicas, min(int(initial_replicas),
-                                   self.max_replicas))
-        for rep in self._replicas:
-            rep.active = rep.index < active0
-        # the live consumer count for the shed estimator, as a consumer
-        # group keyed by this pool (a shared queue sums the groups)
-        self._queue.register_consumers(self._consumer_key,
-                                       lambda: len(self._ready()))
-        if self._owns_queue:
-            self._queue.set_parallelism(lambda: max(1, len(self._ready())))
-        self._decode_enabled = decode_model is not None
-        self._decode_config = None
-        self._decode_queue = None
-        self._sessions = None
-        self._affinity_timeout_s = float(affinity_timeout_s)
-        self._session_sweep_ts = time.perf_counter()
-        self._roles = None
-        if roles is not None and decode_model is None:
-            raise ServingError(
-                "roles= specializes DECODE replicas; pass decode_model=")
-        if self._decode_enabled:
-            dcfg = self._decode_config = decode_config or DecodeConfig()
-            if roles is not None:
-                role_list = [str(r) for r in roles]
-                if len(role_list) != n:
-                    raise ServingError(
-                        "roles needs one entry per replica (%d), got %d"
-                        % (n, len(role_list)))
-                bad = [r for r in role_list
-                       if r not in ("both", "prefill", "decode")]
-                if bad:
-                    raise ServingError(
-                        "roles must be 'both'/'prefill'/'decode', got %s"
-                        % bad)
-                if not any(r in ("both", "prefill") for r in role_list):
-                    raise ServingError(
-                        "roles leave no prefill-capable replica")
-                if not any(r in ("both", "decode") for r in role_list):
-                    raise ServingError(
-                        "roles leave no decode-capable replica")
-                self._roles = tuple(role_list)
-            # a pin is an extra refcount on the prefix index's chain, so
-            # there is nothing to park without the prefix cache
-            if sessions is None:
-                if dcfg.prefix_cache:
-                    self._sessions = SessionStore()
-            elif sessions is not False:
-                if not dcfg.prefix_cache:
-                    raise ServingError(
-                        "sessions require DecodeConfig(prefix_cache=True)")
-                self._sessions = sessions
-            # admission-order seed pinning: a replay re-enqueues the
-            # request (a new queue seq), so a seedless request gets a
-            # POOL-pinned seed, the same across replays and between a
-            # fault-free and a faulted run admitting in the same order
-            self._decode_seed_lock = threading.Lock()
-            self._decode_admissions = 0
-            self._decode_queue = RequestQueue(
-                dcfg.queue_capacity,
-                depth_gauge=_obs.gauge("serving.decode.queue_depth"),
-                full_counter=_obs.counter("serving.decode.queue_full"),
-                shed_counter=_obs.counter("serving.decode.shed_admission"),
-                gauge_prefix="serving.decode.queue_depth")
-            self._decode_queue.set_parallelism(
-                lambda: max(1, sum(1 for r in self._replicas
-                                   if self._decode_claimable(r))))
-            for rep in self._replicas:
-                if self._roles is not None:
-                    rep.role = self._roles[rep.index]
-                rep.decode_breaker = CircuitBreaker(
-                    threshold=self._breaker_threshold,
-                    cooldown_s=self._breaker_cooldown_s,
-                    state_gauge=_obs.gauge(
-                        "serving.replica.decode_breaker_%d" % rep.index))
-                # its KV pools made and its steps warmed and captured on
-                # this thread, from the replica's stream; its worker runs
-                # on that stream
-                with _on(rep.stream):
-                    rep.decoder = DecodeScheduler(
-                        decode_model, config=dcfg, autostart=False,
-                        queue=self._decode_queue,
-                        gate=(lambda r=rep: self._decode_gate(r)),
-                        name="decode-replica%d" % rep.index,
-                        evict_on_death=True, breaker=rep.decode_breaker,
-                        sessions=self._sessions, replica_index=rep.index,
-                        role=rep.role,
-                        on_handoff=(
-                            (lambda packet, r=rep:
-                                self._dispatch_handoff(r, packet))
-                            if rep.role == "prefill" else None),
-                        claim=(lambda req, r=rep: self._may_claim(r, req)),
-                        stream=rep.stream)
-            if self._roles is not None and dcfg.warmup:
-                # each replica's captures handed the cached free blocks
-                # back to the device, the earlier replicas' handoff
-                # blocks with them: make them again, last
+        self._replicas = []
+        # a pool collected without stop() gives its streams back too (the
+        # callback holds the leases, not the pool)
+        leases = []
+        weakref.finalize(self, _release_all, leases)
+        try:
+            for i, d in enumerate(placement):
+                self._replicas.append(_Replica(self, i, d))
+                leases.append(self._replicas[-1].lease)
+            if model_dir is not None:
+                # each replica's own version: its own executor, bucket graphs
+                # and graph pool, or its own exported graph
                 for rep in self._replicas:
+                    load_stream = rep.next_load_stream()
+                    with _on(load_stream):
+                        rep.model = rep.store.load(model_dir, backend=backend)
+                        if self._warmup:
+                            rep.model.warmup(self.batch_buckets)
+                            rep.mark_warm(load_stream)
+            active0 = self.max_replicas if initial_replicas is None else max(
+                self.min_replicas, min(int(initial_replicas),
+                                       self.max_replicas))
+            for rep in self._replicas:
+                rep.active = rep.index < active0
+            # the live consumer count for the shed estimator, as a consumer
+            # group keyed by this pool (a shared queue sums the groups)
+            self._queue.register_consumers(self._consumer_key,
+                                           lambda: len(self._ready()))
+            if self._owns_queue:
+                self._queue.set_parallelism(lambda: max(1, len(self._ready())))
+            self._decode_enabled = decode_model is not None
+            self._decode_config = None
+            self._decode_queue = None
+            self._sessions = None
+            self._affinity_timeout_s = float(affinity_timeout_s)
+            self._session_sweep_ts = time.perf_counter()
+            self._roles = None
+            if roles is not None and decode_model is None:
+                raise ServingError(
+                    "roles= specializes DECODE replicas; pass decode_model=")
+            if self._decode_enabled:
+                dcfg = self._decode_config = decode_config or DecodeConfig()
+                if roles is not None:
+                    role_list = [str(r) for r in roles]
+                    if len(role_list) != n:
+                        raise ServingError(
+                            "roles needs one entry per replica (%d), got %d"
+                            % (n, len(role_list)))
+                    bad = [r for r in role_list
+                           if r not in ("both", "prefill", "decode")]
+                    if bad:
+                        raise ServingError(
+                            "roles must be 'both'/'prefill'/'decode', got %s"
+                            % bad)
+                    if not any(r in ("both", "prefill") for r in role_list):
+                        raise ServingError(
+                            "roles leave no prefill-capable replica")
+                    if not any(r in ("both", "decode") for r in role_list):
+                        raise ServingError(
+                            "roles leave no decode-capable replica")
+                    self._roles = tuple(role_list)
+                # a pin is an extra refcount on the prefix index's chain, so
+                # there is nothing to park without the prefix cache
+                if sessions is None:
+                    if dcfg.prefix_cache:
+                        self._sessions = SessionStore()
+                elif sessions is not False:
+                    if not dcfg.prefix_cache:
+                        raise ServingError(
+                            "sessions require DecodeConfig(prefix_cache=True)")
+                    self._sessions = sessions
+                # admission-order seed pinning: a replay re-enqueues the
+                # request (a new queue seq), so a seedless request gets a
+                # POOL-pinned seed, the same across replays and between a
+                # fault-free and a faulted run admitting in the same order
+                self._decode_seed_lock = threading.Lock()
+                self._decode_admissions = 0
+                self._decode_queue = RequestQueue(
+                    dcfg.queue_capacity,
+                    depth_gauge=_obs.gauge("serving.decode.queue_depth"),
+                    full_counter=_obs.counter("serving.decode.queue_full"),
+                    shed_counter=_obs.counter("serving.decode.shed_admission"),
+                    gauge_prefix="serving.decode.queue_depth")
+                self._decode_queue.set_parallelism(
+                    lambda: max(1, sum(1 for r in self._replicas
+                                       if self._decode_claimable(r))))
+                for rep in self._replicas:
+                    if self._roles is not None:
+                        rep.role = self._roles[rep.index]
+                    rep.decode_breaker = CircuitBreaker(
+                        threshold=self._breaker_threshold,
+                        cooldown_s=self._breaker_cooldown_s,
+                        state_gauge=_obs.gauge(
+                            "serving.replica.decode_breaker_%d" % rep.index))
+                    # its KV pools made and its steps warmed and captured on
+                    # this thread, from the replica's stream; its worker runs
+                    # on that stream
                     with _on(rep.stream):
-                        rep.decoder.warm_handoff()
-        # what the constructing thread queued (weights, KV pools, warm-up
-        # runs, captures) is done before any replica's stream uses it
-        _synchronize(placement)
+                        rep.decoder = DecodeScheduler(
+                            decode_model, config=dcfg, autostart=False,
+                            queue=self._decode_queue,
+                            gate=(lambda r=rep: self._decode_gate(r)),
+                            name="decode-replica%d" % rep.index,
+                            evict_on_death=True, breaker=rep.decode_breaker,
+                            sessions=self._sessions, replica_index=rep.index,
+                            role=rep.role,
+                            on_handoff=(
+                                (lambda packet, r=rep:
+                                    self._dispatch_handoff(r, packet))
+                                if rep.role == "prefill" else None),
+                            claim=(lambda req, r=rep: self._may_claim(r, req)),
+                            stream=rep.stream)
+                    if dcfg.warmup:
+                        rep.mark_warm(rep.stream)
+                if self._roles is not None and dcfg.warmup:
+                    # each replica's captures handed the cached free blocks
+                    # back to the device, the earlier replicas' handoff
+                    # blocks with them: make them again, last
+                    for rep in self._replicas:
+                        with _on(rep.stream):
+                            rep.decoder.warm_handoff()
+            # what the constructing thread queued (weights, KV pools, warm-up
+            # runs, captures) is done before any replica's stream uses it
+            _synchronize(placement)
+        except BaseException:
+            self._abandon()
+            raise
         self._supervisor = None
         if supervise:
             sup = WorkerSupervisor(interval_s=supervisor_interval_s,
@@ -674,16 +722,25 @@ class ReplicaPool:
                 # is gone, which would shed requests its siblings were
                 # about to answer
                 self._tracker.wait_for(self._queue.last_seq(), timeout)
+            # replicas with a worker that outlived its join (wedged): they
+            # keep their streams, which that worker may still launch into
+            wedged = set()
             for rep in self._replicas:
                 stopped = rep.batcher.stop(drain=drain, timeout=timeout)
                 if stopped and rep.model is not None:
-                    # never close a version under a running batch
+                    # never close a version under a running batch; closing
+                    # drops its graphs
                     rep.model.close()
+                if not stopped:
+                    wedged.add(rep.index)
             if self._decode_enabled:
                 # the schedulers never close or drain the shared queue:
-                # stop them, then fail whatever no worker claimed
+                # stop them (each drops its step graphs and KV pools once
+                # its worker is gone), then fail whatever no worker
+                # claimed
                 for rep in self._replicas:
-                    rep.decoder.stop(drain=drain, timeout=timeout)
+                    if not rep.decoder.stop(drain=drain, timeout=timeout):
+                        wedged.add(rep.index)
                 self._decode_queue.drain_remaining(
                     lambda r: ServingClosed("replica pool is stopped"))
                 if self._sessions is not None:
@@ -698,7 +755,24 @@ class ReplicaPool:
                 self._metrics_server.stop()
                 self._metrics_server = None
             self._queue.unregister_consumers(self._consumer_key)
+            # the graphs captured on the replicas' side streams are gone:
+            # their streams go back to the lease
+            for rep in self._replicas:
+                if rep.index not in wedged:
+                    rep.lease.release()
             self._publish()
+
+    def _abandon(self):
+        """After a constructor failed: stop what it built (no worker has
+        started), so its graphs and KV pools go, and give the replicas'
+        streams back."""
+        for rep in self._replicas:
+            if rep.decoder is not None:
+                rep.decoder.stop(drain=False)
+            if rep.model is not None:
+                rep.model.close()
+            rep.lease.release()
+        self._queue.unregister_consumers(self._consumer_key)
 
     def __enter__(self):
         return self
@@ -1276,6 +1350,7 @@ class ReplicaPool:
                     if self._warmup:
                         with _on(load_stream):
                             new.warmup(self.batch_buckets)
+                        rep.mark_warm(load_stream)
                     # warmed on this thread, served by the worker
                     _synchronize([rep.device])
                     cover = None

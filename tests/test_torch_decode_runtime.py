@@ -320,19 +320,28 @@ def test_reset_and_scrub_write_in_place(decode_model):
         req.cancel()
         with pytest.raises(serving.ServingCancelled):
             req.result(timeout=60)
+        # the worker, idle, touches the cache no more
+        while (not sched.idle() or cache.used_pages) \
+                and time.time() < deadline:
+            time.sleep(0.002)
+        assert sched.idle() and cache.used_pages == 0
+        # the first prompt's full page is indexed; a scrub zeroes it in
+        # place and drops it from the index, and reset_pools zeroes
+        # everything
+        assert cache.prefix_stats()["indexed_pages"] == 1
+        page = next(iter(cache._hash_of_page))
+        cache.scrub_pages([page])
+        assert not cache.k_pool[:, page].any() \
+            and not cache.v_pool[:, page].any()
+        assert cache.prefix_stats()["indexed_pages"] == 0
+        cache.k_pool.fill_(1.0)
+        cache.reset_pools()
+        assert not cache.k_pool.any()
+        assert (cache.k_pool.data_ptr(), cache.v_pool.data_ptr()) == ptrs
     finally:
         sched.stop()
-    # the first prompt's full page is indexed; a scrub zeroes it in place
-    # and drops it from the index, and reset_pools zeroes everything
-    assert cache.prefix_stats()["indexed_pages"] == 1
-    page = next(iter(cache._hash_of_page))
-    cache.scrub_pages([page])
-    assert not cache.k_pool[:, page].any() and not cache.v_pool[:, page].any()
-    assert cache.prefix_stats()["indexed_pages"] == 0
-    cache.k_pool.fill_(1.0)
-    cache.reset_pools()
-    assert not cache.k_pool.any()
-    assert (cache.k_pool.data_ptr(), cache.v_pool.data_ptr()) == ptrs
+    # a stopped scheduler holds its pools no more
+    assert cache.k_pool is None and cache.v_pool is None
 
 
 # -- the ported TestPrefixCache cases -----------------------------------------

@@ -70,7 +70,8 @@ def memory(torch, dev, tag, pool=None):
         for r in pool._replicas:
             names[r.stream.cuda_stream] = "rep%d" % r.index
             for j, s in enumerate(r._load_streams):
-                names[s.cuda_stream] = "rep%d-load%d" % (r.index, j)
+                if s is not None:   # leased at a replica's first load
+                    names[s.cuda_stream] = "rep%d-load%d" % (r.index, j)
         split = []
         for seg in torch.cuda.memory_snapshot():
             free = seg["total_size"] - seg["allocated_size"]

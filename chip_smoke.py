@@ -6083,6 +6083,270 @@ def trainer_phase(torch, fluid, T, fa, obs, dev, fast):
     return stats
 
 
+# compute introspection on the Trainer at TRAIN_CFG: steps a leg, the
+# attribution window, the slow reader's sleep a batch (more than twice the
+# 181 ms step), profiled steps, and the limits of the FLOP count against
+# the hand count and of memory_usage against the measured peak
+INTRO_STEPS = 10
+INTRO_WINDOW = 5
+INTRO_SLOW_S = 0.4
+INTRO_SLOW_STEPS = 5
+INTRO_PROFILED_STEPS = 3
+INTRO_FLOPS_RTOL = 0.01
+INTRO_MEMORY_RATIO = 1.5
+
+
+def transformer_step_flops(T, cfg):
+    """FLOPs of one Transformer-base training step at ``cfg`` by hand:
+    2·tokens·(linear weights) for the forward and twice that for the
+    backward (dX and dW of every product), plus the 18 attentions at
+    torch's SDPA conventions (4·B·H·T·S·D forward, 10 backward)."""
+    d, di, L, H = T.D_MODEL, T.D_INNER, T.N_LAYER, T.N_HEAD
+    b, t = cfg["batch_size"], cfg["seq_len"]
+    weights = (L * (4 * d * d + 2 * d * di)        # encoder
+               + L * (8 * d * d + 2 * d * di)      # decoder
+               + d * cfg["trg_vocab_size"])        # output projection
+    attentions = 3 * L * 14 * b * H * t * t * (d // H)
+    return {"linear_weights": weights, "linear": 6 * b * t * weights,
+            "attentions": attentions, "total": 6 * b * t * weights
+            + attentions}
+
+
+def introspection_phase(torch, fluid, T, fa, obs, dev):
+    """Compute introspection (``observability.xla_stats``,
+    ``StepAttribution``, the profiler, ``contrib.memory_usage``) over
+    Transformer-base at TRAIN_CFG through ``fluid.Trainer`` (graphed from
+    the third step).  (a) INTRO_STEPS steps with the plane off, then
+    INTRO_STEPS from the same start with it armed (``sync_timing`` off):
+    every parameter and Adam accumulator bitwise equal, the same device
+    syncs in both runs (``count_syncs``), B1 and B2 18 launches every
+    step.  (b) The armed run's count: FLOPs within INTRO_FLOPS_RTOL of
+    ``transformer_step_flops``, bytes, peak memory, MFU against the
+    table's H100 row (989.4e12) and against PEAK_F32_FLOPS pinned by
+    ``configure_peaks``, the Trainer's records carrying ``mfu``.
+    (c) ``train(attribution=StepAttribution(window_steps=INTRO_WINDOW))``:
+    compute-bound with prefetch, input-bound with a reader sleeping
+    INTRO_SLOW_S a batch.  (d) A INTRO_PROFILED_STEPS-step
+    ``profiler(trace_dir=...)`` session: its Chrome trace holds B1's and
+    B2's kernels; ``compiled_op_report`` of the count has a
+    ``flash_attention`` row; ``memory_usage(main, batch)`` within
+    INTRO_MEMORY_RATIO of ``max_memory_allocated`` over one eager step
+    from a fresh peak."""
+    import gc
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import executor as executor_mod
+    from paddle_tpu_torch.observability import xla_stats
+
+    t_phase = time.perf_counter()
+    cfg = TRAIN_CFG
+    batch = cfg["batch_size"]
+    order = ["src_word", "trg_word", "lbl_word"]
+    samples = trainer_samples(INTRO_STEPS * batch, SEED + 70, cfg)
+    reader = fluid.reader.batch(lambda: iter(samples), batch)
+    train_func, optimizer_func = transformer_trainer_funcs(fluid, T, cfg)
+    stats = {"batch": batch, "seq_len": cfg["seq_len"], "card": card_line()}
+
+    def trainer():
+        np.random.seed(SEED + 71)   # one start state, one run seed
+        return fluid.Trainer(train_func, optimizer_func,
+                             place=fluid.CUDAPlace(0))
+
+    def state_of(t):
+        names = sorted(n for n in t.train_program.persistable_names()
+                       if n in t.scope)
+        return host_state(torch, t.scope, names)
+
+    def run(t, **kw):
+        box = {}
+        box["syncs"] = count_syncs(torch, lambda: box.update(
+            run=trainer_run(fluid, fa, executor_mod, t, reader, order,
+                            INTRO_STEPS - 1, **kw)))
+        r = box["run"]
+        check(r["steps"] == list(range(INTRO_STEPS))
+              and all(n == [18, 18] for n in r["launches"]),
+              "introspection: steps and B1/B2 launches", r["launches"])
+        return r, box["syncs"]
+
+    def release():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    xla_stats.disable()
+    xla_stats.reset()
+    xla_stats.restore_defaults()
+    sink = obs.RingBufferSink()
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        # -- (a) bitwise neutrality, and no added synchronization --------
+        a = trainer()
+        run_off, syncs_off = run(a)
+        want = state_of(a)
+        del a
+        release()
+        b = trainer()
+        tag = "%x:v%d" % (id(b.train_program), b.train_program.version)
+        xla_stats.enable()
+        obs.add_sink(sink)
+        try:
+            run_on, syncs_on = run(b)
+        finally:
+            obs.remove_sink(sink)
+        moved = state_moved(torch, b.scope, want)
+        check(not moved, "introspection: the armed run moved bits",
+              moved[:8])
+        check([x.tobytes() for x in run_on["losses"]]
+              == [x.tobytes() for x in run_off["losses"]],
+              "introspection: the armed run's losses differ")
+        check(syncs_on == syncs_off, "introspection: the armed plane added "
+              "device syncs", syncs_on, syncs_off)
+        stats["neutrality"] = {
+            "params_and_moments_bitwise": len(want),
+            "syncs_off": syncs_off, "syncs_on": syncs_on,
+            "added_syncs_per_step": (sum(syncs_on.values())
+                                     - sum(syncs_off.values()))
+            / INTRO_STEPS}
+        del want
+
+        # -- (b) the count and MFU ----------------------------------------
+        st = xla_stats.program_stats(tag)
+        hand = transformer_step_flops(T, cfg)
+        check(st is not None and st.steps > 0,
+              "introspection: no count or no observed step", st)
+        rel = abs(st.flops - hand["total"]) / hand["total"]
+        check(rel < INTRO_FLOPS_RTOL, "introspection: counted FLOPs vs the "
+              "hand count", st.flops, hand)
+        step_s = st.total_time_s / st.steps
+        mfu_bf16 = st.flops / step_s / xla_stats.device_peaks()[0]
+        recs = [r for r in sink.records if r.get("source") == "trainer"]
+        with_mfu = [r["step"] for r in recs if r.get("mfu") is not None]
+        check(with_mfu and with_mfu[-1] == INTRO_STEPS - 1,
+              "introspection: trainer records without mfu", with_mfu)
+        # three more steps against the float32 roof, pinned
+        xla_stats.configure_peaks(PEAK_F32_FLOPS, PEAK_BYTES_S)
+        n0 = st.steps
+        trainer_run(fluid, fa, executor_mod, b, reader, order, 2)
+        st = xla_stats.program_stats(tag)
+        mfu_f32 = st.last_mfu
+        check(st.steps > n0 and mfu_f32 is not None,
+              "introspection: no step observed against the pinned roof")
+        stats["count"] = {
+            "flops": st.flops, "hand_flops": hand,
+            "flops_rel_err": rel, "bytes_accessed": st.bytes_accessed,
+            "arg_bytes": st.arg_bytes, "out_bytes": st.out_bytes,
+            "temp_bytes": st.temp_bytes,
+            "peak_hbm_bytes": st.peak_hbm_bytes,
+            "arith_intensity": st.arith_intensity,
+            "observed_steps": st.steps,
+            "mean_device_step_ms": step_s * 1e3,
+            "host_step_ms": synced_ms(run_on),
+            "mfu_vs_989.4e12_bf16_table": mfu_bf16,
+            "mfu_vs_67e12_f32_pinned": mfu_f32,
+            "bw_util_vs_3.35e12": st.last_bw_util,
+            "trainer_records_with_mfu": with_mfu,
+            "gauges": {g: obs.gauge(g).value for g in xla_stats.GAUGES}}
+        report, rows = fluid.profiler.compiled_op_report(
+            b.train_program, None, compiled=st)
+        check("flash_attention" in rows and "backward" in rows,
+              "introspection: compiled_op_report rows", sorted(rows))
+        stats["op_rows"] = rows
+        xla_stats.disable()
+        xla_stats.restore_defaults()
+
+        # -- (c) attribution: compute-bound, then input-bound --------------
+        att = obs.StepAttribution(window_steps=INTRO_WINDOW)
+        trainer_run(fluid, fa, executor_mod, b, reader, order,
+                    INTRO_STEPS - 1, attribution=att, prefetch=True)
+        fast = att.verdict()
+
+        def slow_reader():
+            for item in reader():
+                time.sleep(INTRO_SLOW_S)
+                yield item
+
+        att = obs.StepAttribution(window_steps=INTRO_WINDOW)
+        trainer_run(fluid, fa, executor_mod, b, slow_reader, order,
+                    INTRO_SLOW_STEPS - 1, attribution=att, prefetch=True)
+        slow = att.verdict()
+        check(fast["verdict"] == "compute-bound", "introspection: the "
+              "prefetched Trainer is not compute-bound", fast)
+        check(slow["verdict"] == "input-bound", "introspection: the slow "
+              "reader's Trainer is not input-bound", slow)
+        stats["attribution"] = {"prefetch": fast, "slow_reader": slow,
+                                "slow_reader_sleep_s": INTRO_SLOW_S}
+
+        # -- (d) the profiler ----------------------------------------------
+        t0 = time.perf_counter()
+        with fluid.profiler.profiler(
+                profile_path=os.path.join(trace_dir, "report.txt"),
+                trace_dir=trace_dir):
+            trainer_run(fluid, fa, executor_mod, b, reader, order,
+                        INTRO_PROFILED_STEPS - 1)
+        trace_path = os.path.join(trace_dir, fluid.profiler.TRACE_FILE)
+        trace = json.load(open(trace_path))
+        names = [e.get("name", "") for e in trace.get("traceEvents", [])
+                 if e.get("cat") == "kernel"]
+        found = {k: sum(k in n for n in names)
+                 for k in ("flash_fwd_kernel", "flash_bwd_fused_kernel")}
+        check(all(found.values()), "introspection: the trace lacks B1 or "
+              "B2", found, len(names))
+        report = open(os.path.join(trace_dir, "report.txt")).read()
+        check("executor.run" in report, "introspection: profiler report",
+              report)
+        stats["profiler"] = {
+            "steps": INTRO_PROFILED_STEPS,
+            "seconds": time.perf_counter() - t0,
+            "trace_bytes": os.path.getsize(trace_path),
+            "kernel_events": len(names), "flash_kernel_events": found,
+            "report": report.splitlines()[:4]}
+        program = b.train_program
+        del b
+        release()
+
+        # -- (d) memory_usage vs one eager step's peak ---------------------
+        resident = torch.cuda.memory_allocated(dev)
+        low, high, unit = fluid.contrib.memory_usage(program, batch)
+        scale = {"GB": 2 ** 30, "MB": 2 ** 20, "KB": 2 ** 10, "B": 1}[unit]
+        release()
+        t = trainer()   # the same Program and start state, a new scope
+        feed = fluid.DataFeeder([t.train_program.global_block().var(n)
+                                 for n in order], fluid.CUDAPlace(0),
+                                program=t.train_program).feed(
+                                    samples[:batch])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with fluid.scope_guard(t.scope):
+            t.exe.run(t.train_program, feed=feed, fetch_list=[t.loss],
+                      use_program_cache=False)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        ratio = low * scale / peak
+        check(1 / INTRO_MEMORY_RATIO <= ratio <= INTRO_MEMORY_RATIO,
+              "introspection: memory_usage vs the measured peak",
+              low * scale, peak)
+        stats["memory"] = {
+            "memory_usage_low_bytes": low * scale,
+            "memory_usage_high_bytes": high * scale,
+            "eager_step_peak_bytes": peak,
+            "allocated_before_step": base,
+            "resident_before_memory_usage": resident,
+            "low_over_peak": ratio}
+        del t, feed
+        release()
+    finally:
+        obs.remove_sink(sink)
+        xla_stats.disable()
+        xla_stats.restore_defaults()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    stats["seconds"] = time.perf_counter() - t_phase
+    log("introspection (Transformer-base %d x %d through fluid.Trainer): %s"
+        % (batch, cfg["seq_len"], json.dumps(stats, default=str)))
+    return stats
+
+
 def lenet_trainer_funcs(fluid, mnist, holder):
     """LeNet's train_func ([loss, accuracy]; the prediction kept in
     ``holder``), optimizer_func (Adam 1e-3) and infer_func, as
@@ -6925,7 +7189,9 @@ def beam_check(torch, fluid, fa, dev, inf, state, src):
 
 def count_syncs(torch, fn):
     """Run ``fn`` with CUDA's sync debug mode warning, and count the
-    device syncs by the Python line that made them."""
+    device syncs by the Python line that made them.  The notice that the
+    mode is a prototype (once a process, at the first switch) is not a
+    sync and is left out."""
     import warnings
 
     where = {}
@@ -6937,7 +7203,8 @@ def count_syncs(torch, fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     for w in caught:
-        if "synchroniz" in str(w.message).lower():
+        text = str(w.message).lower()
+        if "synchroniz" in text and "prototype feature" not in text:
             key = "%s:%d" % (os.path.basename(w.filename), w.lineno)
             where[key] = where.get(key, 0) + 1
     return where
@@ -7146,6 +7413,8 @@ def main():
     fast = fast_path_phase(torch, fluid, T, fa, dev)
     torch.cuda.empty_cache()
     trainer = trainer_phase(torch, fluid, T, fa, obs, dev, fast)
+    torch.cuda.empty_cache()
+    introspection_phase(torch, fluid, T, fa, obs, dev)
     torch.cuda.empty_cache()
     lenet_trainer_phase(torch, fluid, fa, dev, lenet)
     torch.cuda.empty_cache()

@@ -56,6 +56,7 @@ from . import optimizer
 from . import regularizer
 from . import clip
 from . import backward
+from . import profiler
 from . import executor
 from . import lod
 from . import data_feeder
@@ -90,7 +91,7 @@ from .transpiler import InferenceTranspiler, memory_optimize, release_memory
 __all__ = [
     "core", "unique_name", "framework", "initializer", "layers", "nets",
     "optimizer", "regularizer", "clip", "backward", "executor", "lod",
-    "data_feeder", "program_fn", "resilience", "io", "models",
+    "data_feeder", "program_fn", "resilience", "io", "models", "profiler",
     "observability", "parallel", "serving", "transpiler", "CPUPlace",
     "CUDAPlace", "InferenceTranspiler", "memory_optimize", "release_memory",
     "resolve_device", "Executor", "Scope", "global_scope",

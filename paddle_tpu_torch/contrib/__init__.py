@@ -1,10 +1,12 @@
 """Contrib utilities (reference: python/paddle/fluid/contrib/).
 
-The port's counterpart of ``paddle_tpu/contrib/``, so far with
-``mixed_precision`` only.  Not ported yet: ``decoder`` (it needs the
-``While`` op, ROADMAP A10), ``quantize`` (A12) and ``memory_usage_calc``
-(it stands on the profiler, A9).
+The port's counterpart of ``paddle_tpu/contrib/``: ``mixed_precision``
+and ``memory_usage_calc`` (``memory_usage``, ``memory_analysis``).  Not
+ported yet: ``decoder`` (it needs the ``While`` op, ROADMAP A10) and
+``quantize`` (A12).
 """
-from . import mixed_precision  # noqa: F401
+from . import memory_usage_calc, mixed_precision  # noqa: F401
+from .memory_usage_calc import memory_analysis, memory_usage  # noqa: F401
 
-__all__ = ["mixed_precision"]
+__all__ = ["mixed_precision", "memory_usage_calc", "memory_usage",
+           "memory_analysis"]

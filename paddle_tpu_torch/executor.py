@@ -73,6 +73,18 @@ environment pruned at each boundary (``lower_block``); bound and
 captured like any other step, with the same bits as the step without
 it.
 
+Introspection (``observability.xla_stats``, ``profiler``): while the
+plane is armed, the first op-by-op run of a key runs under a count
+(FLOPs, bytes, peak memory), which its bound entry keeps; an entry
+bound before arming runs its captured step eagerly once under the count
+instead of a replay.  Observed steps are timed on the device (CUDA
+events, read without a synchronization) for MFU, and the step record's
+``execute_s`` is that device time while the plane or a sink that asks
+for it (``StepAttribution``) is on.  A capture emits the
+``executor.compile`` span.  While a profiler session runs, a bound
+entry runs op by op and each Program op sits in a ``record_function``
+range (``op_scope``).
+
 Not ported yet: the persistent compile cache (a CUDA graph cannot be
 saved), the parameter-server runtime and meshes.
 """
@@ -87,11 +99,13 @@ import numpy as np
 import torch
 
 from . import observability as _obs
+from . import profiler as _prof
 from . import resilience
 from . import streams as _streams
 from .core import f32_bf16_reduction, resolve_device, torch_dtype
 from .framework import Program, Variable, default_main_program, grad_var_name
 from .lod import LoDArray
+from .observability import xla_stats as _xla_stats
 from .registry import get_rule, reads_host
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
@@ -657,11 +671,48 @@ def _rng_words(key, seed, step):
     return (attr, uid) if attr else (seed, step, uid)
 
 
+# (thread ident or None for every thread, scope) pairs: while any is
+# registered, the Program op loops run each op inside ``scope(op.type)``
+# (the profiler's ``record_function`` ranges, a count's op rows), and
+# the autograd backward inside ``scope("backward")``
+_op_scopes = []
+
+
+@contextlib.contextmanager
+def op_scope(scope, all_threads=False):
+    """Run the Program ops of this thread (of every thread with
+    ``all_threads``) inside ``scope(op_type)`` while the block lasts."""
+    entry = (None if all_threads else threading.get_ident(), scope)
+    _op_scopes.append(entry)
+    try:
+        yield
+    finally:
+        _op_scopes.remove(entry)
+
+
+@contextlib.contextmanager
+def _in_op_scopes(op_type):
+    me = threading.get_ident()
+    with contextlib.ExitStack() as stack:
+        for thread, scope in list(_op_scopes):
+            if thread is None or thread == me:
+                stack.enter_context(scope(op_type))
+        yield
+
+
+def _run_rule(ctx, op):
+    if _op_scopes:
+        with _in_op_scopes(op.type):
+            get_rule(op.type)(ctx, op)
+    else:
+        get_rule(op.type)(ctx, op)
+
+
 def interpret_ops(ctx: LoweringContext, ops):
     """Run an op list in order (no backward meta-op)."""
     for op in ops:
         ctx.op = op
-        get_rule(op.type)(ctx, op)
+        _run_rule(ctx, op)
 
 
 _COMPANION_SUFFIXES = ("@LENGTHS", "@SUBLENGTHS", "@ARRAY", "@ARRAYLEN")
@@ -751,7 +802,7 @@ def _run_recompute_segments(ctx, pre, n_segments, keep):
             c2 = ctx.child(dict(env_in))
             for op in seg:
                 ctx.op = c2.op = op
-                get_rule(op.type)(c2, op)
+                _run_rule(c2, op)
             return c2.env
 
         if i < len(segments) - 1:
@@ -838,21 +889,23 @@ def lower_block(ctx: LoweringContext, block):
         else:
             for op in pre:
                 ctx.op = op
-                get_rule(op.type)(ctx, op)
+                _run_rule(ctx, op)
                 for nm in (n for ns in op.outputs.values() for n in ns):
                     if nm in cut:  # cut the graph at a wrt intermediate
                         if nm not in leaves:
                             leaves[nm] = ctx.env[nm].detach().requires_grad_(True)
                         ctx.env[nm] = leaves[nm]
-        total = 0.0
-        for i, t in enumerate(target_names):
-            tv = ctx.env[t].float()
-            if i < len(tg_names):  # a cotangent, constant w.r.t. the wrt vars
-                tv = tv * ctx.env[tg_names[i]].detach().float()
-            total = total + tv.sum()
-        wrt_leaves = [leaves[w] for w in wrt_names]
         ctx.op = bop
-        grads = torch.autograd.grad(total, wrt_leaves, allow_unused=True)
+        with (_in_op_scopes("backward") if _op_scopes
+              else contextlib.nullcontext()):
+            total = 0.0
+            for i, t in enumerate(target_names):
+                tv = ctx.env[t].float()
+                if i < len(tg_names):  # a cotangent, constant w.r.t. the wrt vars
+                    tv = tv * ctx.env[tg_names[i]].detach().float()
+                total = total + tv.sum()
+            wrt_leaves = [leaves[w] for w in wrt_names]
+            grads = torch.autograd.grad(total, wrt_leaves, allow_unused=True)
     for w, leaf, g in zip(wrt_names, wrt_leaves, grads):
         if g is None:  # the targets do not reach this variable
             g = torch.zeros_like(leaf)
@@ -1251,7 +1304,7 @@ class _BoundProgram:
                  "state_owners", "key_owner", "fetch_names", "reads",
                  "persistable", "written", "rng_keys", "nan_guard", "step",
                  "graph", "static_feeds", "state", "fetch_out", "good_out",
-                 "generators", "launches", "capture_s", "pool_bytes")
+                 "generators", "launches", "capture_s", "pool_bytes", "xla")
 
 
 def _scope_chain_token(scope):
@@ -1264,6 +1317,11 @@ def _scope_chain_token(scope):
 
 
 _BOUND_MISS = object()  # sentinel: bound validation failed, take slow path
+
+
+def _program_tag(program):
+    """The JAX package's program tag, ``<id-hex>:v<version>``."""
+    return "%x:v%d" % (id(program), getattr(program, "version", 0))
 
 
 def _feed_kind(val):
@@ -1376,6 +1434,10 @@ class Executor:
         # the device-side verdict of the last nan_guard run (see
         # last_step_ok); None when the last run had none
         self._last_guard_flag = None
+        # compute introspection (observability.xla_stats): the device
+        # time of timed steps, and the count of each op-by-op run key
+        self._clock = _xla_stats.DeviceClock()
+        self._xla_cells = {}
 
     def run(
         self,
@@ -1477,6 +1539,18 @@ class Executor:
                  for ns in op.inputs.values() for n in ns}
         reads.update(fetch_names)
         reads.update(persistable)
+        # compute introspection: the first run of a key is counted (and
+        # kept out of MFU), later ones are observed on its count
+        xs = _xla_stats._plane.active
+        timing = xs or (recording and self._telemetry.device_timing)
+        cell = count_key = None
+        if xs:
+            count_key = (id(program), program.version, id(scope),
+                         tuple(fetch_names), nan_guard,
+                         tuple(sorted((n, tuple(v.shape))
+                                      for n, v in feeds.items())))
+            cell = self._xla_cells.get(count_key)
+        counts = []
 
         def lower():
             ctx = LoweringContext(
@@ -1485,8 +1559,20 @@ class Executor:
                 keep_names=fetch_names)
             with self._telemetry.span("executor.dispatch"):
                 with f32_bf16_reduction(self.device):
-                    lower_block(ctx, program.global_block())
+                    if xs and cell is None:
+                        with _xla_stats.counting(self.device) as count:
+                            lower_block(ctx, program.global_block())
+                        counts.append(count)
+                    else:
+                        lower_block(ctx, program.global_block())
             return ctx
+
+        cuda = self.device.type == "cuda"
+        profiling = _prof._active["on"]
+        t_exec = (time.perf_counter() if (recording or timing or profiling)
+                  else 0.0)
+        window = (self._clock.start(torch.cuda.current_stream(self.device))
+                  if timing and cuda else None)
 
         try:
             ctx = lower()
@@ -1504,6 +1590,18 @@ class Executor:
         new_state = {n: ctx.env[n] for n in persistable
                      if isinstance(ctx.env.get(n), torch.Tensor)}
         written = _written(ctx.env, state_in, new_state)
+        if counts:
+            st = counts[-1].finish(
+                _program_tag(program),
+                _xla_stats.tensor_bytes([*state_in.values(),
+                                         *feeds.values()]),
+                _xla_stats.tensor_bytes([v for v, _, _ in fetches]
+                                        + [new_state[n] for n in written]))
+            cell = None  # a fresh count: this run enters no MFU
+            self._xla_cells.pop(count_key, None)
+            while len(self._xla_cells) >= _BOUND_CAP:
+                self._xla_cells.pop(next(iter(self._xla_cells)))
+            self._xla_cells[count_key] = {"stats": st}
         if nan_guard:
             good, gated = _nan_guard(ctx.env, state_in, written, persistable,
                                      [v for v, _, _ in fetches], self.device)
@@ -1528,6 +1626,15 @@ class Executor:
                     owner.vars[name] = val.detach()
         key_owner = scope._owner("__rng_key__") or scope
         key_owner.vars["__rng_key__"] = (seed, step + 1)
+        execute_s = self._step_time(
+            window, t_exec, cell["stats"] if cell else None, xs, timing,
+            recording)
+        if profiling:
+            # the profiler's row: the step to the end of its device work
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            _prof.record("executor.run[prog@%x v%d]" % (
+                id(program), program.version), time.perf_counter() - t_exec)
 
         if reader_fed:
             # not a rule that reads the host: the feed itself comes from a
@@ -1541,12 +1648,31 @@ class Executor:
             else:
                 self._bind(bound_key, program, scope, feed, feeds, state_in,
                            new_state, written, key_owner, ctx, fetch_names,
-                           nan_guard)
+                           nan_guard, self._xla_cells.get(count_key))
         if recording:
             self._emit_step(program, time.perf_counter() - t_run0,
-                            fast_path=False, compiled=False,
+                            execute_s, fast_path=False, compiled=False,
                             nan_guard=nan_guard)
         return out
+
+    def _step_time(self, window, t0, stats, xs, timing, recording):
+        """The record's ``execute_s`` for a step that began at ``t0``
+        (host clock) and, on the card, at the event ``window``: with
+        device timing on, the device time of this executor's steps that
+        completed since the last record (the step's own once the host
+        has waited for it; ``sync_timing`` waits here), each observed on
+        its count (``stats`` None: no MFU); else the host's wall around
+        the dispatch."""
+        if window is not None:
+            self._clock.stop(window, torch.cuda.current_stream(self.device),
+                             stats, wait=xs and _xla_stats._plane.sync)
+            return self._clock.drain()
+        if not (recording or timing):
+            return None
+        seconds = time.perf_counter() - t0
+        if timing and stats is not None:
+            _xla_stats.observe_stats(stats, seconds)
+        return seconds
 
     def last_step_ok(self):
         """After a ``nan_guard=True`` run: the device-side verdict of the
@@ -1559,11 +1685,12 @@ class Executor:
             return None
         return bool(flag.item())
 
-    def _emit_step(self, program, duration_s, fast_path, compiled,
-                   nan_guard):
+    def _emit_step(self, program, duration_s, execute_s, fast_path,
+                   compiled, nan_guard):
         """One structured step record to the telemetry sinks (the caller
         gates on ``self._telemetry.recording``).  ``nan_ok`` is None by
-        design: reading the device verdict would sync every step."""
+        design: reading the device verdict would sync every step.
+        ``execute_s`` is :meth:`_step_time`'s."""
         seq = self._run_seq
         self._run_seq = seq + 1
         self._telemetry.emit({
@@ -1571,7 +1698,7 @@ class Executor:
             "ts": time.time(),
             "source": "executor",
             "run_id": self._run_id,
-            "program": "%x:v%d" % (id(program), getattr(program, "version", 0)),
+            "program": _program_tag(program),
             "step": seq,
             "duration_s": duration_s,
             "steps_per_s": (1.0 / duration_s) if duration_s > 0 else None,
@@ -1580,6 +1707,7 @@ class Executor:
             "nan_guard": nan_guard,
             "fast_path": fast_path,
             "compile": compiled,
+            "execute_s": execute_s,
         })
 
     @staticmethod
@@ -1627,7 +1755,8 @@ class Executor:
 
     # -- fast path -----------------------------------------------------------
     def _bind(self, bound_key, program, scope, feed, feeds, state_in,
-              new_state, written, key_owner, ctx, fetch_names, nan_guard):
+              new_state, written, key_owner, ctx, fetch_names, nan_guard,
+              xla=None):
         """Create or refresh the bound entry after a run of the slow path.
 
         Only a settled run binds: a step that created a persistable (its
@@ -1660,6 +1789,7 @@ class Executor:
         b.nan_guard = nan_guard
         b.step = b.graph = b.state = None
         b.capture_s = b.pool_bytes = None
+        b.xla = xla  # the entry's count cell ({"stats": ...}), once counted
         with self._lock:
             self._bound.pop(bound_key, None)
             while len(self._bound) >= _BOUND_CAP:
@@ -1676,6 +1806,12 @@ class Executor:
         re-derives the step and binds again."""
         if bound.version != program.version or bound.scope() is not scope:
             return _BOUND_MISS
+        if _prof._active["on"]:
+            return _BOUND_MISS  # profiled steps run op by op, in op ranges
+        xs = _xla_stats._plane.active
+        count = xs and bound.xla is None
+        if count and bound.step is None:
+            return _BOUND_MISS  # the op-by-op run counts, then binds again
         for sref, v in bound.chain:
             s = sref()
             if s is None or s._version != v:
@@ -1705,33 +1841,47 @@ class Executor:
             feed = resilience._feed_fault(feed)
         self._last_guard_flag = None
         compiled = bound.step is None
-        with self._telemetry.span("executor.dispatch"):
-            fetches, flag = self._replay(bound, program, feed, state_in,
-                                         seed, step)
+        timing = xs or (recording and self._telemetry.device_timing)
+        # the count and the capture enter no MFU
+        stats = (bound.xla["stats"] if timing and bound.xla and not count
+                 and not compiled else None)
+        t0 = time.perf_counter() if (recording or timing) else 0.0
+        with self._telemetry.span("executor.compile" if compiled
+                                  else "executor.dispatch"):
+            fetches, flag, window = self._replay(
+                bound, program, feed, state_in, seed, step, count, timing)
+        execute_s = self._step_time(window, t0, stats, xs, timing, recording)
         self._last_guard_flag = flag
         key_owner.vars["__rng_key__"] = (seed, step + 1)
         if recording:
             self._emit_step(program, time.perf_counter() - t_run0,
-                            fast_path=True, compiled=compiled,
+                            execute_s, fast_path=True, compiled=compiled,
                             nan_guard=bound.nan_guard)
         return self._finalize_fetches([(v, None, None) for v in fetches],
                                       return_numpy, lazy=True)
 
-    def _replay(self, bound, program, feed, state_in, seed, step):
+    def _replay(self, bound, program, feed, state_in, seed, step,
+                count=False, timing=False):
         """One step of the entry's captured step, capturing it first if
         this is the entry's second run: the feeds copied into its static
         buffers, its generators seeded for this run, then one replay of
-        the graph on the card (the step itself on the CPU).  Returns
-        (the fetches, cloned out, the guard verdict or None)."""
+        the graph on the card (the step itself on the CPU).  ``count``
+        runs the captured step eagerly instead, under a count
+        (``observability.xla_stats``), which becomes the entry's.
+        Returns (the fetches, cloned out, the guard verdict or None, the
+        step's start event on the card with ``timing``, else None)."""
         from .parallel import flash_attention as fa
 
         cuda = self.device.type == "cuda"
+        window = None
         with self._graph_lock:
             if bound.step is None:
                 self._capture(bound, program, state_in, seed, step)
             stream = torch.cuda.current_stream(self.device) if cuda else None
             if self._replayed is not None:
                 stream.wait_event(self._replayed)
+            if timing and cuda:
+                window = self._clock.start(stream)
             for name, val in feed.items():
                 static = bound.static_feeds[name]
                 if (isinstance(val, torch.Tensor)
@@ -1750,7 +1900,18 @@ class Executor:
                 _feed_copies.inc()
             for key, gen in bound.generators.items():
                 gen.manual_seed(_mix64(*_rng_words(key, seed, step)))
-            if bound.graph is not None:
+            if count:
+                with _xla_stats.counting(self.device) as counted:
+                    outs, good = bound.step()
+                st = counted.finish(
+                    _program_tag(program),
+                    _xla_stats.tensor_bytes([*bound.state.values(),
+                                             *bound.static_feeds.values()]),
+                    _xla_stats.tensor_bytes(
+                        list(outs) + [bound.state[n] for n in bound.written
+                                      if n in bound.state]))
+                bound.xla = {"stats": st}
+            elif bound.graph is not None:
                 bound.graph.replay()
                 fa.add_launches(bound.launches)
                 outs, good = bound.fetch_out, bound.good_out
@@ -1761,7 +1922,7 @@ class Executor:
             if cuda:
                 self._replayed = torch.cuda.Event()
                 self._replayed.record(stream)
-        return fetches, flag
+        return fetches, flag, window
 
     def _capture(self, bound, program, state_in, seed, step):
         """Build the entry's step and, on the card, capture it as a CUDA

@@ -8,9 +8,13 @@ latency histograms (:mod:`.histogram`), request trace contexts
 summary, Chrome trace), the live ``/metrics`` + ``/healthz`` endpoint
 (:mod:`.export`) and the SLO monitor (:mod:`.slo`) — so the port's
 runtime reports under the same names and a scrape of either package
-parses the same way.  The compiler-statistics capture and the step
-attribution (``xla_stats``, ``StepAttribution``) are not ported (ROADMAP
-A9).
+parses the same way.  Compute introspection: :mod:`.xla_stats` counts a
+step's FLOPs, bytes and memory in one eager run under a dispatch mode
+(the port has no compiler's cost analysis to read) and publishes the
+``compute.*`` gauges, MFU among them, from the step's device time;
+:class:`StepAttribution` (:mod:`.attribution`) is a sink that splits
+step wall into input, compute, compile and fetch and calls each window
+input-bound or compute-bound.
 
 ``PADDLE_TPU_TELEMETRY=0`` is the killswitch for records and spans;
 counters always count.
@@ -66,6 +70,8 @@ from .sinks import (
     print_report,
 )
 from .slo import SLOAlert, SLOMonitor, SLOTarget
+from . import xla_stats
+from .attribution import PHASE_OF_SPAN, VERDICT_CODE, StepAttribution
 from .tracing import TraceContext, build_trace_tree, new_trace
 
 __all__ = [
@@ -111,6 +117,10 @@ __all__ = [
     "SLOMonitor",
     "SLOTarget",
     "SLOAlert",
+    "xla_stats",
+    "StepAttribution",
+    "PHASE_OF_SPAN",
+    "VERDICT_CODE",
 ]
 
 # The JAX package's step-record schema, which the port's records follow.

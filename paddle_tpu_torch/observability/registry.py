@@ -258,6 +258,9 @@ class Telemetry:
         self._sinks = []
         # precomputed fast-path flags: one attribute read on the hot path
         self.recording = False      # enabled and >=1 sink takes records
+        # a record sink wants the device time of steps in their records
+        # (``execute_s``): StepAttribution
+        self.device_timing = False
         self._span_sinks = ()       # sinks that take spans
         self._record_sinks = ()     # sinks that take records
 
@@ -280,6 +283,8 @@ class Telemetry:
         self._record_sinks = tuple(
             s for s in sinks if getattr(s, "wants_records", True))
         self.recording = bool(self._record_sinks)
+        self.device_timing = any(getattr(s, "wants_device_time", False)
+                                 for s in self._record_sinks)
 
     # -- metrics -------------------------------------------------------------
     # ``labels`` (a {key: value} dict) keys a DISTINCT cell per label

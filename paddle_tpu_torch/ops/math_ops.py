@@ -9,6 +9,7 @@ these on the TPU, and no Pallas kernel ever computed them.  ``mul`` and
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..registry import register
 from .common import bcast_y, mixed_dtypes, reduce_axes
@@ -49,6 +50,7 @@ def _scale(ctx, op):
         ctx.set_output(op, "Out", x * s + b)
     else:
         ctx.set_output(op, "Out", (x + b) * s)
+    ctx.copy_lengths(op.inputs["X"][0], op.outputs["Out"][0])
 
 
 @register("mul")
@@ -106,6 +108,14 @@ _blocked_mm_op = torch.library.custom_op(
 @_blocked_mm_op.register_fake
 def _blocked_mm_fake(x, y, block_rows):
     return x.new_empty((x.shape[0], y.shape[1]))
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.blocked_mm)
+def _blocked_mm_flops(x, y, block_rows, out_shape=None, **kwargs):
+    """The batched product as it runs: whole blocks, at least two, the
+    pad rows included (``observability.xla_stats`` counts a step)."""
+    (rows, k), cols = x, y[1]
+    return 2 * max(2, -(-rows // block_rows)) * block_rows * k * cols
 
 
 def _prod(dims):
@@ -187,6 +197,7 @@ def _make_act(op_type, fn):
     def _rule(ctx, op, fn=fn):
         x = ctx.get_input(op, "X")
         ctx.set_output(op, "Out", fn(x, op.attrs))
+        ctx.copy_lengths(op.inputs["X"][0], op.outputs["Out"][0])
 
 
 for _t, _f in _ACTS.items():

@@ -180,6 +180,7 @@ def _dropout(ctx, op):
     ctx.set_output(op, "Out", out)
     if ctx.reads(op, "Mask"):
         ctx.set_output(op, "Mask", mask.to(x.dtype))
+    ctx.copy_lengths(op.inputs["X"][0], op.outputs["Out"][0])
 
 
 @register("softmax")
@@ -254,6 +255,7 @@ def _lookup_table(ctx, op):
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((flat == padding_idx)[..., None], 0.0, out)
     ctx.set_output(op, "Out", out)
+    ctx.copy_lengths(op.inputs["Ids"][0], op.outputs["Out"][0])
 
 
 @register("accuracy")

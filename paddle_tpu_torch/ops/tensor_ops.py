@@ -88,9 +88,10 @@ def _cast(ctx, op):
         out = xd.clamp(info.min, info.max).to(dtype)
         # float64 rounds int64's upper end up to 2**63, past the range
         out = torch.where(xd >= float(info.max), info.max, out)
-        ctx.set_output(op, "Out", out)
-        return
-    ctx.set_output(op, "Out", x.to(dtype))
+    else:
+        out = x.to(dtype)
+    ctx.set_output(op, "Out", out)
+    ctx.copy_lengths(op.inputs["X"][0], op.outputs["Out"][0])
 
 
 @register("reshape", "reshape2")

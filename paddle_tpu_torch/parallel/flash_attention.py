@@ -41,7 +41,14 @@ backend, ``io.save_inference_model(..., aot=True)``) and a saved graph
 launches the same kernel when it runs; the wrapper's checks, alignment
 copies and its empty-input guard stay inside the implementation, out of
 the traced graph.  Training keeps the autograd ``Function``
-(``_FlashAttention``) around it.
+(``_FlashAttention``) around it; its backward calls the second operator,
+``torch.ops.paddle_tpu_torch.flash_bwd`` (the plain version of the
+engine :data:`FLASH_BWD_IMPL` names on the CPU, that engine's kernels
+on the card).  Both operators carry FLOP formulas
+(``torch.utils.flop_counter.register_flop_formula``) with the
+conventions of torch's own for ``scaled_dot_product_attention``, so a
+count of a step (``observability.xla_stats``) gives the same FLOPs on
+either device.
 
 Each kernel wrapper counts its launches in :data:`KERNEL_LAUNCHES`
 (plain integers, incremented only where the kernel is launched, under a
@@ -63,6 +70,9 @@ import threading
 import warnings
 
 import torch
+from torch.utils.flop_counter import (register_flop_formula,
+                                      sdpa_backward_flop_count,
+                                      sdpa_flop_count)
 
 __all__ = ["flash_attention", "mha_reference", "paged_decode_attention",
            "paged_prefill_attention", "paged_kv_finite", "KERNEL_LAUNCHES",
@@ -600,22 +610,67 @@ def _flash_fwd(q, k, v, kv_lens, causal, sm_scale):
                                                 sm_scale)
 
 
-def _flash_bwd(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
-    engine = FLASH_BWD_IMPL
-    if engine not in _BWD_ENGINES:
-        raise ValueError("FLASH_BWD_IMPL must be auto, fused or pair, got %r"
-                         % (engine,))
+def _flash_bwd_plain(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    """flash_bwd's CPU implementation: the plain version of the engine
+    :data:`FLASH_BWD_IMPL` names."""
     args = (q, k, v, kv_lens, out, lse, do, causal, sm_scale)
-    if _dispatch(q, "flash_attention") == "plain":
-        if engine == "pair":
-            return _flash_bwd_pair_reference(*args)
-        return _flash_bwd_reference(*args)
+    if FLASH_BWD_IMPL == "pair":
+        return _flash_bwd_pair_reference(*args)
+    return _flash_bwd_reference(*args)
+
+
+def _flash_bwd_kernels(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    """flash_bwd's CUDA implementation: B2 (fused) or B3 (pair), as
+    :data:`FLASH_BWD_IMPL` names them; ``auto`` asks
+    :func:`_pick_bwd_engine`."""
+    args = (q, k, v, kv_lens, out, lse, do, causal, sm_scale)
+    engine = FLASH_BWD_IMPL
     if engine == "auto":
         B, H, _, D = q.shape
         engine = _pick_bwd_engine(B, H, D, _sm_count(_device_index(q)))
     if engine == "pair":
         return _flash_bwd_pair_cuda(*args)
     return _flash_bwd_cuda(*args)
+
+
+# The backward as an operator too, so that a dispatch mode sees one call
+# on either device (the plain version's products would otherwise count
+# on the CPU and the kernels' launches not at all on the card)
+_flash_bwd_op = torch.library.custom_op(
+    "paddle_tpu_torch::flash_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? kv_lens, Tensor out, "
+           "Tensor lse, Tensor do, bool causal, float sm_scale) -> "
+           "(Tensor, Tensor, Tensor)")(_flash_bwd_plain)
+_flash_bwd_op.register_kernel("cuda")(_flash_bwd_kernels)
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+# FLOPs of the two operators, by the conventions of torch's own formulas
+# for scaled_dot_product_attention: 4·B·H·T·S·D forward, 10·B·H·T·S·D
+# backward (five products, the scores recomputed).  Masks do not
+# discount, as SDPA's do not
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_fwd)
+def _flash_fwd_flops(q, k, v, *args, out_shape=None, **kwargs):
+    return sdpa_flop_count(q, k, v)
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_bwd)
+def _flash_bwd_flops(q, k, v, kv_lens, out, lse, do, *args, out_shape=None,
+                     **kwargs):
+    return sdpa_backward_flop_count(do, q, k, v)
+
+
+def _flash_bwd(q, k, v, kv_lens, out, lse, do, causal, sm_scale):
+    if FLASH_BWD_IMPL not in _BWD_ENGINES:
+        raise ValueError("FLASH_BWD_IMPL must be auto, fused or pair, got %r"
+                         % (FLASH_BWD_IMPL,))
+    _dispatch(q, "flash_attention")
+    return torch.ops.paddle_tpu_torch.flash_bwd(q, k, v, kv_lens, out, lse,
+                                                do, causal, sm_scale)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -15,8 +15,7 @@ port's ``(seed, step)`` pair, saved as ``rng_state.npy`` (int64[2]); the
 JAX package's ``rng_key.npy`` (a jax PRNG key) is validated and ignored
 on load, with a warning, and the program's seed kept.
 ``Trainer(parallel=...)``, ``sharding_rules`` and ``zero_stage`` wait for
-meshes (ROADMAP A11); ``train(attribution=...)`` and the step record's
-``mfu`` for the profiling plane (A9).
+meshes (ROADMAP A11).
 
 Reference: python/paddle/fluid/contrib/trainer.py (Trainer, the four
 *Event classes, CheckpointConfig) and contrib/inferencer.py.  The
@@ -65,6 +64,7 @@ from .core import CUDAPlace
 from .data_feeder import DataFeeder
 from .executor import Executor, Scope, as_numpy, global_scope, scope_guard
 from .framework import Program, program_guard
+from .observability import xla_stats as _xla_stats
 
 __all__ = [
     "BeginEpochEvent",
@@ -505,8 +505,9 @@ class Trainer:
     def _emit_step_record(self, tel, run_id, prog_tag, phase, epoch_id,
                           step_id, duration_s, verdict, guard,
                           ckpt_save_s=None, ckpt_load_s=None):
-        """One trainer step record (the JAX package's keys, without
-        ``mfu``, which waits for ROADMAP A9).  Unlike executor records,
+        """One trainer step record (the JAX package's keys; ``mfu`` while
+        the compute-introspection plane is armed and this program has an
+        observed step).  Unlike executor records,
         ``nan_ok`` carries the REAL on-device verdict: an armed guard loop
         reads it every step anyway, so reporting it costs nothing
         extra."""
@@ -528,6 +529,12 @@ class Trainer:
             "retries": _retries.value,
             "rewinds": self.nan_rewinds,
         }
+        if _xla_stats.active():
+            # THIS program's count, not the newest gauge: another armed
+            # loop in the process must not leak its MFU into these records
+            st = _xla_stats.program_stats(prog_tag)
+            if st is not None and st.last_mfu is not None:
+                rec["mfu"] = st.last_mfu
         if ckpt_save_s is not None:
             rec["checkpoint_save_s"] = ckpt_save_s
         if ckpt_load_s is not None:
@@ -595,8 +602,8 @@ class Trainer:
               prefetch=None, prefetch_buffer=2, attribution=None):
         """Run the training loop.
 
-        ``attribution`` (the step-attribution plane) waits for ROADMAP A9
-        and raises.
+        ``attribution``: an ``observability.StepAttribution``, attached
+        for this call and detached on every way out of it.
 
         ``prefetch``: route the reader through the async device-feed
         pipeline (``reader.device_prefetch``) so batch N+1's conversion
@@ -626,9 +633,6 @@ class Trainer:
         read), and when a peer's heartbeat goes stale saves a final
         checkpoint and stops cleanly instead of hanging on a dead
         cluster."""
-        if attribution is not None:
-            _not_ported("Trainer.train(attribution=...)",
-                        "the step-attribution plane (ROADMAP A9)")
         event_handler = event_handler or (lambda e: None)
         guard_n = 0 if not nan_guard else (
             3 if nan_guard is True else max(int(nan_guard), 1))
@@ -648,6 +652,8 @@ class Trainer:
                                            prefetch, prefetch_buffer)
         if failure_monitor is not None:
             failure_monitor.start()
+        if attribution is not None:
+            attribution.attach()
         try:
             with scope_guard(self.scope):
                 for epoch_id in range(self._epoch_start, num_epochs):
@@ -743,6 +749,8 @@ class Trainer:
         finally:
             if failure_monitor is not None:
                 failure_monitor.stop()
+            if attribution is not None:
+                attribution.detach()
 
     def test(self, reader, feed_order, prefetch=None, prefetch_buffer=2):
         feeder = DataFeeder(

@@ -143,3 +143,45 @@ def test_executor_takes_a_ragged_feed():
     assert lens.dtype == sub.dtype == np.int32
     np.testing.assert_array_equal(lens, [2, 1, 3])
     np.testing.assert_array_equal(sub, [2, 1])
+
+
+def _lod_fetch_program(fl):
+    """Five ops over a ragged ``words`` feed, each of whose rules carries
+    the input's lengths to its output: embedding and dropout (training)
+    of int64 words, scale, cast and relu of float32 words."""
+    main, startup = fl.Program(), fl.Program()
+    startup.random_seed = main.random_seed = 7
+    with fl.program_guard(main, startup):
+        ids = fl.layers.data(name="ids", shape=[1], dtype="int64",
+                             lod_level=1)
+        words = fl.layers.data(name="words", shape=[1], dtype="float32",
+                               lod_level=1)
+        emb = fl.layers.embedding(ids, size=[10, 4])
+        outs = [emb, fl.layers.dropout(emb, 0.5),
+                fl.layers.scale(words, scale=2.0),
+                fl.layers.cast(words, "float64"),
+                fl.layers.relu(words)]
+    return main, startup, outs
+
+
+def test_length_carrying_rules_keep_the_lod():
+    """F-16: embedding, dropout, scale, cast and relu fetched with
+    ``return_numpy=False`` from ``create_lod_tensor(arange(6), [[2, 1,
+    3]])`` give lod ``[[0, 2, 3, 6]]`` exactly, in both packages."""
+    data = np.arange(6).reshape(6, 1)
+    got = {}
+    for name, fl in (("jax", jfluid), ("torch", tfluid)):
+        main, startup, outs = _lod_fetch_program(fl)
+        exe = fl.Executor(fl.CPUPlace())
+        scope = fl.Scope()
+        exe.run(startup, scope=scope)
+        feed = {"ids": fl.create_lod_tensor(data.astype("int64"),
+                                            [[2, 1, 3]], fl.CPUPlace()),
+                "words": fl.create_lod_tensor(data.astype("float32"),
+                                              [[2, 1, 3]], fl.CPUPlace())}
+        got[name] = exe.run(main, feed=feed, fetch_list=outs, scope=scope,
+                            return_numpy=False)
+    for j, t in zip(got["jax"], got["torch"]):
+        assert type(t).__name__ == "LoDArray"
+        assert j.lod() == t.lod() == [[0, 2, 3, 6]]
+        assert t.recursive_sequence_lengths() == [[2, 1, 3]]

@@ -279,10 +279,16 @@ def test_deferred_pieces_raise_naming_their_item():
     with pytest.raises(NotImplementedError, match="A11"):
         fluid.Trainer(_train_func, _optimizer_func, place=fluid.CPUPlace(),
                       zero_stage=1)
+    # attribution= landed with A9.2: it attaches for the call and no
+    # longer raises
+    from paddle_tpu_torch import observability as obs
+
     t = fluid.Trainer(_train_func, _optimizer_func, place=fluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="A9"):
-        t.train(num_epochs=1, reader=_reader, feed_order=["x", "y"],
-                attribution=object())
+    att = obs.StepAttribution()
+    t.train(num_epochs=1, reader=_reader, feed_order=["x", "y"],
+            attribution=att)
+    assert att.verdict()["steps"] > 0
+    assert att not in obs.get_telemetry().sinks()
     with pytest.raises(NotImplementedError, match="A11"):
         fluid.Inferencer(_infer_func, "unused", place=fluid.CPUPlace(),
                          parallel=True)

@@ -242,7 +242,15 @@ split device time by op or kernel family run a step on the eager path
    way;
 11. op rules on the card: ``mean`` of an int64 input and a float32 cast
    to int32 and uint8 (NaN, +-inf and values past the range) give the
-   JAX package's values exactly (ROADMAP F-8, F-9);
+   JAX package's values exactly (ROADMAP F-8, F-9); after ResNet-50
+   (ops_phase), every case of tests/test_torch_{math,tensor}_ops.py in
+   float64 on the card against the port's CPU, outputs and gradients
+   within OPS_RTOL, the tie cases' gradients exactly their halves,
+   ``scatter`` with repeated ids the same bits SCATTER_RUNS times,
+   ``argsort`` stable, out-of-range ids the JAX package's answer with no
+   device assert, and the four random ops in a captured step (the
+   replay bitwise the eager step, every draw within its distribution's
+   limits);
 12. ResNet-50 (models.resnet.get_model at 224 x 224, 1000 classes, f32,
    TF32 off): one step at batch 2 on the card against the port's CPU
    path from one set of numpy parameters, in float64 at the training
@@ -257,7 +265,16 @@ split device time by op or kernel family run a step on the eager path
    device time by op type and idle share; then the test Program with
    non-trivial statistics folded by InferenceTranspiler (logits within
    RESNET_FOLD_RTOL of the unfolded Program's), saved with ``aot=True``,
-   loaded and run, images/s of each; B1-B5 launched not at all;
+   loaded and run, images/s of each; B1-B5 launched not at all; then
+   the zoo (zoo_phase: VGG-16 with batch norm on CIFAR-10, SE-ResNeXt-50
+   at 224 x 224, the word2vec softmax head, ZOO): one step at full width
+   against the port's CPU path by the same method (VGG-16 at batch 4,
+   word2vec's float32 step to W2V_F32_RTOL), a TF32 step that must fail;
+   ZOO_STEPS steps on the fast path at fluid_benchmark.py's batches
+   (losses finite and falling): step ms, images/s or words/s, a
+   replay's device time and idle share, peak memory, an eager step's
+   device time by op family; a pass of each test Program; B1-B5
+   launched not at all;
 13. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
@@ -414,6 +431,7 @@ exits non-zero before printing any result.
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -581,6 +599,56 @@ RESNET_INFER_BATCH = 256
 CAST_IN = [-2.7, -0.5, 0.5, 2.7, 3e9, -3e9, float("nan"), float("inf")]
 CAST_WANT = {"int32": [-2, 0, 0, 2, 2147483647, -2147483648, 0, 2147483647],
              "uint8": [0, 0, 0, 2, 255, 0, 0, 255]}
+# the op rules of paddle_tpu_torch/ops/{math,tensor}_ops.py (ops_phase):
+# each case of tests/test_torch_{math,tensor}_ops.py in float64, card
+# against the port's CPU, forward and gradient, of each output's largest
+# magnitude (float64 rounding in another order only)
+OPS_RTOL = 1e-9
+SCATTER_RUNS = 5
+# the zoo (benchmarks/fluid_benchmark.py:150-151, 167-169 and the models'
+# get_model defaults): VGG-16 with batch norm on CIFAR-10 (Adam 1e-3),
+# SE-ResNeXt-50 on ImageNet shapes (cardinality 32, reduction 16,
+# momentum 0.1 / 0.9), the word2vec n-gram LM with the softmax head
+# (vocab 2073, embedding 32, hidden 256, Adam 1e-3); its batch, the
+# feed's unit, and the card-vs-CPU check's batch (ZOO_CHECK_BATCH unless
+# given).  VGG-16's check runs at batch 4: at batch 2 the batch_norm
+# after its first fc normalizes 2 values, so the gradient it passes back
+# is eps / (var + eps) of the incoming one, formed by cancelling two
+# terms of the incoming size; a float32 rounding there becomes a
+# whole-percent error in every gradient below it (on an H100 the card's
+# float32 step was 0.171 from the CPU's float64 in L2 at batch 2; the
+# CPU's float32 step is 3.0e-5 from it at batch 4)
+ZOO = {
+    "vgg16": dict(module="vgg", kw=dict(class_dim=10, image_shape=(3, 32, 32)),
+                  batch=64, unit="images", check_batch=4),
+    "se_resnext50": dict(module="se_resnext",
+                         kw=dict(class_dim=1000, depth=50,
+                                 image_shape=(3, 224, 224), lr=0.1),
+                         batch=64, unit="images"),
+    "word2vec": dict(module="word2vec", kw=dict(vocab_size=2073, emb_size=32,
+                                                hidden_size=256),
+                     batch=512, unit="words"),
+}
+ZOO_STEPS, ZOO_CHECK_BATCH = 20, 2
+# word2vec has no gate and no batch statistics: its float32 step is a
+# smooth function, so its float32 card step is held to this of the CPU's
+# float64 step in the loss and in every gradient (float32 rounding, about
+# 1e-6, with room; TF32's 10-bit products are about 1e-3)
+W2V_F32_RTOL = 1e-5
+# a bias added just before a batch_norm has a true gradient of 0: its
+# step's gradient, of its layer weight gradient's largest, in any dtype.
+# A true gradient would be of the weight gradient's order; the float32
+# rounding of a sum over batch x 32 x 32 terms that cancels measured
+# 1.46e-5 of it on an H100 (VGG-16, batch 2)
+ZERO_GRAD_NOISE = 1e-3
+ZOO_FAMILIES = {"conv2d": "conv", "batch_norm": "batch_norm", "mul": "gemm",
+                "pool2d": "pool", "relu": "activation",
+                "sigmoid": "activation", "dropout": "dropout",
+                "elementwise_add": "elementwise",
+                "elementwise_mul": "elementwise", "adam": "optimizer",
+                "momentum": "optimizer", "lookup_table": "embedding",
+                "concat": "concat", "softmax": "softmax",
+                "cross_entropy": "loss", "mean": "loss"}
 KERNEL_TOL = 2e-5   # kernel vs plain, f32 math on both: summation order only
 # the decode slice's kv_lens: empty slots, one key, a page, a page + 1, and
 # longer walks up to 2047 keys
@@ -3969,25 +4037,29 @@ def resnet_step(torch, fluid, m, state, x, y, dev, tf32=False):
             "stats": {n: fluid.executor.as_numpy(scope[n]) for n in stats}}
 
 
-def resnet_errors(a, ref):
+def resnet_errors(a, ref, fc="fc_0.", skip=()):
     """``a``'s step against ``ref``'s: the loss relative, each gradient's
-    and statistic's max error of its tensor's max, fc_0's gradients
-    apart, all gradients' L2 distance of their L2 norm, the accuracy."""
+    and statistic's max error of its tensor's max, the gradients of the
+    fc whose names start with ``fc`` apart, all gradients' L2 distance
+    of their L2 norm, the accuracy (0 and equal where a model has no
+    statistics or accuracy).  The gradients named in ``skip`` are left
+    out (zoo_check holds them apart)."""
+    grads = {n: g for n, g in a["grads"].items() if n not in skip}
     per = {n: float(np.abs(g - ref["grads"][n]).max())
-           / float(np.abs(ref["grads"][n]).max()) for n, g in a["grads"].items()}
+           / float(np.abs(ref["grads"][n]).max()) for n, g in grads.items()}
     num = sum(float(np.sum((g - ref["grads"][n]) ** 2))
-              for n, g in a["grads"].items())
-    den = sum(float(np.sum(g ** 2)) for g in ref["grads"].values())
+              for n, g in grads.items())
+    den = sum(float(np.sum(ref["grads"][n] ** 2)) for n in grads)
     worst = max(per, key=per.get)
     return {"loss_rel": abs(a["loss"] - ref["loss"]) / abs(ref["loss"]),
             "grad_worst_of_max": per[worst], "grad_worst": worst,
             "fc_grad_worst_of_max": max(v for n, v in per.items()
-                                        if n.startswith("fc_0.")),
+                                        if n.startswith(fc)),
             "grad_global_l2": (num / den) ** 0.5,
-            "stat_worst_of_max": max(
+            "stat_worst_of_max": max([
                 float(np.abs(v - ref["stats"][n]).max())
                 / float(np.abs(ref["stats"][n]).max())
-                for n, v in a["stats"].items()),
+                for n, v in a["stats"].items()] or [0.0]),
             "acc_equal": a["acc"] == ref["acc"]}
 
 
@@ -4566,6 +4638,717 @@ def resnet_phase(torch, fluid, fa, dev):
     out["phase_s"] = {"check": t1 - t0, "train": t2 - t1, "infer": t3 - t2}
     log("resnet-50 phase: launches %s, resident before %.2f GiB, seconds %s"
         % (json.dumps(launches), resident, json.dumps(out["phase_s"])))
+    return out
+
+
+def _u(seed, shape, lo=-2.0, hi=2.0):
+    return np.random.RandomState(seed).uniform(lo, hi, shape)
+
+
+def _f64(rows):
+    return np.array(rows, np.float64)
+
+
+def op_cases():
+    """The cases of tests/test_torch_{math,tensor}_ops.py in float64 (the
+    integer ones in their own types): dicts of the op, its feeds (name ->
+    array), input and output slots, attrs, output dtypes, the feeds the
+    gradient of mean(first output) is taken for, and the exact gradient
+    values a tie case must give (index into the gradient -> value)."""
+    cases = []
+
+    def add(label, op, feeds, inputs=None, outputs=None, attrs=None,
+            dtypes=None, wrt=None, ties=None):
+        if inputs is None:
+            inputs = {k.upper() if len(k) == 1 else k: [k] for k in feeds}
+        cases.append(dict(label=label, op=op, feeds=feeds, inputs=inputs,
+                          outputs=outputs or {"Out": 1}, attrs=attrs or {},
+                          dtypes=dtypes or {}, wrt=wrt, ties=ties or {}))
+
+    ties = _f64([[-1.0, 0.0, 3.0, 6.0], [6.5, 0.0, 6.0, -0.5]])
+    acts = {
+        "relu6": ({"threshold": 6.0}, ties),
+        "leaky_relu": ({"alpha": 0.1}, _f64([[0.0, -1.0, 2.0, -0.0]])),
+        "elu": ({"alpha": 0.5}, (-3.0, 3.0)),
+        "elu large": ({"alpha": 1.0}, _f64([[0.0, 50.0, -50.0, 100.0]])),
+        "brelu": ({"t_min": 1.0, "t_max": 4.0}, _f64([[1.0, 4.0, 0.5, 5.0, 2.0]])),
+        "soft_relu": ({"threshold": 2.0}, _f64([[2.0, -2.0, 0.5, 3.0]])),
+        "sigmoid": ({}, (-6.0, 6.0)), "logsigmoid": ({}, (-6.0, 6.0)),
+        "tanh": ({}, (-3.0, 3.0)), "tanh_shrink": ({}, (-3.0, 3.0)),
+        "stanh": ({"scale_a": 0.67, "scale_b": 1.7159}, (-3.0, 3.0)),
+        "hard_sigmoid": ({"slope": 0.25, "offset": 0.5},
+                         _f64([[-2.0, 2.0, 0.0, -3.0, 3.0]])),
+        "swish": ({"beta": 1.5}, (-4.0, 4.0)),
+        "softplus": ({}, _f64([[0.0, 30.0, -30.0, 1.0]])),
+        "softsign": ({}, (-3.0, 3.0)),
+        "softshrink": ({"lambda": 0.5}, _f64([[0.5, -0.5, 0.2, 1.5, -2.0]])),
+        "hard_shrink": ({"threshold": 0.5}, _f64([[0.5, -0.5, 0.2, 1.5, -2.0]])),
+        "thresholded_relu": ({"threshold": 1.0}, _f64([[1.0, 0.5, 2.0, -1.0]])),
+        "abs": ({}, _f64([[0.0, -1.5, 2.0, -0.0]])),
+        "ceil": ({}, (-3.0, 3.0)), "floor": ({}, (-3.0, 3.0)),
+        "cos": ({}, (-3.0, 3.0)), "sin": ({}, (-3.0, 3.0)),
+        "round": ({}, _f64([[0.5, 1.5, 2.5, -0.5, -1.5, 0.49]])),
+        "reciprocal": ({}, (0.5, 3.0)), "exp": ({}, (-3.0, 3.0)),
+        "sqrt": ({}, (0.1, 4.0)), "rsqrt": ({}, (0.1, 4.0)),
+        "selu": ({}, (-3.0, 3.0)), "sign": ({}, _f64([[0.0, -2.0, 3.0, -0.0]])),
+    }
+    for i, (label, (attrs, x)) in enumerate(acts.items()):
+        op = label.split()[0]
+        if isinstance(x, tuple):
+            x = _u(i, (3, 5), *x)
+        tie = {}
+        if op == "relu6":
+            tie = {(0, 1): 0.5 / 8, (0, 3): 0.5 / 8, (1, 1): 0.5 / 8,
+                   (1, 2): 0.5 / 8}
+        elif op == "brelu":
+            tie = {(0, 0): 0.5 / 5, (0, 1): 0.5 / 5}
+        elif op == "hard_sigmoid":
+            tie = {(0, 0): 0.125 / 5, (0, 1): 0.125 / 5}
+        elif op in ("leaky_relu", "abs"):
+            tie = {(0, 0): 0.25, (0, 3): 0.25}
+        add(label, op, {"x": x}, attrs=attrs, ties=tie)
+    rng = np.random.RandomState(3)
+    xi = rng.randint(-20, 20, (4, 5)).astype(np.int32)
+    yi = rng.choice([-7, -3, -2, 2, 3, 7], (4, 5)).astype(np.int32)
+    xf = rng.uniform(-9, 9, (4, 5))
+    yf = rng.choice([-2.5, -1.5, 1.5, 2.5], (4, 5)).astype(np.float64)
+    ymax = _f64([[0.0, 0.0, 3.0, 5.0], [7.0, 1.0, 6.0, -0.5]])
+    add("elementwise_max ties", "elementwise_max", {"x": ties, "y": ymax},
+        attrs={"axis": -1}, wrt=["x", "y"],
+        ties={(0, 1): 0.5 / 8, (0, 2): 0.5 / 8, (1, 2): 0.5 / 8,
+              (1, 3): 0.5 / 8})
+    add("elementwise_max axis", "elementwise_max",
+        {"x": _u(4, (2, 3, 4)), "y": _u(5, (3,))}, attrs={"axis": 1},
+        wrt=["x", "y"])
+    add("elementwise_pow", "elementwise_pow",
+        {"x": _u(6, (3, 4), 0.5, 2.0), "y": _u(7, (3, 4))}, wrt=["x", "y"])
+    add("elementwise_pow int32", "elementwise_pow",
+        {"x": np.arange(-6, 6).reshape(3, 4).astype(np.int32),
+         "y": np.tile(np.array([0, 1, 2, 3], np.int32), (3, 1))}, wrt=[])
+    for op in ("elementwise_mod", "elementwise_floordiv"):
+        add(op, op, {"x": xf, "y": yf}, wrt=["x", "y"])
+        add(op + " int32", op, {"x": xi, "y": yi}, wrt=[])
+    tied = _f64([[[1.0, 3.0, 3.0], [2.0, 2.0, -1.0]],
+                 [[0.0, 0.0, 0.0], [5.0, 4.0, 5.0]]])
+    pos = np.random.RandomState(9).uniform(0.5, 1.5, (2, 3, 4))
+    zero = pos.copy()
+    zero[1, 2, 3] = 0.0
+    ints = np.random.RandomState(9).randint(-7, 8, (4, 5, 3)).astype(np.int32)
+    big = np.random.RandomState(9).randint(200, 2000, (3, 6)).astype(np.int32)
+    for label, op, dim, keep, red_all, x, tie in (
+            ("reduce_max ties", "reduce_max", [-1], False, False, tied,
+             {(0, 0, 1): 0.5 / 4, (0, 0, 2): 0.5 / 4}),
+            ("reduce_max all", "reduce_max", None, False, True, tied, {}),
+            ("reduce_min ties", "reduce_min", [1], True, False, tied, {}),
+            ("reduce_min two dims", "reduce_min", [0, 2], False, False, tied, {}),
+            ("reduce_mean", "reduce_mean", [1], False, False, pos, {}),
+            ("reduce_mean all", "reduce_mean", None, True, True, pos, {}),
+            ("reduce_prod", "reduce_prod", [0], False, False, pos, {}),
+            ("reduce_prod zero", "reduce_prod", [0, 2], True, False, zero, {}),
+            ("reduce_mean int32", "reduce_mean", [1], False, False, ints, {}),
+            ("reduce_mean int32 all", "reduce_mean", None, False, True, ints, {}),
+            ("reduce_prod int32 wraps", "reduce_prod", [1], False, False, big, {}),
+            ("reduce_max int32", "reduce_max", [0], False, False, ints, {})):
+        add(label, op, {"x": x}, attrs={"dim": dim, "keep_dim": keep,
+                                        "reduce_all": red_all},
+            dtypes={"Out": "float32"} if (op == "reduce_mean"
+                                          and x.dtype == np.int32) else None,
+            ties=tie)
+    px = _u(11, (2, 3, 2, 2))
+    px[0, 0, 0, 0] = 0.0
+    for mode, alpha in (("all", _f64([0.25])), ("channel", _f64([0.1, 0.2, 0.3])),
+                        ("element", _u(12, (1, 3, 2, 2), 0.0, 0.5))):
+        add("prelu " + mode, "prelu", {"x": px, "alpha": alpha},
+            inputs={"X": ["x"], "Alpha": ["alpha"]}, attrs={"mode": mode},
+            wrt=["x", "alpha"])
+    add("maxout", "maxout", {"x": _u(13, (2, 6, 3, 3))}, attrs={"groups": 2})
+    mx = _u(13, (2, 6, 3, 3))
+    mx[:, 1] = mx[:, 0]
+    add("maxout ties", "maxout", {"x": mx}, attrs={"groups": 2},
+        ties={(0, 0, 0, 0): 0.5 / 54, (0, 1, 0, 0): 0.5 / 54})
+    cx = _f64([[-1.0, 1.0, 0.0, 2.0, -3.0]])
+    add("clip on the bounds", "clip", {"x": cx}, attrs={"min": -1.0, "max": 1.0},
+        ties={(0, 0): 0.5 / 5, (0, 1): 0.5 / 5})
+    add("clip", "clip", {"x": _u(14, (3, 4))}, attrs={"min": -0.5, "max": 0.5})
+    for mn in (0.5, 100.0):
+        add("clip_by_norm %g" % mn, "clip_by_norm", {"x": _u(15, (4, 5))},
+            attrs={"max_norm": mn})
+    for rows in (4, 1):
+        add("cos_sim %d" % rows, "cos_sim", {"x": _u(16, (4, 6)),
+                                              "y": _u(17, (rows, 6))},
+            outputs={"Out": 1, "XNorm": 1, "YNorm": 1}, wrt=["x", "y"])
+    for axis in (1, -1):
+        add("norm %d" % axis, "norm", {"x": _u(18, (3, 4, 5))},
+            outputs={"Out": 1, "Norm": 1}, attrs={"axis": axis, "epsilon": 1e-10})
+    for bias in (False, True):
+        feeds = {"x": _u(19, (4, 3)), "y": _u(20, (4, 5)),
+                 "w": _u(21, (2, 3, 5))}
+        inputs = {"X": ["x"], "Y": ["y"], "Weight": ["w"]}
+        if bias:
+            feeds["b"] = _u(22, (1, 2))
+            inputs["Bias"] = ["b"]
+        add("bilinear_tensor_product bias %s" % bias,
+            "bilinear_tensor_product", feeds, inputs=inputs, wrt=list(feeds))
+    for n in (1, 3, 5):
+        add("conv_shift %d" % n, "conv_shift", {"x": _u(23, (3, 7)),
+                                                "y": _u(24, (3, n))},
+            wrt=["x", "y"])
+    # tensor ops
+    add("fill_zeros_like", "fill_zeros_like", {"x": _u(1, (3, 4))}, wrt=[])
+    for axis, shapes in ((0, [(2, 3), (4, 3), (1, 3)]), (1, [(2, 3), (2, 1), (2, 4)]),
+                         (-1, [(2, 2, 3), (2, 2, 1), (2, 2, 2)])):
+        feeds = {"x%d" % i: _u(i, sh) for i, sh in enumerate(shapes)}
+        add("concat %d" % axis, "concat", feeds, inputs={"X": list(feeds)},
+            attrs={"axis": axis}, wrt=list(feeds))
+    for label, attrs, k in (("split num", {"num": 3, "axis": 1}, 3),
+                            ("split sections", {"sections": [2, 3, 1], "axis": -1}, 3),
+                            ("split sections short", {"sections": [2, 2], "axis": 1}, 2)):
+        add(label, "split", {"x": _u(2, (2, 6))}, outputs={"Out": k}, attrs=attrs)
+    for label, op, axes, shape in (("squeeze", "squeeze", [1], (3, 1, 4)),
+                                   ("squeeze all", "squeeze", [], (1, 3, 1, 2)),
+                                   ("squeeze2", "squeeze2", [-1], (3, 4, 1)),
+                                   ("squeeze not one stays", "squeeze", [0, 1],
+                                    (3, 1, 4))):
+        add(label, op, {"x": _u(3, shape)}, attrs={"axes": axes})
+    for axis in (0, 1, 2):
+        add("flatten %d" % axis, "flatten", {"x": _u(4, (2, 3, 4))},
+            attrs={"axis": axis})
+    feeds = {"x%d" % i: _u(10 + i, (2, 3)) for i in range(3)}
+    for axis in (0, 1, -1):
+        add("stack %d" % axis, "stack", feeds, inputs={"X": list(feeds)},
+            outputs={"Y": 1}, attrs={"axis": axis}, wrt=list(feeds))
+    for axis, k in ((0, 3), (1, 2)):
+        add("unstack %d" % axis, "unstack", {"x": _u(5, (3, 2, 4))},
+            outputs={"Y": k}, attrs={"axis": axis})
+    add("shape", "shape", {"x": _u(6, (2, 3, 4))}, inputs={"Input": ["x"]},
+        dtypes={"Out": "int32"}, wrt=[])
+    for label, ids in (("scatter repeated", [1, 1, 4, 1]),
+                       ("scatter out of range", [1, 9, -2, -9, 6]),
+                       ("scatter negative", [-1, 2, -6]),
+                       ("scatter unique", [4, 0, 2])):
+        ids = np.array(ids, np.int32)
+        add(label, "scatter", {"x": _u(7, (6, 3)), "ids": ids,
+                               "upd": _u(8, (len(ids), 3), 5.0, 9.0)},
+            inputs={"X": ["x"], "Ids": ["ids"], "Updates": ["upd"]},
+            wrt=["x", "upd"])
+    add("pad", "pad", {"x": _u(9, (2, 3))},
+        attrs={"paddings": [1, 0, 0, 2], "pad_value": 0.5})
+    for mode in ("constant", "reflect", "edge"):
+        add("pad2d " + mode, "pad2d", {"x": _u(10, (2, 2, 4, 5))},
+            attrs={"paddings": [1, 2, 3, 0], "mode": mode, "pad_value": -1.0})
+    add("pad_constant_like", "pad_constant_like",
+        {"x": _u(11, (4, 5)), "y": _u(12, (2, 3))}, attrs={"pad_value": 1.5},
+        wrt=["y"])
+    add("crop", "crop", {"x": _u(13, (4, 6))},
+        attrs={"offsets": [1, 2], "shape": [2, 3]})
+    add("crop by input", "crop", {"x": _u(13, (4, 6)), "y": _u(14, (2, 3))},
+        attrs={"offsets": [1, 2]}, wrt=["x"])
+    for axis in ([0], [0, 2], 1):
+        add("reverse %s" % axis, "reverse", {"x": _u(15, (2, 3, 4))},
+            attrs={"axis": axis})
+    for label, ids in (("multiplex", [[2], [0], [1], [2]]),
+                       ("multiplex out of range", [[-1], [5], [-5], [1]])):
+        feeds = {"x%d" % i: _u(20 + i, (4, 5)) for i in range(3)}
+        feeds["ids"] = np.array(ids, np.int32)
+        add(label, "multiplex", feeds,
+            inputs={"X": ["x0", "x1", "x2"], "Ids": ["ids"]},
+            wrt=["x0", "x1", "x2"])
+    targ = _f64([[1.0, 3.0, 3.0, 0.0], [2.0, 2.0, -1.0, 2.0],
+                 [5.0, 4.0, 5.0, 4.0]])
+    for op, axis in (("arg_max", 0), ("arg_max", 1), ("arg_min", 0),
+                     ("arg_min", -1)):
+        add("%s %d" % (op, axis), op, {"x": targ}, attrs={"axis": axis},
+            dtypes={"Out": "int64"}, wrt=[])
+    for label, x, axis in (("argsort ties", _f64([[1, 0, 1, 0]]), -1),
+                           ("argsort ties axis 0", targ, 0),
+                           ("argsort random", _u(16, (3, 5)), 1),
+                           ("argsort int32", np.array([[3, 1, 3, -2, 1]], np.int32), -1)):
+        add(label, "argsort", {"x": x}, outputs={"Out": 1, "Indices": 1},
+            attrs={"axis": axis}, dtypes={"Indices": "int64"})
+    for op in ("has_inf", "has_nan", "isfinite"):
+        for fill in (None, np.inf, -np.inf, np.nan):
+            x = _u(17, (3, 4))
+            if fill is not None:
+                x[1, 2] = fill
+            add("%s %s" % (op, fill), op, {"x": x}, dtypes={"Out": "bool"},
+                wrt=[])
+    feeds = {"x%d" % i: _u(30 + i, (3, 4)) for i in range(3)}
+    for op in ("sum", "sums"):
+        add(op, op, feeds, inputs={"X": list(feeds)}, wrt=list(feeds))
+    for step in (0.0, 2.0, 3.0, 4.5, 9.0, 10.0, 11.0):
+        add("piecewise_decay %g" % step, "piecewise_decay",
+            {"step": np.array([step], np.float32)}, inputs={"Step": ["step"]},
+            attrs={"boundaries": [3.0, 10.0], "values": [0.1, 0.01, 0.001]},
+            wrt=[])
+    return cases
+
+
+def op_case_run(fluid, case, dev):
+    """The case's one-op Program on ``dev``: its fetches as numpy, the
+    outputs first, then the gradients of mean(first output) with respect
+    to ``wrt`` (every float feed by default)."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        vs = {n: fluid.layers.data(name=n, shape=list(a.shape),
+                                   dtype=str(a.dtype), append_batch_size=False,
+                                   stop_gradient=a.dtype.kind != "f")
+              for n, a in case["feeds"].items()}
+        helper = LayerHelper(case["op"])
+        first = vs[next(iter(case["inputs"].values()))[0]]
+        outs = {s: [helper.create_variable_for_type_inference(
+            dtype=case["dtypes"].get(s, first.dtype)) for _ in range(k)]
+            for s, k in case["outputs"].items()}
+        helper.append_op(type=case["op"], inputs={
+            s: [vs[n] for n in ns] for s, ns in case["inputs"].items()},
+            outputs=outs, attrs=case["attrs"])
+        fetch = [v for vl in outs.values() for v in vl]
+        wrt = case["wrt"]
+        if wrt is None:
+            wrt = [n for n, a in case["feeds"].items() if a.dtype.kind == "f"]
+        if wrt:
+            fetch += fluid.backward.calc_gradient(
+                fluid.layers.mean(fetch[0]), [vs[n] for n in wrt])
+    out = fluid.Executor(device=dev).run(main, feed=case["feeds"],
+                                         fetch_list=fetch, scope=fluid.Scope())
+    return [np.asarray(o) for o in out]
+
+
+def scatter_want(x, ids, upd):
+    """The JAX package's ``x.at[ids].set(upd)`` in numpy: an id in
+    [-n, 0) wraps, one outside [-n, n) is dropped, the last of repeated
+    ids wins."""
+    out = x.copy()
+    n = len(x)
+    for i, r in enumerate(ids):
+        if -n <= r < n:
+            out[r % n] = upd[i]
+    return out
+
+
+def multiplex_want(xs, ids):
+    """The JAX package's ``xs[ids, rows]``: an id in [-k, 0) wraps, any
+    other outside [0, k) is clamped."""
+    k = len(xs)
+    ids = np.where(ids < 0, ids + k, ids).clip(0, k - 1)
+    return np.stack([xs[i][r] for r, i in enumerate(ids)])
+
+
+def rng_program(fluid, rows):
+    """A Program holding the four random ops (truncated normal, uniform
+    batch-size-like, sampling_id, random_crop), its feed (``rows`` rows
+    of probabilities) and fetches."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = SEED + 70
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ref = fluid.layers.data(name="ref", shape=[3], dtype="float32")
+        probs = fluid.layers.data(name="p", shape=[5], dtype="float32")
+        img = fluid.layers.data(name="img", shape=[3, 8, 8], dtype="float32")
+        helper = LayerHelper("truncated_gaussian_random")
+        tg = helper.create_variable_for_type_inference(dtype="float32")
+        helper.append_op(type="truncated_gaussian_random", outputs={"Out": [tg]},
+                         attrs={"shape": [100_000], "mean": 0.5, "std": 2.0,
+                                "dtype": "float32", "seed": 0})
+        uni = fluid.layers.uniform_random_batch_size_like(
+            ref, shape=[-1, 20_000], min=-2.0, max=3.0)
+        ids = fluid.layers.sampling_id(probs)
+        crop = fluid.layers.random_crop(img, shape=[5, 6])
+    feed = {"ref": np.zeros((7, 3), np.float32),
+            "p": np.tile(np.array([0.1, 0.2, 0.3, 0.4, 0.0], np.float32),
+                         (rows, 1)),
+            "img": np.arange(4 * 3 * 8 * 8, dtype=np.float32).reshape(4, 3, 8, 8)}
+    return main, feed, [tg, uni, ids, crop]
+
+
+def rng_limits(out, feed):
+    """The random ops' draws against their distributions: each sample
+    mean within 5 standard errors, each variance within 5 of its own,
+    every value in range; the crop one window of the image.  Returns
+    the measures."""
+    tg, uni, ids, crop = out
+    n, mean, std = tg.size, 0.5, 2.0
+    var1 = 1 - 4 * math.exp(-2) / math.sqrt(2 * math.pi) / math.erf(
+        2 / math.sqrt(2))
+    tg_ok = (tg.min() > mean - 2 * std and tg.max() < mean + 2 * std
+             and abs(tg.mean() - mean) < 5 * std * math.sqrt(var1 / n)
+             and abs(tg.var() / std ** 2 - var1) < 5 * math.sqrt(2 / n))
+    lo, hi = -2.0, 3.0
+    var_u = (hi - lo) ** 2 / 12
+    uni_ok = (uni.shape == (7, 20_000) and uni.min() >= lo and uni.max() < hi
+              and abs(uni.mean() - (lo + hi) / 2) < 5 * math.sqrt(var_u / uni.size)
+              and abs(uni.var() - var_u) < 5 * math.sqrt(0.8 * var_u ** 2 / uni.size))
+    p = feed["p"][0]
+    freq = np.bincount(ids, minlength=5) / ids.size
+    ids_ok = bool(freq[4] == 0 and (np.abs(freq - p) < 5 * np.sqrt(
+        p * (1 - p) / ids.size) + 1e-12).all())
+    img = feed["img"]
+    starts = [(a, b) for a in range(4) for b in range(3)
+              if np.array_equal(crop, img[:, :, a:a + 5, b:b + 6])]
+    check(tg_ok and uni_ok and ids_ok and len(starts) == 1,
+          "random ops outside their distributions", tg_ok, uni_ok, ids_ok,
+          starts)
+    return {"truncated": {"min": float(tg.min()), "max": float(tg.max()),
+                          "mean": float(tg.mean()), "var_over_std2":
+                          float(tg.var() / std ** 2), "want_var": var1},
+            "uniform": {"min": float(uni.min()), "max": float(uni.max()),
+                        "mean": float(uni.mean()), "var": float(uni.var()),
+                        "want_var": var_u},
+            "sampling_id_freq": freq.tolist(), "crop_start": starts[0]}
+
+
+def rng_check(torch, fluid, dev):
+    """The four random ops in a bound step on the card: three steps
+    through the fast path (eager, capture, replay) and three op by op
+    from a fresh scope; the replayed third step's draws bitwise the
+    eager third step's, every step drawing anew, each draw within its
+    distribution's limits (rng_limits)."""
+    from paddle_tpu_torch import executor as executor_mod
+
+    runs = []
+    for cache in (True, False):
+        main, feed, fetch = rng_program(fluid, 20_000)
+        exe = fluid.Executor(device=dev)
+        scope = fluid.Scope()
+        before = executor_mod.compile_count()
+        runs.append([[np.asarray(v) for v in exe.run(
+            main, feed=feed, fetch_list=fetch, scope=scope,
+            use_program_cache=cache)] for _ in range(3)])
+        if cache:
+            captures = executor_mod.compile_count() - before
+            check(captures == 1 and any(b.graph is not None
+                                        for b in exe._bound.values()),
+                  "the random ops' step was not captured", captures)
+    bitwise = all(a.tobytes() == b.tobytes()
+                  for a, b in zip(runs[0][2], runs[1][2]))
+    check(bitwise, "replayed random ops differ from the eager step")
+    check(all(runs[0][0][k].tobytes() != runs[0][1][k].tobytes()
+              for k in range(3)), "a random op drew the same twice")
+    return {"replay_bitwise_eager": bitwise,
+            "limits": [rng_limits(r, feed) for r in runs[0]]}
+
+
+def ops_phase(torch, fluid, fa, dev):
+    """Every case of tests/test_torch_{math,tensor}_ops.py (op_cases) on
+    the card in float64 against the port's CPU float64: each output and
+    gradient within OPS_RTOL of its largest magnitude, integer, bool and
+    index outputs exactly; the tie cases' gradients exactly their 0.5
+    shares; ``scatter`` with repeated ids the same bits over
+    SCATTER_RUNS runs and the CPU's answer; ``argsort`` stable on ties;
+    out-of-range ids the JAX package's answer (scatter_want,
+    multiplex_want) with no device assert; then the random ops in a
+    bound step (rng_check).  No kernel of this repo runs."""
+    cpu = torch.device("cpu")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    worst = {}
+    cases = op_cases()
+    for case in cases:
+        want = op_case_run(fluid, case, cpu)
+        got = op_case_run(fluid, case, dev)
+        torch.cuda.synchronize()
+        check(len(got) == len(want), case["label"])
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype, case["label"],
+                  g.shape, w.shape, g.dtype, w.dtype)
+            if w.dtype.kind == "f":
+                check(np.array_equal(np.isnan(g), np.isnan(w)), case["label"])
+                scale = max(float(np.nanmax(np.abs(w), initial=0.0)), 1e-300)
+                e = float(np.nanmax(np.abs(g - w), initial=0.0)) / scale
+                err = max(err, e)
+                check(e <= OPS_RTOL, "op on the card vs cpu", case["label"], e)
+            else:
+                check(np.array_equal(g, w), "op on the card vs cpu",
+                      case["label"], g, w)
+        worst[case["label"]] = err
+        n_out = sum(case["outputs"].values())
+        for idx, share in case["ties"].items():
+            gx = got[n_out]
+            check(gx[idx] == share, "tie share on the card", case["label"],
+                  idx, float(gx[idx]), share)
+        f = case["feeds"]
+        if case["op"] == "scatter":
+            check(np.array_equal(got[0], scatter_want(f["x"], f["ids"], f["upd"])),
+                  "scatter vs the JAX package's answer", case["label"])
+            if "repeated" in case["label"]:
+                bits = {op_case_run(fluid, case, dev)[0].tobytes()
+                        for _ in range(SCATTER_RUNS)}
+                check(bits == {got[0].tobytes()} and bits == {want[0].tobytes()},
+                      "scatter bits moved between runs", len(bits))
+        if case["op"] == "multiplex":
+            check(np.array_equal(got[0], multiplex_want(
+                [f["x0"], f["x1"], f["x2"]], f["ids"][:, 0])),
+                "multiplex vs the JAX package's answer", case["label"])
+        if case["op"] == "argsort":
+            axis = case["attrs"]["axis"]
+            check(np.array_equal(got[1], np.argsort(f["x"], axis=axis,
+                                                    kind="stable")),
+                  "argsort not stable on the card", case["label"])
+    cases_s = time.perf_counter() - t0
+    rng = rng_check(torch, fluid, dev)
+    launches = dict(fa.KERNEL_LAUNCHES)
+    check(not any(launches.values()), "a kernel launched in the ops phase",
+          launches)
+    out = {"cases": len(cases), "ops": len({c["op"] for c in cases}),
+           "worst_rel_err": max(worst.values()),
+           "worst_case": max(worst, key=worst.get),
+           "tie_cases": sum(bool(c["ties"]) for c in cases),
+           "rng": rng, "launches": launches,
+           "seconds": {"cases": cases_s,
+                       "rng": time.perf_counter() - t0 - cases_s}}
+    log("op rules, card vs cpu float64 (%d cases): %s" % (len(cases),
+                                                          json.dumps(out)))
+    return out
+
+
+def zoo_model(fluid, name, dtype="float32", no_dropout=False):
+    """``ZOO[name]``'s get_model in ``dtype``, every dropout's probability
+    set to 0 where ``no_dropout`` (the card-vs-CPU check only)."""
+    import importlib
+
+    mod = importlib.import_module("paddle_tpu_torch.models." + ZOO[name]["module"])
+    with fluid.unique_name.guard():
+        m = mod.get_model(dtype=dtype, **ZOO[name]["kw"])
+    if no_dropout:
+        for prog in (m["main"], m["test"]):
+            for op in prog.global_block().ops:
+                if op.type == "dropout":
+                    op.attrs["dropout_prob"] = 0.0
+    return m
+
+
+def zoo_feed(name, m, rng, n):
+    """``n`` seeded samples for ``m``'s feeds: standard normal images and
+    labels, or word ids of the vocabulary."""
+    if name == "word2vec":
+        return {f: rng.randint(0, ZOO[name]["kw"]["vocab_size"], size=(n, 1))
+                .astype(np.int64) for f in m["feeds"]}
+    kw = ZOO[name]["kw"]
+    return {m["feeds"][0]: rng.randn(n, *kw["image_shape"]).astype(np.float32),
+            "label": rng.randint(0, kw["class_dim"], size=(n, 1))
+            .astype(np.int64)}
+
+
+def last_fc(m):
+    """The name prefix of the last fc's parameters (the softmax layer's:
+    no gate lies between it and the loss)."""
+    blk = m["main"].global_block()
+    mul = [op for op in blk.ops if op.type == "mul"][-1]
+    return mul.inputs["Y"][0].split(".")[0] + "."
+
+
+def zoo_step(torch, fluid, name, m, state, feed, dev, tf32=False):
+    """One training step of ``m`` on ``dev`` from the numpy ``state``, as
+    resnet_step: (loss, accuracy or None, every trainable parameter's
+    gradient, the running statistics after the step)."""
+    blk = m["main"].global_block()
+    grads = [p.name + "@GRAD" for p in blk.all_parameters() if p.trainable]
+    stats = [p.name for p in blk.all_parameters() if not p.trainable]
+    dtype = getattr(torch, str(blk.var(m["feeds"][0]).dtype))
+    feed = {k: (torch.as_tensor(v).to(dtype) if v.dtype.kind == "f" else v)
+            for k, v in feed.items()}
+    scope = fluid.Scope()
+    fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+    acc = [m["acc"]] if "acc" in m else []
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        out = fluid.Executor(device=dev).run(
+            m["main"], feed=feed, fetch_list=[m["loss"]] + acc + grads,
+            scope=scope)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return {"loss": float(out[0][0]),
+            "acc": float(out[1][0]) if acc else None,
+            "grads": dict(zip(grads, out[1 + len(acc):])),
+            "stats": {n: fluid.executor.as_numpy(scope[n]) for n in stats}}
+
+
+def zoo_f32_ok(name, e):
+    """resnet_f32_ok, and for word2vec (no gate, no batch statistics)
+    the loss and every gradient within W2V_F32_RTOL."""
+    if name == "word2vec":
+        return (e["loss_rel"] <= W2V_F32_RTOL
+                and e["grad_worst_of_max"] <= W2V_F32_RTOL)
+    return resnet_f32_ok(e)
+
+
+def biases_before_batch_norm(program):
+    """{bias gradient: its layer's weight gradient} for each parameter
+    added to a conv or fc output that goes straight into a batch_norm
+    (VGG's): the batch_norm takes the mean out, so its true gradient is
+    0 and what the step gives is rounding."""
+    ops = program.global_block().ops
+    made = {n: op for op in ops for ns in op.outputs.values() for n in ns}
+    params = {p.name for p in program.global_block().all_parameters()}
+    out = {}
+    for op in ops:
+        add = made.get(op.inputs["X"][0]) if op.type == "batch_norm" else None
+        if (add is not None and add.type == "elementwise_add"
+                and add.inputs["Y"][0] in params):
+            layer = made[add.inputs["X"][0]]
+            weight = (layer.inputs.get("Filter") or layer.inputs["Y"])[0]
+            out[add.inputs["Y"][0] + "@GRAD"] = weight + "@GRAD"
+    return out
+
+
+def zoo_check(torch, fluid, name, dev):
+    """resnet_check's method and limits for ``name`` at full width, batch
+    ZOO_CHECK_BATCH (VGG-16: 4, see ZOO), dropout 0: one step from one set of numpy
+    parameters on the card and on the port's CPU path, in float64 (loss
+    LOSS_RTOL, each gradient GRAD_RTOL of its max, the statistics, the
+    accuracy) and in float32 with TF32 off against the CPU's float64
+    (zoo_f32_ok, the last fc's gradients in place of fc_0's), and a
+    float32 step with TF32 on, which must fail zoo_f32_ok.  A bias whose
+    true gradient is 0 (biases_before_batch_norm) is held apart: its
+    gradient under ZERO_GRAD_NOISE of its layer weight's largest, in
+    every step but the TF32 one."""
+    m32, m64 = (zoo_model(fluid, name, d, no_dropout=True)
+                for d in ("float32", "float64"))
+    m32["startup"].random_seed = SEED + 80
+    scope = fluid.Scope()
+    fluid.Executor(device=torch.device("cpu")).run(m32["startup"], scope=scope)
+    state = {n: scope[n].numpy() for n in m32["main"].persistable_names()
+             if n in scope}
+    del scope
+    feed = zoo_feed(name, m32, np.random.RandomState(SEED + 81),
+                    ZOO[name].get("check_batch", ZOO_CHECK_BATCH))
+    fc = last_fc(m32)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cpu64 = zoo_step(torch, fluid, name, m64, state, feed, cpu)
+    cpu32 = zoo_step(torch, fluid, name, m32, state, feed, cpu)
+    cpu_s = time.perf_counter() - t0
+    card64 = zoo_step(torch, fluid, name, m64, state, feed, dev)
+    card32 = zoo_step(torch, fluid, name, m32, state, feed, dev)
+    tf32 = zoo_step(torch, fluid, name, m32, state, feed, dev, tf32=True)
+    zero = biases_before_batch_norm(m32["main"])
+    noise = {k: max([float(np.abs(st["grads"][b]).max())
+                     / float(np.abs(st["grads"][w]).max())
+                     for b, w in zero.items()] or [0.0])
+             for k, st in (("cpu64", cpu64), ("cpu32", cpu32),
+                           ("card64", card64), ("card32", card32))}
+    check(max(noise.values()) <= ZERO_GRAD_NOISE,
+          name + " a zero-gradient bias moved", noise)
+    e64 = resnet_errors(card64, cpu64, fc, zero)
+    check(e64["loss_rel"] <= LOSS_RTOL and e64["grad_worst_of_max"]
+          <= GRAD_RTOL and e64["stat_worst_of_max"] <= RESNET_STAT_RTOL
+          and e64["acc_equal"], name + " float64 card vs cpu", e64)
+    out = {"float64_card_vs_cpu": e64,
+           "float32_card_vs_cpu64": resnet_errors(card32, cpu64, fc, zero),
+           "float32_cpu_vs_cpu64": resnet_errors(cpu32, cpu64, fc, zero),
+           "tf32_card_vs_cpu64": resnet_errors(tf32, cpu64, fc, zero),
+           "zero_gradient_biases": len(zero),
+           "zero_gradient_worst_of_weight": noise,
+           "loss": {"cpu64": cpu64["loss"], "card64": card64["loss"],
+                    "cpu32": cpu32["loss"], "card32": card32["loss"],
+                    "tf32": tf32["loss"]},
+           "batch": len(feed["label" if "label" in feed else "nextw"]),
+           "last_fc": fc, "cpu_steps_s": cpu_s}
+    check(zoo_f32_ok(name, out["float32_card_vs_cpu64"]),
+          name + " float32 card vs cpu", out["float32_card_vs_cpu64"])
+    check(zoo_f32_ok(name, out["float32_cpu_vs_cpu64"]),
+          name + " float32 cpu vs cpu float64", out["float32_cpu_vs_cpu64"])
+    check(not zoo_f32_ok(name, out["tf32_card_vs_cpu64"]),
+          name + " limits pass a TF32 step", out["tf32_card_vs_cpu64"])
+    return out
+
+
+def zoo_train(torch, fluid, name, dev):
+    """ZOO_STEPS training steps of ``name`` at its batch through
+    Executor.run on the card (step 1 eager, step 2 the capture, replays
+    after), on one seeded batch fed each step, dropout as the model has
+    it: every loss finite and the last under the first, every parameter
+    finite; step ms (steps 3 on), samples/s, peak memory, a replay's
+    busy and idle time, one eager step's device time by op family; then
+    one pass of the test Program (``main.clone(for_test=True)``) on the
+    batch: finite, of the expected shape, each softmax row summing to
+    1."""
+    batch, unit = ZOO[name]["batch"], ZOO[name]["unit"]
+    m = zoo_model(fluid, name)
+    m["startup"].random_seed = SEED + 82
+    exe = fluid.Executor(device=dev)
+    scope = fluid.Scope()
+    exe.run(m["startup"], scope=scope)
+    params = [p.name for p in m["main"].global_block().all_parameters()
+              if p.trainable]
+    feed = {k: torch.as_tensor(v, device=dev) for k, v in zoo_feed(
+        name, m, np.random.RandomState(SEED + 83), batch).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = [], []
+    for _ in range(ZOO_STEPS):
+        t0 = time.perf_counter()
+        (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
+                          scope=scope)
+        losses.append(float(loss[0]))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          name + " loss not finite or not falling", losses)
+    check(all(bool(torch.isfinite(scope[p]).all()) for p in params),
+          name + " non-finite parameter")
+    steady = steady_ms(step_s)
+    graphed = profile_graphed(torch, exe, m, feed, scope)
+    profile = profile_ops(torch, exe, m, feed, scope, [m["loss"]],
+                          families=ZOO_FAMILIES)
+    top = (dict(sorted(profile["device_ms_by_family"].items(),
+                       key=lambda kv: -kv[1])[:5])
+           if isinstance(profile, dict) else profile)
+    fetch = m["predict"] if "predict" in m else m["loss"]
+    test = np.asarray(exe.run(m["test"], feed=feed, fetch_list=[fetch],
+                              scope=scope)[0])
+    if "predict" in m:
+        check(test.shape == (batch, ZOO[name]["kw"]["class_dim"])
+              and np.isfinite(test).all()
+              and np.allclose(test.sum(-1), 1.0, atol=1e-5),
+              name + " test Program", test.shape)
+    else:
+        check(test.shape == (1,) and np.isfinite(test).all(),
+              name + " test Program", test.shape)
+    stats = {"batch": batch, "steps": ZOO_STEPS, "params": len(params),
+             "param_values": int(sum(scope[p].numel() for p in params)),
+             "first_step_ms": step_s[0] * 1e3,
+             "capture_step_ms": step_s[1] * 1e3, "step_ms": steady,
+             "step_ms_all": [t * 1e3 for t in step_s],
+             unit + "_per_s": batch / (steady / 1e3),
+             "replay_device_ms": (graphed["device_busy_ms"]
+                                  if isinstance(graphed, dict) else graphed),
+             "replay_idle_share": (graphed["device_idle_share"]
+                                   if isinstance(graphed, dict) else graphed),
+             "peak_memory_gib": peak / 2 ** 30, "losses": losses,
+             "test_pass": {"fetch": fetch.name, "shape": list(test.shape)},
+             "graphed_profile": graphed, "eager_top_families_ms": top,
+             "eager_profile": profile}
+    return stats
+
+
+def zoo_phase(torch, fluid, fa, dev):
+    """VGG-16, SE-ResNeXt-50 and word2vec (ZOO) at full width: the
+    card-vs-CPU step (zoo_check) and ZOO_STEPS training steps on the
+    fast path with a pass of the test Program (zoo_train).  No kernel
+    of this repo runs: B1-B5 launch 0 times in the phase."""
+    fa.reset_launch_counts()
+    out = {}
+    for name in ZOO:
+        t0 = time.perf_counter()
+        chk = zoo_check(torch, fluid, name, dev)
+        t1 = time.perf_counter()
+        trn = zoo_train(torch, fluid, name, dev)
+        t2 = time.perf_counter()
+        out[name] = {"check": chk, "train": trn,
+                     "seconds": {"check": t1 - t0, "train": t2 - t1}}
+        log("%s (full width, TF32 off): %s" % (name, json.dumps(out[name])))
+        torch.cuda.empty_cache()
+    launches = dict(fa.KERNEL_LAUNCHES)
+    check(not any(launches.values()), "a kernel launched in the zoo phase",
+          launches)
+    log("zoo phase: launches %s, seconds %s" % (json.dumps(launches), json.dumps(
+        {n: o["seconds"] for n, o in out.items()})))
     return out
 
 
@@ -7402,6 +8185,12 @@ def main():
     torch.cuda.empty_cache()
     rsn = resnet_phase(torch, fluid, fa, dev)
     torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    ops_phase(torch, fluid, fa, dev)
+    torch.cuda.empty_cache()
+    zoo_phase(torch, fluid, fa, dev)
+    torch.cuda.empty_cache()
+    log("ops and zoo phases: %.1f s" % (time.perf_counter() - t_new))
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
                                     "fused")

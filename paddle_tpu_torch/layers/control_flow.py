@@ -24,6 +24,8 @@ run them eagerly with torch:
   capacity lands on the last row, as XLA clamps ``dynamic_update_index``.
 
 ``IfElse`` merges its two branches by mask, as the JAX package's does.
+``Print`` adds a ``print`` op, whose rule prints on the host at every
+run: a Program that holds one runs op by op and is never captured.
 ``StaticRNN``, ``DynamicRNN`` and the LoD rank-table layers wait for the
 sequence ops and are not ported yet.
 """
@@ -54,11 +56,41 @@ __all__ = [
     "IfElse",
     "ConditionalBlock",
     "is_empty",
+    "Print",
 ]
 
 # default capacity for tensor arrays written inside While loops; override per
 # array via create_array(capacity=...) or the While(maxlen=...) attr.
 DEFAULT_ARRAY_CAPACITY = 256
+
+
+def Print(
+    input,
+    first_n=-1,
+    message=None,
+    summarize=-1,
+    print_tensor_name=True,
+    print_tensor_type=True,
+    print_tensor_shape=True,
+    print_tensor_lod=True,
+    print_phase="both",
+):
+    """``input`` passed on unchanged, its ``message`` (the variable's
+    name by default) and values printed at every run (reference
+    control_flow.py Print).  Only ``message`` reaches the op, as in the
+    JAX package; the other arguments are taken for the reference's
+    signature.  The print reads the values back to the host, so a
+    Program that holds it runs op by op and is never bound as a CUDA
+    graph."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype, shape=input.shape)
+    helper.append_op(
+        type="print",
+        inputs={"In": [input]},
+        outputs={"Out": [out]},
+        attrs={"message": message or input.name},
+    )
+    return out
 
 
 def increment(x, value=1.0, in_place=True):

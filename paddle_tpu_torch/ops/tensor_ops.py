@@ -1,12 +1,21 @@
 """Tensor creation / manipulation op rules.
 
-Translated from the JAX package's ``paddle_tpu/ops/tensor_ops.py``, for
-the ops the port runs so far.  Random ops draw from the seeded
-``torch.Generator`` the LoweringContext gives each op (see
-executor.LoweringContext.op_generator): the same Program, seed and step
-draw the same numbers, but not the JAX package's numbers.
+Translated from the JAX package's ``paddle_tpu/ops/tensor_ops.py``, every
+op it registers.  Random ops draw from the seeded ``torch.Generator``
+the LoweringContext gives each op (see
+executor.LoweringContext.op_generator), once a step: the same Program,
+seed and step draw the same numbers, but not the JAX package's numbers.
+
+A bound step is captured as a CUDA graph and replayed, so no rule here
+copies a host array to the card at run time unless it is marked
+``reads_host`` (``assign_value``, ``load``, ``print``): constants are
+built on the device (``torch.full``, ``torch.arange``, comparisons with
+Python numbers), and data-dependent offsets stay device tensors.
 """
 from __future__ import annotations
+
+import itertools
+import math
 
 import numpy as np
 import torch
@@ -212,10 +221,10 @@ def _gaussian_random(ctx, op):
     ctx.set_output(op, "Out", out * a.get("std", 1.0) + a.get("mean", 0.0))
 
 
-@register("uniform_random")
+@register("uniform_random", "uniform_random_batch_size_like")
 def _uniform_random(ctx, op):
     a = op.attrs
-    shape = tuple(int(s) for s in a["shape"])
+    shape = _random_shape(ctx, op)
     gen = ctx.op_generator(op, a.get("seed", 0))
     lo, hi = a.get("min", -1.0), a.get("max", 1.0)
     out = torch.rand(shape, generator=gen, device=ctx.device,
@@ -243,3 +252,315 @@ def _label_smooth(ctx, op):
     else:
         out = (1.0 - eps) * x + eps * prior
     ctx.set_output(op, "Out", out)
+
+
+@register("fill_zeros_like")
+def _fill_zeros_like(ctx, op):
+    ctx.set_output(op, "Out", torch.zeros_like(ctx.get_input(op, "X")))
+
+
+@register("concat")
+def _concat(ctx, op):
+    ctx.set_output(op, "Out", torch.cat(ctx.get_inputs(op, "X"),
+                                        dim=op.attrs.get("axis", 0)))
+
+
+@register("split")
+def _split(ctx, op):
+    """``num`` equal pieces, or pieces at the running sums of
+    ``sections`` (the last piece takes whatever is left, as
+    ``jnp.split`` at those indices gives it)."""
+    x = ctx.get_input(op, "X")
+    axis = op.attrs.get("axis", -1)
+    sections = op.attrs.get("sections")
+    if sections:
+        cuts = list(itertools.accumulate(int(s) for s in sections))[:-1]
+        outs = torch.tensor_split(x, cuts, dim=axis)
+    else:
+        outs = torch.tensor_split(x, op.attrs.get("num", 0), dim=axis)
+    ctx.set_outputs(op, "Out", outs)
+
+
+@register("squeeze", "squeeze2")
+def _squeeze(ctx, op):
+    """``X`` without the listed axes that have length 1 (every such axis
+    when ``axes`` is empty); an axis longer than 1 stays."""
+    x = ctx.get_input(op, "X")
+    axes = op.attrs.get("axes") or [i for i, s in enumerate(x.shape) if s == 1]
+    drop = {a % x.dim() for a in axes if x.shape[a % x.dim()] == 1}
+    ctx.set_output(op, "Out", x.reshape(tuple(
+        s for i, s in enumerate(x.shape) if i not in drop)))
+
+
+@register("flatten")
+def _flatten(ctx, op):
+    x = ctx.get_input(op, "X")
+    ax = op.attrs.get("axis", 1)
+    ctx.set_output(op, "Out", x.reshape((math.prod(x.shape[:ax]), -1)))
+
+
+@register("stack")
+def _stack(ctx, op):
+    ctx.set_output(op, "Y", torch.stack(ctx.get_inputs(op, "X"),
+                                        dim=op.attrs.get("axis", 0)))
+
+
+@register("unstack")
+def _unstack(ctx, op):
+    x = ctx.get_input(op, "X")
+    ctx.set_outputs(op, "Y", torch.unbind(x, dim=op.attrs.get("axis", 0)))
+
+
+@register("shape")
+def _shape(ctx, op):
+    """``Input``'s shape as int32, written into a device tensor one
+    length at a time (no host array is copied to the card)."""
+    x = ctx.get_input(op, "Input")
+    out = torch.zeros((x.dim(),), dtype=torch.int32, device=ctx.device)
+    for i, s in enumerate(x.shape):
+        out[i] = s
+    ctx.set_output(op, "Out", out)
+
+
+@register("scatter")
+def _scatter(ctx, op):
+    """``X`` with its rows at ``Ids`` set to ``Updates``, as the JAX
+    package's ``x.at[ids].set(updates)`` gives them: an id in [-n, 0)
+    wraps, one outside [-n, n) is dropped, and where an id repeats the
+    last update wins.  Each row's winner is the largest position that
+    names it (``scatter_reduce`` with ``amax``, exact in any order), so
+    the card gives the same bits on every run (``index_put_`` does not
+    promise which of two updates lands) and raises no device assert for
+    an id out of range.  Only the winning update gets a gradient, as in
+    JAX."""
+    x = ctx.get_input(op, "X")
+    ids = ctx.get_input(op, "Ids").reshape(-1).long()
+    upd = ctx.get_input(op, "Updates").to(x.dtype)
+    n = x.shape[0]
+    # ids out of range go to a spare row n, cut off below
+    rows = torch.where(in_range(ids, n), wrapped_index(ids, n),
+                       torch.full_like(ids, n))
+    pos = torch.arange(ids.shape[0], device=ids.device)
+    last = torch.full((n + 1,), -1, dtype=torch.long,
+                      device=ids.device).scatter_reduce(0, rows, pos, "amax")[:n]
+    hit = (last >= 0).reshape((-1,) + (1,) * (x.dim() - 1))
+    new = torch.index_select(upd, 0, torch.where(last >= 0, last,
+                                                 torch.zeros_like(last)))
+    ctx.set_output(op, "Out", torch.where(hit, new, x))
+
+
+def _pairs(p, ndim):
+    """``paddings`` [before_0, after_0, before_1, ...] as ``F.pad``'s
+    flat tuple, last axis first."""
+    return tuple(int(v) for i in reversed(range(ndim))
+                 for v in (p[2 * i], p[2 * i + 1]))
+
+
+@register("pad")
+def _pad(ctx, op):
+    x = ctx.get_input(op, "X")
+    ctx.set_output(op, "Out", torch.nn.functional.pad(
+        x, _pairs(op.attrs["paddings"], x.dim()),
+        value=op.attrs.get("pad_value", 0.0)))
+
+
+@register("pad2d")
+def _pad2d(ctx, op):
+    """NCHW: ``paddings`` [top, bottom, left, right]; ``mode``
+    ``constant`` (``pad_value``), ``reflect`` or ``edge``."""
+    x = ctx.get_input(op, "X")
+    t, b, l, r = (int(v) for v in op.attrs["paddings"])
+    mode = op.attrs.get("mode", "constant")
+    if mode == "constant":
+        out = torch.nn.functional.pad(x, (l, r, t, b),
+                                      value=op.attrs.get("pad_value", 0.0))
+    else:
+        out = torch.nn.functional.pad(
+            x, (l, r, t, b), mode="reflect" if mode == "reflect" else "replicate")
+    ctx.set_output(op, "Out", out)
+
+
+@register("pad_constant_like")
+def _pad_constant_like(ctx, op):
+    """``Y`` padded at the end of each axis to ``X``'s shape."""
+    x = ctx.get_input(op, "X")
+    y = ctx.get_input(op, "Y")
+    flat = tuple(v for xs, ys in reversed(list(zip(x.shape, y.shape)))
+                 for v in (0, int(xs - ys)))
+    ctx.set_output(op, "Out", torch.nn.functional.pad(
+        y, flat, value=op.attrs.get("pad_value", 0.0)))
+
+
+@register("crop")
+def _crop(ctx, op):
+    """The window of ``X`` at ``offsets`` (0 by default) of the ``shape``
+    attr, else of ``Y``'s shape."""
+    x = ctx.get_input(op, "X")
+    offsets = op.attrs.get("offsets") or [0] * x.dim()
+    shape = op.attrs.get("shape")
+    if shape is None:
+        shape = ctx.get_input(op, "Y").shape
+    idx = tuple(slice(o, o + s) for o, s in zip(offsets, shape))
+    ctx.set_output(op, "Out", x[idx])
+
+
+@register("reverse")
+def _reverse(ctx, op):
+    axes = op.attrs["axis"]
+    if isinstance(axes, int):
+        axes = [axes]
+    ctx.set_output(op, "Out", torch.flip(ctx.get_input(op, "X"), tuple(axes)))
+
+
+@register("multiplex")
+def _multiplex(ctx, op):
+    """Row i of the output is row i of input ``Ids[i]``.  An id is read
+    as the JAX package's ``xs[ids, rows]`` reads it: one in [-k, 0)
+    wraps, and any other outside [0, k) is clamped to the nearest input
+    (where torch's indexing would assert on the card); such a row passes
+    no gradient back, as XLA's scatter drops the out-of-range update of
+    the gather's transpose."""
+    xs = torch.stack(ctx.get_inputs(op, "X"), dim=0)  # [k, n, d]
+    ids = ctx.get_input(op, "Ids").reshape(-1)
+    k = xs.shape[0]
+    rows = torch.arange(ids.shape[0], device=xs.device)
+    out = xs[wrapped_index(ids, k), rows]
+    keep = in_range(ids, k).reshape((-1,) + (1,) * (out.dim() - 1))
+    ctx.set_output(op, "Out", torch.where(keep, out, out.detach()))
+
+
+@register("arg_max")
+def _arg_max(ctx, op):
+    """int64 index of the first maximum along ``axis``."""
+    ctx.set_output(op, "Out", torch.argmax(ctx.get_input(op, "X"),
+                                           dim=op.attrs.get("axis", 0)))
+
+
+@register("arg_min")
+def _arg_min(ctx, op):
+    ctx.set_output(op, "Out", torch.argmin(ctx.get_input(op, "X"),
+                                           dim=op.attrs.get("axis", 0)))
+
+
+@register("argsort")
+def _argsort(ctx, op):
+    """The sorted values and their int64 indices along ``axis``, equal
+    values in index order (``jnp.argsort`` is stable; a plain
+    ``torch.sort`` is not promised to be)."""
+    x = ctx.get_input(op, "X")
+    vals, idx = torch.sort(x, dim=op.attrs.get("axis", -1), stable=True)
+    ctx.set_output(op, "Indices", idx)
+    ctx.set_output(op, "Out", vals)
+
+
+# the uniform draw whose inverse normal CDF gives a standard normal cut
+# at +-2 (jax.random.truncated_normal's construction)
+_ERF_2 = math.erf(2.0 / math.sqrt(2.0))
+
+
+@register("truncated_gaussian_random")
+def _truncated_gaussian_random(ctx, op):
+    """A normal cut at two standard deviations: one uniform draw over
+    (erf(-2/sqrt 2), erf(2/sqrt 2)) through ``sqrt(2) * erfinv``, held
+    inside (-2, 2), as ``jax.random.truncated_normal`` draws it; then
+    ``* std + mean``.  No gradient reaches a draw."""
+    a = op.attrs
+    gen = ctx.op_generator(op, a.get("seed", 0))
+    u = torch.rand(tuple(int(s) for s in a["shape"]), generator=gen,
+                   device=ctx.device,
+                   dtype=torch_dtype(a.get("dtype", "float32")))
+    z = math.sqrt(2.0) * torch.erfinv(_ERF_2 * (2.0 * u - 1.0))
+    z = torch.clamp(z, math.nextafter(-2.0, 0.0), math.nextafter(2.0, 0.0))
+    ctx.set_output(op, "Out", z * a.get("std", 1.0) + a.get("mean", 0.0))
+
+
+@register("sampling_id")
+def _sampling_id(ctx, op):
+    """One int64 id a row of ``X`` [batch, k] (probabilities), drawn as
+    ``jax.random.categorical`` draws it: the argmax of ``log(p + 1e-20)``
+    plus Gumbel noise, from one uniform draw."""
+    x = ctx.get_input(op, "X")
+    gen = ctx.op_generator(op, op.attrs.get("seed", 0))
+    u = torch.rand(x.shape, generator=gen, device=ctx.device, dtype=x.dtype)
+    gumbel = -torch.log(-torch.log(u))
+    ctx.set_output(op, "Out", torch.argmax(torch.log(x + 1e-20) + gumbel,
+                                           dim=-1))
+
+
+@register("random_crop")
+def _random_crop(ctx, op):
+    """A window of ``shape`` over the trailing axes of ``X``, at one
+    start an axis for the whole batch, each uniform over the positions
+    that fit (the JAX package's draw).  All starts come from one uniform
+    draw, and the window is read with device-side indices
+    (``index_select``), so the step never waits on the host."""
+    x = ctx.get_input(op, "X")
+    shape = [int(s) for s in op.attrs["shape"]]
+    lead = x.dim() - len(shape)
+    gen = ctx.op_generator(op, op.attrs.get("seed", 0))
+    u = torch.rand((len(shape),), generator=gen, device=ctx.device,
+                   dtype=torch.float64)
+    out = x
+    for i, s in enumerate(shape):
+        hi = x.shape[lead + i] - s
+        if hi <= 0:
+            out = out.narrow(lead + i, 0, s)
+            continue
+        start = torch.floor(u[i] * (hi + 1)).long().clamp(max=hi)
+        out = torch.index_select(out, lead + i,
+                                 start + torch.arange(s, device=x.device))
+    ctx.set_output(op, "Out", out)
+
+
+@register("sum", "sums")
+def _sum(ctx, op):
+    xs = ctx.get_inputs(op, "X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.set_output(op, "Out", out)
+
+
+@register("has_inf")
+def _has_inf(ctx, op):
+    ctx.set_output(op, "Out", torch.isinf(ctx.get_input(op, "X")).any().reshape(1))
+
+
+@register("has_nan")
+def _has_nan(ctx, op):
+    ctx.set_output(op, "Out", torch.isnan(ctx.get_input(op, "X")).any().reshape(1))
+
+
+@register("isfinite")
+def _isfinite(ctx, op):
+    ctx.set_output(op, "Out",
+                   torch.isfinite(ctx.get_input(op, "X")).all().reshape(1))
+
+
+@register("print", reads_host=True)
+def _print(ctx, op):
+    """Print ``message`` and the values of ``In`` on the host, and pass
+    ``In`` on as ``Out``.  The text is read back at every run, which a
+    replayed CUDA graph cannot do (``reads_host``): a Program that holds
+    a ``print`` runs op by op at every step.  (The JAX package's
+    ``jax.debug.print`` printed from inside its compiled step.)"""
+    x = ctx.get_input(op, "In")
+    print(op.attrs.get("message", "") + " " + str(x.detach().cpu().numpy()))
+    ctx.set_output(op, "Out", x)
+
+
+@register("piecewise_decay")
+def _piecewise_decay(ctx, op):
+    """``values[k]``, k the number of ``boundaries`` at or below the step
+    (both float32, as the JAX package compares them).  Built from
+    comparisons with Python numbers: nothing is copied from the host, so
+    an LR-scheduled step stays on the CUDA graph."""
+    step = ctx.get_input(op, "Step").reshape(())
+    k = torch.zeros((), dtype=torch.int32, device=step.device)
+    for b in op.attrs["boundaries"]:
+        k = k + (step >= b).to(torch.int32)
+    values = op.attrs["values"]
+    out = torch.full((), values[0], dtype=torch.float32, device=step.device)
+    for i, v in enumerate(values[1:], 1):
+        out = torch.where(k == i, torch.full_like(out, v), out)
+    ctx.set_output(op, "Out", out.reshape(1))

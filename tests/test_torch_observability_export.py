@@ -263,9 +263,11 @@ def test_serve_metrics_on_a_cpu_engine(model_dir):
         for base in ("paddle_tpu_serving_queue_wait_seconds",
                      "paddle_tpu_serving_execute_seconds",
                      "paddle_tpu_serving_request_latency_batch_seconds"):
+            # this engine's series (unlabelled); a process that ran the
+            # router's tests first also holds series labelled by model
             ladder = sorted(
                 ((k, v) for k, v in samples.items()
-                 if k.startswith(base + "_bucket")),
+                 if k.startswith(base + '_bucket{le="')),
                 key=lambda kv: float(kv[0].split('le="')[1].split('"')[0]
                                      .replace("Inf", "inf")))
             counts = [v for _, v in ladder]

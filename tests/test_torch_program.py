@@ -251,9 +251,10 @@ def test_unported_op_raises_naming_it():
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         x = tfluid.layers.data(name="x", shape=[4], dtype="float32")
-        y = tfluid.layers.sigmoid(x)
+        y = tfluid.layers.sigmoid_cross_entropy_with_logits(x, x)
     exe = tfluid.Executor(tfluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="'sigmoid'"):
+    with pytest.raises(NotImplementedError,
+                       match="'sigmoid_cross_entropy_with_logits'"):
         exe.run(main, feed={"x": np.zeros((2, 4), np.float32)},
                 fetch_list=[y], scope=tfluid.Scope())
 

@@ -243,14 +243,18 @@ split device time by op or kernel family run a step on the eager path
 11. op rules on the card: ``mean`` of an int64 input and a float32 cast
    to int32 and uint8 (NaN, +-inf and values past the range) give the
    JAX package's values exactly (ROADMAP F-8, F-9); after ResNet-50
-   (ops_phase), every case of tests/test_torch_{math,tensor}_ops.py in
-   float64 on the card against the port's CPU, outputs and gradients
-   within OPS_RTOL, the tie cases' gradients exactly their halves,
-   ``scatter`` with repeated ids the same bits SCATTER_RUNS times,
+   (ops_phase), every case of tests/test_torch_{math,tensor,nn}_ops.py
+   in float64 on the card against the port's CPU, outputs and gradients
+   within OPS_RTOL (infinities in the same places), the tie cases'
+   gradients exactly their shares (halves; 0 for a zero logit in
+   ``sigmoid_cross_entropy_with_logits``; ``roi_pool``'s tied maxima),
+   ``scatter``, ``auc`` and ``mean_iou`` with repeated, negative and
+   out-of-range ids the same bits SCATTER_RUNS times and the CPU's,
    ``argsort`` stable, out-of-range ids the JAX package's answer with no
-   device assert, and the four random ops in a captured step (the
+   device assert, the four random ops in a captured step (the
    replay bitwise the eager step, every draw within its distribution's
-   limits);
+   limits), and a step holding ``auc`` captured, its replays bitwise
+   its eager steps;
 12. ResNet-50 (models.resnet.get_model at 224 x 224, 1000 classes, f32,
    TF32 off): one step at batch 2 on the card against the port's CPU
    path from one set of numpy parameters, in float64 at the training
@@ -267,14 +271,14 @@ split device time by op or kernel family run a step on the eager path
    RESNET_FOLD_RTOL of the unfolded Program's), saved with ``aot=True``,
    loaded and run, images/s of each; B1-B5 launched not at all; then
    the zoo (zoo_phase: VGG-16 with batch norm on CIFAR-10, SE-ResNeXt-50
-   at 224 x 224, the word2vec softmax head, ZOO): one step at full width
-   against the port's CPU path by the same method (VGG-16 at batch 4,
-   word2vec's float32 step to W2V_F32_RTOL), a TF32 step that must fail;
-   ZOO_STEPS steps on the fast path at fluid_benchmark.py's batches
-   (losses finite and falling): step ms, images/s or words/s, a
-   replay's device time and idle share, peak memory, an eager step's
-   device time by op family; a pass of each test Program; B1-B5
-   launched not at all;
+   at 224 x 224, the word2vec softmax head, DeepFM, ZOO): one step at
+   full width against the port's CPU path by the same method (VGG-16 at
+   batch 4, word2vec's and DeepFM's float32 steps to their ``f32_rtol``), a
+   TF32 step that must fail; ZOO_STEPS steps on the fast path at
+   fluid_benchmark.py's batches (losses finite and falling; DeepFM's
+   AUC): step ms, images/s, words/s or samples/s, a replay's device
+   time and idle share, peak memory, an eager step's device time by op
+   family; a pass of each test Program; B1-B5 launched not at all;
 13. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
@@ -599,19 +603,23 @@ RESNET_INFER_BATCH = 256
 CAST_IN = [-2.7, -0.5, 0.5, 2.7, 3e9, -3e9, float("nan"), float("inf")]
 CAST_WANT = {"int32": [-2, 0, 0, 2, 2147483647, -2147483648, 0, 2147483647],
              "uint8": [0, 0, 0, 2, 255, 0, 0, 255]}
-# the op rules of paddle_tpu_torch/ops/{math,tensor}_ops.py (ops_phase):
-# each case of tests/test_torch_{math,tensor}_ops.py in float64, card
+# the op rules of paddle_tpu_torch/ops/{math,tensor,nn}_ops.py (ops_phase):
+# each case of tests/test_torch_{math,tensor,nn}_ops.py in float64, card
 # against the port's CPU, forward and gradient, of each output's largest
-# magnitude (float64 rounding in another order only)
+# finite magnitude (float64 rounding in another order only)
 OPS_RTOL = 1e-9
 SCATTER_RUNS = 5
-# the zoo (benchmarks/fluid_benchmark.py:150-151, 167-169 and the models'
-# get_model defaults): VGG-16 with batch norm on CIFAR-10 (Adam 1e-3),
-# SE-ResNeXt-50 on ImageNet shapes (cardinality 32, reduction 16,
+# the bound step holding ``auc`` (auc_bound_check): its steps and batch
+AUC_STEPS, AUC_BATCH = 4, 256
+# the zoo (benchmarks/fluid_benchmark.py:60-62, 150-152, 167-169 and the
+# models' get_model defaults): VGG-16 with batch norm on CIFAR-10 (Adam
+# 1e-3), SE-ResNeXt-50 on ImageNet shapes (cardinality 32, reduction 16,
 # momentum 0.1 / 0.9), the word2vec n-gram LM with the softmax head
-# (vocab 2073, embedding 32, hidden 256, Adam 1e-3); its batch, the
-# feed's unit, and the card-vs-CPU check's batch (ZOO_CHECK_BATCH unless
-# given).  VGG-16's check runs at batch 4: at batch 2 the batch_norm
+# (vocab 2073, embedding 32, hidden 256, Adam 1e-3), DeepFM (26 fields of
+# 1000 ids, embedding 8, hidden (64, 32), Adam 1e-3, its AUC over 4096
+# bins); its batch, the feed's unit, the card-vs-CPU check's batch
+# (ZOO_CHECK_BATCH unless given) and, where set, the limit of its float32
+# step in the loss and every gradient (f32_rtol, else resnet_f32_ok).  VGG-16's check runs at batch 4: at batch 2 the batch_norm
 # after its first fc normalizes 2 values, so the gradient it passes back
 # is eps / (var + eps) of the incoming one, formed by cancelling two
 # terms of the incoming size; a float32 rounding there becomes a
@@ -627,14 +635,18 @@ ZOO = {
                          batch=64, unit="images"),
     "word2vec": dict(module="word2vec", kw=dict(vocab_size=2073, emb_size=32,
                                                 hidden_size=256),
-                     batch=512, unit="words"),
+                     batch=512, unit="words", f32_rtol=1e-5),
+    "deepfm": dict(module="deepfm", kw=dict(), batch=512, unit="samples",
+                   check_batch=64, f32_rtol=1e-5),
 }
 ZOO_STEPS, ZOO_CHECK_BATCH = 20, 2
-# word2vec has no gate and no batch statistics: its float32 step is a
-# smooth function, so its float32 card step is held to this of the CPU's
-# float64 step in the loss and in every gradient (float32 rounding, about
-# 1e-6, with room; TF32's 10-bit products are about 1e-3)
-W2V_F32_RTOL = 1e-5
+# word2vec has no gate and no batch statistics, and DeepFM's only gates
+# are its MLP's 96 ReLUs (6,144 pre-activations at its check batch of 64:
+# one within float32 rounding of 0 is a chance of about 1e-3, and the
+# seeded step is checked on the CPU in float32 too): each float32 step is
+# a smooth function, so its float32 card step is held to ``f32_rtol`` of
+# the CPU's float64 step in the loss and in every gradient (float32
+# rounding, about 1e-6, with room; TF32's 10-bit products are about 1e-3)
 # a bias added just before a batch_norm has a true gradient of 0: its
 # step's gradient, of its layer weight gradient's largest, in any dtype.
 # A true gradient would be of the weight gradient's order; the float32
@@ -648,7 +660,10 @@ ZOO_FAMILIES = {"conv2d": "conv", "batch_norm": "batch_norm", "mul": "gemm",
                 "elementwise_mul": "elementwise", "adam": "optimizer",
                 "momentum": "optimizer", "lookup_table": "embedding",
                 "concat": "concat", "softmax": "softmax",
-                "cross_entropy": "loss", "mean": "loss"}
+                "cross_entropy": "loss", "mean": "loss",
+                "sigmoid_cross_entropy_with_logits": "loss", "auc": "metric",
+                "reduce_sum": "reduce", "elementwise_sub": "elementwise",
+                "scale": "elementwise"}
 KERNEL_TOL = 2e-5   # kernel vs plain, f32 math on both: summation order only
 # the decode slice's kv_lens: empty slots, one key, a page, a page + 1, and
 # longer walks up to 2047 keys
@@ -4650,8 +4665,8 @@ def _f64(rows):
 
 
 def op_cases():
-    """The cases of tests/test_torch_{math,tensor}_ops.py in float64 (the
-    integer ones in their own types): dicts of the op, its feeds (name ->
+    """The cases of tests/test_torch_{math,tensor,nn}_ops.py in float64
+    (the integer ones in their own types): dicts of the op, its feeds (name ->
     array), input and output slots, attrs, output dtypes, the feeds the
     gradient of mean(first output) is taken for, and the exact gradient
     values a tie case must give (index into the gradient -> value)."""
@@ -4880,7 +4895,206 @@ def op_cases():
             {"step": np.array([step], np.float32)}, inputs={"Step": ["step"]},
             attrs={"boundaries": [3.0, 10.0], "values": [0.1, 0.01, 0.001]},
             wrt=[])
+    nn_op_cases(add)
     return cases
+
+
+def nn_op_cases(add):
+    """The cases of tests/test_torch_nn_ops.py in float64 (ids and
+    labels in their own types, the AUC's histograms float32 as a model
+    holds them), through op_cases' ``add``."""
+    def randn(seed, shape, scale=1.0):
+        return np.random.RandomState(seed).randn(*shape) * scale
+
+    convs = (
+        ("conv3d", (1, 2, 4, 5, 5), (3, 2, 3, 3, 3), {"paddings": [1, 1, 1]}),
+        ("conv3d stride dilation", (2, 2, 6, 7, 5), (3, 2, 2, 3, 2),
+         {"strides": [2, 1, 2], "paddings": [1, 0, 1], "dilations": [2, 1, 1]}),
+        ("conv3d groups", (1, 4, 4, 4, 4), (6, 2, 3, 3, 3),
+         {"paddings": [1, 1, 1], "groups": 2}),
+        ("conv2d_transpose", (2, 3, 5, 5), (3, 4, 3, 3), {}),
+        ("conv2d_transpose stride padding", (2, 3, 5, 5), (3, 4, 3, 3),
+         {"strides": [2, 2], "paddings": [1, 1]}),
+        ("conv2d_transpose grads", (2, 3, 4, 4), (3, 2, 3, 3),
+         {"strides": [2, 2], "paddings": [1, 1]}),
+        ("conv2d_transpose groups dilation", (2, 4, 5, 4), (4, 3, 3, 2),
+         {"strides": [2, 1], "paddings": [1, 0], "dilations": [2, 2],
+          "groups": 2}),
+        ("conv3d_transpose", (1, 2, 3, 3, 3), (2, 2, 2, 2, 2),
+         {"strides": [2, 2, 2]}),
+        ("conv3d_transpose padding", (1, 2, 3, 4, 3), (2, 3, 3, 3, 3),
+         {"strides": [2, 1, 2], "paddings": [1, 1, 0]}),
+        ("conv3d_transpose dilation ignored", (1, 2, 3, 3, 3), (2, 4, 3, 3, 3),
+         {"dilations": [2, 2, 2]}),
+        ("conv3d_transpose groups ignored", (1, 2, 3, 3, 3), (2, 4, 3, 3, 3),
+         {"groups": 2}))
+    for label, xs, ws, attrs in convs:
+        add(label, label.split()[0], {"x": randn(1, xs), "w": randn(2, ws, 0.5)},
+            inputs={"Input": ["x"], "Filter": ["w"]}, outputs={"Output": 1},
+            attrs=attrs)
+    pools = (("max", "max", 2, 2, 0, False, True, False, (1, 2, 4, 4, 4)),
+             ("avg", "avg", 2, 2, 0, False, True, False, (1, 2, 4, 4, 4)),
+             ("max padded", "max", 3, 2, 1, False, True, False, (2, 2, 5, 6, 5)),
+             ("max ceil", "max", 3, 2, 0, True, True, False, (1, 2, 6, 6, 5)),
+             ("max ceil window in padding", "max", 2, 2, 1, True, True, False,
+              (1, 1, 5, 5, 5)),
+             ("avg padded exclusive", "avg", 3, 2, 1, False, True, False,
+              (1, 2, 5, 5, 5)),
+             ("avg padded inclusive", "avg", 3, 2, 1, False, False, False,
+              (1, 2, 5, 5, 5)),
+             ("avg ceil exclusive", "avg", 3, 2, 0, True, True, False,
+              (1, 2, 6, 6, 6)),
+             ("avg ceil inclusive", "avg", 3, 2, 0, True, False, False,
+              (1, 2, 6, 6, 6)),
+             ("global avg", "avg", 2, 1, 0, False, True, True, (2, 3, 3, 4, 5)))
+    for label, ptype, k, st, pad, ceil, excl, glob, shape in pools:
+        x = (np.random.RandomState(2).permutation(int(np.prod(shape)))
+             .reshape(shape) * 0.09)
+        add("pool3d " + label, "pool3d", {"x": x}, attrs={
+            "pooling_type": ptype, "ksize": [k] * 3, "strides": [st] * 3,
+            "paddings": [pad] * 3, "ceil_mode": ceil, "exclusive": excl,
+            "global_pooling": glob})
+    for n, k, alpha, beta in ((5, 1.0, 1e-2, 0.75), (5, 2.0, 1e-4, 0.75),
+                              (3, 1.0, 0.5, 0.5)):
+        add("lrn %d %g" % (n, alpha), "lrn", {"x": _u(2, (2, 6, 4, 4), 0.0, 3.0)},
+            outputs={"Out": 1, "MidOut": 1},
+            attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    rng = np.random.RandomState(4)
+    lr_lab = (rng.rand(5, 1) > 0.5).astype(np.float64)
+    pm_lab = np.where(rng.rand(5, 1) > 0.5, 1.0, -1.0)
+    xy = {"X": ["x"], "Y": ["y"]}
+    add("smooth_l1_loss", "smooth_l1_loss",
+        {"x": randn(1, (4, 6), 2), "y": randn(2, (4, 6), 2)}, inputs=xy,
+        outputs={"Out": 1, "Diff": 1}, attrs={"sigma": 1.0}, wrt=["x", "y"])
+    add("smooth_l1_loss weights sigma", "smooth_l1_loss",
+        {"x": randn(8, (4, 3)), "y": randn(9, (4, 3)),
+         "iw": _u(10, (4, 3), 0.5, 1.5), "ow": _u(11, (4, 3), 0.5, 1.5)},
+        inputs={"X": ["x"], "Y": ["y"], "InsideWeight": ["iw"],
+                "OutsideWeight": ["ow"]},
+        outputs={"Out": 1, "Diff": 1}, attrs={"sigma": 2.0}, wrt=["x", "y"])
+    add("dice_loss", "dice_loss", {"x": _u(2, (4, 5), 0.0, 1.0),
+                                   "label": (_u(3, (4, 5), 0.0, 1.0) > 0.5)
+                                   .astype(np.float64)},
+        inputs={"X": ["x"], "Label": ["label"]}, attrs={"epsilon": 1e-5},
+        wrt=["x"])
+    rank = {"Label": ["label"], "Left": ["left"], "Right": ["right"]}
+    add("rank_loss", "rank_loss", {"label": lr_lab, "left": randn(3, (5, 1)),
+                                   "right": randn(5, (5, 1))},
+        inputs=rank, wrt=["left", "right"])
+    # exp(800) overflows float64 as exp(100) does float32
+    add("rank_loss overflow", "rank_loss",
+        {"label": _f64([[1.0], [0.0], [1.0]]),
+         "left": _f64([[800.0], [1.0], [-3.0]]),
+         "right": _f64([[0.0], [0.5], [2.0]])}, inputs=rank, wrt=[])
+    margin = {"Label": ["label"], "X1": ["x1"], "X2": ["x2"]}
+    add("margin_rank_loss", "margin_rank_loss",
+        {"label": pm_lab, "x1": randn(6, (5, 1)), "x2": randn(7, (5, 1))},
+        inputs=margin, attrs={"margin": 0.3}, wrt=["x1", "x2"])
+    add("margin_rank_loss tie", "margin_rank_loss",
+        {"label": _f64([[1.0], [-1.0], [-1.0], [1.0]]),
+         "x1": _f64([[0.5], [0.0], [0.0], [2.0]]),
+         "x2": _f64([[0.25], [1.0], [0.25], [0.0]])},
+        inputs=margin, attrs={"margin": 0.25}, wrt=["x1", "x2"],
+        ties={(0, 0): -0.5 / 4, (2, 0): 0.5 / 4})
+    add("huber_loss", "huber_loss", {"x": randn(0, (6, 3)),
+                                     "y": randn(0, (6, 3)) + randn(1, (6, 3), 2)},
+        inputs=xy, outputs={"Out": 1, "Residual": 1}, attrs={"delta": 1.0},
+        wrt=["x", "y"])
+    add("huber_loss bounds", "huber_loss", {"x": _f64([[0.0, 1.0, -2.0, 3.0]]),
+                                            "y": _f64([[1.0, 1.0, -2.5, 1.0]])},
+        inputs=xy, outputs={"Out": 1, "Residual": 1}, attrs={"delta": 1.0},
+        wrt=["x", "y"])
+    add("log_loss", "log_loss",
+        {"p": _u(1, (8, 1), 0.05, 0.95),
+         "label": np.random.RandomState(1).randint(0, 2, (8, 1)).astype(np.float64)},
+        inputs={"Predicted": ["p"], "Labels": ["label"]}, outputs={"Loss": 1},
+        attrs={"epsilon": 1e-4}, wrt=["p"])
+    sce = {"X": ["x"], "Label": ["label"]}
+    add("sigmoid_cross_entropy_with_logits", "sigmoid_cross_entropy_with_logits",
+        {"x": randn(2, (5, 4), 3), "label": _u(2, (5, 4), 0.0, 1.0)},
+        inputs=sce, attrs={"ignore_index": -100}, wrt=["x", "label"])
+    add("sigmoid_cross_entropy_with_logits ignore",
+        "sigmoid_cross_entropy_with_logits",
+        {"x": _f64([[1.0, -2.0, 3.0]]), "label": _f64([[1.0, -100.0, 0.0]])},
+        inputs=sce, attrs={"ignore_index": -100}, wrt=["x"])
+    add("sigmoid_cross_entropy_with_logits zero logit",
+        "sigmoid_cross_entropy_with_logits",
+        {"x": _f64([[0.0, 0.0, -0.0, 2.0]]), "label": _f64([[0.0, 1.0, 0.0, 0.5]])},
+        inputs=sce, attrs={"ignore_index": -100}, wrt=["x"],
+        ties={(0, 0): 0.0, (0, 2): 0.0, (0, 1): -1.0 / 4})
+    auc_out = {"AUC": 1, "StatPosOut": 1, "StatNegOut": 1}
+    for label, seed, rows, cols, thresholds, scores in (
+            ("auc rank formula", 1, 64, 2, 4095, None),
+            ("auc few thresholds", 2, 40, 2, 7, None),
+            ("auc one column", 3, 32, 1, 63, None),
+            ("auc edges", 4, 6, 2, 3, _f64([[0, 0.25], [0, 0.5], [0, 1.0],
+                                            [0, 1.5], [0, -0.2], [0, np.nan]]))):
+        r = np.random.RandomState(seed)
+        stat = r.randint(0, 3, (2, thresholds + 1)).astype(np.float32)
+        p = r.rand(rows, cols) if scores is None else scores
+        add(label, "auc", {"p": p, "label": r.randint(0, 2, (rows, 1)),
+                           "sp": stat[0], "sn": stat[1]},
+            inputs={"Predict": ["p"], "Label": ["label"], "StatPos": ["sp"],
+                    "StatNeg": ["sn"]}, outputs=auc_out,
+            attrs={"num_thresholds": thresholds},
+            dtypes={k: "float32" for k in auc_out}, wrt=[])
+    miou_types = {"OutMeanIou": "float32", "OutWrong": "int32",
+                  "OutCorrect": "int32"}
+    for label, pred, lab, n in (
+            ("mean_iou", np.array([[0, 1, 2, 1], [2, 2, 0, 1]]),
+             np.array([[0, 1, 1, 1], [2, 0, 0, 2]]), 3),
+            ("mean_iou random", np.random.RandomState(6).randint(0, 5, (4, 9)),
+             np.random.RandomState(7).randint(0, 5, (4, 9)), 5),
+            ("mean_iou ids out of range", np.array([1, 1, 1, 1, 0, 0]),
+             np.array([0, 4, -1, -5, 1, 1]), 2)):
+        add(label, "mean_iou", {"pred": pred.astype(np.int64),
+                                "label": lab.astype(np.int64)},
+            inputs={"Predictions": ["pred"], "Labels": ["label"]},
+            outputs={"OutMeanIou": 1, "OutWrong": 1, "OutCorrect": 1},
+            attrs={"num_classes": n}, dtypes=miou_types, wrt=[])
+    for label, shape, k, st, pad in (
+            ("im2sequence", (1, 2, 4, 4), [2, 2], [2, 2], [0, 0, 0, 0]),
+            ("im2sequence overlapping", (2, 3, 5, 4), [3, 2], [1, 1], [0, 0, 0, 0]),
+            ("im2sequence asymmetric paddings", (2, 2, 5, 6), [2, 3], [1, 2],
+             [1, 0, 2, 1])):
+        add(label, "im2sequence", {"x": randn(1, shape)},
+            attrs={"kernels": k, "strides": st, "paddings": pad})
+    for label, op, shape, oh, ow in (
+            ("bilinear up", "bilinear_interp", (2, 3, 4, 4), 8, 6),
+            ("bilinear down 8 to 4", "bilinear_interp", (2, 3, 8, 8), 4, 4),
+            ("bilinear down 8 to 5x7", "bilinear_interp", (2, 3, 8, 8), 5, 7),
+            ("bilinear up and down", "bilinear_interp", (1, 2, 6, 9), 10, 4),
+            ("nearest down", "nearest_interp", (1, 2, 4, 4), 2, 2),
+            ("nearest up", "nearest_interp", (2, 3, 4, 5), 8, 10),
+            ("nearest 8 to 5x7", "nearest_interp", (2, 3, 8, 8), 5, 7)):
+        add(label, op, {"x": randn(1, shape)}, attrs={"out_h": oh, "out_w": ow})
+    x = randn(0, (1, 3, 8, 8))
+    rois = _f64([[0, 0, 7, 7], [2, 2, 10, 10], [4, 0, 6, 3]])
+    distinct = np.random.RandomState(1).permutation(3 * 8 * 8).reshape(
+        1, 3, 8, 8) * 0.1
+    tied = np.floor(_u(2, (1, 2, 6, 6), 0.0, 2.0))
+    # the tie case's one ROI covers 2 x 3 cells of 3 x 2 pixels: each of a
+    # cell's k tied maxima takes (1 / 12) / k, the mean's share split by
+    # amax's backward
+    shares = {}
+    for c in range(2):
+        for i in range(2):
+            for j in range(3):
+                cell = tied[0, c, 3 * i:3 * i + 3, 2 * j:2 * j + 2]
+                top = np.argwhere(cell == cell.max())
+                for a, b in top:
+                    shares[(0, c, 3 * i + a, 2 * j + b)] = (1.0 / 12) / len(top)
+    roi_in = {"X": ["x"], "ROIs": ["rois"]}
+    for label, feeds, ph, pw, scale, tie in (
+            ("roi_pool", {"x": x, "rois": rois}, 2, 2, 0.5, {}),
+            ("roi_pool grad", {"x": distinct, "rois": rois[:2]}, 2, 2, 0.5, {}),
+            ("roi_pool ties", {"x": tied, "rois": _f64([[0, 0, 5, 5]])}, 2, 3,
+             1.0, shares),
+            ("roi_pool empty cells", {"x": x, "rois": _f64(
+                [[0, 0, 3, 3], [10, 10, 14, 14], [5, 6, 7, 8]])}, 4, 2, 1.0, {})):
+        add(label, "roi_pool", feeds, inputs=roi_in,
+            attrs={"pooled_height": ph, "pooled_width": pw,
+                   "spatial_scale": scale}, wrt=["x"], ties=tie)
 
 
 def op_case_run(fluid, case, dev):
@@ -5030,16 +5244,68 @@ def rng_check(torch, fluid, dev):
             "limits": [rng_limits(r, feed) for r in runs[0]]}
 
 
+def auc_bound_check(torch, fluid, dev):
+    """A step holding ``layers.auc`` (a sigmoid over a seeded fc of the
+    feed, as DeepFM's head) on the card: AUC_STEPS steps through the fast
+    path (eager, capture, replays) and AUC_STEPS op by op from a fresh
+    scope, a new seeded batch each step; each step's AUC and both
+    histogram persistables after it bitwise the same in the two runs,
+    the histograms counting every sample fed, one capture."""
+    from paddle_tpu_torch import executor as executor_mod
+
+    def program():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = SEED + 71
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+            y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+            p = fluid.layers.sigmoid(fluid.layers.fc(x, 1))
+            auc, stats = fluid.layers.auc(p, y)
+        return main, startup, auc, stats
+
+    def feed(step):
+        r = np.random.RandomState(SEED + 72 + step)
+        return {"x": r.randn(AUC_BATCH, 8).astype(np.float32),
+                "y": r.randint(0, 2, (AUC_BATCH, 1)).astype(np.int64)}
+
+    runs, captures = [], None
+    for cache in (True, False):
+        main, startup, auc, stats = program()
+        exe, scope = fluid.Executor(device=dev), fluid.Scope()
+        exe.run(startup, scope=scope)
+        before = executor_mod.compile_count()
+        steps = []
+        for step in range(AUC_STEPS):
+            (a,) = exe.run(main, feed=feed(step), fetch_list=[auc], scope=scope,
+                           use_program_cache=cache)
+            steps.append([np.array(a)] + [fluid.executor.as_numpy(scope[v.name])
+                                          for v in stats])
+        if cache:
+            captures = executor_mod.compile_count() - before
+        runs.append(steps)
+    bitwise = all(a.tobytes() == b.tobytes()
+                  for f, o in zip(*runs) for a, b in zip(f, o))
+    counted = float(runs[0][-1][1].sum() + runs[0][-1][2].sum())
+    aucs = [float(st[0][0]) for st in runs[0]]
+    check(captures == 1 and bitwise and counted == AUC_BATCH * AUC_STEPS
+          and all(0.0 <= a <= 1.0 for a in aucs),
+          "the step holding auc", captures, bitwise, counted, aucs)
+    return {"captures": captures, "replays_bitwise_eager": bitwise,
+            "aucs": aucs, "counted": counted}
+
+
 def ops_phase(torch, fluid, fa, dev):
-    """Every case of tests/test_torch_{math,tensor}_ops.py (op_cases) on
-    the card in float64 against the port's CPU float64: each output and
-    gradient within OPS_RTOL of its largest magnitude, integer, bool and
-    index outputs exactly; the tie cases' gradients exactly their 0.5
-    shares; ``scatter`` with repeated ids the same bits over
-    SCATTER_RUNS runs and the CPU's answer; ``argsort`` stable on ties;
-    out-of-range ids the JAX package's answer (scatter_want,
+    """Every case of tests/test_torch_{math,tensor,nn}_ops.py (op_cases)
+    on the card in float64 against the port's CPU float64: each output
+    and gradient within OPS_RTOL of its largest finite magnitude, its
+    infinities and NaNs in the same places, integer, bool and index
+    outputs exactly; the tie cases' gradients exactly their shares;
+    ``scatter`` with repeated ids, and ``auc`` and ``mean_iou``, the same
+    bits over SCATTER_RUNS runs and the CPU's answer; ``argsort`` stable
+    on ties; out-of-range ids the JAX package's answer (scatter_want,
     multiplex_want) with no device assert; then the random ops in a
-    bound step (rng_check).  No kernel of this repo runs."""
+    bound step (rng_check) and a bound step holding ``auc``
+    (auc_bound_check).  No kernel of this repo runs."""
     cpu = torch.device("cpu")
     fa.reset_launch_counts()
     t0 = time.perf_counter()
@@ -5056,8 +5322,12 @@ def ops_phase(torch, fluid, fa, dev):
                   g.shape, w.shape, g.dtype, w.dtype)
             if w.dtype.kind == "f":
                 check(np.array_equal(np.isnan(g), np.isnan(w)), case["label"])
-                scale = max(float(np.nanmax(np.abs(w), initial=0.0)), 1e-300)
-                e = float(np.nanmax(np.abs(g - w), initial=0.0)) / scale
+                inf = np.isinf(w)
+                check(np.array_equal(g[inf], w[inf]), "infinities on the card "
+                      "vs cpu", case["label"])
+                fin = np.isfinite(w)
+                scale = max(float(np.max(np.abs(w[fin]), initial=0.0)), 1e-300)
+                e = float(np.max(np.abs(g[fin] - w[fin]), initial=0.0)) / scale
                 err = max(err, e)
                 check(e <= OPS_RTOL, "op on the card vs cpu", case["label"], e)
             else:
@@ -5073,11 +5343,18 @@ def ops_phase(torch, fluid, fa, dev):
         if case["op"] == "scatter":
             check(np.array_equal(got[0], scatter_want(f["x"], f["ids"], f["upd"])),
                   "scatter vs the JAX package's answer", case["label"])
-            if "repeated" in case["label"]:
-                bits = {op_case_run(fluid, case, dev)[0].tobytes()
-                        for _ in range(SCATTER_RUNS)}
-                check(bits == {got[0].tobytes()} and bits == {want[0].tobytes()},
-                      "scatter bits moved between runs", len(bits))
+        if ((case["op"] == "scatter" and "repeated" in case["label"])
+                or case["op"] in ("auc", "mean_iou")):
+            # repeated (and, for the histograms, negative and out-of-range)
+            # ids: the outputs the same bits on every run, the CPU's
+            n_out = sum(case["outputs"].values())
+
+            def joined(outs):
+                return b"".join(o.tobytes() for o in outs[:n_out])
+            bits = {joined(op_case_run(fluid, case, dev))
+                    for _ in range(SCATTER_RUNS)}
+            check(bits == {joined(got)} and bits == {joined(want)},
+                  "bits moved between runs", case["label"], len(bits))
         if case["op"] == "multiplex":
             check(np.array_equal(got[0], multiplex_want(
                 [f["x0"], f["x1"], f["x2"]], f["ids"][:, 0])),
@@ -5089,6 +5366,7 @@ def ops_phase(torch, fluid, fa, dev):
                   "argsort not stable on the card", case["label"])
     cases_s = time.perf_counter() - t0
     rng = rng_check(torch, fluid, dev)
+    auc = auc_bound_check(torch, fluid, dev)
     launches = dict(fa.KERNEL_LAUNCHES)
     check(not any(launches.values()), "a kernel launched in the ops phase",
           launches)
@@ -5096,7 +5374,7 @@ def ops_phase(torch, fluid, fa, dev):
            "worst_rel_err": max(worst.values()),
            "worst_case": max(worst, key=worst.get),
            "tie_cases": sum(bool(c["ties"]) for c in cases),
-           "rng": rng, "launches": launches,
+           "rng": rng, "auc_bound": auc, "launches": launches,
            "seconds": {"cases": cases_s,
                        "rng": time.perf_counter() - t0 - cases_s}}
     log("op rules, card vs cpu float64 (%d cases): %s" % (len(cases),
@@ -5122,7 +5400,11 @@ def zoo_model(fluid, name, dtype="float32", no_dropout=False):
 
 def zoo_feed(name, m, rng, n):
     """``n`` seeded samples for ``m``'s feeds: standard normal images and
-    labels, or word ids of the vocabulary."""
+    labels, word ids of the vocabulary, or DeepFM's ids (one a field)
+    and 0/1 click labels (fluid_benchmark.py's _synth)."""
+    if name == "deepfm":
+        return {"feat_ids": rng.randint(0, 1000, size=(n, 26)).astype(np.int64),
+                "label": rng.randint(0, 2, size=(n, 1)).astype(np.float32)}
     if name == "word2vec":
         return {f: rng.randint(0, ZOO[name]["kw"]["vocab_size"], size=(n, 1))
                 .astype(np.int64) for f in m["feeds"]}
@@ -5147,8 +5429,8 @@ def zoo_step(torch, fluid, name, m, state, feed, dev, tf32=False):
     blk = m["main"].global_block()
     grads = [p.name + "@GRAD" for p in blk.all_parameters() if p.trainable]
     stats = [p.name for p in blk.all_parameters() if not p.trainable]
-    dtype = getattr(torch, str(blk.var(m["feeds"][0]).dtype))
-    feed = {k: (torch.as_tensor(v).to(dtype) if v.dtype.kind == "f" else v)
+    feed = {k: (torch.as_tensor(v).to(getattr(torch, str(blk.var(k).dtype)))
+                if v.dtype.kind == "f" else v)
             for k, v in feed.items()}
     scope = fluid.Scope()
     fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
@@ -5169,11 +5451,12 @@ def zoo_step(torch, fluid, name, m, state, feed, dev, tf32=False):
 
 
 def zoo_f32_ok(name, e):
-    """resnet_f32_ok, and for word2vec (no gate, no batch statistics)
-    the loss and every gradient within W2V_F32_RTOL."""
-    if name == "word2vec":
-        return (e["loss_rel"] <= W2V_F32_RTOL
-                and e["grad_worst_of_max"] <= W2V_F32_RTOL)
+    """resnet_f32_ok, and for a model with ``f32_rtol`` (word2vec,
+    DeepFM: no batch statistics) the loss and every gradient within
+    it."""
+    rtol = ZOO[name].get("f32_rtol")
+    if rtol is not None:
+        return e["loss_rel"] <= rtol and e["grad_worst_of_max"] <= rtol
     return resnet_f32_ok(e)
 
 
@@ -5247,7 +5530,7 @@ def zoo_check(torch, fluid, name, dev):
            "loss": {"cpu64": cpu64["loss"], "card64": card64["loss"],
                     "cpu32": cpu32["loss"], "card32": card32["loss"],
                     "tf32": tf32["loss"]},
-           "batch": len(feed["label" if "label" in feed else "nextw"]),
+           "batch": len(feed[m32["feeds"][-1]]),
            "last_fc": fc, "cpu_steps_s": cpu_s}
     check(zoo_f32_ok(name, out["float32_card_vs_cpu64"]),
           name + " float32 card vs cpu", out["float32_card_vs_cpu64"])
@@ -5266,8 +5549,10 @@ def zoo_train(torch, fluid, name, dev):
     finite; step ms (steps 3 on), samples/s, peak memory, a replay's
     busy and idle time, one eager step's device time by op family; then
     one pass of the test Program (``main.clone(for_test=True)``) on the
-    batch: finite, of the expected shape, each softmax row summing to
-    1."""
+    batch: finite, of the expected shape, each softmax row summing to 1
+    (DeepFM: each click probability in [0, 1]).  DeepFM's steps fetch
+    its AUC too, the histograms accumulating across the replays: each
+    in [0, 1], and the last one's histograms counting every sample fed."""
     batch, unit = ZOO[name]["batch"], ZOO[name]["unit"]
     m = zoo_model(fluid, name)
     m["startup"].random_seed = SEED + 82
@@ -5278,23 +5563,33 @@ def zoo_train(torch, fluid, name, dev):
               if p.trainable]
     feed = {k: torch.as_tensor(v, device=dev) for k, v in zoo_feed(
         name, m, np.random.RandomState(SEED + 83), batch).items()}
+    fetch_list = [m["loss"]] + ([m["auc"]] if "auc" in m else [])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, step_s = [], []
+    losses, aucs, step_s = [], [], []
     for _ in range(ZOO_STEPS):
         t0 = time.perf_counter()
-        (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
-                          scope=scope)
-        losses.append(float(loss[0]))
+        out = exe.run(m["main"], feed=feed, fetch_list=fetch_list,
+                      scope=scope)
+        losses.append(float(out[0][0]))
+        if len(out) > 1:
+            aucs.append(float(out[1][0]))
         step_s.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           name + " loss not finite or not falling", losses)
+    if aucs:
+        stat = [n for n in m["main"].global_block().vars if "_stat_" in n]
+        counted = sum(float(scope[n].sum()) for n in stat)
+        check(all(0.0 <= a <= 1.0 for a in aucs) and len(stat) == 2
+              and counted == batch * ZOO_STEPS,
+              name + " AUC outside [0, 1] or histograms miscounted", aucs,
+              counted)
     check(all(bool(torch.isfinite(scope[p]).all()) for p in params),
           name + " non-finite parameter")
     steady = steady_ms(step_s)
-    graphed = profile_graphed(torch, exe, m, feed, scope)
-    profile = profile_ops(torch, exe, m, feed, scope, [m["loss"]],
+    graphed = profile_graphed(torch, exe, m, feed, scope, fetch=fetch_list)
+    profile = profile_ops(torch, exe, m, feed, scope, fetch_list,
                           families=ZOO_FAMILIES)
     top = (dict(sorted(profile["device_ms_by_family"].items(),
                        key=lambda kv: -kv[1])[:5])
@@ -5302,7 +5597,11 @@ def zoo_train(torch, fluid, name, dev):
     fetch = m["predict"] if "predict" in m else m["loss"]
     test = np.asarray(exe.run(m["test"], feed=feed, fetch_list=[fetch],
                               scope=scope)[0])
-    if "predict" in m:
+    if name == "deepfm":
+        check(test.shape == (batch, 1) and np.isfinite(test).all()
+              and ((test >= 0) & (test <= 1)).all(),
+              name + " test Program", test.shape)
+    elif "predict" in m:
         check(test.shape == (batch, ZOO[name]["kw"]["class_dim"])
               and np.isfinite(test).all()
               and np.allclose(test.sum(-1), 1.0, atol=1e-5),
@@ -5321,6 +5620,7 @@ def zoo_train(torch, fluid, name, dev):
              "replay_idle_share": (graphed["device_idle_share"]
                                    if isinstance(graphed, dict) else graphed),
              "peak_memory_gib": peak / 2 ** 30, "losses": losses,
+             "aucs": aucs or None,
              "test_pass": {"fetch": fetch.name, "shape": list(test.shape)},
              "graphed_profile": graphed, "eager_top_families_ms": top,
              "eager_profile": profile}
@@ -5328,7 +5628,7 @@ def zoo_train(torch, fluid, name, dev):
 
 
 def zoo_phase(torch, fluid, fa, dev):
-    """VGG-16, SE-ResNeXt-50 and word2vec (ZOO) at full width: the
+    """VGG-16, SE-ResNeXt-50, word2vec and DeepFM (ZOO) at full width: the
     card-vs-CPU step (zoo_check) and ZOO_STEPS training steps on the
     fast path with a pass of the test Program (zoo_train).  No kernel
     of this repo runs: B1-B5 launch 0 times in the phase."""

@@ -35,9 +35,9 @@ graph, into the scope's own tensors (the counterpart of donation), and
 fetches are cloned out of the graph's pool.  On the CPU the captured
 step runs as it is, each run, on the same buffers.  A Program with a
 rule that waits on the host (``registry.reads_host``: ``while``,
-``conditional_block``, ``beam_search_decode``, ``assign_value``) or a
-LoD fetch is never bound: each run takes the path above, and the op is
-counted (``executor.graph_refused{op=...}``).  Invalidation: a
+``conditional_block``, ``beam_search_decode``, ``assign_value``, a
+``bilinear_interp`` fed an ``OutSize``) or a LoD fetch is never bound:
+each run takes the path above, and the op is counted (``executor.graph_refused{op=...}``).  Invalidation: a
 ``program.version`` bump, any public mutation of a scope on the owner
 chain (``Scope._version``), a feed whose shape, dtype or kind changed,
 a state var gone or replaced.  ``return_numpy=True`` fetches of a bound
@@ -1124,7 +1124,7 @@ def _graph_refusal(program, fetch_env, fetch_names):
     that carries lengths (it is read back to build a LoDArray)."""
     for blk in program.blocks:
         for op in blk.ops:
-            if reads_host(op.type):
+            if reads_host(op):
                 return op.type
     if any(f + "@LENGTHS" in fetch_env for f in fetch_names):
         return "lod_fetch"

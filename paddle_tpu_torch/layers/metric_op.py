@@ -1,8 +1,9 @@
 """Metric layers (reference: python/paddle/fluid/layers/metric_op.py).
 
 The port's copy of the JAX package's ``paddle_tpu/layers/metric_op.py``:
-``accuracy`` builds ``top_k`` + ``accuracy`` ops (both have rules);
-``auc``'s op has no rule yet and raises when run."""
+``accuracy`` builds ``top_k`` + ``accuracy`` ops; ``auc`` builds the
+``auc`` op over two float32 histogram persistables (``StatPos``,
+``StatNeg``) that each run adds the batch's counts to."""
 from __future__ import annotations
 
 from ..framework import Variable

@@ -1,7 +1,9 @@
-"""Models of the port: :mod:`.mnist` (LeNet), :mod:`.resnet` (ResNet-50
+"""Models of the port: :mod:`.deepfm` (the DeepFM CTR model),
+:mod:`.mnist` (LeNet), :mod:`.resnet` (ResNet-50
 and the CIFAR-10 ResNets), :mod:`.se_resnext` (SE-ResNeXt-50/101/152),
 :mod:`.transformer`, :mod:`.vgg` (VGG-16 with batch norm) and
 :mod:`.word2vec` (the n-gram language model)."""
+from . import deepfm  # noqa: F401
 from . import mnist  # noqa: F401
 from . import resnet  # noqa: F401
 from . import se_resnext  # noqa: F401

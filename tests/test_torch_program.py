@@ -250,12 +250,13 @@ def test_nets_build_the_reference_programs():
 def test_unported_op_raises_naming_it():
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
-        x = tfluid.layers.data(name="x", shape=[4], dtype="float32")
-        y = tfluid.layers.sigmoid_cross_entropy_with_logits(x, x)
+        x = tfluid.layers.data(name="x", shape=[3, 4], dtype="float32")
+        lab = tfluid.layers.data(name="lab", shape=[2], dtype="int32")
+        y = tfluid.layers.warpctc(x, lab)
     exe = tfluid.Executor(tfluid.CPUPlace())
-    with pytest.raises(NotImplementedError,
-                       match="'sigmoid_cross_entropy_with_logits'"):
-        exe.run(main, feed={"x": np.zeros((2, 4), np.float32)},
+    with pytest.raises(NotImplementedError, match="'warpctc'"):
+        exe.run(main, feed={"x": np.zeros((2, 3, 4), np.float32),
+                            "lab": np.ones((2, 2), np.int32)},
                 fetch_list=[y], scope=tfluid.Scope())
 
 

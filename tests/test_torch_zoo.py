@@ -1,6 +1,7 @@
-"""VGG-16, SE-ResNeXt-50 and word2vec (``models.vgg``, ``models.se_resnext``,
-``models.word2vec``) trained through the port's Executor against the
-JAX package's, on the CPU:
+"""VGG-16, SE-ResNeXt-50, word2vec and DeepFM (``models.vgg``,
+``models.se_resnext``, ``models.word2vec``, ``models.deepfm``) trained
+through the port's Executor against the JAX package's, on the CPU (DeepFM
+and ``bilinear_interp``'s ``OutSize`` in their own sections below):
 - VGG-16 with batch norm at 3 x 32 x 32, batch 4, 10 classes, Adam;
 - SE-ResNeXt-50 at 3 x 64 x 64, batch 2, 10 classes, momentum.  At
   32 x 32 its last stage is 1 x 1, so each of its batch_norms
@@ -53,6 +54,7 @@ import pytest
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
+from paddle_tpu_torch import executor as texe, observability as tobs
 from paddle_tpu.models import se_resnext as JS, vgg as JV, word2vec as JW
 from paddle_tpu_torch.models import se_resnext as TS, vgg as TV, word2vec as TW
 
@@ -298,3 +300,181 @@ def test_se_resnext_deeper_depths_build_the_reference(depth):
             m = M.get_model(class_dim=10, depth=depth, image_shape=(3, 64, 64))
         programs.append([m[k].to_string() for k in ("main", "startup", "test")])
     assert programs[0] == programs[1]
+
+
+# ---------------------------------------------------------------------------
+# DeepFM (models.deepfm) at test_distributed_pserver.py's small size: 6
+# fields of 100 ids, batch 64, Adam 0.01.  Both packages build the same
+# Programs; the JAX startup's state is copied into the port and both run
+# the same 4 seeded batches on from there: each step's loss and AUC, and
+# every persistable after it (the AUC's StatPos/StatNeg histograms
+# included), within 1e-5 of each tensor's largest magnitude.  A histogram
+# count moves whole when a sample's score crosses a bin edge, so these
+# hold exactly: the seeded scores lie at least 1.3e-3 of a bin (about 5
+# float32 ulps) from an edge, out of reach of the packages' rounding
+# differences.  Then the
+# port's fast path: the 4 steps bound (1 entry, 1 capture) give the bits
+# of the same steps run op by op.
+# ---------------------------------------------------------------------------
+
+DEEPFM = dict(sparse_feature_dim=100, num_fields=6, lr=0.01)
+DEEPFM_BATCH, DEEPFM_STEPS, DEEPFM_RTOL = 64, 4, 1e-5
+
+
+def _deepfm_feed(step):
+    rng = np.random.RandomState(40 + step)
+    ids = rng.randint(0, 100, size=(DEEPFM_BATCH, 6)).astype("int64")
+    w = np.random.RandomState(39).randn(100) * 0.5
+    label = (w[ids].sum(1) + 0.2 * rng.randn(DEEPFM_BATCH) > 0)
+    return {"feat_ids": ids, "label": label.astype("float32").reshape(-1, 1)}
+
+
+@pytest.fixture(scope="module")
+def deepfm():
+    from paddle_tpu.models import deepfm as JD
+    from paddle_tpu_torch.models import deepfm as TD
+
+    with jfluid.unique_name.guard():
+        jm = JD.get_model(**DEEPFM)
+    with tfluid.unique_name.guard():
+        tm = TD.get_model(**DEEPFM)
+    # the startup's own seed: with none the JAX package draws one from
+    # numpy's global generator, which the tests run before move
+    jm["startup"].random_seed = 5
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    with jfluid.scope_guard(jscope):
+        jexe.run(jm["startup"])
+    start = _state(jm["main"], jscope)
+    steps = []
+    for step in range(DEEPFM_STEPS):
+        with jfluid.scope_guard(jscope):
+            out = jexe.run(jm["main"], feed=_deepfm_feed(step),
+                           fetch_list=[jm["loss"], jm["auc"]])
+        steps.append(([np.asarray(o) for o in out], _state(jm["main"], jscope)))
+    return {"programs": (jm, tm), "start": start, "steps": steps}
+
+
+def _deepfm_port_steps(tm, start, use_program_cache):
+    scope = tfluid.Scope()
+    tfluid.load_numpy_state(tm["main"], start, scope=scope, device="cpu")
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    before = texe.compile_count()
+    steps = []
+    for step in range(DEEPFM_STEPS):
+        out = exe.run(tm["main"], feed=_deepfm_feed(step),
+                      fetch_list=[tm["loss"], tm["auc"]], scope=scope,
+                      use_program_cache=use_program_cache)
+        steps.append(([np.array(o) for o in out], _state(tm["main"], scope)))
+    return steps, len(exe._bound), texe.compile_count() - before
+
+
+def test_deepfm_programs_serialize_identically(deepfm):
+    jm, tm = deepfm["programs"]
+    for k in ("main", "startup", "test"):
+        assert jm[k].to_string() == tm[k].to_string(), k
+    assert {op.type for op in tm["main"].global_block().ops} == {
+        "adam", "auc", "backward", "cast", "elementwise_add", "elementwise_mul",
+        "elementwise_sub", "lookup_table", "mean", "mul", "reduce_sum", "relu",
+        "reshape", "scale", "sigmoid", "sigmoid_cross_entropy_with_logits"}
+
+
+def test_deepfm_matches_jax_for_four_steps(deepfm):
+    _, tm = deepfm["programs"]
+    port, _, _ = _deepfm_port_steps(tm, deepfm["start"], True)
+    stats = [n for n in deepfm["start"] if "_stat_" in n]
+    assert len(stats) == 2
+    for step, ((want, wstate), (got, gstate)) in enumerate(
+            zip(deepfm["steps"], port)):
+        for name, g, w in zip(("loss", "auc"), got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            np.testing.assert_allclose(g, w, rtol=DEEPFM_RTOL, atol=0,
+                                       err_msg="%s, step %d" % (name, step))
+        assert set(gstate) == set(wstate)
+        for n in wstate:
+            np.testing.assert_allclose(
+                gstate[n], wstate[n], rtol=0,
+                atol=DEEPFM_RTOL * float(np.abs(wstate[n]).max()),
+                err_msg="%s, step %d" % (n, step))
+        # the histograms count every sample seen so far
+        assert sum(gstate[n].sum() for n in stats) == DEEPFM_BATCH * (step + 1)
+
+
+def test_deepfm_binds_and_replays_bitwise(deepfm):
+    _, tm = deepfm["programs"]
+    fast, bound, captures = _deepfm_port_steps(tm, deepfm["start"], True)
+    slow, _, slow_captures = _deepfm_port_steps(tm, deepfm["start"], False)
+    assert (bound, captures, slow_captures) == (1, 1, 0)
+    for (fo, fs), (so, ss) in zip(fast, slow):
+        for a, b in zip(fo, so):
+            assert a.tobytes() == b.tobytes()
+        assert set(fs) == set(ss)
+        for n in fs:
+            assert fs[n].tobytes() == ss[n].tobytes(), n
+
+
+# ---------------------------------------------------------------------------
+# bilinear_interp's OutSize input: read back to the host at every run, so
+# a Program that feeds one runs op by op (never bound); one that sets
+# out_h/out_w binds.  The JAX package cannot run an OutSize at all (it
+# reads the value while tracing its step: ROADMAP R-6), so the port's
+# answer is held against the JAX package's Program with the same size in
+# out_h/out_w.
+# ---------------------------------------------------------------------------
+
+
+def _resize_program(fl, out_size):
+    main, startup = fl.Program(), fl.Program()
+    with fl.unique_name.guard(), fl.program_guard(main, startup):
+        x = fl.layers.data(name="x", shape=[2, 3, 8, 8], dtype="float32",
+                           append_batch_size=False)
+        inputs = {"X": [x]}
+        if out_size:
+            inputs["OutSize"] = [fl.layers.data(
+                name="size", shape=[2], dtype="int32", append_batch_size=False)]
+        helper = fl.layer_helper.LayerHelper("bilinear_interp")
+        out = helper.create_variable_for_type_inference(dtype="float32")
+        helper.append_op(type="bilinear_interp", inputs=inputs,
+                         outputs={"Out": [out]}, attrs={"out_h": 5, "out_w": 7})
+    return main, out
+
+
+def test_bilinear_out_size_runs_op_by_op_and_matches_jax():
+    x = np.random.RandomState(3).randn(2, 3, 8, 8).astype("float32")
+    jmain, jout = _resize_program(jfluid, False)
+    with jfluid.scope_guard(jfluid.Scope()):
+        want = np.asarray(jfluid.Executor(jfluid.CPUPlace()).run(
+            jmain, feed={"x": x}, fetch_list=[jout])[0])
+    jsized, jsout = _resize_program(jfluid, True)
+    with pytest.raises(Exception, match="[Tt]rac"):
+        with jfluid.scope_guard(jfluid.Scope()):
+            jfluid.Executor(jfluid.CPUPlace()).run(
+                jsized, feed={"x": x, "size": np.array([5, 7], "int32")},
+                fetch_list=[jsout])
+    main, out = _resize_program(tfluid, True)
+    refused = tobs.counter("executor.graph_refused", {"op": "bilinear_interp"})
+    exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+    r0, c0 = refused.value, texe.compile_count()
+    for size in ([5, 7], [4, 4], [5, 7]):
+        got = np.asarray(exe.run(main, feed={"x": x, "size": np.array(size, "int32")},
+                                 fetch_list=[out], scope=scope)[0])
+        assert got.shape == (2, 3, *size)
+        if size == [5, 7]:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert refused.value - r0 == 3 and texe.compile_count() == c0
+    assert not exe._bound
+
+
+def test_bilinear_without_out_size_binds():
+    x = np.random.RandomState(3).randn(2, 3, 8, 8).astype("float32")
+    main, out = _resize_program(tfluid, False)
+    assert texe._graph_refusal(main, {}, [out.name]) is None
+    outs = []
+    for cache in (True, False):
+        exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+        c0 = texe.compile_count()
+        outs.append([np.array(exe.run(main, feed={"x": x}, fetch_list=[out],
+                                      scope=scope, use_program_cache=cache)[0])
+                     for _ in range(3)])
+        assert (len(exe._bound), texe.compile_count() - c0) == \
+            ((1, 1) if cache else (0, 0))
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(*outs))

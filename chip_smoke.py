@@ -278,7 +278,21 @@ split device time by op or kernel family run a step on the eager path
    fluid_benchmark.py's batches (losses finite and falling; DeepFM's
    AUC): step ms, images/s, words/s or samples/s, a replay's device
    time and idle share, peak memory, an eager step's device time by op
-   family; a pass of each test Program; B1-B5 launched not at all;
+   family; a pass of each test Program; B1-B5 launched not at all; then
+   the sequence slice (sequence_phase): each of the 21 sequence op
+   rules, StaticRNN, DynamicRNN and the rank table in float64 on the
+   card against the port's CPU (outputs, lengths and gradients within
+   OPS_RTOL, ``MAX`` pooling's tied shares exact, ``is_reverse`` bitwise
+   the reversed forward pass); the stacked LSTM, the recommender and
+   machine translation (SEQ_MODELS) at full width, each float32 step
+   against the CPU's float64 step within its ``f32_rtol`` and a TF32
+   step that must fail, then SEQ_STEPS steps (losses finite and
+   falling): step ms, samples and tokens/s, launches a step, idle share,
+   peak memory; machine translation's training step bound (one capture)
+   and bitwise its op-by-op steps, its beam search in float64 equal on
+   the card and the CPU, then timed in float32 (op by op: ``while``);
+   the stacked LSTM fed a dense batch of the same padded shape (bound)
+   against its ragged feed (op by op); B1-B5 launched not at all;
 13. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
@@ -664,6 +678,60 @@ ZOO_FAMILIES = {"conv2d": "conv", "batch_norm": "batch_norm", "mul": "gemm",
                 "sigmoid_cross_entropy_with_logits": "loss", "auc": "metric",
                 "reduce_sum": "reduce", "elementwise_sub": "elementwise",
                 "scale": "elementwise"}
+# the sequence slice (sequence_phase): the stacked LSTM
+# (benchmark/fluid/models/stacked_dynamic_lstm.py's widths: embedding and
+# LSTM 512, IMDB's 5147 words, depth 1, batch 64, Adam 1e-3; lengths
+# 32-256 padded to 256), the recommender (test_recommender_system.py's
+# towers on MovieLens-1M's 6,040 users, 3,952 movies, 21 jobs and 18
+# genres, a 5,000-word title dictionary, batch 256, SGD 5e-3; 1-6 genres
+# and 1-15 title words a movie) and machine translation
+# (machine_translation.py's defaults: dictionary 30000, embedding,
+# encoder and decoder 512, 32 tokens, batch 16, Adam 2e-4); the batch of
+# the card-vs-CPU check and the limit of its float32 step against the
+# CPU's float64 step in the loss and every gradient (``f32_rtol``).  No
+# model here has a ReLU gate or a batch statistic, so each step is a
+# smooth function and float32 rounding (about 6e-8 an operation) is all
+# that parts the two.  The recommender has no recurrence: DeepFM's 1e-5.
+# The LSTM's gradient runs back through 256 steps of its recurrence and
+# machine translation's through 32 decoder steps, each a 512-wide GEMM
+# and a gate, with a 30000-way softmax over the decoder's outputs:
+# rounding accumulated over the recurrence, about 256 x 2 x 6e-8 = 3e-5
+# in the LSTM's worst case, under 1e-4; TF32's 10-bit products (about
+# 1e-3) must fail each limit
+SEQ_MODELS = {
+    "stacked_dynamic_lstm": dict(
+        module="stacked_dynamic_lstm",
+        kw=dict(lstm_size=512, emb_dim=512, vocab_size=5147, depth=1),
+        batch=64, check_batch=8, f32_rtol=1e-4),
+    "recommender": dict(
+        module="recommender",
+        kw=dict(max_user_id=6040, max_movie_id=3952, max_job_id=20,
+                n_categories=18, title_dict_size=5000),
+        batch=256, check_batch=256, f32_rtol=1e-5),
+    "machine_translation": dict(
+        module="machine_translation",
+        kw=dict(batch_size=16, seq_len=32, embedding_dim=512,
+                encoder_size=512, decoder_size=512, dict_size=30000),
+        batch=16, check_batch=4, f32_rtol=1e-4),
+}
+# machine translation's attention scores e_s = v . tanh(p_s + W h) meet a
+# softmax over the source positions s, whose gradient sums to 0 over s:
+# the gradient of W, sum_s dL/de_s v (1 - mix_s^2) h, loses its first
+# term and is what a cancellation leaves (on an H100 its float64 card
+# step was 2.7e-11 of its max from the CPU's, every other gradient's
+# under 4e-15; in float32 0.0091 on the card, 0.0128 on the CPU).  Such a
+# gradient (shift_invariant_weights) is held to SEQ_CANCEL_FACTOR times
+# the CPU's own float32 error of it (or f32_rtol, the larger)
+SEQ_CANCEL_FACTOR = 2.0
+SEQ_STEPS = 20
+SEQ_LSTM_T, SEQ_LSTM_LENS = 256, (32, 256)
+SEQ_GENRES, SEQ_TITLE = 6, 15
+SEQ_BOUND_STEPS = 4
+# machine translation's beam search (test_machine_translation.py's decode):
+# beam 3, 50 steps; the float64 card-vs-CPU check's sources; timed runs
+SEQ_BEAM, SEQ_MAX_LEN = 3, 50
+SEQ_GEN_CHECK_SOURCES = 4
+SEQ_GEN_RUNS = 3
 KERNEL_TOL = 2e-5   # kernel vs plain, f32 math on both: summation order only
 # the decode slice's kv_lens: empty slots, one key, a page, a page + 1, and
 # longer walks up to 2047 keys
@@ -5652,6 +5720,751 @@ def zoo_phase(torch, fluid, fa, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sequence slice: the sequence op rules, StaticRNN/DynamicRNN and the
+# stacked LSTM, recommender and machine-translation models
+# ---------------------------------------------------------------------------
+
+
+def seq_ragged(rng, lens, T, tail=(), ints=None):
+    """A ragged feed (data, lengths): padded ``[len(lens), T] + tail``
+    data, float64 (or ids in ``ints``), random in the padding too."""
+    shape = (len(lens), T) + tuple(tail)
+    data = (rng.randint(*ints, size=shape).astype(np.int64) if ints
+            else rng.uniform(-2, 2, shape))
+    return data, np.asarray(lens, np.int32)
+
+
+def seq_op_cases():
+    """Cases after tests/test_torch_sequence_ops.py and
+    tests/test_torch_rnn.py (each of the 21 rules, their edges and the
+    RNNs) in float64: dicts of a label, the feeds (name
+    -> array, or (data, lengths) for a ragged one), a body building the
+    outputs from the data variables through the layers, the outputs
+    whose lengths are fetched, and exact gradient shares (tie cases)."""
+    cases = []
+    rng = np.random.RandomState(SEED + 100)
+
+    def add(label, feeds, body, lod=(), ties=None):
+        cases.append(dict(label=label, feeds=feeds, body=body, lod=lod,
+                          ties=ties or {}))
+
+    seq = seq_ragged(rng, [5, 2, 0, 4], 6, (3,))
+    full = seq_ragged(rng, [5, 2, 1, 4], 6, (3,))
+    for pool in ("average", "sum", "sqrt", "max", "min", "last", "first"):
+        add("sequence_pool " + pool, {"x": full if pool in ("max", "min")
+                                      else seq},
+            lambda L, v, p=pool: [L.sequence_pool(v["x"], p)])
+    tied = _f64([[[1, 3], [3, 3], [3, 9]], [[2, 0], [2, 5], [7, 5]]])
+    add("sequence_pool max ties", {"x": (tied, np.array([3, 2], np.int32))},
+        lambda L, v: [L.sequence_pool(v["x"], "max")],
+        ties={(0, 1, 0): 0.125, (0, 2, 0): 0.125, (0, 2, 1): 0.25,
+              (1, 0, 0): 0.125, (1, 1, 0): 0.125, (1, 1, 1): 0.25,
+              (1, 2, 0): 0.0})
+    # a softmax's entries sum to 1, so mean(softmax) has no gradient: the
+    # case weighs the probabilities first
+    add("sequence_softmax", {"x": seq_ragged(rng, [6, 1, 3], 6, (1,)),
+                             "w": rng.uniform(-2, 2, (3, 6, 1))},
+        lambda L, v: [L.elementwise_mul(L.sequence_softmax(v["x"]), v["w"])],
+        lod=(0,))
+    for k in (3, 4):
+        add("sequence_conv %d" % k, {"x": seq_ragged(rng, [6, 3, 1], 7, (4,))},
+            lambda L, v, k=k: [L.sequence_conv(v["x"], num_filters=5,
+                                               filter_size=k, act="tanh")],
+            lod=(0,))
+    add("row_conv", {"x": seq_ragged(rng, [5, 3, 6], 6, (4,))},
+        lambda L, v: [L.row_conv(v["x"], future_context_size=2)], lod=(0,))
+    add("sequence_expand broadcast", {"x": rng.uniform(-2, 2, (4, 3)),
+                                      "y": seq_ragged(rng, [5, 2, 0, 4], 6, (2,))},
+        lambda L, v: [L.sequence_expand(v["x"], v["y"])], lod=(0,))
+    add("sequence_expand_as", {"x": rng.uniform(-2, 2, (3, 1, 4)),
+                               "y": seq_ragged(rng, [2, 5, 3], 5, (1,))},
+        lambda L, v: [L.sequence_expand_as(v["x"], v["y"])], lod=(0,))
+    add("sequence_concat", {"a": seq_ragged(rng, [2, 0, 3], 4, (3,)),
+                            "b": seq_ragged(rng, [1, 4, 2], 4, (3,))},
+        lambda L, v: [L.sequence_concat([v["a"], v["b"]])], lod=(0,))
+    add("sequence_reshape", {"x": seq_ragged(rng, [4, 2, 3], 4, (4,))},
+        lambda L, v: [L.sequence_reshape(v["x"], 2)], lod=(0,))
+    add("sequence_enumerate", {"ids": seq_ragged(rng, [5, 2, 3], 5, (),
+                                                 (1, 9))},
+        lambda L, v: [L.sequence_enumerate(v["ids"], win_size=3,
+                                           pad_value=-1)], lod=(0,))
+    add("sequence_scatter", {
+        "x": rng.uniform(-2, 2, (3, 6)),
+        "ids": (np.array([[0, 5, -1, 2], [3, 3, 9, -7], [1, 4, 4, 0]]),
+                np.array([4, 4, 2], np.int32)),
+        "upd": (rng.uniform(-2, 2, (3, 4)), np.array([4, 4, 2], np.int32))},
+        lambda L, v: [L.sequence_scatter(v["x"], v["ids"], v["upd"])])
+    add("sequence_slice", {"x": seq_ragged(rng, [4, 3, 5], 5, (2,)),
+                           "off": np.array([[1], [0], [3]]),
+                           "len": np.array([[2], [3], [3]])},
+        lambda L, v: [L.sequence_slice(v["x"], v["off"], v["len"])], lod=(0,))
+    for maxlen in (None, 8, 3):
+        add("sequence_pad %s" % maxlen, {"x": seq_ragged(rng, [5, 2, 0, 4], 6,
+                                                         (2,))},
+            lambda L, v, m=maxlen: list(L.sequence_pad(v["x"], -1.5, maxlen=m)))
+    add("sequence_unpad", {"x": rng.uniform(-2, 2, (3, 5, 2)),
+                           "len": np.array([5, 1, 3])},
+        lambda L, v: [L.sequence_unpad(v["x"], v["len"])], lod=(0,))
+    add("sequence_mask", {"x": np.array([3, 0, 5, 1])},
+        lambda L, v: [L.sequence_mask(v["x"], maxlen=6, dtype="float32")])
+    add("sequence_erase", {"ids": (np.array([[2, 5, 3, 2, 7, 1],
+                                             [5, 5, 6, 2, 9, 9],
+                                             [4, 2, 2, 2, 2, 2]]),
+                                   np.array([6, 4, 2], np.int32))},
+        lambda L, v: [L.sequence_erase(v["ids"], tokens=[2, 5])], lod=(0,))
+    add("lod_reset", {"x": seq_ragged(rng, [2, 3, 1], 3, (2,))},
+        lambda L, v: [L.lod_reset(v["x"], target_lod=[0, 4, 5, 6])], lod=(0,))
+    add("lod_reset y", {"x": seq_ragged(rng, [2, 3, 1], 3, (2,)),
+                        "y": seq_ragged(rng, [1, 4, 1], 4, (1,))},
+        lambda L, v: [L.lod_reset(v["x"], y=v["y"])], lod=(0,))
+    D = 4
+    lens = [8, 3, 0, 6]
+    for label, kw in (("peepholes", {}),
+                      ("no peepholes", {"use_peepholes": False}),
+                      ("reverse", {"is_reverse": True}),
+                      ("activations", {"is_reverse": True,
+                                       "gate_activation": "tanh",
+                                       "cell_activation": "relu",
+                                       "candidate_activation": "identity"})):
+        add("dynamic_lstm " + label, {"x": seq_ragged(rng, lens, 8, (4 * D,))},
+            lambda L, v, kw=kw: list(L.dynamic_lstm(v["x"], size=4 * D, **kw)),
+            lod=(0, 1))
+    add("dynamic_lstm initial state",
+        {"x": seq_ragged(rng, lens, 8, (4 * D,)),
+         "h0": rng.uniform(-1, 1, (4, D)), "c0": rng.uniform(-1, 1, (4, D))},
+        lambda L, v: list(L.dynamic_lstm(v["x"], size=4 * D, h_0=v["h0"],
+                                         c_0=v["c0"])), lod=(0, 1))
+    add("dynamic_lstmp reverse", {"x": seq_ragged(rng, lens, 8, (4 * D,))},
+        lambda L, v: list(L.dynamic_lstmp(v["x"], size=4 * D, proj_size=3,
+                                          is_reverse=True)), lod=(0,))
+    for origin, rev in ((False, False), (True, True)):
+        add("dynamic_gru origin %s reverse %s" % (origin, rev),
+            {"x": seq_ragged(rng, lens, 8, (3 * D,))},
+            lambda L, v, o=origin, r=rev: [L.dynamic_gru(
+                v["x"], size=D, origin_mode=o, is_reverse=r)], lod=(0,))
+    add("gru_unit origin", {"x": rng.uniform(-1, 1, (3, 3 * D)),
+                            "h": rng.uniform(-1, 1, (3, D))},
+        lambda L, v: list(L.gru_unit(v["x"], v["h"], size=3 * D,
+                                     origin_mode=True)))
+    add("lstm_unit", {"x": rng.uniform(-1, 1, (3, 5)),
+                      "h": rng.uniform(-1, 1, (3, D)),
+                      "c": rng.uniform(-1, 1, (3, D))},
+        lambda L, v: list(L.lstm_unit(v["x"], v["h"], v["c"],
+                                      forget_bias=1.0)))
+
+    def elman(L, v, dynamic):
+        rnn = L.DynamicRNN() if dynamic else L.StaticRNN()
+        with (rnn.block() if dynamic else rnn.step()):
+            xt = rnn.step_input(v["x"])
+            h_prev = (rnn.memory(shape=[-1, 3], value=0.0) if dynamic else
+                      rnn.memory(shape=[-1, 3], batch_ref=xt, init_value=0.0))
+            h = L.tanh(L.elementwise_add(L.fc(xt, size=3), L.fc(
+                h_prev, size=3, bias_attr=False)))
+            rnn.update_memory(h_prev, h)
+            rnn.output(h)
+        return [rnn()]
+
+    add("StaticRNN", {"x": rng.uniform(-1, 1, (2, 7, 3))},
+        lambda L, v: elman(L, v, False))
+    add("DynamicRNN lengths", {"x": seq_ragged(rng, [7, 2, 5, 0], 7, (3,))},
+        lambda L, v: elman(L, v, True), lod=(0,))
+    add("max_sequence_len", {"x": seq_ragged(rng, [2, 4, 1], 5, (2,))},
+        lambda L, v: [L.max_sequence_len(L.lod_rank_table(v["x"]))])
+    return cases
+
+
+def seq_case_program(fluid, case):
+    """The case's Program in float64 (widened), its startup, the fetch
+    names (the outputs, their lengths, then the gradients of mean(first
+    output) with respect to every float feed and parameter) and the
+    number of fetches before the gradients."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED + 101
+    L = fluid.layers
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        vs = {}
+        for n, v in case["feeds"].items():
+            a = v[0] if isinstance(v, tuple) else v
+            dtype = "float32" if a.dtype.kind == "f" else str(a.dtype)
+            if isinstance(v, tuple):
+                vs[n] = L.data(name=n, shape=list(a.shape[2:]), dtype=dtype,
+                               lod_level=1, stop_gradient=a.dtype.kind != "f")
+            else:
+                vs[n] = L.data(name=n, shape=list(a.shape), dtype=dtype,
+                               append_batch_size=False,
+                               stop_gradient=a.dtype.kind != "f")
+        outs = case["body"](L, vs)
+        fetch = ([o.name for o in outs]
+                 + [outs[i].name + "@LENGTHS" for i in case["lod"]])
+        wrt = [vs[n] for n, v in case["feeds"].items()
+               if (v[0] if isinstance(v, tuple) else v).dtype.kind == "f"]
+        wrt += main.global_block().all_parameters()
+        if wrt and outs[0].dtype == "float32":
+            fetch += [g.name for g in fluid.backward.calc_gradient(
+                L.mean(outs[0]), wrt)]
+    return (widened(fluid, main), widened(fluid, startup), fetch,
+            len(outs) + len(case["lod"]))
+
+
+def seq_case_run(fluid, case, prog, state, dev):
+    """One run of a case's Program on ``dev`` from ``state``: its fetches
+    as numpy."""
+    from paddle_tpu_torch.lod import LoDArray
+
+    main, _, fetch, _ = prog
+    scope = fluid.Scope()
+    fluid.load_numpy_state(main, state, scope=scope, device=dev)
+    feed = {n: (LoDArray(*v) if isinstance(v, tuple) else v)
+            for n, v in case["feeds"].items()}
+    return [np.asarray(o) for o in fluid.Executor(device=dev).run(
+        main, feed=feed, fetch_list=fetch, scope=scope)]
+
+
+def seq_reverse_exact(torch, fluid, dev):
+    """``is_reverse`` on the card, exactly: a reverse dynamic_lstm and
+    dynamic_gru over a ragged batch equal, bitwise, the forward ones (the
+    same parameters) over the batch with each row reversed within its
+    length, their outputs reversed back; float64 and float32."""
+    from paddle_tpu_torch.lod import LoDArray
+
+    rng = np.random.RandomState(SEED + 102)
+    lens = np.array([8, 3, 0, 6, 1], np.int32)
+    out = {}
+    for dtype in ("float32", "float64"):
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = SEED + 103
+        L = fluid.layers
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            outs = []
+            for op, width in (("lstm", 16), ("gru", 12)):
+                pa = fluid.ParamAttr(name=op + "_w")
+                ba = fluid.ParamAttr(name=op + "_b")
+                for rev, name in ((True, "x"), (False, "xr")):
+                    x = L.data(name=op + name, shape=[width], dtype=dtype,
+                               lod_level=1)
+                    if op == "lstm":
+                        h, _ = L.dynamic_lstm(x, size=width, param_attr=pa,
+                                              bias_attr=ba, is_reverse=rev,
+                                              dtype=dtype)
+                    else:
+                        h = L.dynamic_gru(x, size=width // 3, param_attr=pa,
+                                          bias_attr=ba, is_reverse=rev)
+                    outs.append(h)
+        exe, scope = fluid.Executor(device=dev), fluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = {}
+        for op, width in (("lstm", 16), ("gru", 12)):
+            x = rng.uniform(-2, 2, (5, 8, width)).astype(dtype)
+            xr = x.copy()
+            for b, n in enumerate(lens):
+                xr[b, :n] = x[b, :n][::-1]
+            feed[op + "x"], feed[op + "xr"] = (LoDArray(x, lens),
+                                               LoDArray(xr, lens))
+        got = [np.asarray(o) for o in exe.run(main, feed=feed,
+                                              fetch_list=outs, scope=scope)]
+        same = []
+        for rev_out, fwd_out in (got[:2], got[2:]):
+            back = fwd_out.copy()
+            for b, n in enumerate(lens):
+                back[b, :n] = fwd_out[b, :n][::-1]
+            same.append(rev_out.tobytes() == back.tobytes())
+        check(all(same), "is_reverse on the card not exactly the reversed "
+              "forward pass", dtype, same)
+        out[dtype] = same
+    return out
+
+
+def seq_ops_check(torch, fluid, dev):
+    """seq_op_cases on the card in float64 against the port's CPU: each
+    output and gradient within OPS_RTOL of its largest magnitude, integer
+    outputs and lengths exactly, the tie cases' gradient shares exactly;
+    then seq_reverse_exact."""
+    cpu = torch.device("cpu")
+    worst = {}
+    cases = seq_op_cases()
+    for case in cases:
+        prog = seq_case_program(fluid, case)
+        sc = fluid.Scope()
+        fluid.Executor(device=cpu).run(prog[1], scope=sc)
+        state = {n: sc[n].numpy() for n in prog[0].persistable_names()
+                 if n in sc}
+        want = seq_case_run(fluid, case, prog, state, cpu)
+        got = seq_case_run(fluid, case, prog, state, dev)
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype, case["label"],
+                  g.shape, w.shape, g.dtype, w.dtype)
+            if w.dtype.kind == "f":
+                scale = max(float(np.max(np.abs(w), initial=0.0)), 1e-300)
+                e = float(np.max(np.abs(g - w), initial=0.0)) / scale
+                err = max(err, e)
+                check(e <= OPS_RTOL, "sequence op on the card vs cpu",
+                      case["label"], e)
+            else:
+                check(np.array_equal(g, w), "sequence op on the card vs cpu",
+                      case["label"])
+        worst[case["label"]] = err
+        n_out = prog[3]
+        for idx, share in case["ties"].items():
+            check(got[n_out][idx] == share, "tie share on the card",
+                  case["label"], idx, float(got[n_out][idx]), share)
+    return {"cases": len(cases), "worst_rel_err": max(worst.values()),
+            "worst_case": max(worst, key=worst.get),
+            "tie_cases": sum(bool(c["ties"]) for c in cases),
+            "reverse_bitwise": seq_reverse_exact(torch, fluid, dev)}
+
+
+def seq_model(fluid, name, **over):
+    """``SEQ_MODELS[name]``'s get_model (``over`` on top of its kw)."""
+    import importlib
+
+    mod = importlib.import_module("paddle_tpu_torch.models."
+                                  + SEQ_MODELS[name]["module"])
+    with fluid.unique_name.guard():
+        return mod.get_model(**dict(SEQ_MODELS[name]["kw"], **over))
+
+
+def seq_words(rng, n, seq, vocab, pad):
+    """``n`` rows of ids in [3, vocab), each 8 to ``seq`` tokens long,
+    ``pad`` after."""
+    words = rng.randint(3, vocab, size=(n, seq)).astype(np.int64)
+    for b, k in enumerate(rng.randint(8, seq + 1, size=n)):
+        words[b, k:] = pad
+    return words
+
+
+def seq_feed(name, rng, n, dense=False):
+    """``n`` seeded samples for ``name``: the stacked LSTM's words
+    (lengths SEQ_LSTM_LENS padded to SEQ_LSTM_T, a LoDArray unless
+    ``dense``) and labels; the recommender's ids, 1 to SEQ_GENRES genres
+    and 1 to SEQ_TITLE title words a movie (LoDArrays), and ratings in
+    [1, 5]; machine translation's source and target rows (PAD_IDX tails)
+    and the target shifted by one as the label."""
+    from paddle_tpu_torch.lod import LoDArray
+
+    kw = SEQ_MODELS[name]["kw"]
+
+    def ragged(lo, hi, T, vocab):
+        return LoDArray(rng.randint(0, vocab, size=(n, T, 1)).astype(np.int64),
+                        rng.randint(lo, hi + 1, size=n))
+
+    if name == "stacked_dynamic_lstm":
+        words = ragged(SEQ_LSTM_LENS[0], SEQ_LSTM_LENS[1], SEQ_LSTM_T,
+                       kw["vocab_size"])
+        return {"words": words.data if dense else words,
+                "label": rng.randint(0, 2, size=(n, 1)).astype(np.int64)}
+    if name == "recommender":
+        feed = {k: rng.randint(lo, hi + 1, size=(n, 1)).astype(np.int64)
+                for k, lo, hi in (("user_id", 1, kw["max_user_id"]),
+                                  ("gender_id", 0, 1), ("age_id", 0, 6),
+                                  ("job_id", 0, kw["max_job_id"]),
+                                  ("movie_id", 1, kw["max_movie_id"]))}
+        feed["category_id"] = ragged(1, SEQ_GENRES, SEQ_GENRES,
+                                     kw["n_categories"])
+        feed["movie_title"] = ragged(1, SEQ_TITLE, SEQ_TITLE,
+                                     kw["title_dict_size"])
+        feed["score"] = rng.uniform(1, 5, size=(n, 1)).astype(np.float32)
+        return feed
+    from paddle_tpu_torch.models import machine_translation as MT
+
+    src, trg = (seq_words(rng, n, kw["seq_len"], kw["dict_size"], MT.PAD_IDX)
+                for _ in range(2))
+    label = np.concatenate([trg[:, 1:], np.full((n, 1), MT.PAD_IDX)], 1)
+    return {"src_word": src, "trg_word": trg,
+            "label": label[..., None].astype(np.int64)}
+
+
+def seq_step(torch, fluid, m, main, state, feed, dev, tf32=False):
+    """One training step of ``main`` (``m``'s Program or its widened copy)
+    on ``dev`` from the numpy ``state``, as zoo_step: (loss, every
+    trainable parameter's gradient)."""
+    blk = main.global_block()
+    grads = [p.name + "@GRAD" for p in blk.all_parameters() if p.trainable]
+    feed = {k: (v.astype(str(blk.var(k).dtype))
+                if isinstance(v, np.ndarray) and v.dtype.kind == "f" else v)
+            for k, v in feed.items()}
+    scope = fluid.Scope()
+    fluid.load_numpy_state(main, state, scope=scope, device=dev)
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        out = fluid.Executor(device=dev).run(
+            main, feed=feed, fetch_list=[m["loss"].name] + grads, scope=scope)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return {"loss": float(np.asarray(out[0]).reshape(-1)[0]), "acc": None,
+            "grads": dict(zip(grads, out[1:])), "stats": {}}
+
+
+def seq_state(fluid, m, seed, dev):
+    """``m``'s startup run on ``dev`` from ``seed``: its persistables as
+    numpy."""
+    m["startup"].random_seed = seed
+    scope = fluid.Scope()
+    fluid.Executor(device=dev).run(m["startup"], scope=scope)
+    return {n: fluid.executor.as_numpy(scope[n])
+            for n in m["main"].persistable_names() if n in scope}
+
+
+def shift_invariant_weights(program):
+    """The gradients of the weights of every ``mul`` whose output an
+    ``unsqueeze`` reads, in any block: machine translation's attention
+    state projection, added to every source position ahead of the
+    attention's softmax (SEQ_CANCEL_FACTOR)."""
+    out = []
+    for blk in program.blocks:
+        unsqueezed = {n for op in blk.ops if op.type == "unsqueeze"
+                      for n in op.inputs["X"]}
+        out += [op.inputs["Y"][0] + "@GRAD" for op in blk.ops
+                if op.type == "mul" and op.outputs["Out"][0] in unsqueezed]
+    return out
+
+
+def seq_errors(a, ref, fc, cancel):
+    """resnet_errors with the gradients in ``cancel`` left out of the
+    worst and listed apart (each one's max error of its max)."""
+    e = resnet_errors(a, ref, fc, skip=cancel)
+    e["cancelling"] = {n: float(np.abs(a["grads"][n] - ref["grads"][n]).max())
+                       / float(np.abs(ref["grads"][n]).max()) for n in cancel}
+    return e
+
+
+def seq_f32_ok(name, e, cpu32=None):
+    """The loss and every gradient within ``f32_rtol``; a cancelling
+    gradient (shift_invariant_weights) within SEQ_CANCEL_FACTOR times the
+    CPU's own float32 error of it (``cpu32``'s) or ``f32_rtol``, the
+    larger."""
+    rtol = SEQ_MODELS[name]["f32_rtol"]
+    cpu32 = cpu32 or e
+    return (e["loss_rel"] <= rtol and e["grad_worst_of_max"] <= rtol
+            and all(v <= SEQ_CANCEL_FACTOR * max(cpu32["cancelling"][n], rtol)
+                    for n, v in e["cancelling"].items()))
+
+
+def seq_check(torch, fluid, name, dev):
+    """zoo_check's method for ``name`` at full width, batch
+    ``check_batch``: one step from one set of numpy parameters on the
+    card and on the port's CPU path, in float64 (the Program widened;
+    loss LOSS_RTOL, each gradient GRAD_RTOL of its max) and in float32
+    with TF32 off against the CPU's float64 step (the loss and every
+    gradient within ``f32_rtol``), the CPU's float32 step too, and a
+    float32 step with TF32 on, which must fail ``f32_rtol``."""
+    cpu = torch.device("cpu")
+    m = seq_model(fluid, name)
+    state = seq_state(fluid, m, SEED + 110, cpu)
+    feed = seq_feed(name, np.random.RandomState(SEED + 111),
+                    SEQ_MODELS[name]["check_batch"])
+    main64 = widened(fluid, m["main"])
+    fc = last_fc(m)
+    cancel = shift_invariant_weights(m["main"])
+    t0 = time.perf_counter()
+    cpu64 = seq_step(torch, fluid, m, main64, state, feed, cpu)
+    cpu32 = seq_step(torch, fluid, m, m["main"], state, feed, cpu)
+    cpu_s = time.perf_counter() - t0
+    card64 = seq_step(torch, fluid, m, main64, state, feed, dev)
+    card32 = seq_step(torch, fluid, m, m["main"], state, feed, dev)
+    tf32 = seq_step(torch, fluid, m, m["main"], state, feed, dev, tf32=True)
+    e64 = seq_errors(card64, cpu64, fc, cancel)
+    check(e64["loss_rel"] <= LOSS_RTOL
+          and max([e64["grad_worst_of_max"]] + list(e64["cancelling"].values()))
+          <= GRAD_RTOL, name + " float64 card vs cpu", e64)
+    out = {"float64_card_vs_cpu": e64,
+           "float32_card_vs_cpu64": seq_errors(card32, cpu64, fc, cancel),
+           "float32_cpu_vs_cpu64": seq_errors(cpu32, cpu64, fc, cancel),
+           "tf32_card_vs_cpu64": seq_errors(tf32, cpu64, fc, cancel),
+           "f32_rtol": SEQ_MODELS[name]["f32_rtol"],
+           "loss": {"cpu64": cpu64["loss"], "card64": card64["loss"],
+                    "cpu32": cpu32["loss"], "card32": card32["loss"],
+                    "tf32": tf32["loss"]},
+           "batch": SEQ_MODELS[name]["check_batch"], "cpu_steps_s": cpu_s}
+    cpu_e = out["float32_cpu_vs_cpu64"]
+    check(seq_f32_ok(name, out["float32_card_vs_cpu64"], cpu_e),
+          name + " float32 card vs cpu", out["float32_card_vs_cpu64"])
+    check(seq_f32_ok(name, cpu_e), name + " float32 cpu vs cpu float64", cpu_e)
+    check(not seq_f32_ok(name, out["tf32_card_vs_cpu64"], cpu_e),
+          name + " limits pass a TF32 step", out["tf32_card_vs_cpu64"])
+    return out
+
+
+def seq_units(name, feed):
+    """The work units of one step on ``feed``: samples, and the tokens
+    the step reads (the LSTM's word lengths, machine translation's
+    non-pad target tokens)."""
+    if name == "stacked_dynamic_lstm":
+        words = feed["words"]
+        return {"samples": len(feed["label"]),
+                "tokens": int(np.sum(words.lengths) if hasattr(words, "lengths")
+                              else words.shape[0] * words.shape[1])}
+    if name == "machine_translation":
+        from paddle_tpu_torch.models import machine_translation as MT
+
+        return {"samples": len(feed["src_word"]),
+                "tokens": int((feed["label"] != MT.PAD_IDX).sum())}
+    return {"samples": len(feed["score"])}
+
+
+def seq_train(torch, fluid, name, dev, dense=False):
+    """SEQ_STEPS training steps of ``name`` at its batch through
+    Executor.run on the card, on one seeded batch fed each step (numpy
+    and LoDArrays, as a reader gives them; ``dense``: the LSTM's words as
+    a plain padded array): every loss finite and the last under the
+    first, every parameter finite; ms a step (steps 3 on), samples and
+    tokens a second, peak memory, and one profiled step: a replay's (a
+    bound Program) or an op-by-op step's busy and idle time and its
+    kernel launches.  Returns the figures and the executor and scope."""
+    from paddle_tpu_torch import executor as executor_mod
+
+    batch = SEQ_MODELS[name]["batch"]
+    m = seq_model(fluid, name)
+    m["startup"].random_seed = SEED + 112
+    exe, scope = fluid.Executor(device=dev), fluid.Scope()
+    exe.run(m["startup"], scope=scope)
+    params = [p.name for p in m["main"].global_block().all_parameters()
+              if p.trainable]
+    feed = seq_feed(name, np.random.RandomState(SEED + 113), batch, dense)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    c0 = executor_mod.compile_count()
+    losses, step_s = [], []
+    for _ in range(SEQ_STEPS):
+        t0 = time.perf_counter()
+        (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
+                          scope=scope)
+        losses.append(float(np.asarray(loss).reshape(-1)[0]))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    captures = executor_mod.compile_count() - c0
+    bound = [b for b in exe._bound.values() if b.program is m["main"]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          name + " loss not finite or not falling", losses)
+    check(all(bool(torch.isfinite(scope[p]).all()) for p in params),
+          name + " non-finite parameter")
+    if bound:
+        prof = profile_graphed(torch, exe, m, feed, scope)
+    else:
+        prof = busy_idle(profile_call(torch, lambda: exe.run(
+            m["main"], feed=feed, fetch_list=[m["loss"]], scope=scope)))
+    steady = steady_ms(step_s)
+    units = seq_units(name, feed)
+    out = {"batch": batch, "steps": SEQ_STEPS, "bound": bool(bound),
+           "captures": captures, "first_step_ms": step_s[0] * 1e3,
+           "step_ms": steady, "step_ms_all": [t * 1e3 for t in step_s],
+           "peak_memory_gib": peak / 2 ** 30, "losses": losses,
+           "profile": prof}
+    for unit, n in units.items():
+        out[unit + "_per_step"] = n
+        out[unit + "_per_s"] = n / (steady / 1e3)
+    if isinstance(prof, dict):
+        # the profiler's own overhead stretches the profiled step's wall:
+        # its device time over the unprofiled steady step is the idle
+        # share a user's step sees
+        out["launches_per_step"] = prof["device_events"]
+        out["idle_share"] = prof["device_idle_share"]
+        out["idle_share_of_step"] = max(0.0, 1.0 - prof["device_busy_ms"]
+                                        / steady)
+    return out, exe, scope, m
+
+
+def seq_bound_check(torch, fluid, dev):
+    """Machine translation's training step (DynamicRNN over the dense
+    target: a ``static_rnn`` op, no host read) from one start state in
+    two scopes: SEQ_BOUND_STEPS steps op by op and as many through the
+    fast path (eager, capture, replays): one bound entry, one capture,
+    the losses and every persistable bitwise equal."""
+    from paddle_tpu_torch import executor as executor_mod
+
+    name = "machine_translation"
+    m = seq_model(fluid, name)
+    state = seq_state(fluid, m, SEED + 114, dev)
+    feed = seq_feed(name, np.random.RandomState(SEED + 115),
+                    SEQ_MODELS[name]["batch"])
+    runs = {}
+    for cache in (False, True):
+        exe, scope = fluid.Executor(device=dev), fluid.Scope()
+        fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+        c0 = executor_mod.compile_count()
+        losses = [np.asarray(exe.run(m["main"], feed=feed,
+                                     fetch_list=[m["loss"]], scope=scope,
+                                     use_program_cache=cache)[0])
+                  for _ in range(SEQ_BOUND_STEPS)]
+        bound = [b for b in exe._bound.values() if b.program is m["main"]]
+        runs[cache] = {"losses": losses, "captures":
+                       executor_mod.compile_count() - c0,
+                       "graphs": sum(b.graph is not None for b in bound),
+                       "entries": len(bound),
+                       "state": {n: fluid.executor.as_numpy(scope[n])
+                                 for n in state}}
+    g, e = runs[True], runs[False]
+    bitwise = (all(a.tobytes() == b.tobytes()
+                   for a, b in zip(g["losses"], e["losses"]))
+               and all(g["state"][n].tobytes() == e["state"][n].tobytes()
+                       for n in state))
+    check(g["entries"] == 1 and g["graphs"] == 1 and g["captures"] == 1
+          and e["captures"] == 0 and bitwise,
+          "machine translation's step not bound and replayed bitwise",
+          g["entries"], g["graphs"], g["captures"], e["captures"], bitwise)
+    return {"steps": SEQ_BOUND_STEPS, "entries": g["entries"],
+            "captures": g["captures"], "replays_bitwise_eager": bitwise,
+            "persistables": len(state),
+            "losses": [float(v.reshape(-1)[0]) for v in g["losses"]]}
+
+
+def seq_decode(fluid, dev, gen, program, state, src):
+    scope = fluid.Scope()
+    fluid.load_numpy_state(program, state, scope=scope, device=dev)
+    return fluid.Executor(device=dev).run(
+        program, feed={"src_word": src},
+        fetch_list=[gen["ids"].name, gen["scores"].name], scope=scope,
+        return_numpy=False)
+
+
+def seq_generate(torch, fluid, dev, trained):
+    """Machine translation's beam search (beam SEQ_BEAM, max_length
+    SEQ_MAX_LEN, the While Program) from its startup's parameters with
+    every trained one of the same name and shape carried over from
+    ``trained`` (the training scope): on SEQ_GEN_CHECK_SOURCES sources in
+    float64 on the card and on the port's CPU path, the ids and both
+    levels of lengths bitwise, the scores within BEAM_SCORE_RTOL; then
+    the training batch's sources in float32 on the card: every score
+    finite and non-increasing within a source, every id in the
+    vocabulary, every length in [1, max_length], ``beam`` rows a source,
+    the fast path refusing it (``while``); sentences a second, and the
+    float32 decode's agreement with the float64 one (recorded)."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.models import machine_translation as MT
+
+    name = "machine_translation"
+    kw = SEQ_MODELS[name]["kw"]
+    gen = seq_model(fluid, name, is_generating=True, beam_size=SEQ_BEAM,
+                    max_length=SEQ_MAX_LEN)
+    cpu = torch.device("cpu")
+    state = seq_state(fluid, gen, SEED + 116, cpu)
+    carried = [n for n in state if n in trained
+               and tuple(trained[n].shape) == state[n].shape]
+    for n in carried:
+        state[n] = fluid.executor.as_numpy(trained[n])
+    src = seq_words(np.random.RandomState(SEED + 117), kw["batch_size"],
+                    kw["seq_len"], kw["dict_size"], MT.PAD_IDX)
+    few = src[:SEQ_GEN_CHECK_SOURCES]
+    p64 = widened(fluid, gen["main"])
+    card64 = seq_decode(fluid, dev, gen, p64, state, few)
+    t0 = time.perf_counter()
+    cpu64 = seq_decode(fluid, cpu, gen, p64, state, few)
+    cpu_s = time.perf_counter() - t0
+    for field in ("data", "lengths", "sub_lengths"):
+        check(np.array_equal(getattr(card64[0], field),
+                             getattr(cpu64[0], field)),
+              "generation float64 card vs cpu", field)
+    ref = np.asarray(cpu64[1].data)
+    rel = float(np.max(np.abs(np.asarray(card64[1].data) - ref)
+                       / np.maximum(np.abs(ref), 1e-300)))
+    check(rel <= BEAM_SCORE_RTOL, "generation float64 scores card vs cpu", rel)
+    refused = observability.counter("executor.graph_refused", {"op": "while"})
+    r0 = refused.value
+    exe, scope = fluid.Executor(device=dev), fluid.Scope()
+    fluid.load_numpy_state(gen["main"], state, scope=scope, device=dev)
+    walls = []
+    for _ in range(SEQ_GEN_RUNS):
+        t0 = time.perf_counter()
+        ids, scores = exe.run(gen["main"], feed={"src_word": src},
+                              fetch_list=[gen["ids"], gen["scores"]],
+                              scope=scope, return_numpy=False)
+        walls.append(time.perf_counter() - t0)
+    n = len(src)
+    sc = np.asarray(scores.data).reshape(n, SEQ_BEAM)
+    check(bool(np.isfinite(sc).all()) and bool((np.diff(sc, axis=1) <= 0).all())
+          and bool(((ids.data >= 0) & (ids.data < kw["dict_size"])).all())
+          and bool(((ids.lengths >= 1) & (ids.lengths <= SEQ_MAX_LEN)).all())
+          and ids.sub_lengths.tolist() == [SEQ_BEAM] * n
+          and refused.value - r0 == SEQ_GEN_RUNS,
+          "machine translation's beam search", ids.lengths.tolist(),
+          refused.value - r0)
+    f32_few = [r[:SEQ_GEN_CHECK_SOURCES * SEQ_BEAM] for r in (ids.data,
+                                                            ids.lengths)]
+    wall = float(np.median(walls))
+    return {"carried_parameters": len(carried), "parameters": len(state),
+            "check_sources": SEQ_GEN_CHECK_SOURCES,
+            "float64_ids_equal": True, "float64_scores_rel": rel,
+            "cpu64_decode_s": cpu_s,
+            "float32_vs_float64_tokens_equal": int(
+                (f32_few[0] == card64[0].data).sum()),
+            "float32_vs_float64_lengths_equal": int(
+                (f32_few[1] == card64[0].lengths).sum()),
+            "tokens": int(card64[0].data.size),
+            "sources": n, "beam": SEQ_BEAM, "max_length": SEQ_MAX_LEN,
+            "decode_ms_all": [t * 1e3 for t in walls], "decode_ms": wall * 1e3,
+            "sentences_per_s": n / wall, "graph_refused_by": "while",
+            "hyp_len_mean": float(ids.lengths.mean())}
+
+
+def sequence_phase(torch, fluid, fa, dev):
+    """The sequence slice on the card: the sequence op rules,
+    StaticRNN/DynamicRNN and the rank table in float64 against the CPU
+    (seq_ops_check); the stacked LSTM, the recommender and machine
+    translation (SEQ_MODELS) at full width, each float32 card step held
+    to the CPU's float64 step (seq_check) and SEQ_STEPS training steps
+    (seq_train); machine translation's step bound and replayed bitwise
+    (seq_bound_check) and its beam search (seq_generate) on the trained
+    weights; and what a ragged feed costs: the stacked LSTM's Program fed
+    a dense batch of the same padded shape binds, against the ragged
+    feed's op-by-op steps.  No kernel of this repo runs: B1-B5 launch 0
+    times in the phase."""
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {"ops": seq_ops_check(torch, fluid, dev)}
+    seconds = {"ops": time.perf_counter() - t0}
+    log("sequence ops, card vs cpu float64: %s" % json.dumps(out["ops"]))
+    trained = None
+    for name in SEQ_MODELS:
+        t1 = time.perf_counter()
+        chk = seq_check(torch, fluid, name, dev)
+        t2 = time.perf_counter()
+        trn, _, scope, m = seq_train(torch, fluid, name, dev)
+        out[name] = {"check": chk, "train": trn}
+        if name == "machine_translation":
+            trained = {n: scope[n] for n in m["main"].persistable_names()
+                       if n in scope}
+        seconds[name] = {"check": t2 - t1, "train": time.perf_counter() - t2}
+        log("%s (full width, TF32 off): %s" % (name, json.dumps(out[name])))
+        del scope, m
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dense, *_ = seq_train(torch, fluid, "stacked_dynamic_lstm", dev, dense=True)
+    ragged = out["stacked_dynamic_lstm"]["train"]
+    check(dense["bound"] and dense["captures"] == 1 and not ragged["bound"]
+          and ragged["captures"] == 0,
+          "the LSTM bound ragged or did not bind dense", dense["bound"],
+          dense["captures"], ragged["bound"])
+    out["ragged_vs_dense"] = {
+        "dense": dense, "ragged_step_ms": ragged["step_ms"],
+        "dense_step_ms": dense["step_ms"],
+        "ragged_over_dense": ragged["step_ms"] / dense["step_ms"],
+        "ragged_launches_per_step": ragged.get("launches_per_step"),
+        "dense_launches_per_step": dense.get("launches_per_step"),
+        "ragged_idle_share": ragged.get("idle_share"),
+        "dense_idle_share": dense.get("idle_share"),
+        "ragged_idle_share_of_step": ragged.get("idle_share_of_step"),
+        "dense_idle_share_of_step": dense.get("idle_share_of_step")}
+    seconds["ragged_vs_dense"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["bound"] = seq_bound_check(torch, fluid, dev)
+    out["generation"] = seq_generate(torch, fluid, dev, trained)
+    seconds["bound_and_generation"] = time.perf_counter() - t1
+    del trained
+    torch.cuda.empty_cache()
+    launches = dict(fa.KERNEL_LAUNCHES)
+    check(not any(launches.values()), "a kernel launched in the sequence "
+          "phase", launches)
+    out["launches"] = launches
+    out["seconds"] = seconds
+    log("sequence phase: %s" % json.dumps(
+        {k: out[k] for k in ("ragged_vs_dense", "bound", "generation",
+                             "launches", "seconds")}))
+    return out
+
+
 def flash_inputs(torch, dev, gen, dtype, T, S, B=FB, H=FH, D=FD):
     """q, k, v, do as the Program feeds them: [B, H, T, D] views of
     [B, T, H, D] tensors (strided, last dimension contiguous)."""
@@ -8491,6 +9304,10 @@ def main():
     zoo_phase(torch, fluid, fa, dev)
     torch.cuda.empty_cache()
     log("ops and zoo phases: %.1f s" % (time.perf_counter() - t_new))
+    t_new = time.perf_counter()
+    sequence_phase(torch, fluid, fa, dev)
+    torch.cuda.empty_cache()
+    log("sequence phase: %.1f s" % (time.perf_counter() - t_new))
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
                                     "fused")

@@ -36,8 +36,10 @@ fetches are cloned out of the graph's pool.  On the CPU the captured
 step runs as it is, each run, on the same buffers.  A Program with a
 rule that waits on the host (``registry.reads_host``: ``while``,
 ``conditional_block``, ``beam_search_decode``, ``assign_value``, a
-``bilinear_interp`` fed an ``OutSize``) or a LoD fetch is never bound:
-each run takes the path above, and the op is counted (``executor.graph_refused{op=...}``).  Invalidation: a
+``bilinear_interp`` fed an ``OutSize``, a ``sequence_mask`` without
+``maxlen``) or a LoD fetch is never bound:
+each run takes the path above, and the op is counted (``executor.graph_refused{op=...}``).  Nor is
+a run fed a ragged batch (a ``LoDArray``).  Invalidation: a
 ``program.version`` bump, any public mutation of a scope on the owner
 chain (``Scope._version``), a feed whose shape, dtype or kind changed,
 a state var gone or replaced.  ``return_numpy=True`` fetches of a bound
@@ -54,7 +56,11 @@ in its block (the JAX package's ``LoweringContext.op_key``); a nonzero
 
 Feeds are numpy arrays, tensors, or ``lod.LoDArray``s (a ragged feed:
 its padded data under the var's name, its lengths as
-``<name>@LENGTHS``, nested lengths as ``<name>@SUBLENGTHS``).
+``<name>@LENGTHS``, nested lengths as ``<name>@SUBLENGTHS``).  After
+every rule, an output that keeps the ``[batch, time]`` leading dims of
+an input with lengths inherits them (``_propagate_lengths``, the JAX
+package's), unless the op is one of the sequence rules that set their
+own.
 
 Sub-blocks (``while``, ``conditional_block``; their rules are in
 ``layers/control_flow.py``) run their ops through ``interpret_ops`` on a
@@ -700,12 +706,59 @@ def _in_op_scopes(op_type):
         yield
 
 
+# Ops whose rules manage the lengths companion themselves (set it, or
+# deliberately drop it: sequence_pool collapses the time axis).  The
+# generic propagation leaves them alone (the JAX package's set).
+_LENGTH_AWARE_OPS = frozenset({
+    "sequence_pool", "sequence_softmax", "sequence_conv", "sequence_expand",
+    "sequence_expand_as", "sequence_concat", "sequence_reshape",
+    "sequence_enumerate", "sequence_scatter", "sequence_slice",
+    "sequence_pad", "sequence_unpad", "sequence_mask", "sequence_erase",
+    "lod_reset", "row_conv", "lstm", "lstmp", "gru", "im2sequence"})
+
+
+def _propagate_lengths(ctx, op):
+    """The JAX package's generic ragged-metadata flow: when ``op`` set no
+    lengths on an output, but an input carries them and the output keeps
+    that input's ``[batch, time]`` leading dims, the output inherits the
+    input's lengths (and nested lengths).  Reads shapes and the
+    environment only: no device operation, no host read."""
+    if op.type in _LENGTH_AWARE_OPS:
+        return
+    env = ctx.env
+    for names in op.inputs.values():
+        for n in names:
+            lens = env.get(n + "@LENGTHS")
+            v = env.get(n)
+            if lens is not None and getattr(v, "ndim", 0) >= 2:
+                lead, sub = tuple(v.shape[:2]), env.get(n + "@SUBLENGTHS")
+                break
+        else:
+            continue
+        break
+    else:
+        return
+    for names in op.outputs.values():
+        for n in names:
+            v = env.get(n)
+            if (n + "@LENGTHS" in env or getattr(v, "ndim", 0) < 2
+                    or tuple(v.shape[:2]) != lead):
+                continue
+            env[n + "@LENGTHS"] = lens
+            if sub is not None and n + "@SUBLENGTHS" not in env:
+                env[n + "@SUBLENGTHS"] = sub
+
+
 def _run_rule(ctx, op):
+    """Run ``op``'s rule on ``ctx``, then carry lengths to its outputs
+    (``_propagate_lengths``).  Every op list of the executor runs its ops
+    through here: blocks, sub-blocks, recompute segments and captures."""
     if _op_scopes:
         with _in_op_scopes(op.type):
             get_rule(op.type)(ctx, op)
     else:
         get_rule(op.type)(ctx, op)
+    _propagate_lengths(ctx, op)
 
 
 def interpret_ops(ctx: LoweringContext, ops):

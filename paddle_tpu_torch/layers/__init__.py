@@ -3,10 +3,11 @@
 The port's layer functions so far: nn (``beam_search`` and
 ``beam_search_decode`` among them), io (``data`` and the layers that
 need no reader runtime), metric_op, ops, tensor, control_flow (``While``,
-``ConditionalBlock``, ``Switch``, ``IfElse``, the comparisons and the
-tensor arrays) and the learning-rate schedules.  ``StaticRNN``,
-``DynamicRNN``, sequences, detection and the pipeline are not ported
-yet.
+``ConditionalBlock``, ``Switch``, ``IfElse``, ``StaticRNN``,
+``DynamicRNN``, the comparisons, the tensor arrays and the LoD rank
+table), the learning-rate schedules and sequence (the ``sequence_*``,
+``dynamic_lstm``/``lstmp``/``gru`` and unit layers).  Detection and the
+pipeline are not ported yet.
 """
 from . import nn
 from . import io
@@ -15,6 +16,7 @@ from . import ops
 from . import tensor
 from . import control_flow
 from . import learning_rate_scheduler
+from . import sequence as sequence_mod
 
 from .nn import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
@@ -23,6 +25,7 @@ from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 
 __all__ = (
     nn.__all__
@@ -32,4 +35,5 @@ __all__ = (
     + tensor.__all__
     + control_flow.__all__
     + learning_rate_scheduler.__all__
+    + sequence_mod.__all__
 )

@@ -26,8 +26,18 @@ run them eagerly with torch:
 ``IfElse`` merges its two branches by mask, as the JAX package's does.
 ``Print`` adds a ``print`` op, whose rule prints on the host at every
 run: a Program that holds one runs op by op and is never captured.
-``StaticRNN``, ``DynamicRNN`` and the LoD rank-table layers wait for the
-sequence ops and are not ported yet.
+
+``StaticRNN`` adds a ``static_rnn`` op, whose rule runs the step block
+once a time step on a child context (a Python loop over the time axis,
+where the JAX package has a ``lax.scan``): the memories carry from one
+step to the next and the step outputs stack to ``[batch, seq, ...]``.
+It reads nothing back to the host, so a Program holding one binds and
+replays as one CUDA graph.  ``DynamicRNN`` is a ``StaticRNN`` over the
+padded length whose first step input's lengths freeze each row's
+memories past its length and zero its outputs there.  The LoD rank
+table has nothing to sort in the padded layout: ``lod_rank_table`` and
+``reorder_lod_tensor_by_rank`` pass through, and ``max_sequence_len``
+is the longest length (the padded length without lengths).
 """
 from __future__ import annotations
 
@@ -57,6 +67,11 @@ __all__ = [
     "ConditionalBlock",
     "is_empty",
     "Print",
+    "DynamicRNN",
+    "StaticRNN",
+    "max_sequence_len",
+    "lod_rank_table",
+    "reorder_lod_tensor_by_rank",
 ]
 
 # default capacity for tensor arrays written inside While loops; override per
@@ -636,3 +651,280 @@ class IfElse:
                 )
             )
         return rets
+
+
+# ---------------------------------------------------------------------------
+# StaticRNN / DynamicRNN and the LoD rank table
+# ---------------------------------------------------------------------------
+
+
+class StaticRNN:
+    """An RNN over a fixed number of steps, emitted as one ``static_rnn``
+    op over its step block (reference control_flow.py:397)."""
+
+    BEFORE_RNN_BLOCK = 0
+    IN_RNN_BLOCK = 1
+    AFTER_RNN_BLOCK = 2
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("static_rnn", name=name)
+        self.memories = {}
+        self.inputs = []
+        self.outputs = []
+        self.status = StaticRNN.BEFORE_RNN_BLOCK
+        self.seq_len = None
+        # name of an outer [batch, seq, ...] var whose @LENGTHS companion
+        # masks memory updates and outputs past each row's length
+        # (DynamicRNN sets it; a plain StaticRNN leaves it unmasked)
+        self.mask_source = None
+
+    class _Guard:
+        def __init__(self, rnn):
+            self.rnn = rnn
+
+        def __enter__(self):
+            self.rnn.status = StaticRNN.IN_RNN_BLOCK
+            self.rnn.helper.main_program.create_block()
+
+        def __exit__(self, exc_type, *a):
+            if exc_type is not None:
+                return False
+            self.rnn.status = StaticRNN.AFTER_RNN_BLOCK
+            self.rnn._complete()
+            self.rnn.helper.main_program.rollback()
+            return True
+
+    def step(self):
+        return StaticRNN._Guard(self)
+
+    def step_input(self, x):
+        """x: an outer [batch, seq, ...] var; returns the step's slice."""
+        if self.seq_len is None:
+            self.seq_len = x.shape[1]
+        helper = self.helper
+        ipt = helper.main_program.current_block().create_var(
+            name=helper.name + "_in_" + x.name,
+            dtype=x.dtype,
+            shape=(x.shape[0],) + tuple(x.shape[2:]) if x.shape else None,
+        )
+        self.inputs.append((x, ipt))
+        return ipt
+
+    def memory(self, init=None, shape=None, batch_ref=None, init_value=0.0,
+               init_batch_dim_idx=0, ref_batch_dim_idx=1):
+        helper = self.helper
+        if init is None:
+            if shape is None or batch_ref is None:
+                raise ValueError("memory needs init or (shape, batch_ref)")
+            if self.status != StaticRNN.IN_RNN_BLOCK:
+                raise RuntimeError(
+                    "StaticRNN.memory() must be called inside `with rnn.step()`")
+            main = helper.main_program
+            parent_idx = main.current_block().parent_idx
+            if parent_idx < 0:
+                raise RuntimeError("StaticRNN step block has no parent block")
+            # The init is an input of the op, so it lives in the parent
+            # block.  A step-scoped batch_ref maps back to the outer
+            # [batch, seq, ...] source it was sliced from (batch dim 0);
+            # an outer batch_ref is used with the caller's
+            # ref_batch_dim_idx.
+            outer_ref = None
+            dim_idx = 0
+            for outer, ipt in self.inputs:
+                if getattr(batch_ref, "name", None) == ipt.name:
+                    outer_ref = outer
+                    break
+            if outer_ref is None:
+                if batch_ref.block is main.current_block():
+                    raise ValueError(
+                        "StaticRNN.memory batch_ref %r is step-scoped but not a "
+                        "step_input slice; pass the step_input var (or an outer "
+                        "variable) so the init can live in the parent block"
+                        % (getattr(batch_ref, "name", batch_ref),))
+                outer_ref = batch_ref
+                dim_idx = ref_batch_dim_idx
+            saved_idx = main.current_block_idx
+            main.current_block_idx = parent_idx
+            try:
+                init = tensor_layers.fill_constant_batch_size_like(
+                    input=outer_ref,
+                    shape=[-1] + list(shape[1:]) if shape[0] in (-1,) else list(shape),
+                    dtype="float32", value=init_value, input_dim_idx=dim_idx,
+                )
+            finally:
+                main.current_block_idx = saved_idx
+        mem = helper.main_program.current_block().create_var(
+            name=helper.name + "_mem_" + init.name, dtype=init.dtype, shape=init.shape
+        )
+        self.memories[mem.name] = [init, None]
+        return mem
+
+    def update_memory(self, mem, var):
+        self.memories[mem.name][1] = var
+
+    def step_output(self, o):
+        self.outputs.append(o)
+
+    def output(self, *outputs):
+        for o in outputs:
+            self.step_output(o)
+
+    def _complete(self):
+        main_program = self.helper.main_program
+        rnn_block = main_program.current_block()
+        parent_block = main_program.block(rnn_block.parent_idx)
+        self.out_vars = [
+            parent_block.create_var(name=self.helper.name + "_out_" + o.name,
+                                    dtype=o.dtype)
+            for o in self.outputs]
+        parent_block.append_op(
+            type="static_rnn",
+            inputs={
+                "Inputs": [x for x, _ in self.inputs],
+                "InitStates": [init for init, _ in self.memories.values()],
+            },
+            outputs={"Outputs": self.out_vars},
+            attrs={
+                "sub_block": rnn_block.idx,
+                "step_inputs": [ipt.name for _, ipt in self.inputs],
+                "mem_names": list(self.memories.keys()),
+                "mem_updates": [upd.name if upd is not None else ""
+                                for _, upd in self.memories.values()],
+                "step_outputs": [o.name for o in self.outputs],
+                "seq_len": self.seq_len,
+                "mask_input": self.mask_source or "",
+            },
+        )
+
+    def __call__(self, *args, **kwargs):
+        outs = self.out_vars
+        if len(outs) == 1:
+            return outs[0]
+        return outs
+
+
+@register("static_rnn")
+def _static_rnn(ctx, op):
+    """Run the step block once a time step, in order, each on a child
+    context over a copy of the outer environment with the memories and
+    the step inputs' slices laid over it; stack the step outputs to
+    ``[batch, seq, ...]``.  With a ``mask_input`` that carries lengths
+    (DynamicRNN), a row's memories stay as they were past its length and
+    its outputs there are zeros, the outputs carrying those lengths."""
+    a = op.attrs
+    xs = ctx.get_inputs(op, "Inputs")  # each [batch, seq, ...]
+    carry = ctx.get_inputs(op, "InitStates")
+    mem_names, mem_updates = a["mem_names"], a["mem_updates"]
+    mask_input = a.get("mask_input") or ""
+    lens = ctx.get_lengths(mask_input) if mask_input else None
+    T = xs[0].shape[1] if xs else int(a.get("seq_len") or 0)
+    steps = []
+    for t in range(T):
+        env = dict(ctx.env)
+        env.update(zip(mem_names, carry))
+        env.update((n, x[:, t]) for n, x in zip(a["step_inputs"], xs))
+        interpret_ops(ctx.child(env), op.sub_block.ops)
+        new = [env[u] if u else env[n] for n, u in zip(mem_names, mem_updates)]
+        outs = [env[n] for n in a["step_outputs"]]
+        if lens is not None:
+            alive = t < lens.reshape(-1)  # [batch]
+
+            def alive_for(v):
+                return alive.reshape((-1,) + (1,) * (v.dim() - 1))
+
+            new = [torch.where(alive_for(nv), nv, ov) for nv, ov in zip(new, carry)]
+            outs = [torch.where(alive_for(o), o, torch.zeros_like(o)) for o in outs]
+        carry = new
+        steps.append(outs)
+    for k, name in enumerate(op.outputs["Outputs"]):
+        ctx.set(name, torch.stack([s[k] for s in steps], 1))
+        if lens is not None:
+            ctx.set_lengths(name, lens)
+
+
+class DynamicRNN:
+    """Reference control_flow.py:1560.  Ragged batches are padded and
+    masked here, so DynamicRNN is a StaticRNN over the padded length with
+    masked memory updates, as in the JAX package."""
+
+    def __init__(self, name=None):
+        self._rnn = StaticRNN(name=name)
+        self._first_ipt = None
+
+    def block(self):
+        return self._rnn.step()
+
+    def step_input(self, x, lengths=None):
+        ipt = self._rnn.step_input(x)
+        # x's @LENGTHS companion drives the per-row masking of memory
+        # updates and outputs
+        if self._rnn.mask_source is None:
+            self._rnn.mask_source = x.name
+        if self._first_ipt is None:
+            self._first_ipt = ipt
+        return ipt
+
+    def static_input(self, x):
+        """A non-sequence input visible whole at every step (the
+        reference reorders it by the rank table; the padded layout needs
+        no reorder, and outer vars are readable inside the step)."""
+        return x
+
+    def memory(self, init=None, shape=None, value=0.0, need_reorder=False,
+               dtype="float32", batch_ref=None):
+        # a shape-only memory takes its batch from the first step_input
+        if init is None and batch_ref is None:
+            if self._first_ipt is None:
+                raise RuntimeError(
+                    "DynamicRNN.memory(shape=...) needs step_input() first")
+            batch_ref = self._first_ipt
+        return self._rnn.memory(init=init, shape=shape, init_value=value,
+                                batch_ref=batch_ref)
+
+    def update_memory(self, ex_mem, new_mem):
+        self._rnn.update_memory(ex_mem, new_mem)
+
+    def output(self, *outputs):
+        self._rnn.output(*outputs)
+
+    def __call__(self):
+        return self._rnn()
+
+
+# The reference sorted sequences by length with the LoD rank table before
+# its While-based RNNs (control_flow.py:894); padded and masked ragged
+# tensors need no reorder, and these are the JAX package's thin shims.
+
+
+def lod_rank_table(x, level=0):
+    helper = LayerHelper("lod_rank_table")
+    table = helper.block.create_var(name=helper.name, dtype="int64", type="raw")
+    table.source = x
+    return table
+
+
+def max_sequence_len(rank_table):
+    helper = LayerHelper("max_seq_len")
+    out = helper.create_variable_for_type_inference(dtype="int64", shape=[1],
+                                                    stop_gradient=True)
+    helper.append_op(type="max_sequence_len",
+                     inputs={"X": [rank_table.source]}, outputs={"Out": [out]})
+    return out
+
+
+@register("max_sequence_len")
+def _max_sequence_len(ctx, op):
+    """The longest length of X, on the device; X's padded length when it
+    carries none."""
+    name = op.inputs["X"][0]
+    lens = ctx.get_lengths(name)
+    if lens is None:
+        out = torch.full((1,), ctx.get(name).shape[1], dtype=torch.int64,
+                         device=ctx.device)
+    else:
+        out = lens.max().to(torch.int64).reshape(1)
+    ctx.set_output(op, "Out", out)
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    return x

@@ -1,11 +1,10 @@
 """Composite networks (reference: python/paddle/fluid/nets.py).
 
-The port's copy of the JAX package's ``paddle_tpu/nets.py``, for the
-helpers whose ops the port runs: ``simple_img_conv_pool`` (conv2d +
-pool2d), ``img_conv_group`` (conv2d, batch_norm where
-``conv_with_batchnorm`` asks, dropout, pool2d) and
-``scaled_dot_product_attention``.  ``sequence_conv_pool`` and ``glu``
-wait for the sequence ops and split/sigmoid (ROADMAP A10).
+The port's copy of the JAX package's ``paddle_tpu/nets.py``, every
+helper of it: ``simple_img_conv_pool`` (conv2d + pool2d),
+``img_conv_group`` (conv2d, batch_norm where ``conv_with_batchnorm``
+asks, dropout, pool2d), ``sequence_conv_pool`` (sequence_conv +
+sequence_pool), ``glu`` and ``scaled_dot_product_attention``.
 """
 from __future__ import annotations
 
@@ -13,6 +12,8 @@ from . import layers
 
 __all__ = [
     "simple_img_conv_pool",
+    "sequence_conv_pool",
+    "glu",
     "scaled_dot_product_attention",
     "img_conv_group",
 ]
@@ -125,6 +126,21 @@ def img_conv_group(
     return layers.pool2d(
         input=x, pool_size=pool_size, pool_type=pool_type, pool_stride=pool_stride
     )
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None, act="sigmoid", pool_type="max"):
+    """sequence_conv then sequence_pool (text-CNN building block)."""
+    conv_out = layers.sequence_conv(
+        input=input, num_filters=num_filters, filter_size=filter_size, param_attr=param_attr, act=act
+    )
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: split in two along ``dim``, gate one half by the
+    sigmoid of the other."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(x=a, y=layers.sigmoid(x=b))
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1, dropout_rate=0.0):

@@ -185,3 +185,87 @@ def test_length_carrying_rules_keep_the_lod():
         assert type(t).__name__ == "LoDArray"
         assert j.lod() == t.lod() == [[0, 2, 3, 6]]
         assert t.recursive_sequence_lengths() == [[2, 1, 3]]
+
+
+def _fc_after_embedding(fl):
+    """F-18's probe: ragged ids -> embedding -> fc(num_flatten_dims=2,
+    tanh), the head of every sequence model before its LSTM or pool."""
+    main, startup = fl.Program(), fl.Program()
+    startup.random_seed = main.random_seed = 11
+    with fl.program_guard(main, startup):
+        ids = fl.layers.data(name="ids", shape=[1], dtype="int64", lod_level=1)
+        emb = fl.layers.embedding(ids, size=[20, 4])
+        hid = fl.layers.fc(emb, size=3, num_flatten_dims=2, act="tanh")
+    return main, startup, [emb, hid]
+
+
+def test_fc_keeps_the_lengths_of_its_input():
+    """F-18: an output that keeps an input's [batch, time] dims inherits
+    its lengths (the JAX package's ``_propagate_lengths``), so ``fc``
+    after ``embedding`` fetched with ``return_numpy=False`` gives lengths
+    [5, 2, 3] in both packages, where the port gave a plain tensor."""
+    seqs = [np.arange(5), np.arange(2) + 5, np.arange(3) + 9]
+    got = {}
+    for name, fl in (("jax", jfluid), ("torch", tfluid)):
+        main, startup, outs = _fc_after_embedding(fl)
+        exe = fl.Executor(fl.CPUPlace())
+        scope = fl.Scope()
+        exe.run(startup, scope=scope)
+        feed = {"ids": fl.create_lod_tensor(
+            [s.reshape(-1, 1).astype("int64") for s in seqs], None)}
+        got[name] = exe.run(main, feed=feed, fetch_list=outs, scope=scope,
+                            return_numpy=False)
+    for j, t in zip(got["jax"], got["torch"]):
+        assert type(t).__name__ == "LoDArray"
+        np.testing.assert_array_equal(t.lengths, [5, 2, 3])
+        np.testing.assert_array_equal(t.lengths, j.lengths)
+        assert t.data.shape == j.data.shape
+
+
+def _dense_program(fl, image):
+    """An fc over a dense feed, or (``image``) an fc over im2sequence's
+    patches, whose fetch carries lengths in both packages."""
+    main, startup = fl.Program(), fl.Program()
+    startup.random_seed = main.random_seed = 12
+    with fl.program_guard(main, startup):
+        if image:
+            x = fl.layers.data(name="x", shape=[2, 4, 4], dtype="float32")
+            x = fl.layers.im2sequence(x, filter_size=2, stride=2)
+        else:
+            x = fl.layers.data(name="x", shape=[3, 4], dtype="float32")
+        out = fl.layers.fc(x, size=5, num_flatten_dims=2)
+    return main, startup, out
+
+
+@pytest.mark.parametrize("image", [False, True])
+def test_binding_is_unchanged_where_no_input_carries_lengths(image):
+    """A dense Program binds (one bound entry) as before the length
+    propagation; an fc over im2sequence's patches carries their lengths
+    to its fetch in both packages, so the port refuses to bind it as a
+    ``lod_fetch``."""
+    from paddle_tpu_torch import observability as tobs
+
+    refused = tobs.counter("executor.graph_refused", {"op": "lod_fetch"})
+    r0 = refused.value
+    x = np.random.RandomState(0).randn(
+        2, *((2, 4, 4) if image else (3, 4))).astype("float32")
+    main, startup, out = _dense_program(tfluid, image)
+    exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    runs = [exe.run(main, feed={"x": x}, fetch_list=[out], scope=scope,
+                    return_numpy=False)[0] for _ in range(2)]
+    bound = [b for b in exe._bound.values() if b.program is main]
+    jmain, jstartup, jout = _dense_program(jfluid, image)
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    jexe.run(jstartup, scope=jscope)
+    (want,) = jexe.run(jmain, feed={"x": x}, fetch_list=[jout], scope=jscope,
+                       return_numpy=False)
+    if image:
+        assert not bound and refused.value - r0 == 2
+        for r in runs:
+            np.testing.assert_array_equal(r.lengths, [4, 4])
+            np.testing.assert_array_equal(r.lengths, want.lengths)
+    else:
+        assert len(bound) == 1 and refused.value == r0
+        assert not hasattr(want, "lengths")
+        assert all(isinstance(r, torch.Tensor) for r in runs)

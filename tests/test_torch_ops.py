@@ -177,6 +177,8 @@ def _pair(build, feed, n_fetch=1, edit=None):
     """Build ``build(fl)`` (a list of fetch targets) with each package,
     copy the JAX startup's persistables into the port, run both mains on
     ``feed`` and return (jax fetches, port fetches) as numpy lists.
+    ``feed`` may be a callable ``feed(fl)``, for feeds of each package's
+    own types (a ragged feed is its ``lod.LoDArray``).
     ``edit(main)`` may change each main Program before it runs."""
     outs = []
     state = None
@@ -195,8 +197,9 @@ def _pair(build, feed, n_fetch=1, edit=None):
                          for n in main.persistable_names() if n in scope}
             else:
                 fl.load_numpy_state(main, state, scope=scope, device="cpu")
+            fed = feed(fl) if callable(feed) else feed
             outs.append([np.asarray(o) for o in
-                         exe.run(main, feed=feed, fetch_list=fetch)])
+                         exe.run(main, feed=fed, fetch_list=fetch)])
     return outs
 
 

@@ -292,7 +292,25 @@ split device time by op or kernel family run a step on the eager path
    and bitwise its op-by-op steps, its beam search in float64 equal on
    the card and the CPU, then timed in float32 (op by op: ``while``);
    the stacked LSTM fed a dense batch of the same padded shape (bound)
-   against its ragged feed (op by op); B1-B5 launched not at all;
+   against its ragged feed (op by op); B1-B5 launched not at all; then
+   the structured-prediction slice (struct_phase): the 38 cases of
+   tests/test_torch_struct_ops.py (CTC, ``ctc_align``, the edit
+   distance, the CRF and Viterbi, ``chunk_eval``, NCE, hsigmoid) in
+   float64 on the card against the port's CPU (OPS_RTOL; ids, paths with
+   their ties, chunk counts and lengths exactly); the CRNN-CTC OCR model
+   at get_model's defaults (1 x 48 x 384, 24 frames, 95 classes, labels
+   of 1-12 ids) and the semantic-role labeler at the book's widths
+   (hidden 512, depth 8, 8-64 tokens) (STRUCT_MODELS): a float64 step
+   card vs CPU at the training limits, the float32 step against the
+   CPU's float64 (struct_f32_ok) and a TF32 step that must fail it, 10
+   steps (finite, falling): step ms, images or tokens a second, launches
+   a step, idle share, peak memory; OCR's test Program through the
+   greedy decoder and ``edit_distance``; SRL's Viterbi decode (tokens a
+   second) and a ``chunk_eval`` of it equal on the card and the CPU;
+   word2vec's NCE and hsigmoid heads at the zoo's widths, each step bound
+   (one capture) and bitwise its op-by-op steps (the NCE draws too, in
+   range and new each step), then ZOO_STEPS steps beside the softmax
+   head's words/s and idle share; B1-B5 launched not at all;
 13. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
@@ -732,6 +750,56 @@ SEQ_BOUND_STEPS = 4
 SEQ_BEAM, SEQ_MAX_LEN = 3, 50
 SEQ_GEN_CHECK_SOURCES = 4
 SEQ_GEN_RUNS = 3
+# the structured-prediction slice (struct_phase): the CRNN-CTC OCR model
+# at get_model's defaults (the OCR benchmark's [1, 48, 384] images, GRU
+# 200, 95 classes and the blank, Adam 1e-3; 24 frames after the four
+# poolings), labels of 1-12 ids fed as [L] rows, batch 16, checked
+# against the CPU at batch 4 as ResNet-50 is (its ReLUs, batch norms and
+# ReLU-candidate GRUs make the float32 gradient jump where a gate flips;
+# at batch 2 a batch norm over few values is ill-conditioned, ROADMAP's
+# conditioning note).  A gate flips where its input is within rounding
+# of 0, so the forward values move by rounding only: the loss, the last
+# fc's gradient (forward values times the logits' gradient, no gate
+# between) and the running statistics hold float32 limits (``f32``; on
+# an 8-core Xeon the CPU's float32 step was 4.0e-8, 5.4e-7 and 2.2e-7
+# from its float64 step at batch 4), and all gradients together the L2
+# limit of ResNet-50's (RESNET_GLOBAL_L2).  TF32 rounds each product's
+# inputs to 10 bits (2**-11, about 5e-4): the last fc's gradient, a TF32
+# GEMM itself, must fail 1e-4.  The semantic-role labeler at the
+# reference book's db_lstm widths (word 32, mark 5, hidden 512, depth 8:
+# paddle_tpu/models/label_semantic_roles.py's "reference depth=8"),
+# CoNLL-05's synthetic vocabularies, sentences of 8-64 tokens (all 8
+# feeds ragged), batch 16, SGD 1e-3 (the book's mix_hidden_lr: at
+# get_model's 1e-2 the loss of these feeds climbs from the second step
+# and overflows by the sixth, in the JAX package on the CPU as in the
+# port: 91.632, 99.022, 114.046, 122.961, 4711.4, 2.03e13), checked at
+# batch 4.  It has no ReLU and no batch statistic, so each step is a
+# smooth function and float32 rounding (about 6e-8 an operation) is all
+# that parts a float32 step from a float64 one: its gradient runs back
+# through 8 LSTMs of up to 64 steps, 512 sequential 512-wide GEMMs and
+# gates, and through the CRF's 64-step forward algorithm, about
+# 512 x 2 x 6e-8 = 6e-5 in the worst case: under 1e-4 (the stacked
+# LSTM's limit, SEQ_MODELS), which TF32's 10-bit products (about 1e-3)
+# must fail
+STRUCT_MODELS = {
+    "ocr_crnn_ctc": dict(module="ocr_crnn_ctc", kw=dict(), batch=16,
+                         check_batch=4, steps=10, f32=dict(
+                             loss_rel=1e-5, fc_grad_worst_of_max=1e-4,
+                             stat_worst_of_max=RESNET_STAT_RTOL,
+                             grad_global_l2=RESNET_GLOBAL_L2)),
+    "label_semantic_roles": dict(module="label_semantic_roles",
+                                 kw=dict(hidden_dim=512, depth=8, lr=1e-3),
+                                 batch=16, check_batch=4, f32_rtol=1e-4,
+                                 steps=10),
+}
+STRUCT_LABEL_LENS = (1, 12)
+STRUCT_SRL_LENS = (8, 64)
+SRL_CHUNK_TYPES = 5    # CoNLL-05's synthetic tags: B/I of 5 types, O last
+# word2vec's NCE and hierarchical-sigmoid heads at the zoo's widths (ZOO):
+# each step bound, STRUCT_W2V_BOUND_STEPS steps bitwise op by op
+STRUCT_W2V_HEADS = ("nce", "hsigmoid")
+STRUCT_W2V_BOUND_STEPS = 4
+STRUCT_DECODE_RUNS = 3
 KERNEL_TOL = 2e-5   # kernel vs plain, f32 math on both: summation order only
 # the decode slice's kv_lens: empty slots, one key, a page, a page + 1, and
 # longer walks up to 2047 keys
@@ -5450,14 +5518,16 @@ def ops_phase(torch, fluid, fa, dev):
     return out
 
 
-def zoo_model(fluid, name, dtype="float32", no_dropout=False):
-    """``ZOO[name]``'s get_model in ``dtype``, every dropout's probability
-    set to 0 where ``no_dropout`` (the card-vs-CPU check only)."""
+def zoo_model(fluid, name, dtype="float32", no_dropout=False, cfg=None):
+    """``ZOO[name]``'s get_model (or ``cfg``'s, a ZOO entry of its own) in
+    ``dtype``, every dropout's probability set to 0 where ``no_dropout``
+    (the card-vs-CPU check only)."""
     import importlib
 
-    mod = importlib.import_module("paddle_tpu_torch.models." + ZOO[name]["module"])
+    cfg = cfg or ZOO[name]
+    mod = importlib.import_module("paddle_tpu_torch.models." + cfg["module"])
     with fluid.unique_name.guard():
-        m = mod.get_model(dtype=dtype, **ZOO[name]["kw"])
+        m = mod.get_model(dtype=dtype, **cfg["kw"])
     if no_dropout:
         for prog in (m["main"], m["test"]):
             for op in prog.global_block().ops:
@@ -5466,17 +5536,17 @@ def zoo_model(fluid, name, dtype="float32", no_dropout=False):
     return m
 
 
-def zoo_feed(name, m, rng, n):
+def zoo_feed(name, m, rng, n, cfg=None):
     """``n`` seeded samples for ``m``'s feeds: standard normal images and
     labels, word ids of the vocabulary, or DeepFM's ids (one a field)
     and 0/1 click labels (fluid_benchmark.py's _synth)."""
+    kw = (cfg or ZOO[name])["kw"]
     if name == "deepfm":
         return {"feat_ids": rng.randint(0, 1000, size=(n, 26)).astype(np.int64),
                 "label": rng.randint(0, 2, size=(n, 1)).astype(np.float32)}
     if name == "word2vec":
-        return {f: rng.randint(0, ZOO[name]["kw"]["vocab_size"], size=(n, 1))
+        return {f: rng.randint(0, kw["vocab_size"], size=(n, 1))
                 .astype(np.int64) for f in m["feeds"]}
-    kw = ZOO[name]["kw"]
     return {m["feeds"][0]: rng.randn(n, *kw["image_shape"]).astype(np.float32),
             "label": rng.randint(0, kw["class_dim"], size=(n, 1))
             .astype(np.int64)}
@@ -5609,8 +5679,9 @@ def zoo_check(torch, fluid, name, dev):
     return out
 
 
-def zoo_train(torch, fluid, name, dev):
-    """ZOO_STEPS training steps of ``name`` at its batch through
+def zoo_train(torch, fluid, name, dev, cfg=None):
+    """ZOO_STEPS training steps of ``name`` (``cfg``'s model where given)
+    at its batch through
     Executor.run on the card (step 1 eager, step 2 the capture, replays
     after), on one seeded batch fed each step, dropout as the model has
     it: every loss finite and the last under the first, every parameter
@@ -5621,8 +5692,9 @@ def zoo_train(torch, fluid, name, dev):
     (DeepFM: each click probability in [0, 1]).  DeepFM's steps fetch
     its AUC too, the histograms accumulating across the replays: each
     in [0, 1], and the last one's histograms counting every sample fed."""
-    batch, unit = ZOO[name]["batch"], ZOO[name]["unit"]
-    m = zoo_model(fluid, name)
+    cfg = cfg or ZOO[name]
+    batch, unit = cfg["batch"], cfg["unit"]
+    m = zoo_model(fluid, name, cfg=cfg)
     m["startup"].random_seed = SEED + 82
     exe = fluid.Executor(device=dev)
     scope = fluid.Scope()
@@ -5630,7 +5702,7 @@ def zoo_train(torch, fluid, name, dev):
     params = [p.name for p in m["main"].global_block().all_parameters()
               if p.trainable]
     feed = {k: torch.as_tensor(v, device=dev) for k, v in zoo_feed(
-        name, m, np.random.RandomState(SEED + 83), batch).items()}
+        name, m, np.random.RandomState(SEED + 83), batch, cfg=cfg).items()}
     fetch_list = [m["loss"]] + ([m["auc"]] if "auc" in m else [])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5670,7 +5742,7 @@ def zoo_train(torch, fluid, name, dev):
               and ((test >= 0) & (test <= 1)).all(),
               name + " test Program", test.shape)
     elif "predict" in m:
-        check(test.shape == (batch, ZOO[name]["kw"]["class_dim"])
+        check(test.shape == (batch, cfg["kw"]["class_dim"])
               and np.isfinite(test).all()
               and np.allclose(test.sum(-1), 1.0, atol=1e-5),
               name + " test Program", test.shape)
@@ -6015,14 +6087,19 @@ def seq_ops_check(torch, fluid, dev):
             "reverse_bitwise": seq_reverse_exact(torch, fluid, dev)}
 
 
+def seq_cfg(name):
+    """``name``'s entry of SEQ_MODELS or STRUCT_MODELS."""
+    return SEQ_MODELS.get(name) or STRUCT_MODELS[name]
+
+
 def seq_model(fluid, name, **over):
-    """``SEQ_MODELS[name]``'s get_model (``over`` on top of its kw)."""
+    """``seq_cfg(name)``'s get_model (``over`` on top of its kw)."""
     import importlib
 
     mod = importlib.import_module("paddle_tpu_torch.models."
-                                  + SEQ_MODELS[name]["module"])
+                                  + seq_cfg(name)["module"])
     with fluid.unique_name.guard():
-        return mod.get_model(**dict(SEQ_MODELS[name]["kw"], **over))
+        return mod.get_model(**dict(seq_cfg(name)["kw"], **over))
 
 
 def seq_words(rng, n, seq, vocab, pad):
@@ -6040,9 +6117,12 @@ def seq_feed(name, rng, n, dense=False):
     ``dense``) and labels; the recommender's ids, 1 to SEQ_GENRES genres
     and 1 to SEQ_TITLE title words a movie (LoDArrays), and ratings in
     [1, 5]; machine translation's source and target rows (PAD_IDX tails)
-    and the target shifted by one as the label."""
+    and the target shifted by one as the label; STRUCT_MODELS' from
+    struct_feed."""
     from paddle_tpu_torch.lod import LoDArray
 
+    if name in STRUCT_MODELS:
+        return struct_feed(name, rng, n)
     kw = SEQ_MODELS[name]["kw"]
 
     def ragged(lo, hi, T, vocab):
@@ -6078,9 +6158,11 @@ def seq_feed(name, rng, n, dense=False):
 def seq_step(torch, fluid, m, main, state, feed, dev, tf32=False):
     """One training step of ``main`` (``m``'s Program or its widened copy)
     on ``dev`` from the numpy ``state``, as zoo_step: (loss, every
-    trainable parameter's gradient)."""
+    trainable parameter's gradient, the running statistics after the
+    step)."""
     blk = main.global_block()
     grads = [p.name + "@GRAD" for p in blk.all_parameters() if p.trainable]
+    stats = [p.name for p in blk.all_parameters() if not p.trainable]
     feed = {k: (v.astype(str(blk.var(k).dtype))
                 if isinstance(v, np.ndarray) and v.dtype.kind == "f" else v)
             for k, v in feed.items()}
@@ -6095,7 +6177,8 @@ def seq_step(torch, fluid, m, main, state, feed, dev, tf32=False):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return {"loss": float(np.asarray(out[0]).reshape(-1)[0]), "acc": None,
-            "grads": dict(zip(grads, out[1:])), "stats": {}}
+            "grads": dict(zip(grads, out[1:])),
+            "stats": {n: fluid.executor.as_numpy(scope[n]) for n in stats}}
 
 
 def seq_state(fluid, m, seed, dev):
@@ -6191,7 +6274,12 @@ def seq_check(torch, fluid, name, dev):
 def seq_units(name, feed):
     """The work units of one step on ``feed``: samples, and the tokens
     the step reads (the LSTM's word lengths, machine translation's
-    non-pad target tokens)."""
+    non-pad target tokens, SRL's sentence lengths; OCR's images)."""
+    if name == "ocr_crnn_ctc":
+        return {"images": len(feed["pixel"])}
+    if name == "label_semantic_roles":
+        return {"samples": len(feed["target"].lengths),
+                "tokens": int(np.sum(feed["target"].lengths))}
     if name == "stacked_dynamic_lstm":
         words = feed["words"]
         return {"samples": len(feed["label"]),
@@ -6206,17 +6294,20 @@ def seq_units(name, feed):
 
 
 def seq_train(torch, fluid, name, dev, dense=False):
-    """SEQ_STEPS training steps of ``name`` at its batch through
+    """SEQ_STEPS (or its ``steps``) training steps of ``name`` (a
+    SEQ_MODELS or STRUCT_MODELS name) at its batch through
     Executor.run on the card, on one seeded batch fed each step (numpy
     and LoDArrays, as a reader gives them; ``dense``: the LSTM's words as
     a plain padded array): every loss finite and the last under the
     first, every parameter finite; ms a step (steps 3 on), samples and
     tokens a second, peak memory, and one profiled step: a replay's (a
     bound Program) or an op-by-op step's busy and idle time and its
-    kernel launches.  Returns the figures and the executor and scope."""
+    kernel launches.  Returns the figures, the executor, the scope, the
+    model and the feed."""
     from paddle_tpu_torch import executor as executor_mod
 
-    batch = SEQ_MODELS[name]["batch"]
+    batch, steps = seq_cfg(name)["batch"], seq_cfg(name).get("steps",
+                                                            SEQ_STEPS)
     m = seq_model(fluid, name)
     m["startup"].random_seed = SEED + 112
     exe, scope = fluid.Executor(device=dev), fluid.Scope()
@@ -6228,7 +6319,7 @@ def seq_train(torch, fluid, name, dev, dense=False):
     torch.cuda.reset_peak_memory_stats(dev)
     c0 = executor_mod.compile_count()
     losses, step_s = [], []
-    for _ in range(SEQ_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
                           scope=scope)
@@ -6248,7 +6339,7 @@ def seq_train(torch, fluid, name, dev, dense=False):
             m["main"], feed=feed, fetch_list=[m["loss"]], scope=scope)))
     steady = steady_ms(step_s)
     units = seq_units(name, feed)
-    out = {"batch": batch, "steps": SEQ_STEPS, "bound": bool(bound),
+    out = {"batch": batch, "steps": steps, "bound": bool(bound),
            "captures": captures, "first_step_ms": step_s[0] * 1e3,
            "step_ms": steady, "step_ms_all": [t * 1e3 for t in step_s],
            "peak_memory_gib": peak / 2 ** 30, "losses": losses,
@@ -6264,7 +6355,7 @@ def seq_train(torch, fluid, name, dev, dense=False):
         out["idle_share"] = prof["device_idle_share"]
         out["idle_share_of_step"] = max(0.0, 1.0 - prof["device_busy_ms"]
                                         / steady)
-    return out, exe, scope, m
+    return out, exe, scope, m, feed
 
 
 def seq_bound_check(torch, fluid, dev):
@@ -6421,7 +6512,7 @@ def sequence_phase(torch, fluid, fa, dev):
         t1 = time.perf_counter()
         chk = seq_check(torch, fluid, name, dev)
         t2 = time.perf_counter()
-        trn, _, scope, m = seq_train(torch, fluid, name, dev)
+        trn, _, scope, m, _ = seq_train(torch, fluid, name, dev)
         out[name] = {"check": chk, "train": trn}
         if name == "machine_translation":
             trained = {n: scope[n] for n in m["main"].persistable_names()
@@ -6462,6 +6553,462 @@ def sequence_phase(torch, fluid, fa, dev):
     log("sequence phase: %s" % json.dumps(
         {k: out[k] for k in ("ragged_vs_dense", "bound", "generation",
                              "launches", "seconds")}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the structured-prediction slice: CTC, edit distance, the linear-chain
+# CRF, chunk_eval, NCE and hsigmoid, with the CRNN-CTC OCR model, the
+# semantic-role labeler and word2vec's sampled heads
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_struct_ops.py's warpctc cases: (logit lengths, label
+# lengths, blank, fixed label rows, norm_by_times); 6 classes, 9 frames
+STRUCT_CTC_CASES = {
+    "blank first": ([7, 5, 6], [3, 2, 2], 0, None, False),
+    "blank last": ([7, 5, 6], [3, 2, 2], 5, None, False),
+    "repeats": ([9, 5, 4], [4, 2, 2], 0, [[2, 2, 3, 3], [1, 1], [4, 4]],
+                False),
+    "last label is the pad id": ([6, 6, 5], [3, 2, 1], 5,
+                                 [[3, 1, 0], [2, 0], [0]], False),
+    "label too long": ([7, 3, 6], [3, 4, 2], 0, [[1, 2, 3], [2, 2, 3, 3]],
+                       False),
+    "zero-length logits": ([6, 0, 5], [2, 0, 2], 0, None, False),
+    "norm_by_times": ([7, 5, 6], [3, 2, 2], 0, None, True),
+}
+
+
+def struct_op_cases(fluid):
+    """The cases of tests/test_torch_struct_ops.py in float64 (seq_op_cases'
+    form, for seq_case_program): every rule, ``warpctc`` with its label
+    also fed as [B, U, 1] rows (R-7), ``ctc_align`` raw and through the
+    greedy decoder, ``crf_decoding`` with Viterbi ties, ``chunk_eval``
+    under the four schemes with and without excluded types, ``nce`` with
+    fixed negatives and ``hsigmoid`` over every label."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    cases = []
+    rng = np.random.RandomState(SEED + 130)
+
+    def add(label, feeds, body, lod=()):
+        cases.append(dict(label=label, feeds=feeds, body=body, lod=lod,
+                          ties={}))
+
+    def ids(lens, lo, hi, T=None, rows=()):
+        data, lens = seq_ragged(rng, lens, T or max(lens), ints=(lo, hi))
+        for b, row in enumerate(rows):
+            data[b, :len(row)] = row
+        return data, lens
+
+    for name, (lens, label_lens, blank, rows, norm) in STRUCT_CTC_CASES.items():
+        y = ids(label_lens, *((1, 6) if blank == 0 else (0, 5)),
+                rows=rows or ())
+        feeds = {"x": seq_ragged(rng, lens, 9, (6,)), "y": y}
+        body = (lambda L, v, b=blank, n=norm:
+                [L.warpctc(v["x"], v["y"], blank=b, norm_by_times=n)])
+        add("warpctc " + name, feeds, body)
+        if name == "blank first":
+            add("warpctc label rows (R-7)",
+                {"x": feeds["x"], "y": (y[0][..., None], y[1])}, body)
+    x = rng.rand(3, 7, 3)
+    x[0, np.arange(7), [0, 1, 1, 0, 2, 2, 0]] = 5.0
+    add("ctc_greedy_decoder", {"x": (x, np.array([7, 5, 0], np.int32))},
+        lambda L, v: [L.ctc_greedy_decoder(v["x"], blank=0)], lod=(0,))
+    for merge in (True, False):
+        def align(L, v, merge=merge):
+            helper = LayerHelper("ctc_align")
+            out = helper.create_variable_for_type_inference(dtype="int64")
+            helper.append_op(type="ctc_align", inputs={"Input": [v["ids"]]},
+                             outputs={"Output": [out]},
+                             attrs={"blank": 0, "merge_repeated": merge})
+            return [out]
+        add("ctc_align merge=%s" % merge,
+            {"ids": ids([8, 3, 0, 8], 0, 3, T=8,
+                        rows=[[1, 1, 0, 1, 2, 2, 2, 0], [0, 0, 0]])},
+            align, lod=(0,))
+    for name, (hl, rl) in {"ragged": ([4, 6, 1, 5], [5, 3, 2, 5]),
+                           "empty hypotheses": ([0, 3, 0], [2, 4, 0]),
+                           "empty references": ([3, 0, 5], [0, 0, 2])}.items():
+        for norm in (False, True):
+            add("edit_distance %s normalized=%s" % (name, norm),
+                {"h": ids(hl, 0, 5, T=6), "r": ids(rl, 0, 5, T=6)},
+                lambda L, v, n=norm: list(L.edit_distance(v["h"], v["r"],
+                                                          normalized=n)))
+
+    def crf(L, v):
+        attr = fluid.ParamAttr(name="crfw")
+        nll = L.linear_chain_crf(v["x"], v["y"], param_attr=attr)
+        (op,) = [o for o in fluid.default_main_program().global_block().ops
+                 if o.type == "linear_chain_crf"]
+        alpha = fluid.default_main_program().global_block().var(
+            op.outputs["Alpha"][0])
+        return [nll, alpha, L.crf_decoding(v["x"], attr),
+                L.crf_decoding(v["x"], attr, label=v["y"])]
+
+    for name, (lens, T) in {"ragged": ([3, 2, 6, 4], 6),
+                            "lengths 0 and 1": ([0, 1, 5, 1], 5)}.items():
+        add("linear_chain_crf and crf_decoding " + name,
+            {"x": seq_ragged(rng, lens, T, (4,)), "y": ids(lens, 0, 4, T=T)},
+            crf, lod=(2, 3))
+
+    def ties(L, v):
+        attr = fluid.ParamAttr(name="crfw",
+                               initializer=fluid.initializer.Constant(0.0))
+        L.linear_chain_crf(v["x"], v["y"], param_attr=attr)
+        return [L.crf_decoding(v["x"], attr)]
+
+    e = _f64([[[1, 1, 0, 1], [2, 0, 2, 2], [0, 0, 0, 0]],
+              [[0, 3, 3, 1], [1, 1, 1, 1], [5, 2, 5, 5]]])
+    add("crf_decoding ties", {"x": (e, np.array([3, 2], np.int32)),
+                              "y": ids([3, 2], 0, 4, T=3)}, ties, lod=(0,))
+    for scheme, hi in (("IOB", 7), ("IOE", 7), ("IOBES", 13), ("plain", 4)):
+        for excluded in (None, [1]):
+            lens = [8, 6, 10, 0, 9]
+            lab = ids(lens, 0, hi, T=10)
+            inf = (np.where(rng.rand(5, 10) < 0.3,
+                            rng.randint(0, hi, (5, 10)), lab[0]), lab[1])
+            add("chunk_eval %s excluded=%s" % (scheme, excluded),
+                {"i": inf, "l": lab},
+                lambda L, v, s=scheme, x=excluded: list(L.chunk_eval(
+                    v["i"], v["l"], chunk_scheme=s, num_chunk_types=3,
+                    excluded_chunk_types=x)))
+
+    def nce(L, v, weighted):
+        cost = L.nce(v["x"], v["y"], num_total_classes=8, num_neg_samples=4,
+                     sample_weight=v["w"] if weighted else None)
+        blk = fluid.default_main_program().global_block()
+        (op,) = [o for o in blk.ops if o.type == "nce"]
+        op.attrs["custom_neg_classes"] = [1, 4, 6, 1]
+        return [cost] + [blk.var(op.outputs[s][0])
+                         for s in ("SampleLogits", "SampleLabels")]
+
+    for weighted in (False, True):
+        feeds = {"x": rng.randn(6, 5), "y": rng.randint(0, 8, (6, 1))}
+        if weighted:
+            feeds["w"] = rng.rand(6, 1)
+        add("nce fixed negatives weighted=%s" % weighted, feeds,
+            lambda L, v, w=weighted: nce(L, v, w))
+    for classes in (2, 6, 8, 11):
+        for bias in (True, False):
+            add("hsigmoid classes=%d bias=%s" % (classes, bias),
+                {"x": rng.randn(2 * classes, 5),
+                 "y": (np.arange(2 * classes) % classes)[:, None]},
+                lambda L, v, c=classes, b=bias: [L.hsigmoid(
+                    v["x"], v["y"], num_classes=c,
+                    bias_attr=None if b else False)])
+    return cases
+
+
+def struct_ops_check(torch, fluid, dev):
+    """struct_op_cases on the card in float64 against the port's CPU, by
+    seq_ops_check's method: each output and gradient within OPS_RTOL of
+    its largest magnitude, integer outputs (``ctc_align``'s ids,
+    ``crf_decoding``'s paths with its ties, ``chunk_eval``'s counts, the
+    sample labels) and lengths exactly."""
+    cpu = torch.device("cpu")
+    worst = {}
+    cases = struct_op_cases(fluid)
+    for case in cases:
+        prog = seq_case_program(fluid, case)
+        sc = fluid.Scope()
+        fluid.Executor(device=cpu).run(prog[1], scope=sc)
+        state = {n: sc[n].numpy() for n in prog[0].persistable_names()
+                 if n in sc}
+        want = seq_case_run(fluid, case, prog, state, cpu)
+        got = seq_case_run(fluid, case, prog, state, dev)
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype, case["label"],
+                  g.shape, w.shape, g.dtype, w.dtype)
+            if w.dtype.kind == "f":
+                scale = max(float(np.max(np.abs(w), initial=0.0)), 1e-300)
+                e = float(np.max(np.abs(g - w), initial=0.0)) / scale
+                err = max(err, e)
+                check(e <= OPS_RTOL, "struct op on the card vs cpu",
+                      case["label"], e)
+            else:
+                check(np.array_equal(g, w), "struct op on the card vs cpu",
+                      case["label"], g, w)
+        worst[case["label"]] = err
+    return {"cases": len(cases), "worst_rel_err": max(worst.values()),
+            "worst_case": max(worst, key=worst.get)}
+
+
+def struct_feed(name, rng, n):
+    """``n`` seeded samples for ``name``: OCR's standard normal images and
+    labels of STRUCT_LABEL_LENS ids of its classes, fed as [L] rows (a
+    LoDArray of [n, 12] ids); SRL's 8 slots over sentences of
+    STRUCT_SRL_LENS tokens (LoDArrays of [n, 64, 1] ids), the tags
+    uniform over the 11."""
+    from paddle_tpu_torch.lod import LoDArray
+    from paddle_tpu_torch.models import label_semantic_roles as SRL
+    from paddle_tpu_torch.models import ocr_crnn_ctc as OCR
+
+    kw = STRUCT_MODELS[name]["kw"]
+    if name == "ocr_crnn_ctc":
+        lo, hi = STRUCT_LABEL_LENS
+        shape = kw.get("data_shape") or OCR.DATA_SHAPE
+        classes = kw.get("num_classes", OCR.NUM_CLASSES)
+        return {"pixel": rng.randn(n, *shape).astype(np.float32),
+                "label": LoDArray(rng.randint(0, classes, size=(n, hi))
+                                  .astype(np.int64),
+                                  rng.randint(lo, hi + 1, size=n))}
+    lo, hi = STRUCT_SRL_LENS
+    lens = rng.randint(lo, hi + 1, size=n)
+    vocab = dict.fromkeys(SRL.FEED_NAMES[:-1], SRL.WORD_VOCAB)
+    vocab.update(mark=SRL.MARK_DICT_LEN, target=SRL.LABEL_VOCAB)
+    return {k: LoDArray(rng.randint(0, v, size=(n, hi, 1)).astype(np.int64),
+                        lens) for k, v in vocab.items()}
+
+
+def struct_f32_ok(name, e):
+    """OCR: each of its ``f32`` limits; SRL: the loss and every gradient
+    within its ``f32_rtol``."""
+    cfg = STRUCT_MODELS[name]
+    if "f32" in cfg:
+        return all(e[k] <= v for k, v in cfg["f32"].items())
+    return (e["loss_rel"] <= cfg["f32_rtol"]
+            and e["grad_worst_of_max"] <= cfg["f32_rtol"])
+
+
+def struct_check(torch, fluid, name, dev):
+    """resnet_check's method for ``name`` at full width, batch
+    ``check_batch``: one step from one set of numpy parameters on the
+    card and on the port's CPU path in float64 (the Program widened;
+    loss LOSS_RTOL, each gradient GRAD_RTOL of its max, the running
+    statistics RESNET_STAT_RTOL), and in float32 with TF32 off against
+    the CPU's float64 step (struct_f32_ok), the CPU's float32 step too,
+    and a float32 step with TF32 on, which must fail struct_f32_ok."""
+    cpu = torch.device("cpu")
+    m = seq_model(fluid, name)
+    state = seq_state(fluid, m, SEED + 120, cpu)
+    feed = struct_feed(name, np.random.RandomState(SEED + 121),
+                       STRUCT_MODELS[name]["check_batch"])
+    main64 = widened(fluid, m["main"])
+    fc = last_fc(m)
+    t0 = time.perf_counter()
+    cpu64 = seq_step(torch, fluid, m, main64, state, feed, cpu)
+    cpu32 = seq_step(torch, fluid, m, m["main"], state, feed, cpu)
+    cpu_s = time.perf_counter() - t0
+    card64 = seq_step(torch, fluid, m, main64, state, feed, dev)
+    card32 = seq_step(torch, fluid, m, m["main"], state, feed, dev)
+    tf32 = seq_step(torch, fluid, m, m["main"], state, feed, dev, tf32=True)
+    e64 = resnet_errors(card64, cpu64, fc)
+    check(e64["loss_rel"] <= LOSS_RTOL and e64["grad_worst_of_max"]
+          <= GRAD_RTOL and e64["stat_worst_of_max"] <= RESNET_STAT_RTOL,
+          name + " float64 card vs cpu", e64)
+    out = {"float64_card_vs_cpu": e64,
+           "float32_card_vs_cpu64": resnet_errors(card32, cpu64, fc),
+           "float32_cpu_vs_cpu64": resnet_errors(cpu32, cpu64, fc),
+           "tf32_card_vs_cpu64": resnet_errors(tf32, cpu64, fc),
+           "f32_limits": STRUCT_MODELS[name].get(
+               "f32", STRUCT_MODELS[name].get("f32_rtol")),
+           "loss": {"cpu64": cpu64["loss"], "card64": card64["loss"],
+                    "cpu32": cpu32["loss"], "card32": card32["loss"],
+                    "tf32": tf32["loss"]},
+           "batch": STRUCT_MODELS[name]["check_batch"], "cpu_steps_s": cpu_s}
+    check(struct_f32_ok(name, out["float32_card_vs_cpu64"]),
+          name + " float32 card vs cpu", out["float32_card_vs_cpu64"])
+    check(struct_f32_ok(name, out["float32_cpu_vs_cpu64"]),
+          name + " float32 cpu vs cpu float64", out["float32_cpu_vs_cpu64"])
+    check(not struct_f32_ok(name, out["tf32_card_vs_cpu64"]),
+          name + " limits pass a TF32 step", out["tf32_card_vs_cpu64"])
+    return out
+
+
+def ocr_test_pass(fluid, exe, scope, m, feed):
+    """The OCR test Program (cloned before Adam) on the training batch:
+    its greedy decode (``ctc_align``'s ids and lengths), the edit
+    distance of each row (finite, normalized, in [0, inf)) and the
+    sequence count (the batch)."""
+    (align,) = [op for op in m["test"].global_block().ops
+                if op.type == "ctc_align"]
+    dec, err, num = exe.run(
+        m["test"], feed=feed, scope=scope, return_numpy=False,
+        fetch_list=[align.outputs["Output"][0], m["error"], m["seq_num"]])
+    err, num = (fluid.executor.as_numpy(t) for t in (err, num))
+    n = len(feed["pixel"])
+    check(dec.data.shape[0] == n and (dec.lengths <= dec.data.shape[1]).all()
+          and err.shape == (n, 1) and np.isfinite(err).all()
+          and (err >= 0).all() and int(num) == n,
+          "OCR's test Program", dec.data.shape, err.shape, int(num))
+    return {"decoded_lengths": dec.lengths.tolist(),
+            "edit_distance_mean": float(err.mean()), "seq_num": int(num)}
+
+
+def srl_decode(torch, fluid, dev, exe, scope, m, feed):
+    """SRL's Viterbi decode (the main Program pruned to ``decode``) on the
+    trained weights, timed over STRUCT_DECODE_RUNS runs (tokens a second),
+    then one ``chunk_eval`` (IOB, SRL_CHUNK_TYPES types) of the decode
+    against the tags, widened to float64, on the card and on the CPU:
+    every output equal."""
+    from paddle_tpu_torch.lod import LoDArray
+    from paddle_tpu_torch.models import label_semantic_roles as SRL
+
+    dec = m["main"].prune([m["decode"]])
+    words = {k: feed[k] for k in SRL.FEED_NAMES}
+    walls = []
+    for _ in range(STRUCT_DECODE_RUNS):
+        t0 = time.perf_counter()
+        (path,) = exe.run(dec, feed=words, fetch_list=[m["decode"]],
+                          scope=scope, return_numpy=False)
+        walls.append(time.perf_counter() - t0)
+    tags = feed["target"]
+    check(np.array_equal(path.lengths, tags.lengths)
+          and ((path.data >= 0) & (path.data < SRL.LABEL_VOCAB)).all(),
+          "SRL's Viterbi path", path.lengths.tolist())
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        inf = fluid.layers.data(name="inf", shape=[1], dtype="int64",
+                                lod_level=1)
+        lab = fluid.layers.data(name="lab", shape=[1], dtype="int64",
+                                lod_level=1)
+        outs = fluid.layers.chunk_eval(inf, lab, chunk_scheme="IOB",
+                                       num_chunk_types=SRL_CHUNK_TYPES)
+    main = widened(fluid, main)
+    chunk_feed = {"inf": LoDArray(path.data[..., None], path.lengths),
+                  "lab": tags}
+    got, want = ([np.asarray(o) for o in fluid.Executor(device=d).run(
+        main, feed=chunk_feed, fetch_list=[o.name for o in outs],
+        scope=fluid.Scope())] for d in (dev, torch.device("cpu")))
+    check(all(g.tobytes() == w.tobytes() and g.dtype == w.dtype
+              for g, w in zip(got, want)),
+          "chunk_eval of the decode, card vs cpu", got, want)
+    wall = float(np.median(walls))
+    tokens = int(path.lengths.sum())
+    return {"decode_ms_all": [t * 1e3 for t in walls], "decode_ms": wall * 1e3,
+            "tokens": tokens, "decode_tokens_per_s": tokens / wall,
+            "chunk_eval": {"precision": float(got[0]), "recall": float(got[1]),
+                           "f1": float(got[2]), "infer_chunks": int(got[3]),
+                           "label_chunks": int(got[4]),
+                           "correct_chunks": int(got[5])},
+            "chunk_eval_card_equals_cpu": True}
+
+
+def struct_w2v_cfg(head):
+    """ZOO's word2vec with the ``head`` output layer."""
+    z = ZOO["word2vec"]
+    return dict(z, kw=dict(z["kw"], loss_type=head))
+
+
+def struct_w2v_bound(torch, fluid, head, dev):
+    """word2vec's ``head`` step from one start state in two scopes:
+    STRUCT_W2V_BOUND_STEPS steps op by op and as many through the fast
+    path (eager, capture, replays): one bound entry and one capture, the
+    losses and every persistable bitwise equal; the NCE head's negatives
+    (SampleLabels, drawn from its generator) bitwise too, every id in
+    [0, vocab), and each step's draws new."""
+    from paddle_tpu_torch import executor as executor_mod
+
+    cfg = struct_w2v_cfg(head)
+    m = zoo_model(fluid, "word2vec", cfg=cfg)
+    # the run seed of both scopes (a Program without one draws a random
+    # seed a scope)
+    m["main"].random_seed = SEED + 142
+    state = seq_state(fluid, m, SEED + 140, dev)
+    feed = {k: torch.as_tensor(v, device=dev) for k, v in zoo_feed(
+        "word2vec", m, np.random.RandomState(SEED + 141), cfg["batch"],
+        cfg=cfg).items()}
+    fetch = [m["loss"]]
+    if head == "nce":
+        (op,) = [o for o in m["main"].global_block().ops if o.type == "nce"]
+        fetch.append(op.outputs["SampleLabels"][0])
+    runs = {}
+    for cache in (False, True):
+        exe, scope = fluid.Executor(device=dev), fluid.Scope()
+        fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+        c0 = executor_mod.compile_count()
+        outs = [[np.asarray(o) for o in exe.run(
+            m["main"], feed=feed, fetch_list=fetch, scope=scope,
+            use_program_cache=cache)] for _ in range(STRUCT_W2V_BOUND_STEPS)]
+        bound = [b for b in exe._bound.values() if b.program is m["main"]]
+        runs[cache] = {"outs": outs, "captures":
+                       executor_mod.compile_count() - c0,
+                       "graphs": sum(b.graph is not None for b in bound),
+                       "entries": len(bound),
+                       "state": {n: fluid.executor.as_numpy(scope[n])
+                                 for n in state}}
+    g, e = runs[True], runs[False]
+    bitwise = (all(a.tobytes() == b.tobytes() for sa, sb in
+                   zip(g["outs"], e["outs"]) for a, b in zip(sa, sb))
+               and all(g["state"][n].tobytes() == e["state"][n].tobytes()
+                       for n in state))
+    check(g["entries"] == 1 and g["graphs"] == 1 and g["captures"] == 1
+          and e["captures"] == 0 and bitwise,
+          "word2vec's %s step not bound and replayed bitwise" % head,
+          g["entries"], g["graphs"], g["captures"], e["captures"], bitwise)
+    out = {"steps": STRUCT_W2V_BOUND_STEPS, "entries": g["entries"],
+           "captures": g["captures"], "replays_bitwise_eager": bitwise,
+           "losses": [float(s[0].reshape(-1)[0]) for s in g["outs"]]}
+    if head == "nce":
+        draws = [s[1][:, 1:] for s in g["outs"]]
+        vocab = cfg["kw"]["vocab_size"]
+        check(all(((d >= 0) & (d < vocab)).all() for d in draws)
+              and all(a.tobytes() != b.tobytes()
+                      for a, b in zip(draws, draws[1:])),
+              "NCE's draws out of range or repeated between steps")
+        out["draws_per_step"] = int(draws[0].size)
+        out["distinct_ids_drawn"] = int(len(np.unique(np.stack(draws))))
+    return out
+
+
+def struct_phase(torch, fluid, fa, dev, softmax_head):
+    """The structured-prediction slice on the card: the 8 struct op rules
+    in float64 against the CPU (struct_ops_check); the CRNN-CTC OCR model
+    and the semantic-role labeler (STRUCT_MODELS) at full width, each
+    card step held to the CPU's (struct_check) and ``steps`` training
+    steps (seq_train: losses finite and falling, step ms, units a
+    second, launches a step, idle share, peak memory); a pass of OCR's
+    test Program through the greedy decoder and ``edit_distance``
+    (ocr_test_pass); SRL's Viterbi decode and a ``chunk_eval`` of it
+    (srl_decode); word2vec's NCE and hsigmoid heads at the zoo's widths,
+    each step bound and bitwise its op-by-op steps (struct_w2v_bound),
+    then ZOO_STEPS steps (zoo_train) beside the softmax head's
+    (``softmax_head``, zoo_phase's figures).  No kernel of this repo
+    runs: B1-B5 launch 0 times in the phase."""
+    fa.reset_launch_counts()
+    card = card_line()
+    t0 = time.perf_counter()
+    out = {"card": card, "ops": struct_ops_check(torch, fluid, dev)}
+    seconds = {"ops": time.perf_counter() - t0}
+    log("struct ops, card vs cpu float64 (%s): %s"
+        % (card, json.dumps(out["ops"])))
+    for name in STRUCT_MODELS:
+        t1 = time.perf_counter()
+        chk = struct_check(torch, fluid, name, dev)
+        t2 = time.perf_counter()
+        trn, exe, scope, m, feed = seq_train(torch, fluid, name, dev)
+        out[name] = {"check": chk, "train": trn}
+        if name == "ocr_crnn_ctc":
+            out[name]["test_pass"] = ocr_test_pass(fluid, exe, scope, m, feed)
+        else:
+            out[name]["decode"] = srl_decode(torch, fluid, dev, exe, scope,
+                                             m, feed)
+        seconds[name] = {"check": t2 - t1, "train": time.perf_counter() - t2}
+        log("%s (full width, TF32 off, %s): %s"
+            % (name, card, json.dumps(out[name])))
+        del exe, scope, m
+        torch.cuda.empty_cache()
+    for head in STRUCT_W2V_HEADS:
+        t1 = time.perf_counter()
+        bound = struct_w2v_bound(torch, fluid, head, dev)
+        trn = zoo_train(torch, fluid, "word2vec", dev,
+                        cfg=struct_w2v_cfg(head))
+        out["word2vec_" + head] = {
+            "bound": bound, "train": trn,
+            "softmax_head": {k: softmax_head[k] for k in (
+                "step_ms", "words_per_s", "replay_idle_share")}}
+        seconds["word2vec_" + head] = time.perf_counter() - t1
+        log("word2vec %s head (zoo width, TF32 off, %s): %s"
+            % (head, card, json.dumps(out["word2vec_" + head])))
+        torch.cuda.empty_cache()
+    launches = dict(fa.KERNEL_LAUNCHES)
+    check(not any(launches.values()), "a kernel launched in the struct "
+          "phase", launches)
+    out["launches"] = launches
+    out["seconds"] = seconds
+    log("struct phase: %s" % json.dumps({k: out[k] for k in (
+        "card", "launches", "seconds")}))
     return out
 
 
@@ -9301,13 +9848,18 @@ def main():
     t_new = time.perf_counter()
     ops_phase(torch, fluid, fa, dev)
     torch.cuda.empty_cache()
-    zoo_phase(torch, fluid, fa, dev)
+    zoo = zoo_phase(torch, fluid, fa, dev)
     torch.cuda.empty_cache()
     log("ops and zoo phases: %.1f s" % (time.perf_counter() - t_new))
     t_new = time.perf_counter()
     sequence_phase(torch, fluid, fa, dev)
     torch.cuda.empty_cache()
     log("sequence phase: %.1f s" % (time.perf_counter() - t_new))
+    t_new = time.perf_counter()
+    struct_phase(torch, fluid, fa, dev, zoo["word2vec"]["train"])
+    del zoo
+    torch.cuda.empty_cache()
+    log("struct phase: %.1f s" % (time.perf_counter() - t_new))
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
                                     "fused")

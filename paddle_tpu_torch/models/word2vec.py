@@ -5,11 +5,10 @@ softmax, NCE or hierarchical-sigmoid output head over the imikolov
 vocabulary).
 
 The port's copy of the JAX package's ``paddle_tpu/models/word2vec.py``:
-the same Programs.  The softmax head trains on the card through
-``Executor.run``.  The NCE and hierarchical-sigmoid heads build the
-reference's Programs, but their ops (``nce``, ``hierarchical_sigmoid``)
-have no rule in the port yet, so running them raises
-``NotImplementedError`` naming the op.
+the same Programs.  Each head trains on the card through
+``Executor.run``: the softmax, and the sampled NCE and
+hierarchical-sigmoid heads (``ops/struct_ops.py``), whose steps bind
+into one CUDA graph as the softmax head's do.
 """
 from __future__ import annotations
 

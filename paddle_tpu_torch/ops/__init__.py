@@ -15,3 +15,4 @@ from . import optimizer_ops  # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import decode_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
+from . import struct_ops  # noqa: F401

@@ -248,16 +248,17 @@ def test_nets_build_the_reference_programs():
 
 
 def test_unported_op_raises_naming_it():
+    # switch_moe's layer is ported, its rule not yet (ROADMAP's op
+    # coverage); warpctc served here until the port had its rule
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
-        x = tfluid.layers.data(name="x", shape=[3, 4], dtype="float32")
-        lab = tfluid.layers.data(name="lab", shape=[2], dtype="int32")
-        y = tfluid.layers.warpctc(x, lab)
-    exe = tfluid.Executor(tfluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="'warpctc'"):
-        exe.run(main, feed={"x": np.zeros((2, 3, 4), np.float32),
-                            "lab": np.ones((2, 2), np.int32)},
-                fetch_list=[y], scope=tfluid.Scope())
+        x = tfluid.layers.data(name="x", shape=[4], dtype="float32")
+        y = tfluid.layers.switch_moe(x, num_experts=2, expert_hidden=8)
+    exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    with pytest.raises(NotImplementedError, match="'switch_moe'"):
+        exe.run(main, feed={"x": np.zeros((2, 4), np.float32)},
+                fetch_list=[y], scope=scope)
 
 
 def test_load_numpy_state_checks_names_and_shapes():

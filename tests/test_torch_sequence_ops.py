@@ -443,8 +443,8 @@ def test_every_sequence_rule_is_ported():
     assert len(want) == 21 and want == names(TSO, treg)
 
 
-#: the reference's op names the port has no rule for after the sequence
-#: slice, by the module that registers them
+#: the reference's op names the port has no rule for after the
+#: structured-prediction slice, by the module that registers them
 STILL_MISSING = {
     "detection_ops": ["anchor_generator", "bipartite_match", "box_coder",
                       "detection_map", "generate_proposal_labels",
@@ -452,9 +452,6 @@ STILL_MISSING = {
                       "multiclass_nms", "polygon_box_transform", "prior_box",
                       "roi_perspective_transform", "rpn_target_assign",
                       "ssd_loss", "target_assign"],
-    "struct_ops": ["chunk_eval", "crf_decoding", "ctc_align", "edit_distance",
-                   "hierarchical_sigmoid", "linear_chain_crf", "nce",
-                   "warpctc"],
     "quantize": ["fake_quantize_abs_max", "quantized_conv2d", "quantized_mul"],
     "moe_ops": ["switch_moe"],
     "pipeline_ops": ["pipeline"],
@@ -463,8 +460,8 @@ STILL_MISSING = {
 
 def test_op_and_layer_coverage():
     """With every ``ops`` module of both packages imported, the port
-    registers 194 of the reference's 221 op names, and no other; the 27
-    it lacks are the detection, struct, quantize, MoE and pipeline ops.
+    registers 202 of the reference's 221 op names, and no other; the 19
+    it lacks are the detection, quantize, MoE and pipeline ops.
     Its ``layers.__all__`` lacks the 15 detection layers and
     ``Pipeline`` only."""
     import importlib
@@ -479,7 +476,7 @@ def test_op_and_layer_coverage():
         for mod in pkgutil.iter_modules(pkg.__path__):
             importlib.import_module(pkg.__name__ + "." + mod.name)
     want, got = set(jreg.RULES), set(treg.RULES)
-    assert len(want) == 221 and got <= want and len(got) == 194
+    assert len(want) == 221 and got <= want and len(got) == 202
     assert sorted(want - got) == sorted(
         n for names in STILL_MISSING.values() for n in names)
     lacking = set(jfluid.layers.__all__) - set(tfluid.layers.__all__)

@@ -88,6 +88,9 @@ from .lod import (LoDArray, LoDTensorArray, create_lod_array,
 from .param_attr import ParamAttr, WeightNormParamAttr
 from .transpiler import InferenceTranspiler, memory_optimize, release_memory
 
+# the reference's top-level spelling takes the lengths as optional
+create_lod_tensor = create_lod_array
+
 __all__ = [
     "core", "unique_name", "framework", "initializer", "layers", "nets",
     "optimizer", "regularizer", "clip", "backward", "executor", "lod",

@@ -2055,6 +2055,23 @@ class Executor:
         bound.generators, bound.step = generators, body
         _compiles.inc()
 
+    def close(self):
+        """Drop every bound entry (on the card their CUDA graphs, and with
+        the last of them the pool they share) and the count cells of
+        ``observability.xla_stats``; the next run of a Program binds and
+        captures again.  The reference's ``close`` also tells its
+        parameter servers that this trainer is done: the port has no
+        pserver yet (ROADMAP A11), so that half is not here."""
+        with self._graph_lock:
+            with self._lock:
+                self._bound.clear()
+                self._xla_cells.clear()
+            if self._replayed is not None:
+                self._replayed.synchronize()
+                self._replayed = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def _holds_graphs(self):
         with self._lock:
             return any(b.step is not None for b in self._bound.values())

@@ -5,9 +5,10 @@ The port's layer functions so far: nn (``beam_search`` and
 need no reader runtime), metric_op, ops, tensor, control_flow (``While``,
 ``ConditionalBlock``, ``Switch``, ``IfElse``, ``StaticRNN``,
 ``DynamicRNN``, the comparisons, the tensor arrays and the LoD rank
-table), the learning-rate schedules and sequence (the ``sequence_*``,
-``dynamic_lstm``/``lstmp``/``gru`` and unit layers).  Detection and the
-pipeline are not ported yet.
+table), the learning-rate schedules, sequence (the ``sequence_*``,
+``dynamic_lstm``/``lstmp``/``gru`` and unit layers) and detection (SSD's
+``prior_box``, ``multi_box_head``, ``ssd_loss``, ``detection_output``,
+the RPN layers and ``detection_map``).  The pipeline is not ported yet.
 """
 from . import nn
 from . import io
@@ -17,6 +18,7 @@ from . import tensor
 from . import control_flow
 from . import learning_rate_scheduler
 from . import sequence as sequence_mod
+from . import detection
 
 from .nn import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
@@ -26,6 +28,7 @@ from .tensor import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
 
 __all__ = (
     nn.__all__
@@ -36,4 +39,5 @@ __all__ = (
     + control_flow.__all__
     + learning_rate_scheduler.__all__
     + sequence_mod.__all__
+    + detection.__all__
 )

@@ -16,3 +16,4 @@ from . import attention_ops  # noqa: F401
 from . import decode_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import struct_ops  # noqa: F401
+from . import detection_ops  # noqa: F401

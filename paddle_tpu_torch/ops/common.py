@@ -67,3 +67,14 @@ def in_range(idx, n):
     (negatives in [-n, 0) included); elsewhere the JAX package's gathers
     fill (NaN for a float)."""
     return (idx >= -n) & (idx < n)
+
+
+def device_values(values, dtype, device):
+    """Python numbers as a tensor made on the device by fills, so that a
+    captured step can hold it: ``out[i] = v`` would lift ``v`` into a
+    host tensor and copy it, which a CUDA graph capture refuses
+    (ROADMAP F-22)."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..core import torch_dtype
 from ..registry import register
-from .common import at_least_f32
+from .common import at_least_f32, device_values
 
 
 def _mask(lengths, maxlen, dtype=torch.float32):
@@ -68,15 +68,6 @@ def _reverse_seq(x, lengths):
 def _act(name):
     return {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": torch.relu,
             "identity": lambda v: v, "linear": lambda v: v}[name]
-
-
-def _int32_values(values, device):
-    """Python ints as an int32 tensor made on the device by fills, not
-    copied from the host, so that a captured step can hold it."""
-    out = torch.zeros(len(values), dtype=torch.int32, device=device)
-    for i, v in enumerate(values):
-        out[i] = v
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -485,7 +476,7 @@ def _lod_reset(ctx, op):
     if old_lens is None and offs[-1] != int(flat.shape[0]):
         raise ValueError("lod_reset target_lod ends at %d but X has %d payload "
                          "rows" % (offs[-1], int(flat.shape[0])))
-    lens_t = _int32_values(lens, x.device)
+    lens_t = device_values(lens, torch.int32, x.device)
     ctx.set_output(op, "Out", _repack(flat, lens_t, max(lens)))
     ctx.set_lengths(out_name, lens_t)
 

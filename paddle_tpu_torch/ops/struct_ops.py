@@ -26,8 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..registry import register
-from .common import at_least_f32
-from .sequence_ops import _int32_values, _lengths_for, _mask
+from .common import at_least_f32, device_values
+from .sequence_ops import _lengths_for, _mask
 
 
 def _ids(x):
@@ -360,7 +360,7 @@ def _nce(ctx, op):
     num_classes = int(op.attrs["num_total_classes"])
     custom = list(op.attrs.get("custom_neg_classes", []) or [])
     if custom:
-        neg = _int32_values(custom, x.device).long()[None].expand(B, -1)
+        neg = device_values(custom, torch.int64, x.device)[None].expand(B, -1)
     else:
         gen = ctx.op_generator(op, op.attrs.get("seed", 0))
         neg = torch.randint(0, num_classes, (B, num_neg), generator=gen,

@@ -666,7 +666,8 @@ class InferenceEngine:
 
     # -- request admission: autoregressive decode ----------------------------
     def generate_async(self, prompt, max_new_tokens=None, deadline_ms=None,
-                       priority=None, temperature=None, seed=None):
+                       priority=None, temperature=None, seed=None,
+                       session=None):
         """Admit one generation prompt (1-D token ids); returns its
         :class:`~.decode_scheduler.GenerateRequest` future whose
         ``result(timeout)`` is the generated int32 token ids.  Requires
@@ -675,7 +676,8 @@ class InferenceEngine:
         backpressure, ``ServingOverloaded`` when the deadline is already
         unmeetable, ``ServingDegraded`` while the decode worker is dead
         past its restart budget, and ``ServingError`` for malformed
-        requests."""
+        requests.  ``session`` continues a conversation on the decode
+        scheduler (:meth:`~.decode_scheduler.DecodeScheduler.submit`)."""
         if self._state == "stopped":
             raise ServingClosed("engine is stopped")
         if self._decoder is None:
@@ -689,17 +691,19 @@ class InferenceEngine:
         return self._decoder.submit(prompt, max_new_tokens=max_new_tokens,
                                     deadline_ms=deadline_ms,
                                     priority=priority,
-                                    temperature=temperature, seed=seed)
+                                    temperature=temperature, seed=seed,
+                                    session=session)
 
     def generate(self, prompt, max_new_tokens=None, deadline_ms=None,
-                 priority=None, timeout=None, temperature=None, seed=None):
+                 priority=None, timeout=None, temperature=None, seed=None,
+                 session=None):
         """Synchronous generate: int32 token ids (greedy by default;
         ``temperature``/``seed`` for sampling; stops at the decode
         model's ``eos_id`` or ``max_new_tokens``)."""
         return self.generate_async(
             prompt, max_new_tokens=max_new_tokens, deadline_ms=deadline_ms,
             priority=priority, temperature=temperature,
-            seed=seed).result(timeout=timeout)
+            seed=seed, session=session).result(timeout=timeout)
 
     # -- batch execution (batcher thread) ------------------------------------
     def _current_model(self):

@@ -89,6 +89,37 @@ def test_greedy_tokens_identical_to_jax_engine(lm, decode_model):
     assert health["decode"]["completed"] == len(prompts)
 
 
+def test_generate_takes_a_session_as_the_jax_engine_does_f20(
+        lm, decode_model):
+    """F-20: ``generate`` and ``generate_async`` pass ``session`` to the
+    scheduler: the JAX engine's tokens for a session turn, and the
+    scheduler's own for the same turn."""
+    params, meta = lm
+    prompt = np.array([3, 4, 5, 6], np.int32)
+    cfg = dict(num_slots=4, page_size=8, max_seq_len=64, max_new_tokens=8)
+    jeng = jserving.InferenceEngine(
+        decode_model=JT.build_decode_model(params, meta),
+        decode_config=jserving.DecodeConfig(**cfg))
+    try:
+        want = jeng.generate(prompt, session="conv-1", timeout=120)
+    finally:
+        jeng.stop()
+    teng = serving.InferenceEngine(decode_model=decode_model,
+                                   decode_config=serving.DecodeConfig(**cfg),
+                                   device="cpu")
+    try:
+        got = teng.generate(prompt, session="conv-1", timeout=60)
+        got_async = teng.generate_async(prompt, session="conv-2").result(
+            timeout=60)
+    finally:
+        teng.stop()
+    (sched,) = _serve(decode_model, [prompt], serving.DecodeConfig(**cfg),
+                      session="conv-1")
+    assert got.dtype == np.int32 and got.tobytes() == want.tobytes()
+    assert got_async.tobytes() == want.tobytes()
+    assert sched.tobytes() == got.tobytes()
+
+
 @pytest.fixture(scope="module")
 def legacy_model(lm):
     params, meta = lm

@@ -1092,3 +1092,63 @@ def test_reads_host_mark_is_complete():
 ])
 def test_reads_host_scan_tells_host_reads_apart(src, waits):
     assert bool(_host_waits(ast.parse(src).body[0])) is waits
+
+
+def _host_constant_program(kind):
+    """A one-op Program whose rule makes constants from attrs, and its
+    feed as host tensors (a numpy feed is lifted into a tensor)."""
+    L = tfluid.layers
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = L.data(name="x", shape=[5], dtype="float32")
+        if kind == "nce_custom_negatives":
+            y = L.data(name="y", shape=[1], dtype="int64")
+            out = L.nce(x, y, num_total_classes=8, num_neg_samples=3)
+            (op,) = [o for o in main.global_block().ops if o.type == "nce"]
+            op.attrs["custom_neg_classes"] = [1, 4, 6]
+            feed = {"x": torch.rand(4, 5),
+                    "y": torch.tensor([[1], [2], [3], [0]])}
+        elif kind == "lod_reset_target_lod":
+            out = L.lod_reset(x, target_lod=[0, 2, 4])
+            feed = {"x": torch.rand(4, 5)}
+        else:
+            img = L.data(name="img", shape=[3, 16, 16], dtype="float32")
+            fm = L.data(name="fm", shape=[2, 4, 4], dtype="float32")
+            box, _ = L.prior_box(fm, img, min_sizes=[4.0], max_sizes=[8.0],
+                                 aspect_ratios=[2.0], flip=True)
+            y = L.data(name="y", shape=[4], dtype="float32")
+            out = L.box_coder(L.reshape(box, [-1, 4]), None, y,
+                              box_normalized=False)
+            feed = {"x": torch.rand(4, 5), "y": torch.rand(4, 4),
+                    "img": torch.zeros(1, 3, 16, 16),
+                    "fm": torch.zeros(1, 2, 4, 4)}
+    return main, startup, out, feed
+
+
+@pytest.mark.parametrize("kind", ["nce_custom_negatives",
+                                  "lod_reset_target_lod", "prior_box_coder"])
+def test_rules_make_constants_on_the_device_f22(kind):
+    """F-22: a constant a rule builds from its attrs is filled on the
+    device, never lifted from a host scalar and copied (``out[i] = v``),
+    which a CUDA graph capture refuses: a dense-fed Program holding
+    ``nce`` with ``custom_neg_classes`` or ``lod_reset`` with a
+    ``target_lod`` failed its capture on the card.  Fed host tensors,
+    the step lifts nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Lifts(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.count += func is torch.ops.aten.lift_fresh.default
+            return func(*args, **(kwargs or {}))
+
+    main, startup, out, feed = _host_constant_program(kind)
+    exe, scope = tfluid.Executor(CPU), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    with Lifts() as lifts:
+        (got,) = exe.run(main, feed=feed, fetch_list=[out], scope=scope,
+                         use_program_cache=False)
+    assert lifts.count == 0 and np.isfinite(np.asarray(got)).all()

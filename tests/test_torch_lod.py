@@ -50,6 +50,27 @@ def test_create_lod_tensor_matches_jax(case):
     _same_lod(TL.create_lod_tensor(data, lens), JL.create_lod_tensor(data, lens))
 
 
+#: F-19: the top-level ``create_lod_tensor`` takes its lengths as
+#: optional, as the reference's does (it is ``create_lod_array``)
+TOP_LEVEL_CASES = {
+    "list_of_sequences": [np.arange(3).reshape(3, 1),
+                          np.arange(2).reshape(2, 1)],
+    "list_of_groups": [[np.ones((2, 2)), np.zeros((1, 2))],
+                       [np.ones((3, 2))]],
+}
+
+
+@pytest.mark.parametrize("case", list(TOP_LEVEL_CASES))
+def test_top_level_create_lod_tensor_takes_optional_lengths_f19(case):
+    data = TOP_LEVEL_CASES[case]
+    got = tfluid.create_lod_tensor(data)
+    _same_lod(got, jfluid.create_lod_tensor(data))
+    assert tfluid.create_lod_tensor is tfluid.create_lod_array
+    if case == "list_of_sequences":
+        assert got.data.shape == (2, 3, 1)
+        np.testing.assert_array_equal(got.lengths, [3, 2])
+
+
 def test_pack_unpack_and_lod_methods_match_jax():
     for kw in ({}, {"maxlen": 4, "pad_value": -1}):
         got = TL.pack_sequences(_SEQS, **kw)

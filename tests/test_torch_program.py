@@ -302,3 +302,47 @@ def test_executor_feed_cast_fetch_and_writeback():
                    scope=scope, nan_guard=True)
     np.testing.assert_array_equal(out, np.ones((2, 3)))
     assert exe.last_step_ok() is True
+
+
+def test_executor_close_drops_the_bound_entries_f21():
+    """F-21: ``Executor.close`` drops the bound entries and the count
+    cells; the next run of the Program binds and captures again (one
+    more compile) and trains on with the bits of an Executor that never
+    closed."""
+    from paddle_tpu_torch import executor as texe
+
+    def steps(close_after):
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+            x = tfluid.layers.data(name="x", shape=[4], dtype="float32")
+            y = tfluid.layers.data(name="y", shape=[1], dtype="float32")
+            h = tfluid.layers.fc(x, size=8, act="relu")
+            loss = tfluid.layers.mean(tfluid.layers.square(
+                tfluid.layers.fc(h, size=1) - y))
+            tfluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        startup.random_seed = main.random_seed = 7
+        rng = np.random.RandomState(3)
+        feed = {"x": rng.randn(5, 4).astype("float32"),
+                "y": rng.randn(5, 1).astype("float32")}
+        exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+        exe.run(startup, scope=scope)
+        c0 = texe.compile_count()
+        losses = []
+        for i in range(6):
+            if i == close_after:
+                assert exe._bound
+                exe.close()
+                assert not exe._bound and not exe._xla_cells
+            losses.append(exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0])
+        state = {n: np.array(scope[n]) for n in main.persistable_names()}
+        return losses, state, texe.compile_count() - c0
+
+    closed, kept = steps(3), steps(None)
+    assert (closed[2], kept[2]) == (2, 1)
+    for a, b in zip(closed[0], kept[0]):
+        assert a.tobytes() == b.tobytes()
+    assert sorted(closed[1]) == sorted(kept[1])
+    for n, v in closed[1].items():
+        assert v.tobytes() == kept[1][n].tobytes(), n
+    tfluid.Executor(tfluid.CPUPlace()).close()

@@ -443,15 +443,9 @@ def test_every_sequence_rule_is_ported():
     assert len(want) == 21 and want == names(TSO, treg)
 
 
-#: the reference's op names the port has no rule for after the
-#: structured-prediction slice, by the module that registers them
+#: the reference's op names the port has no rule for after the detection
+#: slice, by the module that registers them
 STILL_MISSING = {
-    "detection_ops": ["anchor_generator", "bipartite_match", "box_coder",
-                      "detection_map", "generate_proposal_labels",
-                      "generate_proposals", "iou_similarity",
-                      "multiclass_nms", "polygon_box_transform", "prior_box",
-                      "roi_perspective_transform", "rpn_target_assign",
-                      "ssd_loss", "target_assign"],
     "quantize": ["fake_quantize_abs_max", "quantized_conv2d", "quantized_mul"],
     "moe_ops": ["switch_moe"],
     "pipeline_ops": ["pipeline"],
@@ -460,10 +454,10 @@ STILL_MISSING = {
 
 def test_op_and_layer_coverage():
     """With every ``ops`` module of both packages imported, the port
-    registers 202 of the reference's 221 op names, and no other; the 19
-    it lacks are the detection, quantize, MoE and pipeline ops.
-    Its ``layers.__all__`` lacks the 15 detection layers and
-    ``Pipeline`` only."""
+    registers 216 of the reference's 221 op names, and no other; the 5
+    it lacks are the quantize, MoE and pipeline ops.  Its
+    ``layers.__all__`` lacks ``Pipeline`` only, the 15 detection layers
+    among what it has."""
     import importlib
     import pkgutil
 
@@ -476,9 +470,10 @@ def test_op_and_layer_coverage():
         for mod in pkgutil.iter_modules(pkg.__path__):
             importlib.import_module(pkg.__name__ + "." + mod.name)
     want, got = set(jreg.RULES), set(treg.RULES)
-    assert len(want) == 221 and got <= want and len(got) == 202
+    assert len(want) == 221 and got <= want and len(got) == 216
     assert sorted(want - got) == sorted(
         n for names in STILL_MISSING.values() for n in names)
     lacking = set(jfluid.layers.__all__) - set(tfluid.layers.__all__)
-    assert lacking == set(jfluid.layers.detection.__all__) | {"Pipeline"}
-    assert len(jfluid.layers.detection.__all__) == 15
+    assert lacking == {"Pipeline"}
+    assert tfluid.layers.detection.__all__ == jfluid.layers.detection.__all__
+    assert len(tfluid.layers.detection.__all__) == 15

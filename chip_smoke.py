@@ -326,7 +326,26 @@ split device time by op or kernel family run a step on the eager path
    memory; a pass of the test Program (``detection_output``) with the
    NMS loop's share; the same step fed dense (20 boxes an image) bound
    into one CUDA graph and bitwise its op-by-op steps; B1-B5 launched
-   not at all;
+   not at all; then the one-card parallel slice (parallel_phase):
+   Transformer-base with both stacks a ``layers.Pipeline`` (2 stages, 4
+   microbatches, 64 x 256, no flash: the pipeline forbids it; PIPE_CFG):
+   its float32 step against the float64 step at batch 8 (loss
+   LOSS_RTOL, gradients PIPE_GRAD_L2), PIPE_STEPS steps bound as one CUDA
+   graph and bitwise its op-by-op steps, the loss falling, ms a step,
+   idle share, peak memory; the circular layout (6 stages, rows for 2
+   devices) the same way for PIPE_CIRCULAR_STEPS; the model unpipelined,
+   timed beside it; ``switch_moe`` at Transformer-base's FFN widths (8
+   experts, 64 x 256 tokens; MOE_CFG): float32 against float64, every
+   chosen expert with a gradient and no other, 4 steps bound and
+   bitwise; ParallelExecutor at TRAIN_CFG: 4 steps bitwise Executor.run's
+   with B1 and B2 18 times a step, Trainer(parallel=True) bitwise
+   Trainer(), build_mesh({"dp": 2}) raising; program_to_microbatched_fn
+   (4 microbatches) against the full-batch step (MB_*); the contrib
+   decoder at machine translation's widths (DEC_*): TrainingDecoder 4
+   steps on a ragged batch of 32, BeamSearchDecoder on 16 sources, beam 4,
+   32 steps, bitwise over two runs, scores against a float64 decode on
+   the beams whose ids agree, sentences a second; B1-B5 launched by the
+   ParallelExecutor and microbatch legs only;
 13. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
@@ -473,7 +492,8 @@ split device time by op or kernel family run a step on the eager path
    tensor-core peak, SDPA in bf16) with their launches on the bf16 leg,
    and at [16, 8, 1024, 64] and [8, 8, 2048, 64] with their launches on
    the 16 x 1024 and 8 x 2048 legs, and their launches a step on the
-   Trainer's path and on ``Trainer.test``, and on the recompute leg),
+   Trainer's path and on ``Trainer.test``, on the recompute leg and on
+   the ParallelExecutor leg),
    the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -997,6 +1017,76 @@ BENCH_BF16_LEGS = ((16, 1024, 15), (8, 2048, 12))
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak,
 # and the dense bfloat16 tensor-core peak (989.4 TFLOP/s, no sparsity)
 PEAK_BYTES_S = 3.35e12
+# the one-card parallel slice (parallel_phase).  Pipelined Transformer-base:
+# TRAIN_CFG's model without flash attention (the pipeline forbids it, as
+# the JAX package does), both stacks a layers.Pipeline of 2 stages (3
+# layers each) over 4 microbatches of 16, dropout 0.1; noam decay with
+# warmup 8 and scale 0.1 (lr 2.0e-4 at step 1, 1.6e-3 at step 8), so that
+# PIPE_STEPS steps on one batch move the loss past dropout's noise (get_
+# model's warmup of 8000 gives 1.2e-7 at step 1).  Its float32 step is
+# held to the float64 step of the same Program (widened) on the card at
+# PIPE_CHECK_BATCH (2 rows a microbatch): the loss within LOSS_RTOL, all
+# gradients together within PIPE_GRAD_L2 of their L2 norm (float32
+# rounding over 12 layers; a ReLU gate whose pre-activation sits within
+# rounding of 0 may open on one side only, which one element's L2 share
+# absorbs)
+PIPE_CFG = dict(TRAIN_CFG, use_flash=False, pipeline_stages=2,
+                pipeline_microbatches=4, learning_rate=0.1, warmup_steps=8)
+PIPE_STEPS = 8
+PIPE_CHECK_BATCH = 8
+PIPE_GRAD_L2 = 1e-3
+# the circular layout: 6 virtual stages of one layer each, their rows laid
+# out for 2 devices (circular_repeats 3), 4 microbatches.  circular_repeats
+# 2 maps 6 stages to 3 devices, whose schedule takes microbatches in
+# multiples of 3, and no multiple of 3 divides the batch of 64
+PIPE_CIRCULAR_CFG = dict(PIPE_CFG, pipeline_stages=6,
+                         pipeline_circular_repeats=3)
+PIPE_CIRCULAR_STEPS = 4
+# the same model unpipelined (pipeline_stages 0), timed beside it
+PIPE_PLAIN_STEPS = 6
+# switch_moe at Transformer-base's FFN widths: tokens of d 512 through 8
+# relu experts of hidden 2048, top-1, capacity factor 2.0, 64 x 256 tokens,
+# a mean squared error against seeded targets, Adam 1e-3, 4 steps; its
+# float32 step held to the float64 step (loss LOSS_RTOL, all gradients
+# PIPE_GRAD_L2 of their L2 norm; the top-1 choices counted where they
+# differ)
+MOE_CFG = dict(batch=64, tokens=256, d=512, hidden=2048, experts=8,
+               capacity=2.0, steps=4, lr=1e-3)
+# ParallelExecutor on the card: TRAIN_CFG (flash, dropout 0.1) for
+# PE_STEPS steps, bitwise Executor.run's; the Trainer leg the same steps
+PE_STEPS = 4
+# program_to_microbatched_fn with MB_MICROBATCHES on TRAIN_CFG's model
+# (dropout 0: the microbatches' dropout draws differ from the full
+# batch's), every row at full length (equal tokens a microbatch, so the
+# mean of the microbatch losses is the batch's loss): the loss within
+# MB_LOSS_RTOL of the full-batch step's, Adam's first moments (0.1 of the
+# gradients) within MB_GRAD_L2 of their L2 norm together.  A microbatch's
+# GEMMs have a quarter of the rows, so cuBLAS sums them in another order,
+# and a ReLU gate whose pre-activation lies within that rounding of 0
+# opens on one side only: the float32 limit of this phase's float64
+# checks (PIPE_GRAD_L2) holds them (2.2e-4 on an NVIDIA H100 80GB HBM3,
+# the last decoder layer's first FFN weight the worst)
+MB_MICROBATCHES = 4
+MB_LOSS_RTOL = 1e-5
+MB_GRAD_L2 = PIPE_GRAD_L2
+# the contrib decoder at machine translation's widths (dictionary 30,000,
+# embedding 512, hidden 512): an encoder (embedding, fc tanh, average
+# pool, fc tanh) seeding an Elman StateCell (tanh(fc(x) + fc(h))),
+# TrainingDecoder over the target with a softmax fc, Adam 1e-3, DEC_STEPS
+# steps on a ragged batch of DEC_BATCH (DEC_LENS tokens a sentence); then
+# BeamSearchDecoder on the trained weights: DEC_SOURCES sources, beam
+# DEC_BEAM, max_len DEC_MAX_LEN, end id 1; the float32 decode against a
+# float64 decode of the same Program: scores within DEC_SCORE_RTOL on the
+# beams whose ids agree
+DEC_CFG = dict(dict_size=30000, emb=512, hidden=512)
+DEC_BATCH = 32
+DEC_LENS = (8, 32)
+DEC_STEPS = 4
+DEC_SOURCES = 16
+DEC_BEAM = 4
+DEC_MAX_LEN = 32
+DEC_END_ID = 1
+DEC_SCORE_RTOL = 1e-4
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989.4e12
 # the device-side wait before each timed launch: about 0.5 ms at the
@@ -7683,6 +7773,627 @@ def detection_phase(torch, fluid, fa, dev):
     return out
 
 
+def grad_l2(a, ref):
+    """All of ``a``'s gradients together against ``ref``'s: their L2
+    distance over the reference's L2 norm, and the worst element's error
+    over its tensor's max."""
+    num = sum(float(np.sum((np.asarray(g, np.float64) - ref[n]) ** 2))
+              for n, g in a.items())
+    den = sum(float(np.sum(np.asarray(ref[n], np.float64) ** 2)) for n in a)
+    worst = {n: float(np.abs(np.asarray(g, np.float64) - ref[n]).max())
+             / (float(np.abs(ref[n]).max()) or 1.0) for n, g in a.items()}
+    name = max(worst, key=worst.get)
+    return {"l2": (num / den) ** 0.5, "worst_of_max": worst[name],
+            "worst": name}
+
+
+def f64_step_errors(torch, fluid, m, state, feed, dev):
+    """One step of ``m``'s Program in float32 and of its widened copy in
+    float64 on the card from the numpy ``state`` (seq_step): the loss's
+    relative error and the gradients' (grad_l2), and the float32 step.
+    Both run with ``m``'s run seed (set on the copy: a Program's dict
+    holds no seed), so their dropout masks are the same bits."""
+    f32 = seq_step(torch, fluid, m, m["main"], state, feed, dev)
+    wide = widened(fluid, m["main"])
+    wide.random_seed = m["main"].random_seed
+    f64 = seq_step(torch, fluid, m, wide, state, feed, dev)
+    return {"loss_rel": abs(f32["loss"] - f64["loss"]) / abs(f64["loss"]),
+            "loss": f32["loss"], "loss64": f64["loss"],
+            "grads": grad_l2(f32["grads"], f64["grads"])}, f32
+
+
+def bound_and_eager(torch, fluid, m, state, feed, dev, steps, seed):
+    """``steps`` steps of ``m`` from the numpy ``state`` on one feed, through
+    the fast path (bound: eager, capture, then replays) and op by op, each
+    in its own scope with the run seed ``seed``: the bound run's losses,
+    step seconds, captures, graphs and peak memory, its executor and
+    scope, and whether its losses and every persistable are bitwise the
+    op-by-op run's."""
+    from paddle_tpu_torch import executor as executor_mod
+
+    m["main"].random_seed = seed
+    runs = {}
+    for cache in (False, True):
+        exe, scope = fluid.Executor(device=dev), fluid.Scope()
+        fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        c0 = executor_mod.compile_count()
+        losses, step_s = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
+                              scope=scope, use_program_cache=cache)
+            losses.append(np.asarray(loss))
+            step_s.append(time.perf_counter() - t0)
+        bound = [b for b in exe._bound.values() if b.program is m["main"]]
+        runs[cache] = {
+            "losses": losses, "step_s": step_s,
+            "captures": executor_mod.compile_count() - c0,
+            "graphs": sum(b.graph is not None for b in bound),
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "state": {n: fluid.executor.as_numpy(scope[n]) for n in state}}
+        if cache:   # the bound run's, for its profiled replay
+            runs[cache].update(exe=exe, scope=scope)
+        del exe, scope
+    g, e = runs[True], runs[False]
+    bitwise = (all(a.tobytes() == b.tobytes()
+                   for a, b in zip(g["losses"], e["losses"]))
+               and all(g["state"][n].tobytes() == e["state"][n].tobytes()
+                       for n in state))
+    return g, bitwise
+
+
+def pipe_leg(torch, fluid, T, dev, cfg, steps, seed, f64_check=False):
+    """The pipelined Transformer-base at ``cfg``: its f32 step against the
+    f64 step at PIPE_CHECK_BATCH (``f64_check``), then ``steps`` steps on one
+    batch bound and op by op (bound_and_eager): one capture and one
+    graph, bitwise, losses finite and falling; ms a step (steps 3 on),
+    tokens a second, peak memory, and a profiled replay's idle share."""
+    with fluid.unique_name.guard():
+        m = T.get_model(**cfg)
+    state = seq_state(fluid, m, seed, dev)
+    feed = make_feeds(np.random.RandomState(seed + 1), cfg["batch_size"],
+                      cfg["seq_len"], cfg["trg_vocab_size"])
+    out = {"stages": cfg["pipeline_stages"],
+           "microbatches": cfg["pipeline_microbatches"],
+           "circular_repeats": cfg.get("pipeline_circular_repeats", 1),
+           "stacked_params": sum(
+               bool(getattr(p, "pp_stacked", False))
+               for p in m["main"].global_block().all_parameters())}
+    m["main"].random_seed = seed + 2
+    if f64_check:
+        small = {k: v[:PIPE_CHECK_BATCH] for k, v in feed.items()}
+        e, _ = f64_step_errors(torch, fluid, m, state, small, dev)
+        check(e["loss_rel"] <= LOSS_RTOL and e["grads"]["l2"] <= PIPE_GRAD_L2,
+              "pipelined float32 step vs float64", e)
+        out["float32_vs_float64"] = dict(e, batch=PIPE_CHECK_BATCH)
+    g, bitwise = bound_and_eager(torch, fluid, m, state, feed, dev, steps,
+                                 seed + 2)
+    losses = [float(v.reshape(-1)[0]) for v in g["losses"]]
+    check(g["captures"] == 1 and g["graphs"] == 1 and bitwise
+          and np.isfinite(losses).all() and losses[-1] < losses[0],
+          "pipelined Transformer-base not bound, not bitwise or not "
+          "learning", g["captures"], g["graphs"], bitwise, losses)
+    prof = profile_graphed(torch, g["exe"], m, feed, g["scope"])
+    steady = steady_ms(g["step_s"])
+    out.update({
+        "steps": steps, "captures": g["captures"], "graphs": g["graphs"],
+        "bitwise_op_by_op": bitwise, "losses": losses,
+        "first_step_ms": g["step_s"][0] * 1e3,
+        "capture_step_ms": g["step_s"][1] * 1e3, "step_ms": steady,
+        "step_ms_all": [t * 1e3 for t in g["step_s"]],
+        "target_tokens_per_s": cfg["batch_size"] * cfg["seq_len"]
+        / (steady / 1e3),
+        "peak_memory_gib": g["peak"] / 2 ** 30, "profile": prof})
+    if isinstance(prof, dict):
+        out["idle_share"] = prof["device_idle_share"]
+        out["idle_share_of_step"] = max(0.0, 1.0 - prof["device_busy_ms"]
+                                        / steady)
+    return out
+
+
+def plain_transformer_ms(torch, fluid, T, dev, cfg, steps, seed):
+    """ms a step (steps 3 on, bound) and peak memory of ``cfg``'s model
+    built without the pipeline."""
+    with fluid.unique_name.guard():
+        m = T.get_model(**cfg)
+    m["startup"].random_seed = seed
+    m["main"].random_seed = seed + 1
+    exe, scope = fluid.Executor(device=dev), fluid.Scope()
+    exe.run(m["startup"], scope=scope)
+    feed = make_feeds(np.random.RandomState(seed + 2), cfg["batch_size"],
+                      cfg["seq_len"], cfg["trg_vocab_size"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        (loss,) = exe.run(m["main"], feed=feed, fetch_list=[m["loss"]],
+                          scope=scope)
+        losses.append(float(np.asarray(loss).reshape(-1)[0]))
+        step_s.append(time.perf_counter() - t0)
+    check(np.isfinite(losses).all(), "unpipelined loss", losses)
+    prof = profile_graphed(torch, exe, m, feed, scope)
+    return {"step_ms": steady_ms(step_s),
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "idle_share": (prof["device_idle_share"]
+                           if isinstance(prof, dict) else prof)}
+
+
+def moe_model(fluid):
+    """MOE_CFG's Program: ``switch_moe`` on [batch, tokens, d] inputs, a
+    mean squared error, Adam."""
+    c = MOE_CFG
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = L.data(name="x", shape=[c["tokens"], c["d"]], dtype="float32")
+        y = L.data(name="y", shape=[c["tokens"], c["d"]], dtype="float32")
+        o = L.switch_moe(x, num_experts=c["experts"],
+                         expert_hidden=c["hidden"],
+                         capacity_factor=c["capacity"])
+        loss = L.mean(L.square_error_cost(input=o, label=y))
+        fluid.optimizer.Adam(learning_rate=c["lr"]).minimize(loss)
+    (op,) = [o for o in main.global_block().ops if o.type == "switch_moe"]
+    return {"main": main, "startup": startup, "loss": loss,
+            "gate": op.inputs["GateW"][0], "w1": op.inputs["ExpertW1"][0],
+            "w2": op.inputs["ExpertW2"][0]}
+
+
+def moe_leg(torch, fluid, dev):
+    """switch_moe at MOE_CFG: the float32 step against the float64 step
+    (f64_step_errors, with the tokens whose top-1 choice differs
+    counted), every chosen expert's two weight stacks with a nonzero
+    gradient and every other expert's zero, then ``steps`` steps bound
+    and op by op (bitwise, one capture, the loss falling): ms a step and
+    peak memory."""
+    c = MOE_CFG
+    m = moe_model(fluid)
+    state = seq_state(fluid, m, SEED + 170, dev)
+    m["main"].random_seed = SEED + 172
+    rng = np.random.RandomState(SEED + 171)
+    shape = (c["batch"], c["tokens"], c["d"])
+    feed = {"x": rng.randn(*shape).astype(np.float32),
+            "y": rng.randn(*shape).astype(np.float32)}
+    e, f32 = f64_step_errors(torch, fluid, m, state, feed, dev)
+    x = torch.as_tensor(feed["x"], device=dev).reshape(-1, c["d"])
+    gate = torch.as_tensor(state[m["gate"]], device=dev)
+    choice32 = torch.softmax(x @ gate, -1).argmax(-1)
+    choice64 = torch.softmax(x.double() @ gate.double(), -1).argmax(-1)
+    e["choices_differ"] = int((choice32 != choice64).sum())
+    chosen = sorted(set(choice32.tolist()))
+    hit = {w: sorted(i for i in range(c["experts"])
+                     if np.abs(f32["grads"][m[w] + "@GRAD"][i]).sum() > 0)
+           for w in ("w1", "w2")}
+    check(e["loss_rel"] <= LOSS_RTOL and e["grads"]["l2"] <= PIPE_GRAD_L2
+          and hit["w1"] == chosen and hit["w2"] == chosen,
+          "switch_moe float32 step vs float64, or its expert gradients",
+          e, chosen, hit)
+    g, bitwise = bound_and_eager(torch, fluid, m, state, feed, dev,
+                                 c["steps"], SEED + 172)
+    losses = [float(v.reshape(-1)[0]) for v in g["losses"]]
+    check(g["captures"] == 1 and bitwise and np.isfinite(losses).all()
+          and losses[-1] < losses[0], "switch_moe steps", g["captures"],
+          bitwise, losses)
+    tokens = c["batch"] * c["tokens"]
+    steady = steady_ms(g["step_s"])
+    return {"tokens": tokens, "experts": c["experts"], "d": c["d"],
+            "hidden": c["hidden"], "capacity_factor": c["capacity"],
+            "float32_vs_float64": e, "chosen_experts": chosen,
+            "tokens_per_expert": torch.bincount(
+                choice32, minlength=c["experts"]).tolist(),
+            "experts_with_gradient": hit, "steps": c["steps"],
+            "captures": g["captures"], "bitwise_op_by_op": bitwise,
+            "losses": losses, "step_ms": steady,
+            "step_ms_all": [t * 1e3 for t in g["step_s"]],
+            "tokens_per_s": tokens / (steady / 1e3),
+            "peak_memory_gib": g["peak"] / 2 ** 30}
+
+
+def pe_leg(torch, fluid, T, fa, dev):
+    """ParallelExecutor on the one card (devices=None: every card, one
+    here) at TRAIN_CFG: PE_STEPS steps from one start state against
+    Executor.run's (the losses and every persistable bitwise), B1 and B2
+    18 times a step each; Trainer(parallel=True) against Trainer() over
+    the same samples (losses and parameters bitwise); build_mesh({"dp":
+    2}) raises the reference's ValueError."""
+    from paddle_tpu_torch import parallel_executor as pe_mod
+
+    cfg = TRAIN_CFG
+    with fluid.unique_name.guard():
+        m = T.get_model(**cfg)
+    state = seq_state(fluid, m, SEED + 180, dev)
+    m["main"].random_seed = SEED + 181
+    rng = np.random.RandomState(SEED + 182)
+    feeds = [make_feeds(rng, cfg["batch_size"], cfg["seq_len"],
+                        cfg["trg_vocab_size"]) for _ in range(PE_STEPS)]
+    runs = {}
+    for kind in ("executor", "parallel_executor"):
+        scope = fluid.Scope()
+        fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+        if kind == "executor":
+            exe = fluid.Executor(device=dev)
+            run = lambda f: exe.run(m["main"], feed=f,  # noqa: E731
+                                    fetch_list=[m["loss"]], scope=scope)
+        else:
+            exe = fluid.ParallelExecutor(loss_name=m["loss"].name,
+                                         main_program=m["main"], scope=scope)
+            run = lambda f: exe.run(fetch_list=[m["loss"]], feed=f)  # noqa: E731
+        fa.reset_launch_counts()
+        step_s, losses = [], []
+        for f in feeds:
+            t0 = time.perf_counter()
+            losses.append(np.asarray(run(f)[0]))
+            step_s.append(time.perf_counter() - t0)
+        runs[kind] = {"losses": losses, "step_s": step_s,
+                      "launches": dict(fa.KERNEL_LAUNCHES),
+                      "state": {n: fluid.executor.as_numpy(scope[n])
+                                for n in state}}
+        if kind == "parallel_executor":
+            runs[kind]["devices"] = exe.device_count
+            runs[kind]["mesh"] = exe._mesh.shape
+        del exe, scope, run
+    a, b = runs["executor"], runs["parallel_executor"]
+    bitwise = (all(x.tobytes() == y.tobytes()
+                   for x, y in zip(a["losses"], b["losses"]))
+               and all(a["state"][n].tobytes() == b["state"][n].tobytes()
+                       for n in state))
+    ran = bwd_engine(fa, "auto", cfg)
+    check(bitwise and b["devices"] == 1, "ParallelExecutor not bitwise "
+          "Executor.run", bitwise, b["devices"])
+    check_flash_launches(fa, b["launches"], ran, 18 * PE_STEPS,
+                         "ParallelExecutor")
+    try:
+        pe_mod.build_mesh({"dp": 2})
+        raised = None
+    except ValueError as exc:
+        raised = str(exc)
+    check(raised is not None and raised.startswith(
+        "mesh_shape {'dp': 2} needs 2 devices, only 1 available"),
+        "build_mesh({'dp': 2}) on one card", raised)
+    trainer = pe_trainer_leg(torch, fluid, T, fa)
+    return {"steps": PE_STEPS, "devices": b["devices"], "mesh": b["mesh"],
+            "bitwise_executor_run": bitwise,
+            "losses": [float(v.reshape(-1)[0]) for v in b["losses"]],
+            "step_ms": steady_ms(b["step_s"]),
+            "executor_step_ms": steady_ms(a["step_s"]),
+            "launches": b["launches"],
+            "launches_per_step": {k: v / PE_STEPS
+                                  for k, v in b["launches"].items()},
+            "engine_ran": ran, "build_mesh_dp2": raised,
+            "trainer": trainer}
+
+
+def pe_trainer_leg(torch, fluid, T, fa):
+    """Trainer(parallel=True) and Trainer() at TRAIN_CFG (flash, dropout
+    0.1, Adam with noam decay) over the same PE_STEPS batches from one
+    numpy seed: the losses and every parameter bitwise."""
+    cfg = TRAIN_CFG
+    samples = trainer_samples(cfg["batch_size"] * PE_STEPS, SEED + 183, cfg)
+    order = ["src_word", "trg_word", "lbl_word"]
+    out = {}
+    for parallel in (False, True):
+        np.random.seed(SEED + 184)   # the startup's and the run's seed
+        train_func, optimizer_func = transformer_trainer_funcs(fluid, T, cfg)
+        t = fluid.Trainer(train_func, optimizer_func,
+                          place=fluid.CUDAPlace(0), parallel=parallel)
+        losses = []
+        t.train(num_epochs=1, reader=fluid.batch(lambda: iter(samples),
+                                                 cfg["batch_size"]),
+                feed_order=order,
+                event_handler=lambda e, losses=losses: losses.append(
+                    np.asarray(e.metrics[0]))
+                if isinstance(e, fluid.EndStepEvent) else None)
+        params = [p.name for p in t.train_program.global_block()
+                  .all_parameters()]
+        out[parallel] = {"losses": losses, "mesh": t.exe._mesh, "params": {
+            n: fluid.executor.as_numpy(t.scope[n]) for n in params}}
+        del t
+        torch.cuda.empty_cache()
+    a, b = out[False], out[True]
+    bitwise = (len(a["losses"]) == PE_STEPS
+               and all(x.tobytes() == y.tobytes()
+                       for x, y in zip(a["losses"], b["losses"]))
+               and all(a["params"][n].tobytes() == b["params"][n].tobytes()
+                       for n in a["params"]))
+    check(bitwise and a["mesh"] is None and b["mesh"].size == 1,
+          "Trainer(parallel=True) not bitwise Trainer()", bitwise)
+    return {"steps": len(b["losses"]), "bitwise_trainer": bitwise,
+            "mesh": b["mesh"].shape,
+            "losses": [float(v.reshape(-1)[0]) for v in b["losses"]]}
+
+
+def microbatch_leg(torch, fluid, T, dev):
+    """program_to_microbatched_fn with MB_MICROBATCHES on TRAIN_CFG's model
+    at dropout 0 against program_to_fn's full-batch step from the same
+    state and batch (every row at full length): the mean of the
+    microbatch losses within MB_LOSS_RTOL of the full batch's, Adam's
+    first moments (0.1 of the averaged gradients) within MB_GRAD_L2 of
+    their L2 norm together; the parameters' largest difference reported
+    (Adam's first update moves each element by at most the learning
+    rate: 1.2e-7 at the full batch's step 1, 4.9e-7 at the microbatched
+    function's step 4, R-9); ms (a second, warm call) and peak memory of
+    each."""
+    from paddle_tpu_torch.parallel.microbatch import program_to_microbatched_fn
+    from paddle_tpu_torch.program_fn import program_to_fn
+
+    cfg = dict(TRAIN_CFG, dropout=0.0)
+    with fluid.unique_name.guard():
+        m = T.get_model(**cfg)
+    state = seq_state(fluid, m, SEED + 190, dev)
+    rng = np.random.RandomState(SEED + 191)
+    feed = {n: rng.randint(3, cfg["trg_vocab_size"],
+                           size=(cfg["batch_size"], cfg["seq_len"]))
+            .astype(np.int64) for n in m["feeds"]}
+    fns = {"full": program_to_fn(m["main"], [m["loss"]], return_state=True,
+                                 device=dev),
+           "micro": program_to_microbatched_fn(m["main"], [m["loss"]],
+                                               MB_MICROBATCHES, device=dev)}
+    out = {}
+    for kind, fn in fns.items():
+        fn(dict(state), feed)   # warm (the functions are pure): the next is timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        (loss,), new = fn(dict(state), feed)
+        torch.cuda.synchronize()
+        out[kind] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "peak_memory_gib":
+                     torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                     "loss": loss.double().mean().item(),
+                     "losses": loss.reshape(-1).tolist(),
+                     "state": {n: v.detach().cpu().double().numpy()
+                               for n, v in new.items()}}
+        del new, loss
+    full, micro = out["full"], out["micro"]
+    moments = sorted(n for n in full["state"] if "moment1" in n)
+    params = [p.name for p in m["main"].global_block().all_parameters()
+              if p.trainable]
+    loss_rel = abs(micro["loss"] - full["loss"]) / abs(full["loss"])
+    grads = grad_l2({n: micro["state"][n] for n in moments},
+                    {n: full["state"][n] for n in moments})
+    worst_param = max(float(np.abs(micro["state"][n] - full["state"][n])
+                            .max()) for n in params)
+    check(loss_rel <= MB_LOSS_RTOL and grads["l2"] <= MB_GRAD_L2
+          and len(moments) == len(params),
+          "microbatched step vs the full-batch step", loss_rel, grads)
+    return {"microbatches": MB_MICROBATCHES, "loss_rel": loss_rel,
+            "first_moments": grads, "moments": len(moments),
+            "param_worst_abs": worst_param, "losses": micro["losses"],
+            "full_loss": full["loss"], "ms": micro["ms"],
+            "full_ms": full["ms"],
+            "peak_memory_gib": micro["peak_memory_gib"],
+            "full_peak_memory_gib": full["peak_memory_gib"]}
+
+
+def dec_cell(fluid, init_h):
+    """The decoder's StateCell: h = tanh(fc(x) + fc(h)), the fcs named so
+    that the training and the decode Programs share them."""
+    L = fluid.layers
+    from paddle_tpu_torch.contrib import InitState, StateCell
+
+    cell = StateCell(inputs={"x": None}, states={"h": InitState(init=init_h)},
+                     out_state="h")
+
+    @cell.state_updater
+    def updater(c):
+        h = L.elementwise_add(
+            L.fc(c.get_input("x"), size=DEC_CFG["hidden"], name="dec_x2h"),
+            L.fc(c.get_state("h"), size=DEC_CFG["hidden"], name="dec_h2h"))
+        c.set_state("h", L.tanh(h))
+
+    return cell
+
+
+def dec_encoder(fluid):
+    """The source words (ragged) -> the decoder's first state: embedding
+    (embedding_0), fc tanh (fc_0), average pool, fc tanh (fc_1)."""
+    L = fluid.layers
+    c = DEC_CFG
+    src = L.data(name="src", shape=[1], dtype="int64", lod_level=1)
+    emb = L.embedding(src, size=[c["dict_size"], c["emb"]], dtype="float32")
+    enc = L.fc(emb, size=c["hidden"], act="tanh", num_flatten_dims=2)
+    return L.fc(L.sequence_pool(enc, "average"), size=c["hidden"],
+                act="tanh")
+
+
+def dec_programs(fluid):
+    """The training Program (TrainingDecoder over the target's embedding,
+    embedding_1; a softmax fc, fc_2; cross entropy; Adam) and the decode
+    Program (BeamSearchDecoder, whose own embedding and softmax fc are
+    embedding_1 and fc_2 again), each with its startup."""
+    from paddle_tpu_torch.contrib import BeamSearchDecoder, TrainingDecoder
+
+    L = fluid.layers
+    c = DEC_CFG
+    train, train_start = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(train, train_start):
+        cell = dec_cell(fluid, dec_encoder(fluid))
+        trg = L.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = L.data(name="lbl", shape=[1], dtype="int64", lod_level=1)
+        decoder = TrainingDecoder(cell)
+        trg_emb = L.embedding(trg, size=[c["dict_size"], c["emb"]],
+                              dtype="float32")
+        with decoder.block():
+            word = decoder.step_input(trg_emb)
+            decoder.state_cell.compute_state(inputs={"x": word})
+            score = L.fc(decoder.state_cell.get_state("h"),
+                         size=c["dict_size"], act="softmax")
+            decoder.state_cell.update_states()
+            decoder.output(score)
+        loss = L.mean(L.cross_entropy(decoder(), lbl))
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    decode, decode_start = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(decode, decode_start):
+        init_h = dec_encoder(fluid)
+        init_ids = L.data(name="init_ids", shape=[DEC_BEAM], dtype="int64")
+        init_scores = L.data(name="init_scores", shape=[DEC_BEAM],
+                             dtype="float32")
+        beam = BeamSearchDecoder(
+            state_cell=dec_cell(fluid, init_h), init_ids=init_ids,
+            init_scores=init_scores, target_dict_dim=c["dict_size"],
+            word_dim=c["emb"], sparse_emb=False, max_len=DEC_MAX_LEN,
+            beam_size=DEC_BEAM, end_id=DEC_END_ID)
+        beam.decode()
+        ids, scores = beam()
+    return ({"main": train, "startup": train_start, "loss": loss},
+            {"main": decode, "ids": ids, "scores": scores})
+
+
+def dec_words(rng, n, vocab):
+    """``n`` seeded sentences of DEC_LENS tokens (ids 2..vocab-1) as a
+    LoDArray [n, max, 1]."""
+    from paddle_tpu_torch.lod import LoDArray
+
+    lens = rng.randint(DEC_LENS[0], DEC_LENS[1] + 1, size=n)
+    data = rng.randint(2, vocab, size=(n, DEC_LENS[1], 1)).astype(np.int64)
+    for i, k in enumerate(lens):
+        data[i, k:] = 0
+    return LoDArray(data, lens)
+
+
+def decoder_leg(torch, fluid, dev):
+    """The contrib decoder at DEC_CFG: DEC_STEPS TrainingDecoder steps on a
+    ragged batch of DEC_BATCH (losses finite and falling; op by op, the
+    DynamicRNN fed ragged), then BeamSearchDecoder on the trained weights
+    (the decode Program's parameters are the training Program's, by
+    name and shape): DEC_SOURCES sources, two float32 decodes bitwise
+    equal, and a float64 decode of the widened Program from the same
+    weights: the hypotheses whose ids and lengths agree, and their
+    scores within DEC_SCORE_RTOL; sentences a second."""
+    from paddle_tpu_torch.lod import LoDArray
+
+    c = DEC_CFG
+    tr, dc = dec_programs(fluid)
+    tparams = {p.name: tuple(p.shape)
+               for p in tr["main"].global_block().all_parameters()}
+    dparams = {p.name: tuple(p.shape)
+               for p in dc["main"].global_block().all_parameters()}
+    check(all(tparams.get(n) == s for n, s in dparams.items()),
+          "decode parameters are not the training Program's", dparams)
+    tr["startup"].random_seed = SEED + 200
+    tr["main"].random_seed = SEED + 201
+    exe, scope = fluid.Executor(device=dev), fluid.Scope()
+    exe.run(tr["startup"], scope=scope)
+    rng = np.random.RandomState(SEED + 202)
+    trg = dec_words(rng, DEC_BATCH, c["dict_size"])
+    lbl = LoDArray(np.concatenate([trg.data[:, 1:], trg.data[:, :1] * 0 + 1],
+                                  1), trg.lengths)
+    feed = {"src": dec_words(rng, DEC_BATCH, c["dict_size"]), "trg": trg,
+            "lbl": lbl}
+    losses, step_s = [], []
+    for _ in range(DEC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lv,) = exe.run(tr["main"], feed=feed, fetch_list=[tr["loss"]],
+                        scope=scope)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        step_s.append(time.perf_counter() - t0)
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "TrainingDecoder losses", losses)
+    src = dec_words(np.random.RandomState(SEED + 203), DEC_SOURCES,
+                    c["dict_size"])
+    bfeed = {"src": src,
+             "init_ids": np.zeros((DEC_SOURCES, DEC_BEAM), np.int64),
+             "init_scores": np.tile(np.array(
+                 [[0.0] + [-1e9] * (DEC_BEAM - 1)], np.float32),
+                 (DEC_SOURCES, 1))}
+    fetch = [dc["ids"], dc["scores"]]
+
+    def decode(prog, sc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(prog, feed=bfeed, fetch_list=fetch, scope=sc,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    runs = [decode(dc["main"], scope) for _ in range(2)]
+    (ids, scores), _ = runs[0]
+    (ids2, scores2), wall = runs[1]
+    repeat = (ids.data.tobytes() == ids2.data.tobytes()
+              and scores.data.tobytes() == scores2.data.tobytes()
+              and np.array_equal(ids.lengths, ids2.lengths))
+    weights = {n: fluid.executor.as_numpy(scope[n]).astype(np.float64)
+               for n in dparams}
+    scope64 = fluid.Scope()
+    wide = widened(fluid, dc["main"])
+    fluid.load_numpy_state(wide, weights, scope=scope64, device=dev)
+    (ids64, scores64), wall64 = decode(wide, scope64)
+    n_hyp = DEC_SOURCES * DEC_BEAM
+    agree = [i for i in range(n_hyp)
+             if ids.lengths[i] == ids64.lengths[i] and np.array_equal(
+                 ids.data[i, :ids.lengths[i]],
+                 ids64.data[i, :ids64.lengths[i]])]
+    s32 = np.asarray(scores.data, np.float64).reshape(n_hyp, -1)
+    s64 = np.asarray(scores64.data, np.float64).reshape(n_hyp, -1)
+    worst = max((float(np.abs(s32[i] - s64[i]).max()
+                       / max(float(np.abs(s64[i]).max()), 1e-30))
+                 for i in agree), default=0.0)
+    check(repeat and agree and worst <= DEC_SCORE_RTOL
+          and ids.data.shape[0] == n_hyp
+          and int(ids.data.max()) < c["dict_size"],
+          "BeamSearchDecoder: repeat, agreement or scores", repeat,
+          len(agree), worst)
+    return {"dict_size": c["dict_size"], "emb": c["emb"],
+            "hidden": c["hidden"], "batch": DEC_BATCH,
+            "train_steps": DEC_STEPS, "losses": losses,
+            "train_step_ms": [t * 1e3 for t in step_s],
+            "sources": DEC_SOURCES, "beam": DEC_BEAM, "max_len": DEC_MAX_LEN,
+            "repeat_bitwise": repeat, "beams_agree_f64": len(agree),
+            "beams": n_hyp, "agreeing_score_worst_rel": worst,
+            "lengths": [int(v) for v in ids.lengths],
+            "decode_s": wall, "sentences_per_s": DEC_SOURCES / wall,
+            "decode64_s": wall64}
+
+
+def parallel_phase(torch, fluid, T, fa, dev):
+    """The one-card parallel slice on the card: the pipelined
+    Transformer-base (pipe_leg at PIPE_CFG with its float64 check, then
+    the circular layout at PIPE_CIRCULAR_CFG) beside the same model
+    unpipelined; switch_moe at MOE_CFG (moe_leg); ParallelExecutor and
+    Trainer(parallel=True) at TRAIN_CFG (pe_leg, B1 and B2 18 times a
+    step each); program_to_microbatched_fn (microbatch_leg); the contrib
+    decoder (decoder_leg).  The pipeline, MoE and decoder legs launch
+    none of B1-B5."""
+    card = card_line()
+    out, seconds = {"card": card}, {}
+
+    def leg(name, fn, *args, kernels_free=True):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        launches = dict(fa.KERNEL_LAUNCHES)
+        if kernels_free:
+            check(not any(launches.values()), "a kernel launched in the %s "
+                  "leg" % name, launches)
+        torch.cuda.empty_cache()
+        log("parallel phase, %s (%s): %s" % (name, card, json.dumps(
+            out[name], default=str)))
+
+    leg("pipeline", pipe_leg, torch, fluid, T, dev, PIPE_CFG, PIPE_STEPS,
+        SEED + 160, True)
+    leg("pipeline_circular", pipe_leg, torch, fluid, T, dev,
+        PIPE_CIRCULAR_CFG, PIPE_CIRCULAR_STEPS, SEED + 163)
+    leg("unpipelined", plain_transformer_ms, torch, fluid, T, dev,
+        dict(PIPE_CFG, pipeline_stages=0), PIPE_PLAIN_STEPS, SEED + 166)
+    leg("switch_moe", moe_leg, torch, fluid, dev)
+    leg("parallel_executor", pe_leg, torch, fluid, T, fa, dev,
+        kernels_free=False)
+    leg("microbatch", microbatch_leg, torch, fluid, T, dev,
+        kernels_free=False)
+    leg("decoder", decoder_leg, torch, fluid, dev)
+    out["pipelined_over_unpipelined"] = (out["pipeline"]["step_ms"]
+                                         / out["unpipelined"]["step_ms"])
+    out["seconds"] = seconds
+    log("parallel phase: %s" % json.dumps(
+        {k: out[k] for k in ("card", "pipelined_over_unpipelined",
+                             "seconds")}))
+    return out
+
+
 def flash_inputs(torch, dev, gen, dtype, T, S, B=FB, H=FH, D=FD):
     """q, k, v, do as the Program feeds them: [B, H, T, D] views of
     [B, T, H, D] tensors (strided, last dimension contiguous)."""
@@ -10535,6 +11246,10 @@ def main():
     detection_phase(torch, fluid, fa, dev)
     torch.cuda.empty_cache()
     log("detection phase: %.1f s" % (time.perf_counter() - t_new))
+    t_new = time.perf_counter()
+    par = parallel_phase(torch, fluid, T, fa, dev)
+    torch.cuda.empty_cache()
+    log("parallel phase: %.1f s" % (time.perf_counter() - t_new))
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
                                     "fused")
@@ -10775,6 +11490,14 @@ def main():
                                if name == "paged_decode_attention"
                                else "prefill_chunks"]
                     for p in ("sessions", "roles", "control")}})
+        if name in ("flash_attention_fwd", "flash_attention_bwd"):
+            # ParallelExecutor on the one card (a one-device mesh,
+            # TRAIN_CFG): its launches over PE_STEPS steps and a step
+            pe = par["parallel_executor"]
+            kernels[-1].update({
+                "parallel_executor_launches": pe["launches"][name],
+                "parallel_executor_launches_per_step":
+                pe["launches_per_step"][name]})
         if name == "flash_attention_bwd":
             kernels[-1].update(bwd_long)
         if name == "paged_decode_attention":

@@ -31,6 +31,12 @@ held against.  It imports torch and numpy, never jax and nothing of
   resume, ``nan_guard`` rewind, ``FailureMonitor``), ``Inferencer``, the
   ``reader`` decorators, ``layers.py_reader`` and the device prefetch
   pipeline (``reader.device_prefetch``, a side CUDA stream).
+* the one-card parallel surface — ``ParallelExecutor``,
+  ``Trainer(parallel=...)`` and ``Executor.attach_mesh`` on a mesh of
+  one device, ``layers.Pipeline`` (stages in sequence over
+  microbatches), ``layers.switch_moe`` (dense top-1) and
+  ``parallel.microbatch``; and ``contrib``'s decoder API
+  (``TrainingDecoder``, ``BeamSearchDecoder``).
 
 Use it like the JAX package::
 
@@ -75,6 +81,9 @@ from .core import CPUPlace, CUDAPlace, resolve_device
 from .data_feeder import DataFeeder
 from .executor import (Executor, Scope, global_scope, load_numpy_state,
                        scope_guard)
+from . import parallel_executor
+from .parallel_executor import (BuildStrategy, ExecutionStrategy,
+                                ParallelExecutor)
 from .framework import (
     Program,
     Variable,
@@ -97,7 +106,8 @@ __all__ = [
     "data_feeder", "program_fn", "resilience", "io", "models", "profiler",
     "observability", "parallel", "serving", "transpiler", "CPUPlace",
     "CUDAPlace", "InferenceTranspiler", "memory_optimize", "release_memory",
-    "resolve_device", "Executor", "Scope", "global_scope",
+    "resolve_device", "Executor", "ParallelExecutor", "ExecutionStrategy",
+    "BuildStrategy", "Scope", "global_scope",
     "load_numpy_state", "scope_guard", "Program", "Variable",
     "default_main_program", "default_startup_program", "name_scope",
     "program_guard", "ParamAttr", "WeightNormParamAttr", "DataFeeder",

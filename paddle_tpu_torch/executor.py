@@ -91,8 +91,10 @@ for it (``StepAttribution``) is on.  A capture emits the
 entry runs op by op and each Program op sits in a ``record_function``
 range (``op_scope``).
 
-Not ported yet: the persistent compile cache (a CUDA graph cannot be
-saved), the parameter-server runtime and meshes.
+Meshes: ``attach_mesh`` takes a mesh of one device, on which a step is
+the step without a mesh.  Not ported yet: the persistent compile cache
+(a CUDA graph cannot be saved), meshes of more than one device (ROADMAP
+A11.2) and the parameter-server runtime (A11.3).
 """
 from __future__ import annotations
 
@@ -513,7 +515,7 @@ class LoweringContext:
     the op-slot helpers the rules use."""
 
     def __init__(self, program, env, device, seed=0, step=0, is_test=False,
-                 reads=None, block_rows=None, keep_names=()):
+                 reads=None, block_rows=None, keep_names=(), mesh=None):
         self.program = program
         self.env = env
         self.device = device
@@ -524,7 +526,11 @@ class LoweringContext:
         # rows a block of the ``mul`` rule's blocked product (None: one
         # product); the serving backends set SERVING_BLOCK_ROWS
         self.block_rows = block_rows
-        self.mesh = None  # the port's Executor takes no mesh yet
+        # the Executor's mesh (``Executor.attach_mesh``; None: none
+        # attached).  The port runs one-device meshes only, on which the
+        # mesh-aware rules (``pipeline``, ``switch_moe``) take their
+        # single-device branch
+        self.mesh = mesh
         self._seed = int(seed)
         self._step = int(step)
         self._reads = reads  # names some op or fetch reads (None = all)
@@ -536,7 +542,10 @@ class LoweringContext:
         # a captured step's generators by key (None: a fresh generator a
         # call), registered with the graph and seeded before each replay
         self.generators = None
-        self._drawn = set()
+        # draws a key made in this run: an op that runs more than once in
+        # a step (a ``pipeline`` stage body) draws again under
+        # ``key + ("again", n)``
+        self._draws = {}
         # True while a checkpointed segment of recompute runs again in
         # the backward: its random ops then draw from generators of their
         # own, seeded as the forward's were (op_generator)
@@ -556,18 +565,25 @@ class LoweringContext:
         draws from a second generator an op, keyed ``key + ("recompute",)``
         and seeded as the first: it repeats the forward's bits, in a
         captured step as well, where a second draw from one generator
-        would continue its stream."""
+        would continue its stream.  So does an op that runs again in the
+        same step (a ``pipeline`` stage body runs once a stage and
+        microbatch): its n-th repeat draws from a generator keyed
+        ``key + ("again", n)``, seeded as the first, so every repeat
+        draws the bits of the first, eager or captured."""
         key = (int(seed or 0), op.block.idx * 100003 + self._op_index(op))
         if self.recompute:
             key += ("recompute",)
+        n = self._draws.get(key, 0)
+        self._draws[key] = n + 1
+        if n:
+            key += ("again", n)
         if self.generators is not None:
             gen = self.generators.get(key)
-            if gen is None or key in self._drawn:
+            if gen is None:
                 raise RuntimeError(
                     "op %r draws random numbers in a way the captured step "
                     "cannot repeat (a generator it did not have at bind "
-                    "time, or a second draw in one step)" % op.type)
-            self._drawn.add(key)
+                    "time)" % op.type)
             return gen
         if key not in self.rng_keys:
             self.rng_keys.append(key)
@@ -1491,6 +1507,48 @@ class Executor:
         # time of timed steps, and the count of each op-by-op run key
         self._clock = _xla_stats.DeviceClock()
         self._xla_cells = {}
+        # bound-program dispatch: False runs every step op by op, as
+        # ``use_program_cache=False`` does (ParallelExecutor.fast_path)
+        self.fast_path = True
+        # the mesh of attach_mesh (None: none attached)
+        self._mesh = None
+
+    def attach_mesh(self, mesh_spec, sharding_rules=None, zero_stage=0,
+                    devices=None):
+        """Attach a device mesh (True = 1-D dp mesh over every device, or
+        a (dp, tp[, sp]) tuple / {axis: size} dict —
+        ``parallel_executor.build_mesh``); the single entry point used by
+        ParallelExecutor, Trainer, and Inferencer.  ``devices=None`` is
+        every card for an Executor on a card, the Executor's device on
+        the CPU.
+
+        The port runs one-device meshes: the mesh's device must be the
+        Executor's, and the steps, their bound entries and CUDA graphs are
+        those of ``run`` without a mesh; ``sharding_rules`` and
+        ``zero_stage`` change no number on one device, as in the JAX
+        package, and are not kept.  A mesh of more than one device raises
+        ``NotImplementedError`` (ROADMAP A11.2).  The bound entries (their
+        graphs) and the count cells are dropped, as the JAX package drops
+        what it compiled under the previous mesh."""
+        from .parallel_executor import _card_devices, build_mesh
+
+        if devices is None:
+            devices = (_card_devices() if self.device.type == "cuda"
+                       else [self.device])
+        mesh = build_mesh(mesh_spec, devices)
+        if mesh.size > 1:
+            raise NotImplementedError(
+                "a mesh of %d devices (%s) is not ported to paddle_tpu_torch "
+                "yet: the multi-device engines wait for ROADMAP A11.2"
+                % (mesh.size, mesh.shape))
+        (mesh_dev,) = mesh.devices.flat
+        if mesh_dev != self.device:
+            raise ValueError(
+                "the mesh's device %s is not this Executor's (%s)"
+                % (mesh_dev, self.device))
+        self.close()
+        self._mesh = mesh
+        return mesh
 
     def run(
         self,
@@ -1559,7 +1617,7 @@ class Executor:
                 reader_fed = True
 
         bound_key = None
-        if use_program_cache and not reader_fed:
+        if use_program_cache and self.fast_path and not reader_fed:
             # each feed's shape is in the key, so a batcher cycling its
             # bucket ladder keeps one entry per shape; sorted, so feed
             # dicts built in different orders share one
@@ -1609,7 +1667,7 @@ class Executor:
             ctx = LoweringContext(
                 program, {**state_in, **feeds}, self.device, seed, step,
                 reads=reads, block_rows=self.block_rows,
-                keep_names=fetch_names)
+                keep_names=fetch_names, mesh=self._mesh)
             with self._telemetry.span("executor.dispatch"):
                 with f32_bf16_reduction(self.device):
                     if xs and cell is None:
@@ -2018,7 +2076,7 @@ class Executor:
         # the step refers to neither the entry nor the Executor: the entry
         # holds it, and a cycle would keep a dropped Executor's graphs and
         # pool until the cycle collector ran
-        reads, block_rows = bound.reads, self.block_rows
+        reads, block_rows, mesh = bound.reads, self.block_rows, self._mesh
         outputs = (bound.fetch_names, bound.persistable, bound.nan_guard)
 
         def body():
@@ -2026,7 +2084,7 @@ class Executor:
             env.update(static_feeds)
             ctx = current[0] = LoweringContext(
                 program, env, dev, seed, step, reads=reads,
-                block_rows=block_rows, keep_names=outputs[0])
+                block_rows=block_rows, keep_names=outputs[0], mesh=mesh)
             ctx.generators = generators
             with f32_bf16_reduction(dev):
                 lower_block(ctx, program.global_block())
@@ -2061,7 +2119,7 @@ class Executor:
         ``observability.xla_stats``; the next run of a Program binds and
         captures again.  The reference's ``close`` also tells its
         parameter servers that this trainer is done: the port has no
-        pserver yet (ROADMAP A11), so that half is not here."""
+        pserver yet (ROADMAP A11.3), so that half is not here."""
         with self._graph_lock:
             with self._lock:
                 self._bound.clear()

@@ -105,6 +105,13 @@ class LayerHelper:
             attr.name = unique_name.generate(".".join([self.name, "b" if is_bias else "w"]))
 
         shape = [int(s) for s in shape]
+        # inside a `with pipe.stage()` block, parameters are stacked with a
+        # leading [num_stages] axis and the layer wires to a per-stage slice
+        from .layers.pipeline import active_pipeline
+
+        pipe = active_pipeline()
+        if pipe is not None and pipe.in_stage:
+            return pipe._create_stage_parameter(self, attr, shape, dtype)
         main_block = self.main_program.global_block()
         if attr.name in main_block.vars and isinstance(main_block.vars[attr.name], Parameter):
             # shared parameter (explicit ParamAttr name reuse)

@@ -8,10 +8,13 @@ need no reader runtime), metric_op, ops, tensor, control_flow (``While``,
 table), the learning-rate schedules, sequence (the ``sequence_*``,
 ``dynamic_lstm``/``lstmp``/``gru`` and unit layers) and detection (SSD's
 ``prior_box``, ``multi_box_head``, ``ssd_loss``, ``detection_output``,
-the RPN layers and ``detection_map``).  The pipeline is not ported yet.
+the RPN layers and ``detection_map``), pipeline (``Pipeline``, stages
+run in sequence on one device) and device (``get_places``).
 """
 from . import nn
 from . import io
+from . import device
+from .device import get_places  # noqa: F401
 from . import metric_op
 from . import ops
 from . import tensor
@@ -19,6 +22,7 @@ from . import control_flow
 from . import learning_rate_scheduler
 from . import sequence as sequence_mod
 from . import detection
+from . import pipeline as pipeline_mod
 
 from .nn import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
@@ -29,6 +33,7 @@ from .control_flow import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .detection import *  # noqa: F401,F403
+from .pipeline import Pipeline  # noqa: F401
 
 __all__ = (
     nn.__all__
@@ -40,4 +45,5 @@ __all__ = (
     + learning_rate_scheduler.__all__
     + sequence_mod.__all__
     + detection.__all__
+    + pipeline_mod.__all__
 )

@@ -97,8 +97,8 @@ def _position_encoding_table(max_len, d_model):
 # ---------------------------------------------------------------------------
 # The training graph (Transformer-base for WMT en-de): Program-building
 # functions copied from the top half of paddle_tpu/models/transformer.py,
-# so both packages build the same Program.  The pipelined stacks are not
-# ported yet: ``pipeline_stages`` raises.
+# so both packages build the same Program, the pipelined stacks
+# (``pipeline_stages``: a ``layers.Pipeline`` a stack) included.
 # ---------------------------------------------------------------------------
 
 # Transformer-base hyperparameters (reference transformer_model.py / the
@@ -226,11 +226,20 @@ def prepare_encoder_decoder(
     return out
 
 
-def _no_pipeline(pipeline_stages):
-    if pipeline_stages:
-        raise NotImplementedError(
-            "pipelined encoder/decoder stacks (pipeline_stages) are not "
-            "ported yet")
+def _make_pipe(n_layer, stages, microbatches, repeats, use_flash, what):
+    """Shared guard-and-construct for the pipelined encoder/decoder stacks."""
+    if n_layer % stages:
+        raise ValueError("%s n_layer %d %% pipeline_stages %d != 0"
+                         % (what, n_layer, stages))
+    if use_flash:
+        raise ValueError(
+            "use_flash composes with sp, not pp: the flash kernel's "
+            "sequence-parallel path reads the mesh, which inside a "
+            "pipeline stage would nest shard_maps")
+    return layers.Pipeline(
+        num_stages=stages,
+        num_microbatches=microbatches or 2 * stages,
+        circular_repeats=repeats)
 
 
 def encoder_layer(x, attn_bias, n_head, d_key, d_value, d_model, d_inner, dropout,
@@ -288,12 +297,29 @@ def wrap_encoder(
     pipeline_microbatches=None,
     pipeline_circular_repeats=1,
 ):
-    """The encoder stack; returns (enc_out, src_bias)."""
-    _no_pipeline(pipeline_stages)
+    """The encoder stack; returns (enc_out, src_bias).
+
+    ``pipeline_stages=S`` builds the stack as a ``layers.Pipeline``
+    (n_layer/S layers a stage, stage-stacked parameters), run on one
+    device as the microbatched sequence of its stages; the pad bias
+    rides along as a per-microbatch side input.
+    ``pipeline_circular_repeats=R`` (must divide S) lays the stages out
+    circularly (``parallel.pipeline.circular_stage_index``)."""
     pos_table = _const_table("src_pos_enc_table", _position_encoding_table(max_length, d_model))
     src_bias = _pad_bias(src_word)
     src_lens = _word_lens(src_word) if use_flash else None
     x = prepare_encoder_decoder(src_word, src_vocab_size, d_model, max_length, dropout, pos_table, "src_word_emb")
+    if pipeline_stages:
+        pipe = _make_pipe(n_layer, pipeline_stages, pipeline_microbatches,
+                          pipeline_circular_repeats, use_flash, "encoder")
+        with pipe.stage():
+            h = pipe.stage_input(x)
+            bias_l = pipe.stage_side_input(src_bias)
+            for _ in range(n_layer // pipeline_stages):
+                h = encoder_layer(h, bias_l, n_head, d_model // n_head,
+                                  d_model // n_head, d_model, d_inner, dropout)
+            pipe.stage_output(h)
+        return pipe(), src_bias
     for _ in range(n_layer):
         x = encoder_layer(x, src_bias, n_head, d_model // n_head, d_model // n_head, d_model, d_inner, dropout,
                           use_flash=use_flash, kv_lens=src_lens)
@@ -319,9 +345,12 @@ def wrap_decoder(
     pipeline_microbatches=None,
     pipeline_circular_repeats=1,
 ):
-    """The decoder stack and the output projection; returns logits."""
-    if caches is None:
-        _no_pipeline(pipeline_stages)
+    """The decoder stack and the output projection; returns logits.
+
+    ``pipeline_stages`` pipelines the decoder stack like wrap_encoder's
+    (training graph only — incremental decode with ``caches`` keeps the
+    sequential stack): enc_out and both attention biases ride as
+    per-microbatch side inputs."""
     pos_table = _const_table("trg_pos_enc_table", _position_encoding_table(max_length, d_model))
     seq_len = trg_word.shape[1]
     trg_lens = _word_lens(trg_word) if use_flash else None
@@ -333,23 +362,40 @@ def wrap_decoder(
         causal_bias = layers.unsqueeze(causal_bias, axes=[0, 1])  # [1,1,T,T]
         slf_bias = layers.elementwise_add(x=causal_bias, y=slf_bias)
     x = prepare_encoder_decoder(trg_word, trg_vocab_size, d_model, max_length, dropout, pos_table, "trg_word_emb")
-    for i in range(n_layer):
-        x = decoder_layer(
-            x,
-            enc_out,
-            slf_bias,
-            src_bias,
-            n_head,
-            d_model // n_head,
-            d_model // n_head,
-            d_model,
-            d_inner,
-            dropout,
-            cache=caches[i] if caches is not None else None,
-            use_flash=use_flash and caches is None and causal,
-            trg_lens=trg_lens,
-            src_lens=src_lens,
-        )
+    if pipeline_stages and caches is None:
+        pipe = _make_pipe(n_layer, pipeline_stages, pipeline_microbatches,
+                          pipeline_circular_repeats, use_flash, "decoder")
+        with pipe.stage():
+            h = pipe.stage_input(x)
+            enc_l = pipe.stage_side_input(enc_out)
+            # [B,1,T,T] at runtime (causal [1,1,T,T] broadcast over the
+            # [B,1,1,T] pad bias): batch-leading, slices per microbatch
+            slf_l = pipe.stage_side_input(slf_bias)
+            src_l = pipe.stage_side_input(src_bias)
+            for _ in range(n_layer // pipeline_stages):
+                h = decoder_layer(
+                    h, enc_l, slf_l, src_l, n_head, d_model // n_head,
+                    d_model // n_head, d_model, d_inner, dropout)
+            pipe.stage_output(h)
+        x = pipe()
+    else:
+        for i in range(n_layer):
+            x = decoder_layer(
+                x,
+                enc_out,
+                slf_bias,
+                src_bias,
+                n_head,
+                d_model // n_head,
+                d_model // n_head,
+                d_model,
+                d_inner,
+                dropout,
+                cache=caches[i] if caches is not None else None,
+                use_flash=use_flash and caches is None and causal,
+                trg_lens=trg_lens,
+                src_lens=src_lens,
+            )
     logits = layers.fc(input=x, size=trg_vocab_size, num_flatten_dims=2, bias_attr=False)
     return logits
 

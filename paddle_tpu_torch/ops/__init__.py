@@ -17,3 +17,5 @@ from . import decode_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import struct_ops  # noqa: F401
 from . import detection_ops  # noqa: F401
+from . import pipeline_ops  # noqa: F401
+from . import moe_ops  # noqa: F401

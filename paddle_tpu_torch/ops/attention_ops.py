@@ -5,8 +5,10 @@ No reference analog op: the reference composes matmul+softmax+matmul
 flash_attention.flash_attention` — the hand-written CUDA forward and
 backward kernels for a CUDA tensor, their plain versions for a CPU one.
 Translated from the JAX package's ``paddle_tpu/ops/attention_ops.py``;
-its sequence-parallel branch (ring / Ulysses over a mesh's ``sp`` axis)
-is not ported yet, and the port's Executor takes no mesh.
+its sequence-parallel branch (ring / Ulysses over a mesh's ``sp`` axis
+of more than one device) waits for ROADMAP A11.2.  On a one-device mesh
+(``Executor.attach_mesh``) the rule runs the kernels as without a mesh,
+as the JAX package does when the mesh's ``sp`` axis is 1.
 """
 from __future__ import annotations
 
@@ -19,10 +21,13 @@ from ..registry import register
 def _flash_attention(ctx, op):
     from ..parallel.flash_attention import flash_attention
 
-    if ctx.mesh is not None:
+    mesh = ctx.mesh
+    if (bool(op.attrs.get("sequence_parallel", True)) and mesh is not None
+            and int(mesh.shape.get("sp", 1)) > 1):
         raise NotImplementedError(
             "flash_attention: the sequence-parallel engines (ring, Ulysses) "
-            "are not ported; run without a mesh")
+            "over an sp axis of %d devices wait for ROADMAP A11.2"
+            % int(mesh.shape["sp"]))
     q = ctx.get_input(op, "Q")  # [B, H, T, D]
     k = ctx.get_input(op, "K")
     v = ctx.get_input(op, "V")

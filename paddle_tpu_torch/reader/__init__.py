@@ -4,7 +4,7 @@ The port's copy of ``paddle_tpu/reader``: the decorators, the creators
 and ``batch``, and the device prefetch pipeline (``device_prefetch``:
 host conversion, a pinned copy and a side-stream transfer on a
 background thread).  ``master`` (the task-queue reader) waits for
-ROADMAP A11 and is not here.
+ROADMAP A11.3 and is not here.
 """
 from . import creator  # noqa: F401
 from . import device_prefetch  # noqa: F401

@@ -45,8 +45,9 @@ Usage::
         exe.run(main_program, feed=feed, fetch_list=[loss])
 
 ``Trainer.train``/``Trainer.test`` route readers through this
-automatically (opt out per call with ``prefetch=False``).  Meshes wait
-for ROADMAP A11 (``shard_feed_list`` raises).
+automatically (opt out per call with ``prefetch=False``).
+``shard_feed_list`` stitches ``ParallelExecutor.run``'s feed lists into
+one batch on a one-device mesh; more devices wait for ROADMAP A11.2.
 """
 from __future__ import annotations
 
@@ -211,9 +212,48 @@ def put_feed_on_device(feed, executor, program=None):
 
 
 def shard_feed_list(feed_list, mesh, data_names, program=None):
-    raise NotImplementedError(
-        "device_prefetch.shard_feed_list is not ported to paddle_tpu_torch "
-        "yet: it waits for meshes (ROADMAP A11)")
+    """Per-device feed dicts -> ONE global feed dict, on a one-device mesh.
+
+    Each declared data var whose entries are host arrays of one shape and
+    dtype is cast to its declared dtype and copied, entry by entry, into
+    its rows of one batch on the mesh's device (one transfer an entry,
+    counted by ``transfer_count``), with no full-batch concatenation on
+    the host.  Everything else (non-data vars, ragged or mixed entries)
+    concatenates on the host, and a single-entry list keeps the caller's
+    value.  A mesh of more than one device waits for ROADMAP A11.2."""
+    if mesh is None or mesh.size != 1:
+        raise NotImplementedError(
+            "device_prefetch.shard_feed_list over %s is not ported to "
+            "paddle_tpu_torch yet: a feed list over more than one device "
+            "waits for ROADMAP A11.2" % (mesh,))
+    (device,) = mesh.devices.flat
+    per_key = {}
+    for d in feed_list:
+        for k, v in d.items():
+            per_key.setdefault(k, []).append(v)
+    block = program.global_block() if program is not None else None
+    out = {}
+    for k, vals in per_key.items():
+        shapes = {tuple(np.shape(v)) for v in vals}
+        hosts = [_host_value(v) for v in vals]
+        if (k in data_names and len(vals) > 1 and len(shapes) == 1
+                and np.ndim(vals[0]) >= 1
+                and all(isinstance(v, (np.ndarray, np.generic)) for v in vals)
+                and len({h.dtype for h in hosts}) == 1):
+            want = _declared_dtype(block, k) if block is not None else None
+            want = want or hosts[0].dtype
+            n = hosts[0].shape[0]
+            batch = torch.empty((len(hosts) * n,) + tuple(hosts[0].shape[1:]),
+                                dtype=want, device=device)
+            for i, h in enumerate(hosts):
+                _transfers.inc()
+                batch[i * n:(i + 1) * n].copy_(h.to(want))
+            out[k] = batch
+        elif len(vals) == 1:
+            out[k] = vals[0]  # nothing to merge: keep the caller's array
+        else:
+            out[k] = np.concatenate([np.asarray(v) for v in vals], axis=0)
+    return out
 
 
 def _feed_pump(source, transform, src_lock, q, stop):

@@ -14,8 +14,10 @@ package loads the other's parameters.  The step's random state is the
 port's ``(seed, step)`` pair, saved as ``rng_state.npy`` (int64[2]); the
 JAX package's ``rng_key.npy`` (a jax PRNG key) is validated and ignored
 on load, with a warning, and the program's seed kept.
-``Trainer(parallel=...)``, ``sharding_rules`` and ``zero_stage`` wait for
-meshes (ROADMAP A11).
+``Trainer(parallel=...)`` (with ``sharding_rules`` and ``zero_stage``) and
+``Inferencer(parallel=...)`` attach their mesh through
+``Executor.attach_mesh``: a one-device mesh runs as without one, and a
+mesh of more devices raises (ROADMAP A11.2).
 
 Reference: python/paddle/fluid/contrib/trainer.py (Trainer, the four
 *Event classes, CheckpointConfig) and contrib/inferencer.py.  The
@@ -231,12 +233,6 @@ _transfers = _obs.counter("prefetch.transfer")
 _retries = _obs.counter("resilience.retry")
 
 
-def _not_ported(what, waits_for):
-    raise NotImplementedError(
-        "%s is not ported to paddle_tpu_torch yet: it waits for %s"
-        % (what, waits_for))
-
-
 def save_checkpoint(executor, dirname, main_program, serial, meta, max_num=3):
     """Atomically write ``checkpoint_<serial>/`` and rotate old serials.
 
@@ -422,8 +418,12 @@ class Trainer:
     def __init__(self, train_func, optimizer_func, param_path=None, place=None,
                  parallel=False, checkpoint_config=None, sharding_rules=None,
                  zero_stage=0, use_program_cache=True, resume=True):
-        """``parallel`` (a mesh), ``sharding_rules`` and ``zero_stage``
-        wait for ROADMAP A11 and raise when set.
+        """``parallel`` (True: a 1-D dp mesh over every device of
+        ``place``; or a mesh spec, ``parallel_executor.build_mesh``),
+        ``sharding_rules`` and ``zero_stage`` go to
+        ``Executor.attach_mesh``: on a one-device mesh the steps are those
+        of ``parallel=False``, and a mesh of more than one device raises
+        ``NotImplementedError`` (ROADMAP A11.2).
 
         ``use_program_cache``: keep the executor's bound entries (one
         CUDA graph a step on the card) hot across steps (default).  On a
@@ -441,9 +441,6 @@ class Trainer:
 
         ``place`` None is ``CUDAPlace(0)``, which raises without a card;
         pass ``CPUPlace()`` for the plain PyTorch versions."""
-        if parallel or sharding_rules is not None or zero_stage:
-            _not_ported("Trainer(parallel=..., sharding_rules=..., "
-                        "zero_stage=...)", "meshes (ROADMAP A11)")
         self.place = place if place is not None else CUDAPlace(0)
         self.parallel = parallel
         self.use_program_cache = bool(use_program_cache)
@@ -468,6 +465,9 @@ class Trainer:
 
         self.test_program = self.train_program.clone(for_test=True)
         self.exe = Executor(self.place)
+        if parallel:
+            self.exe.attach_mesh(parallel, sharding_rules=sharding_rules,
+                                 zero_stage=zero_stage)
         with scope_guard(self.scope):
             self.exe.run(self.startup_program)
             if param_path:
@@ -808,8 +808,6 @@ class Inferencer:
     (reference: contrib/inferencer.py)."""
 
     def __init__(self, infer_func, param_path, place=None, parallel=False):
-        if parallel:
-            _not_ported("Inferencer(parallel=...)", "meshes (ROADMAP A11)")
         self.place = place if place is not None else CUDAPlace(0)
         self.scope = Scope()
         self.startup_program = Program()
@@ -819,6 +817,10 @@ class Inferencer:
                 outs = infer_func()
                 self.predict_vars = list(outs) if isinstance(outs, (list, tuple)) else [outs]
         self.exe = Executor(self.place)
+        if parallel:
+            # the mesh of every device of ``place`` (True) or a
+            # Trainer-style mesh spec: one device runs as without it
+            self.exe.attach_mesh(parallel)
         with scope_guard(self.scope):
             self.exe.run(self.startup_program)
             io_mod.load_persistables(self.exe, param_path, main_program=self.inference_program)

@@ -248,15 +248,20 @@ def test_nets_build_the_reference_programs():
 
 
 def test_unported_op_raises_naming_it():
-    # switch_moe's layer is ported, its rule not yet (ROADMAP's op
-    # coverage); warpctc served here until the port had its rule
+    # the quantize ops have no rule yet (ROADMAP A12); warpctc and then
+    # switch_moe served here until the port had their rules
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         x = tfluid.layers.data(name="x", shape=[4], dtype="float32")
-        y = tfluid.layers.switch_moe(x, num_experts=2, expert_hidden=8)
+        helper = LayerHelper("fake_quantize_abs_max")
+        y = helper.create_variable_for_type_inference(dtype="float32")
+        helper.append_op(type="fake_quantize_abs_max", inputs={"X": [x]},
+                         outputs={"Out": [y]}, attrs={"bit_length": 8})
     exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="'switch_moe'"):
+    with pytest.raises(NotImplementedError, match="'fake_quantize_abs_max'"):
         exe.run(main, feed={"x": np.zeros((2, 4), np.float32)},
                 fetch_list=[y], scope=scope)
 

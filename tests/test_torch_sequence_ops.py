@@ -443,21 +443,19 @@ def test_every_sequence_rule_is_ported():
     assert len(want) == 21 and want == names(TSO, treg)
 
 
-#: the reference's op names the port has no rule for after the detection
-#: slice, by the module that registers them
+#: the reference's op names the port has no rule for after the pipeline
+#: and MoE slice, by the module that registers them
 STILL_MISSING = {
     "quantize": ["fake_quantize_abs_max", "quantized_conv2d", "quantized_mul"],
-    "moe_ops": ["switch_moe"],
-    "pipeline_ops": ["pipeline"],
 }
 
 
 def test_op_and_layer_coverage():
     """With every ``ops`` module of both packages imported, the port
-    registers 216 of the reference's 221 op names, and no other; the 5
-    it lacks are the quantize, MoE and pipeline ops.  Its
-    ``layers.__all__`` lacks ``Pipeline`` only, the 15 detection layers
-    among what it has."""
+    registers 218 of the reference's 221 op names, and no other; the 3
+    it lacks are the quantize ops.  Its ``layers.__all__`` has every
+    name of the reference's, ``Pipeline`` and the 15 detection layers
+    among them, and ``layers.get_places`` as the reference has it."""
     import importlib
     import pkgutil
 
@@ -470,10 +468,12 @@ def test_op_and_layer_coverage():
         for mod in pkgutil.iter_modules(pkg.__path__):
             importlib.import_module(pkg.__name__ + "." + mod.name)
     want, got = set(jreg.RULES), set(treg.RULES)
-    assert len(want) == 221 and got <= want and len(got) == 216
+    assert len(want) == 221 and got <= want and len(got) == 218
     assert sorted(want - got) == sorted(
         n for names in STILL_MISSING.values() for n in names)
     lacking = set(jfluid.layers.__all__) - set(tfluid.layers.__all__)
-    assert lacking == {"Pipeline"}
+    assert lacking == set()
+    assert "Pipeline" in tfluid.layers.__all__
+    assert callable(tfluid.layers.get_places) and callable(jfluid.layers.get_places)
     assert tfluid.layers.detection.__all__ == jfluid.layers.detection.__all__
     assert len(tfluid.layers.detection.__all__) == 15

@@ -273,12 +273,15 @@ def test_transformer_trainer_matches_jax(tmp_path):
 
 
 def test_deferred_pieces_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="A11"):
+    # a one-device mesh landed with A11's one-card half
+    # (test_torch_parallel_executor.py); a mesh of more devices waits for
+    # A11.2
+    with pytest.raises(ValueError, match="A11.2"):
         fluid.Trainer(_train_func, _optimizer_func, place=fluid.CPUPlace(),
-                      parallel=True)
-    with pytest.raises(NotImplementedError, match="A11"):
+                      parallel={"dp": 2})
+    with pytest.raises(ValueError, match="A11.2"):
         fluid.Trainer(_train_func, _optimizer_func, place=fluid.CPUPlace(),
-                      zero_stage=1)
+                      parallel=(2,), zero_stage=1)
     # attribution= landed with A9.2: it attaches for the call and no
     # longer raises
     from paddle_tpu_torch import observability as obs
@@ -289,9 +292,9 @@ def test_deferred_pieces_raise_naming_their_item():
             attribution=att)
     assert att.verdict()["steps"] > 0
     assert att not in obs.get_telemetry().sinks()
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="A11.2"):
         fluid.Inferencer(_infer_func, "unused", place=fluid.CPUPlace(),
-                         parallel=True)
+                         parallel={"dp": 2})
 
 
 def test_trainer_place_defaults_to_the_card():

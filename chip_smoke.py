@@ -345,7 +345,27 @@ split device time by op or kernel family run a step on the eager path
    steps on a ragged batch of 32, BeamSearchDecoder on 16 sources, beam 4,
    32 steps, bitwise over two runs, scores against a float64 decode on
    the beams whose ids agree, sentences a second; B1-B5 launched by the
-   ParallelExecutor and microbatch legs only;
+   ParallelExecutor and microbatch legs only; then the multi-rank
+   engines on ranks that share the card (mesh_phase, MESH_*): Transformer-
+   base at 64 x 256 (dropout 0, flash, no PAD tokens) through
+   ParallelExecutor(mesh_shape=(2, 2), devices=["cuda:0"] * 4) for
+   MESH_STEPS steps from the one-device leg's state, each loss within
+   MESH_LOSS_RTOL and each parameter within MESH_PARAM_RTOL of its max of
+   Executor.run's steps, two runs bitwise, B1 and B2 36 times a step, one
+   CUDA graph; ZeRO stages 0, 1 and 3 at {"dp": 4}, stage 0 held to
+   Executor.run's steps and stages 1 and 3 to stage 0 the same way, with
+   each rank's state bytes; one flash_attention op at
+   SP_SHAPE, causal and not, over {"dp": 1, "sp": 4} with sp_engine
+   ulysses and ring: output and gradients within SP_RTOL of one-device
+   B1/B2 over the whole sequence, the engine counters showing the engine
+   and no fallback, ms beside the one-device step; PIPE_CFG's pipelined
+   Transformer-base over {"pp": 2} (GPipe, stages on their own streams)
+   and PIPE_CIRCULAR_CFG's over {"pp": 2}, each against the one-device
+   pipeline op's steps (MESH_PIPE_RTOL), ms a step beside it; switch_moe
+   at MOE_CFG's widths over {"ep": 8} at a capacity that drops nothing
+   against the dense rule's steps (MESH_MOE_RTOL), ms a step of each
+   over MESH_MOE_TIME_STEPS replays, and the tokens the engine drops at
+   capacity factor MOE_DROP_CAP;
 13. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
@@ -492,8 +512,9 @@ split device time by op or kernel family run a step on the eager path
    tensor-core peak, SDPA in bf16) with their launches on the bf16 leg,
    and at [16, 8, 1024, 64] and [8, 8, 2048, 64] with their launches on
    the 16 x 1024 and 8 x 2048 legs, and their launches a step on the
-   Trainer's path and on ``Trainer.test``, on the recompute leg and on
-   the ParallelExecutor leg),
+   Trainer's path and on ``Trainer.test``, on the recompute leg, on the
+   ParallelExecutor leg, and a step on the mesh phase's dp x tp, ZeRO
+   and Ulysses legs),
    the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -1091,6 +1112,51 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989.4e12
 # the device-side wait before each timed launch: about 0.5 ms at the
 # H100's 1.98 GHz boost clock, longer than any wrapper takes to enqueue
+# the multi-rank engines (mesh_phase): ranks that share the card.
+# Transformer-base at TRAIN_CFG with dropout 0 and every row at full
+# length, MESH_STEPS steps from one numpy state on MESH_STEPS batches:
+# Executor.run, then ParallelExecutor over a dp 2 x tp 2 mesh of four
+# ranks on cuda:0 twice (bitwise), then ZeRO 0, 1 and 3 at dp 4.  The
+# limits and measures are the JAX package's dryrun's for dp x tp
+# (mesh_errors: every step's loss 2e-5 of max(1, |loss|), each parameter
+# element after the first step 5e-4 of max(|value|, 1e-3)): a dp rank's
+# GEMMs have half the rows and its weight gradients add in two parts, so
+# cuBLAS and autograd may sum them in another order, and an Adam update
+# whose gradient cancels to rounding noise follows that noise
+MESH_RANKS = 4
+MESH_CFG = dict(TRAIN_CFG, dropout=0.0)
+MESH_STEPS = 4
+MESH_LOSS_RTOL = 2e-5
+MESH_PARAM_RTOL = 5e-4
+# sequence parallelism: one flash_attention op (reduce_sum(o * r) and
+# calc_gradient of q, k, v) at bench.py's long shape over an sp axis of
+# 4; SP_CHECK_STEPS steps fetching the output and the gradients, each
+# within SP_RTOL of its max |value| of the one-device kernels' (ring sums
+# its blocks in float32 matmuls, in another order than B1's online
+# softmax), then SP_STEPS fetching the loss alone, timed
+SP_SHAPE = (4, 8, 4096, 64)
+SP_CHECK_STEPS = 2
+SP_STEPS = 5
+SP_RTOL = 1e-4
+# the pipelines over pp 2 against the one-device pipeline op: the same
+# stage computations; the gradient of a stacked parameter adds its
+# microbatches' parts in autograd's order, which the schedule sets
+MESH_PIPE_STEPS = 4
+MESH_PIPE_RTOL = 1e-5
+# switch_moe over ep 8: capacity factor 8 gives each expert t_local slots
+# (no token dropped), so the engine computes the dense rule's function;
+# MESH_MOE_STEPS Adam steps, each loss within MESH_MOE_RTOL of the dense
+# rule's and the first step's gradients (gate and both expert stacks)
+# within MESH_MOE_RTOL of theirs in L2.  Not the parameters: an expert
+# weight's gradient sums its tokens in slot order here and in token order
+# there, and Adam's first steps (lr 1e-3) move an element whose gradient
+# cancels to rounding noise by that noise's sign; then the tokens dropped
+# at MOE_DROP_CAP
+MOE_NODROP_CAP = 8.0
+MOE_DROP_CAP = 1.0
+MESH_MOE_STEPS = 3
+MESH_MOE_TIME_STEPS = 12
+MESH_MOE_RTOL = 1e-5
 SLEEP_CYCLES = 1_000_000
 
 
@@ -7921,10 +7987,10 @@ def plain_transformer_ms(torch, fluid, T, dev, cfg, steps, seed):
                            if isinstance(prof, dict) else prof)}
 
 
-def moe_model(fluid):
+def moe_model(fluid, capacity=None):
     """MOE_CFG's Program: ``switch_moe`` on [batch, tokens, d] inputs, a
-    mean squared error, Adam."""
-    c = MOE_CFG
+    mean squared error, Adam (``capacity``: another capacity factor)."""
+    c = dict(MOE_CFG, capacity=capacity or MOE_CFG["capacity"])
     L = fluid.layers
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
@@ -8391,6 +8457,367 @@ def parallel_phase(torch, fluid, T, fa, dev):
     log("parallel phase: %s" % json.dumps(
         {k: out[k] for k in ("card", "pipelined_over_unpipelined",
                              "seconds")}))
+    return out
+
+
+def mesh_feeds(rng, cfg):
+    """Seeded token feeds with every row at full length (no PAD token)."""
+    shape = (cfg["batch_size"], cfg["seq_len"])
+    return {n: rng.randint(3, cfg["trg_vocab_size"], size=shape)
+            .astype(np.int64) for n in ("src_word", "trg_word", "lbl_word")}
+
+
+def mesh_steps(torch, fluid, fa, m, state, feeds, dev, mesh=None,
+               devices=None, zero=0, fetch=None):
+    """Steps of ``m`` from the numpy ``state``, one a feed: through
+    Executor.run (``mesh`` None) or a ParallelExecutor over ``mesh`` of
+    ``devices``.  Their fetches (the loss first), step seconds, kernel
+    launches and engine runs, the parameters after them, each rank's
+    state bytes and the state specs, the captured graphs and peak
+    memory."""
+    from paddle_tpu_torch.parallel import collective
+
+    fetch = fetch or [m["loss"].name]
+    scope = fluid.Scope()
+    fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+    if mesh is None:
+        exe = fluid.Executor(device=dev)
+        run = lambda f: exe.run(m["main"], feed=f,  # noqa: E731
+                                fetch_list=fetch, scope=scope)
+    else:
+        pe = fluid.ParallelExecutor(
+            loss_name=m["loss"].name, main_program=m["main"], scope=scope,
+            mesh_shape=mesh, devices=devices, zero_stage=zero)
+        exe = pe._exe
+        run = lambda f: pe.run(fetch_list=fetch, feed=f)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launch_counts()
+    collective.reset_engine_counts()
+    outs, step_s = [], []
+    params = [p.name for p in m["main"].global_block().all_parameters()]
+    first = None
+    for f in feeds:
+        t0 = time.perf_counter()
+        outs.append([np.asarray(v) for v in run(f)])
+        step_s.append(time.perf_counter() - t0)
+        if first is None:   # the parameters after one step
+            first = {n: fluid.executor.as_numpy(scope[n]) for n in params}
+    res = {"fetches": outs, "step_s": step_s, "params1": first,
+           "launches": dict(fa.KERNEL_LAUNCHES),
+           "engines": dict(collective.ENGINE_RUNS),
+           "params": {n: fluid.executor.as_numpy(scope[n]) for n in params},
+           "rank_state_bytes": exe.rank_state_bytes(scope, m["main"]),
+           "specs": {n: s for n, s in exe.state_specs(scope, m["main"])
+                     .items() if s},
+           "graphs": sum(b.graph is not None for b in exe._bound.values()),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    del exe, scope, run
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_errors(got, want):
+    """The JAX package's dryrun measures (``__graft_entry__.py:170-177``):
+    the worst loss error over max(1, |loss|) of every step, and the
+    worst parameter element's error over max(|value|, 1e-3) after one
+    step, as the dryrun takes one (with its parameter's name), and the
+    same after the last step, recorded.  Adam's first steps move every
+    element by about its learning rate whatever its gradient's size, so
+    an element whose gradient cancels to rounding noise moves by that
+    noise's sign: at noam's warm-up rate one step moves it 1.2e-7, a
+    flip 2.5e-7, a quarter of the limit at the 1e-3 floor."""
+    loss = max(abs(float(a[0].reshape(-1)[0]) - float(b[0].reshape(-1)[0]))
+               / max(1.0, abs(float(b[0].reshape(-1)[0])))
+               for a, b in zip(got["fetches"], want["fetches"]))
+
+    def worst(a, b):
+        err = {n: float((np.abs(a[n].astype(np.float64) - w)
+                         / np.maximum(np.abs(w), 1e-3)).max())
+               for n, w in ((n, w.astype(np.float64)) for n, w in b.items())}
+        name = max(err, key=err.get) if err else None
+        return err.get(name, 0.0), name
+
+    p1, n1 = worst(got["params1"], want["params1"])
+    pl, nl = worst(got["params"], want["params"])
+    return {"loss_rel": loss, "param_rel": p1, "param": n1,
+            "last_step_param_rel": pl, "last_step_param": nl}
+
+
+def same_bits(a, b):
+    return (all(x.tobytes() == y.tobytes() for fa_, fb_ in
+                zip(a["fetches"], b["fetches"]) for x, y in zip(fa_, fb_))
+            and all(a["params"][n].tobytes() == b["params"][n].tobytes()
+                    for n in a["params"]))
+
+
+def mesh_losses(r):
+    return [float(f[0].reshape(-1)[0]) for f in r["fetches"]]
+
+
+def mesh_dp_tp_leg(torch, fluid, T, fa, dev):
+    """Transformer-base through ParallelExecutor(mesh_shape=(2, 2)) on four
+    ranks of the card against Executor.run from one state on the same
+    batches; two mesh runs bitwise; B1 and B2 36 times a step; one graph.
+    Then ZeRO 0, 1 and 3 at {"dp": 4}, stage 0 against Executor.run and
+    the others against stage 0, stage 3 twice (bitwise)."""
+    cfg = MESH_CFG
+    with fluid.unique_name.guard():
+        m = T.get_model(**cfg)
+    state = seq_state(fluid, m, SEED + 190, dev)
+    m["main"].random_seed = SEED + 191
+    rng = np.random.RandomState(SEED + 192)
+    feeds = [mesh_feeds(rng, cfg) for _ in range(MESH_STEPS)]
+    ranks = ["cuda:0"] * MESH_RANKS
+    one = mesh_steps(torch, fluid, fa, m, state, feeds, dev)
+    runs = [mesh_steps(torch, fluid, fa, m, state, feeds, dev, (2, 2), ranks)
+            for _ in range(2)]
+    e = mesh_errors(runs[0], one)
+    bitwise = same_bits(runs[0], runs[1])
+    check(e["loss_rel"] <= MESH_LOSS_RTOL
+          and e["param_rel"] <= MESH_PARAM_RTOL and bitwise
+          and runs[0]["graphs"] == 1,
+          "dp x tp Transformer-base against Executor.run", e, bitwise,
+          runs[0]["graphs"])
+    check_flash_launches(fa, runs[0]["launches"], "fused",
+                         36 * MESH_STEPS, "dp x tp")
+    check_flash_launches(fa, one["launches"], "fused", 18 * MESH_STEPS,
+                         "Executor.run beside dp x tp")
+    out = {"mesh": {"dp": 2, "tp": 2}, "devices": ranks,
+           "steps": MESH_STEPS, "vs_executor_run": e,
+           "bitwise_two_runs": bitwise, "graphs": runs[0]["graphs"],
+           "losses": mesh_losses(runs[0]),
+           "executor_losses": mesh_losses(one),
+           "step_ms": steady_ms(runs[0]["step_s"]),
+           "step_ms_all": [t * 1e3 for t in runs[0]["step_s"]],
+           "executor_step_ms": steady_ms(one["step_s"]),
+           "launches": runs[0]["launches"],
+           "launches_per_step": {k: v / MESH_STEPS
+                                 for k, v in runs[0]["launches"].items()},
+           "rank_state_bytes": runs[0]["rank_state_bytes"],
+           "executor_state_bytes": one["rank_state_bytes"][0],
+           "tp_split_values": len(runs[0]["specs"]),
+           "peak_gib": runs[0]["peak_gib"],
+           "executor_peak_gib": one["peak_gib"]}
+    del runs
+    zero = {}
+    for stage in (0, 1, 3):
+        zero[stage] = mesh_steps(torch, fluid, fa, m, state, feeds, dev,
+                                 {"dp": MESH_RANKS}, ranks, zero=stage)
+    again = mesh_steps(torch, fluid, fa, m, state, feeds, dev,
+                       {"dp": MESH_RANKS}, ranks, zero=3)
+    check(same_bits(zero[3], again), "ZeRO 3 not bitwise over two runs")
+    zout = {"stage3_bitwise_two_runs": True}
+    for stage, r in zero.items():
+        e = mesh_errors(r, zero[0])
+        check(e["loss_rel"] <= MESH_LOSS_RTOL
+              and e["param_rel"] <= MESH_PARAM_RTOL and r["graphs"] == 1,
+              "ZeRO stage %d against stage 0" % stage, e, r["graphs"])
+        check_flash_launches(fa, r["launches"], "fused",
+                             18 * MESH_RANKS * MESH_STEPS, "ZeRO %d" % stage)
+        zout[stage] = {"vs_stage_0": e, "losses": mesh_losses(r),
+                       "step_ms": steady_ms(r["step_s"]),
+                       "rank_state_bytes": r["rank_state_bytes"],
+                       "split_values": len(r["specs"]),
+                       "launches": r["launches"],
+                       "launches_per_step": {
+                           k: v / MESH_STEPS
+                           for k, v in r["launches"].items()},
+                       "peak_gib": r["peak_gib"]}
+    z0, z3 = (zero[s]["rank_state_bytes"] for s in (0, 3))
+    zout["stage3_over_stage0_bytes"] = max(z3) / max(z0)
+    check(zout["stage3_over_stage0_bytes"] < 0.3,
+          "ZeRO 3 ranks hold more than about a quarter", z0, z3)
+    e = mesh_errors(zero[0], one)
+    check(e["loss_rel"] <= MESH_LOSS_RTOL
+          and e["param_rel"] <= MESH_PARAM_RTOL,
+          "ZeRO stage 0 against Executor.run", e)
+    zout["stage0_vs_executor_run"] = e
+    out["zero"] = zout
+    return out
+
+
+def sp_program(fluid, causal, engine):
+    """One flash_attention op over [B, H, T, D] feeds q, k, v, the loss
+    reduce_sum(o * r) and calc_gradient of q, k and v."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    shape = list(SP_SHAPE[1:])
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        q, k, v, r = (L.data(name=n, shape=shape, dtype="float32")
+                      for n in ("q", "k", "v", "r"))
+        for t in (q, k, v):
+            t.stop_gradient = False
+        o = L.flash_attention(q, k, v, causal=causal, sp_engine=engine)
+        loss = L.reduce_sum(L.elementwise_mul(o, r))
+        grads = fluid.backward.calc_gradient(loss, [q, k, v])
+    return {"main": main, "startup": startup, "loss": loss,
+            "fetch": [loss.name, o.name] + [g.name for g in grads]}
+
+
+def mesh_sp_leg(torch, fluid, fa, dev):
+    """The flash_attention op at SP_SHAPE over {"dp": 1, "sp": 4}, each
+    engine and causal and not, against the one-device kernels: the output
+    and gradients (SP_CHECK_STEPS steps), then ms a step fetching the
+    loss (SP_STEPS steps), the engine counters and launches of those."""
+    rng = np.random.RandomState(SEED + 193)
+    feed = {n: rng.randn(*SP_SHAPE).astype(np.float32)
+            for n in ("q", "k", "v", "r")}
+    ranks = ["cuda:0"] * MESH_RANKS
+    out = {"shape": list(SP_SHAPE), "mesh": {"dp": 1, "sp": MESH_RANKS}}
+    for causal in (False, True):
+        tag = "causal" if causal else "full"
+        one = None
+        for engine in (None, "ulysses", "ring"):
+            m = sp_program(fluid, causal, engine or "auto")
+            mesh = None if engine is None else {"dp": 1, "sp": MESH_RANKS}
+            devs = ranks if mesh else None
+            r = mesh_steps(torch, fluid, fa, m, {}, [feed] * SP_CHECK_STEPS,
+                           dev, mesh, devs, fetch=m["fetch"])
+            t = mesh_steps(torch, fluid, fa, m, {}, [feed] * SP_STEPS, dev,
+                           mesh, devs)
+            if engine is None:
+                one = r
+                check_flash_launches(fa, t["launches"], "fused", SP_STEPS,
+                                     "one-device flash op")
+                out["one_device_" + tag] = {
+                    "step_ms": steady_ms(t["step_s"]),
+                    "peak_gib": t["peak_gib"]}
+                continue
+            errs = [float(np.abs(a - b).max()) / float(np.abs(b).max())
+                    for a, b in zip(r["fetches"][-1][1:],
+                                    one["fetches"][-1][1:])]
+            ran = t["engines"]
+            check(max(errs) <= SP_RTOL and ran[engine] == SP_STEPS
+                  and ran["sp_fallback"] == 0 and t["graphs"] == 1,
+                  "sp %s (%s) against the one-device kernels"
+                  % (engine, tag), errs, ran, t["graphs"])
+            calls = MESH_RANKS * SP_STEPS if engine == "ulysses" else 0
+            check_flash_launches(fa, t["launches"], "fused", calls,
+                                 "sp " + engine)
+            out["%s_%s" % (engine, tag)] = {
+                "rel_errors_out_dq_dk_dv": errs,
+                "bitwise_one_device": all(e == 0.0 for e in errs),
+                "engines": ran, "launches": t["launches"],
+                "launches_per_step": {k: v / SP_STEPS
+                                      for k, v in t["launches"].items()},
+                "step_ms": steady_ms(t["step_s"]),
+                "over_one_device": steady_ms(t["step_s"])
+                / out["one_device_" + tag]["step_ms"],
+                "peak_gib": t["peak_gib"]}
+    return out
+
+
+def mesh_pipe_leg(torch, fluid, T, fa, dev, cfg, seed):
+    """``cfg``'s pipelined Transformer-base over {"pp": 2} against the
+    one-device pipeline op, MESH_PIPE_STEPS steps from one state."""
+    with fluid.unique_name.guard():
+        m = T.get_model(**cfg)
+    state = seq_state(fluid, m, seed, dev)
+    m["main"].random_seed = seed + 1
+    rng = np.random.RandomState(seed + 2)
+    feeds = [make_feeds(rng, cfg["batch_size"], cfg["seq_len"],
+                        cfg["trg_vocab_size"])] * MESH_PIPE_STEPS
+    one = mesh_steps(torch, fluid, fa, m, state, feeds, dev)
+    pp = mesh_steps(torch, fluid, fa, m, state, feeds, dev, {"pp": 2},
+                    ["cuda:0"] * 2)
+    e = mesh_errors(pp, one)
+    engine = ("circular" if cfg.get("pipeline_circular_repeats", 1) > 1
+              else "gpipe")
+    check(e["loss_rel"] <= MESH_PIPE_RTOL
+          and e["param_rel"] <= MESH_PIPE_RTOL
+          and pp["engines"][engine] == 2 * MESH_PIPE_STEPS
+          and pp["graphs"] == 1 and one["graphs"] == 1,
+          "pp %s against the one-device pipeline op" % engine, e,
+          pp["engines"], pp["graphs"])
+    return {"engine": engine, "stages": cfg["pipeline_stages"],
+            "repeats": cfg.get("pipeline_circular_repeats", 1),
+            "vs_one_device": e, "bitwise_one_device": same_bits(pp, one),
+            "engines": pp["engines"], "losses": mesh_losses(pp),
+            "step_ms": steady_ms(pp["step_s"]),
+            "one_device_step_ms": steady_ms(one["step_s"]),
+            "rank_state_bytes": pp["rank_state_bytes"],
+            "peak_gib": pp["peak_gib"],
+            "one_device_peak_gib": one["peak_gib"]}
+
+
+def mesh_moe_leg(torch, fluid, fa, dev):
+    """switch_moe over {"ep": 8} at a capacity that drops nothing against
+    the dense rule, and the median ms a step of each over the replays of
+    MESH_MOE_TIME_STEPS steps (from the third on); the tokens dropped at
+    MOE_DROP_CAP."""
+    from paddle_tpu_torch.parallel import moe as moe_mod
+
+    c = MOE_CFG
+    m = moe_model(fluid, capacity=MOE_NODROP_CAP)
+    state = seq_state(fluid, m, SEED + 194, dev)
+    m["main"].random_seed = SEED + 195
+    rng = np.random.RandomState(SEED + 196)
+    shape = (c["batch"], c["tokens"], c["d"])
+    feed = {"x": rng.randn(*shape).astype(np.float32),
+            "y": rng.randn(*shape).astype(np.float32)}
+    feeds = [feed] * MESH_MOE_STEPS
+    grads = [m[w] + "@GRAD" for w in ("gate", "w1", "w2")]
+    fetch = [m["loss"].name] + grads
+    one = mesh_steps(torch, fluid, fa, m, state, feeds, dev, fetch=fetch)
+    ep = mesh_steps(torch, fluid, fa, m, state, feeds, dev,
+                    {"ep": c["experts"]}, ["cuda:0"] * c["experts"],
+                    fetch=fetch)
+    e = mesh_errors(ep, one)
+    e["grads"] = grad_l2(
+        dict(zip(grads, ep["fetches"][0][1:])),
+        {g: v.astype(np.float64) for g, v in zip(grads, one["fetches"][0][1:])})
+    check(e["loss_rel"] <= MESH_MOE_RTOL and e["grads"]["l2"] <= MESH_MOE_RTOL
+          and ep["engines"]["ep"] == MESH_MOE_STEPS,
+          "switch_moe ep against the dense rule", e, ep["engines"])
+    x = torch.as_tensor(feed["x"], device=dev).reshape(-1, c["d"])
+    gate = torch.as_tensor(state[m["gate"]], device=dev)
+    dropped = moe_mod.dropped_tokens(x, gate, c["experts"], MOE_DROP_CAP)
+    none = moe_mod.dropped_tokens(x, gate, c["experts"], MOE_NODROP_CAP)
+    check(dropped > 0 and none == 0, "switch_moe drops", dropped, none)
+    # ms a step over MESH_MOE_TIME_STEPS replays of each, the loss fetched
+    timed = {k: mesh_steps(torch, fluid, fa, m, state,
+                           [feed] * MESH_MOE_TIME_STEPS, dev, *a)["step_s"]
+             for k, a in (("dense", ()),
+                          ("ep", ({"ep": c["experts"]},
+                                  ["cuda:0"] * c["experts"])))}
+    ms = {k: [t * 1e3 for t in v[2:]] for k, v in timed.items()}
+    return {"experts": c["experts"], "tokens": int(x.shape[0]),
+            "capacity_factor": MOE_NODROP_CAP, "vs_dense": e,
+            "bitwise_dense": same_bits(ep, one), "losses": mesh_losses(ep),
+            "step_ms": float(np.median(ms["ep"])),
+            "dense_step_ms": float(np.median(ms["dense"])),
+            "step_ms_timed": ms["ep"], "dense_step_ms_timed": ms["dense"],
+            "over_dense": float(np.median(ms["ep"]) / np.median(ms["dense"])),
+            "over_dense_range": [min(ms["ep"]) / max(ms["dense"]),
+                                 max(ms["ep"]) / min(ms["dense"])],
+            "graphs": ep["graphs"],
+            "dropped_at_capacity": {"capacity_factor": MOE_DROP_CAP,
+                                    "dropped_tokens": dropped,
+                                    "of_tokens": int(x.shape[0])}}
+
+
+def mesh_phase(torch, fluid, T, fa, dev):
+    """The multi-rank engines on ranks that share the card (see the module
+    docstring): dp x tp and ZeRO, sp, pp and ep."""
+    card = card_line()
+    out, seconds = {"card": card}, {}
+    for name, fn, args in (
+            ("dp_tp", mesh_dp_tp_leg, (torch, fluid, T, fa, dev)),
+            ("sp", mesh_sp_leg, (torch, fluid, fa, dev)),
+            ("pp_gpipe", mesh_pipe_leg,
+             (torch, fluid, T, fa, dev, PIPE_CFG, SEED + 197)),
+            ("pp_circular", mesh_pipe_leg,
+             (torch, fluid, T, fa, dev, PIPE_CIRCULAR_CFG, SEED + 200)),
+            ("ep", mesh_moe_leg, (torch, fluid, fa, dev))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        log("mesh phase, %s (%s): %s" % (name, card, json.dumps(
+            out[name], default=str)))
+    out["seconds"] = seconds
+    log("mesh phase: %s" % json.dumps({"card": card, "seconds": seconds}))
     return out
 
 
@@ -11189,6 +11616,12 @@ def main():
     for name, regs, spill in ptxas_report(info["log"]):
         log("  ptxas: %s: %d registers, %d bytes spilled" % (name, regs, spill))
 
+    if sys.argv[1:] == ["--only", "mesh"]:
+        # the mesh phase alone (a quick check of the multi-rank engines);
+        # the contract's run takes no arguments and runs every phase
+        log("mesh phase: %s" % json.dumps(
+            mesh_phase(torch, fluid, T, fa, dev), default=str))
+        return 0
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     dec_checks, dec = decode_phase(torch, fa, dev, flush)
     pre = prefill_phase(torch, fa, dev, flush)
@@ -11250,6 +11683,10 @@ def main():
     par = parallel_phase(torch, fluid, T, fa, dev)
     torch.cuda.empty_cache()
     log("parallel phase: %.1f s" % (time.perf_counter() - t_new))
+    t_new = time.perf_counter()
+    msh = mesh_phase(torch, fluid, T, fa, dev)
+    torch.cuda.empty_cache()
+    log("mesh phase: %.1f s" % (time.perf_counter() - t_new))
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
                                     "fused")
@@ -11498,6 +11935,19 @@ def main():
                 "parallel_executor_launches": pe["launches"][name],
                 "parallel_executor_launches_per_step":
                 pe["launches_per_step"][name]})
+        if name in ("flash_attention_fwd", "flash_attention_bwd"):
+            # the mesh phase: four ranks on the card, launches a step on
+            # the dp x tp leg (two dp ranks), the ZeRO legs (four) and
+            # the Ulysses sp legs (four sp ranks, one op)
+            kernels[-1].update({
+                "mesh_dp_tp_launches_per_step":
+                msh["dp_tp"]["launches_per_step"][name],
+                "mesh_zero_launches_per_step": {
+                    str(z): msh["dp_tp"]["zero"][z]["launches_per_step"][name]
+                    for z in (0, 1, 3)},
+                "mesh_ulysses_launches_per_step": {
+                    t: msh["sp"]["ulysses_" + t]["launches_per_step"][name]
+                    for t in ("full", "causal")}})
         if name == "flash_attention_bwd":
             kernels[-1].update(bwd_long)
         if name == "paged_decode_attention":

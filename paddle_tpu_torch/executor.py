@@ -91,10 +91,14 @@ for it (``StepAttribution``) is on.  A capture emits the
 entry runs op by op and each Program op sits in a ``record_function``
 range (``op_scope``).
 
-Meshes: ``attach_mesh`` takes a mesh of one device, on which a step is
-the step without a mesh.  Not ported yet: the persistent compile cache
-(a CUDA graph cannot be saved), meshes of more than one device (ROADMAP
-A11.2) and the parameter-server runtime (A11.3).
+Meshes: ``attach_mesh`` takes a mesh of ranks (``parallel_executor.
+build_mesh``).  On one rank a step is the step without a mesh; on more,
+every op goes through ``mesh_step.MeshRun`` (the batch split over dp,
+the state laid out by its specs, ``ShardedTensor`` values in the scope),
+and the step binds and captures as any step does.  Not ported yet: the
+persistent compile cache (a CUDA graph cannot be saved), a mesh over
+ranks in several processes (ROADMAP A11.4) and the parameter-server
+runtime (A11.3).
 """
 from __future__ import annotations
 
@@ -114,6 +118,9 @@ from .core import f32_bf16_reduction, resolve_device, torch_dtype
 from .framework import Program, Variable, default_main_program, grad_var_name
 from .lod import LoDArray
 from .observability import xla_stats as _xla_stats
+from .parallel import collective as _collective
+from .parallel.sharded import (ShardedTensor, block_view, conform, gathered,
+                               tensors_of, with_tensors)
 from .registry import get_rule, reads_host
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
@@ -268,6 +275,8 @@ def as_numpy(tensor):
     so a later step that updates the tensor in place never changes it."""
     if isinstance(tensor, (list, tuple)):
         return [as_numpy(t) for t in tensor]
+    if isinstance(tensor, ShardedTensor):
+        tensor = tensor.full()
     if isinstance(tensor, torch.Tensor):
         return _to_host(tensor)
     return np.asarray(tensor)
@@ -515,7 +524,8 @@ class LoweringContext:
     the op-slot helpers the rules use."""
 
     def __init__(self, program, env, device, seed=0, step=0, is_test=False,
-                 reads=None, block_rows=None, keep_names=(), mesh=None):
+                 reads=None, block_rows=None, keep_names=(), mesh=None,
+                 feed_names=()):
         self.program = program
         self.env = env
         self.device = device
@@ -527,10 +537,16 @@ class LoweringContext:
         # product); the serving backends set SERVING_BLOCK_ROWS
         self.block_rows = block_rows
         # the Executor's mesh (``Executor.attach_mesh``; None: none
-        # attached).  The port runs one-device meshes only, on which the
-        # mesh-aware rules (``pipeline``, ``switch_moe``) take their
-        # single-device branch
+        # attached).  On a mesh of more than one rank every op goes
+        # through the mesh step's dispatch (``mesh_step.MeshRun``), which
+        # splits the feeds ``feed_names`` of ``env`` over the dp ranks
         self.mesh = mesh
+        self.mesh_run = None
+        if mesh is not None and mesh.size > 1:
+            from .mesh_step import MeshRun
+
+            self.mesh_run = MeshRun(mesh)
+            self.mesh_run.split_feeds(env, program, feed_names)
         self._seed = int(seed)
         self._step = int(step)
         self._reads = reads  # names some op or fetch reads (None = all)
@@ -768,7 +784,16 @@ def _propagate_lengths(ctx, op):
 def _run_rule(ctx, op):
     """Run ``op``'s rule on ``ctx``, then carry lengths to its outputs
     (``_propagate_lengths``).  Every op list of the executor runs its ops
-    through here: blocks, sub-blocks, recompute segments and captures."""
+    through here: blocks, sub-blocks, recompute segments and captures.
+    On a mesh of more than one rank the mesh step's dispatch decides how
+    the rule runs (``mesh_step.MeshRun.run``)."""
+    if ctx.mesh_run is not None:
+        ctx.mesh_run.run(ctx, op, _apply_rule)
+    else:
+        _apply_rule(ctx, op)
+
+
+def _apply_rule(ctx, op):
     if _op_scopes:
         with _in_op_scopes(op.type):
             get_rule(op.type)(ctx, op)
@@ -941,6 +966,7 @@ def lower_block(ctx: LoweringContext, block):
             raise KeyError("calc_gradient targets not produced by the program: %s" % bad_targets)
         tg_names = list(bop.inputs.get("TargetGradients") or [])
 
+    # a parameter laid out over a mesh (a ShardedTensor) is a leaf a block
     leaves = {w: ctx.env[w].detach().requires_grad_(True)
               for w in wrt_names if w in ctx.env}
     cut = set(wrt_names) if bop.type == "calc_gradient" else set()
@@ -974,18 +1000,23 @@ def lower_block(ctx: LoweringContext, block):
                     tv = tv * ctx.env[tg_names[i]].detach().float()
                 total = total + tv.sum()
             wrt_leaves = [leaves[w] for w in wrt_names]
-            grads = torch.autograd.grad(total, wrt_leaves, allow_unused=True)
-    for w, leaf, g in zip(wrt_names, wrt_leaves, grads):
-        if g is None:  # the targets do not reach this variable
-            g = torch.zeros_like(leaf)
-        elif g.dtype != leaf.dtype:
-            g = g.to(leaf.dtype)
-        ctx.env[grad_var_name(w)] = g
+            flat = [t for leaf in wrt_leaves for t in tensors_of(leaf)]
+            grads = iter(torch.autograd.grad(total, flat, allow_unused=True))
+    for w, leaf in zip(wrt_names, wrt_leaves):
+        gs = []
+        for t in tensors_of(leaf):
+            g = next(grads)
+            if g is None:  # the targets do not reach this variable
+                g = torch.zeros_like(t)
+            elif g.dtype != t.dtype:
+                g = g.to(t.dtype)
+            gs.append(g)
+        ctx.env[grad_var_name(w)] = with_tensors(leaf, gs)
         ctx.env[w] = leaf.detach()
     for i, t in enumerate(target_names):
         ctx.env[grad_var_name(t)] = (
             ctx.env[tg_names[i]].detach() if i < len(tg_names)
-            else torch.ones_like(ctx.env[t]).detach())
+            else torch.ones_like(gathered(ctx.env[t])).detach())
     with torch.no_grad():
         interpret_ops(ctx, post)
 
@@ -1048,27 +1079,51 @@ def _nan_guard(env, old, written, persistable, fetches, device):
     with torch.no_grad():
         for n in written:
             before, after = old.get(n), env[n]
-            if not (isinstance(before, torch.Tensor)
+            if isinstance(before, (torch.Tensor, ShardedTensor)):
+                after = _conform_like(after, before)
+            if not (isinstance(before, (torch.Tensor, ShardedTensor))
                     and before.shape == after.shape
                     and before.dtype == after.dtype):
                 continue
             if good is None:
                 probes = [g.float().sum() for g in (
                     env.get(grad_var_name(p)) for p in persistable)
-                    if isinstance(g, torch.Tensor) and g.is_floating_point()]
+                    if isinstance(g, (torch.Tensor, ShardedTensor))
+                    and g.is_floating_point()]
                 probes += [f.float().sum() for f in fetches
                            if isinstance(f, torch.Tensor)
                            and f.is_floating_point()]
                 good = (torch.isfinite(torch.stack(probes).sum()) if probes
                         else torch.ones((), dtype=torch.bool, device=device))
-            gated[n] = torch.where(good, after, before)
+            if isinstance(before, ShardedTensor):
+                gated[n] = with_tensors(before, [
+                    torch.where(good.to(b.device), a, b) for a, b in zip(
+                        tensors_of(after), tensors_of(before))])
+            else:
+                gated[n] = torch.where(good, after, before)
     return good, gated
+
+
+def _conform_like(v, like):
+    """``v`` laid out as the state value ``like`` is (a plain tensor, or a
+    ShardedTensor of ``like``'s spec)."""
+    if isinstance(like, ShardedTensor):
+        return conform(v, like.mesh, like.spec)
+    return gathered(v)
+
+
+def _storage_ptrs(t):
+    if isinstance(t, ShardedTensor):
+        return t.storage_ptrs()
+    return {t.untyped_storage().data_ptr()}
 
 
 def _is_state_buffer(old, new):
     """Whether ``old`` is a captured step's state buffer (a tensor the
     graphs that read it update in place; the first capture that writes a
     persistable makes one and marks it) that ``new`` can be copied into."""
+    if isinstance(old, ShardedTensor):
+        return old._graph_state and old.same_layout(new)
     return (getattr(old, "_graph_state", False)
             and isinstance(new, torch.Tensor) and old.shape == new.shape
             and old.dtype == new.dtype and old.device == new.device)
@@ -1087,8 +1142,9 @@ def _written(env, state, names):
     out = []
     for n in names:
         new, old = env.get(n), state.get(n)
-        if (isinstance(new, torch.Tensor) and new is not old
+        if (isinstance(new, (torch.Tensor, ShardedTensor)) and new is not old
                 and not (isinstance(old, torch.Tensor)
+                         and isinstance(new, torch.Tensor)
                          and _is_view_of(new, old))):
             out.append(n)
     return out
@@ -1373,7 +1429,8 @@ class _BoundProgram:
                  "state_owners", "key_owner", "fetch_names", "reads",
                  "persistable", "written", "rng_keys", "nan_guard", "step",
                  "graph", "static_feeds", "state", "fetch_out", "good_out",
-                 "generators", "launches", "capture_s", "pool_bytes", "xla")
+                 "generators", "launches", "engines", "capture_s",
+                 "pool_bytes", "xla")
 
 
 def _scope_chain_token(scope):
@@ -1395,8 +1452,8 @@ def _program_tag(program):
 
 def _feed_kind(val):
     """(shape, dtype, device) of a feed the fast path can take — a numpy
-    array (device None) or a tensor — else None."""
-    if isinstance(val, torch.Tensor):
+    array (device None), a tensor or a ShardedTensor — else None."""
+    if isinstance(val, (torch.Tensor, ShardedTensor)):
         return tuple(val.shape), val.dtype, val.device
     if isinstance(val, (np.ndarray, np.generic)):
         return tuple(val.shape), val.dtype, None
@@ -1412,17 +1469,22 @@ def _graph_outputs(fetch_names, persistable, nan_guard, ctx, state):
     env = ctx.env
     fetches = [v for v, _, _ in Executor._gather_fetches(env, fetch_names)]
     written = _written(env, state, persistable)
-    new = {n: env[n] for n in written}
+    new = {n: _conform_like(env[n], state[n]) if n in state else env[n]
+           for n in written}
     good = None
     if nan_guard:
         good, gated = _nan_guard(env, state, written, persistable, fetches,
                                  ctx.device)
         new.update(gated)
     with torch.no_grad():
-        targets = {state[n].untyped_storage().data_ptr() for n in written
-                   if n in state}
+        targets = set()
+        for n in written:
+            if n in state:
+                targets |= _storage_ptrs(state[n])
 
         def own(t):
+            if isinstance(t, ShardedTensor):
+                return t.map(own)
             if t.untyped_storage().data_ptr() in targets:
                 return t.clone()
             return t
@@ -1510,8 +1572,12 @@ class Executor:
         # bound-program dispatch: False runs every step op by op, as
         # ``use_program_cache=False`` does (ParallelExecutor.fast_path)
         self.fast_path = True
-        # the mesh of attach_mesh (None: none attached)
+        # the mesh of attach_mesh (None: none attached), its tp rules and
+        # ZeRO stage, and the state specs planned under it by program
         self._mesh = None
+        self._sharding_rules = None
+        self._zero_stage = 0
+        self._state_plans = {}
 
     def attach_mesh(self, mesh_spec, sharding_rules=None, zero_stage=0,
                     devices=None):
@@ -1522,12 +1588,15 @@ class Executor:
         every card for an Executor on a card, the Executor's device on
         the CPU.
 
-        The port runs one-device meshes: the mesh's device must be the
-        Executor's, and the steps, their bound entries and CUDA graphs are
-        those of ``run`` without a mesh; ``sharding_rules`` and
-        ``zero_stage`` change no number on one device, as in the JAX
-        package, and are not kept.  A mesh of more than one device raises
-        ``NotImplementedError`` (ROADMAP A11.2).  The bound entries (their
+        ``devices`` may name one device more than once: ranks that share
+        it (``["cuda:0"] * 4`` on one card, ``["cpu"] * 8`` on the CPU).
+        The mesh's first rank must be on the Executor's device.  On a mesh
+        of one rank the steps, their bound entries and CUDA graphs are
+        those of ``run`` without a mesh, and ``sharding_rules`` and
+        ``zero_stage`` change no number, as in the JAX package.  On more
+        ranks a step is the mesh step (``mesh_step``): the feeds split
+        over dp, the state laid out by tp, pp and ZeRO, bound and captured
+        as one CUDA graph as any step is.  The bound entries (their
         graphs) and the count cells are dropped, as the JAX package drops
         what it compiled under the previous mesh."""
         from .parallel_executor import _card_devices, build_mesh
@@ -1536,18 +1605,15 @@ class Executor:
             devices = (_card_devices() if self.device.type == "cuda"
                        else [self.device])
         mesh = build_mesh(mesh_spec, devices)
-        if mesh.size > 1:
-            raise NotImplementedError(
-                "a mesh of %d devices (%s) is not ported to paddle_tpu_torch "
-                "yet: the multi-device engines wait for ROADMAP A11.2"
-                % (mesh.size, mesh.shape))
-        (mesh_dev,) = mesh.devices.flat
-        if mesh_dev != self.device:
+        if mesh.device(0) != self.device:
             raise ValueError(
-                "the mesh's device %s is not this Executor's (%s)"
-                % (mesh_dev, self.device))
+                "the mesh's first device %s is not this Executor's (%s)"
+                % (mesh.device(0), self.device))
         self.close()
         self._mesh = mesh
+        self._sharding_rules = sharding_rules
+        self._zero_stage = int(zero_stage or 0)
+        self._state_plans = {}
         return mesh
 
     def run(
@@ -1667,7 +1733,7 @@ class Executor:
             ctx = LoweringContext(
                 program, {**state_in, **feeds}, self.device, seed, step,
                 reads=reads, block_rows=self.block_rows,
-                keep_names=fetch_names, mesh=self._mesh)
+                keep_names=fetch_names, mesh=self._mesh, feed_names=feeds)
             with self._telemetry.span("executor.dispatch"):
                 with f32_bf16_reduction(self.device):
                     if xs and cell is None:
@@ -1699,7 +1765,13 @@ class Executor:
             ctx = lower()
         fetches = self._gather_fetches(ctx.env, fetch_names)
         new_state = {n: ctx.env[n] for n in persistable
-                     if isinstance(ctx.env.get(n), torch.Tensor)}
+                     if isinstance(ctx.env.get(n), (torch.Tensor, ShardedTensor))}
+        if self._multi_rank():
+            # each written value laid out by its state spec again (a ZeRO
+            # update's slices gathered into the parameter)
+            new_state = {n: v if v is state_in.get(n) else
+                         self._state_layout(program, n, v)
+                         for n, v in new_state.items()}
         written = _written(ctx.env, state_in, new_state)
         if counts:
             st = counts[-1].finish(
@@ -1830,7 +1902,7 @@ class Executor:
             if f not in env:
                 raise KeyError("fetch target %r was not produced by the "
                                "program" % f)
-            out.append((env[f], env.get(f + "@LENGTHS"),
+            out.append((gathered(env[f]), env.get(f + "@LENGTHS"),
                         env.get(f + "@SUBLENGTHS")))
         return out
 
@@ -1995,6 +2067,11 @@ class Executor:
                 window = self._clock.start(stream)
             for name, val in feed.items():
                 static = bound.static_feeds[name]
+                if isinstance(val, ShardedTensor):
+                    # a per-rank feed list's rows, each block into its rows
+                    for idx, b in val.blocks.items():
+                        block_view(static, idx, val.splits()).copy_(b)
+                    continue
                 if (isinstance(val, torch.Tensor)
                         and val.device.type == self.device.type):
                     static.copy_(val)
@@ -2025,6 +2102,7 @@ class Executor:
             elif bound.graph is not None:
                 bound.graph.replay()
                 fa.add_launches(bound.launches)
+                _collective.add_engine_runs(bound.engines)
                 outs, good = bound.fetch_out, bound.good_out
             else:
                 outs, good = bound.step()
@@ -2084,7 +2162,8 @@ class Executor:
             env.update(static_feeds)
             ctx = current[0] = LoweringContext(
                 program, env, dev, seed, step, reads=reads,
-                block_rows=block_rows, keep_names=outputs[0], mesh=mesh)
+                block_rows=block_rows, keep_names=outputs[0], mesh=mesh,
+                feed_names=static_feeds)
             ctx.generators = generators
             with f32_bf16_reduction(dev):
                 lower_block(ctx, program.global_block())
@@ -2102,9 +2181,16 @@ class Executor:
             with self._lock:
                 pool = next((b.graph.pool() for b in self._bound.values()
                              if b.graph is not None), None)
+            engines = dict(_collective.ENGINE_RUNS)
             (fetch_out, good_out), launches, seconds, grown = _capture(
                 graph, dev, body, lambda: getattr(current[0], "op", None),
                 pool=pool)
+            # the multi-rank engines the capture recorded: each replay, the
+            # one that follows the capture included, counts them, as the
+            # kernel wrappers' recorded launches count
+            bound.engines = {k: v - engines[k]
+                             for k, v in _collective.ENGINE_RUNS.items()}
+            _collective.ENGINE_RUNS.update(engines)
             bound.graph, bound.fetch_out, bound.good_out = (
                 graph, fetch_out, good_out)
             bound.launches, bound.capture_s, bound.pool_bytes = (
@@ -2161,6 +2247,13 @@ class Executor:
                     out[name + "@SUBLENGTHS"] = _as_tensor(
                         val.sub_lengths, torch.int32, self.device)
                 val = val.data
+            if isinstance(val, ShardedTensor):
+                # per-rank rows already on their ranks' devices
+                want = (torch_dtype(blk.var(name).dtype)
+                        if blk.has_var(name) and blk.var(name).dtype else None)
+                out[name] = val if want in (None, val.dtype) else val.map(
+                    lambda b, want=want: b.to(want))
+                continue
             if not isinstance(val, torch.Tensor):
                 val = np.asarray(val)
             if not (isinstance(val, torch.Tensor)
@@ -2218,12 +2311,94 @@ class Executor:
             var = blk.var(name) if blk.has_var(name) else None
             dtype = (torch_dtype(var.dtype) if var is not None and var.dtype
                      else None)
-            if (not isinstance(val, torch.Tensor) or val.device != self.device
+            if isinstance(val, ShardedTensor) and (
+                    not self._multi_rank() or val.mesh is not self._mesh
+                    or (dtype is not None and val.dtype != dtype)):
+                val = val.full()  # laid out over another mesh, or none
+            if (not isinstance(val, (torch.Tensor, ShardedTensor))
+                    or (isinstance(val, torch.Tensor)
+                        and val.device != self.device)
                     or (dtype is not None and val.dtype != dtype)):
                 val = _as_tensor(val, dtype, self.device)
                 owner.vars[name] = val
             state[name] = val
+        if self._multi_rank():
+            # the state lives laid out by its specs: each rank its block
+            specs = self._plan_state(program, state)
+            for name, val in state.items():
+                laid = conform(val, self._mesh, specs.get(name, ()))
+                if laid is not val:
+                    scope._owner(name).vars[name] = state[name] = laid
         return state
+
+    # -- meshes of more than one rank ----------------------------------------
+    def _multi_rank(self):
+        return self._mesh is not None and self._mesh.size > 1
+
+    def _plan_state(self, program, state):
+        """Each state value's spec under the attached mesh
+        (``mesh_step.plan_state_specs``), kept for the program version."""
+        from .mesh_step import plan_state_specs
+
+        key = (id(program), program.version)
+        plan = self._state_plans.get(key)
+        if plan is None or not set(state) <= set(plan):
+            plan = plan_state_specs(program, state, self._mesh,
+                                    self._sharding_rules, self._zero_stage)
+            self._state_plans[key] = plan
+        return plan
+
+    def _state_layout(self, program, name, value):
+        plan = self._state_plans.get((id(program), program.version), {})
+        return conform(value, self._mesh, plan.get(name, ()))
+
+    def plan_feed_shardings(self, program, feeds):
+        """The spec each feed takes under the attached mesh — ``("dp",)``
+        for a declared data var whose batch divides the dp axis,
+        replicated (``()``) otherwise; None without a mesh.  The JAX
+        package returns ``NamedSharding``s of these specs."""
+        if self._mesh is None:
+            return None
+        from .mesh_step import plan_feed_specs
+
+        return plan_feed_specs(program, feeds, self._mesh)
+
+    def state_specs(self, scope=None, program=None):
+        """Each persistable's layout, as the reference's spec tuple
+        (trailing Nones dropped; ``()`` replicated): of ``program``'s
+        persistables where given, else of every value in ``scope``."""
+        from .parallel.sharded import layout_spec
+
+        scope = scope or global_scope()
+        names = (program.persistable_names() if program is not None
+                 else list(scope.vars))
+        out = {}
+        for n in names:
+            owner = scope._owner(n)
+            v = owner.vars.get(n) if owner is not None else None
+            if isinstance(v, (torch.Tensor, ShardedTensor)):
+                out[n] = layout_spec(v)
+        return out
+
+    def rank_state_bytes(self, scope=None, program=None):
+        """Bytes of state each rank of the attached mesh holds, in rank
+        order (a replicated value counts in full on every rank)."""
+        scope = scope or global_scope()
+        names = (program.persistable_names() if program is not None
+                 else list(scope.vars))
+        n_ranks = self._mesh.size if self._mesh is not None else 1
+        total = [0] * n_ranks
+        for n in names:
+            owner = scope._owner(n)
+            v = owner.vars.get(n) if owner is not None else None
+            if isinstance(v, ShardedTensor):
+                per = v.rank_bytes()
+            elif isinstance(v, torch.Tensor):
+                per = [v.nelement() * v.element_size()] * n_ranks
+            else:
+                continue
+            total = [a + b for a, b in zip(total, per)]
+        return total
 
     @staticmethod
     def _rng_state(program, scope):

@@ -6,9 +6,10 @@ ONE stage's computation as a sub-block; parameters created inside get a
 leading ``[num_stages]`` axis (stacked — the homogeneous-pipeline
 contract), and the emitted ``pipeline`` op (``ops/pipeline_ops.py``)
 runs the stages in sequence on one device: the batch split into
-``num_microbatches``, each microbatch through every stage.  The
-multi-device schedules (GPipe over a ``pp`` mesh axis, the circular
-one) wait for ROADMAP A11.2; the stacked layout is already theirs.
+``num_microbatches``, each microbatch through every stage; over a
+``pp`` mesh axis it runs the GPipe or the circular schedule
+(``parallel/pipeline.py``), each rank with its block of the stacked
+parameters.
 
 Example::
 

@@ -8,15 +8,21 @@ scaled by its gate probability, so the gate's gradient flows through the
 combine.  The JAX package computes these products as ``einsum``s outside
 any Pallas kernel, so they are ``torch.einsum`` here (cuBLAS on the
 card).  ``capacity_factor`` only bounds the expert-parallel engine's
-slots; with every token on every expert nothing is dropped.  That engine
-(an ``ep`` mesh axis of more than one device) waits for ROADMAP A11.2;
-the executor accepts only one-device meshes.
+slots; with every token on every expert nothing is dropped.
+
+An executor mesh with an ``ep`` axis whose size is the expert count
+(above 1, dividing the token count) is the opt-in to the expert-parallel
+engine (``parallel/moe.py:switch_moe``), as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from ..registry import register
+
+
+def _expert_fn(p, toks):
+    return torch.relu(toks @ p["w1"]) @ p["w2"]
 
 
 @register("switch_moe")
@@ -29,6 +35,17 @@ def _switch_moe(ctx, op):
     D = x.shape[-1]
     xt = x.reshape(-1, D)
     B = xt.shape[0]
+    E = w1.shape[0]
+    mesh = ctx.mesh
+    ep = mesh.axis_size("ep") if mesh is not None else 0
+    if ep > 1 and ep == E and B % ep == 0:
+        from ..parallel.moe import switch_moe as moe_engine
+
+        out = moe_engine(xt, gate_w, {"w1": w1, "w2": w2}, _expert_fn, mesh,
+                         axis_name="ep",
+                         capacity_factor=float(op.attrs.get("capacity_factor", 2.0)))
+        ctx.set_output(op, "Out", out.reshape(lead + (D,)))
+        return
 
     probs = torch.softmax(xt @ gate_w, dim=-1)             # [B, E]
     choice = probs.argmax(-1)                              # [B]

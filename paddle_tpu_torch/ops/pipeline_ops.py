@@ -15,10 +15,13 @@ backward meta-op: ``torch.autograd.grad`` through those slices.  Every
 operation runs on the device, so a Program holding the op binds and
 replays as one CUDA graph.
 
-A mesh with a ``pp`` axis of more than one device (the GPipe and
-circular schedules) waits for ROADMAP A11.2; the executor accepts only
-one-device meshes, on which this branch is the whole rule, as it is in
-the JAX package.
+An executor mesh with a ``pp`` axis is the opt-in to the multi-rank
+schedules (``parallel/pipeline.py``), as in the JAX package: the GPipe
+engine when the axis size is ``num_stages`` (no repeats), the circular
+one when it is ``num_stages / circular_repeats``.  Each rank's stage
+runs the sub-block with its slice of the stacked parameters; under the
+executor's mesh step those are split over the ``pp`` ranks, and each
+rank reads its own block.
 """
 from __future__ import annotations
 
@@ -50,7 +53,41 @@ def _pipeline(ctx, op):
         raise ValueError(
             "pipeline batch %d is not divisible by num_microbatches %d"
             % (B, M))
-    slices = {n: p.unbind(0) for n, p in zip(locals_, params)}
+    mesh = ctx.mesh
+    pp = mesh.axis_size("pp") if mesh is not None else 0
+    if pp > 1 and ((R > 1 and pp == n_dev) or (R == 1 and pp == S)):
+        from ..parallel import pipeline as engines
+        from ..parallel.sharded import gathered
+
+        def stage_fn(pdict, h, side, device):
+            env = dict(ctx.env)
+            env.update(pdict)
+            env.update(side)
+            env[in_local] = h
+            c = ctx.child(env)
+            c.device = device
+            interpret_ops(c, sub.ops)
+            if env[out_local].shape != h.shape:
+                raise ValueError(
+                    "pipeline stages must preserve the activation shape "
+                    "(homogeneous contract): input %s vs output %s"
+                    % (tuple(h.shape), tuple(env[out_local].shape)))
+            return env[out_local]
+
+        stacked = dict(zip(locals_, params))
+        sides = {n: gathered(v) for n, v in zip(side_locals, side_vals)}
+        if R > 1:
+            out = engines.pipeline_apply_circular(
+                stage_fn, stacked, x, mesh, M, R, axis_name="pp",
+                side_inputs=sides)
+        else:
+            out = engines.pipeline_apply(stage_fn, stacked, x, mesh, M,
+                                         axis_name="pp", side_inputs=sides)
+        ctx.set_output(op, "Out", out)
+        return
+    from ..parallel.sharded import gathered
+
+    slices = {n: gathered(p).unbind(0) for n, p in zip(locals_, params)}
     rows = [circular_stage_index(v, n_dev, R) if R > 1 else v
             for v in range(S)]
     mb = B // M

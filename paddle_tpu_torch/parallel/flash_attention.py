@@ -106,11 +106,18 @@ def _count_launch(*names, dtype):
     ``dtype``, the dtype of the tensors it ran on (the increments of two
     serving threads must not lose one another's).  On a stream being
     captured (the autograd thread runs a backward on its forward's
-    stream) the launch goes to that capture's record instead."""
+    stream) the launch goes to that capture's record instead; so does a
+    launch on a stream forked into the capture (a pipeline stage's
+    stream, ``parallel.collective.RankStreams``): one capture runs at a time in
+    the process (``executor._CAPTURE_LOCK``)."""
     key = str(dtype).replace("torch.", "")
     with _LAUNCH_LOCK:
-        record = (_RECORDERS.get(torch.cuda.current_stream().cuda_stream)
-                  if _RECORDERS else None)
+        record = None
+        if _RECORDERS:
+            record = _RECORDERS.get(torch.cuda.current_stream().cuda_stream)
+            if (record is None and len(_RECORDERS) == 1
+                    and torch.cuda.is_current_stream_capturing()):
+                record = next(iter(_RECORDERS.values()))
         for name in names:
             if record is not None:
                 record[(name, key)] = record.get((name, key), 0) + 1

@@ -6,14 +6,18 @@ record of devices laid out on named axes (``build_mesh``), and every
 entry point that takes one — ``ParallelExecutor``, ``Trainer(parallel=)``,
 ``Inferencer(parallel=)`` — goes through ``Executor.attach_mesh``.
 
-This is the one-device half: a mesh of one device (the card, or the CPU
-when asked) runs the Program exactly as ``Executor.run`` does, the bound
-step and its CUDA graph included, and ``sharding_rules`` and
-``zero_stage`` change no number, as in the JAX package on one device.  A
-mesh of more than one device (the data-, tensor-, sequence-, expert- and
-pipeline-parallel engines, ZeRO) waits for ROADMAP A11.2 and raises
-``NotImplementedError``; a mesh that needs more devices than are given
-raises the JAX package's ``ValueError``.
+A mesh is a list of ranks (``parallel.collective.Mesh``), and the list
+may name one device more than once: ``devices=["cuda:0"] * 4`` runs four
+ranks on one card, ``devices=["cpu"] * 8`` eight on the CPU, as the JAX
+package's tests run eight virtual CPU devices.  ``devices=None`` is every
+card.  A mesh of one rank runs the Program exactly as ``Executor.run``
+does, the bound step and its CUDA graph included.  On more ranks the step
+is the executor's mesh step (``mesh_step``): the batch split over ``dp``,
+parameters laid out over ``tp`` (``sharding_rules``), ZeRO
+(``zero_stage``), and the ``sp``, ``ep`` and ``pp`` engines of the
+attention, ``switch_moe`` and ``pipeline`` rules; fetches come back as
+global values.  A mesh that needs more ranks than are given raises the
+JAX package's ``ValueError``.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from . import observability as _obs
 from .core import resolve_device
 from .executor import Executor, global_scope
 from .framework import default_main_program, Variable
+from .parallel.collective import Mesh
 
 __all__ = ["ParallelExecutor", "ExecutionStrategy", "BuildStrategy", "build_mesh",
            "Mesh"]
@@ -59,33 +64,10 @@ class BuildStrategy:
         # reference is dp-only): mesh_shape, a (dp, tp[, sp]) tuple or an
         # {axis: size} dict; sharding_rules, [(param_name_regex, spec)]
         # overrides of the tensor-parallel split; zero_stage, 0 (off),
-        # 1 (optimizer accumulators dp-sharded) or 3 (parameters too).
-        # On one device none of them changes a number
+        # 1 (optimizer accumulators dp-sharded) or 3 (parameters too)
         self.mesh_shape = None
         self.sharding_rules = None
         self.zero_stage = 0
-
-
-class Mesh:
-    """Devices laid out on named axes: ``devices`` is a numpy object array
-    of ``torch.device`` shaped by the axes, ``axis_names`` their names, and
-    ``shape`` maps each name to its size (as a ``jax.sharding.Mesh``'s
-    does)."""
-
-    def __init__(self, devices, axis_names):
-        self.devices = devices
-        self.axis_names = tuple(axis_names)
-
-    @property
-    def shape(self):
-        return dict(zip(self.axis_names, self.devices.shape))
-
-    @property
-    def size(self):
-        return int(self.devices.size)
-
-    def __repr__(self):
-        return "Mesh(%s, devices=%s)" % (self.shape, [str(d) for d in self.devices.flat])
 
 
 def _card_devices():
@@ -95,9 +77,11 @@ def _card_devices():
 
 
 def build_mesh(mesh_shape=None, devices=None):
-    """(dp, tp[, sp]) tuple / {axis: size} dict / None -> :class:`Mesh`.
-    None or True means a 1-D data-parallel mesh over all devices;
-    ``devices=None`` means every card's device."""
+    """(dp, tp[, sp]) tuple / {axis: size} dict (any axis names: ``dp``,
+    ``tp``, ``sp``, ``ep``, ``pp``) / None -> :class:`Mesh`.  None or True
+    means a 1-D data-parallel mesh over all ranks; ``devices`` lists the
+    ranks' devices, repeats allowed, and None means every card's
+    device."""
     devs = [resolve_device(d) for d in (devices if devices is not None
                                         else _card_devices())]
     if not mesh_shape or mesh_shape is True:
@@ -111,8 +95,7 @@ def build_mesh(mesh_shape=None, devices=None):
     need = int(np.prod(sizes))
     if need > len(devs):
         raise ValueError(
-            "mesh_shape %r needs %d devices, only %d available (meshes of "
-            "more than one device wait for ROADMAP A11.2)"
+            "mesh_shape %r needs %d devices, only %d available"
             % (mesh_shape, need, len(devs)))
     grid = np.empty(need, dtype=object)
     for i, d in enumerate(devs[:need]):
@@ -123,7 +106,8 @@ def build_mesh(mesh_shape=None, devices=None):
 class ParallelExecutor:
     """``ParallelExecutor(loss_name=..., main_program=...)``: runs the
     Program over a mesh (``mesh_shape``, else ``build_strategy.mesh_shape``,
-    else every device of ``devices``; ``devices=None`` is every card).
+    else every rank of ``devices``; ``devices=None`` is every card, and a
+    device may be named more than once).
     ``use_cuda``, ``use_tpu``, ``exec_strategy``, ``num_trainers`` and
     ``trainer_id`` are taken for the reference's signature and steer
     nothing, as in the JAX package."""
@@ -195,7 +179,7 @@ class ParallelExecutor:
         feed = feed if feed is not None else feed_dict
         if isinstance(feed, list):
             # the reference's per-device feed lists: each data var's
-            # entries land in one batch on the mesh's device
+            # entries land on their ranks' devices, one global batch
             # (reader.device_prefetch.shard_feed_list)
             from .reader.device_prefetch import shard_feed_list
 

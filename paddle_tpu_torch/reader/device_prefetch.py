@@ -46,8 +46,8 @@ Usage::
 
 ``Trainer.train``/``Trainer.test`` route readers through this
 automatically (opt out per call with ``prefetch=False``).
-``shard_feed_list`` stitches ``ParallelExecutor.run``'s feed lists into
-one batch on a one-device mesh; more devices wait for ROADMAP A11.2.
+``shard_feed_list`` places ``ParallelExecutor.run``'s per-rank feed
+lists: each entry on its rank's device, with no host concatenation.
 """
 from __future__ import annotations
 
@@ -212,39 +212,56 @@ def put_feed_on_device(feed, executor, program=None):
 
 
 def shard_feed_list(feed_list, mesh, data_names, program=None):
-    """Per-device feed dicts -> ONE global feed dict, on a one-device mesh.
+    """Per-rank feed dicts -> ONE global feed dict, with no full-batch
+    concatenation on the host.
 
     Each declared data var whose entries are host arrays of one shape and
-    dtype is cast to its declared dtype and copied, entry by entry, into
-    its rows of one batch on the mesh's device (one transfer an entry,
-    counted by ``transfer_count``), with no full-batch concatenation on
-    the host.  Everything else (non-data vars, ragged or mixed entries)
-    concatenates on the host, and a single-entry list keeps the caller's
-    value.  A mesh of more than one device waits for ROADMAP A11.2."""
-    if mesh is None or mesh.size != 1:
-        raise NotImplementedError(
-            "device_prefetch.shard_feed_list over %s is not ported to "
-            "paddle_tpu_torch yet: a feed list over more than one device "
-            "waits for ROADMAP A11.2" % (mesh,))
-    (device,) = mesh.devices.flat
+    dtype is cast to its declared dtype and copied, entry by entry, to
+    the device where its rows belong (one transfer an entry, counted by
+    ``transfer_count``):
+    - on a 1-D ``("dp",)`` mesh of ``len(feed_list)`` ranks, entry ``i``
+      onto rank ``i``'s device, the global batch a ``ShardedTensor``
+      split on its rows over dp (the JAX package stitches its global
+      array from the same shards);
+    - on a one-rank mesh, each entry into its rows of one batch on that
+      rank's device.
+    Everything else (non-data vars, ragged or mixed entries, another
+    mesh, no mesh) concatenates on the host, and a single-entry list keeps
+    the caller's value."""
+    from ..parallel.sharded import ShardedTensor
+
     per_key = {}
     for d in feed_list:
         for k, v in d.items():
             per_key.setdefault(k, []).append(v)
+    one = mesh is not None and mesh.size == 1
+    split = (mesh is not None and mesh.devices.ndim == 1
+             and mesh.axis_names[0] == "dp" and mesh.size == len(feed_list)
+             and mesh.size > 1)
     block = program.global_block() if program is not None else None
     out = {}
     for k, vals in per_key.items():
         shapes = {tuple(np.shape(v)) for v in vals}
         hosts = [_host_value(v) for v in vals]
-        if (k in data_names and len(vals) > 1 and len(shapes) == 1
-                and np.ndim(vals[0]) >= 1
+        if ((one or split) and k in data_names and len(vals) > 1
+                and len(shapes) == 1 and np.ndim(vals[0]) >= 1
                 and all(isinstance(v, (np.ndarray, np.generic)) for v in vals)
                 and len({h.dtype for h in hosts}) == 1):
             want = _declared_dtype(block, k) if block is not None else None
             want = want or hosts[0].dtype
             n = hosts[0].shape[0]
-            batch = torch.empty((len(hosts) * n,) + tuple(hosts[0].shape[1:]),
-                                dtype=want, device=device)
+            rest = tuple(hosts[0].shape[1:])
+            if split:
+                parts = {}
+                for i, h in enumerate(hosts):
+                    _transfers.inc()
+                    parts[(i,) + (0,) * len(rest)] = h.to(
+                        device=mesh.device(i), dtype=want)
+                out[k] = ShardedTensor(mesh, ("dp",), parts,
+                                       (len(hosts) * n,) + rest)
+                continue
+            batch = torch.empty((len(hosts) * n,) + rest, dtype=want,
+                                device=mesh.device(0))
             for i, h in enumerate(hosts):
                 _transfers.inc()
                 batch[i * n:(i + 1) * n].copy_(h.to(want))

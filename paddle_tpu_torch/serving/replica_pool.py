@@ -61,7 +61,8 @@ own :class:`~.decode_scheduler.DecodeScheduler` (own ``PagedKVCache``,
 own step graphs and their pools, own breaker
 ``serving.replica.decode_breaker_<i>``) over the ONE shared
 ``DecodeModel``, whose weights are read-only on ``model.device``;
-replicas on another device raise (multi-GPU placement is ROADMAP A11.2).
+replicas on another device raise (placement on other cards is ROADMAP
+A11.4).
 A shared decode queue is claimed least-loaded by free slots (ties claim)
 with prefix affinity: a head whose prompt's warm pages live on one
 replica waits there while the hint is fresh.  Generation is durable: when
@@ -486,7 +487,7 @@ class ReplicaPool:
                 raise NotImplementedError(
                     "decode replicas on %s, but the decode model lives on "
                     "%s: placing a decode model's replicas on other "
-                    "devices is not ported yet (ROADMAP A11.2)"
+                    "devices is not ported yet (ROADMAP A11.4)"
                     % (", ".join(away), decode_model.device))
         self.min_replicas = max(1, int(min_replicas))
         self.max_replicas = min(n, int(max_replicas)) if max_replicas \

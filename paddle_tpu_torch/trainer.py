@@ -16,8 +16,8 @@ JAX package's ``rng_key.npy`` (a jax PRNG key) is validated and ignored
 on load, with a warning, and the program's seed kept.
 ``Trainer(parallel=...)`` (with ``sharding_rules`` and ``zero_stage``) and
 ``Inferencer(parallel=...)`` attach their mesh through
-``Executor.attach_mesh``: a one-device mesh runs as without one, and a
-mesh of more devices raises (ROADMAP A11.2).
+``Executor.attach_mesh``: a one-rank mesh runs as without one, more
+ranks run the executor's mesh step; ``devices=`` names the ranks.
 
 Reference: python/paddle/fluid/contrib/trainer.py (Trainer, the four
 *Event classes, CheckpointConfig) and contrib/inferencer.py.  The
@@ -417,13 +417,17 @@ class Trainer:
 
     def __init__(self, train_func, optimizer_func, param_path=None, place=None,
                  parallel=False, checkpoint_config=None, sharding_rules=None,
-                 zero_stage=0, use_program_cache=True, resume=True):
-        """``parallel`` (True: a 1-D dp mesh over every device of
-        ``place``; or a mesh spec, ``parallel_executor.build_mesh``),
+                 zero_stage=0, use_program_cache=True, resume=True,
+                 devices=None):
+        """``parallel`` (True: a 1-D dp mesh over every rank of
+        ``devices``; or a mesh spec, ``parallel_executor.build_mesh``),
         ``sharding_rules`` and ``zero_stage`` go to
-        ``Executor.attach_mesh``: on a one-device mesh the steps are those
-        of ``parallel=False``, and a mesh of more than one device raises
-        ``NotImplementedError`` (ROADMAP A11.2).
+        ``Executor.attach_mesh``: on a one-rank mesh the steps are those of
+        ``parallel=False``, on more ranks they are the executor's mesh
+        step.  ``devices`` (a port addition, as ``ParallelExecutor``'s)
+        lists the ranks' devices, a device named more than once for ranks
+        that share it; None is every card for a place on the card, the
+        place's device on the CPU.
 
         ``use_program_cache``: keep the executor's bound entries (one
         CUDA graph a step on the card) hot across steps (default).  On a
@@ -467,7 +471,7 @@ class Trainer:
         self.exe = Executor(self.place)
         if parallel:
             self.exe.attach_mesh(parallel, sharding_rules=sharding_rules,
-                                 zero_stage=zero_stage)
+                                 zero_stage=zero_stage, devices=devices)
         with scope_guard(self.scope):
             self.exe.run(self.startup_program)
             if param_path:
@@ -807,7 +811,8 @@ class Inferencer:
     """infer_func() -> prediction var(s); loads params from param_path
     (reference: contrib/inferencer.py)."""
 
-    def __init__(self, infer_func, param_path, place=None, parallel=False):
+    def __init__(self, infer_func, param_path, place=None, parallel=False,
+                 devices=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.scope = Scope()
         self.startup_program = Program()
@@ -818,9 +823,9 @@ class Inferencer:
                 self.predict_vars = list(outs) if isinstance(outs, (list, tuple)) else [outs]
         self.exe = Executor(self.place)
         if parallel:
-            # the mesh of every device of ``place`` (True) or a
-            # Trainer-style mesh spec: one device runs as without it
-            self.exe.attach_mesh(parallel)
+            # the mesh of every rank of ``devices`` (True) or a
+            # Trainer-style mesh spec: one rank runs as without it
+            self.exe.attach_mesh(parallel, devices=devices)
         with scope_guard(self.scope):
             self.exe.run(self.startup_program)
             io_mod.load_persistables(self.exe, param_path, main_program=self.inference_program)

@@ -393,7 +393,12 @@ def test_prefetcher_casts_to_declared_dtype_off_critical_path():
 
 
 def test_mesh_feed_lists_raise_naming_a11():
-    # a one-device mesh stitches its feed list (test_torch_parallel_executor);
-    # no mesh, or one of more devices, waits for A11.2
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        device_prefetch.shard_feed_list([{}], None, [])
+    # no mesh: the feed list concatenates on the host, as the JAX
+    # package's does (a mesh of ranks places each entry on its rank:
+    # test_torch_mesh_executor.py)
+    assert device_prefetch.shard_feed_list([{}], None, []) == {}
+    rng = np.random.RandomState(4)
+    parts = [{"x": rng.randn(2, WIDTH).astype("float32")} for _ in range(3)]
+    got = device_prefetch.shard_feed_list(parts, None, {"x"})
+    want = jdevice_prefetch.shard_feed_list(parts, None, {"x"})
+    assert got["x"].tobytes() == np.asarray(want["x"]).tobytes()

@@ -1,6 +1,7 @@
 """The port's ``ParallelExecutor``, ``build_mesh``, ``Executor.attach_mesh``,
 ``shard_feed_list``, ``layers.get_places`` and ``Trainer(parallel=)`` on a
-one-device mesh, on the CPU.
+one-device mesh, on the CPU, and their first step onto two ranks (the
+multi-rank cases are ``test_torch_mesh_executor.py``'s).
 
 The one-device cases of ``tests/unittests/test_parallel_executor.py``:
 the port's ``ParallelExecutor`` on the CPU against the JAX package's on
@@ -9,9 +10,10 @@ from the same numpy parameters and batches: each loss within LOSS_RTOL
 and the first weight within the reference test's rtol 1e-5, atol 1e-6.
 Port against port (``ParallelExecutor`` against ``Executor.run``,
 ``Trainer(parallel=True)`` against ``Trainer()``, a feed list against
-its merged dict): bitwise.  A mesh of more than one device raises
-``NotImplementedError`` naming ROADMAP A11.2; one that needs more
-devices than it is given raises the JAX package's ``ValueError``.
+its merged dict): bitwise.  A mesh of two ranks named by ``devices``
+(``["cpu", "cpu"]``) runs the JAX package's dp-2 steps within its
+limits; one that needs more devices than it is given raises the JAX
+package's ``ValueError``, its message verbatim.
 """
 import inspect
 
@@ -147,22 +149,47 @@ def test_build_mesh_raises_the_reference_value_error(spec):
         JPE.build_mesh(spec, devices=jax.devices()[:1])
     with pytest.raises(ValueError) as got:
         TPE.build_mesh(spec, devices=CPU)
-    assert str(got.value).startswith(str(want.value))
-    assert "A11.2" in str(got.value)
+    assert str(got.value) == str(want.value)
 
 
 def test_a_mesh_of_more_devices_raises_naming_a11_2():
+    """Two ranks on the CPU: ParallelExecutor, attach_mesh and a feed
+    list run the JAX package's dp-2 steps (losses within LOSS_RTOL, the
+    first weight within 1e-5, 1e-6); without devices= the place still
+    has one device, and the Trainer raises the reference's ValueError."""
+    import jax
+
+    feed = _batch()
     main, loss, scope = _started()
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        tfluid.ParallelExecutor(loss_name=loss.name, main_program=main,
-                                devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        tfluid.Executor(tfluid.CPUPlace()).attach_mesh(
-            {"dp": 2}, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        device_prefetch.shard_feed_list(
-            [_batch(4), _batch(4)], TPE.build_mesh(True, ["cpu", "cpu"]),
-            {"x", "y"}, program=main)
+    state = _state(main, scope)
+    pexe = tfluid.ParallelExecutor(loss_name=loss.name, main_program=main,
+                                   scope=scope, devices=["cpu", "cpu"])
+    assert pexe.device_count == 2 and pexe._mesh.shape == {"dp": 2}
+    got = [float(np.ravel(pexe.run(fetch_list=[loss], feed=feed)[0])[0])
+           for _ in range(3)]
+    main2, loss2, scope2 = _started()
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.attach_mesh({"dp": 2}, devices=["cpu", "cpu"])
+    halves = [{k: v[:16] for k, v in feed.items()},
+              {k: v[16:] for k, v in feed.items()}]
+    placed = device_prefetch.shard_feed_list(
+        halves, exe._mesh, {"x", "y"}, program=main2)
+    got2 = [float(np.ravel(exe.run(main2, feed=placed, fetch_list=[loss2],
+                                   scope=scope2)[0])[0]) for _ in range(3)]
+    assert got2 == got
+    jm, _, jloss = _mlp(jfluid)
+    jscope = jfluid.Scope()
+    for n, v in state.items():
+        jscope[n] = v
+    with jfluid.scope_guard(jscope):
+        jpexe = jfluid.ParallelExecutor(loss_name=jloss.name, main_program=jm,
+                                        devices=jax.devices()[:2])
+        want = [float(np.ravel(jpexe.run(fetch_list=[jloss], feed=feed)[0]).mean())
+                for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(np.array(scope["fc_0.w_0"]),
+                               np.asarray(jscope["fc_0.w_0"]), rtol=1e-5,
+                               atol=1e-6)
     with pytest.raises(ValueError, match="only 1 available"):
         tfluid.Trainer(_train_func, _optimizer_func, place=tfluid.CPUPlace(),
                        parallel={"dp": 2})

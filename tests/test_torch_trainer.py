@@ -12,7 +12,8 @@ LOSS_RTOL.  Then a Transformer at 2 layers, d_model 32, vocab 64, batch
 Pallas interpret mode, the port's plain versions) trains four steps
 through both Trainers from the same parameters, losses within LOSS_RTOL
 (the limit of ``test_torch_transformer_train.py``: float32 sums in
-another order).  The deferred pieces raise, naming their ROADMAP item.
+another order).  A Trainer over a mesh of two ranks (``devices=``, the
+port's way to name ranks) trains as the JAX package's over two devices.
 """
 import os
 import time
@@ -272,16 +273,45 @@ def test_transformer_trainer_matches_jax(tmp_path):
     assert losses["port"][0] != losses["port"][-1]
 
 
-def test_deferred_pieces_raise_naming_their_item():
-    # a one-device mesh landed with A11's one-card half
-    # (test_torch_parallel_executor.py); a mesh of more devices waits for
-    # A11.2
-    with pytest.raises(ValueError, match="A11.2"):
-        fluid.Trainer(_train_func, _optimizer_func, place=fluid.CPUPlace(),
-                      parallel={"dp": 2})
-    with pytest.raises(ValueError, match="A11.2"):
-        fluid.Trainer(_train_func, _optimizer_func, place=fluid.CPUPlace(),
-                      parallel=(2,), zero_stage=1)
+def test_deferred_pieces_raise_naming_their_item(tmp_path):
+    # a mesh of more ranks than the place gives raises the reference's
+    # ValueError; named by devices= (the port's addition), two ranks on the
+    # CPU train as the JAX Trainer over two of its devices, from its
+    # parameters, and the Inferencer answers as its Inferencer does
+    for kw in (dict(parallel={"dp": 2}), dict(parallel=(2,), zero_stage=1)):
+        with pytest.raises(ValueError, match="needs 2 devices, only 1 available"):
+            fluid.Trainer(_train_func, _optimizer_func, place=fluid.CPUPlace(),
+                          **kw)
+    pdir = str(tmp_path / "init")
+    jt = jfluid.Trainer(_train_func_of(jfluid),
+                        lambda: jfluid.optimizer.SGD(learning_rate=0.05),
+                        place=jfluid.CPUPlace(), parallel={"dp": 2})
+    jt.save_params(pdir)
+    pt = fluid.Trainer(_train_func, _optimizer_func, param_path=pdir,
+                       place=fluid.CPUPlace(), parallel={"dp": 2},
+                       devices=["cpu", "cpu"])
+    assert pt.exe._mesh.shape == {"dp": 2}
+    losses = {}
+    for name, t, fl in (("jax", jt, jfluid), ("port", pt, fluid)):
+        got = losses[name] = []
+        t.train(num_epochs=1, reader=_reader, feed_order=["x", "y"],
+                event_handler=lambda e, got=got, fl=fl: got.append(
+                    float(np.ravel(e.metrics[0]).mean()))
+                if isinstance(e, fl.EndStepEvent) else None)
+    assert len(losses["port"]) == 8
+    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=LOSS_RTOL)
+    jt.save_params(pdir)
+    x = np.random.RandomState(1).randn(6, 4).astype("float32")
+    want = jfluid.Inferencer(
+        lambda: jfluid.layers.fc(input=jfluid.layers.data(
+            name="x", shape=[4], dtype="float32"), size=1,
+            param_attr=jfluid.ParamAttr(name="w")),
+        pdir, place=jfluid.CPUPlace(), parallel={"dp": 2}).infer({"x": x})
+    got = fluid.Inferencer(_infer_func, pdir, place=fluid.CPUPlace(),
+                           parallel={"dp": 2}, devices=["cpu", "cpu"]
+                           ).infer({"x": x})
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want[0]),
+                               rtol=LOSS_RTOL)
     # attribution= landed with A9.2: it attaches for the call and no
     # longer raises
     from paddle_tpu_torch import observability as obs
@@ -292,7 +322,7 @@ def test_deferred_pieces_raise_naming_their_item():
             attribution=att)
     assert att.verdict()["steps"] > 0
     assert att not in obs.get_telemetry().sinks()
-    with pytest.raises(ValueError, match="A11.2"):
+    with pytest.raises(ValueError, match="needs 2 devices, only 1 available"):
         fluid.Inferencer(_infer_func, "unused", place=fluid.CPUPlace(),
                          parallel={"dp": 2})
 

@@ -116,7 +116,7 @@ split device time by op or kernel family run a step on the eager path
    seeded, bitwise the fault-free tokens).  Then the replica pool
    (pool_phase): four decode replicas of the same model on this card,
    each on its own CUDA stream, serving the 16 prompts three times over
-   at rotations 1, 2 and 4 (set_active_replicas), two timed runs each:
+   at rotations 1, 2 and 4 (set_active_replicas), one timed run each:
    every request's tokens bitwise the serving engine's, at least two
    replicas serving at N >= 2, B4 and B5 12 launches a replay, no
    capture under load, tokens/s at each N, the captures, pool bytes and
@@ -219,7 +219,7 @@ split device time by op or kernel family run a step on the eager path
    (64 requests of 1-4 rows with their own lengths from 8 clients,
    buckets 2-16, a 2 ms window): requests/s, rows/s, latency p50/p95,
    the bucket histogram, peak memory, the same load on engines with
-   and without the blocks in turns (requests/s), a profiled window
+   and without the blocks, one run each (requests/s), a profiled window
    (device busy
    and idle share, B1's share, GEMMs, the device-to-host copy of the
    logits), the export plane scraped during the load as in phase 7
@@ -365,7 +365,19 @@ split device time by op or kernel family run a step on the eager path
    at MOE_CFG's widths over {"ep": 8} at a capacity that drops nothing
    against the dense rule's steps (MESH_MOE_RTOL), ms a step of each
    over MESH_MOE_TIME_STEPS replays, and the tokens the engine drops at
-   capacity factor MOE_DROP_CAP;
+   capacity factor MOE_DROP_CAP; then the parameter servers
+   (pserver_phase, PS_*; trainers and pservers in threads, every
+   Executor on the card, TCP on localhost): P1 fit-a-line's sync round of
+   2 trainers against one Executor.run step on the concatenated batch
+   (PS_RTOL, PS_ATOL), the trainers bitwise; P2 Transformer-base at
+   TRAIN_CFG's widths, dropout 0, 1 trainer x 2 pservers with
+   slice_var_up, bitwise Executor.run over PS_TF_ROUNDS rounds, B1 and
+   B2 18 a round, one capture on the trainer and on each pserver, the
+   round's ms by part; P3 DeepFM, 2 x 2,
+   the trainers bitwise every round, round 1 within PS_DEEPFM_RTOL of
+   Executor.run on the concatenated batch; P4 P1's cluster restarted
+   from its checkpoint, bitwise an uninterrupted run
+   (``--only pserver`` runs the build and this phase alone);
 13. training, card vs CPU: Transformer-base at full width (6+6 layers,
    d_model 512, vocab 30000, dropout 0) from one set of numpy
    parameters: one step's loss (1e-4 relative) and every <param>@GRAD
@@ -528,6 +540,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -557,10 +570,10 @@ LEGACY_BUCKETS = (256, 1024, 2048)
 # and the decode steps between them are dispatches 0-15)
 PREFIX_REQUESTS, PREFIX_TOKENS, PREFIX_TAILS = 16, 1024, (32, 256)
 # the replica pool on one card: four decode replicas at rotations 1, 2
-# and 4, two timed runs of the serving prompts three times over at each;
+# and 4, a timed run of the serving prompts three times over at each;
 # replica 1 killed mid-decode; two predict replicas at two buckets, and a
 # swap whose memory reserved after may differ by this share of before
-POOL_REPLICAS, POOL_ROTATIONS, POOL_RUNS, POOL_COPIES = 4, (1, 2, 4), 2, 3
+POOL_REPLICAS, POOL_ROTATIONS, POOL_RUNS, POOL_COPIES = 4, (1, 2, 4), 1, 3
 POOL_KILLED, POOL_PROBE_TOKENS = 1, 8
 POOL_PREDICT_REPLICAS, POOL_PREDICT_BUCKETS = 2, (2, 4)
 POOL_PREDICT_REQUESTS, POOL_SWAP_RESERVED_TOL = 16, 0.05
@@ -1157,11 +1170,31 @@ MOE_DROP_CAP = 1.0
 MESH_MOE_STEPS = 3
 MESH_MOE_TIME_STEPS = 12
 MESH_MOE_RTOL = 1e-5
+# the parameter-server phase (pserver_phase): pservers and trainers in
+# threads of this process, every Executor on the card, as the JAX
+# package's tests run them.  P1 the round contract (PS_RTOL, PS_ATOL: the
+# JAX package's test's); P2 Transformer-base at TRAIN_CFG's widths,
+# dropout 0, 1 trainer x 2 pservers, PS_TF_ROUNDS rounds; P3 DeepFM, 2 x
+# 2, PS_DEEPFM_ROUNDS rounds of PS_DEEPFM_BATCH rows a trainer; P4 P1's
+# cluster restarted after PS_RESTART_AT of PS_RESTART_ROUNDS rounds
+PS_CFG = dict(TRAIN_CFG, dropout=0.0)
+PS_TF_ROUNDS = 5
+PS_DEEPFM_BATCH = 512
+PS_DEEPFM_ROUNDS = 20
+PS_DEEPFM_RTOL = 1e-5
+PS_RESTART_AT, PS_RESTART_ROUNDS = 3, 6
+PS_RTOL, PS_ATOL = 1e-5, 1e-6
+PS_JOIN_S = 120.0
 SLEEP_CYCLES = 1_000_000
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def clock(t_start, name):
+    """Log the seconds since ``t_start`` at the end of a phase."""
+    log("clock: %s done at %.1f s" % (name, time.perf_counter() - t_start))
 
 
 def check(ok, *what):
@@ -2285,8 +2318,9 @@ def decode_pool_leg(torch, serving, fa, obs, dev, model, meta, prompts,
           and launches["paged_prefill_attention"] == L * n_prefills > 0,
           "pool launches", launches, n_steps, n_prefills)
     tps = {n: [r["tokens_per_s"] for r in rs] for n, rs in runs.items()}
-    log("pool: tokens/s by rotation (two runs each) %s; profiled window "
-        "at N=1 %s, at N=2 %s" % (json.dumps(tps), json.dumps(profiles[1]),
+    log("pool: tokens/s by rotation (%d runs each) %s; profiled window "
+        "at N=1 %s, at N=2 %s" % (POOL_RUNS, json.dumps(tps),
+                                   json.dumps(profiles[1]),
                                    json.dumps(profiles[2])))
     # the kill: replica 1's decode worker dies mid-decode under N = 4
     replays = obs.counter("serving.decode.replays")
@@ -4094,10 +4128,10 @@ def predict_phase(torch, fluid, T, serving, fa, obs, dev, saved):
         lap("load")
         # F-6's fix (one batched product of 256-row blocks a mul)
         # against one product a mul (the engine's executor with its blocks
-        # switched off): the same load, in turns
+        # switched off): the same load, once each
         blocks_ab = {"blocks": [], "one_product": []}
         plain_outs = None
-        for tag in ("blocks", "one_product", "one_product", "blocks"):
+        for tag in ("blocks", "one_product"):
             eng = predict_engine(serving, d1, dev, backend="program",
                                  batch_timeout_ms=2)
             if tag == "one_product":
@@ -8821,6 +8855,460 @@ def mesh_phase(torch, fluid, T, fa, dev):
     return out
 
 
+def ps_free_ep():
+    """An endpoint on a port the OS hands out."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return "127.0.0.1:%d" % s.getsockname()[1]
+
+
+def ps_wait(ep, timeout=PS_JOIN_S):
+    """Wait until a pserver listens at ``ep``."""
+    host, port = ep.rsplit(":", 1)
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            socket.create_connection((host, int(port)), timeout=1).close()
+            return
+        except OSError:
+            check(time.monotonic() < deadline, "no pserver at " + ep)
+            time.sleep(0.05)
+
+
+def ps_slice_state(pprog, state):
+    """``state`` cut to one pserver: a slice var gets its rows of its
+    source (a [1]-shaped one a whole copy)."""
+    slices = getattr(pprog, "_slice_vars", {})
+    out = {}
+    for v in pprog.list_vars():
+        if v.persistable and v.name in slices:
+            src, _, r0, r1 = slices[v.name]
+            out[v.name] = state[src] if r0 is None else state[src][r0:r1]
+        elif v.persistable and v.name in state:
+            out[v.name] = state[v.name]
+    return out
+
+
+def ps_transpile(fluid, m, tid, eps, trainers, sliced):
+    cfg = fluid.DistributeTranspilerConfig()
+    cfg.slice_var_up = sliced
+    t = fluid.DistributeTranspiler(config=cfg)
+    t.transpile(trainer_id=tid, program=m["main"], startup_program=m["startup"],
+                pservers=",".join(eps), trainers=trainers)
+    return t
+
+
+def ps_serve(fluid, dev, t, m, ep, state, ckpt=None):
+    """One pserver of transpiler ``t`` at ``ep``, its Executor on ``dev``,
+    in a thread: its startup, then ``state`` cut to its slices (None: a
+    restart, which restores its checkpoint), then the serve loop."""
+    pprog = t.get_pserver_program(ep)
+    if ckpt is not None:
+        pprog.global_block().ops[-1].attrs["checkpoint_dir"] = ckpt
+    scope = fluid.Scope()
+    exe = fluid.Executor(device=dev)
+    exe.run(t.get_startup_program(ep, pprog, m["startup"]), scope=scope)
+    if state is not None:
+        fluid.load_numpy_state(pprog, ps_slice_state(pprog, state),
+                               scope=scope, device=dev)
+    errors = []
+
+    def run():
+        try:
+            exe.run(pprog, scope=scope)
+        except BaseException as exc:  # noqa: BLE001 - checked by ps_join
+            errors.append(exc)
+
+    th = threading.Thread(target=run, daemon=True, name="chip-pserver")
+    th.start()
+    ps_wait(ep)
+    return {"thread": th, "scope": scope, "errors": errors,
+            "program": pprog, "exe": exe}
+
+
+def ps_join(servers):
+    for s in servers:
+        s["thread"].join(PS_JOIN_S)
+        check(not s["thread"].is_alive() and not s["errors"],
+              "a pserver did not stop cleanly", s["errors"])
+
+
+def ps_trainer(fluid, dev, m, tid, eps, trainers, sliced, state):
+    """Trainer ``tid``: its transpiled Program, a scope holding ``state``
+    on ``dev``, its Executor."""
+    t = ps_transpile(fluid, m, tid, eps, trainers, sliced)
+    scope = fluid.Scope()
+    fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+    return {"exe": fluid.Executor(device=dev), "scope": scope,
+            "program": t.get_trainer_program(), "loss": m["loss"].name,
+            "params": [p.name for p in
+                       m["main"].global_block().all_parameters()],
+            "losses": [], "rounds": []}
+
+
+def ps_rounds(trainers, feeds):
+    """One round: each trainer its feed, one thread a trainer."""
+    errors = []
+
+    def run(tr, feed):
+        try:
+            (lv,) = tr["exe"].run(tr["program"], feed=feed,
+                                  fetch_list=[tr["loss"]], scope=tr["scope"])
+            tr["losses"].append(np.asarray(lv).copy())
+            tr["rounds"].append(dict(tr["exe"].last_pserver_round))
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(tr, f), daemon=True)
+               for tr, f in zip(trainers[1:], feeds[1:])]
+    for th in threads:
+        th.start()
+    run(trainers[0], feeds[0])
+    for th in threads:
+        th.join(PS_JOIN_S)
+        check(not th.is_alive(), "a trainer hung")
+    if errors:
+        raise errors[0]
+
+
+def ps_params(fluid, tr):
+    return {n: fluid.executor.as_numpy(tr["scope"][n]) for n in tr["params"]}
+
+
+def ps_done(trainers):
+    """Trainer 0's Executor.close shuts the pservers down; the others
+    close their connections."""
+    trainers[0]["exe"].close()
+    for tr in trainers[1:]:
+        for c in tr["exe"]._ps_clients.values():
+            c.close()
+
+
+def ps_line_model(fluid):
+    """The fit-a-line Program of tests/unittests/
+    test_distributed_pserver.py:233-307: w constant 0.2, b 0, SGD 0.1."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        pred = fluid.layers.fc(
+            input=x, size=1,
+            param_attr=fluid.ParamAttr(
+                name="w", initializer=fluid.initializer.Constant(0.2)),
+            bias_attr=fluid.ParamAttr(
+                name="b", initializer=fluid.initializer.Constant(0.0)))
+        cost = fluid.layers.mean(
+            fluid.layers.square_error_cost(input=pred, label=y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(cost)
+    return {"main": main, "startup": startup, "loss": cost}
+
+
+def ps_line_feeds(rounds):
+    """Each of 2 trainers' 16 x 4 batch a round (the JAX package's test's
+    data, seed 7)."""
+    rng = np.random.RandomState(7)
+    w_true = np.array([[0.5], [-1.0], [2.0], [1.5]], "float32")
+    out = []
+    for _ in range(rounds):
+        xs = [rng.randn(16, 4).astype("float32") for _ in range(2)]
+        out.append([{"x": x, "y": x @ w_true} for x in xs])
+    return out
+
+
+def ps_line_run(torch, fluid, dev, state, feeds, ckpt=None, restart_at=None):
+    """2 trainers and 1 pserver over ``feeds`` (a list of rounds); with
+    ``restart_at`` the pserver is shut down after that round and started
+    again from ``ckpt``.  Returns (trainers, the pserver's params after
+    the first round, the restart's record)."""
+    m = ps_line_model(fluid)
+    ep = ps_free_ep()
+    t = ps_transpile(fluid, m, 0, [ep], 2, False)
+    servers = [ps_serve(fluid, dev, t, m, ep, state, ckpt)]
+    trainers = [ps_trainer(fluid, dev, ps_line_model(fluid), i, [ep], 2,
+                           False, state) for i in range(2)]
+    first, restart = None, None
+    try:
+        for k, round_feeds in enumerate(feeds):
+            ps_rounds(trainers, round_feeds)
+            if k == 0:
+                first = {n: fluid.executor.as_numpy(servers[0]["scope"][n])
+                         for n in ("w", "b")}
+            if k + 1 == restart_at:
+                poke = fluid.transpiler.pserver_runtime.PSClient(ep)
+                poke.shutdown_server()
+                poke.close()
+                ps_join(servers)
+                saved = np.load(os.path.join(ckpt, "pserver_params.npz"))
+                servers = [ps_serve(fluid, dev, t, m, ep, None, ckpt)]
+                scope = servers[0]["scope"]
+                restart = {
+                    "after_round": k + 1,
+                    "restored_on_card": all(
+                        scope[n].device.type == "cuda" for n in ("w", "b")),
+                    "restored_bitwise": all(
+                        fluid.executor.as_numpy(scope[n]).tobytes()
+                        == saved[n].tobytes() for n in ("w", "b"))}
+    finally:
+        ps_done(trainers)
+        ps_join(servers)
+    return trainers, first, restart
+
+
+def ps_round_contract_leg(torch, fluid, dev):
+    """P1: one sync round of 2 trainers equals Executor.run's step on the
+    concatenated batch (PS_RTOL, PS_ATOL); the trainers' parameters
+    bitwise equal, and the pserver's."""
+    m = ps_line_model(fluid)
+    state = seq_state(fluid, m, SEED + 210, dev)
+    (halves,) = ps_line_feeds(1)
+    scope = fluid.Scope()
+    fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+    fluid.Executor(device=dev).run(
+        m["main"], feed={k: np.concatenate([h[k] for h in halves])
+                         for k in ("x", "y")},
+        fetch_list=[m["loss"]], scope=scope)
+    single = {n: fluid.executor.as_numpy(scope[n]) for n in ("w", "b")}
+    trainers, first, _ = ps_line_run(torch, fluid, dev, state, [halves])
+    a, b = (ps_params(fluid, tr) for tr in trainers)
+    err = {n: float(np.abs(first[n] - single[n]).max()) for n in single}
+    ok = all(np.allclose(first[n], single[n], rtol=PS_RTOL, atol=PS_ATOL)
+             for n in single)
+    bitwise = all(a[n].tobytes() == b[n].tobytes() == first[n].tobytes()
+                  for n in single)
+    check(ok and bitwise, "P1: a sync round against one step on the "
+          "concatenated batch", err, bitwise)
+    return {"trainers": 2, "pservers": 1, "max_abs_err": err,
+            "rtol": PS_RTOL, "atol": PS_ATOL, "trainers_bitwise": bitwise}
+
+
+def ps_restart_leg(torch, fluid, dev):
+    """P4: P1's cluster for PS_RESTART_ROUNDS rounds, its pserver shut down
+    after round PS_RESTART_AT and started again from its checkpoint_dir;
+    the trainers reconnect.  Losses and parameters bitwise an
+    uninterrupted run's: no round applied twice, the restore in the
+    card's tensors."""
+    m = ps_line_model(fluid)
+    state = seq_state(fluid, m, SEED + 211, dev)
+    feeds = ps_line_feeds(PS_RESTART_ROUNDS)
+    whole, _, _ = ps_line_run(torch, fluid, dev, state, feeds)
+    ckpt = tempfile.mkdtemp(prefix="pserver_ckpt_")
+    try:
+        cut, _, restart = ps_line_run(torch, fluid, dev, state, feeds, ckpt,
+                                      PS_RESTART_AT)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    bitwise = all(
+        [v.tobytes() for v in a["losses"]] == [v.tobytes() for v in b["losses"]]
+        and all(x.tobytes() == ps_params(fluid, b)[n].tobytes()
+                for n, x in ps_params(fluid, a).items())
+        for a, b in zip(cut, whole))
+    check(bitwise and restart["restored_on_card"]
+          and restart["restored_bitwise"],
+          "P4: a restarted pserver against an uninterrupted run", bitwise,
+          restart)
+    return {"rounds": PS_RESTART_ROUNDS, "restart": restart,
+            "bitwise_uninterrupted": bitwise,
+            "losses": [float(v.reshape(-1)[0]) for v in cut[0]["losses"]]}
+
+
+def ps_round_ms(rounds):
+    """Each part of a round in ms, the mean over rounds 3 on (the first
+    runs eager, the second captures)."""
+    keys = ("compute_s", "fetch_s", "wire_s", "copy_s")
+    out = {k[:-2] + "_ms": float(np.mean([r[k] for r in rounds[2:]])) * 1e3
+           for k in keys}
+    out["round_ms"] = float(np.mean([sum(r[k] for k in keys)
+                                     for r in rounds[2:]])) * 1e3
+    return out
+
+
+def ps_transformer_leg(torch, fluid, T, fa, dev):
+    """P2: Transformer-base at TRAIN_CFG's widths, dropout 0, through one
+    trainer and two pservers with slice_var_up (its embedding tables cut
+    in row halves), PS_TF_ROUNDS rounds, against Executor.run of the
+    untranspiled Program from the same state on the same batches: losses
+    and every parameter bitwise (one trainer averages g / 1, Adam is
+    elementwise, and the pservers apply the trainer's noam LR: R-13); B1
+    and B2 18 launches a round; the trainer's compute step and each
+    pserver's apply captured once and replayed on every later round; the
+    round's ms by part."""
+    cfg = PS_CFG
+
+    def model():
+        with fluid.unique_name.guard():
+            return T.get_model(**cfg)
+
+    m = model()
+    state = seq_state(fluid, m, SEED + 212, dev)
+    rng = np.random.RandomState(SEED + 213)
+    feeds = [mesh_feeds(rng, cfg) for _ in range(PS_TF_ROUNDS)]
+    one = mesh_steps(torch, fluid, fa, m, state, feeds, dev)
+    engine = bwd_engine(fa, "auto", cfg)
+    check_flash_launches(fa, one["launches"], engine, 18 * PS_TF_ROUNDS,
+                         "Executor.run beside the pservers")
+    eps = [ps_free_ep(), ps_free_ep()]
+    t = ps_transpile(fluid, m, 0, eps, 1, True)
+    servers = [ps_serve(fluid, dev, t, m, ep, state) for ep in eps]
+    tr = ps_trainer(fluid, dev, model(), 0, eps, 1, True, state)
+    sliced = sorted(n for n, s in t.param_slices.items() if len(s) > 1)
+    n_params = int(sum(np.prod(v.shape) for n, v in state.items()
+                       if n in tr["params"]))
+    fa.reset_launch_counts()
+    graphs, ps_graphs = [], []
+    try:
+        applies = []
+        for k, f in enumerate(feeds):
+            ps_rounds([tr], [f])
+            applies.append([dict(s["exe"].last_pserver_apply)
+                            for s in servers])
+            if k >= 1:
+                graphs.append([b.graph for b in tr["exe"]._bound.values()])
+                ps_graphs.append([[b.graph for b in s["exe"]._bound.values()]
+                                  for s in servers])
+        launches = dict(fa.KERNEL_LAUNCHES)
+        params = ps_params(fluid, tr)
+    finally:
+        ps_done([tr])
+        ps_join(servers)
+    captured_once = (len(graphs[0]) == 1 and graphs[0][0] is not None
+                     and all(g == graphs[0] for g in graphs))
+    # each pserver's apply: one bound entry, captured at its second round
+    # and replayed after
+    ps_captured_once = all(
+        len(first) == 1 and first[0] is not None
+        and all(g[i] == first for g in ps_graphs)
+        for i, first in enumerate(ps_graphs[0]))
+    loss_bits = ([v.tobytes() for v in tr["losses"]]
+                 == [f[0].tobytes() for f in one["fetches"]])
+    param_bits = {n: params[n].tobytes() == one["params"][n].tobytes()
+                  for n in params}
+    bitwise = loss_bits and all(param_bits.values())
+    check(bitwise and captured_once and ps_captured_once
+          and {"src_word_emb", "trg_word_emb"} <= set(sliced),
+          "P2: Transformer-base through pservers against Executor.run",
+          loss_bits, [n for n, ok in param_bits.items() if not ok][:8],
+          captured_once, ps_captured_once, sliced[:4])
+    check_flash_launches(fa, launches, engine, 18 * PS_TF_ROUNDS,
+                         "P2's trainer")
+    return {"trainers": 1, "pservers": 2, "rounds": PS_TF_ROUNDS,
+            "params": n_params,
+            "grad_bytes_a_round": 4 * n_params,
+            "sliced_params": len(sliced),
+            "bitwise_executor_run": bitwise, "captured_once": captured_once,
+            "pservers_captured_once": ps_captured_once,
+            "launches": launches,
+            "launches_per_round": {k: v / PS_TF_ROUNDS
+                                   for k, v in launches.items()},
+            "losses": [float(v.reshape(-1)[0]) for v in tr["losses"]],
+            "round": ps_round_ms(tr["rounds"]),
+            # each pserver's part of wire_ms, from round 3 on
+            "pserver_apply_ms": [
+                {k[:-2] + "_ms": float(np.mean([a[i][k] for a in applies[2:]]))
+                 * 1e3 for k in ("average_s", "apply_s", "snapshot_s")}
+                for i in range(len(servers))],
+            "round_ms_all": [sum(r[k] for k in ("compute_s", "fetch_s",
+                                                "wire_s", "copy_s")) * 1e3
+                             for r in tr["rounds"]],
+            "executor_step_ms": steady_ms(one["step_s"])}
+
+
+def ps_deepfm_feeds(rng, n):
+    """A batch whose label follows a hidden linear model of the ids (the
+    JAX package's test_deepfm_trains)."""
+    w = rng.randn(1000) * 0.5
+    ids = rng.randint(0, 1000, size=(n, 26)).astype("int64")
+    label = (w[ids].sum(1) + 0.2 * rng.randn(n) > 0).astype("float32")
+    return {"feat_ids": ids, "label": label.reshape(n, 1)}
+
+
+def ps_deepfm_leg(torch, fluid, dev):
+    """P3: DeepFM at get_model's widths (26 fields, 1000 ids, k 8, hidden
+    64/32, Adam 1e-3), PS_DEEPFM_BATCH rows a trainer, 2 trainers x 2
+    pservers with slice_var_up, PS_DEEPFM_ROUNDS rounds on each trainer's
+    batch: the trainers' parameters bitwise equal after every round, the
+    losses finite and falling, and after round 1 the pservers' parameters
+    (the sliced ones put back together) within PS_DEEPFM_RTOL of each
+    tensor's largest magnitude of one Executor.run step on the
+    concatenated batch."""
+    from paddle_tpu_torch.models import deepfm
+
+    def model():
+        with fluid.unique_name.guard():
+            return deepfm.get_model()
+
+    m = model()
+    state = seq_state(fluid, m, SEED + 214, dev)
+    rng = np.random.RandomState(SEED + 215)
+    feeds = [ps_deepfm_feeds(rng, PS_DEEPFM_BATCH) for _ in range(2)]
+    scope = fluid.Scope()
+    fluid.load_numpy_state(m["main"], state, scope=scope, device=dev)
+    fluid.Executor(device=dev).run(
+        m["main"], feed={k: np.concatenate([f[k] for f in feeds])
+                         for k in feeds[0]},
+        fetch_list=[m["loss"]], scope=scope)
+    eps = [ps_free_ep(), ps_free_ep()]
+    t = ps_transpile(fluid, m, 0, eps, 2, True)
+    servers = [ps_serve(fluid, dev, t, m, ep, state) for ep in eps]
+    trainers = [ps_trainer(fluid, dev, model(), i, eps, 2, True, state)
+                for i in range(2)]
+    bitwise, first, round_s = [], {}, []
+    try:
+        for k in range(PS_DEEPFM_ROUNDS):
+            t0 = time.perf_counter()
+            ps_rounds(trainers, feeds)
+            round_s.append(time.perf_counter() - t0)
+            a, b = (ps_params(fluid, tr) for tr in trainers)
+            bitwise.append(all(a[n].tobytes() == b[n].tobytes() for n in a))
+            if k == 0:
+                first = {n: np.concatenate([
+                    fluid.executor.as_numpy(servers[eps.index(ep)]["scope"][sn])
+                    for sn, ep, _, _ in sl])
+                    for n, sl in t.param_slices.items()}
+    finally:
+        ps_done(trainers)
+        ps_join(servers)
+    err = {}
+    for n, v in first.items():
+        want = fluid.executor.as_numpy(scope[n])
+        err[n] = float(np.abs(v - want).max() / max(np.abs(want).max(), 1e-30))
+    losses = [[float(v.reshape(-1)[0]) for v in tr["losses"]]
+              for tr in trainers]
+    worst = max(err, key=err.get)
+    check(all(bitwise) and all(np.isfinite(l).all() for l in losses)
+          and all(l[-1] < l[0] for l in losses)
+          and err[worst] <= PS_DEEPFM_RTOL,
+          "P3: DeepFM through 2 x 2 pservers", bitwise, losses, worst,
+          err[worst])
+    return {"trainers": 2, "pservers": 2, "rounds": PS_DEEPFM_ROUNDS,
+            "batch_a_trainer": PS_DEEPFM_BATCH,
+            "sliced_params": sorted(n for n, s in t.param_slices.items()
+                                    if len(s) > 1),
+            "trainers_bitwise_every_round": all(bitwise),
+            "round1_vs_executor_run": {"worst": worst, "rel": err[worst]},
+            "losses": losses, "round_ms": steady_ms(round_s)}
+
+
+def pserver_phase(torch, fluid, T, fa, dev):
+    """The parameter servers (see the module docstring): P1 the round
+    contract, P2 Transformer-base, P3 DeepFM, P4 a restart."""
+    card = card_line()
+    out, seconds = {"card": card}, {}
+    for name, fn, args in (
+            ("round_contract", ps_round_contract_leg, (torch, fluid, dev)),
+            ("transformer", ps_transformer_leg, (torch, fluid, T, fa, dev)),
+            ("deepfm", ps_deepfm_leg, (torch, fluid, dev)),
+            ("restart", ps_restart_leg, (torch, fluid, dev))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        log("pserver phase, %s (%s): %s" % (name, card, json.dumps(
+            out[name], default=str)))
+    out["seconds"] = seconds
+    log("pserver phase: %s" % json.dumps({"card": card, "seconds": seconds}))
+    return out
+
+
 def flash_inputs(torch, dev, gen, dtype, T, S, B=FB, H=FH, D=FD):
     """q, k, v, do as the Program feeds them: [B, H, T, D] views of
     [B, T, H, D] tensors (strided, last dimension contiguous)."""
@@ -11622,18 +12110,28 @@ def main():
         log("mesh phase: %s" % json.dumps(
             mesh_phase(torch, fluid, T, fa, dev), default=str))
         return 0
+    if sys.argv[1:] == ["--only", "pserver"]:
+        # the parameter-server phase alone
+        pserver_phase(torch, fluid, T, fa, dev)
+        return 0
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     dec_checks, dec = decode_phase(torch, fa, dev, flush)
+    clock(t_start, "decode_phase")
     pre = prefill_phase(torch, fa, dev, flush)
+    clock(t_start, "prefill_phase")
     flash_cases, flash_times = flash_phase(torch, fa, dev, flush)
+    clock(t_start, "flash_phase")
     pair_cases = pair_phase(torch, fa, dev)
+    clock(t_start, "pair_phase")
     sweep = engine_sweep(torch, fa, dev, flush)
     del flush
     srv, srv_prompts, srv_outs = serving_phase(torch, T, serving, fa, obs,
                                                dev)
+    clock(t_start, "serving_phase")
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     rt = runtime_phase(torch, T, serving, fa, obs, dev, srv_prompts)
+    clock(t_start, "runtime_phase")
     torch.cuda.empty_cache()
     # the predict phase's two model versions, saved once: the pool phase
     # serves them first
@@ -11642,81 +12140,114 @@ def main():
         saved = save_predict_models(torch, fluid, T, models)
         pool = pool_phase(torch, T, serving, fa, obs, dev, srv_prompts,
                           srv_outs, saved)
+        clock(t_start, "pool_phase")
         torch.cuda.empty_cache()
         sess = sessions_phase(torch, T, serving, fa, obs, dev)
+        clock(t_start, "sessions_phase")
         torch.cuda.empty_cache()
         rtr = router_phase(torch, T, serving, fa, obs, dev, srv_prompts,
                            srv_outs, saved)
+        clock(t_start, "router_phase")
         torch.cuda.empty_cache()
         leg = legacy_phase(torch, T, serving, fa, obs, dev, srv_prompts,
                            srv_outs)
+        clock(t_start, "legacy_phase")
         torch.cuda.empty_cache()
         prd = predict_phase(torch, fluid, T, serving, fa, obs, dev, saved)
+        clock(t_start, "predict_phase")
     finally:
         shutil.rmtree(models, ignore_errors=True)
     torch.cuda.empty_cache()
     lenet = lenet_phase(torch, fluid, dev)
+    clock(t_start, "lenet_phase")
     op_rule_checks(fluid, dev)
     torch.cuda.empty_cache()
     rsn = resnet_phase(torch, fluid, fa, dev)
+    clock(t_start, "resnet_phase")
     torch.cuda.empty_cache()
     t_new = time.perf_counter()
     ops_phase(torch, fluid, fa, dev)
+    clock(t_start, "ops_phase")
     torch.cuda.empty_cache()
     zoo = zoo_phase(torch, fluid, fa, dev)
+    clock(t_start, "zoo_phase")
     torch.cuda.empty_cache()
     log("ops and zoo phases: %.1f s" % (time.perf_counter() - t_new))
     t_new = time.perf_counter()
     sequence_phase(torch, fluid, fa, dev)
+    clock(t_start, "sequence_phase")
     torch.cuda.empty_cache()
     log("sequence phase: %.1f s" % (time.perf_counter() - t_new))
     t_new = time.perf_counter()
     struct_phase(torch, fluid, fa, dev, zoo["word2vec"]["train"])
+    clock(t_start, "struct_phase")
     del zoo
     torch.cuda.empty_cache()
     log("struct phase: %.1f s" % (time.perf_counter() - t_new))
     t_new = time.perf_counter()
     detection_phase(torch, fluid, fa, dev)
+    clock(t_start, "detection_phase")
     torch.cuda.empty_cache()
     log("detection phase: %.1f s" % (time.perf_counter() - t_new))
     t_new = time.perf_counter()
     par = parallel_phase(torch, fluid, T, fa, dev)
+    clock(t_start, "parallel_phase")
     torch.cuda.empty_cache()
     log("parallel phase: %.1f s" % (time.perf_counter() - t_new))
     t_new = time.perf_counter()
     msh = mesh_phase(torch, fluid, T, fa, dev)
+    clock(t_start, "mesh_phase")
     torch.cuda.empty_cache()
     log("mesh phase: %.1f s" % (time.perf_counter() - t_new))
+    t_new = time.perf_counter()
+    pserver_phase(torch, fluid, T, fa, dev)
+    clock(t_start, "pserver_phase")
+    torch.cuda.empty_cache()
+    log("pserver phase: %.1f s" % (time.perf_counter() - t_new))
     # card vs CPU: B2 at batch 2 x 64, B3 at batch 2 x 200
     fused_check = train_check_phase(torch, fluid, T, fa, dev, CHECK_CFG,
                                     "fused")
+    clock(t_start, "train_check_phase")
     pair_check = train_check_phase(torch, fluid, T, fa, dev, PAIR_CHECK_CFG,
                                    "pair")
+    clock(t_start, "train_check_phase")
     trn = train_phase(torch, fluid, T, fa, dev, TRAIN_CFG, TRAIN_STEPS,
                       "auto", "64 x 256")
+    clock(t_start, "train_phase")
     torch.cuda.empty_cache()
     fast = fast_path_phase(torch, fluid, T, fa, dev)
+    clock(t_start, "fast_path_phase")
     torch.cuda.empty_cache()
     trainer = trainer_phase(torch, fluid, T, fa, obs, dev, fast)
+    clock(t_start, "trainer_phase")
     torch.cuda.empty_cache()
     introspection_phase(torch, fluid, T, fa, obs, dev)
+    clock(t_start, "introspection_phase")
     torch.cuda.empty_cache()
     lenet_trainer_phase(torch, fluid, fa, dev, lenet)
+    clock(t_start, "lenet_trainer_phase")
     torch.cuda.empty_cache()
     lng = train_phase(torch, fluid, T, fa, dev, LONG_CFG, LONG_STEPS,
                       "auto", "4 x 4096")
+    clock(t_start, "train_phase")
     torch.cuda.empty_cache()
     rcp = recompute_phase(torch, fluid, T, fa, dev)
+    clock(t_start, "recompute_phase")
     torch.cuda.empty_cache()
     resnet_bf16_phase(torch, fluid, fa, dev, rsn)
+    clock(t_start, "resnet_bf16_phase")
     torch.cuda.empty_cache()
     tbf = transformer_bf16_phase(torch, fluid, T, fa, dev, trn)
+    clock(t_start, "transformer_bf16_phase")
     torch.cuda.empty_cache()
     transformer_decorate_phase(torch, fluid, T, fa, dev, trn)
+    clock(t_start, "transformer_decorate_phase")
     torch.cuda.empty_cache()
     beam_phase(torch, fluid, T, fa, dev)
+    clock(t_start, "beam_phase")
     torch.cuda.empty_cache()
     lbf = long_bf16_phase(torch, fluid, T, fa, dev)
+    clock(t_start, "long_bf16_phase")
 
     # each backward engine's main path: the first training leg that auto
     # runs it on, else the full-width card-vs-CPU step that runs it by name

@@ -37,6 +37,12 @@ held against.  It imports torch and numpy, never jax and nothing of
   microbatches), ``layers.switch_moe`` (dense top-1) and
   ``parallel.microbatch``; and ``contrib``'s decoder API
   (``TrainingDecoder``, ``BeamSearchDecoder``).
+* the multi-rank engines over ranks that share the card (dp x tp, ZeRO,
+  sp, ``ep``, ``pp``), and parameter servers: ``DistributeTranspiler``
+  splits a Program into trainer and pserver Programs, and
+  ``Executor.run`` serves the one (the optimize block applied on the
+  pserver's device) and trains the other over TCP, with ``discovery``'s
+  registry and ``reader.master``'s task queue beside them.
 
 Use it like the JAX package::
 
@@ -95,7 +101,8 @@ from .framework import (
 from .lod import (LoDArray, LoDTensorArray, create_lod_array,
                   create_lod_tensor, create_random_int_lodtensor)
 from .param_attr import ParamAttr, WeightNormParamAttr
-from .transpiler import InferenceTranspiler, memory_optimize, release_memory
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
+                         InferenceTranspiler, memory_optimize, release_memory)
 
 # the reference's top-level spelling takes the lengths as optional
 create_lod_tensor = create_lod_array
@@ -105,7 +112,8 @@ __all__ = [
     "optimizer", "regularizer", "clip", "backward", "executor", "lod",
     "data_feeder", "program_fn", "resilience", "io", "models", "profiler",
     "observability", "parallel", "serving", "transpiler", "CPUPlace",
-    "CUDAPlace", "InferenceTranspiler", "memory_optimize", "release_memory",
+    "CUDAPlace", "DistributeTranspiler", "DistributeTranspilerConfig",
+    "InferenceTranspiler", "memory_optimize", "release_memory",
     "resolve_device", "Executor", "ParallelExecutor", "ExecutionStrategy",
     "BuildStrategy", "Scope", "global_scope",
     "load_numpy_state", "scope_guard", "Program", "Variable",

@@ -96,9 +96,15 @@ build_mesh``).  On one rank a step is the step without a mesh; on more,
 every op goes through ``mesh_step.MeshRun`` (the batch split over dp,
 the state laid out by its specs, ``ShardedTensor`` values in the scope),
 and the step binds and captures as any step does.  Not ported yet: the
-persistent compile cache (a CUDA graph cannot be saved), a mesh over
-ranks in several processes (ROADMAP A11.4) and the parameter-server
-runtime (A11.3).
+persistent compile cache (a CUDA graph cannot be saved) and a mesh over
+ranks in several processes (ROADMAP A11.4).
+
+Parameter servers (``transpiler.DistributeTranspiler``): a Program
+holding ``listen_and_serv`` serves (``transpiler.pserver_runtime.serve``:
+its optimize block applied by this Executor, bound like any step), and
+one holding ``send``/``recv`` runs its compute as a bound step, then
+the round with its pservers (``run_trainer_step``); ``close`` tells the
+pservers this trainer is done.
 """
 from __future__ import annotations
 
@@ -1445,6 +1451,23 @@ def _scope_chain_token(scope):
 _BOUND_MISS = object()  # sentinel: bound validation failed, take slow path
 
 
+_RPC_KINDS = weakref.WeakKeyDictionary()
+
+
+def _rpc_kind(program):
+    """"serve" for a Program holding ``listen_and_serv``, "trainer" for
+    one holding ``send`` or ``recv``, else None; kept a Program
+    version."""
+    kind = _RPC_KINDS.get(program)
+    if kind is None or kind[0] != program.version:
+        types = {op.type for op in program.global_block().ops}
+        kind = (program.version,
+                "serve" if "listen_and_serv" in types else
+                "trainer" if types & {"send", "recv"} else None)
+        _RPC_KINDS[program] = kind
+    return kind[1]
+
+
 def _program_tag(program):
     """The JAX package's program tag, ``<id-hex>:v<version>``."""
     return "%x:v%d" % (id(program), getattr(program, "version", 0))
@@ -1578,6 +1601,12 @@ class Executor:
         self._sharding_rules = None
         self._zero_stage = 0
         self._state_plans = {}
+        # the pserver connections of transpiled trainer Programs, by
+        # endpoint, the times of a trainer's last send/recv round and of
+        # a pserver's last apply
+        self._ps_clients = {}
+        self.last_pserver_round = None
+        self.last_pserver_apply = None
 
     def attach_mesh(self, mesh_spec, sharding_rules=None, zero_stage=0,
                     devices=None):
@@ -1681,6 +1710,19 @@ class Executor:
                 for _, item_feed in pulled:
                     feed.update(item_feed)
                 reader_fed = True
+
+        # distributed programs: listen_and_serv blocks serving; send/recv
+        # trainer programs run their compute as a bound step, then the
+        # round with their pservers on the host
+        rpc = _rpc_kind(program)
+        if rpc is not None:
+            from .transpiler import pserver_runtime
+
+            if rpc == "serve":
+                return pserver_runtime.serve(self, program, scope)
+            return pserver_runtime.run_trainer_step(
+                self, program, feed, fetch_list, scope,
+                self._pserver_clients(program), return_numpy)
 
         bound_key = None
         if use_program_cache and self.fast_path and not reader_fed:
@@ -2203,9 +2245,13 @@ class Executor:
         """Drop every bound entry (on the card their CUDA graphs, and with
         the last of them the pool they share) and the count cells of
         ``observability.xla_stats``; the next run of a Program binds and
-        captures again.  The reference's ``close`` also tells its
-        parameter servers that this trainer is done: the port has no
-        pserver yet (ROADMAP A11.3), so that half is not here."""
+        captures again.  Then tell the parameter servers of the trainer
+        Programs this Executor ran that this trainer is done (they shut
+        down, as in the reference) and close their connections."""
+        clients, self._ps_clients = self._ps_clients, {}
+        for c in clients.values():
+            c.shutdown_server()
+            c.close()
         with self._graph_lock:
             with self._lock:
                 self._bound.clear()
@@ -2236,6 +2282,18 @@ class Executor:
             torch.cuda.empty_cache()
 
     # -- internals -----------------------------------------------------------
+    def _pserver_clients(self, program):
+        """This Executor's connection to each endpoint of ``program``'s
+        send and recv ops, made at first use."""
+        from .transpiler.pserver_runtime import PSClient
+
+        for op in program.global_block().ops:
+            if op.type in ("send", "recv"):
+                for ep in op.attrs.get("endpoints", []):
+                    if ep not in self._ps_clients:
+                        self._ps_clients[ep] = PSClient(ep)
+        return self._ps_clients
+
     def _prepare_feed(self, program, feed):
         out = {}
         blk = program.global_block()

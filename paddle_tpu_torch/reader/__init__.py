@@ -3,8 +3,8 @@
 The port's copy of ``paddle_tpu/reader``: the decorators, the creators
 and ``batch``, and the device prefetch pipeline (``device_prefetch``:
 host conversion, a pinned copy and a side-stream transfer on a
-background thread).  ``master`` (the task-queue reader) waits for
-ROADMAP A11.3 and is not here.
+background thread), and ``master``, the fault-tolerant chunk-task
+queue (``Master``, ``MasterClient``, ``master_task_reader``).
 """
 from . import creator  # noqa: F401
 from . import device_prefetch  # noqa: F401
@@ -27,6 +27,7 @@ from .decorator import (  # noqa: F401
     shuffle,
     xmap_readers,
 )
+from .master import Master, MasterClient, master_task_reader  # noqa: F401
 
 
 def batch(reader, batch_size, drop_last=False):

@@ -137,7 +137,7 @@ split device time by op or kernel family run a step on the eager path
    generate of the same history writes on a fresh scheduler, page by
    page and layer by layer: the largest difference and the elements that
    differ, prefill-written and decode-written pages apart; ROADMAP
-   F-13); then 8 conversations of 4 turns each (a shared 128-token
+   F-13); then 6 conversations of 4 turns each (a shared 128-token
    system prefix and a 128-384-token message, then the history and a
    32-96-token message a turn, 64 greedy tokens a turn, the
    conversations at once and each one's turns in order) on three pools
@@ -165,9 +165,9 @@ split device time by op or kernel family run a step on the eager path
    launches a replay; then lm-a alone through the router against a
    dedicated pool, alternated, tokens/s); the predict phase's two saved
    scoring versions as "scorer" v1 and v2, one replica each, split
-   0.75/0.25 over 100 requests (counts 75/25 within one and equal to
+   0.75/0.25 over 40 requests (counts 30/10 within one and equal to
    ``serving.router.requests{model,version}``, each answer bitwise its
-   version's dedicated pool's, B1 18 launches a dispatch), then 20 after
+   version's dedicated pool's, B1 18 launches a dispatch), then 10 after
    ``rollback`` all on v1; tenant "tight" on lm-a (rows_per_s 1, burst
    4, max_inflight 2): four generations admitted, the fifth refused with
    ServingQuotaExceeded before the decode queue moves, the labeled
@@ -216,7 +216,7 @@ split device time by op or kernel family run a step on the eager path
    one-product engine's difference recorded beside; a hot
    swap to a second seeded version under 4 client threads (every answer
    one version's bits, the new version served after); then the load
-   (64 requests of 1-4 rows with their own lengths from 8 clients,
+   (32 requests of 1-4 rows with their own lengths from 8 clients,
    buckets 2-16, a 2 ms window): requests/s, rows/s, latency p50/p95,
    the bucket histogram, peak memory, the same load on engines with
    and without the blocks, one run each (requests/s), a profiled window
@@ -473,6 +473,19 @@ split device time by op or kernel family run a step on the eager path
    batch 256 with bf16 state and images, unfolded and folded (the folded
    logits no farther from the f32 Program's than RESNET_BF16_FACTOR times
    the unfolded bf16 logits are), images/s;
+   then int8 quantization (quant_phase, alone with ``--only quant``):
+   quantized_mul, quantized_conv2d and the fake quant on the card
+   against the CPU, bitwise; ResNet-50 at batch 128 through
+   QuantizeTranspiler.training_transpile, op by op and bound (one
+   capture, bitwise), with metrics.Accuracy and average.WeightedAverage
+   over the fetches, freeze_program in place, convert_to_int8; then
+   int8 inference at batch 256 (fold, Int8InferenceTranspiler): the
+   logits within QUANT_INT8_L2 of the folded float32 Program's,
+   profiled replays of int8 GEMMs only, the card against the CPU on 4
+   images, a quarter of the weight bytes, saved and loaded bitwise, a
+   small int8 net exported AOT and loaded bitwise; torch._int_mm's
+   shape limits; the three evaluators on the card against the CPU,
+   ``reset`` capturing nothing new; B1-B5 0 launches;
 19. Transformer-base from bench.py's bf16 state (bench.py:363-389): one
    step at batch 2 x 64 (dropout 0, full width) through program_to_fn on
    the card against the CPU (loss BF16_LOSS_ULPS bf16 ulps, gradients
@@ -505,8 +518,9 @@ split device time by op or kernel family run a step on the eager path
    sentences/s, generated tokens/s, ms an iteration, the device syncs
    of a decode, peak memory, and a profiled decode's device ms by op and
    idle share;
-22. bench.py's two other long legs on bf16 (16 x 1024 for 15 steps,
-   8 x 2048 for 12; bench.py's feeds, max_length = seq): the checks of
+22. bench.py's two other long legs on bf16 (16 x 1024 for 10 steps,
+   8 x 2048 for 8, bench.py's 15 and 12 cut; bench.py's feeds,
+   max_length = seq): the checks of
    phase 19's leg (B1 and B2 18 times a step on bf16); step ms, tokens/s,
    peak memory, idle share; then B1 and B2 at each leg's attention shape
    ([16, 8, 1024, 64], [8, 8, 2048, 64], bf16, not causal) against their
@@ -580,13 +594,13 @@ POOL_PREDICT_REQUESTS, POOL_SWAP_RESERVED_TOL = 16, 0.05
 PREFIX_NEW_TOKENS = 16
 # conversational sessions: the page-bits probe (one turn of a
 # SESSION_PROBE_PROMPT-token prompt, SESSION_NEW_TOKENS generated, its
-# history's pages against a cold prefill's), then 8 conversations of 4
+# history's pages against a cold prefill's), then 6 conversations of 4
 # turns each on three pools of 3 replicas: turn 1 a 128-token system
 # prefix and a 128-384-token message, each later turn the history and a
 # 32-96-token message, 64 greedy tokens a turn; conversation
 # SESSION_KILLED's owner killed mid turn 2 on a fourth conversation set
 SESSION_PROBE_PROMPT, SESSION_NEW_TOKENS = 300, 64
-SESSION_CONVERSATIONS, SESSION_TURNS, SESSION_REPLICAS = 8, 4, 3
+SESSION_CONVERSATIONS, SESSION_TURNS, SESSION_REPLICAS = 6, 4, 3
 SESSION_SYSTEM, SESSION_FIRST, SESSION_LATER = 128, (128, 384), (32, 96)
 SESSION_ROLES = ("prefill", "decode", "decode")
 # the model router: two decode deployments of the serving LM (lm-a from
@@ -600,11 +614,11 @@ SESSION_ROLES = ("prefill", "decode", "decode")
 # parked on lm-b in each; memory allocated after a deactivation within
 # ROUTER_ALLOCATED_TOL_MIB of before its activation, and reserved after
 # the last cycle at most ROUTER_RESERVED_GROWTH times the first's
-ROUTER_REPLICAS, ROUTER_CANARY, ROUTER_ROLLBACK = 2, 100, 20
+ROUTER_REPLICAS, ROUTER_CANARY, ROUTER_ROLLBACK = 2, 40, 10
 ROUTER_SPLIT = (0.75, 0.25)
 ROUTER_TIGHT = dict(rows_per_s=1, burst_rows=4, max_inflight=2)
 ROUTER_QUOTA_TOKENS = 8
-ROUTER_CYCLES, ROUTER_SUBMITTERS, ROUTER_COLD_REQUESTS = 3, 3, 8
+ROUTER_CYCLES, ROUTER_SUBMITTERS, ROUTER_COLD_REQUESTS = 2, 3, 8
 ROUTER_HOT_TOKENS, ROUTER_HOT_GAP_S = 32, 0.1
 ROUTER_ALLOCATED_TOL_MIB, ROUTER_RESERVED_GROWTH = 16, 1.05
 GUARD_REQUESTS, GUARD_NEW_TOKENS = 4, 16
@@ -612,7 +626,7 @@ JOURNAL_REQUESTS, JOURNAL_NEW_TOKENS, JOURNAL_KILL_AT = 8, 32, 20
 # predict serving: Transformer-base scoring at TRAIN_CFG's width, the
 # engine's default bucket ladder, and the load's requests (1-4 rows each)
 PREDICT_BUCKETS = (2, 4, 8, 16)
-PREDICT_REQUESTS = 64
+PREDICT_REQUESTS = 32
 # the export plane: seconds between two scrapes of /metrics while an
 # engine serves its load (30 times a 15 s Prometheus scrape; two or more
 # scrapes a load)
@@ -643,12 +657,15 @@ LENET_EAGER_STEPS = 10
 LENET_LOSS_RTOL, LENET_GRAD_RTOL = 1e-6, 1e-5
 # ResNet-50 (benchmark/fluid/models/resnet.py, models.resnet.get_model)
 # at bench.py's leg: 224 x 224, 1000 classes, batch 128, momentum 0.9 at
-# lr 0.1, 30 iterations (bench.py:153); f32 with TF32 off; seeded normal
-# images, as bench.py's.  On one batch at lr 0.1 the loss falls for two
-# steps, then climbs for several before it falls again (the JAX package's
-# get_model does the same on the CPU), so the fall is checked at the end
+# lr 0.1, 20 of bench.py's 30 iterations (bench.py:153; cut for the
+# script's time when the quantization phase came); f32 with TF32 off;
+# seeded normal images, as bench.py's.  On one batch at lr 0.1 the loss
+# falls for two steps, then climbs for several before it falls again
+# (the JAX package's get_model does the same on the CPU; on the card the
+# 20th f32 loss lay 0.59 under the first), so the fall is checked at
+# the end
 RESNET_CFG = dict(class_dim=1000, depth=50, image_shape=(3, 224, 224))
-RESNET_BATCH, RESNET_STEPS, RESNET_CHECK_BATCH = 128, 30, 2
+RESNET_BATCH, RESNET_STEPS, RESNET_CHECK_BATCH = 128, 20, 2
 # bench.py:157: about 3.8e9 FLOPs an image forward, 3x for training
 RESNET_TRAIN_FLOPS = 3 * 3.8e9
 # ResNet-50's float32 training gradient jumps where a ReLU gate's input
@@ -662,10 +679,10 @@ RESNET_STAT_RTOL = 1e-4    # running statistics, of each tensor's max
 RESNET_GLOBAL_L2 = 0.1
 # folded against unfolded logits, of their largest magnitude
 RESNET_FOLD_RTOL = 1e-4
-RESNET_INFER_RUNS = 5
+RESNET_INFER_RUNS = 3
 # bf16 (bench.py's legs: ResNet-50 trained with get_model(dtype=
-# "bfloat16") at 30 steps of batch 128, then inference at batch 256 with
-# bf16 state and images, bench.py:277-328).  Card against CPU at batch 2:
+# "bfloat16") at RESNET_STEPS steps of batch 128, then inference at
+# batch 256 with bf16 state and images, bench.py:277-328).  Card against CPU at batch 2:
 # the card's bf16 step and the CPU's are each held against the CPU's
 # float64 step from the same bf16 state (widened), and the card may lie
 # no farther from it than RESNET_BF16_FACTOR times the CPU's distance, in
@@ -741,7 +758,7 @@ ZOO = {
     "deepfm": dict(module="deepfm", kw=dict(), batch=512, unit="samples",
                    check_batch=64, f32_rtol=1e-5),
 }
-ZOO_STEPS, ZOO_CHECK_BATCH = 20, 2
+ZOO_STEPS, ZOO_CHECK_BATCH = 10, 2
 # word2vec has no gate and no batch statistics, and DeepFM's only gates
 # are its MLP's 96 ReLUs (6,144 pre-activations at its check batch of 64:
 # one within float32 rounding of 0 is a chance of about 1e-3, and the
@@ -811,7 +828,7 @@ SEQ_MODELS = {
 # gradient (shift_invariant_weights) is held to SEQ_CANCEL_FACTOR times
 # the CPU's own float32 error of it (or f32_rtol, the larger)
 SEQ_CANCEL_FACTOR = 2.0
-SEQ_STEPS = 20
+SEQ_STEPS = 10
 SEQ_LSTM_T, SEQ_LSTM_LENS = 256, (32, 256)
 SEQ_GENRES, SEQ_TITLE = 6, 15
 SEQ_BOUND_STEPS = 4
@@ -853,14 +870,14 @@ SEQ_GEN_RUNS = 3
 # must fail
 STRUCT_MODELS = {
     "ocr_crnn_ctc": dict(module="ocr_crnn_ctc", kw=dict(), batch=16,
-                         check_batch=4, steps=10, f32=dict(
+                         check_batch=4, steps=5, f32=dict(
                              loss_rel=1e-5, fc_grad_worst_of_max=1e-4,
                              stat_worst_of_max=RESNET_STAT_RTOL,
                              grad_global_l2=RESNET_GLOBAL_L2)),
     "label_semantic_roles": dict(module="label_semantic_roles",
                                  kw=dict(hidden_dim=512, depth=8, lr=1e-3),
                                  batch=16, check_batch=4, f32_rtol=1e-4,
-                                 steps=10),
+                                 steps=5),
 }
 STRUCT_LABEL_LENS = (1, 12)
 STRUCT_SRL_LENS = (8, 64)
@@ -873,7 +890,7 @@ STRUCT_DECODE_RUNS = 3
 # the detection slice (detection_phase): MobileNet-SSD at get_model's
 # defaults (the object detection benchmark's PASCAL VOC shapes: 300 x 300
 # images, 21 classes, 2278 priors over six maps, RMSProp 1e-3), batch 32,
-# each image 1-20 seeded boxes fed ragged (DET_BOXES), 10 steps; checked
+# each image 1-20 seeded boxes fed ragged (DET_BOXES), 5 steps; checked
 # against the CPU at batch 4 as ResNet-50 and OCR are: MobileNet's ReLUs
 # and batch norms make the float32 gradient jump where a gate flips, and
 # the hard-negative mining ranks some 2,000 candidates an image whose
@@ -888,7 +905,7 @@ STRUCT_DECODE_RUNS = 3
 # last extra blocks (1 x 1 maps) normalize 4 values a channel (ROADMAP's
 # conditioning note: at 2 no float32 limit holds below them)
 DET_MODELS = {
-    "ssd": dict(module="ssd", kw=dict(), batch=32, check_batch=4, steps=10,
+    "ssd": dict(module="ssd", kw=dict(), batch=32, check_batch=4, steps=5,
                 f32=dict(loss_rel=1e-5, stat_worst_of_max=RESNET_STAT_RTOL,
                          grad_global_l2=RESNET_GLOBAL_L2)),
 }
@@ -909,7 +926,7 @@ DET_TEST_RUNS = 3
 # ratios), 28,500 anchors, 2 images
 DET_RPN = dict(batch=2, height=38, width=50, stride=16.0,
                sizes=(32.0, 64.0, 128.0, 256.0, 512.0),
-               ratios=(0.5, 1.0, 2.0), runs=3)
+               ratios=(0.5, 1.0, 2.0), runs=1)
 KERNEL_TOL = 2e-5   # kernel vs plain, f32 math on both: summation order only
 # the decode slice's kv_lens: empty slots, one key, a page, a page + 1, and
 # longer walks up to 2047 keys
@@ -952,7 +969,7 @@ TRAINER_CKPT_STEPS = 4
 TRAINER_KEEP = 2
 TRAINER_RESUME_AT = 8
 TRAINER_TEST_BATCHES = 4
-TRAINER_TIMED_STEPS = 12
+TRAINER_TIMED_STEPS = 6
 # LeNet through fluid.Trainer (lenet_trainer_phase): LENET_TRAINER_STEPS
 # steps a leg; the rewind leg runs LENET_REWIND_STEPS steps under
 # nan_guard=2 with a checkpoint every LENET_CKPT_STEPS steps and NaN
@@ -1037,7 +1054,7 @@ BEAM_WIDTHS = dict(src_vocab_size=30000, trg_vocab_size=30000,
                    d_inner=2048)
 BEAM_SIZE, BEAM_OUT_LEN, BEAM_SEQ = 4, 32, 64
 BEAM_SOURCES = 64
-BEAM_RUNS = 3
+BEAM_RUNS = 2
 BEAM_CHECK_SOURCES, BEAM_CHECK_OUT_LEN = 2, 16
 BEAM_SCORE_RTOL = 1e-9   # float64 card vs CPU: DGEMM summation orders only
 DECODE_FAMILIES = {"mul": "gemm", "matmul": "gemm", "softmax": "softmax",
@@ -1046,8 +1063,9 @@ DECODE_FAMILIES = {"mul": "gemm", "matmul": "gemm", "softmax": "softmax",
                    "elementwise_add": "elementwise",
                    "reduce_sum": "reduce_sum"}
 # bench.py's two other long Transformer legs (bench.py:458-461), on bf16:
-# (batch, seq, steps)
-BENCH_BF16_LEGS = ((16, 1024, 15), (8, 2048, 12))
+# (batch, seq, steps); bench.py runs 15 and 12 steps, cut to 10 and 8
+# for the script's time when the quantization phase came
+BENCH_BF16_LEGS = ((16, 1024, 10), (8, 2048, 8))
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak,
 # and the dense bfloat16 tensor-core peak (989.4 TFLOP/s, no sparsity)
 PEAK_BYTES_S = 3.35e12
@@ -4901,6 +4919,33 @@ def images_per_s(exe, prog, feed, fetch, scope):
     return len(feed["data"]) / dt, out
 
 
+def resnet_bn_stats(torch, fluid, exe, m, scope, feed, rng):
+    """Set each batch_norm's Scale and Bias (found through the op's
+    inputs of ``m``'s test Program) in ``scope`` to seeded values in
+    [0.5, 1.5] and [-0.5, 0.5], and its Mean and Variance to the
+    statistics of ``feed``'s batch under them (one training step of
+    ``m["main"]`` in a copy of the scope), so that a fold has a scale and
+    a shift to carry in every layer."""
+    bns = [op for op in m["test"].global_block().ops
+           if op.type == "batch_norm"]
+    names = [n for n in m["main"].persistable_names() if n in scope]
+    for op in bns:
+        for slot, lo, hi in (("Scale", 0.5, 1.5), ("Bias", -0.5, 0.5)):
+            n = op.inputs[slot][0]
+            scope[n] = torch.as_tensor(rng.uniform(
+                lo, hi, tuple(scope[n].shape)).astype(np.float32),
+                device=scope[n].device).to(scope[n].dtype)
+    probe = copy_scope(fluid, scope, names)
+    saved = exe.run(m["main"], feed=feed, scope=probe, fetch_list=[
+        op.outputs[s][0] for op in bns for s in ("SavedMean",
+                                                 "SavedVariance")],
+        return_numpy=False)
+    del probe
+    for k, op in enumerate(bns):
+        scope[op.inputs["Mean"][0]] = saved[2 * k].detach().clone()
+        scope[op.inputs["Variance"][0]] = saved[2 * k + 1].detach().clone()
+
+
 def resnet_infer(torch, fluid, resnet, dev, m, scope, batch=RESNET_BATCH,
                  f32_test=None):
     """Folded inference of the trained model's ``test`` Program at
@@ -4927,29 +4972,12 @@ def resnet_infer(torch, fluid, resnet, dev, m, scope, batch=RESNET_BATCH,
     bns = [op for op in blk.ops if op.type == "batch_norm"]
     (logits,) = [op.inputs["X"][0] for op in blk.ops if op.type == "softmax"]
     names = [n for n in m["main"].persistable_names() if n in scope]
-    rng = np.random.RandomState(SEED + 64)
-    for op in bns:
-        for slot, lo, hi in (("Scale", 0.5, 1.5), ("Bias", -0.5, 0.5)):
-            n = op.inputs[slot][0]
-            scope[n] = torch.as_tensor(rng.uniform(
-                lo, hi, tuple(scope[n].shape)).astype(np.float32),
-                device=dev).to(scope[n].dtype)
     x, y = resnet_images(np.random.RandomState(SEED + 65), batch)
     feed = {"data": torch.as_tensor(x, device=dev).to(dtype),
             "label": torch.as_tensor(y, device=dev)}
     exe = fluid.Executor(device=dev)
-    # the batch statistics under these Scale and Bias: one training
-    # forward in a copy of the scope
-    probe = copy_scope(fluid, scope, names)
-    saved = exe.run(m["main"], feed=feed, scope=probe, fetch_list=[
-        op.outputs[s][0] for op in bns for s in ("SavedMean",
-                                                 "SavedVariance")],
-        return_numpy=False)
-    del probe
-    for k, op in enumerate(bns):
-        scope[op.inputs["Mean"][0]] = saved[2 * k].detach().clone()
-        scope[op.inputs["Variance"][0]] = saved[2 * k + 1].detach().clone()
-    del saved
+    resnet_bn_stats(torch, fluid, exe, m, scope, feed,
+                    np.random.RandomState(SEED + 64))
     unfolded_ips, unfolded = images_per_s(exe, test, feed, [logits], scope)
     folded = test.clone()
     fscope = copy_scope(fluid, scope, names)
@@ -5038,6 +5066,687 @@ def resnet_phase(torch, fluid, fa, dev):
     out["phase_s"] = {"check": t1 - t0, "train": t2 - t1, "infer": t3 - t2}
     log("resnet-50 phase: launches %s, resident before %.2f GiB, seconds %s"
         % (json.dumps(launches), resident, json.dumps(out["phase_s"])))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8 quantization (quant_phase, ROADMAP A12.1)
+# ---------------------------------------------------------------------------
+
+# Q1: quantized_mul and quantized_conv2d on the card against their plain
+# versions on the CPU, bitwise (an integer product is exact, and every
+# float operation around it is the same IEEE operation on either device).
+# quantized_mul: (rows, K, N): ResNet-50's fc at 5 and 256 images, and a
+# head of 10 columns (N not a multiple of 8)
+QUANT_MUL_CASES = {"rows_5": (5, 2048, 1000), "rows_256": (256, 2048, 1000),
+                   "n_10": (64, 512, 10)}
+# quantized_conv2d: (N, C, H, W, O, k, stride, pad, dilation, groups,
+# bias): ResNet-50's stem (K = 3 a tap, 147 as im2col), a 3x3 at C 64, a
+# strided 3x3, a 1x1 256 -> 64, a dilated 3x3, SE-ResNeXt's grouped 3x3
+# (cardinality 32) and a 3x3 with the fold's Bias
+QUANT_CONV_CASES = {
+    "resnet_stem": (2, 3, 224, 224, 64, 7, 2, 3, 1, 1, False),
+    "3x3_c64": (2, 64, 56, 56, 64, 3, 1, 1, 1, 1, False),
+    "3x3_strided": (2, 128, 56, 56, 128, 3, 2, 1, 1, 1, False),
+    "1x1_256_to_64": (2, 256, 56, 56, 64, 1, 1, 0, 1, 1, False),
+    "dilated": (2, 64, 28, 28, 64, 3, 1, 2, 2, 1, False),
+    "grouped": (2, 128, 28, 28, 128, 3, 1, 1, 1, 32, False),
+    "bias": (2, 64, 56, 56, 64, 3, 1, 1, 1, 1, True),
+}
+# the fake quant on a 3x3 512 -> 512 filter (ResNet-50's widest)
+QUANT_FAKE_SHAPE = (512, 512, 3, 3)
+# torch._int_mm's shape limits on this card and PyTorch build, the second
+# operand K-major as the port passes it: (rows, K, N) at and around them.
+# A shape the port's padding makes (rows above 16, K and N multiples of 8)
+# must be exact against the float64 product; the others are recorded,
+# taken or refused
+QUANT_INT_MM_SHAPES = ((16, 8, 8), (17, 8, 8), (17, 12, 8), (17, 8, 12),
+                       (32, 16, 16))
+# Q2: quantize-aware training of ResNet-50 at RESNET_BATCH: steps through
+# Executor.run (eager, capture, replays), op by op and bound
+QUANT_STEPS = 5
+# replays in the profiled window of the int8 Program: the profiler may
+# drop the first events of a window, so the check counts whole replays
+# after the first
+QUANT_PROFILED_REPLAYS = 3
+# Q3: int8 inference at RESNET_INFER_BATCH; the card against the CPU's
+# int8 run on QUANT_CPU_IMAGES images, within QUANT_CPU_OF_MAX of the
+# largest |logit|
+QUANT_CPU_IMAGES = 4
+QUANT_CPU_OF_MAX = 1e-3
+# the int8 logits' relative L2 distance from the folded float32 logits on
+# the same state and images (predicted before the first run, PERF.md
+# §6): each quantization (per-tensor activations, per-channel weights)
+# rounds to 1/254 of its range, about 0.0023 of the range in RMS, an
+# activation's range some 3-10 times its RMS: about 1% a layer in L2;
+# ResNet-50's 54 quantized layers read 0.050 on the CPU at 64 x 64 and
+# batch 16 (the phase rehearsed with these seeds), and the card's 224 x
+# 224 is predicted at 0.03-0.08.  The limit, 3x the CPU's reading, still
+# fails a fault: a dropped Bias or a wrong scale moves the logits by the
+# order of their own size
+QUANT_INT8_L2 = 0.15
+# Q4: an evaluator's eval on the card against the CPU's: its counts are
+# integers, its float32 sums (edit distances, the mAP's precision and
+# recall) may add in another order
+QUANT_EVAL_RTOL = 1e-6
+# kernel names: a GEMM (cuBLAS, cuBLASLt, CUTLASS) and its int8 spelling,
+# a convolution (cuDNN)
+GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "gemv", "imma")
+INT8_MARKS = ("s8", "i8", "int8", "imma")
+CONV_MARKS = ("conv", "fprop", "dgrad", "wgrad", "implicit")
+
+
+def quant_op_program(fluid, op_type, feeds, attrs, outs, grad=False,
+                     bf16=False):
+    """One ``op_type`` op appended raw over data variables named as
+    ``feeds``' slots (``X``/``Input`` cast to bfloat16 where ``bf16``),
+    its ``outs`` slots float32 variables; with ``grad``, also the
+    gradient of sum(Out * g) with respect to X (``feeds["g"]``).
+    Returns (Program, fetch list)."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        vs = {slot: fluid.layers.data(
+            name=slot.lower(), shape=list(a.shape), dtype=str(a.dtype),
+            append_batch_size=False, stop_gradient=not grad)
+            for slot, a in feeds.items()}
+        ins = {s: [fluid.layers.cast(v, "bfloat16") if bf16 and s in (
+            "X", "Input") else v] for s, v in vs.items() if s != "g"}
+        helper = LayerHelper(op_type)
+        out = {s: helper.create_variable_for_type_inference(dtype="float32")
+               for s in outs}
+        helper.append_op(type=op_type, inputs=ins,
+                         outputs={s: [v] for s, v in out.items()},
+                         attrs=attrs)
+        fetch = [out[s] for s in outs]
+        if grad:
+            loss = fluid.layers.reduce_sum(fluid.layers.elementwise_mul(
+                out["Out"], vs["g"]))
+            fetch += fluid.backward.calc_gradient(loss, [vs["X"]])
+    return main, fetch
+
+
+def quant_case(torch, fluid, dev, main, fetch, feeds):
+    """``main`` on the card and on the CPU: (card fetches, CPU fetches,
+    the largest difference)."""
+    feed = {s.lower(): a for s, a in feeds.items()}
+    card = [np.asarray(v, np.float32) for v in fluid.Executor(device=dev).run(
+        main, feed=feed, fetch_list=fetch, scope=fluid.Scope())]
+    cpu = [np.asarray(v, np.float32) for v in fluid.Executor(
+        fluid.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                              scope=fluid.Scope())]
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+    return card, cpu, diff
+
+
+def quant_ops_check(torch, fluid, dev):
+    """Q1: every case on the card against the CPU; the largest difference
+    of each, all 0."""
+    rng = np.random.RandomState(SEED + 170)
+    rows = []
+    for name, (m, k, n) in QUANT_MUL_CASES.items():
+        feeds = {"X": rng.randn(m, k).astype(np.float32),
+                 "QWeight": rng.randint(-127, 128, (k, n)).astype(np.int8),
+                 "WScale": rng.uniform(0.01, 2.0, n).astype(np.float32)}
+        for dtype in ("float32", "bfloat16"):
+            main, fetch = quant_op_program(
+                fluid, "quantized_mul", feeds, {"x_num_col_dims": 1},
+                ["Out"], bf16=dtype == "bfloat16")
+            card, _, diff = quant_case(torch, fluid, dev, main, fetch, feeds)
+            check(np.isfinite(card[0]).all() and card[0].shape == (m, n),
+                  "quantized_mul output", name, dtype)
+            rows.append({"op": "quantized_mul", "case": name,
+                         "dtype": dtype, "max_abs_err": diff})
+    for name, (n, c, h, w, o, k, st, pad, dil, g, bias) in \
+            QUANT_CONV_CASES.items():
+        feeds = {"Input": rng.randn(n, c, h, w).astype(np.float32),
+                 "QWeight": rng.randint(-127, 128, (o, c // g, k, k))
+                 .astype(np.int8),
+                 "WScale": rng.uniform(0.01, 2.0, o).astype(np.float32)}
+        if bias:
+            feeds["Bias"] = rng.randn(o).astype(np.float32)
+        attrs = {"strides": [st, st], "paddings": [pad, pad],
+                 "dilations": [dil, dil], "groups": g}
+        for dtype in ("float32", "bfloat16"):
+            main, fetch = quant_op_program(
+                fluid, "quantized_conv2d", feeds, attrs, ["Output"],
+                bf16=dtype == "bfloat16")
+            card, _, diff = quant_case(torch, fluid, dev, main, fetch, feeds)
+            check(np.isfinite(card[0]).all(), "quantized_conv2d output",
+                  name, dtype)
+            rows.append({"op": "quantized_conv2d", "case": name,
+                         "dtype": dtype, "shape": list(card[0].shape),
+                         "max_abs_err": diff})
+    x = (rng.randn(*QUANT_FAKE_SHAPE) * 0.05).astype(np.float32)
+    g = rng.randn(*QUANT_FAKE_SHAPE).astype(np.float32)
+    main, fetch = quant_op_program(
+        fluid, "fake_quantize_abs_max", {"X": x, "g": g},
+        {"bit_length": 8}, ["Out", "OutScale"], grad=True)
+    card, cpu, diff = quant_case(torch, fluid, dev, main, fetch,
+                                 {"X": x, "g": g})
+    check(card[2].tobytes() == g.tobytes(),
+          "the fake quant's gradient is not the upstream gradient")
+    rows.append({"op": "fake_quantize_abs_max", "case": "3x3_512",
+                 "dtype": "float32", "max_abs_err": diff,
+                 "out_scale": float(card[1][0]),
+                 "gradient_is_upstream": True})
+    check(all(r["max_abs_err"] == 0 for r in rows),
+          "a quantized op on the card differs from the CPU", rows)
+    return rows
+
+
+def quant_int_mm_limits(torch, dev):
+    """Q1's limits case: each QUANT_INT_MM_SHAPES product through
+    ``torch._int_mm`` against the float64 product, or the error that
+    refused it."""
+    rng = torch.Generator().manual_seed(SEED + 171)
+    rows = []
+    for m, k, n in QUANT_INT_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=rng)
+        b_t = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                            generator=rng)
+        want = (a.double() @ b_t.double().t()).to(torch.int32)
+        row = {"shape": [m, k, n]}
+        try:
+            got = torch._int_mm(a.to(dev), b_t.to(dev).t()).cpu()
+            row["exact"] = torch.equal(got, want)
+        except RuntimeError as exc:
+            row["refused"] = str(exc).splitlines()[0][:120]
+        padded = m > 16 and k % 8 == 0 and n % 8 == 0
+        check(row.get("exact") or not padded,
+              "torch._int_mm on a shape the port's padding makes", row)
+        check(row.get("exact", True), "torch._int_mm took a shape and "
+              "gave a wrong product", row)
+        rows.append(row)
+    return rows
+
+
+def quant_train(torch, fluid, resnet, dev):
+    """Q2: ResNet-50 at RESNET_BATCH, the training Program transpiled by
+    ``QuantizeTranspiler.training_transpile`` (one fake quant a conv2d or
+    mul weight), QUANT_STEPS steps from one start state three ways, with
+    cuDNN's deterministic algorithms: the quantized Program op by op and
+    through the fast path (eager, capture, replays: one capture, losses
+    and every persistable bitwise the op-by-op run's), and the float
+    Program through the fast path (step ms beside).  A
+    ``metrics.Accuracy`` and an ``average.WeightedAverage`` take the fast
+    run's fetched accuracies and losses.  Then ``freeze_program`` (in
+    place: the same tensors, the scope's version unmoved) and
+    ``convert_to_int8``.  Returns (stats, the float model, the
+    quantize-aware run's scope, the persistable names)."""
+    from paddle_tpu_torch import executor as executor_mod
+    from paddle_tpu_torch.contrib.quantize import QuantizeTranspiler
+    from paddle_tpu_torch.framework import OpRole
+
+    m, q = resnet_model(fluid, resnet), resnet_model(fluid, resnet)
+    qt = QuantizeTranspiler()
+    t0 = time.perf_counter()
+    qt.training_transpile(q["main"])
+    transpile_s = time.perf_counter() - t0
+    forward = [op for op in m["main"].global_block().ops
+               if op.type in qt.QUANTIZABLE and op.attrs.get("op_role")
+               not in (OpRole.Backward, OpRole.Optimize)]
+    fakes = [op for op in q["main"].global_block().ops
+             if op.type == "fake_quantize_abs_max"]
+    check(len(fakes) == len({op.inputs[qt.QUANTIZABLE[op.type]][0]
+                             for op in forward}) > 0,
+          "one fake quant a conv2d/mul weight", len(fakes), len(forward))
+    m["startup"].random_seed = SEED + 171
+    scope0 = fluid.Scope()
+    fluid.Executor(device=dev).run(m["startup"], scope=scope0)
+    names = [n for n in m["main"].persistable_names() if n in scope0]
+    x, y = resnet_images(np.random.RandomState(SEED + 172), RESNET_BATCH)
+    feed = {"data": torch.as_tensor(x, device=dev),
+            "label": torch.as_tensor(y, device=dev)}
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, model, cache in (("float", m, True),
+                                    ("quant_eager", q, False),
+                                    ("quant", q, True)):
+            torch.cuda.empty_cache()
+            exe, scope = fluid.Executor(device=dev), copy_scope(
+                fluid, scope0, names)
+            c0 = executor_mod.compile_count()
+            losses, accs, step_s = [], [], []
+            for _ in range(QUANT_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, acc = exe.run(model["main"], feed=feed,
+                                    fetch_list=[model["loss"], model["acc"]],
+                                    scope=scope, use_program_cache=cache)
+                losses.append(np.asarray(loss))
+                accs.append(np.asarray(acc))
+                step_s.append(time.perf_counter() - t0)
+            runs[label] = {
+                "scope": scope, "losses": losses, "accs": accs,
+                "step_s": step_s,
+                "captures": executor_mod.compile_count() - c0,
+                "entries": sum(b.program is model["main"]
+                               for b in exe._bound.values())}
+            if label == "float":
+                del runs[label]["scope"]    # its pool and state go now
+            del exe, scope
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del scope0
+    e, f = runs["quant_eager"], runs["quant"]
+    bitwise = (all(a.tobytes() == b.tobytes()
+                   for a, b in zip(e["losses"], f["losses"]))
+               and all(fluid.executor.as_numpy(e["scope"][n]).tobytes()
+                       == fluid.executor.as_numpy(f["scope"][n]).tobytes()
+                       for n in names))
+    check(bitwise and f["captures"] == 1 and f["entries"] == 1
+          and e["captures"] == 0,
+          "quantize-aware steps not bound and replayed bitwise",
+          bitwise, f["captures"], f["entries"], e["captures"])
+    del e["scope"]
+    losses = [float(v.reshape(-1)[0]) for v in f["losses"]]
+    check(all(np.isfinite(losses)), "quantize-aware loss", losses)
+    acc_metric = fluid.metrics.Accuracy()
+    avg = fluid.average.WeightedAverage()
+    for loss, acc in zip(f["losses"], f["accs"]):
+        acc_metric.update(acc, RESNET_BATCH)
+        avg.add(loss, RESNET_BATCH)
+    accs = [float(a.reshape(-1)[0]) for a in f["accs"]]
+    metric_err = max(abs(acc_metric.eval() - float(np.mean(accs))),
+                     abs(avg.eval() - float(np.mean(losses))))
+    check(metric_err <= 1e-12 * max(1.0, abs(float(np.mean(losses)))),
+          "Accuracy / WeightedAverage against numpy's means", metric_err)
+    scope = f["scope"]
+    held = {n: scope[n] for n in names}
+    version = scope._version
+    t0 = time.perf_counter()
+    qt.freeze_program(q["main"], scope)
+    freeze_s = time.perf_counter() - t0
+    check(scope._version == version
+          and all(scope[n] is t for n, t in held.items()),
+          "freeze_program replaced a scope tensor")
+    qt.convert_to_int8(q["main"], scope)
+    wnames = [op.inputs["X"][0] for op in fakes]
+    check(all(scope[w + ".int8"].dtype == torch.int8
+              and scope[w + ".int8"].device == scope[w].device
+              for w in wnames), "convert_to_int8's tensors")
+    int8_bytes = sum(scope[w + ".int8"].numel() for w in wnames)
+    f32_bytes = sum(scope[w].numel() * scope[w].element_size()
+                    for w in wnames)
+    check(4 * int8_bytes == f32_bytes, "int8 storage", int8_bytes, f32_bytes)
+    stats = {
+        "batch": RESNET_BATCH, "steps": QUANT_STEPS,
+        "fake_quant_ops": len(fakes), "quantized_weights": len(wnames),
+        "transpile_s": transpile_s, "freeze_s": freeze_s,
+        "captures": f["captures"], "entries": f["entries"],
+        "replays_bitwise_eager": bitwise, "cudnn_deterministic": True,
+        "losses": losses, "accuracies": accs,
+        "accuracy_metric": acc_metric.eval(), "loss_average": avg.eval(),
+        "step_ms": steady_ms(f["step_s"]),
+        "step_ms_all": [t * 1e3 for t in f["step_s"]],
+        "eager_step_ms": float(np.mean(e["step_s"][1:])) * 1e3,
+        "float_step_ms": steady_ms(runs["float"]["step_s"]),
+        "float_losses": [float(v.reshape(-1)[0])
+                         for v in runs["float"]["losses"]],
+        "convert_to_int8_bytes": int8_bytes, "f32_weight_bytes": f32_bytes}
+    stats["over_float"] = stats["step_ms"] / stats["float_step_ms"]
+    return stats, m, scope, names
+
+
+def kernel_counts(torch, step, calls=1):
+    """The device kernels of ``calls`` calls of ``step``, by name:
+    (launches, device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return {k: (n, us / 1e3) for k, (n, us) in out.items()}
+
+
+def gemm_kinds(kernels):
+    """Kernels by kind: int8 GEMMs, float GEMMs, convolutions, other."""
+    kinds = {"int8_gemm": {}, "float_gemm": {}, "conv": {}, "other": {}}
+    for name, (n, ms) in kernels.items():
+        low = name.lower()
+        if any(k in low for k in CONV_MARKS):
+            kind = "conv"
+        elif any(k in low for k in GEMM_MARKS):
+            kind = ("int8_gemm" if any(k in low for k in INT8_MARKS)
+                    else "float_gemm")
+        else:
+            kind = "other"
+        kinds[kind][name[:120]] = [n, ms]
+    return kinds
+
+
+def quant_infer(torch, fluid, dev, m, scope, names, resnet_f32=None,
+                resnet_bf16=None):
+    """Q3: the frozen state's test Program (statistics as resnet_infer
+    sets them) folded by the InferenceTranspiler, then
+    ``Int8InferenceTranspiler``: every conv2d and mul quantized, each
+    folded conv keeping its Bias (R-16); the int8 and the folded float32
+    Programs at RESNET_INFER_BATCH (images/s, the int8 logits' relative
+    L2 distance from the float32 logits within QUANT_INT8_L2);
+    QUANT_PROFILED_REPLAYS profiled int8 replays (int8 GEMMs only, one a
+    quantized op a replay: no convolution, no float GEMM); the
+    card's int8 logits against the CPU's on QUANT_CPU_IMAGES images; the
+    int8 weights' bytes a quarter of the float32 weights'; the Program
+    saved, loaded back and run bitwise, its weights still int8, and once
+    with ``aot=True`` on a small int8 Program (quant_aot)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.contrib.quantize import Int8InferenceTranspiler
+
+    t = {"start": time.perf_counter()}
+    x, y = resnet_images(np.random.RandomState(SEED + 173),
+                         RESNET_INFER_BATCH)
+    feed = {"data": torch.as_tensor(x, device=dev),
+            "label": torch.as_tensor(y, device=dev)}
+    exe = fluid.Executor(device=dev)
+    torch.cuda.empty_cache()
+    # the statistics of the first RESNET_BATCH images (a training step's
+    # memory at the training batch)
+    resnet_bn_stats(torch, fluid, exe, m, scope,
+                    {k: v[:RESNET_BATCH] for k, v in feed.items()},
+                    np.random.RandomState(SEED + 174))
+    test = m["test"]
+    (logits,) = [op.inputs["X"][0] for op in test.global_block().ops
+                 if op.type == "softmax"]
+    fprog, fscope = test.clone(), copy_scope(fluid, scope, names)
+    fluid.InferenceTranspiler().transpile(fprog, scope=fscope)
+    qprog, qscope = test.clone(), copy_scope(fluid, scope, names)
+    fluid.InferenceTranspiler().transpile(qprog, scope=qscope)
+    folded = {op.outputs["Output"][0] for op in qprog.global_block().ops
+              if op.type == "conv2d" and op.inputs.get("Bias")}
+    t0 = time.perf_counter()
+    Int8InferenceTranspiler().transpile(qprog, qscope)
+    int8_s = time.perf_counter() - t0
+    t["transpiled"] = time.perf_counter()
+    ops = qprog.global_block().ops
+    qops = [op for op in ops if op.type.startswith("quantized_")]
+    check(not any(op.type in ("conv2d", "mul") for op in ops) and qops,
+          "a conv2d or mul left in float")
+    kept = {op.outputs["Output"][0] for op in qops
+            if op.type == "quantized_conv2d" and op.inputs.get("Bias")}
+    check(kept == folded and folded, "a folded conv lost its Bias (R-16)",
+          len(kept), len(folded))
+    replaced = [op.inputs["QWeight"][0][:-len(".int8")] for op in qops]
+    int8_bytes = sum(qscope[w + ".int8"].numel() for w in replaced)
+    f32_bytes = sum(qscope[w].numel() * qscope[w].element_size()
+                    for w in replaced)
+    check(all(qscope[w + ".int8"].dtype == torch.int8 for w in replaced)
+          and 4 * int8_bytes == f32_bytes, "int8 weight storage",
+          int8_bytes, f32_bytes)
+    f32_ips, f32_logits = images_per_s(exe, fprog, feed, [logits], fscope)
+    int8_ips, int8_logits = images_per_s(exe, qprog, feed, [logits], qscope)
+    t["timed"] = time.perf_counter()
+    check(np.isfinite(int8_logits).all() and int8_logits.shape == (
+        RESNET_INFER_BATCH, RESNET_CFG["class_dim"]), "int8 logits")
+    rel_l2 = float(np.linalg.norm(int8_logits - f32_logits)
+                   / np.linalg.norm(f32_logits))
+    log("quant: int8 logits %.6g in relative L2 from the folded float32 "
+        "logits (limit %g)" % (rel_l2, QUANT_INT8_L2))
+    check(rel_l2 <= QUANT_INT8_L2, "int8 logits against float32", rel_l2)
+    check(any(b.program is qprog and b.graph is not None
+              for b in exe._bound.values()), "no int8 graph to profile")
+    replays = QUANT_PROFILED_REPLAYS
+    kinds = gemm_kinds(kernel_counts(torch, lambda: exe.run(
+        qprog, feed=feed, fetch_list=[logits], scope=qscope), replays))
+    log("quant: kernels of %d int8 replays: %s"
+        % (replays, json.dumps(kinds)))
+    int8_launches = sum(c for c, _ in kinds["int8_gemm"].values())
+    check(not kinds["conv"] and not kinds["float_gemm"]
+          and int8_launches >= (replays - 1) * len(qops),
+          "the int8 replays ran float convolutions or GEMMs", kinds)
+    # the card against the CPU on a few images
+    small = {"data": feed["data"][:QUANT_CPU_IMAGES],
+             "label": feed["label"][:QUANT_CPU_IMAGES]}
+    card = np.asarray(exe.run(qprog, feed=small, fetch_list=[logits],
+                              scope=qscope, use_program_cache=False)[0])
+    cpu_scope = fluid.Scope()
+    for n in qprog.persistable_names():
+        if n in qscope:
+            cpu_scope[n] = qscope[n].detach().cpu()
+    t0 = time.perf_counter()
+    cpu = np.asarray(fluid.Executor(fluid.CPUPlace()).run(
+        qprog, feed={k: v.cpu() for k, v in small.items()},
+        fetch_list=[logits], scope=cpu_scope)[0])
+    cpu_s = time.perf_counter() - t0
+    t["card_vs_cpu"] = time.perf_counter()
+    del cpu_scope
+    cpu_diff = float(np.abs(card - cpu).max())
+    cpu_max = float(np.abs(cpu).max())
+    check(cpu_diff <= QUANT_CPU_OF_MAX * cpu_max,
+          "int8 logits, card against CPU", cpu_diff, cpu_max)
+    # saved and loaded back; once with the torch.export artifact
+    tmp = tempfile.mkdtemp(prefix="int8_")
+    try:
+        with fluid.scope_guard(qscope):
+            fluid.io.save_inference_model(tmp, ["data"], [logits], exe,
+                                          main_program=qprog)
+        lscope = fluid.Scope()
+        with fluid.scope_guard(lscope):
+            prog2, feeds2, fetch2 = fluid.io.load_inference_model(tmp, exe)
+        loaded = np.asarray(exe.run(prog2, feed={"data": feed["data"]},
+                                    fetch_list=fetch2, scope=lscope)[0])
+        check(loaded.tobytes() == int8_logits.tobytes()
+              and all(lscope[w + ".int8"].dtype == torch.int8
+                      for w in replaced),
+              "the loaded int8 model", float(np.abs(loaded - int8_logits)
+                                             .max()))
+        t["saved_and_loaded"] = time.perf_counter()
+        aot = quant_aot(torch, fluid, dev, tmp)
+        t["aot"] = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats = {
+        "batch": RESNET_INFER_BATCH, "quantized_ops": len(qops),
+        "quantized_convs_with_bias": len(kept), "int8_transpile_s": int8_s,
+        "int8_weight_bytes": int8_bytes, "f32_weight_bytes": f32_bytes,
+        "logits_rel_l2": rel_l2, "logits_rel_l2_limit": QUANT_INT8_L2,
+        "argmax_agree": float(np.mean(int8_logits.argmax(1)
+                                      == f32_logits.argmax(1))),
+        "images_per_s_int8": int8_ips, "images_per_s_f32_folded": f32_ips,
+        "profiled_replays": replays, "int8_gemm_launches": int8_launches,
+        "int8_gemm_ms_per_replay": sum(
+            ms for _, ms in kinds["int8_gemm"].values()) / replays,
+        "int8_gemm_kernels": kinds["int8_gemm"],
+        "other_ms_per_replay": sum(
+            ms for _, ms in kinds["other"].values()) / replays,
+        "card_vs_cpu": {"images": QUANT_CPU_IMAGES, "max_abs": cpu_diff,
+                        "of_max": cpu_diff / cpu_max,
+                        "bitwise": card.tobytes() == cpu.tobytes(),
+                        "cpu_s": cpu_s},
+        "saved_and_loaded_bitwise": True, "aot": aot,
+        "seconds": dict(zip(list(t)[1:], np.diff(list(t.values())).tolist()))}
+    if resnet_f32 is not None:
+        stats["images_per_s_f32_folded_at_%d" % RESNET_BATCH] = \
+            resnet_f32["infer"]["images_per_s_folded"]
+    if resnet_bf16 is not None:
+        stats["images_per_s_bf16_folded"] = \
+            resnet_bf16["infer"]["images_per_s_folded"]
+    return stats
+
+
+def quant_aot(torch, fluid, dev, tmp):
+    """The int8 Program through ``save_inference_model(aot=True)``: the
+    reference test's net (a 3x3 conv, a pool, two fc; its own seeded
+    state) at 256 images of 3 x 16 x 16, transpiled by
+    ``Int8InferenceTranspiler``; the exported graph's logits at 256 and
+    at 5 images (a symbolic batch; the fc's rows padded past
+    ``torch._int_mm``'s 16) bitwise the Program's.  Any failure of the
+    export, the load or the comparison fails the run.  ResNet-50's int8
+    Program is not exported here: its ``torch.export`` trace takes too
+    long for the script's time limit."""
+    from paddle_tpu_torch.contrib.quantize import Int8InferenceTranspiler
+
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED + 176
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, 16, 16],
+                                dtype="float32")
+        h = fluid.layers.conv2d(img, num_filters=8, filter_size=3,
+                                act="relu")
+        h = fluid.layers.pool2d(h, pool_size=2, pool_stride=2)
+        h = fluid.layers.fc(h, size=32, act="relu")
+        out = fluid.layers.fc(h, size=10)
+    test = main.clone(for_test=True)
+    exe, scope = fluid.Executor(device=dev), fluid.Scope()
+    exe.run(startup, scope=scope)
+    Int8InferenceTranspiler().transpile(test, scope)
+    x = torch.as_tensor(np.random.RandomState(SEED + 177).randn(
+        256, 3, 16, 16).astype(np.float32), device=dev)
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(tmp + "/aot", ["img"], [out], exe,
+                                      main_program=test, aot=True)
+    save_s = time.perf_counter() - t0
+    predict, _, _ = fluid.io.load_aot_inference_model(tmp + "/aot",
+                                                      device=dev)
+    bitwise = {}
+    for n in (256, 5):
+        want = np.asarray(exe.run(test, feed={"img": x[:n]},
+                                  fetch_list=[out], scope=scope)[0])
+        got = np.asarray(predict({"img": x[:n]})[0])
+        check(got.shape == want.shape, "the int8 AOT artifact's shape", n,
+              got.shape, want.shape)
+        bitwise[n] = got.tobytes() == want.tobytes()
+        check(bitwise[n], "the int8 AOT artifact against the Program", n,
+              float(np.abs(got - want).max()))
+    return {"exported": True, "save_s": save_s,
+            "bitwise_at_256_and_5": bitwise}
+
+
+def quant_eval_program(fluid, kind):
+    """A small seeded evaluator Program (``evaluator.ChunkEvaluator``,
+    ``EditDistance`` or ``DetectionMAP``) and its two dense batches."""
+    rng = np.random.RandomState(SEED + 175)
+    if kind == "chunk":
+        batches = []
+        for _ in range(2):
+            lab = rng.randint(0, 7, (16, 32)).astype(np.int64)
+            inf = np.where(rng.rand(16, 32) < 0.3,
+                           rng.randint(0, 7, (16, 32)), lab).astype(np.int64)
+            batches.append({"i": inf, "l": lab})
+    elif kind == "edit_distance":
+        batches = [{"h": rng.randint(0, 5, (16, 24)).astype(np.int64),
+                    "r": rng.randint(0, 5, (16, 24)).astype(np.int64)}
+                   for _ in range(2)]
+    else:
+        batches = []
+        for _ in range(2):
+            det = np.full((8, 16, 6), -1.0, np.float32)
+            det[:, :12, 0] = rng.randint(1, 4, (8, 12))
+            det[:, :12, 1] = rng.rand(8, 12)
+            det[:, :12, 2:4] = rng.rand(8, 12, 2)
+            det[:, :12, 4:] = det[:, :12, 2:4] + rng.rand(8, 12, 2)
+            gtb = (np.concatenate([det[:, :4, 2:4], det[:, :4, 4:]], axis=2)
+                   + rng.uniform(-0.1, 0.1, (8, 4, 4))).astype(np.float32)
+            batches.append({"d": det, "gb": gtb, "gl": rng.randint(
+                1, 4, (8, 4)).astype(np.int64)})
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        v = {n: fluid.layers.data(name=n, shape=list(a.shape[1:]),
+                                  dtype=str(a.dtype),
+                                  lod_level=0 if kind == "detection_map"
+                                  or n == "d" else 1)
+             for n, a in batches[0].items()}
+        if kind == "chunk":
+            ev = fluid.evaluator.ChunkEvaluator(
+                v["i"], v["l"], chunk_scheme="IOB", num_chunk_types=3)
+        elif kind == "edit_distance":
+            ev = fluid.evaluator.EditDistance(v["h"], v["r"])
+        else:
+            ev = fluid.evaluator.DetectionMAP(v["d"], v["gl"], v["gb"],
+                                              class_num=4,
+                                              state_capacity=64)
+    return main, startup, ev, batches
+
+
+def quant_evaluators(torch, fluid, dev):
+    """Q4: each evaluator for two passes of its two batches (fed dense,
+    so the step binds) with a ``reset`` between them, on the card and on
+    the CPU: each pass's ``eval`` the CPU's (within QUANT_EVAL_RTOL), and
+    ``reset`` causing no new capture on the card."""
+    from paddle_tpu_torch import executor as executor_mod
+
+    out = {}
+    for kind in ("chunk", "edit_distance", "detection_map"):
+        res = {}
+        for where in ("card", "cpu"):
+            main, startup, ev, batches = quant_eval_program(fluid, kind)
+            scope = fluid.Scope()
+            evals, captures = [], []
+            with fluid.scope_guard(scope):
+                exe = (fluid.Executor(device=dev) if where == "card"
+                       else fluid.Executor(fluid.CPUPlace()))
+                exe.run(startup)
+                for p in range(2):
+                    c0 = executor_mod.compile_count()
+                    if p:
+                        ev.reset(exe)
+                    for _ in range(2):
+                        for b in batches:
+                            last = exe.run(main, feed=b,
+                                           fetch_list=ev.metrics)
+                    captures.append(executor_mod.compile_count() - c0)
+                    # DetectionMAP's eval is its accumulated mAP, fetched
+                    evals.append(
+                        [float(np.asarray(e).reshape(-1)[0])
+                         for e in ev.eval(exe)] if kind != "detection_map"
+                        else [float(np.asarray(last[1]).reshape(-1)[0])])
+            res[where] = {"evals": evals, "captures": captures}
+        err = max(abs(a - b) / max(abs(b), 1e-30)
+                  for pa, pb in zip(res["card"]["evals"], res["cpu"]["evals"])
+                  for a, b in zip(pa, pb))
+        check(err <= QUANT_EVAL_RTOL and res["card"]["captures"] == [1, 0],
+              "evaluator on the card", kind, res)
+        out[kind] = dict(res["card"], cpu_evals=res["cpu"]["evals"],
+                         max_rel_err=err)
+    return out
+
+
+def quant_phase(torch, fluid, fa, dev, resnet_f32=None, resnet_bf16=None):
+    """ResNet-50 quantized at full width (ROADMAP A12.1): Q1 the quantized
+    ops on the card against the CPU (quant_ops_check) and
+    ``torch._int_mm``'s shape limits (quant_int_mm_limits), Q2 quantize-aware
+    training (quant_train), Q3 int8 inference (quant_infer), Q4 the
+    evaluators (quant_evaluators).  ``resnet_f32`` and ``resnet_bf16``
+    are the ResNet phases' results, whose inference figures are logged
+    beside.  No kernel of this repo runs: B1-B5 launch 0 times."""
+    from paddle_tpu_torch.models import resnet
+
+    resident = resident_gib(torch, dev)
+    fa.reset_launch_counts()
+    t = [time.perf_counter()]
+    out = {"card": card_line(), "ops": quant_ops_check(torch, fluid, dev),
+           "int_mm_limits": quant_int_mm_limits(torch, dev)}
+    t.append(time.perf_counter())
+    out["train"], m, scope, names = quant_train(torch, fluid, resnet, dev)
+    t.append(time.perf_counter())
+    out["infer"] = quant_infer(torch, fluid, dev, m, scope, names,
+                               resnet_f32, resnet_bf16)
+    del m, scope
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    out["evaluators"] = quant_evaluators(torch, fluid, dev)
+    t.append(time.perf_counter())
+    launches = dict(fa.KERNEL_LAUNCHES)
+    check(not any(launches.values()), "a kernel launched in the quant phase",
+          launches)
+    out["launches"] = launches
+    out["resident_gib_before"] = resident
+    out["seconds"] = dict(zip(("ops", "train", "infer", "evaluators"),
+                              np.diff(t).tolist()))
+    log("quant phase: %s" % json.dumps(out, default=str))
     return out
 
 
@@ -11816,7 +12525,8 @@ def flash_bf16_row(torch, fa, dev, flush, batch, seq):
 
 def long_bf16_phase(torch, fluid, T, fa, dev):
     """bench.py's two other long legs (bench.py:458-461), 16 x 1024 for
-    15 steps and 8 x 2048 for 12, through bf16_leg on bench.py's feeds
+    10 steps and 8 x 2048 for 8 (BENCH_BF16_LEGS), through bf16_leg on
+    bench.py's feeds
     (max_length = seq, vocab 30000, dropout 0.1, use_flash=True); then B1
     and B2 at each leg's attention shape ([16, 8, 1024, 64] and
     [8, 8, 2048, 64], bf16, not causal) by flash_bf16_row."""
@@ -12114,6 +12824,10 @@ def main():
         # the parameter-server phase alone
         pserver_phase(torch, fluid, T, fa, dev)
         return 0
+    if sys.argv[1:] == ["--only", "quant"]:
+        # the quantization phase alone
+        quant_phase(torch, fluid, fa, dev)
+        return 0
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     dec_checks, dec = decode_phase(torch, fa, dev, flush)
     clock(t_start, "decode_phase")
@@ -12234,9 +12948,14 @@ def main():
     rcp = recompute_phase(torch, fluid, T, fa, dev)
     clock(t_start, "recompute_phase")
     torch.cuda.empty_cache()
-    resnet_bf16_phase(torch, fluid, fa, dev, rsn)
+    rsn_bf16 = resnet_bf16_phase(torch, fluid, fa, dev, rsn)
     clock(t_start, "resnet_bf16_phase")
     torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    quant_phase(torch, fluid, fa, dev, rsn, rsn_bf16)
+    clock(t_start, "quant_phase")
+    torch.cuda.empty_cache()
+    log("quant phase: %.1f s" % (time.perf_counter() - t_new))
     tbf = transformer_bf16_phase(torch, fluid, T, fa, dev, trn)
     clock(t_start, "transformer_bf16_phase")
     torch.cuda.empty_cache()

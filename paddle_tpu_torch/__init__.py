@@ -43,6 +43,12 @@ held against.  It imports torch and numpy, never jax and nothing of
   ``Executor.run`` serves the one (the optimize block applied on the
   pserver's device) and trains the other over TCP, with ``discovery``'s
   registry and ``reader.master``'s task queue beside them.
+* int8 quantization — ``contrib.quantize``: ``QuantizeTranspiler``
+  (quantize-aware training with fake-quantized weights, freezing,
+  int8 weights) and ``Int8InferenceTranspiler`` (convolutions and GEMMs
+  as int8 x int8 -> int32 products, cuBLASLt's on the card); beside
+  them ``metrics``, ``evaluator``, ``average``, ``debugger``,
+  ``net_drawer`` and ``fluid_format`` (the reference's tensor files).
 
 Use it like the JAX package::
 
@@ -75,6 +81,9 @@ from . import data_feeder
 from . import program_fn
 from . import resilience
 from . import io
+from . import metrics
+from . import average
+from . import debugger
 from . import contrib, models, observability, parallel, serving, transpiler
 from . import reader
 from . import trainer
@@ -83,10 +92,10 @@ from .reader import batch
 from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
                       EndEpochEvent, EndStepEvent, FailureMonitor,
                       Inferencer, Trainer, load_checkpoint, save_checkpoint)
-from .core import CPUPlace, CUDAPlace, resolve_device
+from .core import CPUPlace, CUDAPinnedPlace, CUDAPlace, resolve_device
 from .data_feeder import DataFeeder
-from .executor import (Executor, Scope, global_scope, load_numpy_state,
-                       scope_guard)
+from .executor import (Executor, LazyFetch, Scope, enable_compilation_cache,
+                       global_scope, load_numpy_state, scope_guard)
 from . import parallel_executor
 from .parallel_executor import (BuildStrategy, ExecutionStrategy,
                                 ParallelExecutor)
@@ -104,8 +113,11 @@ from .param_attr import ParamAttr, WeightNormParamAttr
 from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
                          InferenceTranspiler, memory_optimize, release_memory)
 
+from .evaluator import Evaluator
+
 # the reference's top-level spelling takes the lengths as optional
 create_lod_tensor = create_lod_array
+LoDTensor = LoDArray
 
 __all__ = [
     "core", "unique_name", "framework", "initializer", "layers", "nets",
@@ -123,5 +135,6 @@ __all__ = [
     "create_random_int_lodtensor", "reader", "batch", "trainer",
     "trainer_mod", "Trainer", "Inferencer", "CheckpointConfig",
     "BeginEpochEvent", "EndEpochEvent", "BeginStepEvent", "EndStepEvent",
-    "save_checkpoint", "load_checkpoint", "FailureMonitor",
+    "save_checkpoint", "load_checkpoint", "FailureMonitor", "metrics",
+    "average", "debugger", "contrib", "CUDAPinnedPlace", "LoDTensor",
 ]

@@ -19,9 +19,9 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "Place", "CPUPlace", "CUDAPlace",
-           "canonical_dtype", "np_dtype", "torch_dtype", "is_float_dtype",
-           "f32_bf16_reduction", "EOFException"]
+__all__ = ["resolve_device", "Place", "CPUPlace", "CUDAPinnedPlace",
+           "CUDAPlace", "canonical_dtype", "np_dtype", "torch_dtype",
+           "is_float_dtype", "f32_bf16_reduction", "EOFException"]
 
 _reduction_lock = threading.Lock()
 _reduction_runs = 0
@@ -102,6 +102,11 @@ class Place:
 
 class CPUPlace(Place):
     _type = "cpu"
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory (the reference's ``CUDAPinnedPlace``): a
+    place on the CPU, as in the JAX package."""
 
 
 class CUDAPlace(Place):

@@ -134,7 +134,7 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
            "lower_block", "recompute_segments", "SERVING_BLOCK_ROWS",
            "LazyFetch",
            "feed_host_copy_count", "cache_eviction_count", "compile_count",
-           "JitStepCache"]
+           "JitStepCache", "enable_compilation_cache"]
 
 
 # ---------------------------------------------------------------------------
@@ -1060,6 +1060,17 @@ def cache_eviction_count():
     (``_GRAPH_CAP``, ``_BOUND_CAP``): fix the feed-shape churn (a serving
     batcher padding to its bucket ladder)."""
     return _cache_evicts.value, _bound_evicts.value
+
+
+def enable_compilation_cache(cache_dir=None):
+    """The JAX package's persistent XLA compilation cache has nothing to
+    keep here, so this does nothing and returns False.  What the port
+    compiles per process is a step's CUDA graph, which CUDA cannot save
+    to disk and load in another process; the one thing it builds ahead,
+    the CUDA kernels' library, is already cached across processes
+    (``cuda_kernels``: the file name carries the sources' hash, and a
+    finished build is reused)."""
+    return False
 
 
 def compile_count():

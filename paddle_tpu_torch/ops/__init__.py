@@ -19,3 +19,4 @@ from . import struct_ops  # noqa: F401
 from . import detection_ops  # noqa: F401
 from . import pipeline_ops  # noqa: F401
 from . import moe_ops  # noqa: F401
+from . import quant_ops  # noqa: F401

@@ -463,4 +463,4 @@ def test_every_nn_ops_name_has_a_port_rule():
     assert len(names) == 30
     assert not names - set(treg.RULES)
     assert set(treg.RULES) <= set(jreg.RULES)
-    assert len(treg.RULES) == 218
+    assert len(treg.RULES) == 221

@@ -248,20 +248,21 @@ def test_nets_build_the_reference_programs():
 
 
 def test_unported_op_raises_naming_it():
-    # the quantize ops have no rule yet (ROADMAP A12); warpctc and then
-    # switch_moe served here until the port had their rules
+    # the port has a rule for every op of the reference since the quantize
+    # ops came (warpctc, switch_moe and fake_quantize_abs_max served here
+    # until then), so an op type that no package registers stands in
     from paddle_tpu_torch.layer_helper import LayerHelper
 
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         x = tfluid.layers.data(name="x", shape=[4], dtype="float32")
-        helper = LayerHelper("fake_quantize_abs_max")
+        helper = LayerHelper("no_such_op")
         y = helper.create_variable_for_type_inference(dtype="float32")
-        helper.append_op(type="fake_quantize_abs_max", inputs={"X": [x]},
+        helper.append_op(type="no_such_op", inputs={"X": [x]},
                          outputs={"Out": [y]}, attrs={"bit_length": 8})
     exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="'fake_quantize_abs_max'"):
+    with pytest.raises(NotImplementedError, match="'no_such_op'"):
         exe.run(main, feed={"x": np.zeros((2, 4), np.float32)},
                 fetch_list=[y], scope=scope)
 

@@ -443,19 +443,17 @@ def test_every_sequence_rule_is_ported():
     assert len(want) == 21 and want == names(TSO, treg)
 
 
-#: the reference's op names the port has no rule for after the pipeline
-#: and MoE slice, by the module that registers them
-STILL_MISSING = {
-    "quantize": ["fake_quantize_abs_max", "quantized_conv2d", "quantized_mul"],
-}
+#: the reference's op names the port has no rule for, by the module that
+#: registers them: none since the quantize ops came
+STILL_MISSING = {}
 
 
 def test_op_and_layer_coverage():
     """With every ``ops`` module of both packages imported, the port
-    registers 218 of the reference's 221 op names, and no other; the 3
-    it lacks are the quantize ops.  Its ``layers.__all__`` has every
-    name of the reference's, ``Pipeline`` and the 15 detection layers
-    among them, and ``layers.get_places`` as the reference has it."""
+    registers all 221 of the reference's op names, and no other.  Its
+    ``layers.__all__`` has every name of the reference's, ``Pipeline``
+    and the 15 detection layers among them, and ``layers.get_places`` as
+    the reference has it."""
     import importlib
     import pkgutil
 
@@ -468,12 +466,26 @@ def test_op_and_layer_coverage():
         for mod in pkgutil.iter_modules(pkg.__path__):
             importlib.import_module(pkg.__name__ + "." + mod.name)
     want, got = set(jreg.RULES), set(treg.RULES)
-    assert len(want) == 221 and got <= want and len(got) == 218
+    assert len(want) == 221 and got == want and len(got) == 221
     assert sorted(want - got) == sorted(
-        n for names in STILL_MISSING.values() for n in names)
+        n for names in STILL_MISSING.values() for n in names) == []
     lacking = set(jfluid.layers.__all__) - set(tfluid.layers.__all__)
     assert lacking == set()
     assert "Pipeline" in tfluid.layers.__all__
     assert callable(tfluid.layers.get_places) and callable(jfluid.layers.get_places)
     assert tfluid.layers.detection.__all__ == jfluid.layers.detection.__all__
     assert len(tfluid.layers.detection.__all__) == 15
+
+
+def test_top_level_names_lack_only_the_data_path():
+    """The port's top-level ``__all__`` has every name of the reference's
+    but ``dataset`` and ``recordio_writer`` (ROADMAP A12.2, A12.3) and
+    ``TPUPlace`` (kept out: the port has no TPU)."""
+    lacking = set(jfluid.__all__) - set(tfluid.__all__)
+    assert lacking == {"dataset", "recordio_writer", "TPUPlace"}
+    for name in ("metrics", "average", "debugger", "contrib", "Evaluator",
+                 "LoDTensor", "CUDAPinnedPlace"):
+        assert hasattr(tfluid, name), name
+    assert tfluid.LoDTensor is tfluid.LoDArray
+    assert isinstance(tfluid.CUDAPinnedPlace(), tfluid.CPUPlace)
+    assert tfluid.executor.enable_compilation_cache() is False

@@ -14,15 +14,26 @@ Scenario 1 — warm-vs-cold bitwise + the refcount sweep:
   same full-history prompts, while prefilling strictly fewer tokens.
   Early exits must not leak: a cancelled session turn and a deadline
   shed at admission release their pages, and after ``end_session()``
-  and TTL expiry (a short-``ttl_s`` store swept from the pool's decode
-  gate) every replica's ``PagedKVCache.stats()`` sweep shows zero used
-  pages and an empty ``rc_errors`` report.
+  and TTL expiry (the store swept from the pool's decode gate) every
+  replica's ``PagedKVCache.stats()`` sweep shows zero used
+  pages and an empty ``rc_errors`` report.  The expiry is driven, not
+  raced: the store's window is long while the turns run (a window of
+  a second or two can lapse between a session's turns on a loaded
+  host), and is cut to zero once they are done, so the pool's next
+  sweep expires them.
 
 Scenario 2 — affinity beats least-loaded:
   the same repeated-prefix conversational traffic through an affinity
   pool vs a control pool with affinity disabled
   (``affinity_timeout_s=0``): the affinity pool must land MORE
-  prefix-cache page hits, with both pools bitwise-equal.
+  prefix-cache page hits, with both pools bitwise-equal.  The affinity
+  pool's hints hold for AFFINITY_HOLD_S, far longer than a turn takes on
+  a loaded host, so no hint lapses to least-loaded on the clock.  Each
+  turn submits the users in another order (rotated by one a turn): the
+  replicas pull the shared queue, and where they pull in the same order
+  every turn (as they can on a loaded host) a control fed in a fixed
+  order would give each user the same replica every turn and hit as
+  often as affinity does; rotated, no fixed pull order can.
 
 Scenario 3 — kill the session owner mid-conversation:
   after turn 1 parks, ``faults.kill_session_owner`` kills the owning
@@ -65,6 +76,10 @@ sys.path.insert(0, REPO)
 import numpy as np  # noqa: E402
 
 DEVICES = ["cpu"]
+# a session store's window and an affinity hint's hold while the turns run:
+# far longer than any turn, so neither lapses on a loaded host's clock
+SESSION_TTL_S = 600.0
+AFFINITY_HOLD_S = 60.0
 
 
 def _model():
@@ -105,9 +120,10 @@ def _conversations(n_users, n_turns, seed=3):
 
 
 def _run_conversations(pool, base, utts, n_turns, session_fmt="u%d",
-                       sessions=True):
+                       sessions=True, rotate=False):
     """Drive the conversations turn-synchronously (users interleaved
-    within a turn); returns (per-user-per-turn outputs, histories)."""
+    within a turn; with ``rotate``, turn t submits them starting from
+    user t); returns (per-user-per-turn outputs, histories)."""
     n_users = len(base)
     hists = [list(map(int, b)) for b in base]
     outs = [[] for _ in range(n_users)]
@@ -115,14 +131,16 @@ def _run_conversations(pool, base, utts, n_turns, session_fmt="u%d",
         if t > 0:
             for u in range(n_users):
                 hists[u] = hists[u] + list(map(int, utts[u][t - 1]))
-        futs = []
-        for u in range(n_users):
+        order = [(u + (t if rotate else 0)) % n_users
+                 for u in range(n_users)]
+        futs = {}
+        for u in order:
             kw = dict(session=session_fmt % u) if sessions else {}
-            futs.append(pool.generate_async(
+            futs[u] = pool.generate_async(
                 np.asarray(hists[u], np.int32), max_new_tokens=8,
-                temperature=0.0, **kw))
-        for u, f in enumerate(futs):
-            out = list(map(int, f.result(timeout=300)))
+                temperature=0.0, **kw)
+        for u in range(n_users):
+            out = list(map(int, futs[u].result(timeout=300)))
             outs[u].append(out)
             hists[u] = hists[u] + out
     return outs, hists
@@ -158,9 +176,9 @@ def scenario_warm_vs_cold_bitwise():
     base, utts = _conversations(3, n_turns)
     prefill = obs.counter("serving.decode.prefill_tokens")
 
-    # short-TTL store so the expiry path is exercised below; the pool's
-    # supervisor tick sweeps it
-    store = serving.SessionStore(capacity=64, ttl_s=1.5)
+    # a long window while the turns run; the expiry path is driven below
+    # by cutting it, and the pool's decode gate sweeps the store
+    store = serving.SessionStore(capacity=64, ttl_s=SESSION_TTL_S)
     pool = _pool(model, pool_kw=dict(sessions=store))
     try:
         p0 = prefill.value
@@ -198,9 +216,12 @@ def scenario_warm_vs_cold_bitwise():
             # is the real judge
         assert shed_at_admission, (
             "hopeless-deadline request was admitted instead of shed")
-        # end one session explicitly, let TTL expire the others
+        # end one session explicitly, let TTL expire the others: the
+        # window cut to zero, every idle session is past it at the next
+        # sweep
         assert pool.end_session("u0")
         assert not pool.end_session("nope")
+        store.ttl_s = 0.0
         deadline = time.perf_counter() + 10
         while pool.sessions.stats()["active"] and \
                 time.perf_counter() < deadline:
@@ -239,10 +260,11 @@ def scenario_affinity_beats_least_loaded():
     base, utts = _conversations(4, n_turns, seed=11)
     hits = obs.counter("serving.decode.kv_hit_pages")
 
-    pool = _pool(model)                # affinity on (the default)
+    pool = _pool(model, pool_kw=dict(affinity_timeout_s=AFFINITY_HOLD_S))
     try:
         h0 = hits.value
-        warm, _ = _run_conversations(pool, base, utts, n_turns)
+        warm, _ = _run_conversations(pool, base, utts, n_turns,
+                                     rotate=True)
         warm_hits = hits.value - h0
     finally:
         pool.stop()
@@ -250,7 +272,8 @@ def scenario_affinity_beats_least_loaded():
     control = _pool(model, pool_kw=dict(affinity_timeout_s=0))
     try:
         h0 = hits.value
-        ctl, _ = _run_conversations(control, base, utts, n_turns)
+        ctl, _ = _run_conversations(control, base, utts, n_turns,
+                                    rotate=True)
         ctl_hits = hits.value - h0
     finally:
         control.stop()
